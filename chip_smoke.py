@@ -1,0 +1,439 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
+
+  (b) kernels: each kernel against its plain PyTorch version on the card,
+      at the shapes the llama-1b-armt diagonal prefill gives it (a band of
+      G = 16 layers, B = 1, T = 1024 + 128, bf16) and at small odd shapes;
+      error against a stated tolerance, and median CUDA-event times of the
+      kernel, the plain version and, where one exists, a single PyTorch
+      call computing the same function (a yardstick the port never calls);
+  (c) model: llama-1b-armt at full width and depth (random weights from a
+      seed, bf16): diagonal prefill on the kernels against the sequential
+      schedule on the plain path, 16 segments; at 2 segments with every
+      layer's final A and z held too, plus a negative control (a read
+      perturbed by 2 % must fail that check); and at fp32 with 2 layers,
+      against a tight tolerance;
+  (d) serving, the main path: ServeEngine.generate for B = 1 (a prompt of
+      16 segments + 1000 tokens, 48 new, crossing a segment flush) and B = 2
+      (4 segments + 300 tokens, 32 new); plus generate at smoke size on the
+      card against the CPU path, token for token.
+
+The kernels' launch counters are set to 0 just before (d) and read just
+after it; every kernel must have been launched. The script prints one JSON
+line per kernel summary, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
+line; without a CUDA device it exits 2.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from dataclasses import replace
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM published dense peaks (NVIDIA data sheet), used for bound_ms
+PEAK_BF16 = 989e12      # tensor-core flop/s, bf16 inputs
+PEAK_FP32 = 67e12       # CUDA-core flop/s, fp32
+PEAK_BYTES = 3.35e12    # HBM bytes/s
+SEED = 0
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import armt_memory, build, flash_attention, grouped_matmul, ops
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = nvidia_smi()
+    log(f"card: {smi}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    build.lib()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {build.build_seconds if build.build_seconds is not None else 'reused'})")
+    for line in build.ptxas_log().splitlines():
+        if "Compiling entry" in line or "Used" in line or (
+                "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line):
+            log("  ptxas:", line.strip())
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def time_ms(fn, iters=10, warmup=2):
+        for _ in range(warmup):
+            fn()
+        sync()
+        ts = []
+        for _ in range(iters):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return float(np.median(ts))
+
+    def bound(flops_bf16=0.0, flops_fp32=0.0, nbytes=0.0):
+        ops_t = flops_bf16 / PEAK_BF16 + flops_fp32 / PEAK_FP32
+        byte_t = nbytes / PEAK_BYTES
+        return max(ops_t, byte_t) * 1e3, ("operations" if ops_t >= byte_t else "bytes")
+
+    def rel_err(a, b):
+        # float64: fp32 norms of the grown ARMT state can overflow
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    gen = torch.Generator().manual_seed(SEED)
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
+
+    failures = []
+    summary = {}
+
+    def row_rel(got, want):
+        """Worst ||got - want|| / ||want|| over the rows (last dim)."""
+        got, want = got.float(), want.float()
+        return ((got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)).max().item()
+
+    def check(name, got, want, tol):
+        """Holds every row of each output to tol of that row's norm, so rows
+        of small values (late attention queries, say) are held as tightly as
+        the largest ones. ``want`` is the plain version computed in fp32 on
+        the same input values, so only the kernel's rounding is measured."""
+        got, want = [t if isinstance(t, (tuple, list)) else (t,) for t in (got, want)]
+        err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+        worst = max(row_rel(g, w) for g, w in zip(got, want))
+        finite = all(torch.isfinite(g).all().item() for g in got)
+        ok = finite and worst <= tol
+        log(f"  {name}: max_abs_err {err:.3e} worst row rel err {worst:.3e} "
+            f"(tol {tol:g}) finite {finite} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(name)
+        return err
+
+    def timed(name, kernel, plain, library=None, **bnd):
+        ms, plain_ms = time_ms(kernel), time_ms(plain, iters=5)
+        lib_ms = time_ms(library) if library is not None else None
+        b_ms, b_by = bound(**bnd)
+        log(f"  {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+            f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none'}  bound {b_ms:.4f} ms "
+            f"({b_by})  kernel/bound {ms / b_ms:.2f}")
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # ------------------------------------------------------------ (b) kernels
+    log("== kernel phase (main-path shapes: G=16, B=1, T=1152, bf16; odd shapes)")
+    G, T, D, F, Hq, Hkv, hd, dm, Mt = 16, 1152, 2048, 8192, 32, 8, 64, 64, 128
+    P = 6 * dm
+    # per-row relative L2 error against the plain version in fp32; the
+    # kernels' bf16 output rounding alone reads ~1e-3
+    TOL_BF16, TOL_F32, TOL_STATE = 1e-2, 1e-4, 1e-4
+
+    # grouped_matmul: every projection shape of the cell; the FFN up
+    # projection (the largest, no epilogue) is the one reported per kernel
+    x = rnd(G, T, D)
+    xf = rnd(G, T, F)
+    for label, xin, K, N, act in [("q/o 2048x2048", x, D, D, None),
+                                  ("k/v 2048x512", x, D, Hkv * hd, None),
+                                  ("gate 2048x8192 silu", x, D, F, "silu"),
+                                  ("up 2048x8192", x, D, F, None),
+                                  ("down 8192x2048", xf, F, D, None)]:
+        w = rnd(G, K, N, scale=K ** -0.5)
+        err = check(f"grouped_matmul {label}",
+                    grouped_matmul.grouped_matmul(xin, w, activation=act),
+                    grouped_matmul.grouped_matmul_plain(xin.float(), w.float(), activation=act),
+                    TOL_BF16)
+        t = timed(f"grouped_matmul {label}",
+                  lambda: grouped_matmul.grouped_matmul(xin, w, activation=act),
+                  lambda: grouped_matmul.grouped_matmul_plain(xin, w, activation=act),
+                  (lambda: torch.bmm(xin, w)) if act is None else None,
+                  flops_bf16=2.0 * G * T * K * N, nbytes=2.0 * G * (T * K + K * N + T * N))
+        if label.startswith("up"):
+            summary["grouped_matmul"] = dict(t, max_abs_err=err, shape=f"[{G},{T},{K}]@[{G},{K},{N}]")
+        del w
+    del xf
+    for dtype, (g_, r_, k_, n_) in [(torch.float32, (3, 37, 50, 29)),
+                                    (torch.bfloat16, (2, 130, 64, 136)),
+                                    (torch.bfloat16, (16, 1100, 72, 512))]:
+        xo, wo, bo = (rnd(g_, r_, k_, dtype=dtype), rnd(g_, k_, n_, scale=0.2, dtype=dtype),
+                      rnd(g_, n_, dtype=dtype))
+        check(f"grouped_matmul odd {dtype} [{g_},{r_},{k_}]x[{k_},{n_}] bias+gelu",
+              grouped_matmul.grouped_matmul(xo, wo, bo, activation="gelu"),
+              grouped_matmul.grouped_matmul_plain(xo.float(), wo.float(), bo.float(),
+                                                  activation="gelu"),
+              TOL_F32 if dtype == torch.float32 else TOL_BF16)
+
+    # flash_attention: the cell's 5-D layout, read through strides
+    q5, k5, v5 = rnd(G, 1, T, Hq, hd), rnd(G, 1, T, Hkv, hd), rnd(G, 1, T, Hkv, hd)
+
+    def flat(a):
+        return a.reshape((G,) + a.shape[2:]).transpose(1, 2)
+    ref32 = flash_attention.flash_attention_plain(flat(q5).float(), flat(k5).float(),
+                                                  flat(v5).float())
+    err = check("flash_attention causal GQA [16,32,1152,64]",
+                ops.segment_attention(q5, k5, v5, causal=True),
+                ref32.transpose(1, 2).reshape(q5.shape), TOL_BF16)
+    plain16 = flash_attention.flash_attention_plain(flat(q5), flat(k5), flat(v5))
+    log("  (the plain version on the bf16 tensors, which rounds its scores to bf16, "
+        f"is at worst row rel err {row_rel(plain16, ref32):.3e} of the same reference)")
+    del ref32, plain16
+    qc, kc, vc = flat(q5).contiguous(), flat(k5).contiguous(), flat(v5).contiguous()
+    pairs = T * (T + 1) / 2
+    t = timed("flash_attention [16,32,1152,64]",
+              lambda: ops.segment_attention(q5, k5, v5, causal=True),
+              lambda: flash_attention.flash_attention_plain(flat(q5), flat(k5), flat(v5)),
+              lambda: torch.nn.functional.scaled_dot_product_attention(
+                  qc, kc, vc, is_causal=True, enable_gqa=True),
+              flops_bf16=4.0 * G * Hq * hd * pairs,
+              nbytes=2.0 * G * (2 * Hq * T * hd + 2 * Hkv * T * hd))
+    summary["flash_attention"] = dict(t, max_abs_err=err, shape=f"q[{G},{Hq},{T},{hd}] k/v[{G},{Hkv},{T},{hd}]")
+    del q5, k5, v5, qc, kc, vc
+    for dtype, (n_, hq_, hk_, t_, hd_, win) in [(torch.float32, (2, 4, 2, 45, 40, 17)),
+                                                (torch.bfloat16, (2, 4, 2, 100, 64, 31))]:
+        qo, ko, vo = (rnd(n_, hq_, t_, hd_, dtype=dtype), rnd(n_, hk_, t_, hd_, dtype=dtype),
+                      rnd(n_, hk_, t_, hd_, dtype=dtype))
+        check(f"flash_attention odd {dtype} q[{n_},{hq_},{t_},{hd_}] window {win}",
+              flash_attention.flash_attention(qo, ko, vo, causal=True, window=win),
+              flash_attention.flash_attention_plain(qo.float(), ko.float(), vo.float(),
+                                                    causal=True, window=win),
+              TOL_F32 if dtype == torch.float32 else TOL_BF16)
+
+    # armt_read / armt_update: per-group weights, fp32 state
+    A = rnd(G, P, D, scale=0.1, dtype=torch.float32)
+    z = torch.rand(G, P, generator=gen).to(dev) + 0.5
+    wq, wk = rnd(G, D, dm, scale=D ** -0.5), rnd(G, D, dm, scale=D ** -0.5)
+    wv, wb = rnd(G, D, D, scale=D ** -0.5), rnd(G, D, 1, scale=D ** -0.5)
+    err = check("armt_read [16,1152,2048] A[16,384,2048]",
+                armt_memory.armt_read(x, wq, A, z),
+                armt_memory.armt_read_plain(x.float(), wq.float(), A, z), TOL_BF16)
+    # bf16 activations: phi A runs on the tensor cores as a three-term bf16
+    # split (K = 3P), so it is priced at the bf16 peak; only phi z is fp32
+    t = timed("armt_read", lambda: armt_memory.armt_read(x, wq, A, z),
+              lambda: armt_memory.armt_read_plain(x, wq, A, z),
+              flops_bf16=2.0 * G * T * D * dm + 3 * 2.0 * G * T * P * D,
+              flops_fp32=2.0 * G * T * P,
+              nbytes=2.0 * G * T * D + 2.0 * G * D * dm + 4.0 * G * P * (D + 1) + 2.0 * G * T * D)
+    summary["armt_read"] = dict(t, max_abs_err=err, shape=f"x[{G},{T},{D}] A[{G},{P},{D}]")
+    y = rnd(G, 1, T, D)
+    m = y[:, :, -Mt:, :].reshape(G, Mt, D)          # strided, as the cell passes it
+    err = check("armt_update m[16,128,2048] A[16,384,2048]",
+                armt_memory.armt_update(m, wk, wv, wb, A, z),
+                armt_memory.armt_update_plain(m.float(), wk.float(), wv.float(), wb.float(), A, z),
+                TOL_STATE)
+    t = timed("armt_update", lambda: armt_memory.armt_update(m, wk, wv, wb, A, z),
+              lambda: armt_memory.armt_update_plain(m, wk, wv, wb, A, z),
+              flops_bf16=2.0 * G * Mt * D * (dm + 1 + D),
+              flops_fp32=4.0 * G * Mt * P * D,
+              nbytes=2.0 * G * (Mt * D + D * (dm + 1 + D)) + 8.0 * G * P * (D + 1))
+    summary["armt_update"] = dict(t, max_abs_err=err, shape=f"m[{G},{Mt},{D}] A[{G},{P},{D}]")
+    del A, z, wq, wk, wv, wb, x, y, m
+    g2 = 2
+    for dtype in (torch.float32, torch.bfloat16):
+        xo, mo = rnd(6, 13, 40, dtype=dtype), rnd(6, 5, 40, dtype=dtype)
+        wqo, wko = rnd(g2, 40, 8, scale=0.3, dtype=dtype), rnd(g2, 40, 8, scale=0.3, dtype=dtype)
+        wvo, wbo = rnd(g2, 40, 52, scale=0.3, dtype=dtype), rnd(g2, 40, 1, scale=0.3, dtype=dtype)
+        Ao = rnd(6, 48, 52, scale=0.1, dtype=torch.float32)
+        zo = torch.rand(6, 48, generator=gen).to(dev)
+        check(f"armt_read odd {dtype} x[6,13,40] dm 8 Dv 52",
+              armt_memory.armt_read(xo, wqo, Ao, zo),
+              armt_memory.armt_read_plain(xo.float(), wqo.float(), Ao, zo),
+              TOL_F32 if dtype == torch.float32 else TOL_BF16)
+        check(f"armt_update odd {dtype} m[6,5,40] dm 8 Dv 52",
+              armt_memory.armt_update(mo, wko, wvo, wbo, Ao, zo),
+              armt_memory.armt_update_plain(mo.float(), wko.float(), wvo.float(), wbo.float(),
+                                            Ao, zo), TOL_STATE)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ (c) model
+    log("== model phase: llama-1b-armt, full width and depth, bf16, seed 0")
+    cfg = get_config("llama-1b-armt")
+    params = M.init_params(cfg, SEED, device=dev)
+    seg = cfg.armt.segment_len
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 16 * seg))).to(dev)
+
+    def prefill(schedule, p, c, tk):
+        h, fin = M.forward_hidden(p, c, tk, schedule=schedule)
+        return M.last_logits(p, c, h), fin
+
+    with torch.no_grad():
+        prefill("diagonal", params, cfg, toks[:, :2 * seg])      # warm-up
+        sync()
+        t0 = time.perf_counter()
+        ld, fd = prefill("diagonal", params, cfg, toks)
+        sync()
+        t_diag = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ls, fs = prefill("sequential", params, cfg, toks)
+        sync()
+        t_seq = time.perf_counter() - t0
+    rel = rel_err(ld, ls)
+    top1 = (ld.argmax(-1) == ls.argmax(-1)).float().mean().item()
+    zd, zs = fd["pattern"][0]["z"], fs["pattern"][0]["z"]
+    ok = bool(torch.isfinite(ld).all() and torch.isfinite(zd).all()) and rel <= 5e-2
+    log(f"  16-segment prefill ({16 * seg} tokens): diagonal on kernels {t_diag:.3f} s, "
+        f"sequential plain {t_seq:.3f} s; last_logits rel err {rel:.3e} (tol 5e-2), "
+        f"top-1 agree {top1:.0%}, final z rel err {rel_err(zd, zs):.3e} "
+        f"(max|z| {zs.abs().max().item():.3e}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("model bf16 prefill")
+    del ld, ls, fd, fs
+
+    # the same at 2 segments, before the untrained state diverges between
+    # schedules (PERF.md §6), holding every layer's final A and z as well:
+    # at 16 segments the read is nearly inert, so the logits alone cannot
+    # see a wrong memory kernel
+    n_early, tol_early = 2, 5e-2
+    with torch.no_grad():
+        ls, fs = prefill("sequential", params, cfg, toks[:, :n_early * seg])
+
+    def early_errors():
+        with torch.no_grad():
+            ld, fd = prefill("diagonal", params, cfg, toks[:, :n_early * seg])
+        sd, ss = fd["pattern"][0], fs["pattern"][0]
+        errs = {"last_logits": rel_err(ld, ls),
+                "A": max(rel_err(sd["A"][i], ss["A"][i]) for i in range(sd["A"].shape[0])),
+                "z": max(rel_err(sd["z"][i], ss["z"][i]) for i in range(sd["z"].shape[0]))}
+        finite = all(torch.isfinite(t).all().item() for t in (ld, sd["A"], sd["z"]))
+        return errs, finite and max(errs.values()) <= tol_early
+
+    def show(errs):
+        return ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    errs, ok = early_errors()
+    log(f"  {n_early}-segment prefill, diagonal on kernels vs sequential plain: rel err "
+        f"{show(errs)} (A, z: worst layer; tol {tol_early:g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("model bf16 early-segment state")
+    # negative control: the same check must reject a memory read 2 % low
+    read = ops.assoc_read
+    ops.assoc_read = lambda *a, **k: 0.98 * read(*a, **k)
+    try:
+        errs, passed = early_errors()
+    finally:
+        ops.assoc_read = read
+    log(f"  negative control, armt_read output x0.98: rel err {show(errs)} -> "
+        f"{'FAIL: not caught' if passed else 'caught, ok'}")
+    if passed:
+        failures.append("model check blind to a 2 % read error")
+    del ls, fs
+
+    cfg32 = replace(cfg, n_layers=2, dtype="float32")
+    p32 = M.init_params(cfg32, SEED + 1, device=dev)
+    with torch.no_grad():
+        ld, _ = prefill("diagonal", p32, cfg32, toks[:, :3 * seg])
+        ls, _ = prefill("sequential", p32, cfg32, toks[:, :3 * seg])
+    rel32 = rel_err(ld, ls)
+    ok = bool(torch.isfinite(ld).all()) and rel32 <= 1e-3
+    log(f"  fp32, 2 layers, 3 segments: last_logits rel err {rel32:.3e} (tol 1e-3) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("model fp32 prefill")
+    del p32, ld, ls
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ (d) serving
+    log("== serve phase (main path): ServeEngine.generate, greedy")
+    grouped_matmul.launches = 0
+    flash_attention.launches = 0
+    armt_memory.read_launches = 0
+    armt_memory.update_launches = 0
+    engine = ServeEngine(params, cfg)
+    runs = [(1, 16 * seg + 1000, 48), (2, 4 * seg + 300, 32)]
+    for B, plen, new in runs:
+        prompts = rng.integers(0, cfg.vocab, (B, plen))
+        res = engine.generate(prompts, new)
+        good = (res.finite and res.tokens.shape == (B, new) and res.tokens.min() >= 0
+                and res.tokens.max() < cfg.vocab)
+        log(f"  B={B} prompt {plen} new {new}: TTFT {res.ttft_s:.3f} s, decode "
+            f"{res.tok_s:.1f} tok/s, logits finite {res.finite} -> {'ok' if good else 'FAIL'}")
+        for b in range(B):
+            log(f"    tokens[{b}]: {res.tokens[b].tolist()}")
+        if not good:
+            failures.append(f"generate B={B}")
+        if B == 1:
+            # untrained ARMT state is chaotic by 16 segments (PERF.md §6), so
+            # show that a run reproduces bit for bit: no atomics anywhere
+            again = engine.generate(prompts, new).tokens
+            same = bool((again == res.tokens).all())
+            log(f"  B=1 repeated: tokens equal {same}")
+            if not same:
+                failures.append("generate B=1 not reproducible")
+    launches = {"grouped_matmul": grouped_matmul.launches,
+                "flash_attention": flash_attention.launches,
+                "armt_read": armt_memory.read_launches,
+                "armt_update": armt_memory.update_launches}
+    log(f"  launches in the serve phase: {launches}")
+    for name, n in launches.items():
+        if n == 0:
+            failures.append(f"{name} never launched on the main path")
+    del engine, params
+    torch.cuda.empty_cache()
+
+    scfg = get_smoke_config("llama-1b-armt")
+    sp = M.init_params(scfg, SEED, device="cpu")
+    sp_gpu = M.Model(scfg, sp).to(dev).tree()
+    prompts = rng.integers(0, scfg.vocab, (2, 3 * scfg.armt.segment_len + 5))
+    on_card = ServeEngine(sp_gpu, scfg).generate(prompts, 20).tokens
+    on_cpu = ServeEngine(sp, scfg, device="cpu").generate(prompts, 20).tokens
+    same = bool((on_card == on_cpu).all())
+    log(f"  smoke config generate, card kernels vs CPU plain path: tokens equal {same}")
+    if not same:
+        failures.append("smoke generate card vs cpu")
+
+    if failures:
+        log(f"FAILED: {failures}")
+        return 1
+
+    sources = {"grouped_matmul": ("src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                                  "src/repro/kernels/grouped_matmul.py:198"),
+               "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:89"),
+               "armt_read": ("src/repro_torch/kernels/csrc/armt_memory.cu",
+                             "src/repro/kernels/armt_memory.py:67"),
+               "armt_update": ("src/repro_torch/kernels/csrc/armt_memory.cu",
+                               "src/repro/kernels/armt_memory.py:114")}
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        s = summary[name]
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": launches[name], "max_abs_err": s["max_abs_err"],
+                        "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                        "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+                        "shape": s["shape"]})
+    print(json.dumps({"kernels": kernels}))
+    print(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

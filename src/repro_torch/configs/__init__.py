@@ -1,0 +1,105 @@
+"""Architecture configs: the fields of the reference ``ArchConfig`` that the
+ARMT Llama serving path reads, the ``llama-*-armt`` family, and the smoke
+reduction used by the CPU tests (a copy; the port never imports the JAX
+package)."""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ARMTConfig:
+    """Associative Recurrent Memory Transformer (paper eqs. 3-6)."""
+    segment_len: int = 1024    # tokens per segment
+    num_mem_tokens: int = 128  # memory tokens appended per segment
+    d_mem: int = 64            # key dim before DPFP (phi maps to 2*nu*d_mem)
+    d_val: int = 0             # value dim of A; 0 -> d_model
+    nu: int = 3                # DPFP order
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 0            # 0 -> d_model // n_heads
+    block_pattern: Tuple[str, ...] = ("attn",)
+    prelude: Tuple[str, ...] = ()
+    norm: str = "rmsnorm"
+    act: str = "silu"
+    rope_theta: float = 10000.0
+    sliding_window: int = 0    # 0 = full causal attention
+    tie_embeddings: bool = False
+    armt: Optional[ARMTConfig] = None
+    dtype: str = "bfloat16"
+    source: str = ""
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or (self.d_model // self.n_heads)
+
+    @property
+    def n_superblocks(self) -> int:
+        body = self.n_layers - len(self.prelude)
+        if body % len(self.block_pattern):
+            raise ValueError(f"{self.name}: {body} layers do not tile by "
+                             f"pattern {self.block_pattern}")
+        return body // len(self.block_pattern)
+
+    @property
+    def layer_types(self) -> Tuple[str, ...]:
+        return tuple(self.prelude) + tuple(self.block_pattern) * self.n_superblocks
+
+    def validate(self) -> None:
+        if not (self.d_model > 0 and self.n_layers > 0 and self.vocab > 0):
+            raise ValueError(f"{self.name}: non-positive dims")
+        if set(self.layer_types) != {"attn"}:
+            raise ValueError(f"{self.name}: the port has attn blocks only, "
+                             f"got {self.layer_types}")
+        if self.norm != "rmsnorm" or self.act != "silu":
+            raise ValueError(f"{self.name}: the port has rmsnorm + swiglu only")
+        if self.n_heads <= 0 or self.n_heads % self.n_kv_heads:
+            raise ValueError(f"{self.name}: bad head counts")
+        _ = self.n_superblocks
+
+
+_ARCH_MODULES = {
+    "llama-160m-armt": "llama_armt",
+    "llama-1b-armt": "llama_armt",
+    "llama-3b-armt": "llama_armt",
+    "llama-8b-armt": "llama_armt",
+}
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    if arch_id not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_ARCH_MODULES)}")
+    from repro_torch.configs.llama_armt import CONFIGS
+    cfg = CONFIGS[arch_id]
+    cfg.validate()
+    return cfg
+
+
+def get_smoke_config(arch_id: str, *, seq_len: int = 64) -> ArchConfig:
+    """Same reduction as the reference's ``get_smoke_config`` for the ARMT
+    Llama family: two superblocks, d_model 32, 4 heads, fp32."""
+    cfg = get_config(arch_id)
+    armt = replace(cfg.armt, segment_len=max(8, seq_len // 4),
+                   num_mem_tokens=4, d_mem=8, d_val=0)
+    return replace(
+        cfg,
+        n_layers=2 * len(cfg.block_pattern),
+        d_model=32,
+        n_heads=4,
+        n_kv_heads=max(1, min(cfg.n_kv_heads, 2)),
+        d_head=8,
+        d_ff=64,
+        vocab=256,
+        armt=armt,
+        dtype="float32",
+    )

@@ -1,0 +1,52 @@
+"""Diagonal-batching schedule as data + the layer-stack layout.
+
+The (segment s, layer l) grid has edges (s,l-1)->(s,l) and (s-1,l)->(s,l).
+Diagonal batching executes group i = {(s,l) : s+l = i}, i = 0..S+L-2, which
+is minimal (paper Lemma 3.1).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Tuple
+
+
+def diagonal_groups(n_segments: int, n_layers: int) -> List[List[Tuple[int, int]]]:
+    """Groups of (segment, layer) cells; group i holds cells with s+l == i."""
+    groups: List[List[Tuple[int, int]]] = [[] for _ in range(n_segments + n_layers - 1)]
+    for s in range(n_segments):
+        for l in range(n_layers):
+            groups[s + l].append((s, l))
+    return groups
+
+
+def n_diagonal_groups(n_segments: int, n_layers: int) -> int:
+    """Anti-diagonal groups of the (S, L) grid: the Lemma 3.1 minimum."""
+    return n_segments + n_layers - 1
+
+
+def band(i: int, n_segments: int, n_layers: int) -> Tuple[int, int]:
+    """Valid slot band [lo, hi] of anti-diagonal step i: slot l holds
+    segment i - l, which exists iff 0 <= i - l < S."""
+    return max(0, i - n_segments + 1), min(i, n_layers - 1)
+
+
+@dataclass(frozen=True)
+class StackLayout:
+    """Prelude layers followed by ``pattern`` repeated ``n_super`` times."""
+    prelude: Tuple[str, ...]
+    pattern: Tuple[str, ...]
+    n_super: int
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.prelude) + len(self.pattern) * self.n_super
+
+    @property
+    def layer_types(self) -> Tuple[str, ...]:
+        return tuple(self.prelude) + tuple(self.pattern) * self.n_super
+
+    @staticmethod
+    def from_config(cfg) -> "StackLayout":
+        return StackLayout(prelude=tuple(cfg.prelude),
+                           pattern=tuple(cfg.block_pattern),
+                           n_super=cfg.n_superblocks)

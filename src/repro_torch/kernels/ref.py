@@ -1,0 +1,87 @@
+"""Plain PyTorch versions of the four kernels of the diagonal prefill.
+
+Each is the same function as its CUDA kernel, written as framework ops: the
+CPU path of every wrapper, and the oracle each kernel is held against on
+the card. They port the reference oracles one to one (fp32 accumulation,
+epilogues on the fp32 accumulator, A/z state in fp32).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.memory import dpfp
+
+EPS = 1e-6
+NEG_INF = -1e30
+
+
+def grouped_matmul_ref(x, w, bias=None, *, activation: str | None = None):
+    """x: [G,R,K] @ w: [G,K,N] (+ bias [G,N]) -> [G,R,N] in x.dtype; fp32
+    accumulation, bias + silu / tanh-gelu applied to the fp32 accumulator."""
+    acc = torch.matmul(x.float(), w.float())
+    if bias is not None:
+        acc = acc + bias.float()[:, None, :]
+    if activation == "silu":
+        acc = acc * torch.sigmoid(acc)
+    elif activation == "gelu":
+        acc = torch.nn.functional.gelu(acc, approximate="tanh")
+    elif activation is not None:
+        raise ValueError(f"unknown activation {activation!r}")
+    return acc.to(x.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: [N,Hq,T,hd]; k/v: [N,Hkv,S,hd] -> [N,Hq,T,hd]; GQA kv head =
+    h // rep, scale hd^-1/2, fp32 softmax."""
+    T, hd = q.shape[2], q.shape[3]
+    S = k.shape[2]
+    rep = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(rep, dim=1)
+    v = v.repeat_interleave(rep, dim=1)
+    s = torch.matmul(q, k.transpose(-1, -2)).float() * hd ** -0.5
+    qpos = torch.arange(T, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones(T, S, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > (qpos - window)
+        if not causal:
+            mask &= kpos < (qpos + window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def _proj(x, w):
+    """x: [N,T,D] @ w: [D,E] (shared) or [G,D,E] (per group, N = G*batch)."""
+    if w.dim() == 2:
+        return torch.matmul(x, w)
+    G, N = w.shape[0], x.shape[0]
+    out = torch.matmul(x.reshape((G, N // G) + x.shape[1:]), w[:, None])
+    return out.reshape((N,) + out.shape[2:])
+
+
+def armt_read_ref(x, wq, A, z, *, nu: int = 3):
+    """x: [N,T,D]; wq: [D,dm] or [G,D,dm]; A: [N,P,Dv]; z: [N,P] -> [N,T,Dv]."""
+    pq = dpfp(_proj(x.float(), wq.float()), nu)
+    num = torch.matmul(pq, A.float())
+    den = torch.einsum("ntp,np->nt", pq, z.float()) + EPS
+    return (num / den[..., None]).to(x.dtype)
+
+
+def armt_update_ref(m, wk, wv, wb, A, z, *, nu: int = 3):
+    """m: [N,M,D]; wk/wv/wb: [D,*] or [G,D,*]; A: [N,P,Dv]; z: [N,P] ->
+    (A', z'), new tensors."""
+    m32 = m.float()
+    k = _proj(m32, wk.float())
+    v = _proj(m32, wv.float())
+    beta = torch.sigmoid(_proj(m32, wb.float()))[..., 0]
+    pk = dpfp(k, nu)
+    zk = torch.einsum("nmp,np->nm", pk, z.float())
+    vbar = torch.matmul(pk, A.float()) / (zk + EPS)[..., None]
+    gamma = 1.0 - zk / ((pk * pk).sum(-1) + EPS)
+    A_new = A.float() + torch.matmul(pk.transpose(1, 2),
+                                     beta[..., None] * (v - vbar))
+    z_new = z.float() + torch.einsum("nm,nmp->np", gamma, pk)
+    return A_new.to(A.dtype), z_new.to(z.dtype)

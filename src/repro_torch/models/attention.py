@@ -1,0 +1,100 @@
+"""Attention: GQA self-attention over a segment and the KV-cache decode
+attention, dense path only (the plain reference the flash-attention kernel
+is held against)."""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.models.layers import apply_rope, rope_cos_sin
+
+NEG_INF = -1e30
+
+
+def _project_qkv(x, p, cfg):
+    B, T, _ = x.shape
+    hd = cfg.head_dim
+    q = torch.matmul(x, p["wq"]).reshape(B, T, cfg.n_heads, hd)
+    k = torch.matmul(x, p["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
+    v = torch.matmul(x, p["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    return q, k, v
+
+
+def rope_qk(q, k, cfg, positions=None):
+    """RoPE on q/k [..., T, H, hd] from one cos/sin table; positions default
+    to the segment-local arange(T). Shared by the plain block and the fused
+    grouped cell so the rotary math is identical."""
+    if positions is None:
+        positions = torch.arange(q.shape[-3], device=q.device)[None]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+
+
+def sdpa(q, k, v, mask=None) -> torch.Tensor:
+    """q: [B,T,Hq,hd], k/v: [B,S,Hkv,hd] (GQA: kv head = h // rep), fp32
+    softmax."""
+    hd = q.shape[-1]
+    rep = q.shape[2] // k.shape[2]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    logits = torch.einsum("bthd,bshd->bhts", q, k).float() * hd ** -0.5
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhts,bshd->bthd", w, v)
+
+
+def causal_mask(T: int, S: int, *, offset: int = 0, window: int = 0,
+                device=None) -> torch.Tensor:
+    """[1,1,T,S] bool; query t attends key s iff s <= t+offset (and within
+    the sliding window if window > 0)."""
+    qpos = torch.arange(T, device=device)[:, None] + offset
+    kpos = torch.arange(S, device=device)[None, :]
+    m = kpos <= qpos
+    if window > 0:
+        m &= kpos > (qpos - window)
+    return m[None, None]
+
+
+def attention(x, p, cfg):
+    """Causal self-attention over x [B,T,D] (a full segment, positions
+    0..T-1, no cache)."""
+    B, T, _ = x.shape
+    q, k, v = _project_qkv(x, p, cfg)
+    q, k = rope_qk(q, k, cfg)
+    mask = causal_mask(T, T, window=cfg.sliding_window, device=x.device)
+    o = sdpa(q, k, v, mask).reshape(B, T, cfg.n_heads * cfg.head_dim)
+    return torch.matmul(o, p["wo"])
+
+
+def decode_attention(x, p, cfg, cache: Dict, pos):
+    """Tq >= 1 queries against a KV cache. x: [B,Tq,D]; pos: Python int
+    (tokens already in the cache) or int tensor [B] of per-row positions.
+    Returns (out, new_cache); the input cache is not modified."""
+    B, Tq, _ = x.shape
+    q, k, v = _project_qkv(x, p, cfg)
+    S = cache["k"].shape[1]
+    ck, cv = cache["k"].clone(), cache["v"].clone()
+    kpos = torch.arange(S, device=x.device)
+    if isinstance(pos, torch.Tensor):
+        positions = pos[:, None] + torch.arange(Tq, device=x.device)[None]
+        q, k = rope_qk(q, k, cfg, positions)
+        rows = torch.arange(B, device=x.device)[:, None]
+        ck[rows, positions] = k
+        cv[rows, positions] = v
+        qpos = positions[:, :, None]                               # [B,Tq,1]
+        mask = kpos[None, None, :] <= qpos
+        if cfg.sliding_window > 0:
+            mask &= kpos[None, None, :] > (qpos - cfg.sliding_window)
+        mask = mask[:, None]                                       # [B,1,Tq,S]
+    else:
+        positions = (pos + torch.arange(Tq, device=x.device))[None]
+        q, k = rope_qk(q, k, cfg, positions)
+        ck[:, pos:pos + Tq] = k
+        cv[:, pos:pos + Tq] = v
+        mask = causal_mask(Tq, S, offset=pos, window=cfg.sliding_window,
+                           device=x.device)
+    o = sdpa(q, ck, cv, mask).reshape(B, Tq, cfg.n_heads * cfg.head_dim)
+    return torch.matmul(o, p["wo"]), {"k": ck, "v": cv}

@@ -1,0 +1,72 @@
+"""Fused grouped cell of the diagonal executor (paper §3.3, §4.2).
+
+Each anti-diagonal step advances a band of G stacked layers at once. The
+cell applies the ``attn`` block to the band's slot slice ``x [G, B, T, D]``
+with the per-layer weights stacked on the group dim, through the kernel
+entry points of ``kernels/ops.py``:
+
+  grouped_gemm       QKV, output and FFN projections as ``[G, B*T, D]``
+                     grouped GEMMs; silu rides the gate projection's epilogue
+  segment_attention  one causal GQA launch over N = G*B, reading the 5-D
+                     layout through strides
+  assoc_read/update  ARMT memory (eqs. 3-6) with per-group weights, fp32 state
+
+The down projection and the memory update are two launches (the reference's
+``fuse_epilogue=False`` path, which is also its B > 1 path).
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.attention import rope_qk
+from repro_torch.models.layers import rmsnorm
+
+
+def make_grouped_apply(cfg):
+    """Returns grouped_apply(btype, stacked_params, x, stacked_state): param
+    leaves ``[G, ...]``, x ``[G, B, T, D]``, state leaves ``[G, B, ...]``."""
+    M = cfg.armt.num_mem_tokens
+    nu = cfg.armt.nu
+    hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+
+    def snorm(h, p):
+        # per-layer norm weights [G, D] broadcast against h [G, B, T, D]
+        return rmsnorm(h, {"w": p["w"][:, None, None, :]})
+
+    def fused_attn(p, x, state):
+        G, B, T, D = x.shape
+        N = G * B
+        new_state = dict(state)
+        A_f = state["A"].reshape((N,) + state["A"].shape[2:])
+        z_f = state["z"].reshape((N,) + state["z"].shape[2:])
+        read = kops.assoc_read(x.reshape(N, T, D), p["mem"]["wq"], A_f, z_f, nu=nu)
+        x = x + read.reshape(G, B, T, -1)
+
+        pa = p["attn"]
+        hln = snorm(x, p["ln1"])
+        q = kops.grouped_gemm(hln, pa["wq"]).reshape(G, B, T, nq, hd)
+        k = kops.grouped_gemm(hln, pa["wk"]).reshape(G, B, T, nkv, hd)
+        v = kops.grouped_gemm(hln, pa["wv"]).reshape(G, B, T, nkv, hd)
+        q, k = rope_qk(q, k, cfg)
+        o = kops.segment_attention(q, k, v, causal=True, window=cfg.sliding_window)
+        h = x + kops.grouped_gemm(o.reshape(G, B, T, nq * hd), pa["wo"])
+
+        pf = p["ffn"]
+        h2 = snorm(h, p["ln2"])
+        gate = kops.grouped_gemm(h2, pf["wg"], activation="silu")
+        up = kops.grouped_gemm(h2, pf["wu"])
+        y = h + kops.grouped_gemm(gate * up, pf["wd"])
+
+        if M > 0:
+            mtok = y[:, :, -M:, :].reshape(N, M, D)
+            A2, z2 = kops.assoc_update(mtok, p["mem"]["wk"], p["mem"]["wv"],
+                                       p["mem"]["wb"], A_f, z_f, nu=nu)
+            new_state["A"] = A2.reshape(state["A"].shape)
+            new_state["z"] = z2.reshape(state["z"].shape)
+        return y, new_state
+
+    def grouped_apply(t, p, x, state):
+        if t != "attn":
+            raise ValueError(f"no fused cell for block type {t!r}")
+        return fused_attn(p, x, state)
+
+    return grouped_apply

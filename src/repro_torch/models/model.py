@@ -1,0 +1,272 @@
+"""The ARMT Llama model: parameters, segmented forward under the diagonal
+or the sequential schedule, and the serving path (``decode_step`` against
+the current-segment KV cache, ``flush_segment`` at segment boundaries).
+
+Parameters are a dict tree in the reference layout: ``embed``,
+``final_norm``, ``mem_tokens``, ``prelude`` (empty here) and ``pattern``, a
+tuple with one dict per pattern position whose leaves are stacked over the
+``n_super`` layers on dim 0. ``Model`` holds such a tree as an
+``nn.Module``.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from repro_torch.configs import ArchConfig
+from repro_torch.core.diagonal import run_diagonal
+from repro_torch.core.memory import d_phi, mem_read, mem_update
+from repro_torch.core.schedule import StackLayout
+from repro_torch.core.sequential import run_sequential
+from repro_torch.models.attention import decode_attention
+from repro_torch.models.blocks import block_state_init, make_apply_block
+from repro_torch.models.grouped_blocks import make_grouped_apply
+from repro_torch.models.layers import rmsnorm, swiglu
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the CUDA device; without one that raises. The CPU is
+    used only when the caller asks for it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+# ---------------------------------------------------------------------------
+# Parameters and state
+# ---------------------------------------------------------------------------
+
+def _normal(shape, scale, gen, device, dtype):
+    # drawn in fp32 on the CPU generator, then cast and moved: the same seed
+    # gives the same weights on every device
+    return (torch.randn(shape, generator=gen) * scale).to(device=device, dtype=dtype)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator, *, device=None) -> Dict:
+    """Random weights in the reference tree layout and distributions, in
+    ``cfg.dtype``. generator: a CPU ``torch.Generator`` (or an int seed)."""
+    device = resolve_device(device)
+    dtype = DTYPES[cfg.dtype]
+    if isinstance(generator, int):
+        generator = torch.Generator().manual_seed(generator)
+    layout = StackLayout.from_config(cfg)
+    D, F, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    nq, nkv, n = cfg.n_heads, cfg.n_kv_heads, layout.n_super
+    a = cfg.armt
+    d_val = a.d_val or D
+
+    def nrm(shape, scale):
+        return _normal(shape, scale, generator, device, dtype)
+
+    params: Dict = {
+        "embed": nrm((cfg.vocab, D), 0.02),
+        "final_norm": {"w": torch.ones(D, dtype=dtype, device=device)},
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = nrm((D, cfg.vocab), D ** -0.5)
+    if a.num_mem_tokens > 0:
+        params["mem_tokens"] = nrm((a.num_mem_tokens, D), 0.02)
+    params["prelude"] = ()
+    s = D ** -0.5
+    block = {
+        "ln1": {"w": torch.ones(n, D, dtype=dtype, device=device)},
+        "attn": {"wq": nrm((n, D, nq * hd), s), "wk": nrm((n, D, nkv * hd), s),
+                 "wv": nrm((n, D, nkv * hd), s),
+                 "wo": nrm((n, nq * hd, D), (nq * hd) ** -0.5)},
+        "mem": {"wq": nrm((n, D, a.d_mem), s), "wk": nrm((n, D, a.d_mem), s),
+                "wv": nrm((n, D, d_val), s), "wb": nrm((n, D, 1), s)},
+        "ln2": {"w": torch.ones(n, D, dtype=dtype, device=device)},
+        "ffn": {"wg": nrm((n, D, F), s), "wu": nrm((n, D, F), s),
+                "wd": nrm((n, F, D), F ** -0.5)},
+    }
+    params["pattern"] = (block,)
+    return params
+
+
+def init_state(cfg: ArchConfig, batch: int, device) -> Dict:
+    layout = StackLayout.from_config(cfg)
+    pattern = []
+    for t in layout.pattern:
+        st = block_state_init(t, cfg, batch, device)
+        pattern.append({k: torch.zeros((layout.n_super,) + tuple(v.shape),
+                                       dtype=v.dtype, device=device)
+                        for k, v in st.items()})
+    return {"prelude": (), "pattern": tuple(pattern)}
+
+
+def _tree_map(fn, tree, path=()):
+    """Map fn(path, leaf) over a dict/tuple tree, keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_tree_map(fn, v, path + (str(i),)) for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+class Model(nn.Module):
+    """nn.Module holding a parameter tree (stacked ``[n_super, ...]`` pattern
+    weights, reference layout) as buffers; ``tree()`` returns the tree with
+    the module's own tensors, so ``.to(...)`` moves what the functions see."""
+
+    def __init__(self, cfg: ArchConfig, params: Dict):
+        super().__init__()
+        self.cfg = cfg
+
+        def register(path, leaf):
+            name = "__".join(path)
+            self.register_buffer(name, leaf)
+            return name
+        self._names = _tree_map(register, params)
+
+    def tree(self) -> Dict:
+        return _tree_map(lambda path, name: getattr(self, name), self._names)
+
+    def forward(self, tokens, *, schedule: str = "diagonal", fused: bool = True):
+        return forward_hidden(self.tree(), self.cfg, tokens, schedule=schedule,
+                              fused=fused)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def embed_segments(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
+                   seg_len: int) -> torch.Tensor:
+    """tokens: [B, S*seg_len] -> [S, B, seg_len + M, D]: the memory tokens
+    are appended to every segment, so with segment-local positions they
+    sit at seg_len..seg_len+M-1."""
+    B, total = tokens.shape
+    if total % seg_len:
+        raise ValueError(f"{total} tokens do not split into segments of {seg_len}")
+    S = total // seg_len
+    x = params["embed"][tokens.reshape(B, S, seg_len).transpose(0, 1)]
+    if "mem_tokens" in params:
+        M, D = params["mem_tokens"].shape
+        x = torch.cat([x, params["mem_tokens"].expand(S, B, M, D)], dim=2)
+    return x
+
+
+def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+                   schedule: str = "diagonal", fused: bool = True):
+    """tokens: [B, S*seg_len] -> (hidden [S, B, seg_len, D] with the
+    memory-token rows stripped, final executor state).
+
+    schedule 'diagonal' runs ``run_diagonal`` with the fused grouped cell
+    (``fused=False``: the plain block slot by slot); 'sequential' runs
+    ``run_sequential`` on the plain block."""
+    seg_len = min(cfg.armt.segment_len, tokens.shape[1])
+    x = embed_segments(params, cfg, tokens, seg_len)
+    layout = StackLayout.from_config(cfg)
+    state0 = init_state(cfg, tokens.shape[0], tokens.device)
+    apply = make_apply_block(cfg)
+    exec_params = {"prelude": params["prelude"], "pattern": params["pattern"]}
+    if schedule == "diagonal":
+        ys, fin = run_diagonal(layout, exec_params, state0, x, apply,
+                               grouped_apply=make_grouped_apply(cfg) if fused else None)
+    elif schedule == "sequential":
+        ys, fin = run_sequential(layout, exec_params, state0, x, apply)
+    else:
+        raise ValueError(f"unknown schedule {schedule!r}")
+    return ys[:, :, :seg_len], fin
+
+
+def _head_matmul(params: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return torch.matmul(h, params["embed"].t())
+    return torch.matmul(h, params["head"])
+
+
+def last_logits(params: Dict, cfg: ArchConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of the final position of the final segment [B, V]."""
+    h = rmsnorm(hidden[-1, :, -1], params["final_norm"])
+    return _head_matmul(params, cfg, h).float()
+
+
+# ---------------------------------------------------------------------------
+# Decode / serving ('armt' mode: memory + current-segment cache)
+# ---------------------------------------------------------------------------
+
+def decode_state_init(cfg: ArchConfig, batch: int, *, dtype, device,
+                      per_slot_pos: bool = False) -> Dict:
+    """Per-layer A/z (fp32) + a current-segment KV cache of seg_len + M
+    rows; ``pos`` is a Python int, or an int64 [batch] tensor with
+    per_slot_pos."""
+    layout = StackLayout.from_config(cfg)
+    n, a = layout.n_super, cfg.armt
+    cache = (n, batch, a.segment_len + a.num_mem_tokens, cfg.n_kv_heads,
+             cfg.head_dim)
+    st = {"A": torch.zeros(n, batch, d_phi(a), a.d_val or cfg.d_model,
+                           device=device),
+          "z": torch.zeros(n, batch, d_phi(a), device=device),
+          "k": torch.zeros(cache, dtype=dtype, device=device),
+          "v": torch.zeros(cache, dtype=dtype, device=device)}
+    pos = (torch.zeros(batch, dtype=torch.long, device=device)
+           if per_slot_pos else 0)
+    return {"prelude": (), "pattern": (st,), "pos": pos}
+
+
+def make_decode_apply(cfg: ArchConfig, pos):
+    """Block apply for decode: x [B, Tq, D] against the layer's cache."""
+    def apply(t, p, x, st):
+        if t != "attn":
+            raise ValueError(t)
+        new = dict(st)
+        x = x + mem_read(p["mem"], st, x, cfg.armt)
+        a, kvc = decode_attention(rmsnorm(x, p["ln1"]), p["attn"], cfg,
+                                  {"k": st["k"], "v": st["v"]}, pos)
+        new["k"], new["v"] = kvc["k"], kvc["v"]
+        h = x + a
+        return h + swiglu(rmsnorm(h, p["ln2"]), p["ffn"]), new
+    return apply
+
+
+def _exec(params, state):
+    return ({"prelude": params["prelude"], "pattern": params["pattern"]},
+            {"prelude": state["prelude"], "pattern": state["pattern"]})
+
+
+def decode_step(params: Dict, cfg: ArchConfig, state: Dict, tokens: torch.Tensor):
+    """tokens: [B] (one step) or [B, Tq] (a chunk) -> (fp32 logits of the
+    last position [B, V], new state)."""
+    layout = StackLayout.from_config(cfg)
+    pos = state["pos"]
+    toks = tokens if tokens.dim() == 2 else tokens[:, None]
+    x = params["embed"][toks]
+    exec_params, exec_state = _exec(params, state)
+    ys, fin = run_sequential(layout, exec_params, exec_state, x[None],
+                             make_decode_apply(cfg, pos))
+    h = rmsnorm(ys[0, :, -1], params["final_norm"])
+    return (_head_matmul(params, cfg, h).float(),
+            {"prelude": fin["prelude"], "pattern": fin["pattern"],
+             "pos": pos + toks.shape[1]})
+
+
+def flush_segment(params: Dict, cfg: ArchConfig, state: Dict) -> Dict:
+    """ARMT segment boundary: run the memory tokens through the stack
+    against the current-segment cache (at positions pos..pos+M-1),
+    delta-update every layer's (A, z), then reset the cache and pos of
+    every row."""
+    layout = StackLayout.from_config(cfg)
+    mem = params["mem_tokens"]
+    batch = state["pattern"][0]["A"].shape[1]
+    x = mem[None].expand(batch, -1, -1)
+    base = make_decode_apply(cfg, state["pos"])
+
+    def apply(t, p, xx, st):
+        y, new = base(t, p, xx, st)
+        new.update(mem_update(p["mem"], {"A": st["A"], "z": st["z"]}, y, cfg.armt))
+        new["k"] = torch.zeros_like(st["k"])
+        new["v"] = torch.zeros_like(st["v"])
+        return y, new
+
+    exec_params, exec_state = _exec(params, state)
+    _, fin = run_sequential(layout, exec_params, exec_state, x[None], apply)
+    pos = state["pos"]
+    return {"prelude": fin["prelude"], "pattern": fin["pattern"],
+            "pos": torch.zeros_like(pos) if isinstance(pos, torch.Tensor) else 0}

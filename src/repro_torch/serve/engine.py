@@ -1,0 +1,140 @@
+"""Serving engine: diagonal prefill, then greedy decode with ARMT flushes.
+
+``generate(prompts [B, P], max_new)``:
+  1. the prompt's full segments run through ``forward_hidden`` under the
+     diagonal schedule on the fused grouped cell (the kernels);
+  2. the final recurrent state (A, z) moves into a fresh decode state
+     (``_transplant``) and the prompt tail is fed through ``decode_step``,
+     flushing at a segment boundary;
+  3. greedy decode: one ``decode_step`` per token, ``flush_segment`` when
+     the in-segment position reaches seg_len.
+
+Positions are tracked on the host: every ``decode_step`` advances the
+state's position by exactly the tokens fed.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.core.memory import RECURRENT_KEYS
+from repro_torch.models.model import (decode_state_init, decode_step,
+                                      flush_segment, forward_hidden,
+                                      last_logits, resolve_device)
+
+
+def _transplant(fin: Dict, dstate: Dict) -> Dict:
+    """Copy the recurrent leaves (A/z) of an executor state into a decode
+    state, which also holds the KV caches and pos."""
+    def merge(src: Dict, dst: Dict) -> Dict:
+        out = dict(dst)
+        out.update({k: src[k].to(dst[k].dtype) for k in RECURRENT_KEYS if k in src})
+        return out
+    return {"prelude": tuple(merge(s, d) for s, d in zip(fin["prelude"], dstate["prelude"])),
+            "pattern": tuple(merge(s, d) for s, d in zip(fin["pattern"], dstate["pattern"])),
+            "pos": dstate["pos"]}
+
+
+@dataclass
+class GenerationResult:
+    tokens: np.ndarray          # [B, max_new]
+    prefill_segments: int
+    finite: bool = True         # every logit the tokens were taken from was finite
+    ttft_s: float = 0.0         # prefill wall time, ending in a device sync
+    tok_s: float = 0.0          # decode tokens (all rows) per second after the first
+
+
+class ServeEngine:
+    """ARMT-mode serving of one model: constant memory in sequence length
+    (A/z plus a current-segment cache of seg_len + M rows).
+
+    device: None means the CUDA device (raises without one); the CPU only
+    when asked for."""
+
+    def __init__(self, params: Dict, cfg: ArchConfig, *, device=None):
+        if cfg.armt is None:
+            raise ValueError(f"{cfg.name}: ARMT serving needs cfg.armt")
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"engine on {self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.seg_len = cfg.armt.segment_len
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.no_grad()
+    def prefill(self, prompts: torch.Tensor):
+        """prompts: [B, P] -> (next-token logits [B, V] fp32, decode state,
+        in-segment position)."""
+        B, P = prompts.shape
+        prompts = prompts.to(self.device)
+        dstate = decode_state_init(self.cfg, B, dtype=self.params["embed"].dtype,
+                                   device=self.device)
+        n_full = P // self.seg_len
+        logits = None
+        if n_full:
+            hidden, fin = forward_hidden(self.params, self.cfg,
+                                         prompts[:, :n_full * self.seg_len],
+                                         schedule="diagonal", fused=True)
+            logits = last_logits(self.params, self.cfg, hidden)
+            dstate = _transplant(fin, dstate)
+        tail = prompts[:, n_full * self.seg_len:]
+        pos = 0
+        if tail.shape[1]:
+            logits, dstate, pos = self._chunk(dstate, tail, pos)
+        if logits is None:
+            raise ValueError("empty prompt")
+        return logits, dstate, pos
+
+    def _chunk(self, dstate, toks: torch.Tensor, pos: int):
+        """Feed a token chunk through ``decode_step`` in pieces that end at
+        segment boundaries, flushing at each boundary."""
+        logits = None
+        t = 0
+        while t < toks.shape[1]:
+            take = min(self.seg_len - pos, toks.shape[1] - t)
+            logits, dstate = decode_step(self.params, self.cfg, dstate,
+                                         toks[:, t:t + take])
+            pos += take
+            t += take
+            if pos >= self.seg_len:
+                dstate = flush_segment(self.params, self.cfg, dstate)
+                pos = 0
+        return logits, dstate, pos
+
+    @torch.no_grad()
+    def generate(self, prompts, max_new: int) -> GenerationResult:
+        """Greedy decode of max_new tokens after the prompt [B, P]."""
+        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long)
+        t0 = time.perf_counter()
+        logits, dstate, pos = self.prefill(prompts)
+        tok = logits.argmax(-1)
+        finite = torch.isfinite(logits).all()     # stays on the device until the end
+        self._sync()
+        t_first = time.perf_counter()
+        out = [tok]
+        for _ in range(max_new - 1):
+            logits, dstate = decode_step(self.params, self.cfg, dstate, tok)
+            pos += 1
+            if pos >= self.seg_len:
+                dstate = flush_segment(self.params, self.cfg, dstate)
+                pos = 0
+            tok = logits.argmax(-1)
+            finite &= torch.isfinite(logits).all()
+            out.append(tok)
+        toks = torch.stack(out, dim=1).cpu().numpy()
+        t_end = time.perf_counter()
+        B = prompts.shape[0]
+        return GenerationResult(
+            toks, prompts.shape[1] // self.seg_len, finite=bool(finite),
+            ttft_s=t_first - t0,
+            tok_s=B * max(max_new - 1, 0) / max(t_end - t_first, 1e-9))

@@ -1,0 +1,88 @@
+"""The port's CUDA kernels against their plain versions on the card, at
+small odd shapes: ragged rows and columns on the tensor-core paths, and the
+fp32 paths. Needs a CUDA device and nvcc; skips without a card. This file
+imports no JAX; with ``--noconftest`` (tests/conftest.py imports JAX) it
+runs on a machine that has only PyTorch:
+``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import armt_memory, flash_attention, grouped_matmul  # noqa: E402
+
+# Per-row relative L2 error: bf16 output rounding reads ~1e-3; fp32 is at
+# summation-order level. A/z state is fp32 on every path.
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _f32(*ts):
+    """The plain versions run in fp32 on the same input values, so a check
+    measures only the kernel's rounding."""
+    return [t.float() for t in ts]
+
+
+def _close(got, want, tol):
+    """Every row (last dim) within tol of its own norm, so rows of small
+    values are held as tightly as the largest ones."""
+    got, want = got.float(), want.float()
+    row = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+    assert torch.isfinite(got).all() and row.max().item() <= tol, row.max().item()
+
+
+def _rand(g, dev, dtype):
+    return lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,R,K,N,act", [(3, 37, 48, 40, "silu"),   # mma path in bf16
+                                         (2, 130, 64, 136, "gelu"),
+                                         (16, 1100, 72, 512, None),  # ragged rows and K
+                                         (3, 37, 50, 29, None)])    # no 16-byte rows
+def test_grouped_matmul_on_card(cuda, dtype, G, R, K, N, act):
+    r = _rand(torch.Generator().manual_seed(R), cuda, dtype)
+    x, w, b = r(G, R, K), r(G, K, N, sc=K ** -0.5), r(G, N)
+    _close(grouped_matmul.grouped_matmul(x, w, b, activation=act),
+           grouped_matmul.grouped_matmul_plain(*_f32(x, w, b), activation=act), TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Hq,Hkv,T,hd,causal,window", [
+    (2, 4, 2, 100, 64, True, 0),     # mma path in bf16, ragged T
+    (1, 4, 1, 150, 64, True, 37),    # sliding window
+    (2, 4, 2, 33, 40, True, 9),      # head dim 40
+    (1, 2, 2, 70, 64, False, 20),    # symmetric window
+])
+def test_flash_attention_on_card(cuda, dtype, N, Hq, Hkv, T, hd, causal, window):
+    r = _rand(torch.Generator().manual_seed(T), cuda, dtype)
+    q, k, v = r(N, Hq, T, hd), r(N, Hkv, T, hd), r(N, Hkv, T, hd)
+    _close(flash_attention.flash_attention(q, k, v, causal=causal, window=window),
+           flash_attention.flash_attention_plain(*_f32(q, k, v), causal=causal,
+                                                 window=window),
+           TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_armt_memory_on_card(cuda, dtype):
+    g = torch.Generator().manual_seed(0)
+    r = _rand(g, cuda, dtype)
+    A = (torch.randn(4, 48, 40, generator=g) * 0.1).to(cuda)
+    z = torch.rand(4, 48, generator=g).to(cuda)
+    xr, wq = r(4, 13, 24), r(2, 24, 8, sc=0.3)
+    _close(armt_memory.armt_read(xr, wq, A, z),
+           armt_memory.armt_read_plain(*_f32(xr, wq), A, z), TOL[dtype])
+    m, wk, wv, wb = r(4, 5, 24), r(2, 24, 8, sc=0.3), r(2, 24, 40, sc=0.3), r(2, 24, 1)
+    for got, want in zip(armt_memory.armt_update(m, wk, wv, wb, A, z),
+                         armt_memory.armt_update_plain(*_f32(m, wk, wv, wb), A, z)):
+        _close(got, want, 1e-4)

@@ -1,0 +1,55 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, and its entry points refuse to run anywhere but the card unless
+the caller asks for the CPU."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"import jax|from jax|from repro\b|import repro\b")
+
+
+def test_port_imports_without_jax_or_reference():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import repro_torch.serve, repro_torch.convert, repro_torch.kernels.ops\n"
+            "import repro_torch.models.model\n"
+            "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
+            " if sys.modules[m] is not None)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_no_source_names_jax_or_the_reference():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
+                 for f in files
+                 for i, line in enumerate(f.read_text().splitlines(), 1)
+                 if FORBIDDEN.search(line)]
+    assert not offenders, offenders
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServeEngine
+    cfg = get_smoke_config("llama-1b-armt")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg, 0)
+    params = init_params(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(params, cfg)
+    assert ServeEngine(params, cfg, device="cpu").device.type == "cpu"

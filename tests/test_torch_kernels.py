@@ -1,0 +1,218 @@
+"""The port's kernel layer on the CPU: each plain version against the
+reference oracle (repro.kernels.ref) and against the Pallas kernel run in
+interpret mode, the op entry points' layouts, the device rule, and the C
+interface of the CUDA sources. The CUDA kernels themselves run only on the
+card (tests/test_torch_cuda.py; chip_smoke.py holds them at full width)."""
+import re
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import armt_memory, build, flash_attention  # noqa: E402
+from repro_torch.kernels import grouped_matmul, ops, ref  # noqa: E402
+
+# fp32 everywhere; the reference runs its matmuls at "highest" precision
+# (tests/conftest.py), so only summation order differs
+ATOL, RTOL = 5e-5, 1e-4
+
+
+def _f(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _close(want, got, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(np.asarray(want, np.float32),
+                               got.detach().cpu().float().numpy(),
+                               atol=atol, rtol=rtol)
+
+
+T_ = torch.from_numpy
+J_ = jnp.asarray
+
+
+# ---------------------------------------------------------------- grouped mm
+@pytest.mark.parametrize("G,R,K,N,bias,act", [
+    (1, 16, 16, 16, False, None),
+    (3, 37, 50, 29, True, "silu"),     # ragged M/N/K, bias + silu
+    (2, 48, 64, 96, True, "gelu"),     # bias + tanh-gelu
+    (4, 9, 24, 8, False, "silu"),
+])
+def test_grouped_matmul_plain_matches_reference(G, R, K, N, bias, act):
+    rng = np.random.default_rng(G * R + N)
+    x, w = _f(rng, G, R, K), _f(rng, G, K, N, scale=K ** -0.5)
+    b = _f(rng, G, N) if bias else None
+    want = jref.grouped_matmul_ref(J_(x), J_(w), None if b is None else J_(b),
+                                   activation=act)
+    got = ref.grouped_matmul_ref(T_(x), T_(w), None if b is None else T_(b),
+                                 activation=act)
+    _close(want, got)
+
+
+@pytest.mark.parametrize("G,R,K,N,act", [(3, 37, 50, 29, "silu"),
+                                         (2, 24, 40, 72, "gelu")])
+def test_grouped_matmul_plain_matches_pallas_interpret(G, R, K, N, act):
+    rng = np.random.default_rng(R + K)
+    x, w, b = _f(rng, G, R, K), _f(rng, G, K, N, scale=K ** -0.5), _f(rng, G, N)
+    want = jops.grouped_gemm(J_(x), J_(w), J_(b), activation=act,
+                             use_kernel=True, interpret=True)
+    _close(want, ops.grouped_gemm(T_(x), T_(w), T_(b), activation=act))
+
+
+def test_grouped_gemm_4d_layout_is_flattened_rows():
+    rng = np.random.default_rng(3)
+    x, w = T_(_f(rng, 3, 2, 7, 16)), T_(_f(rng, 3, 16, 12))
+    got = ops.grouped_gemm(x, w, activation="silu")
+    want = grouped_matmul.grouped_matmul_plain(x.reshape(3, 14, 16), w,
+                                               activation="silu")
+    assert got.shape == (3, 2, 7, 12)
+    torch.testing.assert_close(got.reshape(3, 14, 12), want, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------- attention
+ATTN_CASES = [
+    (2, 4, 2, 33, 16, True, 0),      # GQA, ragged T
+    (1, 8, 1, 40, 8, True, 12),      # MQA, causal + sliding window
+    (2, 2, 2, 24, 16, False, 0),     # bidirectional
+    (1, 4, 4, 32, 8, False, 6),      # symmetric window
+]
+
+
+@pytest.mark.parametrize("N,Hq,Hkv,T,hd,causal,window", ATTN_CASES)
+def test_flash_attention_plain_matches_reference(N, Hq, Hkv, T, hd, causal, window):
+    rng = np.random.default_rng(T + hd)
+    q, k, v = _f(rng, N, Hq, T, hd), _f(rng, N, Hkv, T, hd), _f(rng, N, Hkv, T, hd)
+    want = jref.flash_attention_ref(J_(q), J_(k), J_(v), causal=causal, window=window)
+    _close(want, ref.flash_attention_ref(T_(q), T_(k), T_(v), causal=causal,
+                                         window=window))
+
+
+@pytest.mark.parametrize("N,Hq,Hkv,T,hd,causal,window", ATTN_CASES[:2])
+def test_flash_attention_plain_matches_pallas_interpret(N, Hq, Hkv, T, hd, causal,
+                                                        window):
+    rng = np.random.default_rng(7 * T + hd)
+    q, k, v = _f(rng, N, Hq, T, hd), _f(rng, N, Hkv, T, hd), _f(rng, N, Hkv, T, hd)
+    want = jops.segment_attention(J_(q), J_(k), J_(v), causal=causal, window=window,
+                                  use_kernel=True, interpret=True)
+    _close(want, ops.segment_attention(T_(q), T_(k), T_(v), causal=causal,
+                                       window=window))
+
+
+def test_segment_attention_5d_layout_matches_4d():
+    rng = np.random.default_rng(5)
+    G, B, T, Hq, Hkv, hd = 2, 3, 11, 4, 2, 8
+    q = T_(_f(rng, G, B, T, Hq, hd))
+    k, v = T_(_f(rng, G, B, T, Hkv, hd)), T_(_f(rng, G, B, T, Hkv, hd))
+    got = ops.segment_attention(q, k, v, causal=True, window=5)
+    flat = lambda a: a.reshape((G * B,) + a.shape[2:]).transpose(1, 2)
+    want = ref.flash_attention_ref(flat(q), flat(k), flat(v), causal=True,
+                                   window=5)
+    torch.testing.assert_close(got, want.transpose(1, 2).reshape(got.shape),
+                               rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------- armt memory
+def _armt_inputs(seed, N, T, D, dm, Dv, M, G=None):
+    rng = np.random.default_rng(seed)
+    lead = (G,) if G else ()
+    P = 6 * dm
+    return dict(x=_f(rng, N, T, D), m=_f(rng, N, M, D),
+                wq=_f(rng, *lead, D, dm, scale=0.3), wk=_f(rng, *lead, D, dm, scale=0.3),
+                wv=_f(rng, *lead, D, Dv, scale=0.3), wb=_f(rng, *lead, D, 1, scale=0.3),
+                A=_f(rng, N, P, Dv, scale=0.1),
+                z=rng.uniform(size=(N, P)).astype(np.float32))
+
+
+ARMT_CASES = [(2, 13, 24, 8, 40, 5, None),   # shared weights, odd T/Dv
+              (6, 9, 32, 4, 32, 3, 2),        # per-group weights, batch 3
+              (4, 16, 16, 8, 24, 8, 4)]       # per-group weights, batch 1
+
+
+@pytest.mark.parametrize("N,T,D,dm,Dv,M,G", ARMT_CASES)
+def test_armt_plain_matches_reference(N, T, D, dm, Dv, M, G):
+    a = _armt_inputs(N * T + D, N, T, D, dm, Dv, M, G)
+    j = {k: J_(v) for k, v in a.items()}
+    t = {k: T_(v) for k, v in a.items()}
+    _close(jref.armt_read_ref(j["x"], j["wq"], j["A"], j["z"]),
+           ref.armt_read_ref(t["x"], t["wq"], t["A"], t["z"]))
+    Aj, zj = jref.armt_update_ref(j["m"], j["wk"], j["wv"], j["wb"], j["A"], j["z"])
+    At, zt = ref.armt_update_ref(t["m"], t["wk"], t["wv"], t["wb"], t["A"], t["z"])
+    _close(Aj, At)
+    _close(zj, zt)
+
+
+@pytest.mark.parametrize("N,T,D,dm,Dv,M,G", ARMT_CASES[:2])
+def test_armt_plain_matches_pallas_interpret(N, T, D, dm, Dv, M, G):
+    a = _armt_inputs(N + T + D, N, T, D, dm, Dv, M, G)
+    j = {k: J_(v) for k, v in a.items()}
+    t = {k: T_(v) for k, v in a.items()}
+    _close(jops.assoc_read(j["x"], j["wq"], j["A"], j["z"], use_kernel=True,
+                           interpret=True),
+           ops.assoc_read(t["x"], t["wq"], t["A"], t["z"]))
+    Aj, zj = jops.assoc_update(j["m"], j["wk"], j["wv"], j["wb"], j["A"], j["z"],
+                               use_kernel=True, interpret=True)
+    At, zt = ops.assoc_update(t["m"], t["wk"], t["wv"], t["wb"], t["A"], t["z"])
+    _close(Aj, At)
+    _close(zj, zt)
+
+
+# ---------------------------------------------------------------- device rule
+def test_wrappers_raise_off_cpu_and_cuda():
+    """Only a CPU tensor may take the plain version; any other non-CUDA
+    device is refused, not quietly computed elsewhere."""
+    meta = dict(device="meta")
+    x = torch.empty(2, 4, 8, **meta)
+    with pytest.raises(ValueError):
+        grouped_matmul.grouped_matmul(x, torch.empty(2, 8, 4, **meta))
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(torch.empty(1, 2, 4, 8, **meta),
+                                        torch.empty(1, 2, 4, 8, **meta),
+                                        torch.empty(1, 2, 4, 8, **meta))
+    with pytest.raises(ValueError):
+        armt_memory.armt_read(x, torch.empty(8, 2, **meta),
+                              torch.empty(2, 12, 8, **meta), torch.empty(2, 12, **meta))
+    with pytest.raises(ValueError):
+        armt_memory.armt_update(x, *[torch.empty(8, e, **meta) for e in (2, 8, 1)],
+                                torch.empty(2, 12, 8, **meta), torch.empty(2, 12, **meta))
+
+
+def test_cpu_path_counts_no_launch():
+    before = grouped_matmul.launches
+    ops.grouped_gemm(torch.ones(1, 2, 3), torch.ones(1, 3, 4))
+    assert grouped_matmul.launches == before
+
+
+# ---------------------------------------------------------------- C interface
+_CTYPE_ARG = re.compile(r"\b(const\s+void\s*\*|void\s*\*|int|long\s+long|float)\s+\w+")
+
+
+def test_c_entry_points_match_ctypes_signatures():
+    """Every extern "C" launcher in csrc/ has the argument count and kinds
+    the ctypes bindings declare, and every binding has a launcher."""
+    found = {}
+    for cu in build.CSRC.glob("*.cu"):
+        for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                     cu.read_text()):
+            kinds = []
+            for a in args.split(","):
+                kind = _CTYPE_ARG.search(" ".join(a.split())).group(1)
+                kinds.append("p" if "*" in kind else
+                             {"int": "i", "float": "f"}.get(kind, "l"))
+            found[name] = kinds
+    import ctypes
+    code = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_longlong: "l",
+            ctypes.c_float: "f"}
+    assert set(found) == set(build.SIGNATURES)
+    for name, argtypes in build.SIGNATURES.items():
+        assert found[name] == [code[a] for a in argtypes], name
+
+
+def test_source_hash_tracks_sources():
+    h = build.source_hash()
+    assert h == build.source_hash() and len(h) == 16
+    assert build.BUILD_ROOT.name == "kernels" and build.BUILD_ROOT.parent.name == "build"
