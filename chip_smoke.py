@@ -6,27 +6,44 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
 
   (b) kernels: each kernel against its plain PyTorch version on the card,
-      at the shapes the llama-1b-armt diagonal prefill gives it (a band of
-      G = 16 layers, B = 1, T = 1024 + 128, bf16) and at small odd shapes;
+      at the shapes the llama-1b-armt main path gives it (the diagonal
+      prefill's band of G = 16 layers, B = 1, T = 1024 + 128; decode over 4
+      slots of a 1152-row cache; bf16) and at small odd shapes;
       error against a stated tolerance, and median CUDA-event times of the
       kernel, the plain version and, where one exists, a single PyTorch
       call computing the same function (a yardstick the port never calls);
   (c) model: llama-1b-armt at full width and depth (random weights from a
-      seed, bf16): diagonal prefill on the kernels against the sequential
-      schedule on the plain path, 16 segments; at 2 segments with every
-      layer's final A and z held too, plus a negative control (a read
-      perturbed by 2 % must fail that check); and at fp32 with 2 layers,
+      seed, bf16), diagonal prefill on the kernels against the sequential
+      schedule on the plain path: 16 segments free-running, gated on the
+      first 2 (the untrained model is chaotic past a few segments, plain
+      versions included); 16 segments teacher-forced, each segment started
+      from the sequential path's state, its last-token logits and every
+      layer's A and z held wherever the plain versions on the card (a
+      second rounding of the same math) agree within half the tolerance,
+      which must be at least 8 segments, with a negative control (the
+      fused update's delta A scaled by 0.9 must fail it); 2 segments with
+      every layer's final A and z held, plus two negative controls (a read
+      perturbed by 2 %, and the fused update's delta A scaled by 0.95,
+      must each fail that check); and fp32 with 2 layers and 3 segments
       against a tight tolerance;
-  (d) serving, the main path: ServeEngine.generate for B = 1 (a prompt of
-      16 segments + 1000 tokens, 48 new, crossing a segment flush) and B = 2
-      (4 segments + 300 tokens, 32 new); plus generate at smoke size on the
+  (d) serving through generate: ServeEngine.generate for B = 1 (a prompt
+      of 4 segments + 1000 tokens, 48 new, crossing a segment flush) and
+      B = 2 (4 segments + 300 tokens, 32 new), logits held finite; plus
+      generate at smoke size (B = 1 and B = 2, fp32) on the card against
+      the CPU path, token for token;
+  (e) serving through the continuous-batching front door, the main path:
+      ServeEngine.serve with 4 slots, chunk 8 and 6 requests (1-3 segments
+      plus 10-1010 tail tokens, 24-64 new, slots crossing their segment
+      flushes at different steps); each request's first token against a
+      B = 1 generate of its prompt; and serve at smoke size (fp32) on the
       card against the CPU path, token for token.
 
-The kernels' launch counters are set to 0 just before (d) and read just
-after it; every kernel must have been launched. The script prints one JSON
-line per kernel summary, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
-line; without a CUDA device it exits 2.
+The kernels' launch counters are set to 0 just before (d) and again just
+before (e), and read just after each; every kernel must have been launched
+in (d), and every kernel but armt_update (which runs only at B > 1) in (e).
+The script prints one JSON line per kernel summary, the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero before that line; without a CUDA device it exits 2.
 """
 from __future__ import annotations
 
@@ -65,9 +82,24 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.kernels import armt_memory, build, flash_attention, grouped_matmul, ops
+    from repro_torch.kernels import (armt_memory, build, decode_attention, flash_attention,
+                                     grouped_matmul, ops, swap)
     from repro_torch.models import model as M
-    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import Request, RequestError, ServeEngine
+
+    counters = {"grouped_matmul": (grouped_matmul, "launches"),
+                "flash_attention": (flash_attention, "launches"),
+                "armt_read": (armt_memory, "read_launches"),
+                "armt_update": (armt_memory, "update_launches"),
+                "grouped_matmul_armt_update": (grouped_matmul, "fused_launches"),
+                "decode_attention": (decode_attention, "launches")}
+
+    def reset_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read_counts():
+        return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -269,6 +301,104 @@ def main() -> int:
               armt_memory.armt_update(mo, wko, wvo, wbo, Ao, zo),
               armt_memory.armt_update_plain(mo.float(), wko.float(), wvo.float(), wbo.float(),
                                             Ao, zo), TOL_STATE)
+
+    # grouped_matmul_armt_update: the B = 1 cell's down projection with the
+    # residual added before the cast, then the update from y's memory rows
+    xf, wd, res = rnd(G, T, F), rnd(G, F, D, scale=F ** -0.5), rnd(G, T, D)
+    wk, wv, wb = (rnd(G, D, dm, scale=D ** -0.5), rnd(G, D, D, scale=D ** -0.5),
+                  rnd(G, D, 1, scale=D ** -0.5))
+    A = rnd(G, P, D, scale=0.1, dtype=torch.float32)
+    z = torch.rand(G, P, generator=gen).to(dev) + 0.5
+
+    def fused():
+        return grouped_matmul.grouped_matmul_armt_update(xf, wd, res, wk, wv, wb, A, z, M=Mt)
+    y, A2, z2 = fused()
+    y32 = grouped_matmul.grouped_matmul_armt_update_plain(
+        xf.float(), wd.float(), res.float(), wk.float(), wv.float(), wb.float(), A, z,
+        M=Mt)[0]
+    err = check("grouped_matmul_armt_update y [16,1152,8192]@[16,8192,2048] + res",
+                y, y32, TOL_BF16)
+    # the update is held on the kernel's own y rows, so only its rounding counts
+    err = max(err, check("grouped_matmul_armt_update A', z' (update of its own y rows)",
+                         (A2, z2), armt_memory.armt_update_plain(
+                             y[:, -Mt:].float(), wk.float(), wv.float(), wb.float(), A, z),
+                         TOL_STATE))
+    two = res + grouped_matmul.grouped_matmul(xf, wd)      # the B > 1 path: rounds twice
+    log(f"  (y against the fp32 oracle: fused {row_rel(y, y32):.3e}, two-launch "
+        f"res + bf16(x@w) {row_rel(two, y32):.3e}; fused vs two-launch "
+        f"{row_rel(y, two):.3e})")
+    del y32, two, y, A2, z2
+    t = timed("grouped_matmul_armt_update", fused,
+              lambda: grouped_matmul.grouped_matmul_armt_update_plain(
+                  xf, wd, res, wk, wv, wb, A, z, M=Mt),
+              lambda: torch.baddbmm(res, xf, wd),
+              flops_bf16=2.0 * G * T * F * D + 2.0 * G * Mt * D * (dm + 1 + D),
+              flops_fp32=4.0 * G * Mt * P * D,
+              nbytes=2.0 * G * (T * F + F * D + 2 * T * D + D * (dm + 1 + D))
+              + 8.0 * G * P * (D + 1))
+    log("  (library: torch.baddbmm(res, x, w), the y part only)")
+    summary["grouped_matmul_armt_update"] = dict(
+        t, max_abs_err=err, shape=f"x[{G},{T},{F}] w[{G},{F},{D}] A[{G},{P},{D}] M {Mt}")
+    del xf, wd, res, wk, wv, wb, A, z
+    for dtype, (g_, r_, k_, n_, m_) in [(torch.float32, (3, 37, 50, 40, 5)),
+                                        (torch.bfloat16, (3, 37, 48, 40, 5)),
+                                        (torch.bfloat16, (2, 130, 72, 56, 128))]:
+        xo, wo, ro = (rnd(g_, r_, k_, dtype=dtype), rnd(g_, k_, n_, scale=0.2, dtype=dtype),
+                      rnd(g_, r_, n_, dtype=dtype))
+        bo = rnd(g_, n_, dtype=dtype)
+        wko, wvo, wbo = (rnd(g_, n_, 8, scale=0.3, dtype=dtype),
+                         rnd(g_, n_, 32, scale=0.3, dtype=dtype),
+                         rnd(g_, n_, 1, scale=0.3, dtype=dtype))
+        Ao = rnd(g_, 48, 32, scale=0.1, dtype=torch.float32)
+        zo = torch.rand(g_, 48, generator=gen).to(dev)
+        yo, Ao2, zo2 = grouped_matmul.grouped_matmul_armt_update(xo, wo, ro, wko, wvo, wbo,
+                                                                 Ao, zo, bo, M=m_)
+        name = f"grouped_matmul_armt_update odd {dtype} [{g_},{r_},{k_}]x[{k_},{n_}] M {m_}"
+        check(name + " y", yo, grouped_matmul.grouped_matmul_armt_update_plain(
+            xo.float(), wo.float(), ro.float(), wko.float(), wvo.float(), wbo.float(), Ao,
+            zo, bo.float(), M=m_)[0], TOL_F32 if dtype == torch.float32 else TOL_BF16)
+        check(name + " A', z'", (Ao2, zo2), armt_memory.armt_update_plain(
+            yo[:, -m_:].float(), wko.float(), wvo.float(), wbo.float(), Ao, zo), TOL_STATE)
+
+    # decode_attention: one token per slot against the decode cache of 4
+    # slots (seg_len + M rows), ragged lengths and every slot at full length
+    Bd, Sd = 4, T
+    qd = rnd(Bd, Hq, hd)
+    kd, vd = rnd(Bd, Sd, Hkv, hd), rnd(Bd, Sd, Hkv, hd)
+    err = 0.0
+    for lens in [(1024, 517, 1, 1000), (1024,) * Bd]:
+        Ld = torch.tensor(lens, dtype=torch.int32, device=dev)
+        err = max(err, check(f"decode_attention q[{Bd},{Hq},{hd}] k/v[{Bd},{Sd},{Hkv},{hd}] lengths {lens}",
+                    decode_attention.decode_attention(qd, kd, vd, Ld),
+                    decode_attention.decode_attention_plain(qd.float(), kd.float(),
+                                                            vd.float(), Ld), TOL_BF16))
+    q4, k4, v4 = qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
+    mask4 = (torch.arange(Sd, device=dev) < Ld[:, None])[:, None, None, :]
+    n_keys = float(sum(lens))
+    t = timed("decode_attention (4 slots at 1024 keys)",
+              lambda: decode_attention.decode_attention(qd, kd, vd, Ld),
+              lambda: decode_attention.decode_attention_plain(qd, kd, vd, Ld),
+              lambda: torch.nn.functional.scaled_dot_product_attention(
+                  q4, k4, v4, attn_mask=mask4, enable_gqa=True),
+              flops_fp32=4.0 * n_keys * Hq * hd,
+              nbytes=2.0 * 2 * n_keys * Hkv * hd + 2.0 * 2 * Bd * Hq * hd + 4.0 * Bd)
+    log("  (library: scaled_dot_product_attention, enable_gqa, boolean length mask)")
+    summary["decode_attention"] = dict(
+        t, max_abs_err=err, shape=f"q[{Bd},{Hq},{hd}] k/v[{Bd},{Sd},{Hkv},{hd}] lengths {lens}")
+    del qd, kd, vd, q4, k4, v4
+    for dtype in (torch.float32, torch.bfloat16):
+        for (b_, hq_, hk_, s_, hd_, lens, win) in [(3, 4, 4, 77, 64, (77, 40, 1), 0),
+                                                   (2, 8, 2, 100, 40, (100, 63), 17)]:
+            qo = rnd(b_, hq_, hd_, dtype=dtype)
+            cache = rnd(b_, s_, 2 * hk_, hd_, dtype=dtype)   # strided k/v views
+            ko, vo = cache[:, :, :hk_], cache[:, :, hk_:]
+            Lo = torch.tensor(lens, dtype=torch.int32, device=dev)
+            check(f"decode_attention odd {dtype} q[{b_},{hq_},{hd_}] S {s_} lengths {lens} "
+                  f"window {win}",
+                  decode_attention.decode_attention(qo, ko, vo, Lo, window=win),
+                  decode_attention.decode_attention_plain(qo.float(), ko.float(), vo.float(),
+                                                          Lo, window=win),
+                  TOL_F32 if dtype == torch.float32 else TOL_BF16)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ (c) model
@@ -283,28 +413,93 @@ def main() -> int:
         h, fin = M.forward_hidden(p, c, tk, schedule=schedule)
         return M.last_logits(p, c, h), fin
 
+    def seg_logits(p, c, h):
+        """fp32 logits of the last token of every segment: [S, 1, V]."""
+        return M._head_matmul(p, c, M.rmsnorm(h[:, :, -1], p["final_norm"])).float()
+
     with torch.no_grad():
         prefill("diagonal", params, cfg, toks[:, :2 * seg])      # warm-up
         sync()
         t0 = time.perf_counter()
-        ld, fd = prefill("diagonal", params, cfg, toks)
+        hd, fd = M.forward_hidden(params, cfg, toks, schedule="diagonal")
+        ld = seg_logits(params, cfg, hd)
         sync()
         t_diag = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ls, fs = prefill("sequential", params, cfg, toks)
+        hs, fs = M.forward_hidden(params, cfg, toks, schedule="sequential")
+        ls = seg_logits(params, cfg, hs)
         sync()
         t_seq = time.perf_counter() - t0
-    rel = rel_err(ld, ls)
-    top1 = (ld.argmax(-1) == ls.argmax(-1)).float().mean().item()
-    zd, zs = fd["pattern"][0]["z"], fs["pattern"][0]["z"]
-    ok = bool(torch.isfinite(ld).all() and torch.isfinite(zd).all()) and rel <= 5e-2
+    # The untrained model is chaotic over segments (PERF.md §6, from
+    # tools/deep_prefill.py on 4 seeds): by segment 3-5 rounding alone puts
+    # every diagonal variant, plain versions on the card included, O(1) away
+    # from the sequential path, and some overflow by segment 11-14. So the
+    # free-running 16-segment run is gated on its first n_free segments,
+    # and the teacher-forced check below covers all 16.
+    n_free, tol_free = 2, 5e-2
+    errs = [rel_err(ld[i], ls[i]) for i in range(ld.shape[0])]
+    ok = bool(torch.isfinite(ld[:n_free]).all()) and max(errs[:n_free]) <= tol_free
     log(f"  16-segment prefill ({16 * seg} tokens): diagonal on kernels {t_diag:.3f} s, "
-        f"sequential plain {t_seq:.3f} s; last_logits rel err {rel:.3e} (tol 5e-2), "
-        f"top-1 agree {top1:.0%}, final z rel err {rel_err(zd, zs):.3e} "
-        f"(max|z| {zs.abs().max().item():.3e}) -> {'ok' if ok else 'FAIL'}")
+        f"sequential plain {t_seq:.3f} s; last-token logits rel err per segment "
+        f"{' '.join(f'{e:.1e}' for e in errs)}; segments 1-{n_free} gated (tol "
+        f"{tol_free:g}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append("model bf16 prefill")
-    del ld, ls, fd, fs
+        failures.append("model bf16 prefill, first segments")
+    del hd, fd, hs, fs, ld, ls
+
+    # Teacher forcing: each segment from the state the sequential plain path
+    # reached before it, so errors do not carry over. Even so, at a few
+    # segments the untrained model is so ill-conditioned that any two
+    # roundings of the same math differ by O(1) (PERF.md §6: up to 5e2 in A
+    # for the kernels, 9.7 for the plain versions on the card). So the same
+    # segments also run on the plain versions on the card, as a second
+    # rounding of the same math, and the kernels are held at every segment
+    # where that one is within half the tolerance: 11-13 of 16 on 4 seeds.
+    forced_in = []
+    with torch.no_grad():
+        state = None
+        for i in range(16):
+            part = toks[:, i * seg:(i + 1) * seg]
+            hs, fs = M.forward_hidden(params, cfg, part, schedule="sequential", state0=state)
+            forced_in.append((part, state, seg_logits(params, cfg, hs), fs["pattern"][0]))
+            state = fs
+        del hs, fs, state
+
+    def forced_errors():
+        """Per segment: the larger of the last-token logits' and the worst
+        layer's A/z rel err, diagonal schedule on the ops as they stand
+        against the sequential plain path; and whether all were finite."""
+        out = []
+        with torch.no_grad():
+            for part, state, ls, ss in forced_in:
+                hd, fd = M.forward_hidden(params, cfg, part, schedule="diagonal", state0=state)
+                ld, sd = seg_logits(params, cfg, hd), fd["pattern"][0]
+                err = max([rel_err(ld, ls)] + [rel_err(sd[k][j], ss[k][j]) for k in ("A", "z")
+                                               for j in range(cfg.n_layers)])
+                out.append((err, all(torch.isfinite(t).all().item()
+                                     for t in (ld, sd["A"], sd["z"]))))
+        return out
+
+    tol_forced, min_held = 5e-2, 8
+    with swap.plain_versions():
+        probe = forced_errors()
+    held = [i for i, (e, f) in enumerate(probe) if f and e <= tol_forced / 2]
+
+    def forced_check():
+        errs = forced_errors()
+        ok = (all(f for _, f in errs) and len(held) >= min_held
+              and all(errs[i][0] <= tol_forced for i in held))
+        return errs, ok
+
+    errs, ok = forced_check()
+    log(f"  16 segments teacher-forced, worst of logits/A/z rel err per segment: kernels "
+        f"{' '.join(f'{e:.1e}' for e, _ in errs)}; plain versions "
+        f"{' '.join(f'{e:.1e}' for e, _ in probe)}; held at segments "
+        f"{[i + 1 for i in held]} (tol {tol_forced:g}, at least {min_held}), kernels "
+        f"finite at all {all(f for _, f in errs)} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("model bf16 teacher-forced segments")
+    torch.cuda.empty_cache()
 
     # the same at 2 segments, before the untrained state diverges between
     # schedules (PERF.md §6), holding every layer's final A and z as well:
@@ -331,17 +526,38 @@ def main() -> int:
         f"{show(errs)} (A, z: worst layer; tol {tol_early:g}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("model bf16 early-segment state")
-    # negative control: the same check must reject a memory read 2 % low
-    read = ops.assoc_read
-    ops.assoc_read = lambda *a, **k: 0.98 * read(*a, **k)
-    try:
+    # negative controls: the 2-segment check must reject a memory read 2 %
+    # low, and the B = 1 cell's fused update with its delta A scaled by 0.95.
+    # A teacher-forced segment starts from the reference's state, so a
+    # scaled delta A moves its A by at most the scale's own share: that
+    # check, at 5e-2, must reject a scale of 0.9.
+    read, fused_op = ops.assoc_read, ops.grouped_gemm_armt_update
+
+    def scaled_update(scale):
+        def update(*a, **k):
+            y, A2, z2 = fused_op(*a, **k)
+            A = a[6]
+            return y, A + scale * (A2 - A), z2
+        return update
+    with swap.replaced(assoc_read=lambda *a, **k: 0.98 * read(*a, **k)):
         errs, passed = early_errors()
-    finally:
-        ops.assoc_read = read
     log(f"  negative control, armt_read output x0.98: rel err {show(errs)} -> "
         f"{'FAIL: not caught' if passed else 'caught, ok'}")
     if passed:
         failures.append("model check blind to a 2 % read error")
+    with swap.replaced(grouped_gemm_armt_update=scaled_update(0.95)):
+        errs, passed = early_errors()
+    log(f"  negative control, fused update's delta A x0.95: rel err {show(errs)} -> "
+        f"{'FAIL: not caught' if passed else 'caught, ok'}")
+    if passed:
+        failures.append("model check blind to a 5 % error in the fused update")
+    with swap.replaced(grouped_gemm_armt_update=scaled_update(0.9)):
+        ferrs, passed = forced_check()
+    log(f"  negative control, teacher-forced, fused update's delta A x0.9: worst held "
+        f"segment {max([ferrs[i][0] for i in held], default=0.0):.3e} -> "
+        f"{'FAIL: not caught' if passed else 'caught, ok'}")
+    if passed:
+        failures.append("teacher-forced check blind to a 10 % error in the fused update")
     del ls, fs
 
     cfg32 = replace(cfg, n_layers=2, dtype="float32")
@@ -355,22 +571,22 @@ def main() -> int:
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("model fp32 prefill")
-    del p32, ld, ls
+    del p32, ld, ls, forced_in
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ (d) serving
-    log("== serve phase (main path): ServeEngine.generate, greedy")
-    grouped_matmul.launches = 0
-    flash_attention.launches = 0
-    armt_memory.read_launches = 0
-    armt_memory.update_launches = 0
+    log("== generate phase: ServeEngine.generate, greedy")
+    reset_counts()
     engine = ServeEngine(params, cfg)
-    runs = [(1, 16 * seg + 1000, 48), (2, 4 * seg + 300, 32)]
+    # 4 segments: on 4 seeds no diagonal variant, kernels or plain versions,
+    # overflowed before segment 11 (PERF.md §6), while 16 segments overflow
+    # on some seeds whatever the path, so the logits are held finite here
+    runs = [(1, 4 * seg + 1000, 48), (2, 4 * seg + 300, 32)]
     for B, plen, new in runs:
         prompts = rng.integers(0, cfg.vocab, (B, plen))
         res = engine.generate(prompts, new)
-        good = (res.finite and res.tokens.shape == (B, new) and res.tokens.min() >= 0
-                and res.tokens.max() < cfg.vocab)
+        good = (res.finite and res.tokens.shape == (B, new)
+                and res.tokens.min() >= 0 and res.tokens.max() < cfg.vocab)
         log(f"  B={B} prompt {plen} new {new}: TTFT {res.ttft_s:.3f} s, decode "
             f"{res.tok_s:.1f} tok/s, logits finite {res.finite} -> {'ok' if good else 'FAIL'}")
         for b in range(B):
@@ -378,34 +594,88 @@ def main() -> int:
         if not good:
             failures.append(f"generate B={B}")
         if B == 1:
-            # untrained ARMT state is chaotic by 16 segments (PERF.md §6), so
-            # show that a run reproduces bit for bit: no atomics anywhere
+            # the untrained ARMT state is chaotic over segments (PERF.md §6),
+            # so show that a run reproduces bit for bit: no atomics anywhere
             again = engine.generate(prompts, new).tokens
             same = bool((again == res.tokens).all())
             log(f"  B=1 repeated: tokens equal {same}")
             if not same:
                 failures.append("generate B=1 not reproducible")
-    launches = {"grouped_matmul": grouped_matmul.launches,
-                "flash_attention": flash_attention.launches,
-                "armt_read": armt_memory.read_launches,
-                "armt_update": armt_memory.update_launches}
-    log(f"  launches in the serve phase: {launches}")
-    for name, n in launches.items():
+    launches_gen = read_counts()
+    log(f"  launches in the generate phase: {launches_gen}")
+    for name, n in launches_gen.items():
         if n == 0:
-            failures.append(f"{name} never launched on the main path")
-    del engine, params
-    torch.cuda.empty_cache()
+            failures.append(f"{name} never launched by generate")
 
     scfg = get_smoke_config("llama-1b-armt")
     sp = M.init_params(scfg, SEED, device="cpu")
     sp_gpu = M.Model(scfg, sp).to(dev).tree()
-    prompts = rng.integers(0, scfg.vocab, (2, 3 * scfg.armt.segment_len + 5))
-    on_card = ServeEngine(sp_gpu, scfg).generate(prompts, 20).tokens
-    on_cpu = ServeEngine(sp, scfg, device="cpu").generate(prompts, 20).tokens
-    same = bool((on_card == on_cpu).all())
-    log(f"  smoke config generate, card kernels vs CPU plain path: tokens equal {same}")
+    sseg = scfg.armt.segment_len
+    for B in (1, 2):
+        prompts = rng.integers(0, scfg.vocab, (B, 3 * sseg + 5))
+        on_card = ServeEngine(sp_gpu, scfg).generate(prompts, 20).tokens
+        on_cpu = ServeEngine(sp, scfg, device="cpu").generate(prompts, 20).tokens
+        same = bool((on_card == on_cpu).all())
+        log(f"  smoke config (fp32) generate B={B}, card kernels vs CPU plain path: "
+            f"tokens equal {same}")
+        if not same:
+            failures.append(f"smoke generate B={B} card vs cpu")
+
+    # ------------------------------------------------------------ (e) serve
+    log("== serve phase (main path): ServeEngine.serve, 4 slots, chunk 8, greedy")
+    # (segments, tail tokens, max_new): tails near seg_len make slots reach
+    # their flushes at steps 14, 24, 34 and 44; two slots never flush
+    spec = [(1, 1000, 40), (2, 990, 64), (3, 1010, 24), (1, 300, 48), (2, 980, 56),
+            (1, 10, 32)]
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n * seg + tail), new)
+            for i, (n, tail, new) in enumerate(spec)]
+    reset_counts()
+    t0 = time.perf_counter()
+    events = list(engine.serve(reqs, n_slots=4, chunk=8))
+    sync()
+    t_serve = time.perf_counter() - t0
+    launches_serve = read_counts()
+    log(f"  launches in the serve phase: {launches_serve}")
+    for name, n in launches_serve.items():
+        if n == 0 and name != "armt_update":   # armt_update runs at B > 1 only
+            failures.append(f"{name} never launched by serve")
+    errors = [e for e in events if isinstance(e, RequestError)]
+    n_tok = len(events) - len(errors)
+    log(f"  {len(reqs)} requests, {n_tok} tokens in {t_serve:.3f} s: aggregate "
+        f"{n_tok / t_serve:.1f} tok/s (admission prefills included); card {smi}")
+    if errors:
+        failures.append(f"serve rejected {errors}")
+    for r in reqs:
+        mine = [e for e in events if not isinstance(e, RequestError) and e.req_id == r.req_id]
+        toks = [e.token for e in mine]
+        first_gen = int(engine.generate(r.prompt[None], 1).tokens[0, 0])
+        good = (len(mine) == r.max_new and mine[-1].done and bool(mine[-1].finite)
+                and [e.index for e in mine] == list(range(r.max_new))
+                and toks[0] == first_gen)
+        log(f"  request {r.req_id} (prompt {len(r.prompt)}, new {r.max_new}): TTFT "
+            f"{mine[0].ttft_s:.3f} s, {len(mine)} tokens, finite {mine[-1].finite}, first "
+            f"token {toks[0]} vs B=1 generate {first_gen} -> {'ok' if good else 'FAIL'}")
+        log(f"    tokens: {toks}")
+        if not good:
+            failures.append(f"serve request {r.req_id}")
+    del engine, params, events
+    torch.cuda.empty_cache()
+
+    sspec = [(1, 5, 20), (2, 3, 14), (0, 7, 25), (3, 0, 9), (1, 11, 17)]
+    sreqs = [Request(i, rng.integers(0, scfg.vocab, n * sseg + tail), new)
+             for i, (n, tail, new) in enumerate(sspec)]
+
+    def served(eng):
+        out = {}
+        for e in eng.serve(sreqs, n_slots=2, chunk=4):
+            out.setdefault(e.req_id, []).append(getattr(e, "token", e))
+        return out
+    on_card, on_cpu = served(ServeEngine(sp_gpu, scfg)), served(ServeEngine(sp, scfg, device="cpu"))
+    same = on_card == on_cpu and all(len(on_card[i]) == r.max_new for i, r in enumerate(sreqs))
+    log(f"  smoke config (fp32) serve, 5 requests on 2 slots, card kernels vs CPU plain "
+        f"path: tokens equal {same}")
     if not same:
-        failures.append("smoke generate card vs cpu")
+        failures.append("smoke serve card vs cpu")
 
     if failures:
         log(f"FAILED: {failures}")
@@ -413,6 +683,10 @@ def main() -> int:
 
     sources = {"grouped_matmul": ("src/repro_torch/kernels/csrc/grouped_matmul.cu",
                                   "src/repro/kernels/grouped_matmul.py:198"),
+               "grouped_matmul_armt_update": ("src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                                              "src/repro/kernels/grouped_matmul.py:114"),
+               "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                                    "src/repro/kernels/decode_attention.py:67"),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:89"),
                "armt_read": ("src/repro_torch/kernels/csrc/armt_memory.cu",
@@ -423,7 +697,10 @@ def main() -> int:
     for name, (src, replaces) in sources.items():
         s = summary[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": s["max_abs_err"],
+                        "launches": launches_gen[name] + launches_serve[name],
+                        "launches_generate": launches_gen[name],
+                        "launches_serve": launches_serve[name],
+                        "max_abs_err": s["max_abs_err"],
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                         "shape": s["shape"]})

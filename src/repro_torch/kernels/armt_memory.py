@@ -107,15 +107,9 @@ def armt_read(x, wq, A, z, *, nu: int = 3):
     return out
 
 
-def armt_update(m, wk, wv, wb, A, z, *, nu: int = 3):
-    """m: [N,M,D] (rows may be strided; the last dim contiguous); wk/wv/wb:
-    [D,*] or [G,D,*]; A: [N,P,Dv]; z: [N,P] -> (A', z') in new buffers.
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernels
-    or raises."""
-    if m.device.type == "cpu":
-        return armt_update_plain(m, wk, wv, wb, A, z, nu=nu)
-    if m.device.type != "cuda":
-        raise ValueError(f"armt_update: unsupported device {m.device}")
+def check_update(m, wk, wv, wb, A, z, *, nu: int):
+    """Validates armt_update's operands on the card; returns the launch
+    dims (N, M, dm, P, Dv, weight batch)."""
     if m.dim() != 3 or m.stride(2) != 1:
         raise ValueError(f"armt_update: m {tuple(m.shape)} needs a contiguous last dim")
     N, M, D = m.shape
@@ -137,14 +131,19 @@ def armt_update(m, wk, wv, wb, A, z, *, nu: int = 3):
         raise ValueError(f"armt_update: dtypes {m.dtype}/{wk.dtype}/{wv.dtype}/{wb.dtype}")
     if any(t.device != m.device for t in (wk, wv, wb, A, z)):
         raise ValueError("armt_update: operands on different devices")
+    return N, M, dm, P, Dv, batch
+
+
+def launch_update(m, wk, wv, wb, A, z, dims):
+    """The update's launches on operands ``check_update`` accepted ->
+    (A', z', whether a kernel was launched). Counts nothing."""
+    N, M, dm, P, Dv, batch = dims
     A_out = torch.empty_like(A)
     z_out = torch.empty_like(z)
     if N == 0 or M == 0:
         A_out.copy_(A)
         z_out.copy_(z)
-        return A_out, z_out
-    global update_launches
-    update_launches += 1
+        return A_out, z_out, False
     k = project_f32(m, wk, batch)
     b = project_f32(m, wb, batch)
     v = project_f32(m, wv, batch)
@@ -155,4 +154,21 @@ def armt_update(m, wk, wv, wb, A, z, *, nu: int = 3):
         A_out.data_ptr(), z_out.data_ptr(), phi.data_ptr(), aux.data_ptr(),
         N, M, dm, P, Dv, build.stream_ptr(m))
     build.check(code, "armt_update")
+    return A_out, z_out, True
+
+
+def armt_update(m, wk, wv, wb, A, z, *, nu: int = 3):
+    """m: [N,M,D] (rows may be strided; the last dim contiguous); wk/wv/wb:
+    [D,*] or [G,D,*]; A: [N,P,Dv]; z: [N,P] -> (A', z') in new buffers.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernels
+    or raises."""
+    global update_launches
+    if m.device.type == "cpu":
+        return armt_update_plain(m, wk, wv, wb, A, z, nu=nu)
+    if m.device.type != "cuda":
+        raise ValueError(f"armt_update: unsupported device {m.device}")
+    A_out, z_out, launched = launch_update(
+        m, wk, wv, wb, A, z, check_update(m, wk, wv, wb, A, z, nu=nu))
+    if launched:
+        update_launches += 1
     return A_out, z_out

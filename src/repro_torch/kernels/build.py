@@ -31,10 +31,11 @@ _F = ctypes.c_float
 
 # C signatures of the entry points (all return cudaError_t as int)
 SIGNATURES = {
-    # x, w, bias, out, G, R, K, N, x group stride, x row stride, weight
-    # batch, dtype (0 f32, 1 bf16), out_f32, act (0 none, 1 silu, 2 gelu),
-    # stream
-    "gmm_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _I, _I, _P],
+    # x, w, bias, res, out, G, R, K, N, x group and row strides, res group
+    # and row strides, weight batch, dtype (0 f32, 1 bf16), out_f32, act
+    # (0 none, 1 silu, 2 gelu), stream
+    "gmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
+                   _I, _I, _I, _I, _P],
     # q, k, v, out, N, Hq, Hkv, T, S, hd, q strides (n, h, t),
     # k strides (n, h, s), v strides (n, h, s), causal, window, scale, dtype,
     # stream
@@ -47,6 +48,10 @@ SIGNATURES = {
     "armt_read_split_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # bf16 read, finish: num (fp32), den, out, N, T, Dv, stream
     "armt_read_finish_launch": [_P, _P, _P, _I, _I, _I, _P],
+    # q, k, v, lengths (int32), out, B, Hq, Hkv, S, hd, q strides (b, h),
+    # k strides (b, s, h), v strides (b, s, h), window, scale, dtype, stream
+    "decode_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _L, _L, _L, _L, _L, _L, _L, _L, _I, _F, _I, _P],
     # k, b, v (fp32 projections), A, z, A_out, z_out, phi scratch,
     # aux scratch, N, M, dm, P, Dv, stream
     "armt_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -2,9 +2,19 @@
 //
 // Replaces: repro/kernels/grouped_matmul.py `grouped_matmul` (Pallas,
 // `_gmm_kernel` / `_gmm_bias_kernel`): out[i] = act(x[i] @ w[i / wbatch] +
-// bias[i / wbatch]), x [G,R,K] (rows read through group and row strides, so
-// the grouped cell's [G,B*T,K] activations need no copy), w [G/wbatch,K,N],
-// out [G,R,N] contiguous, in the input dtype or in fp32. The ARMT kernels
+// bias[i / wbatch]) (+ res[i]), x [G,R,K] (rows read through group and row
+// strides, so the grouped cell's [G,B*T,K] activations need no copy), w
+// [G/wbatch,K,N], out [G,R,N] contiguous, in the input dtype or in fp32.
+//
+// The optional residual res [G,R,N] (read through its strides) is added to
+// the fp32 accumulator before the single cast: that is the GEMM half of
+// `grouped_matmul_armt_update` (Pallas `_gmm_armt_kernel`), whose y = res +
+// x @ w rounds once, where adding res to a bf16 x @ w would round twice.
+// The TPU kernel then runs the ARMT update on the memory-token rows of the
+// fp32 y tile it holds in VMEM; a [128, 2048] fp32 tile is 1 MB against
+// 227 KB of shared memory here, so the port's wrapper runs the update on
+// the csrc/armt_memory.cu kernels, reading those rows of y from HBM
+// (512 KB of bf16 per group). The ARMT kernels
 // use the fp32 output for their projections of bf16 activations: bf16 x bf16
 // products are exact in fp32, so that is the reference's fp32 math up to
 // summation order.
@@ -64,8 +74,9 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 template <typename OutT>
 __global__ void __launch_bounds__(THREADS, 2)
 gmm_bf16_mma(const bf16* __restrict__ x, const bf16* __restrict__ w,
-             const bf16* __restrict__ bias, OutT* __restrict__ out,
-             int R, int K, int N, ll sxg, ll sxr, int wbatch, int act) {
+             const bf16* __restrict__ bias, const bf16* __restrict__ res,
+             OutT* __restrict__ out, int R, int K, int N, ll sxg, ll sxr, ll srg,
+             ll srr, int wbatch, int act) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* As = reinterpret_cast<bf16*>(smem_raw);
   bf16* Bs = As + STAGES * A_STAGE;
@@ -159,8 +170,14 @@ gmm_bf16_mma(const bf16* __restrict__ x, const bf16* __restrict__ w,
       for (int h = 0; h < 2; ++h) {
         const int row = m0 + wm * 64 + mi * 16 + lane / 4 + h * 8;
         if (row >= R) continue;
-        store2(out + ((ll)g * R + row) * N + col, epilogue(acc[mi][ni][2 * h], b0, act),
-               epilogue(acc[mi][ni][2 * h + 1], b1, act));
+        float r0 = 0.f, r1 = 0.f;
+        if (res) {
+          const bf16* rp = res + (ll)g * srg + (ll)row * srr + col;
+          r0 = __bfloat162float(rp[0]);
+          r1 = __bfloat162float(rp[1]);
+        }
+        store2(out + ((ll)g * R + row) * N + col, epilogue(acc[mi][ni][2 * h], b0, act) + r0,
+               epilogue(acc[mi][ni][2 * h + 1], b1, act) + r1);
       }
     }
   }
@@ -171,7 +188,8 @@ constexpr int TM = 64, TN = 64, TK = 16;
 template <typename T, typename OutT>
 __global__ void __launch_bounds__(256)
 gmm_simt(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ bias,
-         OutT* __restrict__ out, int R, int K, int N, ll sxg, ll sxr, int wbatch, int act) {
+         const T* __restrict__ res, OutT* __restrict__ out, int R, int K, int N, ll sxg,
+         ll sxr, ll srg, ll srr, int wbatch, int act) {
   __shared__ float xs[TK][TM + 1];
   __shared__ float ws[TK][TN + 1];
   const int g = blockIdx.z, gw = g / wbatch;
@@ -215,7 +233,8 @@ gmm_simt(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__
       const int col = n0 + tx + 16 * j;
       if (col >= N) continue;
       const float b = bias ? to_f(bias[(ll)gw * N + col]) : 0.f;
-      out[((ll)g * R + row) * N + col] = from_f<OutT>(epilogue(acc[i][j], b, act));
+      const float r = res ? to_f(res[(ll)g * srg + (ll)row * srr + col]) : 0.f;
+      out[((ll)g * R + row) * N + col] = from_f<OutT>(epilogue(acc[i][j], b, act) + r);
     }
   }
 }
@@ -223,8 +242,9 @@ gmm_simt(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename OutT>
-void launch_mma(const void* x, const void* w, const void* bias, void* out, int G, int R,
-                int K, int N, ll sxg, ll sxr, int wbatch, int act, cudaStream_t s) {
+void launch_mma(const void* x, const void* w, const void* bias, const void* res, void* out,
+                int G, int R, int K, int N, ll sxg, ll sxr, ll srg, ll srr, int wbatch,
+                int act, cudaStream_t s) {
   static bool configured = false;
   if (!configured) {
     cudaFuncSetAttribute(gmm_bf16_mma<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -234,41 +254,49 @@ void launch_mma(const void* x, const void* w, const void* bias, void* out, int G
   dim3 grid((N + BN - 1) / BN, (R + BM - 1) / BM, G);
   gmm_bf16_mma<OutT><<<grid, THREADS, MMA_SMEM, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(bias), static_cast<OutT*>(out), R, K, N, sxg, sxr, wbatch,
-      act);
+      static_cast<const bf16*>(bias), static_cast<const bf16*>(res), static_cast<OutT*>(out),
+      R, K, N, sxg, sxr, srg, srr, wbatch, act);
 }
 
 template <typename T, typename OutT>
-void launch_simt(const void* x, const void* w, const void* bias, void* out, int G, int R,
-                 int K, int N, ll sxg, ll sxr, int wbatch, int act, cudaStream_t s) {
+void launch_simt(const void* x, const void* w, const void* bias, const void* res, void* out,
+                 int G, int R, int K, int N, ll sxg, ll sxr, ll srg, ll srr, int wbatch,
+                 int act, cudaStream_t s) {
   dim3 grid((N + TN - 1) / TN, (R + TM - 1) / TM, G);
   gmm_simt<T, OutT><<<grid, 256, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(bias),
-      static_cast<OutT*>(out), R, K, N, sxg, sxr, wbatch, act);
+      static_cast<const T*>(res), static_cast<OutT*>(out), R, K, N, sxg, sxr, srg, srr,
+      wbatch, act);
 }
 
 }  // namespace
 
 // x [G,R,K] through (group, row) strides; w [G/wbatch,K,N]; bias [G/wbatch,N]
-// or null; out [G,R,N]. dtype: 0 float32, 1 bfloat16 (x, w, bias); out_f32:
-// 1 writes fp32, 0 the input dtype. act: 0 none, 1 silu, 2 tanh-gelu.
-extern "C" int gmm_launch(const void* x, const void* w, const void* bias, void* out,
-                          int G, int R, int K, int N, long long sxg, long long sxr,
-                          int wbatch, int dtype, int out_f32, int act, void* stream) {
+// or null; res [G,R,N] through (group, row) strides, or null; out [G,R,N].
+// dtype: 0 float32, 1 bfloat16 (x, w, bias, res); out_f32: 1 writes fp32,
+// 0 the input dtype. act: 0 none, 1 silu, 2 tanh-gelu (applied before res
+// is added).
+extern "C" int gmm_launch(const void* x, const void* w, const void* bias, const void* res,
+                          void* out, int G, int R, int K, int N, long long sxg, long long sxr,
+                          long long srg, long long srr, int wbatch, int dtype, int out_f32,
+                          int act, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && K % 8 == 0 && N % 8 == 0 && sxg % 8 == 0 && sxr % 8 == 0 &&
       aligned16(x) && aligned16(w) && aligned16(out)) {
     if (out_f32)
-      launch_mma<float>(x, w, bias, out, G, R, K, N, sxg, sxr, wbatch, act, s);
+      launch_mma<float>(x, w, bias, res, out, G, R, K, N, sxg, sxr, srg, srr, wbatch, act, s);
     else
-      launch_mma<bf16>(x, w, bias, out, G, R, K, N, sxg, sxr, wbatch, act, s);
+      launch_mma<bf16>(x, w, bias, res, out, G, R, K, N, sxg, sxr, srg, srr, wbatch, act, s);
   } else if (dtype == 1) {
     if (out_f32)
-      launch_simt<bf16, float>(x, w, bias, out, G, R, K, N, sxg, sxr, wbatch, act, s);
+      launch_simt<bf16, float>(x, w, bias, res, out, G, R, K, N, sxg, sxr, srg, srr, wbatch,
+                               act, s);
     else
-      launch_simt<bf16, bf16>(x, w, bias, out, G, R, K, N, sxg, sxr, wbatch, act, s);
+      launch_simt<bf16, bf16>(x, w, bias, res, out, G, R, K, N, sxg, sxr, srg, srr, wbatch,
+                              act, s);
   } else {
-    launch_simt<float, float>(x, w, bias, out, G, R, K, N, sxg, sxr, wbatch, act, s);
+    launch_simt<float, float>(x, w, bias, res, out, G, R, K, N, sxg, sxr, srg, srr, wbatch,
+                              act, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,24 @@
-"""Grouped matmul with a fused bias + activation epilogue.
+"""Grouped matmul with a fused bias + activation epilogue, and the fused
+down projection + ARMT update of the B == 1 cell.
 
-Replaces the Pallas kernel ``grouped_matmul`` (repro/kernels/grouped_matmul.py:198).
-``grouped_matmul`` computes ``x[G,R,K] @ w[G,K,N] (+ bias[G,N])`` with silu
-or tanh-gelu applied to the fp32 accumulator; the CUDA kernel is in
-``csrc/grouped_matmul.cu``, its plain version is ``grouped_matmul_plain``.
+``grouped_matmul`` replaces the Pallas kernel ``grouped_matmul``
+(repro/kernels/grouped_matmul.py:198): ``x[G,R,K] @ w[G,K,N] (+ bias[G,N])``
+with silu or tanh-gelu applied to the fp32 accumulator. Its plain version is
+``grouped_matmul_plain``.
 
-``project_f32`` runs the same kernel with an fp32 epilogue for the ARMT
+``grouped_matmul_armt_update`` replaces the Pallas kernel of that name
+(repro/kernels/grouped_matmul.py:114): ``y = res + x @ w (+ bias)``, the
+residual added to the fp32 accumulator before the one cast, then the ARMT
+delta-rule update of (A, z) from the last M rows of each group's y. On the
+card the GEMM with its residual epilogue is one launch of the kernel in
+``csrc/grouped_matmul.cu``, and the update runs the ``armt_update`` kernels
+of ``csrc/armt_memory.cu`` on a strided view of y's memory rows (see the
+CUDA source for why the update cannot stay on chip). One call counts as one
+``grouped_matmul_armt_update`` launch and as no ``grouped_matmul`` or
+``armt_update`` launch. Unlike the TPU kernel it has no tiling constraint
+on where the memory rows sit, and so no fallback.
+
+``project_f32`` runs the GEMM kernel with an fp32 epilogue for the ARMT
 memory kernels' projections (their launches count as theirs, not here).
 """
 from __future__ import annotations
@@ -13,19 +26,24 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import grouped_matmul_armt_update_ref as \
+    grouped_matmul_armt_update_plain
 from repro_torch.kernels.ref import grouped_matmul_ref as grouped_matmul_plain
 
-launches = 0   # kernel launches since the last reset
+launches = 0         # grouped_matmul launches since the last reset
+fused_launches = 0   # grouped_matmul_armt_update launches since the last reset
 
 _ACT = {None: 0, "silu": 1, "gelu": 2}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def launch(x, w, bias, out, *, wbatch: int = 1, activation=None):
-    """out[i] = act(x[i] @ w[i // wbatch] + bias[i // wbatch]) on the card.
-    x: [G,R,K] with a contiguous last dim; w: [G/wbatch,K,N] contiguous;
-    out: [G,R,N] contiguous, in x.dtype or float32. Returns whether a kernel
-    was launched (nothing is launched for an empty output)."""
+def launch(x, w, bias, out, *, wbatch: int = 1, activation=None, res=None):
+    """out[i] = act(x[i] @ w[i // wbatch] + bias[i // wbatch]) (+ res[i]) on
+    the card, res added to the fp32 accumulator before the cast. x: [G,R,K]
+    and res: [G,R,N], each with a contiguous last dim; w: [G/wbatch,K,N]
+    contiguous; out: [G,R,N] contiguous, in x.dtype or float32. Returns
+    whether a kernel was launched (nothing is launched for an empty
+    output)."""
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"grouped_matmul: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} must be 3-D")
@@ -45,15 +63,19 @@ def launch(x, w, bias, out, *, wbatch: int = 1, activation=None):
     if out.shape != (G, R, N) or not out.is_contiguous() or \
             out.dtype not in (x.dtype, torch.float32):
         raise ValueError(f"grouped_matmul: out {tuple(out.shape)} {out.dtype}")
-    if any(t is not None and t.device != x.device for t in (w, bias, out)):
+    if res is not None and (res.shape != (G, R, N) or res.dtype != x.dtype
+                            or res.stride(2) != 1):
+        raise ValueError(f"grouped_matmul: res {tuple(res.shape)} {res.dtype}")
+    if any(t is not None and t.device != x.device for t in (w, bias, res, out)):
         raise ValueError("grouped_matmul: operands on different devices")
     if G * R * N == 0:
         return False
     code = build.lib().gmm_launch(
         x.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
-        out.data_ptr(), G, R, K, N, x.stride(0), x.stride(1), wbatch,
-        _DTYPE[x.dtype], int(out.dtype == torch.float32), _ACT[activation],
-        build.stream_ptr(x))
+        res.data_ptr() if res is not None else None, out.data_ptr(), G, R, K, N,
+        x.stride(0), x.stride(1), res.stride(0) if res is not None else 0,
+        res.stride(1) if res is not None else 0, wbatch, _DTYPE[x.dtype],
+        int(out.dtype == torch.float32), _ACT[activation], build.stream_ptr(x))
     build.check(code, "grouped_matmul")
     return True
 
@@ -76,6 +98,38 @@ def grouped_matmul(x, w, bias=None, *, activation: str | None = None):
     if launch(x, w, bias, out, activation=activation):
         launches += 1
     return out
+
+
+def grouped_matmul_armt_update(x, w, res, wk, wv, wb, A, z, bias=None, *,
+                               M: int, nu: int = 3):
+    """x: [G,R,K] (rows may be strided; the last dim contiguous); w: [G,K,N]
+    contiguous; res: [G,R,N] in x.dtype (last dim contiguous); bias: [G,N]
+    or None; wk/wv/wb: [N,*] or [G,N,*]; A: [G,P,Dv]; z: [G,P] ->
+    (y [G,R,N] in x.dtype, A', z' in new buffers).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernels
+    or raises."""
+    global fused_launches
+    if x.device.type == "cpu":
+        return grouped_matmul_armt_update_plain(x, w, res, wk, wv, wb, A, z, bias,
+                                                M=M, nu=nu)
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_matmul_armt_update: unsupported device {x.device}")
+    from repro_torch.kernels import armt_memory   # it imports this module
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"grouped_matmul_armt_update: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} must be 3-D")
+    G, R, _ = x.shape
+    if not 0 < M <= R:
+        raise ValueError(f"grouped_matmul_armt_update: M={M} vs {R} rows")
+    y = torch.empty(G, R, w.shape[-1], dtype=x.dtype, device=x.device)
+    mem = y[:, R - M:, :]                   # the memory rows, a strided view
+    dims = armt_memory.check_update(mem, wk, wv, wb, A, z, nu=nu)
+    launched = launch(x, w, bias, y, res=res)
+    A2, z2, _ = armt_memory.launch_update(mem, wk, wv, wb, A, z, dims)
+    if launched:
+        fused_launches += 1
+    return y, A2, z2
 
 
 def project_f32(x, w, batch: int):

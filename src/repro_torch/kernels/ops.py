@@ -1,6 +1,6 @@
-"""Op entry points of the fused grouped cell.
+"""Op entry points of the fused grouped cell and of decode attention.
 
-Each takes the cell's layouts and hands views (no copies) to a kernel
+Each takes the caller's layouts and hands views (no copies) to a kernel
 wrapper. A CPU tensor goes to the kernel's plain version; a CUDA tensor
 goes to the CUDA kernel, or the call raises. There is no other dispatch.
 """
@@ -8,8 +8,9 @@ from __future__ import annotations
 
 from repro_torch.kernels.armt_memory import armt_read as assoc_read
 from repro_torch.kernels.armt_memory import armt_update as assoc_update
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.grouped_matmul import grouped_matmul
+from repro_torch.kernels.grouped_matmul import grouped_matmul, grouped_matmul_armt_update
 
 
 def grouped_gemm(x, w, bias=None, *, activation: str | None = None):
@@ -21,6 +22,23 @@ def grouped_gemm(x, w, bias=None, *, activation: str | None = None):
                              activation=activation)
         return out.reshape(G, B, T, out.shape[-1])
     return grouped_matmul(x, w, bias, activation=activation)
+
+
+def grouped_gemm_armt_update(x, w, res, wk, wv, wb, A, z, bias=None, *,
+                             M: int, nu: int = 3):
+    """The B == 1 cell's down projection with the ARMT update fused in.
+    x: [G,R,K] or the cell layout [G,1,T,K]; res: [G,R,N] / [G,1,T,N];
+    w: [G,K,N] -> (y shaped like res, A', z'), y = res + x @ w (+ bias)
+    and (A, z) updated from the last M rows of each group's y."""
+    if x.dim() == 4:
+        G, B, T, K = x.shape
+        if B != 1:
+            raise ValueError(f"grouped_gemm_armt_update: batch {B} != 1")
+        y, A2, z2 = grouped_matmul_armt_update(
+            x.reshape(G, T, K), w, res.reshape(G, T, res.shape[-1]), wk, wv, wb,
+            A, z, bias, M=M, nu=nu)
+        return y.reshape(res.shape), A2, z2
+    return grouped_matmul_armt_update(x, w, res, wk, wv, wb, A, z, bias, M=M, nu=nu)
 
 
 def segment_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -38,4 +56,5 @@ def segment_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return flash_attention(q, k, v, causal=causal, window=window)
 
 
-__all__ = ["grouped_gemm", "segment_attention", "assoc_read", "assoc_update"]
+__all__ = ["grouped_gemm", "grouped_gemm_armt_update", "segment_attention",
+           "decode_attention", "assoc_read", "assoc_update"]

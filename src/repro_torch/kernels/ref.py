@@ -1,4 +1,6 @@
-"""Plain PyTorch versions of the four kernels of the diagonal prefill.
+"""Plain PyTorch versions of the port's kernels: the four of the diagonal
+prefill, the fused down-projection + ARMT update of the B == 1 cell, and
+single-token decode attention.
 
 Each is the same function as its CUDA kernel, written as framework ops: the
 CPU path of every wrapper, and the oracle each kernel is held against on
@@ -53,6 +55,27 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
+def decode_attention_ref(q, k, v, lengths, *, window: int = 0):
+    """q: [B,Hq,hd]; k/v: [B,S,Hkv,hd] (the KV-cache layout); lengths: [B]
+    (valid prefix, the current token included) -> [B,Hq,hd]. GQA kv head =
+    h // rep, scale hd^-1/2, fp32 softmax over keys [len - window, len) (all
+    of [0, len) when window == 0), P.V in fp32."""
+    B, Hq, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    kh = k.transpose(1, 2).repeat_interleave(rep, dim=1)         # [B,Hq,S,hd]
+    vh = v.transpose(1, 2).repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhd,bhsd->bhs", q, kh).float() * hd ** -0.5
+    kpos = torch.arange(S, device=q.device)[None, None, :]
+    lens = lengths.to(torch.int64)[:, None, None]
+    mask = kpos < lens
+    if window > 0:
+        mask &= kpos > (lens - 1 - window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bhsd->bhd", p, vh.float()).to(q.dtype)
+
+
 def _proj(x, w):
     """x: [N,T,D] @ w: [D,E] (shared) or [G,D,E] (per group, N = G*batch)."""
     if w.dim() == 2:
@@ -85,3 +108,15 @@ def armt_update_ref(m, wk, wv, wb, A, z, *, nu: int = 3):
                                      beta[..., None] * (v - vbar))
     z_new = z.float() + torch.einsum("nm,nmp->np", gamma, pk)
     return A_new.to(A.dtype), z_new.to(z.dtype)
+
+
+def grouped_matmul_armt_update_ref(x, w, res, wk, wv, wb, A, z, bias=None, *,
+                                   M: int, nu: int = 3):
+    """The fused down projection + ARMT update of the B == 1 cell. x:
+    [G,R,K]; w: [G,K,N]; res: [G,R,N] -> (y, A', z'): y = res + x @ w
+    (+ bias), accumulated and summed in fp32 and cast once, then (A, z)
+    delta-updated from the last M rows of each group's y, read after the
+    cast."""
+    y = (grouped_matmul_ref(x.float(), w.float(), bias) + res.float()).to(res.dtype)
+    A2, z2 = armt_update_ref(y[:, -M:, :], wk, wv, wb, A, z, nu=nu)
+    return y, A2, z2

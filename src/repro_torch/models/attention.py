@@ -1,12 +1,13 @@
-"""Attention: GQA self-attention over a segment and the KV-cache decode
-attention, dense path only (the plain reference the flash-attention kernel
-is held against)."""
+"""Attention: GQA self-attention over a segment (the dense plain path the
+flash-attention kernel is held against) and the KV-cache decode attention,
+whose single-token step runs the decode-attention kernel."""
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
 
+from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, rope_cos_sin
 
 NEG_INF = -1e30
@@ -72,29 +73,40 @@ def attention(x, p, cfg):
 def decode_attention(x, p, cfg, cache: Dict, pos):
     """Tq >= 1 queries against a KV cache. x: [B,Tq,D]; pos: Python int
     (tokens already in the cache) or int tensor [B] of per-row positions.
-    Returns (out, new_cache); the input cache is not modified."""
+    Returns (out, new_cache); the input cache is not modified.
+
+    A single token (the serve hot path) goes through ``kops.decode_attention``
+    with per-row lengths pos + 1, which reads only each row's valid cache
+    prefix; a chunk (prompt tail, memory-token flush) takes the masked
+    ``sdpa``, as the reference does."""
     B, Tq, _ = x.shape
     q, k, v = _project_qkv(x, p, cfg)
     S = cache["k"].shape[1]
     ck, cv = cache["k"].clone(), cache["v"].clone()
-    kpos = torch.arange(S, device=x.device)
-    if isinstance(pos, torch.Tensor):
+    per_slot = isinstance(pos, torch.Tensor)
+    if per_slot:
         positions = pos[:, None] + torch.arange(Tq, device=x.device)[None]
         q, k = rope_qk(q, k, cfg, positions)
         rows = torch.arange(B, device=x.device)[:, None]
         ck[rows, positions] = k
         cv[rows, positions] = v
-        qpos = positions[:, :, None]                               # [B,Tq,1]
-        mask = kpos[None, None, :] <= qpos
-        if cfg.sliding_window > 0:
-            mask &= kpos[None, None, :] > (qpos - cfg.sliding_window)
-        mask = mask[:, None]                                       # [B,1,Tq,S]
     else:
-        positions = (pos + torch.arange(Tq, device=x.device))[None]
-        q, k = rope_qk(q, k, cfg, positions)
+        q, k = rope_qk(q, k, cfg, (pos + torch.arange(Tq, device=x.device))[None])
         ck[:, pos:pos + Tq] = k
         cv[:, pos:pos + Tq] = v
-        mask = causal_mask(Tq, S, offset=pos, window=cfg.sliding_window,
-                           device=x.device)
-    o = sdpa(q, ck, cv, mask).reshape(B, Tq, cfg.n_heads * cfg.head_dim)
+    if Tq == 1:
+        lens = ((pos + 1).to(torch.int32) if per_slot else
+                torch.full((B,), pos + 1, dtype=torch.int32, device=x.device))
+        o = kops.decode_attention(q[:, 0], ck, cv, lens, window=cfg.sliding_window)
+    elif per_slot:
+        qpos = positions[:, :, None]                               # [B,Tq,1]
+        kpos = torch.arange(S, device=x.device)[None, None, :]
+        mask = kpos <= qpos
+        if cfg.sliding_window > 0:
+            mask &= kpos > (qpos - cfg.sliding_window)
+        o = sdpa(q, ck, cv, mask[:, None])                         # [B,1,Tq,S]
+    else:
+        o = sdpa(q, ck, cv, causal_mask(Tq, S, offset=pos, window=cfg.sliding_window,
+                                        device=x.device))
+    o = o.reshape(B, Tq, cfg.n_heads * cfg.head_dim)
     return torch.matmul(o, p["wo"]), {"k": ck, "v": cv}

@@ -10,9 +10,16 @@ entry points of ``kernels/ops.py``:
   segment_attention  one causal GQA launch over N = G*B, reading the 5-D
                      layout through strides
   assoc_read/update  ARMT memory (eqs. 3-6) with per-group weights, fp32 state
+  grouped_gemm_armt_update
+                     at B == 1, the down projection with the residual added
+                     before the cast and the memory update from the last M
+                     rows of y, as one op
 
-The down projection and the memory update are two launches (the reference's
-``fuse_epilogue=False`` path, which is also its B > 1 path).
+At B == 1 (every admission, every B = 1 prefill) the memory tokens are the
+last M rows of each group's ``[G, T, D]`` output, so the down projection
+and the update fuse, as in the reference (grouped_blocks.py:186). B > 1
+interleaves batch rows, so there the down projection and ``assoc_update``
+stay two launches, and y is rounded before the residual is added.
 """
 from __future__ import annotations
 
@@ -54,14 +61,19 @@ def make_grouped_apply(cfg):
         h2 = snorm(h, p["ln2"])
         gate = kops.grouped_gemm(h2, pf["wg"], activation="silu")
         up = kops.grouped_gemm(h2, pf["wu"])
-        y = h + kops.grouped_gemm(gate * up, pf["wd"])
-
-        if M > 0:
-            mtok = y[:, :, -M:, :].reshape(N, M, D)
-            A2, z2 = kops.assoc_update(mtok, p["mem"]["wk"], p["mem"]["wv"],
-                                       p["mem"]["wb"], A_f, z_f, nu=nu)
-            new_state["A"] = A2.reshape(state["A"].shape)
-            new_state["z"] = z2.reshape(state["z"].shape)
+        pm = p["mem"]
+        if M > 0 and B == 1:
+            y, A2, z2 = kops.grouped_gemm_armt_update(
+                gate * up, pf["wd"], h, pm["wk"], pm["wv"], pm["wb"], A_f, z_f,
+                M=M, nu=nu)
+        else:
+            y = h + kops.grouped_gemm(gate * up, pf["wd"])
+            if M == 0:
+                return y, new_state
+            A2, z2 = kops.assoc_update(y[:, :, -M:, :].reshape(N, M, D), pm["wk"],
+                                       pm["wv"], pm["wb"], A_f, z_f, nu=nu)
+        new_state["A"] = A2.reshape(state["A"].shape)
+        new_state["z"] = z2.reshape(state["z"].shape)
         return y, new_state
 
     def grouped_apply(t, p, x, state):

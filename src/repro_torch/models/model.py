@@ -10,7 +10,7 @@ tuple with one dict per pattern position whose leaves are stacked over the
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -153,17 +153,21 @@ def embed_segments(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
-                   schedule: str = "diagonal", fused: bool = True):
+                   schedule: str = "diagonal", fused: bool = True,
+                   state0: Optional[Dict] = None):
     """tokens: [B, S*seg_len] -> (hidden [S, B, seg_len, D] with the
     memory-token rows stripped, final executor state).
 
     schedule 'diagonal' runs ``run_diagonal`` with the fused grouped cell
     (``fused=False``: the plain block slot by slot); 'sequential' runs
-    ``run_sequential`` on the plain block."""
+    ``run_sequential`` on the plain block. state0 (the reference's
+    ``init_state``): the executor state to start from, e.g. a final state
+    of an earlier call; zero memory when None."""
     seg_len = min(cfg.armt.segment_len, tokens.shape[1])
     x = embed_segments(params, cfg, tokens, seg_len)
     layout = StackLayout.from_config(cfg)
-    state0 = init_state(cfg, tokens.shape[0], tokens.device)
+    if state0 is None:
+        state0 = init_state(cfg, tokens.shape[0], tokens.device)
     apply = make_apply_block(cfg)
     exec_params = {"prelude": params["prelude"], "pattern": params["pattern"]}
     if schedule == "diagonal":
@@ -247,11 +251,43 @@ def decode_step(params: Dict, cfg: ArchConfig, state: Dict, tokens: torch.Tensor
              "pos": pos + toks.shape[1]})
 
 
-def flush_segment(params: Dict, cfg: ArchConfig, state: Dict) -> Dict:
+def mask_decode_state(mask: torch.Tensor, new_state: Dict, old_state: Dict) -> Dict:
+    """Per-row merge of two decode states: rows where ``mask`` (bool [B]) is
+    True take ``new_state``, the others keep ``old_state``. Pattern leaves
+    are [n_super, B, ...]; a per-slot ``pos`` is [B]."""
+    def sel(n, o, axis):
+        shape = [1] * n.dim()
+        shape[axis] = mask.shape[0]
+        return torch.where(mask.reshape(shape), n, o)
+
+    out = {
+        "prelude": tuple({k: sel(n[k], o[k], 0) for k in n}
+                         for n, o in zip(new_state["prelude"], old_state["prelude"])),
+        "pattern": tuple({k: sel(n[k], o[k], 1) for k in n}
+                         for n, o in zip(new_state["pattern"], old_state["pattern"])),
+    }
+    npos, opos = new_state["pos"], old_state["pos"]
+    if isinstance(npos, torch.Tensor):
+        out["pos"] = torch.where(mask, npos, opos)
+    else:   # a scalar pos is merged only if the whole mask agrees
+        out["pos"] = npos if bool(mask.all()) else opos
+    return out
+
+
+def flush_segment(params: Dict, cfg: ArchConfig, state: Dict,
+                  slot_mask: Optional[torch.Tensor] = None) -> Dict:
     """ARMT segment boundary: run the memory tokens through the stack
     against the current-segment cache (at positions pos..pos+M-1),
-    delta-update every layer's (A, z), then reset the cache and pos of
-    every row."""
+    delta-update every layer's (A, z), then reset the cache and pos.
+
+    slot_mask: optional bool [B]: flush only those rows (decode slots). The
+    flush is computed for every row and merged with ``mask_decode_state``,
+    so the other rows' state, cache and pos stay as they were; it needs a
+    per-slot ``pos`` vector."""
+    if slot_mask is not None and not isinstance(state["pos"], torch.Tensor):
+        raise ValueError("flush_segment(slot_mask=...) needs a per-slot pos vector "
+                         "(decode_state_init(per_slot_pos=True)); a scalar pos "
+                         "cannot be reset per row")
     layout = StackLayout.from_config(cfg)
     mem = params["mem_tokens"]
     batch = state["pattern"][0]["A"].shape[1]
@@ -268,5 +304,8 @@ def flush_segment(params: Dict, cfg: ArchConfig, state: Dict) -> Dict:
     exec_params, exec_state = _exec(params, state)
     _, fin = run_sequential(layout, exec_params, exec_state, x[None], apply)
     pos = state["pos"]
-    return {"prelude": fin["prelude"], "pattern": fin["pattern"],
-            "pos": torch.zeros_like(pos) if isinstance(pos, torch.Tensor) else 0}
+    flushed = {"prelude": fin["prelude"], "pattern": fin["pattern"],
+               "pos": torch.zeros_like(pos) if isinstance(pos, torch.Tensor) else 0}
+    if slot_mask is None:
+        return flushed
+    return mask_decode_state(slot_mask, flushed, state)

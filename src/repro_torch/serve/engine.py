@@ -1,4 +1,6 @@
-"""Serving engine: diagonal prefill, then greedy decode with ARMT flushes.
+"""Serving engine: diagonal prefill, then greedy decode with ARMT flushes;
+``serve`` is the continuous-batching front door over many requests
+(``serve/scheduler.py``).
 
 ``generate(prompts [B, P], max_new)``:
   1. the prompt's full segments run through ``forward_hidden`` under the
@@ -6,8 +8,9 @@
   2. the final recurrent state (A, z) moves into a fresh decode state
      (``_transplant``) and the prompt tail is fed through ``decode_step``,
      flushing at a segment boundary;
-  3. greedy decode: one ``decode_step`` per token, ``flush_segment`` when
-     the in-segment position reaches seg_len.
+  3. greedy decode: one ``decode_step`` per token (its attention on the
+     decode-attention kernel), ``flush_segment`` when the in-segment
+     position reaches seg_len.
 
 Positions are tracked on the host: every ``decode_step`` advances the
 state's position by exactly the tokens fed.
@@ -16,7 +19,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -26,6 +29,7 @@ from repro_torch.core.memory import RECURRENT_KEYS
 from repro_torch.models.model import (decode_state_init, decode_step,
                                       flush_segment, forward_hidden,
                                       last_logits, resolve_device)
+from repro_torch.serve.scheduler import ContinuousScheduler
 
 
 def _transplant(fin: Dict, dstate: Dict) -> Dict:
@@ -138,3 +142,23 @@ class ServeEngine:
             toks, prompts.shape[1] // self.seg_len, finite=bool(finite),
             ttft_s=t_first - t0,
             tok_s=B * max(max_new - 1, 0) / max(t_end - t_first, 1e-9))
+
+    def serve(self, requests: Iterable, *, n_slots: int = 4, chunk: int = 8,
+              max_queue: Optional[int] = None,
+              prefill_groups_per_chunk: int = 0) -> Iterator:
+        """Continuous-batching streaming front door: admit ``Request``s into
+        ``n_slots`` decode slots and yield ``StreamEvent``s as tokens reach
+        the host (once per ``chunk`` decode steps). Rejections (invalid
+        request, session_id, full queue) come back as ``RequestError``
+        events on the same stream.
+
+        Only blocking admission exists: each request is prefilled alone
+        between decode chunks, the reference's ``prefill_groups_per_chunk=0``.
+        Any other value raises, since the resumable prefill pipeline that
+        interleaves admission with decoding is not ported."""
+        if prefill_groups_per_chunk != 0:
+            raise ValueError("only blocking admission is ported: "
+                             "prefill_groups_per_chunk must be 0")
+        sched = ContinuousScheduler(self, n_slots=n_slots, chunk=chunk,
+                                    max_queue=max_queue)
+        return sched.run(requests)

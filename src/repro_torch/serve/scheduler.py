@@ -1,0 +1,319 @@
+"""Continuous-batching scheduler: a fixed pool of decode slots fed from a
+request queue, with blocking admission.
+
+Each slot is one batch row of a pooled decode state (``per_slot_pos``: the
+state's ``pos`` is an int64 [n_slots] vector) and owns that request's ARMT
+memory (A, z) of every layer, its current-segment KV cache and its
+in-segment position, so requests at different segment phases decode
+together in one ``decode_step``.
+
+A request is admitted by prefilling it alone at B = 1 (``ServeEngine.prefill``:
+the diagonal prefill on the fused cell, then the prompt tail) and copying
+the resulting state into a free slot's row; the other slots' rows are not
+touched. Admission blocks: it runs between decode chunks, which is the
+reference's ``prefill_groups_per_chunk=0`` mode. Interleaved admission
+(the resumable prefill pipeline) is not ported.
+
+A decode chunk is ``chunk`` steps of one packed ``decode_step`` over every
+slot. Rows of inactive slots are frozen with ``mask_decode_state``, and
+``flush_segment(slot_mask=...)`` flushes exactly the slots whose position
+reached ``seg_len``. Which slots are active and which cross a boundary at
+each step is known on the host from each slot's position and remaining
+count (``_Slot.pos``, ``_Slot.remaining``): the arithmetic is the one the
+device runs, so the host never reads a device value to decide. The masks
+of a chunk go to the device once, and its tokens come back once, when the
+chunk's events are streamed; slots are freed and requests admitted then.
+
+Requests are pulled from the ``requests`` iterable lazily, between chunks.
+With ``max_queue=None`` (the pull model) nothing is read from the source
+until a slot can take it; a source may ``yield None`` for "nothing ready
+yet". With ``max_queue`` set (the push model) the source is drained into a
+bounded backlog, and overflow is rejected with a ``queue_full`` event.
+Rejections are ``RequestError`` events on the stream; ``run`` does not
+raise for a bad request.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Iterable, Iterator, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import (decode_state_init, decode_step,
+                                      flush_segment, mask_decode_state)
+
+
+@dataclass
+class Request:
+    """One generation request. prompt: int [P] token ids (P >= 1).
+    session_id: sessions are not ported; such a request is rejected."""
+    req_id: Union[int, str]
+    prompt: np.ndarray
+    max_new: int
+    session_id: Optional[str] = None
+
+
+@dataclass
+class StreamEvent:
+    """One generated token, streamed when its chunk reaches the host.
+
+    Host-clock metrics, chunk-granular: ttft_s (from submission, queue wait
+    included) and queue_wait_s on the first and final events; tok_s (tokens
+    over the time since admission) and finite (every logit this request's
+    tokens were taken from was finite) on the final event; t_emit on every
+    event."""
+    req_id: Union[int, str]
+    token: int
+    index: int                  # 0-based position within the request's output
+    done: bool                  # True on the request's final token
+    ttft_s: Optional[float] = None
+    tok_s: Optional[float] = None
+    t_emit: Optional[float] = None
+    queue_wait_s: Optional[float] = None
+    finite: Optional[bool] = None
+
+
+@dataclass
+class RequestError:
+    """Structured rejection streamed in-band. code: 'invalid_request' |
+    'queue_full'."""
+    req_id: Union[int, str]
+    code: str
+    message: str
+
+
+@dataclass
+class _Slot:
+    req_id: Optional[Union[int, str]] = None
+    remaining: int = 0
+    index: int = 0
+    active: bool = False
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+    t_first: Optional[float] = None
+    # host mirror of the slot's in-segment position: seeded by the
+    # admission, one step per emitted token, reset at seg_len, as
+    # decode_step and the masked flush_segment move it on the device
+    pos: int = 0
+
+
+class ContinuousScheduler:
+    """Drives a ServeEngine over many requests with continuous batching."""
+
+    def __init__(self, engine, *, n_slots: int = 4, chunk: int = 8,
+                 max_queue: Optional[int] = None):
+        if n_slots < 1 or chunk < 1:
+            raise ValueError(f"n_slots {n_slots} and chunk {chunk} must be >= 1")
+        self.engine = engine
+        self.n_slots = n_slots
+        self.chunk = chunk
+        self.max_queue = max_queue
+        dev = engine.device
+        self.pool = decode_state_init(engine.cfg, n_slots,
+                                      dtype=engine.params["embed"].dtype,
+                                      device=dev, per_slot_pos=True)
+        self.tok = torch.zeros(n_slots, dtype=torch.long, device=dev)   # next input
+        self.finite = torch.ones(n_slots, dtype=torch.bool, device=dev)
+        self.slots = [_Slot() for _ in range(n_slots)]
+        self.free: deque = deque(range(n_slots))
+
+    # ------------------------------------------------------------------
+    # Admission
+    # ------------------------------------------------------------------
+
+    def _validate(self, req: Request) -> Optional[RequestError]:
+        prompt = np.asarray(req.prompt)
+        if req.max_new < 1:
+            return RequestError(req.req_id, "invalid_request",
+                                f"max_new must be >= 1, got {req.max_new}")
+        if prompt.ndim != 1 or prompt.shape[0] < 1:
+            return RequestError(req.req_id, "invalid_request",
+                                f"prompt must be a [P>=1] id vector, got "
+                                f"shape {prompt.shape}")
+        if req.session_id is not None:
+            return RequestError(req.req_id, "invalid_request",
+                                "request carries a session_id but the "
+                                "engine has no session_store")
+        return None
+
+    @torch.no_grad()
+    def _admit(self, req: Request, t_submit: float) -> Optional[RequestError]:
+        """Prefill the request alone (B = 1) and install it in a free slot;
+        other slots' rows are untouched. Returns a RequestError instead of
+        admitting when the request is rejected."""
+        err = self._validate(req)
+        if err is not None:
+            return err
+        t_admit = time.perf_counter()
+        prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long)
+        slot = self.free.popleft()
+        logits, one_state, pos = self.engine.prefill(prompt[None])
+        self._install(slot, req, logits, one_state, pos, t_submit, t_admit)
+        return None
+
+    def _install(self, slot: int, req: Request, logits, one_state, pos: int,
+                 t_submit: float, t_admit: float) -> None:
+        """Copy a B = 1 decode state into row ``slot`` of the pool, in place,
+        with its first token and position."""
+        for axis, part in ((0, "prelude"), (1, "pattern")):
+            for dst, src in zip(self.pool[part], one_state[part]):
+                for k, leaf in dst.items():
+                    leaf.select(axis, slot).copy_(src[k].select(axis, 0))
+        self.pool["pos"][slot] = pos
+        self.tok[slot] = logits[0].argmax(-1)
+        self.finite[slot] = torch.isfinite(logits).all()
+        s = self.slots[slot]
+        s.req_id, s.remaining, s.index, s.active = req.req_id, req.max_new, 0, True
+        s.t_submit, s.t_admit, s.t_first = t_submit, t_admit, None
+        s.pos = int(pos)
+
+    # ------------------------------------------------------------------
+    # Decode
+    # ------------------------------------------------------------------
+
+    def _plan_chunk(self):
+        """Host masks of the next chunk, [chunk, n_slots] each: which slots
+        decode at each step, and which of those reach seg_len and flush."""
+        seg_len = self.engine.seg_len
+        active = np.zeros((self.chunk, self.n_slots), bool)
+        boundary = np.zeros((self.chunk, self.n_slots), bool)
+        for b, s in enumerate(self.slots):
+            if not s.active:
+                continue
+            pos = s.pos
+            for t in range(min(self.chunk, s.remaining)):
+                active[t, b] = True
+                pos += 1
+                if pos >= seg_len:
+                    boundary[t, b] = True
+                    pos = 0
+        return active, boundary
+
+    @torch.no_grad()
+    def _run_chunk(self):
+        """``chunk`` greedy steps of the packed decode over every slot ->
+        (the step inputs [chunk, n_slots] on the device, the emit mask on
+        the host). A step in which no slot is active changes nothing and is
+        skipped."""
+        eng = self.engine
+        active, boundary = self._plan_chunk()
+        masks = torch.from_numpy(np.stack([active, boundary])).to(eng.device)
+        toks = []
+        for t in range(self.chunk):
+            toks.append(self.tok)
+            if not active[t].any():
+                continue
+            act = masks[0, t]
+            logits, new = decode_step(eng.params, eng.cfg, self.pool, self.tok)
+            if not active[t].all():
+                new = mask_decode_state(act, new, self.pool)
+            if boundary[t].any():
+                new = flush_segment(eng.params, eng.cfg, new,
+                                    slot_mask=None if boundary[t].all() else masks[1, t])
+            self.pool = new
+            self.finite &= torch.isfinite(logits).all(-1) | ~act
+            self.tok = torch.where(act, logits.argmax(-1), self.tok)
+        return torch.stack(toks), active
+
+    def _drain_chunk(self, toks, active) -> Iterator[StreamEvent]:
+        """Bring one chunk's tokens (and the slots' finite flags) to the host
+        in one transfer and stream their events."""
+        host = torch.cat([toks, self.finite[None].long()]).cpu().numpy()
+        toks_np, finite = host[:-1], host[-1].astype(bool)
+        now = time.perf_counter()
+        seg_len = self.engine.seg_len
+        for t in range(self.chunk):
+            for b, s in enumerate(self.slots):
+                if not active[t, b] or not s.active:
+                    continue
+                s.remaining -= 1
+                done = s.remaining == 0
+                tok = int(toks_np[t, b])
+                # the emitted token was the step's input: pos moved by one,
+                # and the chunk flushed the slot when it reached seg_len
+                s.pos += 1
+                if s.pos >= seg_len:
+                    s.pos = 0
+                first = s.t_first is None
+                if first:
+                    s.t_first = now
+                ev = StreamEvent(s.req_id, tok, s.index, done, t_emit=now)
+                if first or done:
+                    ev.queue_wait_s = s.t_admit - s.t_submit
+                if first:
+                    ev.ttft_s = now - s.t_submit
+                if done:
+                    ev.ttft_s = s.t_first - s.t_submit
+                    ev.tok_s = (s.index + 1) / max(now - s.t_admit, 1e-9)
+                    ev.finite = bool(finite[b])
+                yield ev
+                s.index += 1
+                if done:
+                    s.active = False
+                    self.free.append(b)
+
+    # ------------------------------------------------------------------
+    # Driver
+    # ------------------------------------------------------------------
+
+    def run(self, requests: Iterable[Request]) -> Iterator[
+            Union[StreamEvent, RequestError]]:
+        """Generator: pulls requests lazily, admits them as slots free up,
+        and yields one StreamEvent per generated token (chunk-granular
+        latency) plus a RequestError for each rejected request."""
+        it = iter(requests)
+        exhausted = False
+
+        def pull() -> Optional[Request]:
+            # None when the source is exhausted or yielded None ("nothing
+            # ready yet"); `exhausted` tells the two apart
+            nonlocal exhausted
+            if exhausted:
+                return None
+            try:
+                return next(it)
+            except StopIteration:
+                exhausted = True
+                return None
+
+        queue: deque = deque()           # (request, t_submit at pull)
+        while True:
+            while self.free and queue:
+                req, t_sub = queue.popleft()
+                err = self._admit(req, t_sub)
+                if err is not None:
+                    yield err
+            while not exhausted:
+                can_start = bool(self.free) and not queue
+                if not can_start and self.max_queue is None:
+                    break                # pull model: backpressure by not pulling
+                if (not can_start and self.max_queue is not None
+                        and len(queue) >= self.max_queue + len(self.free)):
+                    req = pull()
+                    if req is None:
+                        break
+                    yield RequestError(
+                        req.req_id, "queue_full",
+                        f"all {self.n_slots} slots busy and queue limit "
+                        f"{self.max_queue} reached")
+                    continue
+                req = pull()
+                if req is None:
+                    break
+                t_sub = time.perf_counter()
+                if can_start:
+                    err = self._admit(req, t_sub)
+                    if err is not None:
+                        yield err
+                else:
+                    queue.append((req, t_sub))
+
+            if any(s.active for s in self.slots):
+                yield from self._drain_chunk(*self._run_chunk())
+            elif not queue and exhausted:
+                return
+            elif not queue:
+                time.sleep(1e-3)         # a live source with nothing ready

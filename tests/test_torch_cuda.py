@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, at
-small odd shapes: ragged rows and columns on the tensor-core paths, and the
-fp32 paths. Needs a CUDA device and nvcc; skips without a card. This file
+small odd shapes: ragged rows and columns on the tensor-core paths, ragged
+cache lengths and windows for decode attention, and the fp32 paths. Needs a CUDA device and nvcc; skips without a card. This file
 imports no JAX; with ``--noconftest`` (tests/conftest.py imports JAX) it
 runs on a machine that has only PyTorch:
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``."""
@@ -86,3 +86,46 @@ def test_armt_memory_on_card(cuda, dtype):
     for got, want in zip(armt_memory.armt_update(m, wk, wv, wb, A, z),
                          armt_memory.armt_update_plain(*_f32(m, wk, wv, wb), A, z)):
         _close(got, want, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,S,hd,lens,window", [
+    (4, 32, 8, 1152, 64, (1024, 517, 1, 1152), 0),   # main path: rep 4, lengths 1 and S
+    (3, 4, 4, 77, 64, (77, 40, 1), 0),               # rep 1, ragged cache length
+    (2, 8, 2, 100, 40, (100, 63), 17),               # hd 40, sliding window
+    (2, 4, 1, 33, 128, (33, 5), 9),                  # MQA, hd 128, window past the start
+])
+def test_decode_attention_on_card(cuda, dtype, B, Hq, Hkv, S, hd, lens, window):
+    from repro_torch.kernels import decode_attention as da
+    r = _rand(torch.Generator().manual_seed(S + hd), cuda, dtype)
+    q = r(B, Hq, hd)
+    cache = r(B, S, 2 * Hkv, hd)               # k and v interleaved: strided views
+    k, v = cache[:, :, :Hkv], cache[:, :, Hkv:]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    _close(da.decode_attention(q, k, v, lengths, window=window),
+           da.decode_attention_plain(*_f32(q, k, v), lengths, window=window), TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,R,K,N,M,bias", [(3, 37, 48, 40, 5, True),     # mma path in bf16
+                                            (2, 130, 72, 56, 128, False),  # rows past a 128-row tile
+                                            (2, 21, 50, 24, 7, False)])    # ragged K
+def test_grouped_matmul_armt_update_on_card(cuda, dtype, G, R, K, N, M, bias):
+    g = torch.Generator().manual_seed(R + K)
+    r = _rand(g, cuda, dtype)
+    x, w, res = r(G, R, K), r(G, K, N, sc=K ** -0.5), r(G, R, N)
+    b = r(G, N) if bias else None
+    wk, wv, wb = r(G, N, 8, sc=0.3), r(G, N, 32, sc=0.3), r(G, N, 1, sc=0.3)
+    A = (torch.randn(G, 48, 32, generator=g) * 0.1).to(cuda)
+    z = torch.rand(G, 48, generator=g).to(cuda)
+    y, A2, z2 = grouped_matmul.grouped_matmul_armt_update(x, w, res, wk, wv, wb, A, z, b,
+                                                          M=M)
+    want = grouped_matmul.grouped_matmul_armt_update_plain(
+        *_f32(x, w, res, wk, wv, wb), A, z, None if b is None else b.float(), M=M)
+    _close(y, want[0], TOL[dtype])
+    # the update is held on the kernel's own y rows, so only its rounding counts
+    for got, ref in zip((A2, z2), armt_memory.armt_update_plain(
+            *_f32(y[:, -M:], wk, wv, wb), A, z)):
+        _close(got, ref, 1e-4)

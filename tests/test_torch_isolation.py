@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -31,7 +32,8 @@ def test_port_imports_without_jax_or_reference():
 
 
 def test_no_source_names_jax_or_the_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "tools").glob("*.py")))
     assert len(files) > 10
     offenders = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
                  for f in files
@@ -45,11 +47,16 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a CUDA device is present: the default device is valid")
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import init_params
-    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import Request, ServeEngine
     cfg = get_smoke_config("llama-1b-armt")
     with pytest.raises(RuntimeError, match="CUDA"):
         init_params(cfg, 0)
     params = init_params(cfg, 0, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(params, cfg)
-    assert ServeEngine(params, cfg, device="cpu").device.type == "cpu"
+    engine = ServeEngine(params, cfg, device="cpu")
+    assert engine.device.type == "cpu"
+    # serve runs where its engine runs: the CPU only when the engine was
+    # asked for it
+    events = list(engine.serve([Request(0, np.arange(5), 3)], n_slots=1, chunk=2))
+    assert [e.index for e in events] == [0, 1, 2] and events[-1].done

@@ -161,6 +161,66 @@ def test_armt_plain_matches_pallas_interpret(N, T, D, dm, Dv, M, G):
     _close(zj, zt)
 
 
+# ------------------------------------------- fused down projection + update
+# (G, R, K, N, dm, Dv, M, bias, shared wk)
+FUSED_CASES = [(3, 21, 24, 16, 4, 16, 5, True, False),   # ragged rows
+               (2, 40, 32, 24, 8, 24, 40, False, True),  # every row a memory row
+               (4, 9, 16, 32, 4, 32, 3, False, False)]
+
+
+def _fused_inputs(seed, G, R, K, N, dm, Dv, M, bias, shared):
+    rng = np.random.default_rng(seed)
+    P = 6 * dm
+    return dict(x=_f(rng, G, R, K), w=_f(rng, G, K, N, scale=K ** -0.5),
+                res=_f(rng, G, R, N),
+                wk=_f(rng, *(() if shared else (G,)), N, dm, scale=0.3),
+                wv=_f(rng, G, N, Dv, scale=0.3), wb=_f(rng, G, N, 1, scale=0.3),
+                A=_f(rng, G, P, Dv, scale=0.1),
+                z=rng.uniform(size=(G, P)).astype(np.float32),
+                bias=_f(rng, G, N) if bias else None)
+
+
+@pytest.mark.parametrize("G,R,K,N,dm,Dv,M,bias,shared", FUSED_CASES)
+def test_grouped_matmul_armt_update_plain_matches_reference(G, R, K, N, dm, Dv, M,
+                                                            bias, shared):
+    """y, A' and z' of the plain version against the reference oracle and
+    the Pallas kernel in interpret mode."""
+    a = _fused_inputs(G * R + N, G, R, K, N, dm, Dv, M, bias, shared)
+    names = ("x", "w", "res", "wk", "wv", "wb", "A", "z", "bias")
+    j = [None if a[k] is None else J_(a[k]) for k in names]
+    got = ref.grouped_matmul_armt_update_ref(
+        *[None if a[k] is None else T_(a[k]) for k in names], M=M)
+    for want in (jref.grouped_matmul_armt_update_ref(*j, M=M),
+                 jops.grouped_gemm_armt_update(*j, M=M, use_kernel=True,
+                                               interpret=True)):
+        for w_, g_ in zip(want, got):
+            _close(w_, g_)
+
+
+def test_grouped_gemm_armt_update_cell_layout():
+    """The [G,1,T,K] cell layout is the flattened [G,T,K] op, and the y part
+    equals res + x @ w summed in fp32."""
+    a = _fused_inputs(4, 2, 11, 16, 8, 4, 8, 3, True, False)
+    t = {k: T_(v) for k, v in a.items()}
+    before = grouped_matmul.fused_launches
+    y4, A4, z4 = ops.grouped_gemm_armt_update(
+        t["x"][:, None], t["w"], t["res"][:, None], t["wk"], t["wv"], t["wb"], t["A"],
+        t["z"], t["bias"], M=3)
+    assert grouped_matmul.fused_launches == before
+    y, A2, z2 = grouped_matmul.grouped_matmul_armt_update(
+        t["x"], t["w"], t["res"], t["wk"], t["wv"], t["wb"], t["A"], t["z"], t["bias"],
+        M=3)
+    assert y4.shape == (2, 1, 11, 8)
+    for got, want in ((y4[:, 0], y), (A4, A2), (z4, z2)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(
+        y, t["res"] + grouped_matmul.grouped_matmul_plain(t["x"], t["w"], t["bias"]))
+    with pytest.raises(ValueError, match="batch"):
+        ops.grouped_gemm_armt_update(t["x"].reshape(2, 1, 11, 16).expand(2, 2, 11, 16),
+                                     t["w"], t["res"][:, None].expand(2, 2, 11, 8),
+                                     t["wk"], t["wv"], t["wb"], t["A"], t["z"], M=3)
+
+
 # ---------------------------------------------------------------- device rule
 def test_wrappers_raise_off_cpu_and_cuda():
     """Only a CPU tensor may take the plain version; any other non-CUDA
@@ -179,6 +239,11 @@ def test_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError):
         armt_memory.armt_update(x, *[torch.empty(8, e, **meta) for e in (2, 8, 1)],
                                 torch.empty(2, 12, 8, **meta), torch.empty(2, 12, **meta))
+    with pytest.raises(ValueError):
+        grouped_matmul.grouped_matmul_armt_update(
+            x, torch.empty(2, 8, 4, **meta), torch.empty(2, 4, 4, **meta),
+            *[torch.empty(4, e, **meta) for e in (2, 4, 1)], torch.empty(2, 12, 4, **meta),
+            torch.empty(2, 12, **meta), M=2)
 
 
 def test_cpu_path_counts_no_launch():
@@ -216,3 +281,22 @@ def test_source_hash_tracks_sources():
     h = build.source_hash()
     assert h == build.source_hash() and len(h) == 16
     assert build.BUILD_ROOT.name == "kernels" and build.BUILD_ROOT.parent.name == "build"
+
+
+def test_swap_replaces_ops_entries_inside_the_block_only():
+    """kernels/swap: the checks on the card replace ops entry points for a
+    block (negative controls, the plain versions as a second rounding) and
+    must leave the module as it was, also when the block raises."""
+    from repro_torch.kernels import swap
+    before = {k: getattr(ops, k) for k in swap.PLAIN}
+    assert set(swap.PLAIN) <= set(vars(ops))
+    with pytest.raises(RuntimeError):
+        with swap.plain_versions():
+            assert all(getattr(ops, k) is v for k, v in swap.PLAIN.items())
+            raise RuntimeError
+    assert {k: getattr(ops, k) for k in swap.PLAIN} == before
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 5, 8)).astype(np.float32))
+    w = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 8, 3)).astype(np.float32))
+    with swap.replaced(grouped_matmul=lambda x, w, *a, **k: 2 * torch.matmul(x, w)):
+        torch.testing.assert_close(ops.grouped_gemm(x, w), 2 * torch.matmul(x, w))
+    torch.testing.assert_close(ops.grouped_gemm(x, w), torch.matmul(x, w))

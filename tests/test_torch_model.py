@@ -108,6 +108,27 @@ def test_fused_cell_matches_reference_grouped_cell():
     _close(js["z"], ts["z"])
 
 
+def test_fused_cell_at_batch_one_matches_reference_fused_update():
+    """At B = 1 both cells run the down projection with the ARMT update
+    fused (the reference's grouped_matmul_armt_update in interpret mode,
+    the port's grouped_gemm_armt_update on the CPU)."""
+    jc, tc, jp, tp = _model()
+    rng = np.random.default_rng(3)
+    G, T = jc.n_layers, jc.armt.segment_len + jc.armt.num_mem_tokens
+    x = rng.standard_normal((G, 1, T, jc.d_model)).astype(np.float32)
+    P = 6 * jc.armt.d_mem
+    st = {"A": (rng.standard_normal((G, 1, P, jc.d_model)) * 0.1).astype(np.float32),
+          "z": rng.uniform(size=(G, 1, P)).astype(np.float32)}
+    jy, js = j_grouped(jc, use_kernel=True, interpret=True)(
+        "attn", jp["pattern"][0], jnp.asarray(x),
+        {k: jnp.asarray(v) for k, v in st.items()})
+    ty, ts = t_grouped(tc)("attn", tp["pattern"][0], torch.from_numpy(x),
+                           {k: torch.from_numpy(v) for k, v in st.items()})
+    _close(jy, ty)
+    _close(js["A"], ts["A"])
+    _close(js["z"], ts["z"])
+
+
 @pytest.mark.parametrize("S", [1, 3])
 def test_sequential_matches_reference(S):
     jc, tc, jp, tp = _model()
@@ -153,6 +174,26 @@ def test_diagonal_equals_sequential_in_port(n_layers, S):
                                atol=0, rtol=0)
     torch.testing.assert_close(df["pattern"][0]["z"], sf["pattern"][0]["z"],
                                atol=ATOL, rtol=2e-3)
+
+
+@pytest.mark.parametrize("schedule", ["sequential", "diagonal"])
+def test_resume_from_state_matches_reference(schedule):
+    """forward_hidden from a given executor state (the reference's
+    init_state): the second and third segments started from the state the
+    reference's sequential executor left after the first."""
+    jc, tc, jp, tp = _model()
+    seg = jc.armt.segment_len
+    toks = _tokens(31, 2, 3 * seg, jc.vocab)
+    _, jf1 = jmodel.forward_hidden(jp, jc, jnp.asarray(toks[:, :seg]), schedule="sequential")
+    kw = {"grouped_impl": "vmap"} if schedule == "diagonal" else {}
+    jh, jf = jmodel.forward_hidden(jp, jc, jnp.asarray(toks[:, seg:]), schedule=schedule,
+                                   init_state=jf1, **kw)
+    th, tf = tmodel.forward_hidden(
+        tp, tc, torch.from_numpy(toks[:, seg:]), schedule=schedule,
+        state0=state_from_jax(jax.tree_util.tree_map(np.asarray, jf1), "cpu"))
+    _close(jh, th)
+    for k in ("A", "z"):
+        _close(jf["pattern"][0][k], tf["pattern"][0][k], rtol=2e-3)
 
 
 def test_model_module_holds_the_tree():
