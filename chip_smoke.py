@@ -8,7 +8,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
   (b) kernels: each kernel against its plain PyTorch version on the card,
       at the shapes the llama-1b-armt main path gives it (the diagonal
       prefill's band of G = 16 layers, B = 1, T = 1024 + 128; decode over 4
-      slots of a 1152-row cache; bf16) and at small odd shapes;
+      slots of a 1152-row cache; bf16), mamba_scan at falcon-mamba's (the
+      band of 16 layers at T = 1024, d_inner 8192, d_state 16; decode over
+      4 rows), and at small odd shapes;
       error against a stated tolerance, and median CUDA-event times of the
       kernel, the plain version and, where one exists, a single PyTorch
       call computing the same function (a yardstick the port never calls);
@@ -38,9 +40,27 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       B = 1 generate of its prompt; and serve at smoke size (fp32) on the
       card against the CPU path, token for token.
 
-The kernels' launch counters are set to 0 just before (d) and again just
-before (e), and read just after each; every kernel must have been launched
-in (d), and every kernel but armt_update (which runs only at B > 1) in (e).
+  (f) falcon-mamba-7b at full width and depth (random weights from a seed,
+      bf16): the 16-segment prefill, diagonal on the kernels against the
+      sequential schedule on the kernels (every segment's hidden states and
+      last-token logits, every layer's final h), with the mamba_scan
+      launches counted (S + L - 1 band steps) and those of one decoded
+      token (one per layer); 2 segments against the sequential plain path,
+      printed in bf16 beside the bf16 stack's own rounding floor, and gated
+      on the same weights in fp32 at 1e-3, with two negative controls on
+      the kernel path (dt x1.02 into the scan, the scan's y x0.98) that the
+      check must reject; the smoke config in fp32, card against CPU;
+  (g) ServeEngine(max_len=8192).generate: B = 1 on 2 x 8192 + 1000 tokens
+      (48 new), repeated bit for bit, and B = 2 on 8192 + 500 (32 new);
+      smoke config card vs CPU, token for token;
+  (h) ServeEngine.serve: 6 requests of 8,192-17,384 tokens on 4 slots,
+      chunk 8, each first token against a B = 1 generate; smoke config
+      card vs CPU.
+
+The kernels' launch counters are set to 0 just before each of (d), (e),
+(g) and (h) and read just after it: every llama kernel must have been
+launched in (d), every one but armt_update (which runs only at B > 1) in
+(e), and mamba_scan in (g) and in (h).
 The script prints one JSON line per kernel summary, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before that line; without a CUDA device it exits 2.
@@ -61,6 +81,8 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BF16 = 989e12      # tensor-core flop/s, bf16 inputs
 PEAK_FP32 = 67e12       # CUDA-core flop/s, fp32
 PEAK_BYTES = 3.35e12    # HBM bytes/s
+N_SM = 132
+SFU_PER_CLOCK_SM = 16   # special-function unit results (exp2) per clock per SM
 SEED = 0
 
 
@@ -83,7 +105,7 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import (armt_memory, build, decode_attention, flash_attention,
-                                     grouped_matmul, ops, swap)
+                                     grouped_matmul, mamba_scan, ops, swap)
     from repro_torch.models import model as M
     from repro_torch.serve import Request, RequestError, ServeEngine
 
@@ -92,7 +114,11 @@ def main() -> int:
                 "armt_read": (armt_memory, "read_launches"),
                 "armt_update": (armt_memory, "update_launches"),
                 "grouped_matmul_armt_update": (grouped_matmul, "fused_launches"),
-                "decode_attention": (decode_attention, "launches")}
+                "decode_attention": (decode_attention, "launches"),
+                "mamba_scan": (mamba_scan, "launches")}
+    # the kernels each model's path runs
+    llama_kernels = [k for k in counters if k != "mamba_scan"]
+    falcon_kernels = ["mamba_scan"]
 
     def reset_counts():
         for mod, attr in counters.values():
@@ -106,6 +132,12 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = nvidia_smi()
     log(f"card: {smi}")
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]) * 1e6
+    sfu_rate = SFU_PER_CLOCK_SM * N_SM * clock_hz
+    log(f"max SM clock {clock_hz / 1e6:.0f} MHz: {sfu_rate / 1e12:.3f} T exponentials/s "
+        f"({SFU_PER_CLOCK_SM} per clock per SM, {N_SM} SMs)")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     build.lib()
@@ -133,8 +165,9 @@ def main() -> int:
             ts.append(a.elapsed_time(b))
         return float(np.median(ts))
 
-    def bound(flops_bf16=0.0, flops_fp32=0.0, nbytes=0.0):
-        ops_t = flops_bf16 / PEAK_BF16 + flops_fp32 / PEAK_FP32
+    def bound(flops_bf16=0.0, flops_fp32=0.0, nbytes=0.0, exps=0.0):
+        # exponentials run on the special-function units, beside the FMA pipe
+        ops_t = max(flops_bf16 / PEAK_BF16 + flops_fp32 / PEAK_FP32, exps / sfu_rate)
         byte_t = nbytes / PEAK_BYTES
         return max(ops_t, byte_t) * 1e3, ("operations" if ops_t >= byte_t else "bytes")
 
@@ -399,6 +432,50 @@ def main() -> int:
                   decode_attention.decode_attention_plain(qo.float(), ko.float(), vo.float(),
                                                           Lo, window=win),
                   TOL_F32 if dtype == torch.float32 else TOL_BF16)
+
+    # mamba_scan: the falcon-mamba band step (G = 16 layers, B = 1, T = 1024,
+    # d_inner 8192, d_state 16; x bf16, B/C column slices of the fp32 x_proj
+    # output, dt ~ softplus(N(0,1) - 4.6) as the model's), each group its own
+    # A_log and D so a wrong group index shows; then decode (4 rows, T = 1)
+    # and odd shapes. y and hT are held in fp32 at 1e-4.
+    def scan_inputs(N, T, dI, dS, G, xdtype, lead=256):
+        xs = rnd(N, T, dI, scale=0.5, dtype=xdtype)
+        dts = torch.nn.functional.softplus(rnd(N, T, dI, dtype=torch.float32) - 4.6)
+        proj = rnd(N, T, lead + 2 * dS, scale=0.5, dtype=torch.float32)
+        A_log = torch.log(torch.arange(1, dS + 1, dtype=torch.float32)
+                          * (torch.rand(G, dI, dS, generator=gen) + 0.5)).to(dev)
+        Ds, h0 = rnd(G, dI, dtype=torch.float32), rnd(N, dI, dS, scale=0.1, dtype=torch.float32)
+        if G == 1:
+            A_log, Ds = A_log[0], Ds[0]
+        return (xs, dts, proj[..., lead:lead + dS], proj[..., lead + dS:], A_log.contiguous(),
+                Ds.contiguous(), h0)
+
+    def scan_check(name, args):
+        got = mamba_scan.mamba_scan(*args)
+        return check(name, got, mamba_scan.mamba_scan_plain(args[0].float(), *args[1:]),
+                     TOL_F32)
+    Nm, Tm, dIm, dSm = 16, 1024, 8192, 16
+    band = scan_inputs(Nm, Tm, dIm, dSm, Nm, torch.bfloat16)
+    err = scan_check(f"mamba_scan band x[{Nm},{Tm},{dIm}] bf16 dS {dSm}, y and hT", band)
+    steps = float(Nm * Tm * dIm)
+    t = timed(f"mamba_scan band [{Nm},{Tm},{dIm}] dS {dSm}",
+              lambda: mamba_scan.mamba_scan(*band), lambda: mamba_scan.mamba_scan_plain(*band),
+              flops_fp32=steps * (6 * dSm + 3), exps=steps * dSm,
+              nbytes=steps * (2 + 4 + 4) + 4.0 * Nm * Tm * 2 * dSm + 4.0 * Nm * dIm * (dSm + 1)
+              + 2 * 4.0 * Nm * dIm * dSm)
+    summary["mamba_scan"] = dict(t, max_abs_err=err,
+                                 shape=f"x[{Nm},{Tm},{dIm}] bf16 dS {dSm}, {Nm} groups")
+    del band
+    dec = scan_inputs(4, 1, dIm, dSm, 1, torch.bfloat16)
+    scan_check(f"mamba_scan decode x[4,1,{dIm}] bf16", dec)
+    t_dec = time_ms(lambda: mamba_scan.mamba_scan(*dec))
+    log(f"  mamba_scan decode [4,1,{dIm}]: kernel {t_dec:.4f} ms per launch")
+    for dtype, (n_, t_, di_, ds_, g_) in [(torch.float32, (2, 37, 200, 4, 1)),
+                                          (torch.bfloat16, (2, 37, 200, 4, 1)),
+                                          (torch.bfloat16, (6, 50, 130, 8, 3)),
+                                          (torch.float32, (3, 1, 70, 16, 3))]:
+        scan_check(f"mamba_scan odd {dtype} x[{n_},{t_},{di_}] dS {ds_} groups {g_}, strided "
+                   "B/C", scan_inputs(n_, t_, di_, ds_, g_, dtype, lead=3))
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ (c) model
@@ -603,8 +680,8 @@ def main() -> int:
                 failures.append("generate B=1 not reproducible")
     launches_gen = read_counts()
     log(f"  launches in the generate phase: {launches_gen}")
-    for name, n in launches_gen.items():
-        if n == 0:
+    for name in llama_kernels:
+        if launches_gen[name] == 0:
             failures.append(f"{name} never launched by generate")
 
     scfg = get_smoke_config("llama-1b-armt")
@@ -636,8 +713,8 @@ def main() -> int:
     t_serve = time.perf_counter() - t0
     launches_serve = read_counts()
     log(f"  launches in the serve phase: {launches_serve}")
-    for name, n in launches_serve.items():
-        if n == 0 and name != "armt_update":   # armt_update runs at B > 1 only
+    for name in llama_kernels:
+        if launches_serve[name] == 0 and name != "armt_update":   # B > 1 only
             failures.append(f"{name} never launched by serve")
     errors = [e for e in events if isinstance(e, RequestError)]
     n_tok = len(events) - len(errors)
@@ -677,6 +754,231 @@ def main() -> int:
     if not same:
         failures.append("smoke serve card vs cpu")
 
+    del sp, sp_gpu
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ (f) falcon-mamba model
+    log("== model phase: falcon-mamba-7b, full width and depth, bf16, seed 0")
+    fcfg = get_config("falcon-mamba-7b")
+    t0 = time.perf_counter()
+    fparams = M.init_params(fcfg, SEED, device=dev)
+    sync()
+    n_par = sum(t.numel() for t in M.Model(fcfg, fparams).buffers())
+    log(f"  init_params: {n_par / 1e9:.3f} B parameters in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    fseg, L = M.DEFAULT_SEG_LEN, fcfg.n_layers
+    ftoks = torch.from_numpy(rng.integers(0, fcfg.vocab, (1, 16 * fseg))).to(dev)
+
+    def frun(schedule, tk, p=None):
+        """hidden [S,1,T,D], every layer's final h [L,1,dI,dS], last-token
+        logits per segment [S,1,V]."""
+        p = fparams if p is None else p
+        with torch.no_grad():
+            h, fin = M.forward_hidden(p, fcfg, tk, schedule=schedule)
+            return h, fin["pattern"][0]["h"], seg_logits(p, fcfg, h)
+
+    tol_mamba = 5e-2
+
+    def mamba_errors(got, want, tol=tol_mamba):
+        """Per-segment rel err of the hidden states (every position) and of
+        the last-token logits, per-layer rel err of the final h; within tol
+        and finite?"""
+        (hd, Hd, ld), (hs, Hs, ls) = got, want
+        errs = {"hidden": [rel_err(hd[i], hs[i]) for i in range(hd.shape[0])],
+                "logits": [rel_err(ld[i], ls[i]) for i in range(ld.shape[0])],
+                "h": [rel_err(Hd[j], Hs[j]) for j in range(Hd.shape[0])]}
+        finite = all(torch.isfinite(t).all().item() for t in (hd, Hd, ld))
+        return errs, finite and max(max(v) for v in errs.values()) <= tol
+
+    def worst(errs):
+        return ", ".join(f"{k} {max(v):.3e}" for k, v in errs.items())
+
+    frun("diagonal", ftoks[:, :2 * fseg])           # warm-up
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    diag16 = frun("diagonal", ftoks)
+    sync()
+    t_fdiag = time.perf_counter() - t0
+    prefill_launches = mamba_scan.launches
+    t0 = time.perf_counter()
+    seq16 = frun("sequential", ftoks)
+    sync()
+    t_fseq = time.perf_counter() - t0
+    errs, ok = mamba_errors(diag16, seq16)
+    log(f"  16-segment prefill ({16 * fseg} tokens): diagonal on kernels {t_fdiag:.3f} s, "
+        f"sequential on kernels {t_fseq:.3f} s; mamba_scan launches in the diagonal "
+        f"prefill {prefill_launches} (S + L - 1 = {16 + L - 1})")
+    log(f"  rel err per segment, hidden {' '.join(f'{e:.1e}' for e in errs['hidden'])}; "
+        f"logits {' '.join(f'{e:.1e}' for e in errs['logits'])}; worst layer h "
+        f"{max(errs['h']):.3e} (tol {tol_mamba:g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("falcon-mamba 16-segment diagonal vs sequential")
+    if prefill_launches != 16 + L - 1:
+        failures.append(f"falcon-mamba prefill launched mamba_scan {prefill_launches} times")
+    del diag16, seq16
+    st1 = M.decode_state_init(fcfg, 1, dtype=torch.bfloat16, device=dev)
+    reset_counts()
+    with torch.no_grad():
+        M.decode_step(fparams, fcfg, st1, ftoks[:, 0])
+    log(f"  mamba_scan launches per decoded token: {mamba_scan.launches} (layers {L})")
+    if mamba_scan.launches != L:
+        failures.append(f"falcon-mamba decode step launched mamba_scan {mamba_scan.launches} "
+                        "times")
+    del st1
+
+    # 2 segments against the sequential plain path (the scan as a Python
+    # loop over T, the rest the same PyTorch ops). In bf16 the comparison
+    # measures the stack's rounding, not the kernel: 64 random-init layers
+    # in bf16 turn any perturbation, 1e-6 of the scan's output included,
+    # into ~5e-2 of the hidden states (PERF.md §6). So in bf16 it is printed
+    # beside that floor (the kernel path against itself with the scan's y
+    # scaled by 1 + 1e-6), and it is gated in fp32, on the same weights at
+    # full width and depth, at 1e-3, with two negative controls on the
+    # kernel path that must fail it: dt x1.02 into the scan, the scan's y
+    # x0.98.
+    two = ftoks[:, :2 * fseg]
+    scan = ops.mamba_scan
+
+    def scaled_y(f):
+        return lambda *a: (lambda y, hT: (f * y, hT))(*scan(*a))
+    t0 = time.perf_counter()
+    with swap.plain_versions():
+        plain2 = frun("sequential", two)
+    sync()
+    t_plain2 = time.perf_counter() - t0
+    diag2 = frun("diagonal", two)
+    errs, _ = mamba_errors(diag2, plain2)
+    with swap.replaced(mamba_scan=scaled_y(1 + 1e-6)):
+        floor, _ = mamba_errors(frun("diagonal", two), diag2)
+    log(f"  bf16, 2 segments ({t_plain2:.1f} s plain): diagonal on kernels vs sequential "
+        f"plain, worst rel err {worst(errs)}; the bf16 floor, kernels vs themselves with "
+        f"the scan's y x(1 + 1e-6): {worst(floor)} (not gated)")
+    del plain2, diag2
+    torch.cuda.empty_cache()
+    fp32 = M._tree_map(lambda path, t: t.float(), fparams)
+    with swap.plain_versions():
+        plain32 = frun("sequential", two, fp32)
+    tol32 = 1e-3
+    errs, ok = mamba_errors(frun("diagonal", two, fp32), plain32, tol32)
+    log(f"  fp32 weights, 2 segments: diagonal on kernels vs sequential plain, worst rel err "
+        f"{worst(errs)} (tol {tol32:g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("falcon-mamba fp32 2-segment diagonal vs sequential plain")
+    for label, fn in [("dt x1.02 into the scan", lambda x, dt, *a: scan(x, dt * 1.02, *a)),
+                      ("scan output y x0.98", scaled_y(0.98))]:
+        with swap.replaced(mamba_scan=fn):
+            errs, passed = mamba_errors(frun("diagonal", two, fp32), plain32, tol32)
+        log(f"  negative control, fp32, {label}: worst rel err {worst(errs)} -> "
+            f"{'FAIL: not caught' if passed else 'caught, ok'}")
+        if passed:
+            failures.append(f"falcon-mamba check blind to {label}")
+    del fp32, plain32
+    torch.cuda.empty_cache()
+
+    fsmoke = get_smoke_config("falcon-mamba-7b")
+    fsp = M.init_params(fsmoke, SEED, device="cpu")
+    fsp_gpu = M.Model(fsmoke, fsp).to(dev).tree()
+    stoks = rng.integers(0, fsmoke.vocab, (2, 3 * 16))
+    outs = []
+    for p_, where in ((fsp_gpu, dev), (fsp, "cpu")):
+        with torch.no_grad():
+            h, fin = M.forward_hidden(p_, fsmoke, torch.from_numpy(stoks).to(where), seg_len=16)
+        outs.append([t.cpu() for t in (h, fin["pattern"][0]["h"], M.last_logits(p_, fsmoke, h))])
+    rel32 = max(rel_err(a, b) for a, b in zip(*outs))
+    ok = rel32 <= 1e-4
+    log(f"  smoke config (fp32), 3 segments, diagonal: card kernels vs CPU plain path, worst "
+        f"rel err of hidden, h, logits {rel32:.3e} (tol 1e-4) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("falcon-mamba smoke card vs cpu")
+
+    # ------------------------------------------------------------ (g) falcon-mamba generate
+    log("== generate phase: falcon-mamba-7b, ServeEngine(max_len=8192).generate, greedy")
+    feng = ServeEngine(fparams, fcfg, max_len=8192)
+    reset_counts()
+    for B, plen, new in [(1, 2 * 8192 + 1000, 48), (2, 8192 + 500, 32)]:
+        prompts = rng.integers(0, fcfg.vocab, (B, plen))
+        res = feng.generate(prompts, new)
+        good = (res.finite and res.tokens.shape == (B, new)
+                and res.tokens.min() >= 0 and res.tokens.max() < fcfg.vocab)
+        log(f"  B={B} prompt {plen} new {new}: TTFT {res.ttft_s:.3f} s, decode "
+            f"{res.tok_s:.1f} tok/s, logits finite {res.finite} -> {'ok' if good else 'FAIL'}")
+        for b in range(B):
+            log(f"    tokens[{b}]: {res.tokens[b].tolist()}")
+        if not good:
+            failures.append(f"falcon-mamba generate B={B}")
+        if B == 1:
+            again = feng.generate(prompts, new).tokens
+            same = bool((again == res.tokens).all())
+            log(f"  B=1 repeated: tokens equal {same}")
+            if not same:
+                failures.append("falcon-mamba generate B=1 not reproducible")
+    flaunch_gen = read_counts()
+    log(f"  launches in the falcon-mamba generate phase: {flaunch_gen}")
+    for name in falcon_kernels:
+        if flaunch_gen[name] == 0:
+            failures.append(f"{name} never launched by falcon-mamba generate")
+    fsp_eng = (ServeEngine(fsp_gpu, fsmoke, max_len=32),
+               ServeEngine(fsp, fsmoke, device="cpu", max_len=32))
+    for B in (1, 2):
+        prompts = rng.integers(0, fsmoke.vocab, (B, 3 * 32 + 5))
+        on_card, on_cpu = (e.generate(prompts, 20).tokens for e in fsp_eng)
+        same = bool((on_card == on_cpu).all())
+        log(f"  smoke config (fp32) generate B={B}, card kernels vs CPU plain path: "
+            f"tokens equal {same}")
+        if not same:
+            failures.append(f"falcon-mamba smoke generate B={B} card vs cpu")
+
+    # ------------------------------------------------------------ (h) falcon-mamba serve
+    log("== serve phase: falcon-mamba-7b, ServeEngine.serve, 4 slots, chunk 8, greedy")
+    fspec = [(8192, 40), (2 * 8192 + 1000, 24), (9000, 32), (12000, 48), (8193, 16),
+             (16384, 20)]
+    freqs = [Request(i, rng.integers(0, fcfg.vocab, n), new) for i, (n, new) in enumerate(fspec)]
+    reset_counts()
+    t0 = time.perf_counter()
+    events = list(feng.serve(freqs, n_slots=4, chunk=8))
+    sync()
+    t_serve = time.perf_counter() - t0
+    flaunch_serve = read_counts()
+    log(f"  launches in the falcon-mamba serve phase: {flaunch_serve}")
+    for name in falcon_kernels:
+        if flaunch_serve[name] == 0:
+            failures.append(f"{name} never launched by falcon-mamba serve")
+    errors = [e for e in events if isinstance(e, RequestError)]
+    n_tok = len(events) - len(errors)
+    log(f"  {len(freqs)} requests, {n_tok} tokens in {t_serve:.3f} s: aggregate "
+        f"{n_tok / t_serve:.1f} tok/s (admission prefills included); card {smi}")
+    if errors:
+        failures.append(f"falcon-mamba serve rejected {errors}")
+    for r in freqs:
+        mine = [e for e in events if not isinstance(e, RequestError) and e.req_id == r.req_id]
+        toks = [e.token for e in mine]
+        first_gen = int(feng.generate(r.prompt[None], 1).tokens[0, 0])
+        good = (len(mine) == r.max_new and mine[-1].done and bool(mine[-1].finite)
+                and [e.index for e in mine] == list(range(r.max_new))
+                and toks[0] == first_gen)
+        log(f"  request {r.req_id} (prompt {len(r.prompt)}, new {r.max_new}): TTFT "
+            f"{mine[0].ttft_s:.3f} s, {len(mine)} tokens, finite {mine[-1].finite}, first "
+            f"token {toks[0]} vs B=1 generate {first_gen} -> {'ok' if good else 'FAIL'}")
+        if not good:
+            failures.append(f"falcon-mamba serve request {r.req_id}")
+    del feng, fparams, events
+    torch.cuda.empty_cache()
+    fsreqs = [Request(i, rng.integers(0, fsmoke.vocab, n), new)
+              for i, (n, new) in enumerate([(40, 9), (70, 14), (5, 20), (96, 6), (33, 11)])]
+
+    def fserved(eng):
+        out = {}
+        for e in eng.serve(fsreqs, n_slots=2, chunk=4):
+            out.setdefault(e.req_id, []).append(getattr(e, "token", e))
+        return out
+    on_card, on_cpu = (fserved(e) for e in fsp_eng)
+    same = on_card == on_cpu and all(len(on_card[i]) == r.max_new for i, r in enumerate(fsreqs))
+    log(f"  smoke config (fp32) serve, 5 requests on 2 slots, card kernels vs CPU plain "
+        f"path: tokens equal {same}")
+    if not same:
+        failures.append("falcon-mamba smoke serve card vs cpu")
+
     if failures:
         log(f"FAILED: {failures}")
         return 1
@@ -692,14 +994,19 @@ def main() -> int:
                "armt_read": ("src/repro_torch/kernels/csrc/armt_memory.cu",
                              "src/repro/kernels/armt_memory.py:67"),
                "armt_update": ("src/repro_torch/kernels/csrc/armt_memory.cu",
-                               "src/repro/kernels/armt_memory.py:114")}
+                               "src/repro/kernels/armt_memory.py:114"),
+               "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
+                              "src/repro/kernels/mamba_scan.py:44")}
     kernels = []
     for name, (src, replaces) in sources.items():
         s = summary[name]
+        # launches on the runs of the kernel's own model path
+        gen_n, serve_n = ((launches_gen, launches_serve) if name in llama_kernels
+                          else (flaunch_gen, flaunch_serve))
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches_gen[name] + launches_serve[name],
-                        "launches_generate": launches_gen[name],
-                        "launches_serve": launches_serve[name],
+                        "launches": gen_n[name] + serve_n[name],
+                        "launches_generate": gen_n[name],
+                        "launches_serve": serve_n[name],
                         "max_abs_err": s["max_abs_err"],
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": s["library_ms"],

@@ -1,11 +1,21 @@
 """Architecture configs: the fields of the reference ``ArchConfig`` that the
-ARMT Llama serving path reads, the ``llama-*-armt`` family, and the smoke
-reduction used by the CPU tests (a copy; the port never imports the JAX
-package)."""
+port's serving paths read, the ``llama-*-armt`` family and ``falcon-mamba-7b``,
+and the smoke reduction used by the CPU tests (a copy; the port never
+imports the JAX package)."""
 from __future__ import annotations
 
+import importlib
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-1 selective SSM."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0           # 0 -> ceil(d_model / 16)
 
 
 @dataclass(frozen=True)
@@ -21,6 +31,7 @@ class ARMTConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
+    family: str                # dense | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -33,8 +44,10 @@ class ArchConfig:
     norm: str = "rmsnorm"
     act: str = "silu"
     rope_theta: float = 10000.0
+    use_rope: bool = True
     sliding_window: int = 0    # 0 = full causal attention
     tie_embeddings: bool = False
+    ssm: Optional[SSMConfig] = None
     armt: Optional[ARMTConfig] = None
     dtype: str = "bfloat16"
     source: str = ""
@@ -55,16 +68,34 @@ class ArchConfig:
     def layer_types(self) -> Tuple[str, ...]:
         return tuple(self.prelude) + tuple(self.block_pattern) * self.n_superblocks
 
+    @property
+    def is_recurrent(self) -> bool:
+        """True if every layer carries layer-local recurrent state (ARMT's
+        A/z, or a Mamba layer's h and conv tail)."""
+        return self.armt is not None or all(
+            t.startswith("mamba") for t in self.layer_types)
+
     def validate(self) -> None:
+        """Accepts what the port has: the ARMT attn block (rmsnorm, swiglu,
+        rope), or a pure ``("mamba",)`` stack without FFN."""
         if not (self.d_model > 0 and self.n_layers > 0 and self.vocab > 0):
             raise ValueError(f"{self.name}: non-positive dims")
-        if set(self.layer_types) != {"attn"}:
-            raise ValueError(f"{self.name}: the port has attn blocks only, "
-                             f"got {self.layer_types}")
+        types = set(self.layer_types)
         if self.norm != "rmsnorm" or self.act != "silu":
             raise ValueError(f"{self.name}: the port has rmsnorm + swiglu only")
-        if self.n_heads <= 0 or self.n_heads % self.n_kv_heads:
-            raise ValueError(f"{self.name}: bad head counts")
+        if types == {"attn"}:
+            if self.armt is None or not self.use_rope:
+                raise ValueError(f"{self.name}: the port's attn block is the "
+                                 "ARMT block with rope")
+            if self.n_heads <= 0 or self.n_heads % self.n_kv_heads:
+                raise ValueError(f"{self.name}: bad head counts")
+        elif types == {"mamba"}:
+            if self.ssm is None or self.armt is not None or self.d_ff:
+                raise ValueError(f"{self.name}: the port's mamba block needs "
+                                 "cfg.ssm, no ARMT and no FFN")
+        else:
+            raise ValueError(f"{self.name}: the port has pure attn or pure "
+                             f"mamba stacks only, got {self.layer_types}")
         _ = self.n_superblocks
 
 
@@ -73,24 +104,30 @@ _ARCH_MODULES = {
     "llama-1b-armt": "llama_armt",
     "llama-3b-armt": "llama_armt",
     "llama-8b-armt": "llama_armt",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_ARCH_MODULES)}")
-    from repro_torch.configs.llama_armt import CONFIGS
-    cfg = CONFIGS[arch_id]
+    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
+    cfg = mod.CONFIGS[arch_id] if hasattr(mod, "CONFIGS") else mod.CONFIG
     cfg.validate()
     return cfg
 
 
 def get_smoke_config(arch_id: str, *, seq_len: int = 64) -> ArchConfig:
-    """Same reduction as the reference's ``get_smoke_config`` for the ARMT
-    Llama family: two superblocks, d_model 32, 4 heads, fp32."""
+    """The reference's ``get_smoke_config`` reduction: two superblocks,
+    d_model 32, 4 heads, vocab 256, fp32; ARMT shrunk to 4 memory tokens of
+    d_mem 8, SSM to d_state 4."""
     cfg = get_config(arch_id)
-    armt = replace(cfg.armt, segment_len=max(8, seq_len // 4),
-                   num_mem_tokens=4, d_mem=8, d_val=0)
+    armt = ssm = None
+    if cfg.armt is not None:
+        armt = replace(cfg.armt, segment_len=max(8, seq_len // 4),
+                       num_mem_tokens=4, d_mem=8, d_val=0)
+    if cfg.ssm is not None:
+        ssm = replace(cfg.ssm, d_state=4, d_conv=4, expand=2)
     return replace(
         cfg,
         n_layers=2 * len(cfg.block_pattern),
@@ -98,8 +135,9 @@ def get_smoke_config(arch_id: str, *, seq_len: int = 64) -> ArchConfig:
         n_heads=4,
         n_kv_heads=max(1, min(cfg.n_kv_heads, 2)),
         d_head=8,
-        d_ff=64,
+        d_ff=64 if cfg.d_ff else 0,
         vocab=256,
         armt=armt,
+        ssm=ssm,
         dtype="float32",
     )

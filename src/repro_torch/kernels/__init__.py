@@ -8,6 +8,7 @@ their plain PyTorch versions.
   flash_attention   one causal GQA launch over N = group * batch
   armt_memory       ARMT associative read and delta-rule update
   decode_attention  one query token per row against the serve KV cache
+  mamba_scan        the Mamba-1 selective scan of a row band, h on chip
 
 ``ops`` holds the entry points the model calls, ``ref`` the plain
 versions, ``build`` compiles ``csrc/*.cu`` at first use; ``swap`` replaces

@@ -56,6 +56,10 @@ SIGNATURES = {
     # aux scratch, N, M, dm, P, Dv, stream
     "armt_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _P],
+    # x, dt, B, C, A_log, D, h0, y, hT, N, T, dI, dS, G, x strides (n, t),
+    # dt strides (n, t), B strides (n, t), C strides (n, t), dtype, stream
+    "mamba_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _L, _L, _L, _L, _L, _L, _L, _L, _I, _P],
 }
 
 _lib = None

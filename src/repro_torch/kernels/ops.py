@@ -11,6 +11,7 @@ from repro_torch.kernels.armt_memory import armt_update as assoc_update
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.grouped_matmul import grouped_matmul, grouped_matmul_armt_update
+from repro_torch.kernels.mamba_scan import mamba_scan
 
 
 def grouped_gemm(x, w, bias=None, *, activation: str | None = None):
@@ -56,5 +57,21 @@ def segment_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return flash_attention(q, k, v, causal=causal, window=window)
 
 
+def selective_scan_fused(x, dt, Bt, Ct, A_log, D, h0):
+    """The Mamba-1 scan with its D skip. Plain layout: x/dt [B,T,dI], Bt/Ct
+    [B,T,dS], A_log [dI,dS], D [dI], h0 [B,dI,dS]. Grouped band layout: x/dt
+    [G,B,T,dI], Bt/Ct [G,B,T,dS], A_log [G,dI,dS], D [G,dI], h0
+    [G,B,dI,dS], one launch over N = G*B rows. -> (y fp32 shaped like x,
+    hT fp32 shaped like h0)."""
+    if x.dim() == 4:
+        G, B = x.shape[:2]
+
+        def flat(a):
+            return a.reshape((G * B,) + a.shape[2:])
+        y, hT = mamba_scan(flat(x), flat(dt), flat(Bt), flat(Ct), A_log, D, flat(h0))
+        return y.reshape(x.shape), hT.reshape(h0.shape)
+    return mamba_scan(x, dt, Bt, Ct, A_log, D, h0)
+
+
 __all__ = ["grouped_gemm", "grouped_gemm_armt_update", "segment_attention",
-           "decode_attention", "assoc_read", "assoc_update"]
+           "decode_attention", "assoc_read", "assoc_update", "selective_scan_fused"]

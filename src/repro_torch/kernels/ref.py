@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels: the four of the diagonal
-prefill, the fused down-projection + ARMT update of the B == 1 cell, and
-single-token decode attention.
+prefill, the fused down-projection + ARMT update of the B == 1 cell,
+single-token decode attention, and the Mamba-1 selective scan.
 
 Each is the same function as its CUDA kernel, written as framework ops: the
 CPU path of every wrapper, and the oracle each kernel is held against on
@@ -120,3 +120,32 @@ def grouped_matmul_armt_update_ref(x, w, res, wk, wv, wb, A, z, bias=None, *,
     y = (grouped_matmul_ref(x.float(), w.float(), bias) + res.float()).to(res.dtype)
     A2, z2 = armt_update_ref(y[:, -M:, :], wk, wv, wb, A, z, nu=nu)
     return y, A2, z2
+
+
+def mamba_scan_ref(x, dt, Bt, Ct, A_log, D, h0):
+    """Token-sequential Mamba-1 selective scan in fp32.
+
+    x/dt: [N,T,dI]; Bt/Ct: [N,T,dS]; h0: [N,dI,dS]; A_log: [dI,dS] and D:
+    [dI] shared by every row, or [G,dI,dS] and [G,dI] per group (row n
+    takes group n // (N // G)) -> (y [N,T,dI], hT [N,dI,dS]), both fp32:
+
+        h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) B_t,   A = -exp(A_log)
+        y_t = h_t . C_t + D * x_t
+    """
+    N, T, dI = x.shape
+    A = -torch.exp(A_log.float())
+    Dv = D.float()
+    if A.dim() == 3:
+        rep = N // A.shape[0]
+        A, Dv = A.repeat_interleave(rep, 0), Dv.repeat_interleave(rep, 0)
+    else:
+        A, Dv = A[None], Dv[None]
+    x32, dt32, B32, C32 = x.float(), dt.float(), Bt.float(), Ct.float()
+    h = h0.float()
+    ys = []
+    for t in range(T):
+        x_t, dt_t = x32[:, t], dt32[:, t]
+        h = torch.exp(dt_t[..., None] * A) * h + (dt_t * x_t)[..., None] * B32[:, t, None, :]
+        ys.append(torch.einsum("nis,ns->ni", h, C32[:, t]) + Dv * x_t)
+    y = torch.stack(ys, 1) if ys else x32.new_zeros(N, 0, dI)
+    return y, h

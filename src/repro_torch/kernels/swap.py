@@ -11,7 +11,7 @@ from __future__ import annotations
 import contextlib
 
 from repro_torch.kernels import (armt_memory, decode_attention, flash_attention,
-                                 grouped_matmul, ops)
+                                 grouped_matmul, mamba_scan, ops)
 
 # each name the ops module calls a kernel wrapper by, and that wrapper's
 # plain version
@@ -20,7 +20,8 @@ PLAIN = {"grouped_matmul": grouped_matmul.grouped_matmul_plain,
          "flash_attention": flash_attention.flash_attention_plain,
          "assoc_read": armt_memory.armt_read_plain,
          "assoc_update": armt_memory.armt_update_plain,
-         "decode_attention": decode_attention.decode_attention_plain}
+         "decode_attention": decode_attention.decode_attention_plain,
+         "mamba_scan": mamba_scan.mamba_scan_plain}
 
 
 @contextlib.contextmanager

@@ -1,9 +1,18 @@
-"""Fused grouped cell of the diagonal executor (paper §3.3, §4.2).
+"""Fused grouped cells of the diagonal executor (paper §3.3, §4.2).
 
-Each anti-diagonal step advances a band of G stacked layers at once. The
-cell applies the ``attn`` block to the band's slot slice ``x [G, B, T, D]``
-with the per-layer weights stacked on the group dim, through the kernel
-entry points of ``kernels/ops.py``:
+Each anti-diagonal step advances a band of G stacked layers at once. A cell
+applies one block type to the band's slot slice ``x [G, B, T, D]`` with the
+per-layer weights stacked on the group dim.
+
+The ``mamba`` cell computes what the reference's vmap of the plain block
+over the band computes (the reference has no fused Mamba cell): the
+projections as batched matmuls over ``[G, B*T, .]``, the depthwise conv and
+the elementwise work broadcast over the band, and one ``mamba_scan`` launch
+over all G*B rows, each with its layer's A_log and D: ``models/mamba.py``
+``mamba_block`` takes the band layout as it is.
+
+The ``attn`` cell runs through the kernel entry points of
+``kernels/ops.py``:
 
   grouped_gemm       QKV, output and FFN projections as ``[G, B*T, D]``
                      grouped GEMMs; silu rides the gate projection's epilogue
@@ -26,20 +35,20 @@ from __future__ import annotations
 from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import rope_qk
 from repro_torch.models.layers import rmsnorm
+from repro_torch.models.mamba import mamba_block
 
 
 def make_grouped_apply(cfg):
     """Returns grouped_apply(btype, stacked_params, x, stacked_state): param
     leaves ``[G, ...]``, x ``[G, B, T, D]``, state leaves ``[G, B, ...]``."""
-    M = cfg.armt.num_mem_tokens
-    nu = cfg.armt.nu
-    hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
 
     def snorm(h, p):
         # per-layer norm weights [G, D] broadcast against h [G, B, T, D]
         return rmsnorm(h, {"w": p["w"][:, None, None, :]})
 
     def fused_attn(p, x, state):
+        M, nu = cfg.armt.num_mem_tokens, cfg.armt.nu
+        hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
         G, B, T, D = x.shape
         N = G * B
         new_state = dict(state)
@@ -76,9 +85,12 @@ def make_grouped_apply(cfg):
         new_state["z"] = z2.reshape(state["z"].shape)
         return y, new_state
 
+    cells = {"attn": fused_attn,
+             "mamba": lambda p, x, state: mamba_block(p, x, cfg.ssm, state)}
+
     def grouped_apply(t, p, x, state):
-        if t != "attn":
+        if t not in cells:
             raise ValueError(f"no fused cell for block type {t!r}")
-        return fused_attn(p, x, state)
+        return cells[t](p, x, state)
 
     return grouped_apply

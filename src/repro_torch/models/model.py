@@ -1,12 +1,15 @@
-"""The ARMT Llama model: parameters, segmented forward under the diagonal
-or the sequential schedule, and the serving path (``decode_step`` against
-the current-segment KV cache, ``flush_segment`` at segment boundaries).
+"""The model: parameters, segmented forward under the diagonal or the
+sequential schedule, and the serving path (``decode_step``; for ARMT models
+against the current-segment KV cache, with ``flush_segment`` at segment
+boundaries). Two block types: the ARMT Llama ``attn`` block and the pure
+Mamba ``mamba`` block (falcon-mamba), whose layer state (h, conv tail) the
+executors carry like ARMT's (A, z).
 
 Parameters are a dict tree in the reference layout: ``embed``,
-``final_norm``, ``mem_tokens``, ``prelude`` (empty here) and ``pattern``, a
-tuple with one dict per pattern position whose leaves are stacked over the
-``n_super`` layers on dim 0. ``Model`` holds such a tree as an
-``nn.Module``.
+``final_norm``, ``head`` (untied models), ``mem_tokens`` (ARMT),
+``prelude`` (empty here) and ``pattern``, a tuple with one dict per pattern
+position whose leaves are stacked over the ``n_super`` layers on dim 0.
+``Model`` holds such a tree as an ``nn.Module``.
 """
 from __future__ import annotations
 
@@ -17,15 +20,19 @@ from torch import nn
 
 from repro_torch.configs import ArchConfig
 from repro_torch.core.diagonal import run_diagonal
-from repro_torch.core.memory import d_phi, mem_read, mem_update
+from repro_torch.core.memory import mem_read, mem_update
 from repro_torch.core.schedule import StackLayout
 from repro_torch.core.sequential import run_sequential
 from repro_torch.models.attention import decode_attention
 from repro_torch.models.blocks import block_state_init, make_apply_block
 from repro_torch.models.grouped_blocks import make_grouped_apply
 from repro_torch.models.layers import rmsnorm, swiglu
+from repro_torch.models.mamba import mamba_block, mamba_param_init
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# segment length of a model without ARMT (the reference's fallback): no
+# memory tokens, the segment is only the executors' scheduling unit
+DEFAULT_SEG_LEN = 1024
 
 
 def resolve_device(device) -> torch.device:
@@ -43,57 +50,75 @@ def resolve_device(device) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def _normal(shape, scale, gen, device, dtype):
-    # drawn in fp32 on the CPU generator, then cast and moved: the same seed
-    # gives the same weights on every device
-    return (torch.randn(shape, generator=gen) * scale).to(device=device, dtype=dtype)
+    """Normal weights drawn in fp32 on the CPU generator, then cast and
+    moved: the same seed gives the same weights on every device. A stacked
+    leaf ([n_super, ...]) is drawn one layer at a time into its destination,
+    so the host holds one layer's fp32 draw, not the stack's; the values
+    equal one draw of the whole stack wherever a layer's size is a multiple
+    of 16 (the CPU generator's block)."""
+    if len(shape) < 3:
+        return (torch.randn(shape, generator=gen) * scale).to(device=device, dtype=dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for j in range(shape[0]):
+        out[j].copy_(torch.randn(shape[1:], generator=gen) * scale)
+    return out
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, *, device=None) -> Dict:
     """Random weights in the reference tree layout and distributions, in
-    ``cfg.dtype``. generator: a CPU ``torch.Generator`` (or an int seed)."""
+    ``cfg.dtype`` (Mamba's A_log and D in fp32). generator: a CPU
+    ``torch.Generator`` (or an int seed)."""
     device = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     if isinstance(generator, int):
         generator = torch.Generator().manual_seed(generator)
     layout = StackLayout.from_config(cfg)
-    D, F, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
-    nq, nkv, n = cfg.n_heads, cfg.n_kv_heads, layout.n_super
-    a = cfg.armt
-    d_val = a.d_val or D
+    D, n = cfg.d_model, layout.n_super
 
     def nrm(shape, scale):
         return _normal(shape, scale, generator, device, dtype)
 
-    params: Dict = {
-        "embed": nrm((cfg.vocab, D), 0.02),
-        "final_norm": {"w": torch.ones(D, dtype=dtype, device=device)},
-    }
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    params: Dict = {"embed": nrm((cfg.vocab, D), 0.02), "final_norm": {"w": ones(D)}}
     if not cfg.tie_embeddings:
         params["head"] = nrm((D, cfg.vocab), D ** -0.5)
-    if a.num_mem_tokens > 0:
+    a = cfg.armt
+    if a is not None and a.num_mem_tokens > 0:
         params["mem_tokens"] = nrm((a.num_mem_tokens, D), 0.02)
     params["prelude"] = ()
-    s = D ** -0.5
-    block = {
-        "ln1": {"w": torch.ones(n, D, dtype=dtype, device=device)},
-        "attn": {"wq": nrm((n, D, nq * hd), s), "wk": nrm((n, D, nkv * hd), s),
-                 "wv": nrm((n, D, nkv * hd), s),
-                 "wo": nrm((n, nq * hd, D), (nq * hd) ** -0.5)},
-        "mem": {"wq": nrm((n, D, a.d_mem), s), "wk": nrm((n, D, a.d_mem), s),
-                "wv": nrm((n, D, d_val), s), "wb": nrm((n, D, 1), s)},
-        "ln2": {"w": torch.ones(n, D, dtype=dtype, device=device)},
-        "ffn": {"wg": nrm((n, D, F), s), "wu": nrm((n, D, F), s),
-                "wd": nrm((n, F, D), F ** -0.5)},
-    }
-    params["pattern"] = (block,)
+    pattern = []
+    for t in layout.pattern:
+        if t == "mamba":
+            pattern.append({"ln1": {"w": ones(n, D)},
+                            "mixer": mamba_param_init(D, cfg.ssm, n, nrm, dtype, device)})
+            continue
+        F, hd, nq, nkv = cfg.d_ff, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        s = D ** -0.5
+        pattern.append({
+            "ln1": {"w": ones(n, D)},
+            "attn": {"wq": nrm((n, D, nq * hd), s), "wk": nrm((n, D, nkv * hd), s),
+                     "wv": nrm((n, D, nkv * hd), s),
+                     "wo": nrm((n, nq * hd, D), (nq * hd) ** -0.5)},
+            "mem": {"wq": nrm((n, D, a.d_mem), s), "wk": nrm((n, D, a.d_mem), s),
+                    "wv": nrm((n, D, a.d_val or D), s), "wb": nrm((n, D, 1), s)},
+            "ln2": {"w": ones(n, D)},
+            "ffn": {"wg": nrm((n, D, F), s), "wu": nrm((n, D, F), s),
+                    "wd": nrm((n, F, D), F ** -0.5)},
+        })
+    params["pattern"] = tuple(pattern)
     return params
 
 
-def init_state(cfg: ArchConfig, batch: int, device) -> Dict:
+def init_state(cfg: ArchConfig, batch: int, device, dtype=None) -> Dict:
+    """Zero executor state; dtype (default ``cfg.dtype``) is that of the
+    Mamba conv tail, every other leaf is fp32."""
+    dtype = dtype or DTYPES[cfg.dtype]
     layout = StackLayout.from_config(cfg)
     pattern = []
     for t in layout.pattern:
-        st = block_state_init(t, cfg, batch, device)
+        st = block_state_init(t, cfg, batch, device, dtype)
         pattern.append({k: torch.zeros((layout.n_super,) + tuple(v.shape),
                                        dtype=v.dtype, device=device)
                         for k, v in st.items()})
@@ -152,9 +177,14 @@ def embed_segments(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     return x
 
 
+def segment_len(cfg: ArchConfig) -> int:
+    """Tokens per segment: the ARMT segment, else ``DEFAULT_SEG_LEN``."""
+    return cfg.armt.segment_len if cfg.armt is not None else DEFAULT_SEG_LEN
+
+
 def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
                    schedule: str = "diagonal", fused: bool = True,
-                   state0: Optional[Dict] = None):
+                   state0: Optional[Dict] = None, seg_len: Optional[int] = None):
     """tokens: [B, S*seg_len] -> (hidden [S, B, seg_len, D] with the
     memory-token rows stripped, final executor state).
 
@@ -162,12 +192,13 @@ def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     (``fused=False``: the plain block slot by slot); 'sequential' runs
     ``run_sequential`` on the plain block. state0 (the reference's
     ``init_state``): the executor state to start from, e.g. a final state
-    of an earlier call; zero memory when None."""
-    seg_len = min(cfg.armt.segment_len, tokens.shape[1])
+    of an earlier call; zero memory when None. seg_len: tokens per segment
+    (default ``segment_len(cfg)``), cut to the whole input when shorter."""
+    seg_len = min(seg_len or segment_len(cfg), tokens.shape[1])
     x = embed_segments(params, cfg, tokens, seg_len)
     layout = StackLayout.from_config(cfg)
     if state0 is None:
-        state0 = init_state(cfg, tokens.shape[0], tokens.device)
+        state0 = init_state(cfg, tokens.shape[0], tokens.device, params["embed"].dtype)
     apply = make_apply_block(cfg)
     exec_params = {"prelude": params["prelude"], "pattern": params["pattern"]}
     if schedule == "diagonal":
@@ -198,26 +229,30 @@ def last_logits(params: Dict, cfg: ArchConfig, hidden: torch.Tensor) -> torch.Te
 
 def decode_state_init(cfg: ArchConfig, batch: int, *, dtype, device,
                       per_slot_pos: bool = False) -> Dict:
-    """Per-layer A/z (fp32) + a current-segment KV cache of seg_len + M
-    rows; ``pos`` is a Python int, or an int64 [batch] tensor with
-    per_slot_pos."""
+    """Per-layer decode state: for attn, A/z (fp32) and a current-segment
+    KV cache of seg_len + M rows; for mamba, h (fp32) and the conv tail
+    (``dtype``), no cache. ``pos`` is a Python int, or an int64 [batch]
+    tensor with per_slot_pos."""
     layout = StackLayout.from_config(cfg)
-    n, a = layout.n_super, cfg.armt
-    cache = (n, batch, a.segment_len + a.num_mem_tokens, cfg.n_kv_heads,
-             cfg.head_dim)
-    st = {"A": torch.zeros(n, batch, d_phi(a), a.d_val or cfg.d_model,
-                           device=device),
-          "z": torch.zeros(n, batch, d_phi(a), device=device),
-          "k": torch.zeros(cache, dtype=dtype, device=device),
-          "v": torch.zeros(cache, dtype=dtype, device=device)}
-    pos = (torch.zeros(batch, dtype=torch.long, device=device)
-           if per_slot_pos else 0)
-    return {"prelude": (), "pattern": (st,), "pos": pos}
+    a = cfg.armt
+    state = init_state(cfg, batch, device, dtype)
+    for t, st in zip(layout.pattern, state["pattern"]):
+        if t == "attn":
+            cache = (layout.n_super, batch, a.segment_len + a.num_mem_tokens,
+                     cfg.n_kv_heads, cfg.head_dim)
+            st["k"] = torch.zeros(cache, dtype=dtype, device=device)
+            st["v"] = torch.zeros(cache, dtype=dtype, device=device)
+    state["pos"] = (torch.zeros(batch, dtype=torch.long, device=device)
+                    if per_slot_pos else 0)
+    return state
 
 
 def make_decode_apply(cfg: ArchConfig, pos):
-    """Block apply for decode: x [B, Tq, D] against the layer's cache."""
+    """Block apply for decode: x [B, Tq, D] against the layer's cache
+    (attn) or its carried SSM state (mamba)."""
     def apply(t, p, x, st):
+        if t == "mamba":
+            return mamba_block(p, x, cfg.ssm, st)
         if t != "attn":
             raise ValueError(t)
         new = dict(st)
@@ -284,6 +319,9 @@ def flush_segment(params: Dict, cfg: ArchConfig, state: Dict,
     flush is computed for every row and merged with ``mask_decode_state``,
     so the other rows' state, cache and pos stay as they were; it needs a
     per-slot ``pos`` vector."""
+    if cfg.armt is None:
+        raise ValueError(f"{cfg.name}: flush_segment needs cfg.armt; a model "
+                         "without ARMT has no segment boundary to flush")
     if slot_mask is not None and not isinstance(state["pos"], torch.Tensor):
         raise ValueError("flush_segment(slot_mask=...) needs a per-slot pos vector "
                          "(decode_state_init(per_slot_pos=True)); a scalar pos "

@@ -1,16 +1,22 @@
-"""Serving engine: diagonal prefill, then greedy decode with ARMT flushes;
-``serve`` is the continuous-batching front door over many requests
-(``serve/scheduler.py``).
+"""Serving engine: diagonal prefill, then greedy decode; ``serve`` is the
+continuous-batching front door over many requests (``serve/scheduler.py``).
 
 ``generate(prompts [B, P], max_new)``:
-  1. the prompt's full segments run through ``forward_hidden`` under the
-     diagonal schedule on the fused grouped cell (the kernels);
-  2. the final recurrent state (A, z) moves into a fresh decode state
-     (``_transplant``) and the prompt tail is fed through ``decode_step``,
-     flushing at a segment boundary;
-  3. greedy decode: one ``decode_step`` per token (its attention on the
-     decode-attention kernel), ``flush_segment`` when the in-segment
-     position reaches seg_len.
+  1. the prompt's full pieces of ``seg_len`` tokens run through
+     ``forward_hidden`` under the diagonal schedule on the fused grouped
+     cell (the kernels), in the model's segments;
+  2. the final recurrent state (A, z; or h and the conv tail) moves into a
+     fresh decode state (``_transplant``) and the prompt tail is fed through
+     ``decode_step``, flushing at an ARMT segment boundary;
+  3. greedy decode: one ``decode_step`` per token (for ARMT models its
+     attention on the decode-attention kernel, with ``flush_segment`` when
+     the in-segment position reaches seg_len; for Mamba models the scan on
+     the mamba_scan kernel).
+
+An ARMT model's seg_len is its segment. A pure-SSM model (falcon-mamba) has
+no segment boundary: its seg_len is ``max_len``, the largest piece of a
+prompt that goes through the diagonal prefill at once, which runs it in
+segments of ``DEFAULT_SEG_LEN`` tokens; it never flushes.
 
 Positions are tracked on the host: every ``decode_step`` advances the
 state's position by exactly the tokens fed.
@@ -28,7 +34,7 @@ from repro_torch.configs import ArchConfig
 from repro_torch.core.memory import RECURRENT_KEYS
 from repro_torch.models.model import (decode_state_init, decode_step,
                                       flush_segment, forward_hidden,
-                                      last_logits, resolve_device)
+                                      last_logits, resolve_device, segment_len)
 from repro_torch.serve.scheduler import ContinuousScheduler
 
 
@@ -54,22 +60,30 @@ class GenerationResult:
 
 
 class ServeEngine:
-    """ARMT-mode serving of one model: constant memory in sequence length
-    (A/z plus a current-segment cache of seg_len + M rows).
+    """Constant-memory serving of one model: per layer the recurrent state
+    (ARMT's A/z plus a current-segment cache of seg_len + M rows, or
+    Mamba's h and conv tail).
 
+    max_len: a pure-SSM model's piece of prompt per diagonal prefill (its
+    seg_len); an ARMT model's seg_len is its segment.
     device: None means the CUDA device (raises without one); the CPU only
     when asked for."""
 
-    def __init__(self, params: Dict, cfg: ArchConfig, *, device=None):
-        if cfg.armt is None:
-            raise ValueError(f"{cfg.name}: ARMT serving needs cfg.armt")
+    def __init__(self, params: Dict, cfg: ArchConfig, *, device=None,
+                 max_len: int = 8192):
+        if cfg.armt is None and not cfg.is_recurrent:
+            raise ValueError(f"{cfg.name}: constant-memory serving needs recurrent "
+                             "layer state, but cfg.armt is None and not every layer "
+                             "is an SSM layer")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine on {self.device}")
         self.params = params
         self.cfg = cfg
-        self.seg_len = cfg.armt.segment_len
+        self.max_len = max_len
+        self.seg_len = cfg.armt.segment_len if cfg.armt is not None else max_len
+        self.flushes = cfg.armt is not None
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -86,9 +100,7 @@ class ServeEngine:
         n_full = P // self.seg_len
         logits = None
         if n_full:
-            hidden, fin = forward_hidden(self.params, self.cfg,
-                                         prompts[:, :n_full * self.seg_len],
-                                         schedule="diagonal", fused=True)
+            hidden, fin = self._prefill_full(prompts[:, :n_full * self.seg_len])
             logits = last_logits(self.params, self.cfg, hidden)
             dstate = _transplant(fin, dstate)
         tail = prompts[:, n_full * self.seg_len:]
@@ -99,9 +111,24 @@ class ServeEngine:
             raise ValueError("empty prompt")
         return logits, dstate, pos
 
+    def _prefill_full(self, toks: torch.Tensor):
+        """The diagonal prefill of whole pieces in the model's segments; a
+        length that is not a whole number of them ends in one shorter
+        segment, run from the state the whole ones left (exact: the state is
+        layer-local)."""
+        seg, T = segment_len(self.cfg), toks.shape[1]
+        cuts = [T] if T <= seg or T % seg == 0 else [T - T % seg, T]
+        state, start = None, 0
+        for end in cuts:
+            hidden, state = forward_hidden(self.params, self.cfg, toks[:, start:end],
+                                           schedule="diagonal", fused=True,
+                                           state0=state)
+            start = end
+        return hidden, state
+
     def _chunk(self, dstate, toks: torch.Tensor, pos: int):
         """Feed a token chunk through ``decode_step`` in pieces that end at
-        segment boundaries, flushing at each boundary."""
+        segment boundaries, flushing an ARMT model at each boundary."""
         logits = None
         t = 0
         while t < toks.shape[1]:
@@ -110,7 +137,7 @@ class ServeEngine:
                                          toks[:, t:t + take])
             pos += take
             t += take
-            if pos >= self.seg_len:
+            if self.flushes and pos >= self.seg_len:
                 dstate = flush_segment(self.params, self.cfg, dstate)
                 pos = 0
         return logits, dstate, pos
@@ -129,7 +156,7 @@ class ServeEngine:
         for _ in range(max_new - 1):
             logits, dstate = decode_step(self.params, self.cfg, dstate, tok)
             pos += 1
-            if pos >= self.seg_len:
+            if self.flushes and pos >= self.seg_len:
                 dstate = flush_segment(self.params, self.cfg, dstate)
                 pos = 0
             tok = logits.argmax(-1)

@@ -2,10 +2,10 @@
 request queue, with blocking admission.
 
 Each slot is one batch row of a pooled decode state (``per_slot_pos``: the
-state's ``pos`` is an int64 [n_slots] vector) and owns that request's ARMT
-memory (A, z) of every layer, its current-segment KV cache and its
-in-segment position, so requests at different segment phases decode
-together in one ``decode_step``.
+state's ``pos`` is an int64 [n_slots] vector) and owns that request's
+recurrent state of every layer (ARMT memory A, z and the current-segment
+KV cache; or Mamba's h and conv tail) and its position, so requests at
+different segment phases decode together in one ``decode_step``.
 
 A request is admitted by prefilling it alone at B = 1 (``ServeEngine.prefill``:
 the diagonal prefill on the fused cell, then the prompt tail) and copying
@@ -17,7 +17,8 @@ reference's ``prefill_groups_per_chunk=0`` mode. Interleaved admission
 A decode chunk is ``chunk`` steps of one packed ``decode_step`` over every
 slot. Rows of inactive slots are frozen with ``mask_decode_state``, and
 ``flush_segment(slot_mask=...)`` flushes exactly the slots whose position
-reached ``seg_len``. Which slots are active and which cross a boundary at
+reached ``seg_len`` (ARMT models only: a pure-SSM model has no segment
+boundary, and its slots never flush). Which slots are active and which cross a boundary at
 each step is known on the host from each slot's position and remaining
 count (``_Slot.pos``, ``_Slot.remaining``): the arithmetic is the one the
 device runs, so the host never reads a device value to decide. The masks
@@ -187,7 +188,7 @@ class ContinuousScheduler:
             for t in range(min(self.chunk, s.remaining)):
                 active[t, b] = True
                 pos += 1
-                if pos >= seg_len:
+                if self.engine.flushes and pos >= seg_len:
                     boundary[t, b] = True
                     pos = 0
         return active, boundary
@@ -233,9 +234,9 @@ class ContinuousScheduler:
                 done = s.remaining == 0
                 tok = int(toks_np[t, b])
                 # the emitted token was the step's input: pos moved by one,
-                # and the chunk flushed the slot when it reached seg_len
+                # and the chunk flushed an ARMT slot when it reached seg_len
                 s.pos += 1
-                if s.pos >= seg_len:
+                if self.engine.flushes and s.pos >= seg_len:
                     s.pos = 0
                 first = s.t_first is None
                 if first:

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small odd shapes: ragged rows and columns on the tensor-core paths, ragged
-cache lengths and windows for decode attention, and the fp32 paths. Needs a CUDA device and nvcc; skips without a card. This file
+cache lengths and windows for decode attention, ragged channels, strided
+B/C, grouped A_log/D and T = 1 for the Mamba scan, and the fp32 paths. Needs a CUDA device and nvcc; skips without a card. This file
 imports no JAX; with ``--noconftest`` (tests/conftest.py imports JAX) it
 runs on a machine that has only PyTorch:
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``."""
@@ -8,7 +9,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import armt_memory, flash_attention, grouped_matmul  # noqa: E402
+from repro_torch.kernels import (armt_memory, flash_attention, grouped_matmul,  # noqa: E402
+                                 mamba_scan)
 
 # Per-row relative L2 error: bf16 output rounding reads ~1e-3; fp32 is at
 # summation-order level. A/z state is fp32 on every path.
@@ -129,3 +131,41 @@ def test_grouped_matmul_armt_update_on_card(cuda, dtype, G, R, K, N, M, bias):
     for got, ref in zip((A2, z2), armt_memory.armt_update_plain(
             *_f32(y[:, -M:], wk, wv, wb), A, z)):
         _close(got, ref, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,T,dI,dS,G,strided", [
+    (2, 37, 200, 4, 1, True),     # ragged channels and tiles, B/C column slices
+    (4, 1, 8192, 16, 1, False),   # decode: one token per row
+    (6, 50, 130, 8, 3, True),     # a band of 3 groups, each its own A_log and D
+    (16, 64, 256, 16, 16, True),  # one row per group, as a B = 1 band step
+])
+def test_mamba_scan_on_card(cuda, xdtype, N, T, dI, dS, G, strided):
+    """y and hT in fp32 against the plain version on the same values: the
+    kernel repeats its arithmetic, so summation order and expf are all that
+    differ."""
+    g = torch.Generator().manual_seed(T + dI)
+
+    def r(*s, sc=1.0):
+        return (torch.randn(*s, generator=g) * sc).to(cuda)
+    xz = r(N, T, 2 * dI, sc=0.5).to(xdtype)
+    x = xz[..., :dI]                               # strided rows, as in_proj's x half
+    dt = torch.nn.functional.softplus(r(N, T, dI) - 3.0)
+    if strided:                                    # B/C as slices of x_proj's output
+        proj = r(N, T, 5 + 2 * dS, sc=0.5)
+        Bt, Ct = proj[..., 5:5 + dS], proj[..., 5 + dS:]
+    else:
+        Bt, Ct = r(N, T, dS, sc=0.5), r(N, T, dS, sc=0.5)
+    lead = (G,) if G > 1 else ()
+    A_log = torch.log(torch.rand(*lead, dI, dS, generator=g) * 15 + 0.5).to(cuda)
+    D = r(*lead, dI)
+    h0 = r(N, dI, dS, sc=0.3)
+    before = mamba_scan.launches
+    y, hT = mamba_scan.mamba_scan(x, dt, Bt, Ct, A_log, D, h0)
+    assert mamba_scan.launches == before + 1
+    torch.cuda.synchronize()
+    yr, hr = mamba_scan.mamba_scan_plain(x.float(), dt, Bt, Ct, A_log, D, h0)
+    assert y.dtype == hT.dtype == torch.float32
+    _close(y, yr, 1e-4)
+    _close(hT, hr, 1e-4)

@@ -60,3 +60,14 @@ def test_entry_points_default_to_the_card():
     # asked for it
     events = list(engine.serve([Request(0, np.arange(5), 3)], n_slots=1, chunk=2))
     assert [e.index for e in events] == [0, 1, 2] and events[-1].done
+    # the falcon-mamba path: the same rule
+    mcfg = get_smoke_config("falcon-mamba-7b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(mcfg, 0)
+    mparams = init_params(mcfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(mparams, mcfg, max_len=16)
+    mengine = ServeEngine(mparams, mcfg, device="cpu", max_len=16)
+    assert mengine.device.type == "cpu" and mengine.seg_len == 16
+    events = list(mengine.serve([Request(0, np.arange(20), 3)], n_slots=1, chunk=2))
+    assert [e.index for e in events] == [0, 1, 2] and events[-1].done

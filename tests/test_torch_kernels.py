@@ -15,7 +15,7 @@ import numpy as np  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import armt_memory, build, flash_attention  # noqa: E402
-from repro_torch.kernels import grouped_matmul, ops, ref  # noqa: E402
+from repro_torch.kernels import grouped_matmul, mamba_scan, ops, ref  # noqa: E402
 
 # fp32 everywhere; the reference runs its matmuls at "highest" precision
 # (tests/conftest.py), so only summation order differs
@@ -244,12 +244,21 @@ def test_wrappers_raise_off_cpu_and_cuda():
             x, torch.empty(2, 8, 4, **meta), torch.empty(2, 4, 4, **meta),
             *[torch.empty(4, e, **meta) for e in (2, 4, 1)], torch.empty(2, 12, 4, **meta),
             torch.empty(2, 12, **meta), M=2)
+    with pytest.raises(ValueError):
+        mamba_scan.mamba_scan(x, x, torch.empty(2, 4, 4, **meta), torch.empty(2, 4, 4, **meta),
+                              torch.empty(8, 4, **meta), torch.empty(8, **meta),
+                              torch.empty(2, 8, 4, **meta))
 
 
 def test_cpu_path_counts_no_launch():
     before = grouped_matmul.launches
     ops.grouped_gemm(torch.ones(1, 2, 3), torch.ones(1, 3, 4))
     assert grouped_matmul.launches == before
+    before = mamba_scan.launches
+    ops.selective_scan_fused(torch.ones(1, 2, 8), torch.ones(1, 2, 8), torch.ones(1, 2, 4),
+                             torch.ones(1, 2, 4), torch.zeros(8, 4), torch.ones(8),
+                             torch.zeros(1, 8, 4))
+    assert mamba_scan.launches == before
 
 
 # ---------------------------------------------------------------- C interface
@@ -273,6 +282,7 @@ def test_c_entry_points_match_ctypes_signatures():
     code = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_longlong: "l",
             ctypes.c_float: "f"}
     assert set(found) == set(build.SIGNATURES)
+    assert {"mamba_scan_launch", "decode_attention_launch", "gmm_launch"} <= set(found)
     for name, argtypes in build.SIGNATURES.items():
         assert found[name] == [code[a] for a in argtypes], name
 

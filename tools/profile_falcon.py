@@ -1,0 +1,142 @@
+#!/usr/bin/env python3
+"""Where the time of falcon-mamba-7b's serving path goes, on one CUDA card.
+
+    python3 tools/profile_falcon.py [--layers 64] [--segments 16]
+                                    [--decode-steps 16] [--batch 1]
+                                    [--trace-dir DIR]
+
+Draws random bf16 weights at full width (seed 0), warms up, then traces
+with torch.profiler (CPU and CUDA activity):
+
+  prefill  one diagonal prefill of ``--segments`` 1024-token segments
+           (forward_hidden on the fused grouped cell)
+  decode   ``--decode-steps`` greedy decode_step calls at ``--batch`` rows
+
+For each it prints the wall time (host clock, ending in a synchronize; also
+of one run without the profiler, which costs host time per op), the
+summed device time of every kernel and copy, the device's idle share
+(1 - device / wall), the time the host spent blocked on a full launch
+queue, and the kernels with the most device time, grouped by name. With
+``--trace-dir`` a gzipped Chrome trace of each goes there. Nothing is
+gated.
+"""
+from __future__ import annotations
+
+import argparse
+import gzip
+import json
+import shutil
+import subprocess
+import sys
+import time
+from dataclasses import replace
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "src"))
+
+
+# a CUPTI record of the host waiting on a full launch queue, not device work
+QUEUE_FULL = "Command Buffer Full"
+
+
+def profile(label, fn, sync, trace_dir, top: int):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    unprofiled = time.perf_counter() - t0
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    # device-side records only (kernels, copies, memsets): the CPU ops'
+    # device totals would count their kernels twice
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    blocked = sum(us for k, us, _ in rows if k == QUEUE_FULL) / 1e6
+    rows = sorted((r for r in rows if r[0] != QUEUE_FULL and r[1] > 0), key=lambda r: -r[1])
+    device = sum(us for _, us, _ in rows) / 1e6
+    print(f"== {label}: wall {wall:.4f} s ({unprofiled:.4f} s unprofiled), device "
+          f"{device:.4f} s, idle share {1 - device / wall:.3f}; host blocked on a full "
+          f"launch queue {blocked:.4f} s", flush=True)
+    for key, us, count in rows[:top]:
+        print(f"  {us / 1e3:10.3f} ms  {100 * us / 1e6 / wall:5.1f} % of wall  "
+              f"{count:6d} x  {key[:100]}")
+    if trace_dir is not None:
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        path = trace_dir / f"falcon_{label}.json"
+        prof.export_chrome_trace(str(path))
+        with open(path, "rb") as f, gzip.open(f"{path}.gz", "wb") as g:
+            shutil.copyfileobj(f, g)
+        path.unlink()
+    return {"wall_s": wall, "unprofiled_wall_s": unprofiled, "device_s": device,
+            "idle_share": 1 - device / wall,
+            "queue_full_s": blocked,
+            "top": [{"kernel": k[:100], "ms": us / 1e3, "count": c} for k, us, c in rows[:top]]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--layers", type=int, default=64)
+    ap.add_argument("--segments", type=int, default=16)
+    ap.add_argument("--decode-steps", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--trace-dir", type=Path, default=None,
+                    help="write gzipped Chrome traces here")
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_falcon: needs a CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    dev = torch.device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip())
+    cfg = replace(get_config("falcon-mamba-7b"), n_layers=args.layers)
+    params = M.init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(0)
+    seg = M.DEFAULT_SEG_LEN
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, args.segments * seg))).to(dev)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    @torch.no_grad()
+    def prefill():
+        M.forward_hidden(params, cfg, toks, schedule="diagonal")
+
+    state = M.decode_state_init(cfg, args.batch, dtype=params["embed"].dtype, device=dev)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, args.batch)).to(dev)
+
+    @torch.no_grad()
+    def decode():
+        st, t = state, tok
+        for _ in range(args.decode_steps):
+            logits, st = M.decode_step(params, cfg, st, t)
+            t = logits.argmax(-1)
+
+    prefill()
+    decode()
+    sync()
+    out = {"layers": args.layers, "segments": args.segments, "batch": args.batch,
+           "decode_steps": args.decode_steps,
+           "prefill": profile("prefill", prefill, sync, args.trace_dir, args.top),
+           "decode": profile("decode", decode, sync, args.trace_dir, args.top)}
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
