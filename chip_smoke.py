@@ -60,7 +60,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
 The kernels' launch counters are set to 0 just before each of (d), (e),
 (g) and (h) and read just after it: every llama kernel must have been
 launched in (d), every one but armt_update (which runs only at B > 1) in
-(e), and mamba_scan in (g) and in (h).
+(e), and mamba_scan in (g) and in (h). The GEMM's launches are also counted
+by route (the TMA + wgmma mainloop or the fp32 SIMT kernel, whoever called
+it: projections, the fused op, the ARMT kernels' projections and split
+product): the bf16 llama runs of (d) and (e) must launch no SIMT GEMM.
 The script prints one JSON line per kernel summary, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before that line; without a CUDA device it exits 2.
@@ -120,12 +123,20 @@ def main() -> int:
     llama_kernels = [k for k in counters if k != "mamba_scan"]
     falcon_kernels = ["mamba_scan"]
 
+    # GEMM launches by route, counted where launched (not kernels of their own)
+    routes = {"wgmma": "tc_launches", "simt": "simt_launches"}
+
     def reset_counts():
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
+        for attr in routes.values():
+            setattr(grouped_matmul, attr, 0)
 
     def read_counts():
         return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+    def read_routes():
+        return {name: getattr(grouped_matmul, attr) for name, attr in routes.items()}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -678,11 +689,14 @@ def main() -> int:
             log(f"  B=1 repeated: tokens equal {same}")
             if not same:
                 failures.append("generate B=1 not reproducible")
-    launches_gen = read_counts()
-    log(f"  launches in the generate phase: {launches_gen}")
+    launches_gen, routes_gen = read_counts(), read_routes()
+    log(f"  launches in the generate phase: {launches_gen}; GEMM launches by route "
+        f"{routes_gen}")
     for name in llama_kernels:
         if launches_gen[name] == 0:
             failures.append(f"{name} never launched by generate")
+    if routes_gen["simt"] or not routes_gen["wgmma"]:
+        failures.append(f"generate's GEMMs left the TMA + wgmma route: {routes_gen}")
 
     scfg = get_smoke_config("llama-1b-armt")
     sp = M.init_params(scfg, SEED, device="cpu")
@@ -711,11 +725,14 @@ def main() -> int:
     events = list(engine.serve(reqs, n_slots=4, chunk=8))
     sync()
     t_serve = time.perf_counter() - t0
-    launches_serve = read_counts()
-    log(f"  launches in the serve phase: {launches_serve}")
+    launches_serve, routes_serve = read_counts(), read_routes()
+    log(f"  launches in the serve phase: {launches_serve}; GEMM launches by route "
+        f"{routes_serve}")
     for name in llama_kernels:
         if launches_serve[name] == 0 and name != "armt_update":   # B > 1 only
             failures.append(f"{name} never launched by serve")
+    if routes_serve["simt"] or not routes_serve["wgmma"]:
+        failures.append(f"serve's GEMMs left the TMA + wgmma route: {routes_serve}")
     errors = [e for e in events if isinstance(e, RequestError)]
     n_tok = len(events) - len(errors)
     log(f"  {len(reqs)} requests, {n_tok} tokens in {t_serve:.3f} s: aggregate "
@@ -1011,6 +1028,9 @@ def main() -> int:
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                         "shape": s["shape"]})
+        if name == "grouped_matmul":   # every GEMM launch of the llama runs, by route
+            kernels[-1]["launches_by_route"] = {
+                r: routes_gen[r] + routes_serve[r] for r in routes}
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,11 +5,12 @@ and ``armt_update`` (repro/kernels/armt_memory.py:114). Layout: x
 ``[N,T,D]``, A ``[N,P,Dv]`` and z ``[N,P]`` in fp32, N = G*batch; the
 projection weights are shared ``[D,E]`` or per group ``[G,D,E]`` (row
 ``n // batch``). CUDA source: ``csrc/armt_memory.cu``. Each wrapper first
-runs its projections of the activations (q; k, the beta logit, v) on the
-grouped-matmul kernel with an fp32 epilogue (``project_f32``), then the
-memory kernels proper; for bf16 activations the read's phi A product also
-runs on that kernel, as a three-term bf16 split (see the CUDA source). One
-wrapper call counts as one launch.
+runs its projections of the activations (q; k and v) on the grouped-matmul
+kernel with an fp32 epilogue (``project_f32``), then the memory kernels
+proper, the update's computing the beta logit itself; for bf16 activations
+the read's phi A product also runs on the grouped-matmul kernel, as a
+three-term bf16 split (see the CUDA source). One wrapper call counts as one
+launch.
 
 ``armt_update`` writes new A'/z' buffers and never updates A/z in place:
 its blocks read A while others write A'.
@@ -31,6 +32,7 @@ _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D_MEM = 64        # the kernels keep q/k rows of d_mem floats on chip
 MAX_MEM_TOKENS = 128  # armt_update keeps the M memory rows of one n on chip
 MAX_NU = 3
+PHI_CHUNK = 32        # armt_update's K chunk: its phi scratch rows pad to a multiple
 
 
 def _weight_groups(w, N: int, D: int, name: str) -> int:
@@ -145,14 +147,15 @@ def launch_update(m, wk, wv, wb, A, z, dims):
         z_out.copy_(z)
         return A_out, z_out, False
     k = project_f32(m, wk, batch)
-    b = project_f32(m, wb, batch)
     v = project_f32(m, wv, batch)
-    phi = torch.empty(N, M, P, dtype=torch.float32, device=m.device)
+    Pp = -(-P // PHI_CHUNK) * PHI_CHUNK
+    phi = torch.empty(N, M, Pp, dtype=torch.float32, device=m.device)
     aux = torch.empty(N, 3, M, dtype=torch.float32, device=m.device)
     code = build.lib().armt_update_launch(
-        k.data_ptr(), b.data_ptr(), v.data_ptr(), A.data_ptr(), z.data_ptr(),
-        A_out.data_ptr(), z_out.data_ptr(), phi.data_ptr(), aux.data_ptr(),
-        N, M, dm, P, Dv, build.stream_ptr(m))
+        k.data_ptr(), v.data_ptr(), m.data_ptr(), wb.data_ptr(), A.data_ptr(),
+        z.data_ptr(), A_out.data_ptr(), z_out.data_ptr(), phi.data_ptr(), aux.data_ptr(),
+        N, M, dm, P, Pp, Dv, m.shape[2], m.stride(0), m.stride(1), batch, _DTYPE[m.dtype],
+        build.stream_ptr(m))
     build.check(code, "armt_update")
     return A_out, z_out, True
 

@@ -33,9 +33,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, w, bias, res, out, G, R, K, N, x group and row strides, res group
     # and row strides, weight batch, dtype (0 f32, 1 bf16), out_f32, act
-    # (0 none, 1 silu, 2 gelu), stream
+    # (0 none, 1 silu, 2 gelu), route (1 TMA + wgmma, 0 SIMT), stream
     "gmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
-                   _I, _I, _I, _I, _P],
+                   _I, _I, _I, _I, _I, _P],
     # q, k, v, out, N, Hq, Hkv, T, S, hd, q strides (n, h, t),
     # k strides (n, h, s), v strides (n, h, s), causal, window, scale, dtype,
     # stream
@@ -52,10 +52,11 @@ SIGNATURES = {
     # k strides (b, s, h), v strides (b, s, h), window, scale, dtype, stream
     "decode_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _L, _L, _I, _F, _I, _P],
-    # k, b, v (fp32 projections), A, z, A_out, z_out, phi scratch,
-    # aux scratch, N, M, dm, P, Dv, stream
-    "armt_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _P],
+    # k, v (fp32 projections), m (memory rows), wb, A, z, A_out, z_out,
+    # phi scratch, aux scratch, N, M, dm, P, phi row stride, Dv, D,
+    # m strides (n, row), weight batch, dtype, stream
+    "armt_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P],
     # x, dt, B, C, A_log, D, h0, y, hT, N, T, dI, dS, G, x strides (n, t),
     # dt strides (n, t), B strides (n, t), C strides (n, t), dtype, stream
     "mamba_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

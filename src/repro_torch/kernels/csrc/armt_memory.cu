@@ -6,39 +6,48 @@
 // and `armt_update` (Pallas `_update_kernel`).
 //
 // Both start from fp32 projections of the bf16 activations (q = x Wq;
-// k = m Wk, the beta logit m Wb, v = m Wv), which the wrappers run on the
-// tensor-core grouped-matmul kernel with an fp32 epilogue
-// (csrc/grouped_matmul.cu): bf16 x bf16 products are exact in fp32, so the
-// projections are the reference's fp32 math up to summation order and the
-// largest product (v: 2*M*D*Dv flops per n) leaves the CUDA cores. The
-// products with the fp32 state that must stay fp32 (armt_update's phi A and
-// phi^T u, armt_read on fp32 activations) run on the CUDA cores in
-// register-blocked 128 x 128 tiles, each of the 256 threads holding an 8 x 8
-// accumulator fed by float4 reads from shared memory (4 shared loads per 64
-// FMAs).
+// k = m Wk, v = m Wv), which the wrappers run on the grouped-matmul kernel's
+// TMA + wgmma mainloop with an fp32 epilogue (csrc/grouped_matmul.cu): bf16
+// x bf16 products are exact in fp32, so the projections are the reference's
+// fp32 math up to summation order.
 //
 // armt_read: out[n,t,:] = phi(q_t) A / (phi(q_t) . z + 1e-6).
-//   Bound: 2*T*P*Dv fp32 flops per n against the fp32 CUDA-core rate, above
-//   the bytes bound (A, x, out move once).
+//   Bound: 2*T*P*Dv flops per n, above the bytes bound (A, x, out move once).
 //   bf16 activations: the output is rounded to bf16 (2^-9), so phi A runs on
 //   the tensor cores as a three-term bf16 split, phi_hi A_hi + phi_hi A_lo +
 //   phi_lo A_hi (product error ~2^-16): armt_read_split writes [phi_hi |
 //   phi_hi | phi_lo] per token (with the fp32 denominator) and [A_hi; A_lo;
 //   A_hi] per n, the grouped-matmul kernel multiplies them as one K = 3P
 //   product with an fp32 epilogue, and armt_read_finish divides and rounds.
-//   fp32 activations: armt_read_kernel, exact fp32, one block per (n, 128
-//   tokens, 128 values) with phi computed on chip from q and never stored.
+//   fp32 activations: armt_read_kernel, exact fp32 on the CUDA cores in
+//   register-blocked 128 x 128 tiles (each of 256 threads an 8 x 8
+//   accumulator), one block per (n, 128 tokens, 128 values), phi computed
+//   on chip from q and never stored.
 //
 // armt_update: A' = A + sum_i beta_i (v_i - vbar_i) phi(k_i)^T,
-//   z' = z + sum_i gamma_i phi(k_i), over the M <= 128 memory rows of n.
-//   phi(k) for M = 128 x P = 384 is 196,608 bytes in fp32, too close to the
-//   227 KB shared-memory limit to keep beside the tiles, so a prep launch
-//   (one block per n) writes phi(k), zk = phi . z, beta and gamma to scratch
-//   and z'. The main launch runs one block per (n, 128 values): vbar tile =
-//   phi A[:, tile] (one 128 x 128 tile, K = P), u = beta (v - vbar / (zk +
-//   eps)) kept in shared memory, then A'[:, tile] = A[:, tile] + phi^T u
-//   (P / 128 tiles, K = M). Bound: 4*M*P*Dv fp32 flops per n. A'/z' are
-//   separate output buffers: blocks read A while others write A'.
+//   z' = z + sum_i gamma_i phi(k_i), over the M <= 128 memory rows of n,
+//   beta_i = sigmoid(m_i . wb). Bound: 4*M*P*Dv flops per n in the state
+//   products (6.4 GFLOP at the llama band step), which must keep the fp32
+//   state's accuracy (A'/z' are held at 1e-4). The memory rows m are y's
+//   last M rows, which the fused op's GEMM has just written, so they and
+//   the 3 MB of phi scratch are read from L2: the cost is launches and
+//   arithmetic, not HBM traffic. Two launches after the k and v projections:
+//   - armt_update_prep, one warp per memory row over (n, 8-row chunks): the
+//     beta logit m_i . wb as a warp dot product (a GEMM of N = 1 would waste
+//     a tile), phi(k_i) to scratch (rows padded with zeros to a multiple of
+//     the K chunk), zk = phi . z, beta and gamma to aux.
+//   - armt_update_main, one block of 16 warps per (n, 128 values): vbar
+//     tile = phi A[:, tile] (K = P), u = beta (v - vbar / (zk + eps)) kept
+//     in shared memory, then A'[:, tile] = A[:, tile] + phi^T u (P / 128
+//     tiles of K = M); the blocks of n share z'. Both products run
+//     on the tensor cores as 3xTF32 (each fp32 operand split into tf32 big +
+//     small, big*big + big*small + small*big on mma.sync m16n8k8, ~2^-21
+//     relative per product, near fp32): wgmma has no transpose mode for
+//     tf32, and A (Dv-contiguous) and phi^T are MN-major operands, which
+//     mma.sync fragments read from shared memory by index at no cost.
+//     K chunks of 32 stream through a 3-stage cp.async ring, one barrier
+//     per chunk (177 KB of shared memory with u, one block per SM). A'/z'
+//     are separate output buffers: blocks read A while others write A'.
 #include "common.cuh"
 
 using namespace rk;
@@ -49,7 +58,7 @@ namespace {
 
 constexpr float EPS = 1e-6f;
 constexpr int TILE = 128, KC = 8, THREADS = 256, LDT = TILE + 4;
-constexpr int MAXDM = 64, MAXM = 128;
+constexpr int MAXDM = 64;
 
 // acc (rows ty*4+i and 64+ty*4+i, cols tx*4+j and 64+tx*4+j) += sum over k < KC
 // of As[k][row] * Bs[k][col]; As/Bs rows are 16-byte aligned.
@@ -187,113 +196,230 @@ __global__ void armt_read_finish(const float* __restrict__ num, const float* __r
 }
 
 // ---------------------------------------------------------------- update
-// One block per n: phi(k) -> scratch, zk = phi . z, beta = sigmoid(b),
-// gamma = 1 - zk / (|phi|^2 + eps) -> aux [3][M], and z' = z + gamma^T phi.
+constexpr int UKC = 32;              // K chunk of the state products; phi rows pad to it
+constexpr int UT = 128;              // values per block, and rows of A' per pass
+constexpr int ULD = UT + 8;          // [k][128] rows: conflict-free fragment reads
+constexpr int PLD = UKC + 4;         // [128][k] rows: conflict-free fragment reads
+constexpr int USTAGE = UT * PLD + UKC * ULD;
+constexpr int USTAGES = 3;           // cp.async ring of K chunks
+constexpr int UTHREADS = 512;        // 16 warps as 4 x 4, each a 32 x 32 tile
+constexpr int UP_SMEM = (UT * ULD + USTAGES * USTAGE) * (int)sizeof(float);   // 177,152
+
+// grid (N, ceil(M / 8)), one warp per memory row r of n: phi(k_r) -> phi
+// [N][M][Pp] (zeros past P), and aux [N][3][M] = (zk = phi . z, beta =
+// sigmoid(m_r . wb), gamma = 1 - zk / (|phi|^2 + eps)).
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-armt_update_prep(const float* __restrict__ k, const float* __restrict__ b,
-                 const float* __restrict__ z, float* __restrict__ z_out,
-                 float* __restrict__ phi, float* __restrict__ aux, int M, int dm, int P) {
-  __shared__ float ks[MAXM][MAXDM + 1];
-  __shared__ float gam[MAXM];
-  const int n = blockIdx.x;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+armt_update_prep(const float* __restrict__ k, const T* __restrict__ m,
+                 const T* __restrict__ wb, const float* __restrict__ z,
+                 float* __restrict__ phi, float* __restrict__ aux, int M, int dm, int P, int Pp,
+                 int D, ll smn, ll smr, int wbatch) {
+  __shared__ float ks[THREADS / 32][MAXDM];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n = blockIdx.x, r = blockIdx.y * (THREADS / 32) + warp;
+  if (r >= M) return;                       // whole warps: no block barrier below
+  const float* krow = k + ((ll)n * M + r) * dm;
+  for (int i = lane; i < dm; i += 32) ks[warp][i] = krow[i];
+  __syncwarp();
+  const T* mrow = m + (ll)n * smn + (ll)r * smr;
+  const T* wbn = wb + (ll)(n / wbatch) * D;
+  float logit = 0.f;
+  for (int d = lane; d < D; d += 32) logit = fmaf(to_f(mrow[d]), to_f(wbn[d]), logit);
+  logit = warp_sum(logit);
   const float* zn = z + (ll)n * P;
-  for (int e = tid; e < M * dm; e += THREADS) ks[e / dm][e % dm] = k[(ll)n * M * dm + e];
-  __syncthreads();
-  float* zk_out = aux + (ll)n * 3 * M;
-  for (int r = warp; r < M; r += THREADS / 32) {
-    float zk = 0.f, nrm = 0.f;
-    float* prow = phi + ((ll)n * M + r) * P;
-    for (int p = lane; p < P; p += 32) {
-      const float f = dpfp_at(ks[r], dm, p);
-      prow[p] = f;
+  float* prow = phi + ((ll)n * M + r) * Pp;
+  float zk = 0.f, nrm = 0.f;
+  for (int p = lane; p < Pp; p += 32) {
+    const float f = p < P ? dpfp_at(ks[warp], dm, p) : 0.f;
+    prow[p] = f;
+    if (p < P) {
       zk = fmaf(f, zn[p], zk);
       nrm = fmaf(f, f, nrm);
     }
-    zk = warp_sum(zk);
-    nrm = warp_sum(nrm);
-    if (lane == 0) {
-      const float gamma = 1.f - zk / (nrm + EPS);
-      zk_out[r] = zk;
-      zk_out[M + r] = 1.f / (1.f + expf(-b[(ll)n * M + r]));
-      zk_out[2 * M + r] = gamma;
-      gam[r] = gamma;
-    }
   }
-  __syncthreads();
-  for (int p = tid; p < P; p += THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < M; ++r) s = fmaf(gam[r], dpfp_at(ks[r], dm, p), s);
-    z_out[(ll)n * P + p] = zn[p] + s;
+  zk = warp_sum(zk);
+  nrm = warp_sum(nrm);
+  if (lane == 0) {
+    float* a = aux + (ll)n * 3 * M;
+    a[r] = zk;
+    a[M + r] = 1.f / (1.f + expf(-logit));
+    a[2 * M + r] = 1.f - zk / (nrm + EPS);
   }
 }
 
-constexpr int UP_SMEM = (TILE * LDT + 2 * KC * LDT) * (int)sizeof(float);
+// 3xTF32 on one 8-deep k step of a warp's 32 x 32 tile: acc[mi][ni] += a b,
+// a(row, k) = Aop[row * a_rs + k * a_ks], b(k, col) = Bop[k * ULD + col].
+__device__ __forceinline__ void mma3_step(float (&acc)[2][4][4], const float* Aop, int a_rs,
+                                          int a_ks, const float* Bop, int g, int t) {
+  uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    split_tf32(Bop[t * ULD + ni * 8 + g], bb[ni][0], bs[ni][0]);
+    split_tf32(Bop[(t + 4) * ULD + ni * 8 + g], bb[ni][1], bs[ni][1]);
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const float* a = Aop + (mi * 16 + g) * a_rs + t * a_ks;
+    uint32_t ab[4], as[4];
+    split_tf32(a[0], ab[0], as[0]);
+    split_tf32(a[8 * a_rs], ab[1], as[1]);
+    split_tf32(a[4 * a_ks], ab[2], as[2]);
+    split_tf32(a[8 * a_rs + 4 * a_ks], ab[3], as[3]);
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      mma_tf32(acc[mi][ni], as, bb[ni]);
+      mma_tf32(acc[mi][ni], ab, bs[ni]);
+      mma_tf32(acc[mi][ni], ab, bb[ni]);
+    }
+  }
+}
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void zero(float (&acc)[2][4][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// Runs `chunks` K chunks through the USTAGES-deep cp.async ring: load(buf, c)
+// issues chunk c's copies into stage buf, compute(buf, c) consumes it. One
+// barrier per chunk; the caller's threads must all call it.
+template <typename Load, typename Compute>
+__device__ __forceinline__ void ring(int chunks, float* stages, Load load, Compute compute) {
+#pragma unroll
+  for (int c = 0; c < USTAGES - 1; ++c) {
+    if (c < chunks) load(stages + c * USTAGE, c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<USTAGES - 2>();
+    __syncthreads();             // chunk c is in; every thread is done with chunk c - 1
+    const int next = c + USTAGES - 1;
+    if (next < chunks) load(stages + (next % USTAGES) * USTAGE, next);
+    cp_async_commit();
+    compute(stages + (c % USTAGES) * USTAGE, c);
+  }
+  cp_async_wait<0>();
+  __syncthreads();               // the stages are free again
+}
+
+// grid (ceil(Dv / 128), N), 16 warps as 4 x 4, each a 32 x 32 tile. VEC 4:
+// A's rows are 16-byte aligned (Dv % 4 == 0) and load by 16-byte copies.
+template <int VEC>
+__global__ void __launch_bounds__(UTHREADS, 1)
 armt_update_main(const float* __restrict__ v, const float* __restrict__ A,
-                 float* __restrict__ A_out, const float* __restrict__ phi,
-                 const float* __restrict__ aux, int M, int P, int Dv) {
+                 const float* __restrict__ z, float* __restrict__ A_out,
+                 float* __restrict__ z_out, const float* __restrict__ phi,
+                 const float* __restrict__ aux, int M, int P, int Pp, int Dv) {
   extern __shared__ __align__(16) float sm[];
-  float* us = sm;                      // u [m][value], TILE x LDT
-  float* As = us + TILE * LDT;         // KC x LDT
-  float* Bs = As + KC * LDT;           // KC x LDT
-  const int v0 = blockIdx.x * TILE, n = blockIdx.y;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  float* us = sm;                      // u [m][value], UT x ULD
+  float* stages = us + UT * ULD;       // the ring of K chunks
+  const int v0 = blockIdx.x * UT, n = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 4, wn = warp % 4, g = lane / 4, t = lane % 4;
   const float* An = A + (ll)n * P * Dv;
-  const float* phin = phi + (ll)n * M * P;
+  const float* phin = phi + (ll)n * M * Pp;
   const float* zk = aux + (ll)n * 3 * M;
   const float* beta = zk + M;
+  const float* gam = zk + 2 * M;
 
-  // vbar tile (unnormalised) = phi[m, :] A[:, tile], rows m < 128
-  float acc[8][8];
+  // z' = z + gamma^T phi, summed over the rows in order (the order of the
+  // plain version); the blocks of n take every gridDim.x-th p
+  for (int p = blockIdx.x + tid * gridDim.x; p < P; p += UTHREADS * gridDim.x) {
+    float s = 0.f;
+#pragma unroll 8
+    for (int r = 0; r < M; ++r) s = fmaf(gam[r], phin[(ll)r * Pp + p], s);
+    z_out[(ll)n * P + p] = z[(ll)n * P + p] + s;
+  }
+
+  // vbar tile (unnormalised) = phi[m, :] A[:, tile], rows m < 128, K = Pp:
+  // a stage holds the phi chunk [m][UKC] and the A chunk [UKC][value]
+  float acc[2][4][4];
   zero(acc);
-  for (int p0 = 0; p0 < P; p0 += KC) {
-    __syncthreads();
-    for (int e = tid; e < KC * TILE; e += THREADS) {
-      const int kk = e % KC, r = e / KC;              // 8 consecutive p per row
-      As[kk * LDT + r] = r < M && p0 + kk < P ? phin[(ll)r * P + p0 + kk] : 0.f;
-      const int k2 = e / TILE, c = e % TILE;
-      Bs[k2 * LDT + c] = p0 + k2 < P && v0 + c < Dv ? An[(ll)(p0 + k2) * Dv + v0 + c] : 0.f;
-    }
-    __syncthreads();
-    tile_fma(acc, As, LDT, Bs, LDT, ty, tx);
-  }
+  ring(
+      Pp / UKC, stages,
+      [&](float* Ps, int c) {
+        const int p0 = c * UKC;
+        float* Bs = Ps + UT * PLD;
+        for (int e = tid; e < UT * UKC / 4; e += UTHREADS) {
+          const int r = e / (UKC / 4), kc = (e % (UKC / 4)) * 4;
+          const bool ok = r < M;
+          cp_async16(Ps + r * PLD + kc, ok ? phin + (ll)r * Pp + p0 + kc : phin, ok);
+        }
+        if (VEC == 4) {
+          for (int e = tid; e < UKC * UT / 4; e += UTHREADS) {
+            const int r = e / (UT / 4), cc = (e % (UT / 4)) * 4;
+            const bool ok = p0 + r < P && v0 + cc < Dv;
+            cp_async16(Bs + r * ULD + cc, ok ? An + (ll)(p0 + r) * Dv + v0 + cc : An, ok);
+          }
+        } else {
+          for (int e = tid; e < UKC * UT; e += UTHREADS) {
+            const int r = e / UT, cc = e % UT;
+            const bool ok = p0 + r < P && v0 + cc < Dv;
+            cp_async4(Bs + r * ULD + cc, ok ? An + (ll)(p0 + r) * Dv + v0 + cc : An, ok);
+          }
+        }
+      },
+      [&](const float* Ps, int) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = tile_row(ty, i);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = tile_col(tx, j);
-      float u = 0.f;
-      if (r < M && v0 + c < Dv)
-        u = beta[r] * (v[((ll)n * M + r) * Dv + v0 + c] - acc[i][j] / (zk[r] + EPS));
-      us[r * LDT + c] = u;
-    }
-  }
+        for (int kk = 0; kk < UKC; kk += 8)
+          mma3_step(acc, Ps + (wm * 32) * PLD + kk, PLD, 1, Ps + UT * PLD + kk * ULD + wn * 32,
+                    g, t);
+      });
 
-  // A'[p, tile] = A[p, tile] + sum_m phi[m, p] u[m, tile], 128 rows of P at a time
-  for (int pc = 0; pc < P; pc += TILE) {
+  // u = beta (v - vbar / (zk + eps)), zero past M and Dv
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = wm * 32 + mi * 16 + g + (e >= 2 ? 8 : 0);
+        const int c = wn * 32 + ni * 8 + 2 * t + (e & 1);
+        float u = 0.f;
+        if (r < M && v0 + c < Dv)
+          u = beta[r] * (v[((ll)n * M + r) * Dv + v0 + c] - acc[mi][ni][e] / (zk[r] + EPS));
+        us[r * ULD + c] = u;
+      }
+  __syncthreads();
+
+  // A'[p, tile] = A[p, tile] + sum_m phi[m, p] u[m, tile], 128 rows of P a
+  // pass: a stage holds the phi chunk [UKC m][128 p]
+  for (int pc = 0; pc < P; pc += UT) {
     zero(acc);
-    for (int m0 = 0; m0 < M; m0 += KC) {
-      __syncthreads();
-      for (int e = tid; e < KC * TILE; e += THREADS) {
-        const int kk = e / TILE, p = e % TILE;
-        As[kk * LDT + p] = m0 + kk < M && pc + p < P ? phin[(ll)(m0 + kk) * P + pc + p] : 0.f;
-      }
-      __syncthreads();
-      tile_fma(acc, As, LDT, us + m0 * LDT, LDT, ty, tx);
-    }
+    ring(
+        (M + UKC - 1) / UKC, stages,
+        [&](float* Qs, int c) {
+          const int m0 = c * UKC;
+          for (int e = tid; e < UKC * UT / 4; e += UTHREADS) {
+            const int r = e / (UT / 4), cc = (e % (UT / 4)) * 4;
+            const bool ok = m0 + r < M && pc + cc < Pp;
+            cp_async16(Qs + r * ULD + cc, ok ? phin + (ll)(m0 + r) * Pp + pc + cc : phin, ok);
+          }
+        },
+        [&](const float* Qs, int c) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int p = pc + tile_row(ty, i);
-      if (p >= P) continue;
+          for (int kk = 0; kk < UKC; kk += 8)
+            mma3_step(acc, Qs + kk * ULD + wm * 32, 1, ULD, us + (c * UKC + kk) * ULD + wn * 32,
+                      g, t);
+        });
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = v0 + tile_col(tx, j);
-        if (c < Dv) A_out[((ll)n * P + p) * Dv + c] = An[(ll)p * Dv + c] + acc[i][j];
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int p = pc + wm * 32 + mi * 16 + g + 8 * e2;
+        if (p >= P) continue;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = v0 + wn * 32 + ni * 8 + 2 * t + e;
+            if (c < Dv)
+              A_out[((ll)n * P + p) * Dv + c] = An[(ll)p * Dv + c] + acc[mi][ni][2 * e2 + e];
+          }
       }
-    }
   }
 }
 
@@ -339,28 +465,49 @@ extern "C" int armt_read_finish_launch(const void* num, const void* den, void* o
   return static_cast<int>(cudaGetLastError());
 }
 
-// k [N,M,dm], b [N,M] (beta logits) and v [N,M,Dv] are the fp32 projections;
-// phi [N,M,P] and aux [N,3,M] are fp32 scratch. M <= 128, dm <= 64.
-extern "C" int armt_update_launch(const void* k, const void* b, const void* v,
+// k [N,M,dm] and v [N,M,Dv] are the fp32 projections of the memory rows m
+// [N,M,D] (read through their (n, row) strides; dtype 0 float32, 1
+// bfloat16, as wb [G,D] with G = N / wbatch); phi [N,M,Pp] and aux [N,3,M]
+// are fp32 scratch, Pp >= P a multiple of the K chunk (32; refused with
+// cudaErrorInvalidValue otherwise). M <= 128, dm <= 64.
+extern "C" int armt_update_launch(const void* k, const void* v, const void* m, const void* wb,
                                   const void* A, const void* z, void* A_out, void* z_out,
-                                  void* phi, void* aux, int N, int M, int dm, int P, int Dv,
-                                  void* stream) {
+                                  void* phi, void* aux, int N, int M, int dm, int P, int Pp,
+                                  int Dv, int D, long long smn, long long smr, int wbatch,
+                                  int dtype, void* stream) {
+  if (Pp < P || Pp % UKC) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   static bool configured = false;
   if (!configured) {
-    cudaFuncSetAttribute(armt_update_main, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(armt_update_main<4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         UP_SMEM);
+    cudaFuncSetAttribute(armt_update_main<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          UP_SMEM);
     configured = true;
   }
-  armt_update_prep<<<N, THREADS, 0, s>>>(
-      static_cast<const float*>(k), static_cast<const float*>(b),
-      static_cast<const float*>(z), static_cast<float*>(z_out), static_cast<float*>(phi),
-      static_cast<float*>(aux), M, dm, P);
+  const dim3 pgrid(N, (M + THREADS / 32 - 1) / (THREADS / 32));
+  if (dtype == 1)
+    armt_update_prep<bf16><<<pgrid, THREADS, 0, s>>>(
+        static_cast<const float*>(k), static_cast<const bf16*>(m), static_cast<const bf16*>(wb),
+        static_cast<const float*>(z), static_cast<float*>(phi), static_cast<float*>(aux), M, dm,
+        P, Pp, D, smn, smr, wbatch);
+  else
+    armt_update_prep<float><<<pgrid, THREADS, 0, s>>>(
+        static_cast<const float*>(k), static_cast<const float*>(m),
+        static_cast<const float*>(wb), static_cast<const float*>(z), static_cast<float*>(phi),
+        static_cast<float*>(aux), M, dm, P, Pp, D, smn, smr, wbatch);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Dv + TILE - 1) / TILE, N);
-  armt_update_main<<<grid, THREADS, UP_SMEM, s>>>(
-      static_cast<const float*>(v), static_cast<const float*>(A), static_cast<float*>(A_out),
-      static_cast<const float*>(phi), static_cast<const float*>(aux), M, P, Dv);
+  const dim3 grid((Dv + UT - 1) / UT, N);
+  if (Dv % 4 == 0 && aligned16(A))
+    armt_update_main<4><<<grid, UTHREADS, UP_SMEM, s>>>(
+        static_cast<const float*>(v), static_cast<const float*>(A), static_cast<const float*>(z),
+        static_cast<float*>(A_out), static_cast<float*>(z_out), static_cast<const float*>(phi),
+        static_cast<const float*>(aux), M, P, Pp, Dv);
+  else
+    armt_update_main<1><<<grid, UTHREADS, UP_SMEM, s>>>(
+        static_cast<const float*>(v), static_cast<const float*>(A), static_cast<const float*>(z),
+        static_cast<float*>(A_out), static_cast<float*>(z_out), static_cast<const float*>(phi),
+        static_cast<const float*>(aux), M, P, Pp, Dv);
   return static_cast<int>(cudaGetLastError());
 }

@@ -185,8 +185,6 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 template <typename T, bool VEC>
 void launch(const void* q, const void* k, const void* v, const void* lengths, void* out,
             int B, int Hq, int Hkv, int S, int hd, ll sqb, ll sqh, ll skb, ll sks, ll skh,

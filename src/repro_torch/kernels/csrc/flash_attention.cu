@@ -282,8 +282,6 @@ flash_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   for (int d = 0; d < hd; ++d) orow[d] = from_f<T>(acc[d] * inv);
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int N,
                        int Hq, int Hkv, int T, int S, const ll* st, int causal,

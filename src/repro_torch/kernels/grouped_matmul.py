@@ -4,7 +4,10 @@ down projection + ARMT update of the B == 1 cell.
 ``grouped_matmul`` replaces the Pallas kernel ``grouped_matmul``
 (repro/kernels/grouped_matmul.py:198): ``x[G,R,K] @ w[G,K,N] (+ bias[G,N])``
 with silu or tanh-gelu applied to the fp32 accumulator. Its plain version is
-``grouped_matmul_plain``.
+``grouped_matmul_plain``. Every launch takes one of two routes in
+``csrc/grouped_matmul.cu``, which ``route()`` picks and the module counts:
+the TMA + wgmma mainloop for bf16 operands with 16-byte rows, the fp32 SIMT
+kernel for the rest.
 
 ``grouped_matmul_armt_update`` replaces the Pallas kernel of that name
 (repro/kernels/grouped_matmul.py:114): ``y = res + x @ w (+ bias)``, the
@@ -13,7 +16,8 @@ delta-rule update of (A, z) from the last M rows of each group's y. On the
 card the GEMM with its residual epilogue is one launch of the kernel in
 ``csrc/grouped_matmul.cu``, and the update runs the ``armt_update`` kernels
 of ``csrc/armt_memory.cu`` on a strided view of y's memory rows (see the
-CUDA source for why the update cannot stay on chip). One call counts as one
+CUDA source for why the update cannot stay on chip; the memory rows are
+read back from L2). One call counts as one
 ``grouped_matmul_armt_update`` launch and as no ``grouped_matmul`` or
 ``armt_update`` launch. Unlike the TPU kernel it has no tiling constraint
 on where the memory rows sit, and so no fallback.
@@ -32,9 +36,36 @@ from repro_torch.kernels.ref import grouped_matmul_ref as grouped_matmul_plain
 
 launches = 0         # grouped_matmul launches since the last reset
 fused_launches = 0   # grouped_matmul_armt_update launches since the last reset
+# GEMM kernel launches by route since the last reset, whoever called launch()
+# (grouped_matmul, the fused op, project_f32, armt_read's split product)
+tc_launches = 0      # the TMA + wgmma mainloop
+simt_launches = 0    # gmm_simt, fp32 FMAs
 
 _ACT = {None: 0, "silu": 1, "gelu": 2}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _x_strides(x):
+    """x's (group, row) strides, those of a size-1 dim replaced by the
+    stride a contiguous tensor would have there: PyTorch leaves a size-1
+    dim's stride arbitrary, and the TMA tensor map needs a real one."""
+    G, R, K = x.shape
+    sxr = x.stride(1) if R > 1 else K
+    return (x.stride(0) if G > 1 else R * sxr), sxr
+
+
+def route(x, w, out) -> str:
+    """The kernel a launch of these operands takes: "wgmma" (the TMA +
+    wgmma mainloop: bf16, K > 0, K and N multiples of 8 and 16-byte-aligned
+    x rows, so every row the TMA reads is whole 16-byte pieces; x, w and out
+    16-byte aligned) or "simt" (any dtype and shape)."""
+    K, N = w.shape[-2:]
+    sxg, sxr = _x_strides(x)
+    if (x.dtype == torch.bfloat16 and K > 0 and K % 8 == 0 and N % 8 == 0
+            and sxg > 0 and sxr > 0 and sxg % 8 == 0 and sxr % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, w, out))):
+        return "wgmma"
+    return "simt"
 
 
 def launch(x, w, bias, out, *, wbatch: int = 1, activation=None, res=None):
@@ -70,13 +101,19 @@ def launch(x, w, bias, out, *, wbatch: int = 1, activation=None, res=None):
         raise ValueError("grouped_matmul: operands on different devices")
     if G * R * N == 0:
         return False
+    global tc_launches, simt_launches
+    tc = route(x, w, out) == "wgmma"
     code = build.lib().gmm_launch(
         x.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
         res.data_ptr() if res is not None else None, out.data_ptr(), G, R, K, N,
-        x.stride(0), x.stride(1), res.stride(0) if res is not None else 0,
+        *_x_strides(x), res.stride(0) if res is not None else 0,
         res.stride(1) if res is not None else 0, wbatch, _DTYPE[x.dtype],
-        int(out.dtype == torch.float32), _ACT[activation], build.stream_ptr(x))
+        int(out.dtype == torch.float32), _ACT[activation], int(tc), build.stream_ptr(x))
     build.check(code, "grouped_matmul")
+    if tc:
+        tc_launches += 1
+    else:
+        simt_launches += 1
     return True
 
 

@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain versions on the card, at
-small odd shapes: ragged rows and columns on the tensor-core paths, ragged
-cache lengths and windows for decode attention, ragged channels, strided
-B/C, grouped A_log/D and T = 1 for the Mamba scan, and the fp32 paths. Needs a CUDA device and nvcc; skips without a card. This file
+small odd shapes: ragged rows and columns on the tensor-core paths (the
+GEMM's TMA + wgmma route: ragged R, K and N, strided x rows and res, weight
+batches, more tiles than SMs), ragged cache lengths and windows for decode
+attention, ragged channels, strided B/C, grouped A_log/D and T = 1 for the
+Mamba scan, and the fp32 paths. Needs a CUDA device and nvcc; skips without
+a card. This file
 imports no JAX; with ``--noconftest`` (tests/conftest.py imports JAX) it
 runs on a machine that has only PyTorch:
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``."""
@@ -55,6 +58,78 @@ def test_grouped_matmul_on_card(cuda, dtype, G, R, K, N, act):
     x, w, b = r(G, R, K), r(G, K, N, sc=K ** -0.5), r(G, N)
     _close(grouped_matmul.grouped_matmul(x, w, b, activation=act),
            grouped_matmul.grouped_matmul_plain(*_f32(x, w, b), activation=act), TOL[dtype])
+
+
+def _tc_launch(fn):
+    """fn's result, checking that it made exactly one GEMM launch, on the
+    TMA + wgmma route."""
+    tc, simt = grouped_matmul.tc_launches, grouped_matmul.simt_launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert (grouped_matmul.tc_launches - tc, grouped_matmul.simt_launches - simt) == (1, 0)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,R,K,N,act", [
+    (2, 40, 64, 128, None),        # R < 64: the second warpgroup's rows all past R
+    (4, 1100, 128, 256, "silu"),   # ragged rows over 9 row tiles
+    (3, 130, 72, 136, "gelu"),     # K = 72: a zero-filled K tail; N = 136: ragged BN
+    (2, 200, 8192, 256, None),     # K = 8192: 128 K stages through the ring
+    (2, 70, 64, 40, None),         # N = 40 < one 64-column TMA box
+    (3, 129, 96, 64, "silu"),      # N = 64: 128-column tiles, half zero-filled
+    (1, 4096, 256, 2048, None),    # G = 1, 256 tiles: more than one per SM
+])
+def test_grouped_matmul_tc_shapes_on_card(cuda, G, R, K, N, act):
+    r = _rand(torch.Generator().manual_seed(R + K + N), cuda, torch.bfloat16)
+    x, w, b = r(G, R, K), r(G, K, N, sc=K ** -0.5), r(G, N)
+    out = _tc_launch(lambda: grouped_matmul.grouped_matmul(x, w, b, activation=act))
+    _close(out, grouped_matmul.grouped_matmul_plain(*_f32(x, w, b), activation=act), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["batch_slice", "memory_rows"])
+def test_grouped_matmul_strided_rows_on_card(cuda, view):
+    """x read through its strides, as the cell passes it: one batch row of a
+    [G, B, T, K] tensor, and the memory rows y[:, R - M:] of a [G, R, K]."""
+    r = _rand(torch.Generator().manual_seed(7), cuda, torch.bfloat16)
+    G, K, N = 3, 96, 136
+    if view == "batch_slice":
+        x = r(G, 3, 150, K)[:, 1]
+    else:
+        x = r(G, 300, K)[:, 300 - 128:]
+    assert not x.is_contiguous()
+    w = r(G, K, N, sc=K ** -0.5)
+    out = _tc_launch(lambda: grouped_matmul.grouped_matmul(x, w))
+    _close(out, grouped_matmul.grouped_matmul_plain(*_f32(x, w)), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,batch,R,K,N", [(2, 3, 128, 256, 64), (4, 2, 37, 64, 2048)])
+def test_project_f32_weight_batch_on_card(cuda, G, batch, R, K, N):
+    """wbatch > 1 with an fp32 epilogue, as the ARMT kernels project: row n
+    of x uses weight group n // batch, and bf16 x bf16 products are exact in
+    fp32, so the result is held at the fp32 tolerance."""
+    r = _rand(torch.Generator().manual_seed(R + N), cuda, torch.bfloat16)
+    x, w = r(G * batch, R, K), r(G, K, N, sc=K ** -0.5)
+    out = _tc_launch(lambda: grouped_matmul.project_f32(x, w, batch))
+    assert out.dtype == torch.float32
+    want = torch.matmul(x.float(), w.float().repeat_interleave(batch, 0))
+    _close(out, want, 1e-4)
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_residual_row_stride_on_card(cuda):
+    """res read through a row stride other than N, added to the fp32
+    accumulator before the one cast."""
+    r = _rand(torch.Generator().manual_seed(3), cuda, torch.bfloat16)
+    G, R, K, N = 2, 200, 128, 256
+    x, w = r(G, R, K), r(G, K, N, sc=K ** -0.5)
+    res = r(G, R, N + 24)[:, :, 5:5 + N]
+    assert res.stride(1) == N + 24
+    out = torch.empty(G, R, N, dtype=torch.bfloat16, device=cuda)
+    _tc_launch(lambda: grouped_matmul.launch(x, w, None, out, res=res))
+    _close(out, res.float() + grouped_matmul.grouped_matmul_plain(*_f32(x, w)), 1e-2)
 
 
 @pytest.mark.cuda
@@ -131,6 +206,35 @@ def test_grouped_matmul_armt_update_on_card(cuda, dtype, G, R, K, N, M, bias):
     for got, ref in zip((A2, z2), armt_memory.armt_update_plain(
             *_f32(y[:, -M:], wk, wv, wb), A, z)):
         _close(got, ref, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,R,K,N,dm,Dv", [(2, 300, 128, 256, 64, 384),   # P 384: 3 passes of A'
+                                           (3, 200, 64, 128, 8, 260),     # a ragged value tile
+                                           (2, 150, 64, 96, 16, 250)])    # Dv % 4 != 0
+def test_grouped_matmul_armt_update_value_tiles_on_card(cuda, G, R, K, N, dm, Dv):
+    """M = 128 memory rows and Dv >= 256 values, so the update runs over
+    several 128-value tiles; in bf16 every GEMM launch, the k and v
+    projections included, takes the TMA + wgmma route, but for the v
+    projection when Dv is not a multiple of 8."""
+    g = torch.Generator().manual_seed(R + Dv)
+    r = _rand(g, cuda, torch.bfloat16)
+    M, P = 128, 6 * dm
+    x, w, res = r(G, R, K), r(G, K, N, sc=K ** -0.5), r(G, R, N)
+    wk, wv, wb = r(G, N, dm, sc=N ** -0.5), r(G, N, Dv, sc=N ** -0.5), r(G, N, 1, sc=N ** -0.5)
+    A = (torch.randn(G, P, Dv, generator=g) * 0.1).to(cuda)
+    z = (torch.rand(G, P, generator=g) + 0.5).to(cuda)
+    simt = grouped_matmul.simt_launches
+    y, A2, z2 = grouped_matmul.grouped_matmul_armt_update(x, w, res, wk, wv, wb, A, z, M=M)
+    torch.cuda.synchronize()
+    simt = grouped_matmul.simt_launches - simt
+    want = grouped_matmul.grouped_matmul_armt_update_plain(*_f32(x, w, res, wk, wv, wb), A, z,
+                                                           M=M)
+    _close(y, want[0], 1e-2)
+    for got, ref in zip((A2, z2), armt_memory.armt_update_plain(
+            *_f32(y[:, -M:], wk, wv, wb), A, z)):
+        _close(got, ref, 1e-4)
+    assert simt == (0 if Dv % 8 == 0 else 1)
 
 
 @pytest.mark.cuda

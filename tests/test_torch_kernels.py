@@ -261,6 +261,37 @@ def test_cpu_path_counts_no_launch():
     assert mamba_scan.launches == before
 
 
+def test_gemm_route_takes_tensor_cores_only_for_whole_16_byte_rows():
+    """route() sends bf16 operands whose TMA rows are whole 16-byte pieces to
+    the wgmma mainloop and everything else to gmm_simt; a size-1 dim's
+    arbitrary stride does not matter."""
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rt(x, w, out=None):
+        out = torch.empty(x.shape[0], x.shape[1], w.shape[-1], dtype=x.dtype) if out is None else out
+        return grouped_matmul.route(x, w, out)
+    assert rt(torch.ones(4, 37, 64, dtype=bf), torch.ones(4, 64, 40, dtype=bf)) == "wgmma"
+    assert rt(torch.ones(4, 37, 64), torch.ones(4, 64, 40)) == "simt"              # fp32
+    assert rt(torch.ones(2, 8, 64, dtype=bf), torch.ones(2, 64, 1, dtype=bf)) == "simt"   # N = 1
+    assert rt(torch.ones(2, 8, 50, dtype=bf), torch.ones(2, 50, 64, dtype=bf)) == "simt"  # K % 8
+    assert rt(torch.ones(2, 8, 0, dtype=bf), torch.ones(2, 0, 64, dtype=bf)) == "simt"    # K = 0
+    base = torch.ones(3, 5, 20, 64, dtype=bf)
+    assert rt(base[:, 2], torch.ones(3, 64, 16, dtype=bf)) == "wgmma"      # a batch row's view
+    assert rt(base[:, 1, 4:], torch.ones(3, 64, 16, dtype=bf)) == "wgmma"  # memory rows' view
+    odd = torch.ones(2, 9, 68, dtype=bf)[:, :, :64]          # 136-byte rows: not 16-byte aligned
+    assert rt(odd, torch.ones(2, 64, 16, dtype=bf)) == "simt"
+    shifted = torch.ones(2, 9, 72, dtype=bf)[:, :, 8:]       # 16-byte offset, 144-byte rows
+    assert rt(shifted, torch.ones(2, 64, 16, dtype=bf)) == "wgmma"
+    assert rt(torch.ones(2, 9, 72, dtype=bf)[:, :, 4:68], torch.ones(2, 64, 16, dtype=bf)) == "simt"
+    one = torch.ones(1, 1, 64, dtype=bf).as_strided((1, 1, 64), (5, 3, 1))   # size-1 dims
+    assert rt(one, torch.ones(1, 64, 8, dtype=bf)) == "wgmma"
+    assert grouped_matmul._x_strides(one) == (64, 64)
+    out32 = torch.empty(4, 37, 40, dtype=f32)
+    assert rt(torch.ones(4, 37, 64, dtype=bf), torch.ones(4, 64, 40, dtype=bf), out32) == "wgmma"
+    assert rt(torch.ones(4, 37, 64, dtype=bf), torch.ones(4, 64, 40, dtype=bf),
+              torch.empty(4 * 37 * 40 + 1, dtype=f32)[1:].view(4, 37, 40)) == "simt"
+
+
 # ---------------------------------------------------------------- C interface
 _CTYPE_ARG = re.compile(r"\b(const\s+void\s*\*|void\s*\*|int|long\s+long|float)\s+\w+")
 
