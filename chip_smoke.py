@@ -11,9 +11,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       slots of a 1152-row cache; bf16), mamba_scan at falcon-mamba's (the
       band of 16 layers at T = 1024, d_inner 8192, d_state 16; decode over
       4 rows), and at small odd shapes;
-      error against a stated tolerance, and median CUDA-event times of the
-      kernel, the plain version and, where one exists, a single PyTorch
-      call computing the same function (a yardstick the port never calls);
+      error against a stated tolerance, and median device times (CUDA
+      events behind a ~0.5 ms spin of the card, so the host's Python time
+      is not counted) of the kernel, the plain version and, where one
+      exists, a single PyTorch call computing the same function (a
+      yardstick the port never calls); flash also with hd 128, decode also
+      at the 64-key chunk edges and with windows;
   (c) model: llama-1b-armt at full width and depth (random weights from a
       seed, bf16), diagonal prefill on the kernels against the sequential
       schedule on the plain path: 16 segments free-running, gated on the
@@ -60,10 +63,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
 The kernels' launch counters are set to 0 just before each of (d), (e),
 (g) and (h) and read just after it: every llama kernel must have been
 launched in (d), every one but armt_update (which runs only at B > 1) in
-(e), and mamba_scan in (g) and in (h). The GEMM's launches are also counted
-by route (the TMA + wgmma mainloop or the fp32 SIMT kernel, whoever called
-it: projections, the fused op, the ARMT kernels' projections and split
-product): the bf16 llama runs of (d) and (e) must launch no SIMT GEMM.
+(e), and mamba_scan in (g) and in (h). The GEMM's and flash attention's
+launches are also counted by route (the TMA + wgmma kernel or the fp32 SIMT
+kernel; for the GEMM whoever called it: projections, the fused op, the
+ARMT kernels' projections and split product): the bf16 llama runs of (d)
+and (e) must launch no SIMT GEMM and no SIMT flash. One decode_attention
+call (its partials and their combine) counts as one launch.
 The script prints one JSON line per kernel summary, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before that line; without a CUDA device it exits 2.
@@ -123,20 +128,25 @@ def main() -> int:
     llama_kernels = [k for k in counters if k != "mamba_scan"]
     falcon_kernels = ["mamba_scan"]
 
-    # GEMM launches by route, counted where launched (not kernels of their own)
+    # GEMM and flash launches by route, counted where launched (not kernels
+    # of their own)
     routes = {"wgmma": "tc_launches", "simt": "simt_launches"}
+    routed = {"grouped_matmul": grouped_matmul, "flash_attention": flash_attention}
 
     def reset_counts():
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
-        for attr in routes.values():
-            setattr(grouped_matmul, attr, 0)
+        for mod in routed.values():
+            for attr in routes.values():
+                setattr(mod, attr, 0)
 
     def read_counts():
         return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
 
     def read_routes():
-        return {name: getattr(grouped_matmul, attr) for name, attr in routes.items()}
+        """{kernel: {route: launches}} for the GEMM and flash."""
+        return {k: {name: getattr(mod, attr) for name, attr in routes.items()}
+                for k, mod in routed.items()}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -163,12 +173,16 @@ def main() -> int:
         torch.cuda.synchronize(dev)
 
     def time_ms(fn, iters=10, warmup=2):
+        """Median device time of one call: the card spins ~0.5 ms first, so
+        the host has enqueued the call before the start event is reached
+        and its Python time is not counted."""
         for _ in range(warmup):
             fn()
         sync()
         ts = []
         for _ in range(iters):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(1_000_000)
             a.record()
             fn()
             b.record()
@@ -282,15 +296,30 @@ def main() -> int:
     del ref32, plain16
     qc, kc, vc = flat(q5).contiguous(), flat(k5).contiguous(), flat(v5).contiguous()
     pairs = T * (T + 1) / 2
+    # the softmax's exponentials run on the special-function units beside
+    # the tensor cores: at hd 64 they bound the kernel about as tightly
     t = timed("flash_attention [16,32,1152,64]",
               lambda: ops.segment_attention(q5, k5, v5, causal=True),
               lambda: flash_attention.flash_attention_plain(flat(q5), flat(k5), flat(v5)),
               lambda: torch.nn.functional.scaled_dot_product_attention(
                   qc, kc, vc, is_causal=True, enable_gqa=True),
-              flops_bf16=4.0 * G * Hq * hd * pairs,
+              flops_bf16=4.0 * G * Hq * hd * pairs, exps=G * Hq * pairs,
               nbytes=2.0 * G * (2 * Hq * T * hd + 2 * Hkv * T * hd))
     summary["flash_attention"] = dict(t, max_abs_err=err, shape=f"q[{G},{Hq},{T},{hd}] k/v[{G},{Hkv},{T},{hd}]")
+    log(f"  (route of the cell's strided views: {flash_attention.route(flat(q5), flat(k5), flat(v5))})")
     del q5, k5, v5, qc, kc, vc
+    # hd 128 (llama-3b/8b-armt's head dim), the cell's layout, 24 q heads
+    Hq3, hd3 = 24, 128
+    q5, k5, v5 = rnd(G, 1, T, Hq3, hd3), rnd(G, 1, T, Hkv, hd3), rnd(G, 1, T, Hkv, hd3)
+    ref32 = flash_attention.flash_attention_plain(flat(q5).float(), flat(k5).float(),
+                                                  flat(v5).float())
+    check(f"flash_attention causal GQA hd 128 [16,{Hq3},1152,{hd3}]",
+          ops.segment_attention(q5, k5, v5, causal=True),
+          ref32.transpose(1, 2).reshape(q5.shape), TOL_BF16)
+    t3 = time_ms(lambda: ops.segment_attention(q5, k5, v5, causal=True))
+    log(f"  flash_attention hd 128 [16,{Hq3},1152,{hd3}]: kernel {t3:.4f} ms; route "
+        f"{flash_attention.route(flat(q5), flat(k5), flat(v5))}")
+    del q5, k5, v5, ref32
     for dtype, (n_, hq_, hk_, t_, hd_, win) in [(torch.float32, (2, 4, 2, 45, 40, 17)),
                                                 (torch.bfloat16, (2, 4, 2, 100, 64, 31))]:
         qo, ko, vo = (rnd(n_, hq_, t_, hd_, dtype=dtype), rnd(n_, hk_, t_, hd_, dtype=dtype),
@@ -410,12 +439,16 @@ def main() -> int:
     qd = rnd(Bd, Hq, hd)
     kd, vd = rnd(Bd, Sd, Hkv, hd), rnd(Bd, Sd, Hkv, hd)
     err = 0.0
-    for lens in [(1024, 517, 1, 1000), (1024,) * Bd]:
+    # 64-key chunks: lengths at chunk edges, length 1, windows inside one
+    # chunk (keys 960-999) and across chunks (89-128)
+    for lens, win in [((63, 64, 65, 1), 0), ((1000, 129, 1152, 640), 40),
+                      ((1024, 517, 1, 1000), 0), ((1024,) * Bd, 0)]:
         Ld = torch.tensor(lens, dtype=torch.int32, device=dev)
-        err = max(err, check(f"decode_attention q[{Bd},{Hq},{hd}] k/v[{Bd},{Sd},{Hkv},{hd}] lengths {lens}",
-                    decode_attention.decode_attention(qd, kd, vd, Ld),
-                    decode_attention.decode_attention_plain(qd.float(), kd.float(),
-                                                            vd.float(), Ld), TOL_BF16))
+        err = max(err, check(
+            f"decode_attention q[{Bd},{Hq},{hd}] k/v[{Bd},{Sd},{Hkv},{hd}] lengths {lens} "
+            f"window {win}", decode_attention.decode_attention(qd, kd, vd, Ld, window=win),
+            decode_attention.decode_attention_plain(qd.float(), kd.float(), vd.float(), Ld,
+                                                    window=win), TOL_BF16))
     q4, k4, v4 = qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
     mask4 = (torch.arange(Sd, device=dev) < Ld[:, None])[:, None, None, :]
     n_keys = float(sum(lens))
@@ -690,13 +723,14 @@ def main() -> int:
             if not same:
                 failures.append("generate B=1 not reproducible")
     launches_gen, routes_gen = read_counts(), read_routes()
-    log(f"  launches in the generate phase: {launches_gen}; GEMM launches by route "
-        f"{routes_gen}")
+    log(f"  launches in the generate phase: {launches_gen}; GEMM and flash launches by "
+        f"route {routes_gen}")
     for name in llama_kernels:
         if launches_gen[name] == 0:
             failures.append(f"{name} never launched by generate")
-    if routes_gen["simt"] or not routes_gen["wgmma"]:
-        failures.append(f"generate's GEMMs left the TMA + wgmma route: {routes_gen}")
+    for k in routed:
+        if routes_gen[k]["simt"] or not routes_gen[k]["wgmma"]:
+            failures.append(f"generate's {k} left the TMA + wgmma route: {routes_gen[k]}")
 
     scfg = get_smoke_config("llama-1b-armt")
     sp = M.init_params(scfg, SEED, device="cpu")
@@ -726,13 +760,14 @@ def main() -> int:
     sync()
     t_serve = time.perf_counter() - t0
     launches_serve, routes_serve = read_counts(), read_routes()
-    log(f"  launches in the serve phase: {launches_serve}; GEMM launches by route "
-        f"{routes_serve}")
+    log(f"  launches in the serve phase: {launches_serve}; GEMM and flash launches by "
+        f"route {routes_serve}")
     for name in llama_kernels:
         if launches_serve[name] == 0 and name != "armt_update":   # B > 1 only
             failures.append(f"{name} never launched by serve")
-    if routes_serve["simt"] or not routes_serve["wgmma"]:
-        failures.append(f"serve's GEMMs left the TMA + wgmma route: {routes_serve}")
+    for k in routed:
+        if routes_serve[k]["simt"] or not routes_serve[k]["wgmma"]:
+            failures.append(f"serve's {k} left the TMA + wgmma route: {routes_serve[k]}")
     errors = [e for e in events if isinstance(e, RequestError)]
     n_tok = len(events) - len(errors)
     log(f"  {len(reqs)} requests, {n_tok} tokens in {t_serve:.3f} s: aggregate "
@@ -1028,9 +1063,9 @@ def main() -> int:
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                         "shape": s["shape"]})
-        if name == "grouped_matmul":   # every GEMM launch of the llama runs, by route
+        if name in routed:   # every GEMM / flash launch of the llama runs, by route
             kernels[-1]["launches_by_route"] = {
-                r: routes_gen[r] + routes_serve[r] for r in routes}
+                r: routes_gen[name][r] + routes_serve[name][r] for r in routes}
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

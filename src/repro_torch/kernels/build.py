@@ -38,20 +38,21 @@ SIGNATURES = {
                    _I, _I, _I, _I, _I, _P],
     # q, k, v, out, N, Hq, Hkv, T, S, hd, q strides (n, h, t),
     # k strides (n, h, s), v strides (n, h, s), causal, window, scale, dtype,
-    # stream
+    # route (1 TMA + wgmma, 0 SIMT), stream
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                               _I, _I, _F, _I, _P],
+                               _I, _I, _F, _I, _I, _P],
     # fp32 read: q (fp32 x Wq), A, z, out, N, T, dm, P, Dv, stream
     "armt_read_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # bf16 read, split operands: q, A, z, X, W, den, N, T, dm, P, Dv, stream
     "armt_read_split_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # bf16 read, finish: num (fp32), den, out, N, T, Dv, stream
     "armt_read_finish_launch": [_P, _P, _P, _I, _I, _I, _P],
-    # q, k, v, lengths (int32), out, B, Hq, Hkv, S, hd, q strides (b, h),
-    # k strides (b, s, h), v strides (b, s, h), window, scale, dtype, stream
-    "decode_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _L, _L, _L, _L, _L, _L, _L, _L, _I, _F, _I, _P],
+    # q, k, v, lengths (int32), out, partial o and (m, l) workspaces (fp32),
+    # B, Hq, Hkv, S, hd, q strides (b, h), k strides (b, s, h), v strides
+    # (b, s, h), window, scale, chunk, splits, dtype, stream
+    "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _L, _L, _L, _L, _L, _L, _L, _L, _I, _F, _I, _I, _I, _P],
     # k, v (fp32 projections), m (memory rows), wb, A, z, A_out, z_out,
     # phi scratch, aux scratch, N, M, dm, P, phi row stride, Dv, D,
     # m strides (n, row), weight batch, dtype, stream

@@ -1,8 +1,10 @@
 // Shared device helpers for the port's Hopper kernels (sm_90a): bf16
 // conversion, cp.async, ldmatrix, the m16n8k16 bf16 and m16n8k8 tf32
 // tensor-core MMAs (mma.sync), and the Hopper pieces of the grouped GEMM's
-// mainloop: mbarriers (local and across a cluster), TMA tensor loads (plain
-// and multicast to the CTAs of a cluster), wgmma and setmaxnreg.
+// and the flash kernel's mainloops: mbarriers (local and across a cluster),
+// TMA tensor loads (plain and multicast to the CTAs of a
+// cluster), wgmma with A from shared memory or from registers, setmaxnreg,
+// and the host's tensor-map encoding.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = threadIdx.x % 32,
 // g = lane / 4, c = (lane % 4) * 2):
@@ -25,6 +27,14 @@
 //     rows are k, 64 columns per 128-byte row, SBO = 1024 (next 8 k rows),
 //     LBO = the byte distance to the next 64 columns; the k16 step kk starts
 //     16 rows = 2048 bytes further.
+// A B operand stored K-major (n rows, k contiguous: the flash kernel's K
+// tile for S = Q K^T) is described as A is, without the transpose-B flag.
+// With A from registers (wgmma ... {a0..a3}, desc_b), each warp w of the
+// warpgroup supplies rows 16w..16w+15 in the mma.sync A layout above; an
+// fp32 result of one wgmma packs into the next one's A as mma.sync's C
+// fragment packs into its A: k16 step kk takes d[8kk..8kk+8) as
+// a0 = (d[8kk], d[8kk+1]), a1 = (d[8kk+2], d[8kk+3]), a2 = (d[8kk+4], d[8kk+5]),
+// a3 = (d[8kk+6], d[8kk+7]).
 #pragma once
 
 #include <cuda.h>
@@ -223,6 +233,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One 4-D box of the tensor map at element coordinates (c0 innermost).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
 // The same, written to the same shared-memory offset of every CTA of the
 // cluster in `cta_mask`, each of whose barriers at `bar`'s offset receives
 // the box's bytes.
@@ -252,8 +273,11 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// keeps the compiler from moving reads of an accumulator across a wgmma wait
+// keeps the compiler from moving reads of an accumulator across a wgmma
+// wait, or writes of a wgmma operand (accumulator or register A) past the
+// wgmma fence that precedes its use
 __device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void reg_fence(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
 
 template <int R> __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -262,9 +286,32 @@ template <int R> __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
-// d[0..64) += A (64 x 16, K-major) * B (16 x 128, N-major: the transpose-B mode)
-__device__ __forceinline__ void wgmma_m64n128k16_bf16(float* d, uint64_t desc_a, uint64_t desc_b,
-                                                      int scale_d) {
+// d[0..32) (+)= A (64 x 16, K-major) * B (16 x 64), both from shared memory;
+// TB = 0: B K-major (n rows, k contiguous), 1: B N-major (the transpose-B mode)
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_m64n64k16_bf16(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
+// d[0..64) (+)= A (64 x 16, K-major) * B (16 x 128), both from shared memory;
+// TB = 0: B K-major (n rows, k contiguous), 1: B N-major (the transpose-B mode)
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_m64n128k16_bf16(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                       int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -274,7 +321,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float* d, uint64_t desc_a,
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -284,8 +331,57 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float* d, uint64_t desc_a,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB));
 }
+
+// d[0..32) += A (64 x 16 bf16, from registers: a[0..4) of each thread in the
+// m16n8k16 A-fragment layout, warp w holding rows 16w..16w+15) * B (16 x 64,
+// N-major from shared memory: the transpose-B mode)
+__device__ __forceinline__ void wgmma_rs_m64n64k16_bf16(float* d, const uint32_t* a,
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[0..64) += A (64 x 16 bf16, from registers: a[0..4) of each thread in the
+// m16n8k16 A-fragment layout, warp w holding rows 16w..16w+15) * B (16 x 128,
+// N-major from shared memory: the transpose-B mode)
+__device__ __forceinline__ void wgmma_rs_m64n128k16_bf16(float* d, const uint32_t* a,
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 
 // d[0..128) += A (64 x 16, K-major) * B (16 x 256, N-major: the transpose-B mode)
 __device__ __forceinline__ void wgmma_m64n256k16_bf16(float* d, uint64_t desc_a, uint64_t desc_b,
@@ -322,6 +418,51 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16(float* d, uint64_t desc_a,
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------- host
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda the runtime already loaded (so
+// the library needs no -lcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor map of `rank` dims (dims[0] contiguous; byte strides of
+// dims 1.. in strides) with boxes of `box`, 128-byte swizzle, zero fill out
+// of bounds.
+inline bool encode_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                        const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// the current device's SM count, cached per device
+inline int sm_count() {
+  static int count[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (count[dev] == 0) cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev];
 }
 
 }  // namespace rk

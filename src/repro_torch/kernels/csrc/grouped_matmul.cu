@@ -123,7 +123,7 @@ __device__ __forceinline__ void wgmma_tile(float* d, uint64_t da, uint64_t db, i
   if constexpr (BN == 256)
     wgmma_m64n256k16_bf16(d, da, db, scale_d);
   else
-    wgmma_m64n128k16_bf16(d, da, db, scale_d);
+    wgmma_ss_m64n128k16_bf16<1>(d, da, db, scale_d);
 }
 
 // Tile t of a cluster's persistent walk: row tile fastest, then the pair
@@ -395,48 +395,14 @@ gmm_simt(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the libcuda the runtime already loaded
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A bf16 tensor map of dims {d0 (contiguous), d1, d2} with byte strides s1, s2
 // and boxes of {b0, b1, 1}, 128-byte swizzle, zero fill out of bounds.
 bool encode_3d(CUtensorMap* map, const void* base, ll d0, ll d1, ll d2, ll s1, ll s2, int b0,
                int b1) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
   const cuuint64_t strides[2] = {(cuuint64_t)s1, (cuuint64_t)s2};
   const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
-int sm_count() {
-  static int count[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) return 132;
-  if (count[dev] == 0) cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
-  return count[dev];
+  return encode_bf16(map, base, 3, dims, strides, box);
 }
 
 // BN = 256 unless 128-column tiles finish sooner: the serial work of the

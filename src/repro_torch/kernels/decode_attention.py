@@ -4,10 +4,16 @@ Replaces the Pallas kernel ``decode_attention``
 (repro/kernels/decode_attention.py:67): one query token per row, q
 ``[B,Hq,hd]``, against the valid prefix ``[0, len)`` of the cache k/v
 ``[B,S,Hkv,hd]`` (kv head = h // rep, scale hd^-1/2, keys below
-``len - window`` masked when window > 0), fp32 online softmax. The kernel
-reads q and the cache through their strides and stops each row's key loop
-at its length. CUDA source: ``csrc/decode_attention.cu``; plain version:
-``decode_attention_plain``.
+``len - window`` masked when window > 0), fp32 softmax. CUDA source:
+``csrc/decode_attention.cu``; plain version: ``decode_attention_plain``.
+
+On the card the keys are split into fixed chunks (``split_plan``, chosen
+from the cache length S alone, so the host never reads ``lengths`` and a
+row rounds the same whatever rows are batched with it). One call is two
+kernel launches: the partials (m, l, o) of every (chunk, kv head, row),
+read through q's and the cache's strides and skipping keys outside each
+row's window and length, then their combine. It counts as one
+``decode_attention`` launch.
 """
 from __future__ import annotations
 
@@ -21,6 +27,17 @@ launches = 0   # kernel launches since the last reset
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MAX_GROUP_WIDTH = 1024   # (Hq // Hkv) * hd: the outputs one block holds
+TILE = 64                # keys a block scores at a time; a chunk is a multiple
+MAX_SPLITS = 64
+
+
+def split_plan(S: int) -> tuple[int, int]:
+    """(chunk, n_splits) for a cache of S rows: chunks of 64 keys, or the
+    smallest multiple of 64 that keeps the count at most MAX_SPLITS; split c
+    covers keys [c * chunk, min(S, (c + 1) * chunk))."""
+    tiles = -(-S // TILE)
+    chunk = TILE * max(1, -(-tiles // MAX_SPLITS))
+    return chunk, -(-S // chunk)
 
 
 def decode_attention(q, k, v, lengths, *, window: int = 0):
@@ -56,14 +73,20 @@ def decode_attention(q, k, v, lengths, *, window: int = 0):
         raise ValueError("decode_attention: operands on different devices")
     if window < 0:
         raise ValueError(f"decode_attention: window {window} < 0")
+    if S < 1:
+        raise ValueError("decode_attention: empty cache")
     out = torch.empty(B, Hq, hd, dtype=q.dtype, device=q.device)
     if B * Hq == 0:
         return out
-    launches += 1
+    chunk, n_splits = split_plan(S)
+    part_o = torch.empty(B, Hq, n_splits, hd, dtype=torch.float32, device=q.device)
+    part_ml = torch.empty(B, Hq, n_splits, 2, dtype=torch.float32, device=q.device)
     code = build.lib().decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, S, hd, q.stride(0), q.stride(1),
+        part_o.data_ptr(), part_ml.data_ptr(), B, Hq, Hkv, S, hd, q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
-        int(window), float(hd ** -0.5), _DTYPE[q.dtype], build.stream_ptr(q))
+        int(window), float(hd ** -0.5), chunk, n_splits, _DTYPE[q.dtype],
+        build.stream_ptr(q))
     build.check(code, "decode_attention")
+    launches += 1
     return out

@@ -7,6 +7,11 @@ and/or sliding window). The kernel reads each operand through its strides,
 so the grouped cell's ``[G,B,T,H,hd]`` activations go in without a
 transpose copy; the output is a ``[N,Hq,T,hd]`` view of a contiguous
 ``[N,T,Hq,hd]`` buffer. CUDA source: ``csrc/flash_attention.cu``.
+
+Every launch takes one of two routes, which ``route()`` picks and the module
+counts: the TMA + wgmma kernel for bf16 operands with head dim 64 or 128
+whose bases and strides the TMA can describe, the fp32 SIMT kernel for the
+rest.
 """
 from __future__ import annotations
 
@@ -15,10 +20,38 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 
-launches = 0   # kernel launches since the last reset
+launches = 0        # kernel launches since the last reset
+tc_launches = 0     # of those, on the TMA + wgmma kernel
+simt_launches = 0   # of those, on flash_simt
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+TC_HEAD_DIMS = (64, 128)
+
+
+def _strides(x):
+    """x's (n, h, t) strides for x [N,H,T,hd], those of a size-1 dim
+    replaced by the stride a contiguous tensor would have there: PyTorch
+    leaves a size-1 dim's stride arbitrary, and a TMA tensor map needs a
+    real one."""
+    N, H, T, hd = x.shape
+    st = x.stride(2) if T > 1 else hd
+    sh = x.stride(1) if H > 1 else T * st
+    return (x.stride(0) if N > 1 else H * sh), sh, st
+
+
+def route(q, k, v) -> str:
+    """The kernel a launch of these operands takes: "wgmma" (the TMA +
+    wgmma kernel: bf16, head dim 64 or 128, T and S > 0, 16-byte-aligned
+    bases and every (n, h, t) stride a positive multiple of 8 elements, so
+    the TMA reads whole 16-byte pieces) or "simt" (any dtype and head dim)."""
+    hd = q.shape[3]
+    strides = _strides(q) + _strides(k) + _strides(v)
+    if (q.dtype == torch.bfloat16 and hd in TC_HEAD_DIMS and q.shape[2] > 0
+            and k.shape[2] > 0 and all(s > 0 and s % 8 == 0 for s in strides)
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+        return "wgmma"
+    return "simt"
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -51,15 +84,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     out = torch.empty(N, T, Hq, hd, dtype=q.dtype, device=q.device)
     if N * Hq * T == 0:
         return out.transpose(1, 2)
-    global launches
-    launches += 1
+    global launches, tc_launches, simt_launches
+    tc = route(q, k, v) == "wgmma"
     code = build.lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        N, Hq, Hkv, T, S, hd,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        int(causal), int(window), float(hd ** -0.5), _DTYPE[q.dtype],
+        N, Hq, Hkv, T, S, hd, *_strides(q), *_strides(k), *_strides(v),
+        int(causal), int(window), float(hd ** -0.5), _DTYPE[q.dtype], int(tc),
         build.stream_ptr(q))
     build.check(code, "flash_attention")
+    launches += 1
+    if tc:
+        tc_launches += 1
+    else:
+        simt_launches += 1
     return out.transpose(1, 2)

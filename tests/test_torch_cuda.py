@@ -3,8 +3,10 @@ small odd shapes: ragged rows and columns on the tensor-core paths (the
 GEMM's TMA + wgmma route: ragged R, K and N, strided x rows and res, weight
 batches, more tiles than SMs), ragged cache lengths and windows for decode
 attention, ragged channels, strided B/C, grouped A_log/D and T = 1 for the
-Mamba scan, and the fp32 paths. Needs a CUDA device and nvcc; skips without
-a card. This file
+Mamba scan, and the fp32 paths; the flash kernel's TMA + wgmma route at
+ragged T, hd 64 and 128, windows and the cell's strided 5-D layout; the
+split decode kernel at chunk edges, and a row batched or alone giving the
+same bits. Needs a CUDA device and nvcc; skips without a card. This file
 imports no JAX; with ``--noconftest`` (tests/conftest.py imports JAX) it
 runs on a machine that has only PyTorch:
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``."""
@@ -149,6 +151,58 @@ def test_flash_attention_on_card(cuda, dtype, N, Hq, Hkv, T, hd, causal, window)
            TOL[dtype])
 
 
+def _flash_tc(fn):
+    """fn's result, checking that it made exactly one flash launch, on the
+    TMA + wgmma route."""
+    tc, simt = flash_attention.tc_launches, flash_attention.simt_launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert (flash_attention.tc_launches - tc, flash_attention.simt_launches - simt) == (1, 0)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,Hq,Hkv,T,hd,causal,window", [
+    (1, 4, 1, 1, 64, True, 0),        # one row: 127 rows of the tile past T
+    (2, 4, 1, 65, 64, True, 0),       # MQA, rep 4, ragged T
+    (1, 4, 4, 127, 128, True, 0),     # hd 128, rep 1
+    (2, 8, 2, 129, 64, True, 0),      # two query tiles, the second of one row
+    (1, 8, 2, 1100, 128, True, 0),    # hd 128 over 18 key tiles, N = 1
+    (1, 4, 1, 1100, 64, True, 300),   # a causal window starting mid-tile
+    (2, 4, 4, 300, 64, True, 77),     # windows narrower than a tile
+    (1, 4, 2, 200, 128, False, 50),   # a non-causal window
+    (1, 2, 2, 150, 64, False, 0),     # bidirectional
+])
+def test_flash_attention_tc_on_card(cuda, N, Hq, Hkv, T, hd, causal, window):
+    r = _rand(torch.Generator().manual_seed(T + hd + window), cuda, torch.bfloat16)
+    q, k, v = r(N, Hq, T, hd), r(N, Hkv, T, hd), r(N, Hkv, T, hd)
+    assert flash_attention.route(q, k, v) == "wgmma"
+    out = _flash_tc(lambda: flash_attention.flash_attention(q, k, v, causal=causal,
+                                                            window=window))
+    _close(out, flash_attention.flash_attention_plain(*_f32(q, k, v), causal=causal,
+                                                      window=window), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,B,T,Hq,Hkv,hd", [
+    (16, 1, 1152, 32, 8, 64),    # llama-1b-armt's full band step, the main shape
+    (4, 2, 1152, 24, 8, 128),    # llama-3b-armt's heads, two batch rows
+])
+def test_flash_attention_cell_layout_on_card(cuda, G, B, T, Hq, Hkv, hd):
+    """The grouped cell's [G,B,T,H,hd] activations through
+    ops.segment_attention: strided [N,H,T,hd] views, read by the TMA."""
+    from repro_torch.kernels import ops
+    r = _rand(torch.Generator().manual_seed(G + hd), cuda, torch.bfloat16)
+    q, k, v = r(G, B, T, Hq, hd), r(G, B, T, Hkv, hd), r(G, B, T, Hkv, hd)
+
+    def flat(a):
+        return a.reshape((G * B,) + a.shape[2:]).transpose(1, 2)
+    assert flash_attention.route(flat(q), flat(k), flat(v)) == "wgmma"
+    out = _flash_tc(lambda: ops.segment_attention(q, k, v, causal=True))
+    want = flash_attention.flash_attention_plain(*_f32(flat(q), flat(k), flat(v)))
+    _close(out, want.transpose(1, 2).reshape(out.shape), 1e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_armt_memory_on_card(cuda, dtype):
@@ -182,6 +236,44 @@ def test_decode_attention_on_card(cuda, dtype, B, Hq, Hkv, S, hd, lens, window):
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
     _close(da.decode_attention(q, k, v, lengths, window=window),
            da.decode_attention_plain(*_f32(q, k, v), lengths, window=window), TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,S,hd,lens,window", [
+    (4, 32, 8, 1152, 64, (1, 63, 64, 65), 0),        # lengths at the 64-key chunk edges
+    (4, 32, 8, 1152, 64, (1152, 1000, 129, 700), 40),  # windows in one chunk and across two
+    (2, 32, 8, 1100, 64, (1100, 1099), 200),         # S not a multiple of the chunk
+    (3, 8, 2, 1100, 128, (1100, 5, 640), 2000),      # windows >= the length
+    (1, 4, 1, 300, 64, (300,), 0),                   # B = 1, one kv head
+])
+def test_decode_attention_split_on_card(cuda, dtype, B, Hq, Hkv, S, hd, lens, window):
+    from repro_torch.kernels import decode_attention as da
+    r = _rand(torch.Generator().manual_seed(S + sum(lens)), cuda, dtype)
+    q, k, v = r(B, Hq, hd), r(B, S, Hkv, hd), r(B, S, Hkv, hd)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = da.launches
+    out = da.decode_attention(q, k, v, lengths, window=window)
+    assert da.launches == before + 1   # partials and combine count as one
+    _close(out, da.decode_attention_plain(*_f32(q, k, v), lengths, window=window), TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_row_is_batch_independent_on_card(cuda, dtype):
+    """The split depends on S alone, so a row computed in a batch of 4
+    equals, bit for bit, the same row computed alone."""
+    from repro_torch.kernels import decode_attention as da
+    r = _rand(torch.Generator().manual_seed(11), cuda, dtype)
+    q, k, v = r(4, 32, 64), r(4, 1152, 8, 64), r(4, 1152, 8, 64)
+    lengths = torch.tensor((1152, 517, 1, 1000), dtype=torch.int32, device=cuda)
+    for window in (0, 300):
+        batched = da.decode_attention(q, k, v, lengths, window=window)
+        for b in range(4):
+            alone = da.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                        lengths[b:b + 1], window=window)
+            assert torch.equal(batched[b], alone[0]), (
+                window, b, (batched[b].float() - alone[0].float()).abs().max().item())
 
 
 @pytest.mark.cuda

@@ -292,6 +292,58 @@ def test_gemm_route_takes_tensor_cores_only_for_whole_16_byte_rows():
               torch.empty(4 * 37 * 40 + 1, dtype=f32)[1:].view(4, 37, 40)) == "simt"
 
 
+def _attn(N, H, T, hd, dtype=torch.bfloat16):
+    return torch.ones(N, H, T, hd, dtype=dtype)
+
+
+def _cell(T, H, hd, lead=2):
+    """The grouped cell's [G,B,T,H,hd] activations as a strided [N,H,T,hd] view."""
+    return torch.ones(lead, 1, T, H, hd, dtype=torch.bfloat16).reshape(lead, T, H, hd
+                                                                        ).transpose(1, 2)
+
+
+@pytest.mark.parametrize("q,k,want", [
+    (_attn(2, 8, 33, 64), _attn(2, 2, 33, 64), "wgmma"),
+    (_attn(1, 4, 5, 128), _attn(1, 4, 5, 128), "wgmma"),                  # hd 128, N = 1
+    (_cell(40, 8, 64), _cell(40, 2, 64), "wgmma"),                        # the cell's strided views
+    (_attn(2, 8, 33, 64, torch.float32), _attn(2, 2, 33, 64, torch.float32), "simt"),
+    (_attn(2, 8, 33, 40), _attn(2, 2, 33, 40), "simt"),                   # hd 40
+    (_attn(2, 8, 33, 96), _attn(2, 2, 33, 96), "simt"),                   # hd 96
+    (_attn(2, 8, 33, 72)[..., 8:], _attn(2, 2, 33, 64), "wgmma"),         # 144-byte rows, 16 bytes in
+    (_attn(2, 8, 33, 68)[..., :64], _attn(2, 2, 33, 64), "simt"),         # 136-byte q rows
+    (_attn(2, 8, 33, 72)[..., 4:68], _attn(2, 2, 33, 64), "simt"),        # q base 8 bytes off
+    (_attn(2, 8, 0, 64), _attn(2, 2, 0, 64), "simt"),                     # T = S = 0
+    (_attn(1, 1, 1, 64).as_strided((1, 1, 1, 64), (3, 5, 7, 1)),          # size-1 dims' strides
+     _attn(1, 1, 9, 64), "wgmma"),
+])
+def test_flash_route_takes_tensor_cores_only_for_aligned_bf16_hd_64_or_128(q, k, want):
+    """route() sends bf16 operands of head dim 64 or 128 whose bases are
+    16-byte aligned and whose strides are positive multiples of 8 elements
+    to the TMA + wgmma kernel and everything else to flash_simt; a size-1
+    dim's arbitrary stride does not matter."""
+    assert flash_attention.route(q, k, k) == want
+
+
+def test_flash_strides_replace_size_one_dims():
+    one = _attn(1, 1, 1, 64).as_strided((1, 1, 1, 64), (3, 5, 7, 1))
+    assert flash_attention._strides(one) == (64, 64, 64)
+    x = _cell(40, 8, 64)
+    assert flash_attention._strides(x) == x.stride()[:3]
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 1100, 1152, 4096, 4097, 8192, 100_000])
+def test_decode_split_plan_covers_the_cache_exactly(S):
+    """The split plan is a function of S alone: chunks of whole 64-key
+    tiles, at most MAX_SPLITS of them, covering [0, S) with no empty chunk."""
+    from repro_torch.kernels import decode_attention as da
+    chunk, n = da.split_plan(S)
+    assert chunk % da.TILE == 0 and 1 <= n <= da.MAX_SPLITS
+    assert (n - 1) * chunk < S <= n * chunk
+    assert da.split_plan(S) == (chunk, n)
+    if S <= da.TILE * da.MAX_SPLITS:
+        assert chunk == da.TILE
+
+
 # ---------------------------------------------------------------- C interface
 _CTYPE_ARG = re.compile(r"\b(const\s+void\s*\*|void\s*\*|int|long\s+long|float)\s+\w+")
 
@@ -313,7 +365,8 @@ def test_c_entry_points_match_ctypes_signatures():
     code = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_longlong: "l",
             ctypes.c_float: "f"}
     assert set(found) == set(build.SIGNATURES)
-    assert {"mamba_scan_launch", "decode_attention_launch", "gmm_launch"} <= set(found)
+    assert {"mamba_scan_launch", "decode_attention_launch", "gmm_launch",
+            "flash_attention_launch"} <= set(found)
     for name, argtypes in build.SIGNATURES.items():
         assert found[name] == [code[a] for a in argtypes], name
 

@@ -1,0 +1,163 @@
+#!/usr/bin/env python3
+"""Times the flash and decode attention kernels on one CUDA card, at
+llama-1b-armt's shapes, beside scaled_dot_product_attention.
+
+    python3 tools/profile_attn.py [--src DIR] [--iters 20]
+
+Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``),
+so the same script measures another tree, a parent commit unpacked beside
+this one say, in the same call. With random bf16 inputs from seed 0 it
+prints, for each case, the kernel's median device time per call (CUDA
+events behind a ~0.5 ms spin of the card, so the host's Python time is
+not counted), the device kernels of the call with their median durations
+(torch.profiler), the time of one ``scaled_dot_product_attention`` call on
+the same values (contiguous
+[N,H,T,hd] copies for flash; [B,H,1,hd] against a boolean length mask for
+decode), the bound and the kernel's multiple of it:
+
+  flash hd64   the full-band cell of llama-1b-armt through
+               ``ops.segment_attention``: q [16,1,1152,32,64], k/v
+               [16,1,1152,8,64], causal; the bound is the larger of the
+               bf16 products at 989 TFLOP/s and the exponentials,
+               N * Hq * T(T+1)/2, at 16 a clock per SM on 132 SMs at the
+               card's maximum SM clock (``nvidia-smi``);
+  flash hd128  the same with llama-3b-armt's heads: 24 q heads, 8 kv heads,
+               hd 128;
+  decode       4 slots of a 1152-row cache, 32 q heads, 8 kv heads, hd 64,
+               every slot at 1024 keys, then lengths (1024, 517, 1, 1000);
+               the bound is the bytes of the valid K/V rows, q and out at
+               3.35 TB/s.
+
+With ``--outputs FILE`` it saves each case's output; with ``--against
+FILE`` it counts the output elements that differ from another run's saved
+outputs (the parent's kernels against the change's, bit for bit). The last
+line is a JSON object of every number. Nothing is gated.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PEAK_BF16, PEAK_BYTES, N_SM, SFU_PER_CLOCK_SM = 989e12, 3.35e12, 132, 16
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="directory holding the repro_torch package to measure")
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--outputs", type=Path,
+                    help="save each case's kernel output to this file (torch.save)")
+    ap.add_argument("--against", type=Path,
+                    help="count the output elements that differ from those saved in this "
+                         "file (another tree's --outputs)")
+    args = ap.parse_args()
+    sys.path.insert(0, str(args.src.resolve()))
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention, ops
+
+    if not torch.cuda.is_available():
+        print("profile_attn: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip()
+    clock_hz = float(smi.split(",")[-1]) * 1e6
+    exp_rate = SFU_PER_CLOCK_SM * N_SM * clock_hz
+    print(f"card: {smi} (name, power limit W, max SM MHz); src {args.src}", flush=True)
+    gen = torch.Generator().manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+
+    def time_ms(fn):
+        """Median device time of one call: the card first spins ~0.5 ms
+        (torch.cuda._sleep) so the host has enqueued the whole call before
+        the start event is reached, and the host's Python time is not
+        counted."""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(args.iters):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(1_000_000)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return float(np.median(ts))
+
+    def kernels_ms(fn):
+        """The device kernels of one call with their median durations (ms),
+        from torch.profiler over --iters calls."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.iters):
+                fn()
+            torch.cuda.synchronize()
+        by = {}
+        for ev in prof.events():
+            if ev.device_type.name == "CUDA":
+                by.setdefault(ev.name, []).append(ev.device_time)
+        return {k: float(np.median(v)) / 1e3 for k, v in by.items()}
+
+    results = {}
+
+    outputs = {}
+    saved = torch.load(args.against) if args.against else None
+
+    def report(name, kernel, sdpa, bound_ms):
+        outputs[name] = kernel().cpu()
+        ms, sdpa_ms = time_ms(kernel), time_ms(sdpa)
+        split = kernels_ms(kernel)
+        results[name] = dict(ms=ms, sdpa_ms=sdpa_ms, bound_ms=bound_ms, kernels=split)
+        if saved is not None:
+            diff = int((outputs[name] != saved[name]).sum().item())
+            results[name]["differing_from_against"] = diff
+            print(f"  {name}: {diff} of {outputs[name].numel()} output elements differ from "
+                  f"{args.against}", flush=True)
+        print(f"  {name}: kernel {ms:.4f} ms  sdpa {sdpa_ms:.4f} ms  bound {bound_ms:.4f} ms  "
+              f"kernel/bound {ms / bound_ms:.2f}  kernel/sdpa {ms / sdpa_ms:.2f}", flush=True)
+        for k, v in split.items():
+            print(f"    {v:.4f} ms  {k[:90]}", flush=True)
+
+    for name, (G, T, Hq, Hkv, hd) in [("flash hd64", (16, 1152, 32, 8, 64)),
+                                      ("flash hd128", (16, 1152, 24, 8, 128))]:
+        q5, k5, v5 = rnd(G, 1, T, Hq, hd), rnd(G, 1, T, Hkv, hd), rnd(G, 1, T, Hkv, hd)
+        qc, kc, vc = (a[:, 0].transpose(1, 2).contiguous() for a in (q5, k5, v5))
+        pairs = T * (T + 1) / 2
+        bound = max(4.0 * G * Hq * hd * pairs / PEAK_BF16, G * Hq * pairs / exp_rate) * 1e3
+        report(name, lambda: ops.segment_attention(q5, k5, v5, causal=True),
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qc, kc, vc, is_causal=True, enable_gqa=True), bound)
+        del q5, k5, v5, qc, kc, vc
+
+    B, S, Hq, Hkv, hd = 4, 1152, 32, 8, 64
+    qd, kd, vd = rnd(B, Hq, hd), rnd(B, S, Hkv, hd), rnd(B, S, Hkv, hd)
+    q4, k4, v4 = qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
+    for lens in [(1024,) * B, (1024, 517, 1, 1000)]:
+        L = torch.tensor(lens, dtype=torch.int32, device=dev)
+        mask = (torch.arange(S, device=dev) < L[:, None])[:, None, None, :]
+        nbytes = 2.0 * 2 * sum(lens) * Hkv * hd + 2.0 * 2 * B * Hq * hd + 4.0 * B
+        report(f"decode lengths {lens}", lambda: decode_attention.decode_attention(qd, kd, vd, L),
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q4, k4, v4, attn_mask=mask, enable_gqa=True), nbytes / PEAK_BYTES * 1e3)
+    if args.outputs:
+        torch.save(outputs, args.outputs)
+    print(json.dumps({"card": smi, "src": str(args.src), **results}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
