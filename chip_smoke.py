@@ -8,9 +8,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
   (b) kernels: each kernel against its plain PyTorch version on the card,
       at the shapes the llama-1b-armt main path gives it (the diagonal
       prefill's band of G = 16 layers, B = 1, T = 1024 + 128; decode over 4
-      slots of a 1152-row cache; bf16), mamba_scan at falcon-mamba's (the
-      band of 16 layers at T = 1024, d_inner 8192, d_state 16; decode over
-      4 rows), and at small odd shapes;
+      slots of a 1152-row cache; bf16; armt_read's device launches per
+      call counted, three), mamba_scan at falcon-mamba's (the band of 16
+      layers at T = 1024, d_inner 8192, d_state 16, and one layer, in the
+      TPU kernel's form and in the form the model runs, with the raw dt,
+      its bias and the gate z taken in; timed at 1, 4 and 16 rows; decode
+      over 4 rows), and at small odd shapes;
       error against a stated tolerance, and median device times (CUDA
       events behind a ~0.5 ms spin of the card, so the host's Python time
       is not counted) of the kernel, the plain version and, where one
@@ -51,8 +54,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       token (one per layer); 2 segments against the sequential plain path,
       printed in bf16 beside the bf16 stack's own rounding floor, and gated
       on the same weights in fp32 at 1e-3, with two negative controls on
-      the kernel path (dt x1.02 into the scan, the scan's y x0.98) that the
-      check must reject; the smoke config in fp32, card against CPU;
+      the kernel path (dt x~1.02 into the scan through its bias, the
+      scan's output x0.98) that the check must reject; the smoke config in
+      fp32, card against CPU;
   (g) ServeEngine(max_len=8192).generate: B = 1 on 2 x 8192 + 1000 tokens
       (48 new), repeated bit for bit, and B = 2 on 8192 + 500 (32 new);
       smoke config card vs CPU, token for token;
@@ -66,7 +70,7 @@ launched in (d), every one but armt_update (which runs only at B > 1) in
 (e), and mamba_scan in (g) and in (h). The GEMM's and flash attention's
 launches are also counted by route (the TMA + wgmma kernel or the fp32 SIMT
 kernel; for the GEMM whoever called it: projections, the fused op, the
-ARMT kernels' projections and split product): the bf16 llama runs of (d)
+ARMT kernels' projections): the bf16 llama runs of (d)
 and (e) must launch no SIMT GEMM and no SIMT flash. One decode_attention
 call (its partials and their combine) counts as one launch.
 The script prints one JSON line per kernel summary, the card's name and
@@ -76,6 +80,7 @@ non-zero before that line; without a CUDA device it exits 2.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -339,13 +344,27 @@ def main() -> int:
                 armt_memory.armt_read(x, wq, A, z),
                 armt_memory.armt_read_plain(x.float(), wq.float(), A, z), TOL_BF16)
     # bf16 activations: phi A runs on the tensor cores as a three-term bf16
-    # split (K = 3P), so it is priced at the bf16 peak; only phi z is fp32
+    # split (K = 3P) after the q projection, so it is priced at the bf16
+    # peak; only phi z is fp32
     t = timed("armt_read", lambda: armt_memory.armt_read(x, wq, A, z),
               lambda: armt_memory.armt_read_plain(x, wq, A, z),
               flops_bf16=2.0 * G * T * D * dm + 3 * 2.0 * G * T * P * D,
               flops_fp32=2.0 * G * T * P,
               nbytes=2.0 * G * T * D + 2.0 * G * D * dm + 4.0 * G * P * (D + 1) + 2.0 * G * T * D)
     summary["armt_read"] = dict(t, max_abs_err=err, shape=f"x[{G},{T},{D}] A[{G},{P},{D}]")
+    # device launches of one bf16 call (torch.profiler): the q projection on
+    # the GEMM, the splits of phi and A, and their product, three
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        armt_memory.armt_read(x, wq, A, z)
+        sync()
+    read_kernels = [ev.name for ev in prof.events() if ev.device_type.name == "CUDA"]
+    summary["armt_read"]["device_launches_per_call"] = len(read_kernels)
+    log(f"  armt_read: {len(read_kernels)} device launches per call "
+        f"({', '.join(k[:40] for k in read_kernels)}) -> "
+        f"{'ok' if len(read_kernels) == 3 else 'FAIL'}")
+    if len(read_kernels) != 3:
+        failures.append(f"armt_read launched {len(read_kernels)} kernels, not 3")
     y = rnd(G, 1, T, D)
     m = y[:, :, -Mt:, :].reshape(G, Mt, D)          # strided, as the cell passes it
     err = check("armt_update m[16,128,2048] A[16,384,2048]",
@@ -479,47 +498,111 @@ def main() -> int:
 
     # mamba_scan: the falcon-mamba band step (G = 16 layers, B = 1, T = 1024,
     # d_inner 8192, d_state 16; x bf16, B/C column slices of the fp32 x_proj
-    # output, dt ~ softplus(N(0,1) - 4.6) as the model's), each group its own
-    # A_log and D so a wrong group index shows; then decode (4 rows, T = 1)
-    # and odd shapes. y and hT are held in fp32 at 1e-4.
+    # output), each group its own A_log, D and dt_bias so a wrong group index
+    # shows; in two forms: the TPU kernel's (dt fp32 = softplus(raw dt +
+    # bias), y fp32) and the one the model runs (the raw dt_proj output, its
+    # bias and the gate z, the strided half of in_proj's output, taken in;
+    # y gated in x's dtype). Then one layer (G = 1), 4 layers, decode (4
+    # rows, T = 1) and odd shapes. y and hT are held in fp32 at 1e-4 (x
+    # fp32); with bf16 x the gated y is held at bf16 rounding, hT at 1e-4.
     def scan_inputs(N, T, dI, dS, G, xdtype, lead=256):
-        xs = rnd(N, T, dI, scale=0.5, dtype=xdtype)
-        dts = torch.nn.functional.softplus(rnd(N, T, dI, dtype=torch.float32) - 4.6)
+        raw = rnd(N, T, dI, dtype=xdtype)
+        bias = rnd(G, dI, scale=0.1, dtype=torch.float32) - 4.6
+        dts = torch.nn.functional.softplus(raw.float() + bias.repeat_interleave(N // G, 0)[:, None])
         proj = rnd(N, T, lead + 2 * dS, scale=0.5, dtype=torch.float32)
         A_log = torch.log(torch.arange(1, dS + 1, dtype=torch.float32)
                           * (torch.rand(G, dI, dS, generator=gen) + 0.5)).to(dev)
         Ds, h0 = rnd(G, dI, dtype=torch.float32), rnd(N, dI, dS, scale=0.1, dtype=torch.float32)
+        xz = rnd(N, T, 2 * dI, scale=0.5, dtype=xdtype)
         if G == 1:
-            A_log, Ds = A_log[0], Ds[0]
-        return (xs, dts, proj[..., lead:lead + dS], proj[..., lead + dS:], A_log.contiguous(),
-                Ds.contiguous(), h0)
+            A_log, Ds, bias = A_log[0], Ds[0], bias[0]
+        return dict(args=(xz[..., :dI].contiguous(), dts, proj[..., lead:lead + dS],
+                          proj[..., lead + dS:], A_log.contiguous(), Ds.contiguous(), h0),
+                    raw=raw, bias=bias.contiguous(), z=xz[..., dI:])
 
-    def scan_check(name, args):
-        got = mamba_scan.mamba_scan(*args)
-        return check(name, got, mamba_scan.mamba_scan_plain(args[0].float(), *args[1:]),
-                     TOL_F32)
-    Nm, Tm, dIm, dSm = 16, 1024, 8192, 16
-    band = scan_inputs(Nm, Tm, dIm, dSm, Nm, torch.bfloat16)
-    err = scan_check(f"mamba_scan band x[{Nm},{Tm},{dIm}] bf16 dS {dSm}, y and hT", band)
-    steps = float(Nm * Tm * dIm)
-    t = timed(f"mamba_scan band [{Nm},{Tm},{dIm}] dS {dSm}",
-              lambda: mamba_scan.mamba_scan(*band), lambda: mamba_scan.mamba_scan_plain(*band),
-              flops_fp32=steps * (6 * dSm + 3), exps=steps * dSm,
-              nbytes=steps * (2 + 4 + 4) + 4.0 * Nm * Tm * 2 * dSm + 4.0 * Nm * dIm * (dSm + 1)
-              + 2 * 4.0 * Nm * dIm * dSm)
-    summary["mamba_scan"] = dict(t, max_abs_err=err,
-                                 shape=f"x[{Nm},{Tm},{dIm}] bf16 dS {dSm}, {Nm} groups")
-    del band
+    def fused_args(c):
+        return (c["args"][0], c["raw"]) + c["args"][2:]
+
+    def run_scan(c, fused):
+        if fused:
+            return mamba_scan.mamba_scan(*fused_args(c), dt_bias=c["bias"], z=c["z"])
+        return mamba_scan.mamba_scan(*c["args"])
+
+    def plain_scan(c, fused, f32=True):
+        cast = (lambda t: t.float()) if f32 else (lambda t: t)
+        if fused:
+            a = fused_args(c)
+            return mamba_scan.mamba_scan_plain(cast(a[0]), cast(a[1]), *a[2:], dt_bias=c["bias"],
+                                               z=cast(c["z"]))
+        return mamba_scan.mamba_scan_plain(cast(c["args"][0]), *c["args"][1:])
+
+    def scan_check(name, c, fused):
+        (y, hT), (wy, wh) = run_scan(c, fused), plain_scan(c, fused)
+        tol_y = TOL_BF16 if fused and y.dtype == torch.bfloat16 else TOL_F32
+        return max(check(name + " y", y, wy, tol_y), check(name + " hT", hT, wh, TOL_F32))
+
+    def scan_bound(steps, N, T, dI, dS, fused):
+        """exponentials (+ softplus and silu fused) and fp32 operations a
+        channel-step; bytes 10 a channel-step (x bf16, dt and y fp32) or 8
+        fused (x, raw dt, z, y bf16), plus B/C, A_log, D, h0 and hT"""
+        side = 4.0 * N * T * 2 * dS + 4.0 * N * dI * (dS + 1) + 2 * 4.0 * N * dI * dS
+        return dict(flops_fp32=steps * (6 * dS + (12 if fused else 3)),
+                    exps=steps * (dS + (2 if fused else 0)),
+                    nbytes=steps * (8 if fused else 10) + side)
+
+    Tm, dIm, dSm = 1024, 8192, 16
+    err = 0.0
+    for Nm in (16, 1):
+        for dtype in (torch.bfloat16, torch.float32):
+            c = scan_inputs(Nm, Tm, dIm, dSm, Nm, dtype)
+            for fused in (False, True):
+                e = scan_check(f"mamba_scan G={Nm} x[{Nm},{Tm},{dIm}] {dtype} dS {dSm} "
+                               f"{'fused (raw dt, dt_bias, z)' if fused else 'unfused'},", c, fused)
+                if fused and dtype == torch.bfloat16 and Nm == 16:
+                    err = e
+            del c
+    by_rows = {}
+    for Nm in (1, 4, 16):
+        c = scan_inputs(Nm, Tm, dIm, dSm, Nm, torch.bfloat16)
+        steps = float(Nm * Tm * dIm)
+        for fused in (False, True):
+            name = f"mamba_scan G={Nm} [{Nm},{Tm},{dIm}] dS {dSm} {'fused' if fused else 'unfused'}"
+            if Nm == 16:
+                t = timed(name, lambda: run_scan(c, fused),
+                          lambda: plain_scan(c, fused, f32=False),
+                          **scan_bound(steps, Nm, Tm, dIm, dSm, fused))
+            else:
+                ms = time_ms(lambda: run_scan(c, fused))
+                b_ms, b_by = bound(**scan_bound(steps, Nm, Tm, dIm, dSm, fused))
+                t = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+                log(f"  {name}: kernel {ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
+                    f"kernel/bound {ms / b_ms:.2f}")
+            by_rows[f"G={Nm} {'fused' if fused else 'unfused'}"] = t
+        del c
+    log(f"  mamba_scan G=1 / G=16 time: unfused "
+        f"{by_rows['G=1 unfused']['ms'] / by_rows['G=16 unfused']['ms']:.3f}, fused "
+        f"{by_rows['G=1 fused']['ms'] / by_rows['G=16 fused']['ms']:.3f}")
+    # the kernels line reports the form the model runs, at the band step
+    summary["mamba_scan"] = dict(
+        by_rows["G=16 fused"], max_abs_err=err,
+        unfused={k: by_rows["G=16 unfused"][k] for k in ("ms", "plain_ms", "bound_ms")},
+        ms_by_rows={k: v["ms"] for k, v in by_rows.items()},
+        shape=f"x[16,{Tm},{dIm}] bf16 dS {dSm}, 16 groups, raw dt, dt_bias and z fused")
     dec = scan_inputs(4, 1, dIm, dSm, 1, torch.bfloat16)
-    scan_check(f"mamba_scan decode x[4,1,{dIm}] bf16", dec)
-    t_dec = time_ms(lambda: mamba_scan.mamba_scan(*dec))
-    log(f"  mamba_scan decode [4,1,{dIm}]: kernel {t_dec:.4f} ms per launch")
+    for fused in (False, True):
+        scan_check(f"mamba_scan decode x[4,1,{dIm}] bf16 {'fused' if fused else 'unfused'},",
+                   dec, fused)
+        t_dec = time_ms(lambda: run_scan(dec, fused))
+        log(f"  mamba_scan decode [4,1,{dIm}] {'fused' if fused else 'unfused'}: kernel "
+            f"{t_dec:.4f} ms per launch")
     for dtype, (n_, t_, di_, ds_, g_) in [(torch.float32, (2, 37, 200, 4, 1)),
                                           (torch.bfloat16, (2, 37, 200, 4, 1)),
                                           (torch.bfloat16, (6, 50, 130, 8, 3)),
                                           (torch.float32, (3, 1, 70, 16, 3))]:
-        scan_check(f"mamba_scan odd {dtype} x[{n_},{t_},{di_}] dS {ds_} groups {g_}, strided "
-                   "B/C", scan_inputs(n_, t_, di_, ds_, g_, dtype, lead=3))
+        for fused in (False, True):
+            scan_check(f"mamba_scan odd {dtype} x[{n_},{t_},{di_}] dS {ds_} groups {g_}, strided "
+                       f"B/C{', fused' if fused else ''}",
+                       scan_inputs(n_, t_, di_, ds_, g_, dtype, lead=3), fused)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ (c) model
@@ -884,16 +967,27 @@ def main() -> int:
     # measures the stack's rounding, not the kernel: 64 random-init layers
     # in bf16 turn any perturbation, 1e-6 of the scan's output included,
     # into ~5e-2 of the hidden states (PERF.md §6). So in bf16 it is printed
-    # beside that floor (the kernel path against itself with the scan's y
-    # scaled by 1 + 1e-6), and it is gated in fp32, on the same weights at
-    # full width and depth, at 1e-3, with two negative controls on the
-    # kernel path that must fail it: dt x1.02 into the scan, the scan's y
-    # x0.98.
+    # beside that floor (the kernel path against itself with the scan's D
+    # scaled by 1 + 1e-6, which moves y before the kernel rounds it to
+    # bf16), and it is gated in fp32, on the same weights at full width and
+    # depth, at 1e-3, with two negative controls on the kernel path that
+    # must fail it: dt x~1.02 into the scan (dt_bias + log 1.02: softplus(u
+    # + log 1.02) is 1.02 softplus(u) to within 1 % at the model's bias of
+    # -4.6), the scan's output x0.98 (in fp32, y x0.98 before the gate).
     two = ftoks[:, :2 * fseg]
     scan = ops.mamba_scan
 
-    def scaled_y(f):
-        return lambda *a: (lambda y, hT: (f * y, hT))(*scan(*a))
+    def scaled_D(f):
+        def fn(x, dt, Bt, Ct, A_log, D, h0, **k):
+            return scan(x, dt, Bt, Ct, A_log, f * D, h0, **k)
+        return fn
+
+    def scaled_out(*a, **k):
+        y, hT = scan(*a, **k)
+        return 0.98 * y, hT
+
+    def dt_scaled(*a, dt_bias, **k):
+        return scan(*a, dt_bias=dt_bias + math.log(1.02), **k)
     t0 = time.perf_counter()
     with swap.plain_versions():
         plain2 = frun("sequential", two)
@@ -901,11 +995,11 @@ def main() -> int:
     t_plain2 = time.perf_counter() - t0
     diag2 = frun("diagonal", two)
     errs, _ = mamba_errors(diag2, plain2)
-    with swap.replaced(mamba_scan=scaled_y(1 + 1e-6)):
+    with swap.replaced(mamba_scan=scaled_D(1 + 1e-6)):
         floor, _ = mamba_errors(frun("diagonal", two), diag2)
     log(f"  bf16, 2 segments ({t_plain2:.1f} s plain): diagonal on kernels vs sequential "
         f"plain, worst rel err {worst(errs)}; the bf16 floor, kernels vs themselves with "
-        f"the scan's y x(1 + 1e-6): {worst(floor)} (not gated)")
+        f"the scan's D x(1 + 1e-6): {worst(floor)} (not gated)")
     del plain2, diag2
     torch.cuda.empty_cache()
     fp32 = M._tree_map(lambda path, t: t.float(), fparams)
@@ -917,8 +1011,8 @@ def main() -> int:
         f"{worst(errs)} (tol {tol32:g}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("falcon-mamba fp32 2-segment diagonal vs sequential plain")
-    for label, fn in [("dt x1.02 into the scan", lambda x, dt, *a: scan(x, dt * 1.02, *a)),
-                      ("scan output y x0.98", scaled_y(0.98))]:
+    for label, fn in [("dt x~1.02 into the scan (dt_bias + log 1.02)", dt_scaled),
+                      ("scan output x0.98", scaled_out)]:
         with swap.replaced(mamba_scan=fn):
             errs, passed = mamba_errors(frun("diagonal", two, fp32), plain32, tol32)
         log(f"  negative control, fp32, {label}: worst rel err {worst(errs)} -> "
@@ -1043,7 +1137,8 @@ def main() -> int:
                                     "src/repro/kernels/decode_attention.py:67"),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:89"),
-               "armt_read": ("src/repro_torch/kernels/csrc/armt_memory.cu",
+               "armt_read": ("src/repro_torch/kernels/csrc/armt_memory.cu + "
+                             "src/repro_torch/kernels/csrc/grouped_matmul.cu",
                              "src/repro/kernels/armt_memory.py:67"),
                "armt_update": ("src/repro_torch/kernels/csrc/armt_memory.cu",
                                "src/repro/kernels/armt_memory.py:114"),
@@ -1063,6 +1158,8 @@ def main() -> int:
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                         "shape": s["shape"]})
+        kernels[-1].update({k: s[k] for k in ("unfused", "ms_by_rows", "device_launches_per_call")
+                            if k in s})
         if name in routed:   # every GEMM / flash launch of the llama runs, by route
             kernels[-1]["launches_by_route"] = {
                 r: routes_gen[name][r] + routes_serve[name][r] for r in routes}

@@ -7,10 +7,12 @@ projection weights are shared ``[D,E]`` or per group ``[G,D,E]`` (row
 ``n // batch``). CUDA source: ``csrc/armt_memory.cu``. Each wrapper first
 runs its projections of the activations (q; k and v) on the grouped-matmul
 kernel with an fp32 epilogue (``project_f32``), then the memory kernels
-proper, the update's computing the beta logit itself; for bf16 activations
-the read's phi A product also runs on the grouped-matmul kernel, as a
-three-term bf16 split (see the CUDA source). One wrapper call counts as one
-launch.
+proper, the update's computing the beta logit itself. For bf16 activations
+the read's phi A runs on the tensor cores as a three-term bf16 split: one
+launch splits phi and A once each, and the grouped-matmul mainloop
+multiplies the three terms and divides by phi . z in its epilogue (three
+device launches with the projection; see the CUDA sources). One wrapper
+call counts as one launch.
 
 ``armt_update`` writes new A'/z' buffers and never updates A/z in place:
 its blocks read A while others write A'.
@@ -20,7 +22,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.grouped_matmul import launch as gmm_launch
 from repro_torch.kernels.grouped_matmul import project_f32
 from repro_torch.kernels.ref import armt_read_ref as armt_read_plain
 from repro_torch.kernels.ref import armt_update_ref as armt_update_plain
@@ -91,21 +92,21 @@ def armt_read(x, wq, A, z, *, nu: int = 3):
     q = project_f32(x, wq, batch)
     lib, stream = build.lib(), build.stream_ptr(x)
     if x.dtype == torch.float32:
-        code = lib.armt_read_launch(q.data_ptr(), A.data_ptr(), z.data_ptr(),
-                                    out.data_ptr(), N, T, dm, P, Dv, stream)
-    else:
-        # bf16: phi A as one K = 3P tensor-core product of split operands
-        X = torch.empty(N, T, 3 * P, dtype=torch.bfloat16, device=x.device)
-        W = torch.empty(N, 3 * P, Dv, dtype=torch.bfloat16, device=x.device)
-        den = torch.empty(N, T, dtype=torch.float32, device=x.device)
-        build.check(lib.armt_read_split_launch(
-            q.data_ptr(), A.data_ptr(), z.data_ptr(), X.data_ptr(), W.data_ptr(),
-            den.data_ptr(), N, T, dm, P, Dv, stream), "armt_read")
-        num = torch.empty(N, T, Dv, dtype=torch.float32, device=x.device)
-        gmm_launch(X, W, None, num)
-        code = lib.armt_read_finish_launch(num.data_ptr(), den.data_ptr(),
-                                           out.data_ptr(), N, T, Dv, stream)
-    build.check(code, "armt_read")
+        build.check(lib.armt_read_launch(q.data_ptr(), A.data_ptr(), z.data_ptr(),
+                                         out.data_ptr(), N, T, dm, P, Dv, stream), "armt_read")
+        return out
+    # bf16: phi's and A's splits (rows padded to 16 bytes for the TMA), then
+    # the three-term product with the division in its epilogue
+    sp, sw = -(-P // 8) * 8, -(-Dv // 8) * 8
+    phi = torch.empty(N, 2, T, sp, dtype=torch.bfloat16, device=x.device)
+    W = torch.empty(N, 2, P, sw, dtype=torch.bfloat16, device=x.device)
+    den = torch.empty(N, T, dtype=torch.float32, device=x.device)
+    build.check(lib.armt_read_split_launch(
+        q.data_ptr(), A.data_ptr(), z.data_ptr(), phi.data_ptr(), W.data_ptr(), den.data_ptr(),
+        N, T, dm, P, Dv, sp, sw, stream), "armt_read")
+    build.check(lib.armt_read_gemm_launch(
+        phi.data_ptr(), W.data_ptr(), den.data_ptr(), out.data_ptr(), N, T, P, Dv, sp, sw,
+        stream), "armt_read")
     return out
 
 

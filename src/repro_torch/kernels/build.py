@@ -42,12 +42,14 @@ SIGNATURES = {
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                _I, _I, _F, _I, _I, _P],
-    # fp32 read: q (fp32 x Wq), A, z, out, N, T, dm, P, Dv, stream
+    # read, fp32: q (x Wq), A, z, out, N, T, dm, P, Dv, stream
     "armt_read_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # bf16 read, split operands: q, A, z, X, W, den, N, T, dm, P, Dv, stream
-    "armt_read_split_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # bf16 read, finish: num (fp32), den, out, N, T, Dv, stream
-    "armt_read_finish_launch": [_P, _P, _P, _I, _I, _I, _P],
+    # read, bf16, its splits: q, A, z, Phi, W, den, N, T, dm, P, Dv,
+    # Phi and W row strides, stream
+    "armt_read_split_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _P],
+    # read, bf16, the three-term product: Phi, W, den, out, N, T, P, Dv,
+    # Phi and W row strides, stream
+    "armt_read_gemm_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _P],
     # q, k, v, lengths (int32), out, partial o and (m, l) workspaces (fp32),
     # B, Hq, Hkv, S, hd, q strides (b, h), k strides (b, s, h), v strides
     # (b, s, h), window, scale, chunk, splits, dtype, stream
@@ -58,10 +60,11 @@ SIGNATURES = {
     # m strides (n, row), weight batch, dtype, stream
     "armt_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P],
-    # x, dt, B, C, A_log, D, h0, y, hT, N, T, dI, dS, G, x strides (n, t),
-    # dt strides (n, t), B strides (n, t), C strides (n, t), dtype, stream
-    "mamba_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _L, _L, _L, _L, _L, _L, _L, _L, _I, _P],
+    # x, dt, B, C, A_log, D, h0, dt_bias (or null), z (or null), y, hT, N, T,
+    # dI, dS, G, x strides (n, t), dt strides (n, t), B strides (n, t),
+    # C strides (n, t), z strides (n, t), dtype, dt_bias dtype, stream
+    "mamba_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _P],
 }
 
 _lib = None

@@ -15,10 +15,18 @@
 //   Bound: 2*T*P*Dv flops per n, above the bytes bound (A, x, out move once).
 //   bf16 activations: the output is rounded to bf16 (2^-9), so phi A runs on
 //   the tensor cores as a three-term bf16 split, phi_hi A_hi + phi_hi A_lo +
-//   phi_lo A_hi (product error ~2^-16): armt_read_split writes [phi_hi |
-//   phi_hi | phi_lo] per token (with the fp32 denominator) and [A_hi; A_lo;
-//   A_hi] per n, the grouped-matmul kernel multiplies them as one K = 3P
-//   product with an fp32 epilogue, and armt_read_finish divides and rounds.
+//   phi_lo A_hi (product error ~2^-16), in two launches after the q
+//   projection: armt_read_split (below) writes phi's split, Phi [N,2,T,P]
+//   = [phi_hi; phi_lo], with the fp32 denominator, and A's, W [N,2,P,Dv] =
+//   [A_hi; A_lo], each once; the grouped-matmul kernel's TMA + wgmma
+//   mainloop then walks K over the three terms, loading each term's tiles
+//   from the two halves, and divides and rounds in its epilogue
+//   (armt_read_gemm_launch in csrc/grouped_matmul.cu). Its k16 steps run in
+//   the order of a [phi_hi | phi_hi | phi_lo] x [A_hi; A_lo; A_hi] product of
+//   K = 3P, with the division on the fp32 sums, so the output is that
+//   product's bit for bit: the untrained model's teacher-forced check pins
+//   the last bit. A fused kernel that split A in its mainloop (re-reading
+//   A's fp32 rows for every 64 tokens) ran 1.8x longer than this.
 //   fp32 activations: armt_read_kernel, exact fp32 on the CUDA cores in
 //   register-blocked 128 x 128 tiles (each of 256 threads an 8 x 8
 //   accumulator), one block per (n, 128 tokens, 128 values), phi computed
@@ -143,56 +151,71 @@ armt_read_kernel(const float* __restrict__ q, const float* __restrict__ A,
   }
 }
 
-// One warp per token: phi(q_t) split into bf16 hi/lo as [hi | hi | lo]
-// (3P wide) and den = phi . z + eps in fp32.
+// bf16 path, before the product. Blocks [0, phi_blocks) take one token per
+// warp: phi(q_t) split into bf16 hi and lo, rows t of Phi[n][0] and
+// Phi[n][1] (row stride sp), and den = phi . z + eps in fp32, summed over
+// the lanes' p in order, then across the warp. The other blocks split A
+// into W[n][0] = A_hi and W[n][1] = A_lo (row stride sw), 4 values a
+// thread. Row padding past P and Dv is never read (the product's tensor
+// maps stop at P and Dv).
 __global__ void __launch_bounds__(THREADS)
-armt_read_split_phi(const float* __restrict__ q, const float* __restrict__ z,
-                    bf16* __restrict__ X, float* __restrict__ den, int T_, int dm, int P) {
+armt_read_split(const float* __restrict__ q, const float* __restrict__ A,
+                const float* __restrict__ z, bf16* __restrict__ Phi, bf16* __restrict__ W,
+                float* __restrict__ den, int N, int T_, int dm, int P, int Dv, ll sp, ll sw,
+                int phi_blocks, bool vec) {
   __shared__ float qs[THREADS / 32][MAXDM];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t = blockIdx.x * (THREADS / 32) + warp, n = blockIdx.y;
-  if (t >= T_) return;
-  const float* qrow = q + ((ll)n * T_ + t) * dm;
-  for (int i = lane; i < dm; i += 32) qs[warp][i] = qrow[i];
-  __syncwarp();
-  const float* zn = z + (ll)n * P;
-  bf16* xrow = X + ((ll)n * T_ + t) * 3 * P;
-  float s = 0.f;
-  for (int p = lane; p < P; p += 32) {
-    const float f = dpfp_at(qs[warp], dm, p);
-    const bf16 hi = __float2bfloat16(f);
-    const bf16 lo = __float2bfloat16(f - __bfloat162float(hi));
-    xrow[p] = hi;
-    xrow[P + p] = hi;
-    xrow[2 * P + p] = lo;
-    s = fmaf(f, zn[p], s);
+  if ((int)blockIdx.x < phi_blocks) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const ll row = (ll)blockIdx.x * (THREADS / 32) + warp;
+    if (row >= (ll)N * T_) return;
+    const ll n = row / T_, t = row - n * T_;
+    const float* qrow = q + row * dm;
+    for (int i = lane; i < dm; i += 32) qs[warp][i] = qrow[i];
+    __syncwarp();
+    const float* zn = z + n * P;
+    bf16* hrow = Phi + (n * 2 * T_ + t) * sp;
+    bf16* lrow = hrow + (ll)T_ * sp;
+    float s = 0.f;
+    for (int p = lane; p < P; p += 32) {
+      const float f = dpfp_at(qs[warp], dm, p);
+      const bf16 hi = __float2bfloat16(f);
+      hrow[p] = hi;
+      lrow[p] = __float2bfloat16(f - __bfloat162float(hi));
+      s = fmaf(f, zn[p], s);
+    }
+    s = warp_sum(s);
+    if (lane == 0) den[row] = s + EPS;
+    return;
   }
-  s = warp_sum(s);
-  if (lane == 0) den[(ll)n * T_ + t] = s + EPS;
-}
-
-// A [N,P,Dv] fp32 -> W [N,3P,Dv] bf16 = [A_hi; A_lo; A_hi]
-__global__ void armt_read_split_state(const float* __restrict__ A, bf16* __restrict__ W,
-                                      ll pdv, ll total) {
-  for (ll e = (ll)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (ll)gridDim.x * blockDim.x) {
-    const ll n = e / pdv, r = e - n * pdv;
-    const float a = A[e];
-    const bf16 hi = __float2bfloat16(a);
-    const bf16 lo = __float2bfloat16(a - __bfloat162float(hi));
-    bf16* wn = W + n * 3 * pdv;
-    wn[r] = hi;
-    wn[pdv + r] = lo;
-    wn[2 * pdv + r] = hi;
+  const int nv4 = (Dv + 3) / 4;   // vec: float4 loads (Dv % 4 == 0, A 16-byte aligned)
+  const ll total = (ll)N * P * nv4;
+  for (ll e = (ll)(blockIdx.x - phi_blocks) * THREADS + threadIdx.x; e < total;
+       e += (ll)(gridDim.x - phi_blocks) * THREADS) {
+    const ll r = e / nv4, n = r / P, p = r - n * P;
+    const int v = (int)(e - r * nv4) * 4;
+    const float* src = A + r * Dv + v;
+    bf16* hi = W + (n * 2 * P + p) * sw + v;
+    bf16* lo = hi + (ll)P * sw;
+    if (vec) {
+      const float4 a = *reinterpret_cast<const float4*>(src);
+      const __nv_bfloat162 h0 = __floats2bfloat162_rn(a.x, a.y);
+      const __nv_bfloat162 h1 = __floats2bfloat162_rn(a.z, a.w);
+      const __nv_bfloat162 l0 =
+          __floats2bfloat162_rn(a.x - __low2float(h0), a.y - __high2float(h0));
+      const __nv_bfloat162 l1 =
+          __floats2bfloat162_rn(a.z - __low2float(h1), a.w - __high2float(h1));
+      *reinterpret_cast<uint2*>(hi) = make_uint2(*reinterpret_cast<const uint32_t*>(&h0),
+                                                 *reinterpret_cast<const uint32_t*>(&h1));
+      *reinterpret_cast<uint2*>(lo) = make_uint2(*reinterpret_cast<const uint32_t*>(&l0),
+                                                 *reinterpret_cast<const uint32_t*>(&l1));
+    } else {
+      for (int u = 0; u < 4 && v + u < Dv; ++u) {
+        const bf16 h = __float2bfloat16(src[u]);
+        hi[u] = h;
+        lo[u] = __float2bfloat16(src[u] - __bfloat162float(h));
+      }
+    }
   }
-}
-
-// out[n,t,v] = bf16(num[n,t,v] / den[n,t])
-__global__ void armt_read_finish(const float* __restrict__ num, const float* __restrict__ den,
-                                 bf16* __restrict__ out, int Dv, ll total) {
-  for (ll e = (ll)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (ll)gridDim.x * blockDim.x)
-    out[e] = __float2bfloat16(num[e] / den[e / Dv]);
 }
 
 // ---------------------------------------------------------------- update
@@ -436,32 +459,22 @@ extern "C" int armt_read_launch(const void* q, const void* A, const void* z, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 path, before the product: X [N,T,3P] and W [N,3P,Dv] bf16 split
-// operands, den [N,T] fp32.
-extern "C" int armt_read_split_launch(const void* q, const void* A, const void* z, void* X,
-                                      void* W, void* den, int N, int T, int dm, int P,
-                                      int Dv, void* stream) {
+// bf16 path, before the product: Phi [N,2,T,sp] and W [N,2,P,sw] bf16
+// split operands (sp >= P, sw >= Dv), den [N,T] fp32. One launch.
+extern "C" int armt_read_split_launch(const void* q, const void* A, const void* z, void* Phi,
+                                      void* W, void* den, int N, int T, int dm, int P, int Dv,
+                                      long long sp, long long sw, void* stream) {
+  if (dm > MAXDM || sp < P || sw < Dv) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((T + THREADS / 32 - 1) / (THREADS / 32), N);
-  armt_read_split_phi<<<grid, THREADS, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(z), static_cast<bf16*>(X),
-      static_cast<float*>(den), T, dm, P);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const ll pdv = (ll)P * Dv, total = (ll)N * pdv;
-  armt_read_split_state<<<(int)((total + 1023) / 1024), 256, 0, s>>>(
-      static_cast<const float*>(A), static_cast<bf16*>(W), pdv, total);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// bf16 path, after the product: out [N,T,Dv] bf16 = num / den.
-extern "C" int armt_read_finish_launch(const void* num, const void* den, void* out, int N,
-                                       int T, int Dv, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const ll total = (ll)N * T * Dv;
-  armt_read_finish<<<(int)((total + 1023) / 1024), 256, 0, s>>>(
-      static_cast<const float*>(num), static_cast<const float*>(den), static_cast<bf16*>(out),
-      Dv, total);
+  const int phi_blocks = (int)(((ll)N * T + THREADS / 32 - 1) / (THREADS / 32));
+  const ll quads = (ll)N * P * ((Dv + 3) / 4);
+  const ll want = (quads + THREADS - 1) / THREADS, cap = 16LL * sm_count();
+  const int a_blocks = (int)(want < cap ? want : cap);
+  if (phi_blocks + a_blocks == 0) return 0;
+  armt_read_split<<<phi_blocks + a_blocks, THREADS, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(A), static_cast<const float*>(z),
+      static_cast<bf16*>(Phi), static_cast<bf16*>(W), static_cast<float*>(den), N, T, dm, P, Dv,
+      sp, sw, phi_blocks, Dv % 4 == 0 && aligned16(A));
   return static_cast<int>(cudaGetLastError());
 }
 

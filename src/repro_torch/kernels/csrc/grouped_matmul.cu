@@ -58,6 +58,12 @@
 // call) through cuTensorMapEncodeTiled, a libcuda function reached with
 // cudaGetDriverEntryPointByVersion, so the library needs no -lcuda.
 //
+// The same mainloop runs armt_read's bf16 product (READ, through
+// armt_read_gemm_launch; csrc/armt_memory.cu writes its split operands):
+// x and w hold a hi and a lo half per group, K walks three terms (x_hi w_hi,
+// x_hi w_lo, x_lo w_hi), each loading its tiles from its halves, and the
+// epilogue divides each row by its denominator before the one cast.
+//
 // fp32 inputs, and bf16 shapes whose K or N is not a multiple of 8 (no
 // 16-byte rows for the TMA), take `gmm_simt`: a 64 x 64 tile of fp32 FMAs
 // per block, exact fp32 accumulation. The caller picks the route (the
@@ -141,12 +147,14 @@ struct Tile {
 };
 
 // Launched in clusters of 2 CTAs (the launch attribute of launch_tc_bn).
-template <int BN, typename OutT>
+// READ: armt_read's three-term product (armt_read_gemm_launch), out =
+// rnd(x w / den).
+template <int BN, typename OutT, bool READ>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 gmm_wgmma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
           const bf16* __restrict__ bias, const bf16* __restrict__ res, OutT* __restrict__ out,
           int R, int K, int N, ll srg, ll srr, int wbatch, int act, int m_tiles, int n_pairs,
-          int tiles) {
+          int tiles, const float* __restrict__ den) {
   using C = TcCfg<BN>;
   extern __shared__ unsigned char smem_raw[];
   // 128-byte-swizzled tiles must start on 1024-byte boundaries; the layout
@@ -156,7 +164,7 @@ gmm_wgmma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUten
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::STAGES * C::STAGE + EP_BYTES);
   uint64_t* empty = full + C::STAGES;
   const int wg = threadIdx.x / 128;
-  const int nk = (K + TBK - 1) / TBK;
+  const int kpt = (K + TBK - 1) / TBK, nk = (READ ? 3 : 1) * kpt;   // K tiles: a term's, all
   const uint32_t rank = cluster_ctarank(), peer = rank ^ 1;
   const int cluster = blockIdx.x / 2, clusters = gridDim.x / 2;
 
@@ -183,15 +191,21 @@ gmm_wgmma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUten
         const Tile tl(t, m_tiles, n_pairs, BN, rank);
         const int gw = tl.g / wbatch;
         for (int kt = 0; kt < nk; ++kt) {
+          int k0 = kt * TBK, xg = tl.g, wgr = gw;
+          if constexpr (READ) {   // x and w hold a hi and a lo half per group:
+            const int term = kt / kpt;   // x_hi w_hi, x_hi w_lo, x_lo w_hi
+            k0 = (kt - term * kpt) * TBK;
+            xg = 2 * tl.g + (term == 2);
+            wgr = 2 * tl.g + (term == 1);
+          }
           mbar_wait(&empty[stage], phase ^ 1);        // the first pass finds it free
           unsigned char* st = smem + stage * C::STAGE;
           mbar_arrive_expect_tx(&full[stage], C::STAGE);
-          tma_load_3d_multicast(st + rank * (A_TILE / 2), &tmx, &full[stage], kt * TBK,
-                                tl.m0 + rank * (TBM / 2), tl.g, 0x3);
+          tma_load_3d_multicast(st + rank * (A_TILE / 2), &tmx, &full[stage], k0,
+                                tl.m0 + rank * (TBM / 2), xg, 0x3);
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j)
-            tma_load_3d(st + A_TILE + j * B_BOX, &tmw, &full[stage], tl.n0 + j * 64, kt * TBK,
-                        gw);
+            tma_load_3d(st + A_TILE + j * B_BOX, &tmw, &full[stage], tl.n0 + j * 64, k0, wgr);
           if (++stage == C::STAGES) {
             stage = 0;
             phase ^= 1;
@@ -255,6 +269,14 @@ gmm_wgmma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUten
       // part only moves registers; bias, activation, res and the one cast
       // run in short loops that store whole rows
       const int gw = tl.g / wbatch;
+      float dr[8];   // READ: den of this thread's rows, loaded once a tile
+      if constexpr (READ) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int row = tl.m0 + wg * 64 + tid / 16 + 8 * i;
+          dr[i] = row < R ? den[(ll)tl.g * R + row] : 1.f;
+        }
+      }
 #pragma unroll
       for (int cb = 0; cb < BN / EP_COLS; ++cb) {
         wg_barrier(1 + wg);                     // the previous chunk has been read
@@ -268,7 +290,24 @@ gmm_wgmma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUten
         }
         wg_barrier(1 + wg);
         const int c = (tid % 16) * 4, col = tl.n0 + cb * EP_COLS + c;
-        if (col >= N) continue;                 // N % 8 == 0: col + 3 < N too
+        if (col >= N) continue;                 // and col + 3 < N (N % 8 == 0) but in READ
+        if constexpr (READ) {                   // out = rnd(num / den), any N
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int r = tid / 16 + 8 * i, row = tl.m0 + wg * 64 + r;
+            if (row >= R) break;
+            const float d = dr[i];
+            const float4 a = *reinterpret_cast<const float4*>(ep + ep_at(r, c));
+            const float v[4] = {a.x / d, a.y / d, a.z / d, a.w / d};
+            OutT* o = out + ((ll)tl.g * R + row) * N + col;
+            if (N % 4 == 0) {
+              store4(o, v);
+            } else {
+              for (int e = 0; e < 4 && col + e < N; ++e) o[e] = from_f<OutT>(v[e]);
+            }
+          }
+          continue;
+        }
         if (act == 0 && bias == nullptr && res == nullptr) {   // the plain projections
 #pragma unroll 1
           for (int r = tid / 16; r < 64; r += 8) {
@@ -417,16 +456,16 @@ int choose_bn(int G, int R, int N, int clusters) {
              : 128;
 }
 
-// How many 2-CTA clusters of gmm_wgmma<BN, OutT> the card holds at once (a
-// cluster needs two free SMs of one GPC), cached per device.
-template <int BN, typename OutT>
+// How many 2-CTA clusters of gmm_wgmma<BN, OutT, READ> the card holds at
+// once (a cluster needs two free SMs of one GPC), cached per device.
+template <int BN, typename OutT, bool READ = false>
 int resident_clusters() {
   static int count[64] = {};
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 0 || dev >= 64) dev = 0;
   if (count[dev] == 0) {
-    cudaFuncSetAttribute(gmm_wgmma<BN, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(gmm_wgmma<BN, OutT, READ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          TcCfg<BN>::SMEM);
     cudaLaunchAttribute attr;
     attr.id = cudaLaunchAttributeClusterDimension;
@@ -440,18 +479,19 @@ int resident_clusters() {
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
     int n = 0;
-    if (cudaOccupancyMaxActiveClusters(&n, gmm_wgmma<BN, OutT>, &cfg) != cudaSuccess || n < 1)
+    if (cudaOccupancyMaxActiveClusters(&n, gmm_wgmma<BN, OutT, READ>, &cfg) != cudaSuccess ||
+        n < 1)
       n = sm_count() / 2;
     count[dev] = n;
   }
   return count[dev];
 }
 
-template <int BN, typename OutT>
+template <int BN, typename OutT, bool READ = false>
 cudaError_t launch_tc_bn(const CUtensorMap& mx, const CUtensorMap& mw, const void* bias,
                          const void* res, void* out, int G, int R, int K, int N, ll srg, ll srr,
-                         int wbatch, int act, cudaStream_t s) {
-  const int clusters = resident_clusters<BN, OutT>();
+                         int wbatch, int act, cudaStream_t s, const float* den = nullptr) {
+  const int clusters = resident_clusters<BN, OutT, READ>();
   const int m_tiles = (R + TBM - 1) / TBM, n_pairs = ((N + BN - 1) / BN + 1) / 2;
   const int tiles = G * m_tiles * n_pairs;   // walk steps: two column tiles each
   cudaLaunchAttribute attr;
@@ -466,9 +506,10 @@ cudaError_t launch_tc_bn(const CUtensorMap& mx, const CUtensorMap& mw, const voi
   cfg.stream = s;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, gmm_wgmma<BN, OutT>, mx, mw, static_cast<const bf16*>(bias),
-                            static_cast<const bf16*>(res), static_cast<OutT*>(out), R, K, N, srg,
-                            srr, wbatch, act, m_tiles, n_pairs, tiles);
+  return cudaLaunchKernelEx(&cfg, gmm_wgmma<BN, OutT, READ>, mx, mw,
+                            static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
+                            static_cast<OutT*>(out), R, K, N, srg, srr, wbatch, act, m_tiles,
+                            n_pairs, tiles, den);
 }
 
 // The TMA + wgmma route, or cudaErrorInvalidValue where its operands do not
@@ -533,4 +574,31 @@ extern "C" int gmm_launch(const void* x, const void* w, const void* bias, const 
                               act, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// armt_read's bf16 product (csrc/armt_memory.cu): out [N,T,Dv] bf16
+// contiguous = rnd((phi_hi A_hi + phi_hi A_lo + phi_lo A_hi) / den), from
+// the split operands Phi [N,2,T,sp] (hi, lo) and W [N,2,P,sw] (hi, lo)
+// bf16 and den [N,T] fp32; sp and sw are row strides, multiples of 8, at
+// least P and Dv. K runs over the three terms in that order, each term's
+// tiles loaded from its halves (TMA's zero fill past P), which is the
+// order of one K = 3P product of [phi_hi | phi_hi | phi_lo] and [A_hi;
+// A_lo; A_hi].
+extern "C" int armt_read_gemm_launch(const void* phi, const void* W, const void* den, void* out,
+                                     int N, int T, int P, int Dv, long long sp, long long sw,
+                                     void* stream) {
+  if (N <= 0 || T <= 0 || P <= 0 || Dv <= 0 || sp % 8 || sw % 8 || sp < P || sw < Dv ||
+      !aligned16(phi) || !aligned16(W) || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mx, mw;
+  if (!encode_3d(&mx, phi, P, T, 2LL * N, sp * 2, (ll)T * sp * 2, TBK, TBM / 2) ||
+      !encode_3d(&mw, W, Dv, P, 2LL * N, sw * 2, (ll)P * sw * 2, 64, TBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* d = static_cast<const float*>(den);
+  if (choose_bn(N, T, Dv, resident_clusters<256, bf16, true>()) == 256)
+    return static_cast<int>(launch_tc_bn<256, bf16, true>(mx, mw, nullptr, nullptr, out, N, T, P,
+                                                          Dv, 0, 0, 1, 0, s, d));
+  return static_cast<int>(launch_tc_bn<128, bf16, true>(mx, mw, nullptr, nullptr, out, N, T, P,
+                                                        Dv, 0, 0, 1, 0, s, d));
 }

@@ -37,7 +37,7 @@ from repro_torch.kernels.ref import grouped_matmul_ref as grouped_matmul_plain
 launches = 0         # grouped_matmul launches since the last reset
 fused_launches = 0   # grouped_matmul_armt_update launches since the last reset
 # GEMM kernel launches by route since the last reset, whoever called launch()
-# (grouped_matmul, the fused op, project_f32, armt_read's split product)
+# (grouped_matmul, the fused op, project_f32)
 tc_launches = 0      # the TMA + wgmma mainloop
 simt_launches = 0    # gmm_simt, fp32 FMAs
 

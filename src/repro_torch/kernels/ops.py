@@ -57,20 +57,23 @@ def segment_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return flash_attention(q, k, v, causal=causal, window=window)
 
 
-def selective_scan_fused(x, dt, Bt, Ct, A_log, D, h0):
-    """The Mamba-1 scan with its D skip. Plain layout: x/dt [B,T,dI], Bt/Ct
-    [B,T,dS], A_log [dI,dS], D [dI], h0 [B,dI,dS]. Grouped band layout: x/dt
-    [G,B,T,dI], Bt/Ct [G,B,T,dS], A_log [G,dI,dS], D [G,dI], h0
-    [G,B,dI,dS], one launch over N = G*B rows. -> (y fp32 shaped like x,
-    hT fp32 shaped like h0)."""
+def selective_scan_fused(x, dt, Bt, Ct, A_log, D, h0, *, dt_bias=None, z=None):
+    """The Mamba-1 scan with its D skip, and with ``dt_bias``/``z`` the
+    mixer's dt softplus and output gate (see ``mamba_scan``). Plain layout:
+    x/dt/z [B,T,dI], Bt/Ct [B,T,dS], A_log [dI,dS], D and dt_bias [dI], h0
+    [B,dI,dS]. Grouped band layout: x/dt/z [G,B,T,dI], Bt/Ct [G,B,T,dS],
+    A_log [G,dI,dS], D and dt_bias [G,dI], h0 [G,B,dI,dS], one launch over
+    N = G*B rows. -> (y shaped like x: fp32, or x's dtype with z; hT fp32
+    shaped like h0)."""
     if x.dim() == 4:
         G, B = x.shape[:2]
 
         def flat(a):
             return a.reshape((G * B,) + a.shape[2:])
-        y, hT = mamba_scan(flat(x), flat(dt), flat(Bt), flat(Ct), A_log, D, flat(h0))
+        y, hT = mamba_scan(flat(x), flat(dt), flat(Bt), flat(Ct), A_log, D, flat(h0),
+                           dt_bias=dt_bias, z=None if z is None else flat(z))
         return y.reshape(x.shape), hT.reshape(h0.shape)
-    return mamba_scan(x, dt, Bt, Ct, A_log, D, h0)
+    return mamba_scan(x, dt, Bt, Ct, A_log, D, h0, dt_bias=dt_bias, z=z)
 
 
 __all__ = ["grouped_gemm", "grouped_gemm_armt_update", "segment_attention",

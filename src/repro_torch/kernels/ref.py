@@ -122,19 +122,33 @@ def grouped_matmul_armt_update_ref(x, w, res, wk, wv, wb, A, z, bias=None, *,
     return y, A2, z2
 
 
-def mamba_scan_ref(x, dt, Bt, Ct, A_log, D, h0):
-    """Token-sequential Mamba-1 selective scan in fp32.
+def mamba_scan_ref(x, dt, Bt, Ct, A_log, D, h0, *, dt_bias=None, z=None):
+    """Token-sequential Mamba-1 selective scan in fp32, with the mixer's dt
+    prologue and gate epilogue when asked.
 
     x/dt: [N,T,dI]; Bt/Ct: [N,T,dS]; h0: [N,dI,dS]; A_log: [dI,dS] and D:
     [dI] shared by every row, or [G,dI,dS] and [G,dI] per group (row n
-    takes group n // (N // G)) -> (y [N,T,dI], hT [N,dI,dS]), both fp32:
+    takes group n // (N // G)) -> (y [N,T,dI], hT [N,dI,dS] fp32):
 
         h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) B_t,   A = -exp(A_log)
         y_t = h_t . C_t + D * x_t
+
+    With ``dt_bias`` (shaped like D) and ``z`` ([N,T,dI]), both or neither,
+    dt is the raw dt_proj output, the scan uses ``softplus(dt + dt_bias)``
+    in fp32 and y comes back as ``y.to(z.dtype) * silu(z)``; otherwise y is
+    fp32. Eager PyTorch ops in the mixer's order, so each rounds where the
+    mixer's did.
     """
+    if (dt_bias is None) != (z is None):
+        raise ValueError("mamba_scan: dt_bias and z go together (the fused form) or not at all")
     N, T, dI = x.shape
     A = -torch.exp(A_log.float())
     Dv = D.float()
+    if dt_bias is not None:
+        bias = dt_bias.float()
+        bias = bias.repeat_interleave(N // bias.shape[0], 0)[:, None] if bias.dim() == 2 \
+            else bias
+        dt = torch.nn.functional.softplus(dt.float() + bias)
     if A.dim() == 3:
         rep = N // A.shape[0]
         A, Dv = A.repeat_interleave(rep, 0), Dv.repeat_interleave(rep, 0)
@@ -148,4 +162,6 @@ def mamba_scan_ref(x, dt, Bt, Ct, A_log, D, h0):
         h = torch.exp(dt_t[..., None] * A) * h + (dt_t * x_t)[..., None] * B32[:, t, None, :]
         ys.append(torch.einsum("nis,ns->ni", h, C32[:, t]) + Dv * x_t)
     y = torch.stack(ys, 1) if ys else x32.new_zeros(N, 0, dI)
+    if z is not None:
+        y = y.to(z.dtype) * torch.nn.functional.silu(z)
     return y, h

@@ -82,36 +82,37 @@ def _causal_conv(xi, tail, w, b):
 
 
 def _ssm_inputs(xc, p, scfg: SSMConfig):
-    """xc: [.., T, dI] (post-conv, post-silu) -> (dt [.., T, dI] fp32, B and C
-    [.., T, dS] fp32). B and C are column slices of one fp32 copy of the
-    x_proj output, which the scan kernel reads through their strides."""
+    """xc: [.., T, dI] (post-conv, post-silu) -> (dt [.., T, dI], the raw
+    dt_proj output in xc's dtype, whose bias and softplus the scan applies;
+    B and C [.., T, dS] fp32). B and C are column slices of one fp32 copy of
+    the x_proj output, which the scan kernel reads through their strides."""
     dS = scfg.d_state
     dtr = p["dt_proj"].shape[-2]
     proj = _proj(xc, p["x_proj"])                               # [.., T, dtr + 2dS]
-    dt = F.softplus(_proj(proj[..., :dtr], p["dt_proj"]).float()
-                    + _bcast(p["dt_bias"], xc).float())
+    dt = _proj(proj[..., :dtr], p["dt_proj"])
     bc = proj[..., dtr:].float()
     return dt, bc[..., :dS], bc[..., dS:]
 
 
-def selective_scan(xc, dt, Bt, Ct, A_log, D, h0):
+def selective_scan(xc, dt, Bt, Ct, A_log, D, h0, *, dt_bias=None, z=None):
     """h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t;  y_t = C_t . h_t + D x_t, on
-    the ``mamba_scan`` kernel (the plain version for a CPU tensor). Returns
-    (y fp32 shaped like xc, h_T fp32)."""
-    return kops.selective_scan_fused(xc, dt, Bt, Ct, A_log, D, h0)
+    the ``mamba_scan`` kernel (the plain version for a CPU tensor), dt taken
+    as softplus(dt + dt_bias) and y gated by silu(z) when those are given.
+    Returns (y shaped like xc: fp32, or xc's dtype gated; h_T fp32)."""
+    return kops.selective_scan_fused(xc, dt, Bt, Ct, A_log, D, h0, dt_bias=dt_bias, z=z)
 
 
 def mamba_mixer(x, p, scfg: SSMConfig, state: Dict):
     """The mixer over a segment. x: [(G,) B, T, D] -> (y like x, new state
-    {h, conv})."""
+    {h, conv}). The dt softplus and the output gate run inside the scan."""
     dI = p["in_proj"].shape[-1] // 2
     xz = _proj(x, p["in_proj"])
     xi, z = xz[..., :dI], xz[..., dI:]
     xc, new_tail = _causal_conv(xi, state["conv"], p["conv_w"], p["conv_b"])
     xc = F.silu(xc)
     dt, Bt, Ct = _ssm_inputs(xc, p, scfg)
-    y32, hT = selective_scan(xc, dt, Bt, Ct, p["A_log"], p["D"], state["h"])
-    y = y32.to(x.dtype) * F.silu(z)
+    y, hT = selective_scan(xc, dt, Bt, Ct, p["A_log"], p["D"], state["h"],
+                           dt_bias=p["dt_bias"], z=z)
     return _proj(y, p["out_proj"]), {"h": hT, "conv": new_tail}
 
 

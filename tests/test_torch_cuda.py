@@ -3,7 +3,10 @@ small odd shapes: ragged rows and columns on the tensor-core paths (the
 GEMM's TMA + wgmma route: ragged R, K and N, strided x rows and res, weight
 batches, more tiles than SMs), ragged cache lengths and windows for decode
 attention, ragged channels, strided B/C, grouped A_log/D and T = 1 for the
-Mamba scan, and the fp32 paths; the flash kernel's TMA + wgmma route at
+Mamba scan, the scan's dt prologue and gate epilogue on strided raw dt and
+z, 256-channel and small blocks giving the same bits, and the fp32
+paths; armt_read's split three-term bf16 product at ragged T and Dv; the
+flash kernel's TMA + wgmma route at
 ragged T, hd 64 and 128, windows and the cell's strided 5-D layout; the
 split decode kernel at chunk edges, and a row batched or alone giving the
 same bits. Needs a CUDA device and nvcc; skips without a card. This file
@@ -365,3 +368,103 @@ def test_mamba_scan_on_card(cuda, xdtype, N, T, dI, dS, G, strided):
     assert y.dtype == hT.dtype == torch.float32
     _close(y, yr, 1e-4)
     _close(hT, hr, 1e-4)
+
+
+def _scan_case(g, cuda, dtype, N, T, dI, dS, G):
+    """The mixer's operands of one scan: x, raw dt and z as strided views
+    (x and z the two halves of in_proj's output, dt a column slice of a
+    wider tensor), B/C column slices of x_proj's output, per-group A_log,
+    D and dt_bias (fp32), h0."""
+    def r(*s, sc=1.0):
+        return (torch.randn(*s, generator=g) * sc).to(cuda)
+    xz = r(N, T, 2 * dI, sc=0.5).to(dtype)
+    raw = (r(N, T, dI + 8) - 1.0).to(dtype)[..., 8:]
+    proj = r(N, T, 5 + 2 * dS, sc=0.5)
+    lead = (G,) if G > 1 else ()
+    A_log = torch.log(torch.rand(*lead, dI, dS, generator=g) * 15 + 0.5).to(cuda)
+    return dict(x=xz[..., :dI], z=xz[..., dI:], dt=raw, Bt=proj[..., 5:5 + dS],
+                Ct=proj[..., 5 + dS:], A_log=A_log, D=r(*lead, dI),
+                dt_bias=r(*lead, dI, sc=0.5) - 3.6, h0=r(N, dI, dS, sc=0.3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("N,T,dI,dS,G", [
+    (1, 300, 512, 16, 1),         # one row (G = 1), several tiles and a partial one
+    (16, 96, 1024, 16, 16),       # a band step: one row per group
+    (4, 1, 8192, 16, 1),          # decode: T = 1
+    (12, 40, 3072, 16, 4),        # enough blocks of 256 channels to fill the card
+    (6, 37, 130, 8, 3),           # ragged channels, 3 groups of 2 rows
+])
+def test_mamba_scan_fused_on_card(cuda, xdtype, fused, N, T, dI, dS, G):
+    """The scan with the mixer's dt prologue and gate epilogue (fused), and
+    without them on dt = softplus(raw + bias), against the plain version in
+    fp32 on the same values: y and hT within 1e-4 in fp32; in bf16 the
+    gated y within bf16 rounding, hT within 1e-4."""
+    c = _scan_case(torch.Generator().manual_seed(N * T + dI), cuda, xdtype, N, T, dI, dS, G)
+    args = [c[k] for k in ("x", "dt", "Bt", "Ct", "A_log", "D", "h0")]
+    want_y, want_h = mamba_scan.mamba_scan_plain(
+        *_f32(*args[:2]), *args[2:], dt_bias=c["dt_bias"], z=c["z"].float())
+    before = mamba_scan.launches
+    if fused:
+        y, hT = mamba_scan.mamba_scan(*args, dt_bias=c["dt_bias"], z=c["z"])
+        assert y.dtype == xdtype
+    else:
+        bias = c["dt_bias"].repeat_interleave(N // G, 0)[:, None] if G > 1 else c["dt_bias"]
+        dt = torch.nn.functional.softplus(c["dt"].float() + bias)
+        y, hT = mamba_scan.mamba_scan(args[0], dt, *args[2:])
+        assert y.dtype == torch.float32
+        y = y * torch.nn.functional.silu(c["z"].float())
+    assert mamba_scan.launches == before + 1
+    torch.cuda.synchronize()
+    _close(y, want_y, 1e-4 if xdtype == torch.float32 or not fused else 1e-2)
+    _close(hT, want_h, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_mamba_scan_row_is_batch_independent_on_card(cuda, fused):
+    """A row's y and hT do not depend on the rows scanned beside it: one
+    launch over a band of 4 groups x 3 rows (256-channel blocks) gives, to
+    the bit, what each row gives alone with its group's A_log, D and dt_bias
+    (small blocks), so the diagonal and sequential schedules agree to the
+    bit on the kernel."""
+    G, B, T, dI, dS = 4, 3, 70, 3072, 16
+    c = _scan_case(torch.Generator().manual_seed(5), cuda, torch.bfloat16, G * B, T, dI, dS, G)
+    if not fused:
+        c["dt"] = torch.nn.functional.softplus(c["dt"].float() - 3.0)
+    kw = (lambda sl, g: dict(dt_bias=c["dt_bias"][g], z=c["z"][sl])) if fused else \
+        (lambda sl, g: {})
+    band = mamba_scan.mamba_scan(*[c[k] for k in ("x", "dt", "Bt", "Ct", "A_log", "D", "h0")],
+                                 **(dict(dt_bias=c["dt_bias"], z=c["z"]) if fused else {}))
+    for n in (0, 4, 11):
+        g, sl = n // B, slice(n, n + 1)
+        alone = mamba_scan.mamba_scan(c["x"][sl], c["dt"][sl], c["Bt"][sl], c["Ct"][sl],
+                                      c["A_log"][g], c["D"][g], c["h0"][sl], **kw(sl, g))
+        for got, want in zip(band, alone):
+            assert torch.equal(got[sl], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,T,D,dm,Dv", [
+    (2, 300, 256, 64, 384),   # P 384: 18 K tiles; a partial token tile
+    (4, 129, 64, 8, 200),     # P 48: K tiles straddle the three terms; a ragged value tile
+    (2, 40, 64, 16, 52),      # Dv % 8 != 0: element stores
+    (2, 17, 32, 4, 37),       # Dv odd: element loads of A
+])
+def test_armt_read_on_card(cuda, dtype, N, T, D, dm, Dv):
+    """armt_read at ragged T and Dv against its plain version on the same
+    values, with per-group weights: in bf16 the split three-term product on
+    the GEMM mainloop, in fp32 the CUDA-core kernel."""
+    g = torch.Generator().manual_seed(T + Dv)
+    r = _rand(g, cuda, dtype)
+    x, wq = r(N, T, D), r(2, D, dm, sc=D ** -0.5)
+    A = (torch.randn(N, 6 * dm, Dv, generator=g) * 0.1).to(cuda)
+    z = (torch.rand(N, 6 * dm, generator=g) + 0.5).to(cuda)
+    before = armt_memory.read_launches
+    out = armt_memory.armt_read(x, wq, A, z)
+    torch.cuda.synchronize()
+    assert armt_memory.read_launches == before + 1 and out.dtype == dtype
+    _close(out, armt_memory.armt_read_plain(*_f32(x, wq), A, z), TOL[dtype])

@@ -181,3 +181,53 @@ def test_mamba_dims_match_reference():
     for D, scfg in [(4096, SSMConfig(d_state=16)), (32, SSMConfig(d_state=4)),
                     (100, SSMConfig(dt_rank=7, expand=3))]:
         assert tmamba.mamba_dims(D, scfg) == jmamba.mamba_dims(D, JSSM(**vars(scfg)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scan_with_dt_prologue_and_gate_matches_reference_composition(dtype):
+    """The scan with the mixer's dt softplus and output gate taken in
+    (``dt_bias=``, ``z=``; on the CPU the plain version), in the band layout
+    [G, B, ...], against the reference's composition for each group:
+    softplus(dt + dt_bias) in fp32, the Pallas ``mamba_scan`` in interpret
+    mode (its D skip included), then ``y.astype(dtype) * silu(z)``. fp32:
+    summation order only (RTOL, ATOL). bf16: the same fp32 y rounds through
+    the same ops, but the two frameworks' silu formulas may round z's gate
+    one bf16 step apart, so y is held to 1e-2 relative; hT is fp32 on both
+    sides."""
+    G, B, T, dI, dS = 2, 2, 13, 24, 4
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    x, _, Bt, Ct, A_log, D, h0 = _scan_inputs(11, (G, B), T, dI, dS, groups=(G,))
+    rng = np.random.default_rng(12)
+    raw = rng.standard_normal((G, B, T, dI)).astype(np.float32)
+    bias = (rng.uniform(-5.0, -3.0, (G, dI))).astype(np.float32)
+    z = rng.standard_normal((G, B, T, dI)).astype(np.float32)
+    # the activations in the model dtype, the same values on both sides
+    x, raw, z = (np.array(jnp.asarray(a, jdt).astype(jnp.float32)) for a in (x, raw, z))
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    tx, traw, tz = (torch.from_numpy(a).to(tdt) for a in (x, raw, z))
+    before = tscan.launches
+    y, hT = ops.selective_scan_fused(tx, traw, *_t(Bt, Ct, A_log, D, h0),
+                                     dt_bias=torch.from_numpy(bias), z=tz)
+    assert tscan.launches == before and y.dtype == tdt and y.shape == (G, B, T, dI)
+    for g in range(G):
+        dt = jax.nn.softplus(jnp.asarray(raw[g], jdt).astype(jnp.float32) + bias[g])
+        wy, wh = jops.selective_scan_fused(
+            jnp.asarray(x[g], jdt), dt, *[jnp.asarray(a[g]) for a in (Bt, Ct, A_log, D, h0)],
+            use_kernel=True, interpret=True)
+        wy = wy.astype(jdt) * jax.nn.silu(jnp.asarray(z[g], jdt))
+        if dtype == "float32":
+            _close(wy, y[g])
+        else:
+            _close(np.asarray(wy.astype(jnp.float32)), y[g].float(), rtol=1e-2, atol=1e-2)
+        _close(wh, hT[g])
+
+
+@pytest.mark.parametrize("given", ["dt_bias", "z"])
+def test_scan_refuses_half_of_the_fused_form(given):
+    """``dt_bias=`` and ``z=`` make one form (raw dt in, gated y out): a call
+    with only one of them is refused, on the CPU as on the card."""
+    B, T, dI, dS = 2, 5, 8, 4
+    x, dt, Bt, Ct, A_log, D, h0 = _t(*_scan_inputs(3, (B,), T, dI, dS))
+    kw = {"dt_bias": torch.zeros(dI)} if given == "dt_bias" else {"z": torch.zeros_like(x)}
+    with pytest.raises(ValueError, match="go together"):
+        tscan.mamba_scan(x, dt, Bt, Ct, A_log, D, h0, **kw)

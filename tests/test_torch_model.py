@@ -1,7 +1,8 @@
 """The port's model against the JAX reference at smoke size (fp32, CPU):
 the attn block, the sequential and diagonal executors, the fused grouped
-cell and last_logits. Weights come from the reference's init_params and go
-to the port through numpy (repro_torch.convert)."""
+cell and last_logits, for each Llama ARMT config (llama-8b-armt with its
+untied head). Weights come from the reference's init_params and go to the
+port through numpy (repro_torch.convert)."""
 import dataclasses
 
 import pytest
@@ -23,7 +24,7 @@ from repro_torch.models import blocks as tblocks  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models.grouped_blocks import make_grouped_apply as t_grouped  # noqa: E402
 
-ARCH = "llama-1b-armt"
+ARCHS = ["llama-1b-armt", "llama-160m-armt", "llama-3b-armt", "llama-8b-armt"]
 # fp32 against fp32 at "highest" matmul precision. The ARMT recurrence
 # amplifies summation-order differences segment by segment (the reference's
 # DESIGN.md §7), so the tolerance is stated for <= 4 segments.
@@ -36,8 +37,13 @@ def _close(want, got, atol=ATOL, rtol=RTOL):
                                atol=atol, rtol=rtol)
 
 
-def _configs(n_layers=None):
-    jc, tc = j_smoke(ARCH), t_smoke(ARCH)
+@pytest.fixture(params=ARCHS)
+def arch(request):
+    return request.param
+
+
+def _configs(arch, n_layers=None):
+    jc, tc = j_smoke(arch), t_smoke(arch)
     if n_layers:
         jc = dataclasses.replace(jc, n_layers=n_layers)
         tc = dataclasses.replace(tc, n_layers=n_layers)
@@ -47,29 +53,29 @@ def _configs(n_layers=None):
 _CACHE = {}
 
 
-def _model(n_layers=None):
-    if n_layers not in _CACHE:
-        jc, tc = _configs(n_layers)
+def _model(arch, n_layers=None):
+    if (arch, n_layers) not in _CACHE:
+        jc, tc = _configs(arch, n_layers)
         jp = jmodel.init_params(jc, jax.random.PRNGKey(0))
         tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
-        _CACHE[n_layers] = (jc, tc, jp, tp)
-    return _CACHE[n_layers]
+        _CACHE[arch, n_layers] = (jc, tc, jp, tp)
+    return _CACHE[arch, n_layers]
 
 
 def _tokens(seed, B, n_tokens, vocab):
     return np.random.default_rng(seed).integers(0, vocab, (B, n_tokens))
 
 
-def test_smoke_config_matches_reference():
-    jc, tc = _configs()
+def test_smoke_config_matches_reference(arch):
+    jc, tc = _configs(arch)
     for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
               "vocab", "rope_theta", "tie_embeddings", "block_pattern", "dtype"):
         assert getattr(jc, f) == getattr(tc, f), f
     assert dataclasses.asdict(jc.armt) == dataclasses.asdict(tc.armt)
 
 
-def test_attn_block_matches_make_apply_block():
-    jc, tc, jp, tp = _model()
+def test_attn_block_matches_make_apply_block(arch):
+    jc, tc, jp, tp = _model(arch)
     rng = np.random.default_rng(1)
     T = jc.armt.segment_len + jc.armt.num_mem_tokens
     x = rng.standard_normal((2, T, jc.d_model)).astype(np.float32)
@@ -87,10 +93,10 @@ def test_attn_block_matches_make_apply_block():
     _close(js["z"], ts["z"])
 
 
-def test_fused_cell_matches_reference_grouped_cell():
+def test_fused_cell_matches_reference_grouped_cell(arch):
     """The port's fused cell (CPU: the kernels' plain versions) against the
     reference fused cell running its Pallas kernels in interpret mode."""
-    jc, tc, jp, tp = _model()
+    jc, tc, jp, tp = _model(arch)
     rng = np.random.default_rng(2)
     G, B = jc.n_layers, 2
     T = jc.armt.segment_len + jc.armt.num_mem_tokens
@@ -108,11 +114,11 @@ def test_fused_cell_matches_reference_grouped_cell():
     _close(js["z"], ts["z"])
 
 
-def test_fused_cell_at_batch_one_matches_reference_fused_update():
+def test_fused_cell_at_batch_one_matches_reference_fused_update(arch):
     """At B = 1 both cells run the down projection with the ARMT update
     fused (the reference's grouped_matmul_armt_update in interpret mode,
     the port's grouped_gemm_armt_update on the CPU)."""
-    jc, tc, jp, tp = _model()
+    jc, tc, jp, tp = _model(arch)
     rng = np.random.default_rng(3)
     G, T = jc.n_layers, jc.armt.segment_len + jc.armt.num_mem_tokens
     x = rng.standard_normal((G, 1, T, jc.d_model)).astype(np.float32)
@@ -130,8 +136,8 @@ def test_fused_cell_at_batch_one_matches_reference_fused_update():
 
 
 @pytest.mark.parametrize("S", [1, 3])
-def test_sequential_matches_reference(S):
-    jc, tc, jp, tp = _model()
+def test_sequential_matches_reference(arch, S):
+    jc, tc, jp, tp = _model(arch)
     toks = _tokens(S, 2, S * jc.armt.segment_len, jc.vocab)
     jh, jf = jmodel.forward_hidden(jp, jc, jnp.asarray(toks), schedule="sequential")
     th, tf = tmodel.forward_hidden(tp, tc, torch.from_numpy(toks),
@@ -144,10 +150,10 @@ def test_sequential_matches_reference(S):
 
 # (n_layers, S): S < L, S == L, S > L
 @pytest.mark.parametrize("n_layers,S", [(4, 2), (2, 2), (2, 4)])
-def test_diagonal_fused_matches_reference_full_width(n_layers, S):
+def test_diagonal_fused_matches_reference_full_width(arch, n_layers, S):
     """Port diagonal on the fused cell vs the reference's full-width
     diagonal driver (grouped_impl='vmap')."""
-    jc, tc, jp, tp = _model(n_layers if n_layers != 2 else None)
+    jc, tc, jp, tp = _model(arch, n_layers if n_layers != 2 else None)
     toks = _tokens(10 + S, 2, S * jc.armt.segment_len, jc.vocab)
     jh, jf = jmodel.forward_hidden(jp, jc, jnp.asarray(toks), schedule="diagonal",
                                    grouped_impl="vmap")
@@ -160,8 +166,8 @@ def test_diagonal_fused_matches_reference_full_width(n_layers, S):
 
 
 @pytest.mark.parametrize("n_layers,S", [(4, 3), (2, 3)])
-def test_diagonal_equals_sequential_in_port(n_layers, S):
-    jc, tc, jp, tp = _model(n_layers if n_layers != 2 else None)
+def test_diagonal_equals_sequential_in_port(arch, n_layers, S):
+    jc, tc, jp, tp = _model(arch, n_layers if n_layers != 2 else None)
     toks = torch.from_numpy(_tokens(20 + S, 2, S * tc.armt.segment_len, tc.vocab))
     sh, sf = tmodel.forward_hidden(tp, tc, toks, schedule="sequential")
     dh, df = tmodel.forward_hidden(tp, tc, toks, schedule="diagonal", fused=True)
@@ -177,11 +183,11 @@ def test_diagonal_equals_sequential_in_port(n_layers, S):
 
 
 @pytest.mark.parametrize("schedule", ["sequential", "diagonal"])
-def test_resume_from_state_matches_reference(schedule):
+def test_resume_from_state_matches_reference(arch, schedule):
     """forward_hidden from a given executor state (the reference's
     init_state): the second and third segments started from the state the
     reference's sequential executor left after the first."""
-    jc, tc, jp, tp = _model()
+    jc, tc, jp, tp = _model(arch)
     seg = jc.armt.segment_len
     toks = _tokens(31, 2, 3 * seg, jc.vocab)
     _, jf1 = jmodel.forward_hidden(jp, jc, jnp.asarray(toks[:, :seg]), schedule="sequential")
@@ -196,8 +202,8 @@ def test_resume_from_state_matches_reference(schedule):
         _close(jf["pattern"][0][k], tf["pattern"][0][k], rtol=2e-3)
 
 
-def test_model_module_holds_the_tree():
-    jc, tc, jp, tp = _model()
+def test_model_module_holds_the_tree(arch):
+    jc, tc, jp, tp = _model(arch)
     m = tmodel.Model(tc, tp)
     tree = m.tree()
     assert tree["pattern"][0]["attn"]["wq"] is tp["pattern"][0]["attn"]["wq"]
@@ -208,8 +214,8 @@ def test_model_module_holds_the_tree():
     torch.testing.assert_close(h, want, atol=0, rtol=0)
 
 
-def test_init_params_layout_matches_reference():
-    jc, tc, jp, tp = _model()
+def test_init_params_layout_matches_reference(arch):
+    jc, tc, jp, tp = _model(arch)
     mine = tmodel.init_params(tc, 0, device="cpu")
     shapes = lambda tree: jax.tree_util.tree_map(lambda a: tuple(a.shape), tree)
     assert shapes(jax.tree_util.tree_map(np.asarray, jp)) == shapes(mine)

@@ -6,11 +6,10 @@ llama-1b-armt's shapes, beside scaled_dot_product_attention.
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``),
 so the same script measures another tree, a parent commit unpacked beside
-this one say, in the same call. With random bf16 inputs from seed 0 it
-prints, for each case, the kernel's median device time per call (CUDA
-events behind a ~0.5 ms spin of the card, so the host's Python time is
-not counted), the device kernels of the call with their median durations
-(torch.profiler), the time of one ``scaled_dot_product_attention`` call on
+this one say, in the same call (``cardtools.py``). With random bf16 inputs
+from seed 0 it prints, for each case, the kernel's median device time per
+call, the device kernels of the call with their median durations, the
+time of one ``scaled_dot_product_attention`` call on
 the same values (contiguous
 [N,H,T,hd] copies for flash; [B,H,1,hd] against a boolean length mask for
 decode), the bound and the kernel's multiple of it:
@@ -37,28 +36,17 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-PEAK_BF16, PEAK_BYTES, N_SM, SFU_PER_CLOCK_SM = 989e12, 3.35e12, 132, 16
+import cardtools
+from cardtools import PEAK_BF16, PEAK_BYTES
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--src", type=Path, default=ROOT / "src",
-                    help="directory holding the repro_torch package to measure")
-    ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--outputs", type=Path,
-                    help="save each case's kernel output to this file (torch.save)")
-    ap.add_argument("--against", type=Path,
-                    help="count the output elements that differ from those saved in this "
-                         "file (another tree's --outputs)")
-    args = ap.parse_args()
-    sys.path.insert(0, str(args.src.resolve()))
+    args = cardtools.tree_args(argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0]), outputs=True).parse_args()
+    cardtools.use_tree(args)
 
-    import numpy as np
     import torch
     from repro_torch.kernels import decode_attention, ops
 
@@ -66,67 +54,23 @@ def main() -> int:
         print("profile_attn: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
-                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip()
-    clock_hz = float(smi.split(",")[-1]) * 1e6
-    exp_rate = SFU_PER_CLOCK_SM * N_SM * clock_hz
+    smi, exp_rate = cardtools.card()
     print(f"card: {smi} (name, power limit W, max SM MHz); src {args.src}", flush=True)
     gen = torch.Generator().manual_seed(0)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
 
-    def time_ms(fn):
-        """Median device time of one call: the card first spins ~0.5 ms
-        (torch.cuda._sleep) so the host has enqueued the whole call before
-        the start event is reached, and the host's Python time is not
-        counted."""
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(args.iters):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(1_000_000)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            ts.append(a.elapsed_time(b))
-        return float(np.median(ts))
-
-    def kernels_ms(fn):
-        """The device kernels of one call with their median durations (ms),
-        from torch.profiler over --iters calls."""
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(args.iters):
-                fn()
-            torch.cuda.synchronize()
-        by = {}
-        for ev in prof.events():
-            if ev.device_type.name == "CUDA":
-                by.setdefault(ev.name, []).append(ev.device_time)
-        return {k: float(np.median(v)) / 1e3 for k, v in by.items()}
-
     results = {}
-
-    outputs = {}
-    saved = torch.load(args.against) if args.against else None
+    outputs = cardtools.Outputs(args)
 
     def report(name, kernel, sdpa, bound_ms):
-        outputs[name] = kernel().cpu()
-        ms, sdpa_ms = time_ms(kernel), time_ms(sdpa)
-        split = kernels_ms(kernel)
+        diff = outputs.keep(name, kernel())
+        ms, sdpa_ms = (cardtools.time_ms(f, args.iters) for f in (kernel, sdpa))
+        split = {k: t for k, (_, t) in cardtools.kernels(kernel, args.iters).items()}
         results[name] = dict(ms=ms, sdpa_ms=sdpa_ms, bound_ms=bound_ms, kernels=split)
-        if saved is not None:
-            diff = int((outputs[name] != saved[name]).sum().item())
+        if diff is not None:
             results[name]["differing_from_against"] = diff
-            print(f"  {name}: {diff} of {outputs[name].numel()} output elements differ from "
-                  f"{args.against}", flush=True)
         print(f"  {name}: kernel {ms:.4f} ms  sdpa {sdpa_ms:.4f} ms  bound {bound_ms:.4f} ms  "
               f"kernel/bound {ms / bound_ms:.2f}  kernel/sdpa {ms / sdpa_ms:.2f}", flush=True)
         for k, v in split.items():
@@ -153,8 +97,7 @@ def main() -> int:
         report(f"decode lengths {lens}", lambda: decode_attention.decode_attention(qd, kd, vd, L),
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    q4, k4, v4, attn_mask=mask, enable_gqa=True), nbytes / PEAK_BYTES * 1e3)
-    if args.outputs:
-        torch.save(outputs, args.outputs)
+    outputs.save()
     print(json.dumps({"card": smi, "src": str(args.src), **results}))
     return 0
 

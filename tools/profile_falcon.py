@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of falcon-mamba-7b's serving path goes, on one CUDA card.
 
-    python3 tools/profile_falcon.py [--layers 64] [--segments 16]
+    python3 tools/profile_falcon.py [--src DIR] [--layers 64] [--segments 16]
                                     [--decode-steps 16] [--batch 1]
                                     [--trace-dir DIR]
 
@@ -16,9 +16,12 @@ For each it prints the wall time (host clock, ending in a synchronize; also
 of one run without the profiler, which costs host time per op), the
 summed device time of every kernel and copy, the device's idle share
 (1 - device / wall), the time the host spent blocked on a full launch
-queue, and the kernels with the most device time, grouped by name. With
-``--trace-dir`` a gzipped Chrome trace of each goes there. Nothing is
-gated.
+queue, the device time split into the scan kernel, GEMMs (cuBLAS and the
+port's), PyTorch's elementwise kernels and the rest, and the kernels with
+the most device time, grouped by name. ``--src`` imports ``repro_torch``
+from another tree (a parent commit unpacked beside this one, say), so two
+trees can be profiled in one call. With ``--trace-dir`` a gzipped Chrome
+trace of each goes there. Nothing is gated.
 """
 from __future__ import annotations
 
@@ -33,11 +36,23 @@ from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT / "src"))
 
 
 # a CUPTI record of the host waiting on a full launch queue, not device work
 QUEUE_FULL = "Command Buffer Full"
+# device time by kind of kernel, from the kernel's name (first match wins)
+KINDS = [("scan", ("mamba_scan",)),
+         ("gemm", ("gemm", "gmm_", "xmma", "nvjet", "cutlass", "cublas")),
+         ("elementwise", ("elementwise", "vectorized", "reduce_kernel", "CatArrayBatchedCopy",
+                          "copy_kernel", "fill_kernel"))]
+
+
+def kind(name: str) -> str:
+    low = name.lower()
+    for k, keys in KINDS:
+        if any(key.lower() in low for key in keys):
+            return k
+    return "other"
 
 
 def profile(label, fn, sync, trace_dir, top: int):
@@ -64,6 +79,12 @@ def profile(label, fn, sync, trace_dir, top: int):
     print(f"== {label}: wall {wall:.4f} s ({unprofiled:.4f} s unprofiled), device "
           f"{device:.4f} s, idle share {1 - device / wall:.3f}; host blocked on a full "
           f"launch queue {blocked:.4f} s", flush=True)
+    split = {}
+    for key, us, count in rows:
+        ms, n = split.get(kind(key), (0.0, 0))
+        split[kind(key)] = (ms + us / 1e3, n + count)
+    print("  by kind: " + "; ".join(f"{k} {ms:.3f} ms ({100 * ms / 1e3 / device:.1f} %, "
+                                    f"{n} launches)" for k, (ms, n) in sorted(split.items())))
     for key, us, count in rows[:top]:
         print(f"  {us / 1e3:10.3f} ms  {100 * us / 1e6 / wall:5.1f} % of wall  "
               f"{count:6d} x  {key[:100]}")
@@ -77,11 +98,14 @@ def profile(label, fn, sync, trace_dir, top: int):
     return {"wall_s": wall, "unprofiled_wall_s": unprofiled, "device_s": device,
             "idle_share": 1 - device / wall,
             "queue_full_s": blocked,
+            "by_kind": {k: {"ms": ms, "launches": n} for k, (ms, n) in split.items()},
             "top": [{"kernel": k[:100], "ms": us / 1e3, "count": c} for k, us, c in rows[:top]]}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="directory holding the repro_torch package to profile")
     ap.add_argument("--layers", type=int, default=64)
     ap.add_argument("--segments", type=int, default=16)
     ap.add_argument("--decode-steps", type=int, default=16)
@@ -90,6 +114,7 @@ def main() -> int:
     ap.add_argument("--trace-dir", type=Path, default=None,
                     help="write gzipped Chrome traces here")
     args = ap.parse_args()
+    sys.path.insert(0, str(args.src.resolve()))
 
     import numpy as np
     import torch
@@ -130,7 +155,7 @@ def main() -> int:
     prefill()
     decode()
     sync()
-    out = {"layers": args.layers, "segments": args.segments, "batch": args.batch,
+    out = {"src": str(args.src), "layers": args.layers, "segments": args.segments, "batch": args.batch,
            "decode_steps": args.decode_steps,
            "prefill": profile("prefill", prefill, sync, args.trace_dir, args.top),
            "decode": profile("decode", decode, sync, args.trace_dir, args.top)}

@@ -11,14 +11,13 @@ G = 16 layers, T = 1024 + 128 rows (B = 1), it prints:
 
   projections  each of the cell's five projection shapes (q/o, k/v, gate
                with silu, up, down): the kernel's and ``torch.bmm``'s median
-               CUDA-event time, the bound (bf16 flops at 989 TFLOP/s or
+               device time (``cardtools.time_ms``), the bound (bf16 flops at 989 TFLOP/s or
                bytes at 3.35 TB/s) and the share of it reached;
   fused op     ``grouped_matmul_armt_update`` (x [16,1152,8192] @ w
                [16,8192,2048] + res, M = 128, P = 384, Dv = 2048): its
                median time; its GEMM half alone (``grouped_matmul.launch``
                with the residual) and its update alone
-               (``armt_memory.launch_update`` on y's memory rows), each by
-               CUDA events; and the device kernels of one fused call in
+               (``armt_memory.launch_update`` on y's memory rows); and the device kernels of one fused call in
                launch order, from torch.profiler, with their durations
                (each the median over ``--iters`` calls);
   armt_update  the same per-kernel list for ``armt_update`` at the same
@@ -36,22 +35,17 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12
+import cardtools
+from cardtools import PEAK_BF16, PEAK_BYTES
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--src", type=Path, default=ROOT / "src",
-                    help="directory holding the repro_torch package to measure")
-    ap.add_argument("--iters", type=int, default=20)
-    args = ap.parse_args()
-    sys.path.insert(0, str(args.src.resolve()))
+    args = cardtools.tree_args(argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0])).parse_args()
+    cardtools.use_tree(args)
 
     import numpy as np
     import torch
@@ -63,10 +57,9 @@ def main() -> int:
         return 2
     from repro_torch.kernels import armt_memory, build, grouped_matmul
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip()
-    print(f"card: {smi}; package {args.src.resolve()}", flush=True)
+    smi, _ = cardtools.card()
+    print(f"card: {smi} (name, power limit W, max SM MHz); package {args.src.resolve()}",
+          flush=True)
     build.lib()
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -74,19 +67,8 @@ def main() -> int:
     def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
 
-    def time_ms(fn, iters=args.iters, warmup=3):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(iters):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            ts.append(a.elapsed_time(b))
-        return float(np.median(ts))
+    def time_ms(fn):
+        return cardtools.time_ms(fn, args.iters)
 
     def kernels_of(fn, iters=args.iters):
         """Device kernels of one call of fn in launch order: [(name, median
@@ -113,7 +95,7 @@ def main() -> int:
     out = {"card": smi, "package": str(args.src.resolve())}
     G, T, D, F, Hkv, hd, dm, Mt = 16, 1152, 2048, 8192, 8, 64, 64, 128
     P = 6 * dm
-    print("== projections (median CUDA-event ms)")
+    print("== projections (median device ms)")
     x, xf = rnd(G, T, D), rnd(G, T, F)
     rows = []
     for label, xin, K, N, act in [("q/o 2048x2048", x, D, D, None),

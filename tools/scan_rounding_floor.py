@@ -8,11 +8,12 @@ random-init falcon-mamba stack: the rounding floor of a model-level check.
 
 For each dtype it draws the falcon-mamba-7b stack at ``--layers`` layers and
 ``--d-model`` width (vocab 4096, seed 0), runs ``--segments`` 1024-token
-segments through the sequential schedule, then again with every scan's y
-scaled by (1 + eps), and prints the relative L2 change of each segment's
-hidden states and the worst layer's final h. Nothing is gated. A kernel
-that agrees with its plain version to eps cannot be held closer than this
-at the model level.
+segments through the sequential schedule, then again with every scan's D
+scaled by (1 + eps), which moves y = h . C + D x by a relative eps of its
+D x term before the scan rounds its gated output to the model's dtype, and
+prints the relative L2 change of each segment's hidden states and the
+worst layer's final h. Nothing is gated. A kernel that agrees with its
+plain version to eps cannot be held closer than this at the model level.
 """
 from __future__ import annotations
 
@@ -46,6 +47,12 @@ def main() -> int:
         return ((a.double() - b.double()).norm() / b.double().norm()).item()
 
     scan = ops.mamba_scan
+
+    def scaled_D(f):
+        """The scan with its D scaled by f."""
+        def fn(x, dt, Bt, Ct, A_log, D, h0, **k):
+            return scan(x, dt, Bt, Ct, A_log, f * D, h0, **k)
+        return fn
     for dtype in args.dtypes:
         cfg = replace(get_config("falcon-mamba-7b"), n_layers=args.layers,
                       d_model=args.d_model, vocab=4096, dtype=dtype)
@@ -59,12 +66,11 @@ def main() -> int:
             return h, fin["pattern"][0]["h"]
         h0, H0 = run()
         for eps in args.eps:
-            with swap.replaced(mamba_scan=lambda *a, f=1 + eps: (
-                    lambda y, hT: (f * y, hT))(*scan(*a))):
+            with swap.replaced(mamba_scan=scaled_D(1 + eps)):
                 h1, H1 = run()
             per_seg = " ".join(f"{rel(h1[i], h0[i]):.1e}" for i in range(h0.shape[0]))
             worst_h = max(rel(H1[j], H0[j]) for j in range(H0.shape[0]))
-            print(f"{dtype}, {args.layers} layers, d_model {args.d_model}: scan y x(1 + "
+            print(f"{dtype}, {args.layers} layers, d_model {args.d_model}: scan D x(1 + "
                   f"{eps:g}) moves the hidden states by {per_seg} (per segment) and the "
                   f"worst layer's h by {worst_h:.1e}", flush=True)
     return 0
