@@ -71,7 +71,9 @@ def run_diagonal(layout, params: Dict, state0: Dict, segments: torch.Tensor,
             state[k][lo:hi + 1] = v
         y = y.to(buf.dtype)
         if hi == L - 1:               # segment i - (L-1) finished every layer
-            ys.append(y[-1])
+            # a copy: a view would keep the band's whole output alive
+            # until the final stack (G times the segment, every segment)
+            ys.append(y[-1].clone())
             y = y[:-1]
         buf[lo + 1:lo + 1 + y.shape[0]] = y
     final = {"prelude": state0["prelude"], "pattern": (state,)}

@@ -77,8 +77,13 @@ def decode_attention(x, p, cfg, cache: Dict, pos):
 
     A single token (the serve hot path) goes through ``kops.decode_attention``
     with per-row lengths pos + 1, which reads only each row's valid cache
-    prefix; a chunk (prompt tail, memory-token flush) takes the masked
-    ``sdpa``, as the reference does."""
+    prefix. On the card a chunk that starts the cache (scalar pos 0: a
+    cache-mode prompt, an ARMT prompt tail) goes through
+    ``kops.flash_attention`` over the rows it just wrote: causal with T = S
+    = Tq is the masked function, since every key at or past Tq is masked. It
+    raises where the kernel refuses the operands. Every other chunk (the
+    memory-token flush at pos != 0, per-slot chunks) and every chunk on the
+    CPU takes the masked ``sdpa``, as the reference does."""
     B, Tq, _ = x.shape
     q, k, v = _project_qkv(x, p, cfg)
     S = cache["k"].shape[1]
@@ -98,6 +103,9 @@ def decode_attention(x, p, cfg, cache: Dict, pos):
         lens = ((pos + 1).to(torch.int32) if per_slot else
                 torch.full((B,), pos + 1, dtype=torch.int32, device=x.device))
         o = kops.decode_attention(q[:, 0], ck, cv, lens, window=cfg.sliding_window)
+    elif not per_slot and pos == 0 and x.device.type != "cpu":
+        o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                 causal=True, window=cfg.sliding_window).transpose(1, 2)
     elif per_slot:
         qpos = positions[:, :, None]                               # [B,Tq,1]
         kpos = torch.arange(S, device=x.device)[None, None, :]

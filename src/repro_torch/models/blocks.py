@@ -3,10 +3,12 @@
   attn   pre-norm attention + SwiGLU FFN + ARMT memory (A, z)
   mamba  pre-norm Mamba-1 mixer (SSM state h and the conv tail)
 
-``make_apply_block(cfg)`` binds ``apply_block(btype, p, x, state) -> (y,
-new_state)``, the signature both executors share. The attn block reads the
-memory into the segment, runs attention and the FFN, then the delta-rule
-update from the last M rows of the block output (paper eq. 2).
+``make_apply_block(cfg, mode)`` binds ``apply_block(btype, p, x, state) ->
+(y, new_state)``, the signature both executors share. In ``"segmented"``
+mode the attn block reads the memory into the segment, runs attention and
+the FFN, then the delta-rule update from the last M rows of the block output
+(paper eq. 2); in ``"full"`` mode (the paper's full-attention baseline) it is
+a plain transformer block with no memory and no state.
 """
 from __future__ import annotations
 
@@ -18,25 +20,42 @@ from repro_torch.models.layers import rmsnorm, swiglu
 from repro_torch.models.mamba import mamba_block, mamba_state_init
 
 
-def block_state_init(t: str, cfg, batch: int, device, dtype) -> Dict:
-    """Layer-local recurrent state for segmented execution: fp32 A, z
-    (attn), or fp32 h and a conv tail in ``dtype`` (mamba)."""
+MODES = ("segmented", "full")
+
+
+def check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+
+
+def block_state_init(t: str, cfg, batch: int, device, dtype,
+                     mode: str = "segmented") -> Dict:
+    """Layer-local recurrent state: fp32 A, z (attn, segmented mode; none
+    in full mode or without ARMT), or fp32 h and a conv tail in ``dtype``
+    (mamba, either mode)."""
+    check_mode(mode)
     if t == "attn":
+        if mode == "full" or cfg.armt is None:
+            return {}
         return mem_state_init(batch, cfg.d_model, cfg.armt, device)
     if t == "mamba":
         return mamba_state_init(batch, cfg.d_model, cfg.ssm, dtype, device)
     raise ValueError(f"unknown block type {t!r}")
 
 
-def make_apply_block(cfg):
+def make_apply_block(cfg, mode: str = "segmented"):
+    check_mode(mode)
+    armt_on = mode == "segmented" and cfg.armt is not None
+    M = cfg.armt.num_mem_tokens if armt_on else 0
+
     def apply_block(t: str, p, x, state):
         if t == "mamba":
             return mamba_block(p, x, cfg.ssm, state)
         if t != "attn":
             raise ValueError(f"unknown block type {t!r}")
         new_state = dict(state)
-        M = cfg.armt.num_mem_tokens
-        x = x + mem_read(p["mem"], state, x, cfg.armt)
+        if armt_on:
+            x = x + mem_read(p["mem"], state, x, cfg.armt)
         h = x + attention(rmsnorm(x, p["ln1"]), p["attn"], cfg)
         y = h + swiglu(rmsnorm(h, p["ln2"]), p["ffn"])
         if M > 0:

@@ -29,33 +29,41 @@ last M rows of each group's ``[G, T, D]`` output, so the down projection
 and the update fuse, as in the reference (grouped_blocks.py:186). B > 1
 interleaves batch rows, so there the down projection and ``assoc_update``
 stay two launches, and y is rounded before the residual is added.
+
+In ``"full"`` mode (the full-attention baseline) the attn cell touches no
+memory: no ``assoc_read``, no update, and the down projection is
+``h + grouped_gemm(...)``. The mamba cell is the same in both modes.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import rope_qk
+from repro_torch.models.blocks import check_mode
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.mamba import mamba_block
 
 
-def make_grouped_apply(cfg):
+def make_grouped_apply(cfg, mode: str = "segmented"):
     """Returns grouped_apply(btype, stacked_params, x, stacked_state): param
     leaves ``[G, ...]``, x ``[G, B, T, D]``, state leaves ``[G, B, ...]``."""
+    check_mode(mode)
+    armt_on = mode == "segmented" and cfg.armt is not None
 
     def snorm(h, p):
         # per-layer norm weights [G, D] broadcast against h [G, B, T, D]
         return rmsnorm(h, {"w": p["w"][:, None, None, :]})
 
     def fused_attn(p, x, state):
-        M, nu = cfg.armt.num_mem_tokens, cfg.armt.nu
         hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
         G, B, T, D = x.shape
         N = G * B
         new_state = dict(state)
-        A_f = state["A"].reshape((N,) + state["A"].shape[2:])
-        z_f = state["z"].reshape((N,) + state["z"].shape[2:])
-        read = kops.assoc_read(x.reshape(N, T, D), p["mem"]["wq"], A_f, z_f, nu=nu)
-        x = x + read.reshape(G, B, T, -1)
+        if armt_on:
+            M, nu = cfg.armt.num_mem_tokens, cfg.armt.nu
+            A_f = state["A"].reshape((N,) + state["A"].shape[2:])
+            z_f = state["z"].reshape((N,) + state["z"].shape[2:])
+            read = kops.assoc_read(x.reshape(N, T, D), p["mem"]["wq"], A_f, z_f, nu=nu)
+            x = x + read.reshape(G, B, T, -1)
 
         pa = p["attn"]
         hln = snorm(x, p["ln1"])
@@ -70,6 +78,8 @@ def make_grouped_apply(cfg):
         h2 = snorm(h, p["ln2"])
         gate = kops.grouped_gemm(h2, pf["wg"], activation="silu")
         up = kops.grouped_gemm(h2, pf["wu"])
+        if not armt_on:
+            return h + kops.grouped_gemm(gate * up, pf["wd"]), new_state
         pm = p["mem"]
         if M > 0 and B == 1:
             y, A2, z2 = kops.grouped_gemm_armt_update(

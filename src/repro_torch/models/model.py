@@ -1,9 +1,12 @@
-"""The model: parameters, segmented forward under the diagonal or the
-sequential schedule, and the serving path (``decode_step``; for ARMT models
-against the current-segment KV cache, with ``flush_segment`` at segment
-boundaries). Two block types: the ARMT Llama ``attn`` block and the pure
-Mamba ``mamba`` block (falcon-mamba), whose layer state (h, conv tail) the
-executors carry like ARMT's (A, z).
+"""The model: parameters, the forward under the diagonal or the sequential
+schedule (``mode="segmented"``: the ARMT segments with memory;
+``mode="full"``: the paper's full-attention baseline, one segment of the
+whole prompt and no memory), and the serving path (``decode_step``;
+``serve_mode="armt"``: for ARMT models against the current-segment KV cache,
+with ``flush_segment`` at segment boundaries; ``serve_mode="cache"``: plain
+full-KV decoding against a cache of ``max_len`` rows). Two block types: the
+ARMT Llama ``attn`` block and the pure Mamba ``mamba`` block (falcon-mamba),
+whose layer state (h, conv tail) the executors carry like ARMT's (A, z).
 
 Parameters are a dict tree in the reference layout: ``embed``,
 ``final_norm``, ``head`` (untied models), ``mem_tokens`` (ARMT),
@@ -24,7 +27,7 @@ from repro_torch.core.memory import mem_read, mem_update
 from repro_torch.core.schedule import StackLayout
 from repro_torch.core.sequential import run_sequential
 from repro_torch.models.attention import decode_attention
-from repro_torch.models.blocks import block_state_init, make_apply_block
+from repro_torch.models.blocks import block_state_init, check_mode, make_apply_block
 from repro_torch.models.grouped_blocks import make_grouped_apply
 from repro_torch.models.layers import rmsnorm, swiglu
 from repro_torch.models.mamba import mamba_block, mamba_param_init
@@ -33,6 +36,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # segment length of a model without ARMT (the reference's fallback): no
 # memory tokens, the segment is only the executors' scheduling unit
 DEFAULT_SEG_LEN = 1024
+SCHEDULES = ("diagonal", "sequential", "auto")
+SERVE_MODES = ("armt", "cache")
 
 
 def resolve_device(device) -> torch.device:
@@ -96,29 +101,33 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *, device=None) -> 
             continue
         F, hd, nq, nkv = cfg.d_ff, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
         s = D ** -0.5
-        pattern.append({
+        block = {
             "ln1": {"w": ones(n, D)},
             "attn": {"wq": nrm((n, D, nq * hd), s), "wk": nrm((n, D, nkv * hd), s),
                      "wv": nrm((n, D, nkv * hd), s),
                      "wo": nrm((n, nq * hd, D), (nq * hd) ** -0.5)},
-            "mem": {"wq": nrm((n, D, a.d_mem), s), "wk": nrm((n, D, a.d_mem), s),
-                    "wv": nrm((n, D, a.d_val or D), s), "wb": nrm((n, D, 1), s)},
-            "ln2": {"w": ones(n, D)},
-            "ffn": {"wg": nrm((n, D, F), s), "wu": nrm((n, D, F), s),
-                    "wd": nrm((n, F, D), F ** -0.5)},
-        })
+        }
+        if a is not None:     # a plain Llama (no ARMT) has no memory weights
+            block["mem"] = {"wq": nrm((n, D, a.d_mem), s), "wk": nrm((n, D, a.d_mem), s),
+                            "wv": nrm((n, D, a.d_val or D), s), "wb": nrm((n, D, 1), s)}
+        block["ln2"] = {"w": ones(n, D)}
+        block["ffn"] = {"wg": nrm((n, D, F), s), "wu": nrm((n, D, F), s),
+                        "wd": nrm((n, F, D), F ** -0.5)}
+        pattern.append(block)
     params["pattern"] = tuple(pattern)
     return params
 
 
-def init_state(cfg: ArchConfig, batch: int, device, dtype=None) -> Dict:
+def init_state(cfg: ArchConfig, batch: int, device, dtype=None,
+               mode: str = "segmented") -> Dict:
     """Zero executor state; dtype (default ``cfg.dtype``) is that of the
-    Mamba conv tail, every other leaf is fp32."""
+    Mamba conv tail, every other leaf is fp32. In ``"full"`` mode an attn
+    layer has no state."""
     dtype = dtype or DTYPES[cfg.dtype]
     layout = StackLayout.from_config(cfg)
     pattern = []
     for t in layout.pattern:
-        st = block_state_init(t, cfg, batch, device, dtype)
+        st = block_state_init(t, cfg, batch, device, dtype, mode)
         pattern.append({k: torch.zeros((layout.n_super,) + tuple(v.shape),
                                        dtype=v.dtype, device=device)
                         for k, v in st.items()})
@@ -152,9 +161,10 @@ class Model(nn.Module):
     def tree(self) -> Dict:
         return _tree_map(lambda path, name: getattr(self, name), self._names)
 
-    def forward(self, tokens, *, schedule: str = "diagonal", fused: bool = True):
+    def forward(self, tokens, *, schedule: str = "diagonal", fused: bool = True,
+                mode: str = "segmented"):
         return forward_hidden(self.tree(), self.cfg, tokens, schedule=schedule,
-                              fused=fused)
+                              fused=fused, mode=mode)
 
 
 # ---------------------------------------------------------------------------
@@ -162,16 +172,16 @@ class Model(nn.Module):
 # ---------------------------------------------------------------------------
 
 def embed_segments(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
-                   seg_len: int) -> torch.Tensor:
-    """tokens: [B, S*seg_len] -> [S, B, seg_len + M, D]: the memory tokens
-    are appended to every segment, so with segment-local positions they
+                   seg_len: int, with_mem: bool = True) -> torch.Tensor:
+    """tokens: [B, S*seg_len] -> [S, B, seg_len (+ M), D]: with_mem appends
+    the memory tokens to every segment, so with segment-local positions they
     sit at seg_len..seg_len+M-1."""
     B, total = tokens.shape
     if total % seg_len:
         raise ValueError(f"{total} tokens do not split into segments of {seg_len}")
     S = total // seg_len
     x = params["embed"][tokens.reshape(B, S, seg_len).transpose(0, 1)]
-    if "mem_tokens" in params:
+    if with_mem and "mem_tokens" in params:
         M, D = params["mem_tokens"].shape
         x = torch.cat([x, params["mem_tokens"].expand(S, B, M, D)], dim=2)
     return x
@@ -182,32 +192,64 @@ def segment_len(cfg: ArchConfig) -> int:
     return cfg.armt.segment_len if cfg.armt is not None else DEFAULT_SEG_LEN
 
 
+def _one_layer_cell(grouped_apply):
+    """The fused grouped cell applied to one layer: the executors' block
+    signature on a band of G = 1 (param and state leaves gain a leading dim
+    of 1, x [B, T, D] becomes [1, B, T, D]; views, no copies)."""
+    def lift(tree):
+        if isinstance(tree, dict):
+            return {k: lift(v) for k, v in tree.items()}
+        return tree[None]
+
+    def apply(t, p, x, state):
+        y, new = grouped_apply(t, lift(p), x[None], lift(state))
+        return y[0], {k: v[0] for k, v in new.items()}
+    return apply
+
+
 def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
                    schedule: str = "diagonal", fused: bool = True,
-                   state0: Optional[Dict] = None, seg_len: Optional[int] = None):
+                   mode: str = "segmented", state0: Optional[Dict] = None,
+                   seg_len: Optional[int] = None):
     """tokens: [B, S*seg_len] -> (hidden [S, B, seg_len, D] with the
     memory-token rows stripped, final executor state).
 
-    schedule 'diagonal' runs ``run_diagonal`` with the fused grouped cell
-    (``fused=False``: the plain block slot by slot); 'sequential' runs
-    ``run_sequential`` on the plain block. state0 (the reference's
-    ``init_state``): the executor state to start from, e.g. a final state
-    of an earlier call; zero memory when None. seg_len: tokens per segment
-    (default ``segment_len(cfg)``), cut to the whole input when shorter."""
-    seg_len = min(seg_len or segment_len(cfg), tokens.shape[1])
-    x = embed_segments(params, cfg, tokens, seg_len)
+    mode 'segmented' runs the model's segments with ARMT memory; 'full'
+    (the paper's full-attention baseline) runs one segment of the whole
+    input with no memory tokens and no memory.
+
+    schedule 'diagonal' runs ``run_diagonal``, 'sequential' runs
+    ``run_sequential``, 'auto' the diagonal one when the segments are at
+    least the layers, else the sequential one (the reference's choice).
+    fused: both executors apply the fused grouped cell (the kernels; the
+    sequential one as a band of one layer); ``fused=False`` applies the
+    plain block (the diagonal executor slot by slot). state0 (the
+    reference's ``init_state``): the executor state to start from, e.g. a
+    final state of an earlier call; zero memory when None. seg_len: tokens
+    per segment (default ``segment_len(cfg)``), cut to the whole input when
+    shorter; full mode ignores it."""
+    check_mode(mode)
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}; expected one of {SCHEDULES}")
+    if mode == "full":
+        seg_len, with_mem = tokens.shape[1], False
+    else:
+        seg_len, with_mem = min(seg_len or segment_len(cfg), tokens.shape[1]), True
+    x = embed_segments(params, cfg, tokens, seg_len, with_mem)
     layout = StackLayout.from_config(cfg)
+    if schedule == "auto":
+        schedule = "diagonal" if x.shape[0] >= layout.n_layers else "sequential"
     if state0 is None:
-        state0 = init_state(cfg, tokens.shape[0], tokens.device, params["embed"].dtype)
-    apply = make_apply_block(cfg)
+        state0 = init_state(cfg, tokens.shape[0], tokens.device, params["embed"].dtype,
+                            mode)
+    apply = make_apply_block(cfg, mode)
+    grouped = make_grouped_apply(cfg, mode) if fused else None
     exec_params = {"prelude": params["prelude"], "pattern": params["pattern"]}
     if schedule == "diagonal":
-        ys, fin = run_diagonal(layout, exec_params, state0, x, apply,
-                               grouped_apply=make_grouped_apply(cfg) if fused else None)
-    elif schedule == "sequential":
-        ys, fin = run_sequential(layout, exec_params, state0, x, apply)
+        ys, fin = run_diagonal(layout, exec_params, state0, x, apply, grouped_apply=grouped)
     else:
-        raise ValueError(f"unknown schedule {schedule!r}")
+        ys, fin = run_sequential(layout, exec_params, state0, x,
+                                 _one_layer_cell(grouped) if fused else apply)
     return ys[:, :, :seg_len], fin
 
 
@@ -224,22 +266,37 @@ def last_logits(params: Dict, cfg: ArchConfig, hidden: torch.Tensor) -> torch.Te
 
 
 # ---------------------------------------------------------------------------
-# Decode / serving ('armt' mode: memory + current-segment cache)
+# Decode / serving ('armt': memory + current-segment cache; 'cache': full KV)
 # ---------------------------------------------------------------------------
 
+def check_serve_mode(serve_mode: str) -> None:
+    if serve_mode not in SERVE_MODES:
+        raise ValueError(f"unknown serve_mode {serve_mode!r}; expected one of "
+                         f"{SERVE_MODES}")
+
+
 def decode_state_init(cfg: ArchConfig, batch: int, *, dtype, device,
+                      serve_mode: str = "armt", max_len: Optional[int] = None,
                       per_slot_pos: bool = False) -> Dict:
-    """Per-layer decode state: for attn, A/z (fp32) and a current-segment
-    KV cache of seg_len + M rows; for mamba, h (fp32) and the conv tail
-    (``dtype``), no cache. ``pos`` is a Python int, or an int64 [batch]
+    """Per-layer decode state. serve_mode 'armt': for attn, A/z (fp32) and
+    a current-segment KV cache of seg_len + M rows (``max_len`` rows for a
+    model without ARMT); 'cache': for attn, a full KV cache of ``max_len``
+    rows and no A/z. For mamba either way h (fp32) and the conv tail
+    (``dtype``), no cache. ``pos`` (the in-segment position, or in cache
+    mode the tokens in the cache) is a Python int, or an int64 [batch]
     tensor with per_slot_pos."""
+    check_serve_mode(serve_mode)
     layout = StackLayout.from_config(cfg)
-    a = cfg.armt
-    state = init_state(cfg, batch, device, dtype)
+    a = cfg.armt if serve_mode == "armt" else None
+    if a is None and max_len is None and "attn" in layout.pattern:
+        raise ValueError(f"decode_state_init(serve_mode={serve_mode!r}) of "
+                         f"{cfg.name} needs max_len for its KV cache")
+    state = init_state(cfg, batch, device, dtype,
+                       "segmented" if serve_mode == "armt" else "full")
     for t, st in zip(layout.pattern, state["pattern"]):
         if t == "attn":
-            cache = (layout.n_super, batch, a.segment_len + a.num_mem_tokens,
-                     cfg.n_kv_heads, cfg.head_dim)
+            rows = a.segment_len + a.num_mem_tokens if a is not None else max_len
+            cache = (layout.n_super, batch, rows, cfg.n_kv_heads, cfg.head_dim)
             st["k"] = torch.zeros(cache, dtype=dtype, device=device)
             st["v"] = torch.zeros(cache, dtype=dtype, device=device)
     state["pos"] = (torch.zeros(batch, dtype=torch.long, device=device)
@@ -247,16 +304,21 @@ def decode_state_init(cfg: ArchConfig, batch: int, *, dtype, device,
     return state
 
 
-def make_decode_apply(cfg: ArchConfig, pos):
+def make_decode_apply(cfg: ArchConfig, serve_mode: str, pos):
     """Block apply for decode: x [B, Tq, D] against the layer's cache
-    (attn) or its carried SSM state (mamba)."""
+    (attn; with the memory read in 'armt' mode) or its carried SSM state
+    (mamba)."""
+    check_serve_mode(serve_mode)
+    armt_on = serve_mode == "armt" and cfg.armt is not None
+
     def apply(t, p, x, st):
         if t == "mamba":
             return mamba_block(p, x, cfg.ssm, st)
         if t != "attn":
             raise ValueError(t)
         new = dict(st)
-        x = x + mem_read(p["mem"], st, x, cfg.armt)
+        if armt_on:
+            x = x + mem_read(p["mem"], st, x, cfg.armt)
         a, kvc = decode_attention(rmsnorm(x, p["ln1"]), p["attn"], cfg,
                                   {"k": st["k"], "v": st["v"]}, pos)
         new["k"], new["v"] = kvc["k"], kvc["v"]
@@ -270,16 +332,18 @@ def _exec(params, state):
             {"prelude": state["prelude"], "pattern": state["pattern"]})
 
 
-def decode_step(params: Dict, cfg: ArchConfig, state: Dict, tokens: torch.Tensor):
+def decode_step(params: Dict, cfg: ArchConfig, state: Dict, tokens: torch.Tensor, *,
+                serve_mode: str = "armt"):
     """tokens: [B] (one step) or [B, Tq] (a chunk) -> (fp32 logits of the
-    last position [B, V], new state)."""
+    last position [B, V], new state). serve_mode must be the one the state
+    was made for."""
     layout = StackLayout.from_config(cfg)
     pos = state["pos"]
     toks = tokens if tokens.dim() == 2 else tokens[:, None]
     x = params["embed"][toks]
     exec_params, exec_state = _exec(params, state)
     ys, fin = run_sequential(layout, exec_params, exec_state, x[None],
-                             make_decode_apply(cfg, pos))
+                             make_decode_apply(cfg, serve_mode, pos))
     h = rmsnorm(ys[0, :, -1], params["final_norm"])
     return (_head_matmul(params, cfg, h).float(),
             {"prelude": fin["prelude"], "pattern": fin["pattern"],
@@ -330,7 +394,7 @@ def flush_segment(params: Dict, cfg: ArchConfig, state: Dict,
     mem = params["mem_tokens"]
     batch = state["pattern"][0]["A"].shape[1]
     x = mem[None].expand(batch, -1, -1)
-    base = make_decode_apply(cfg, state["pos"])
+    base = make_decode_apply(cfg, "armt", state["pos"])
 
     def apply(t, p, xx, st):
         y, new = base(t, p, xx, st)

@@ -4,11 +4,13 @@ request queue, with blocking admission.
 Each slot is one batch row of a pooled decode state (``per_slot_pos``: the
 state's ``pos`` is an int64 [n_slots] vector) and owns that request's
 recurrent state of every layer (ARMT memory A, z and the current-segment
-KV cache; or Mamba's h and conv tail) and its position, so requests at
-different segment phases decode together in one ``decode_step``.
+KV cache; or Mamba's h and conv tail; in the engine's cache mode a KV cache
+of ``max_len`` rows) and its position, so requests at different segment
+phases decode together in one ``decode_step``.
 
 A request is admitted by prefilling it alone at B = 1 (``ServeEngine.prefill``:
-the diagonal prefill on the fused cell, then the prompt tail) and copying
+the diagonal prefill on the fused cell, then the prompt tail; in cache mode
+the whole prompt as one chunk) and copying
 the resulting state into a free slot's row; the other slots' rows are not
 touched. Admission blocks: it runs between decode chunks, which is the
 reference's ``prefill_groups_per_chunk=0`` mode. Interleaved admission
@@ -17,8 +19,10 @@ reference's ``prefill_groups_per_chunk=0`` mode. Interleaved admission
 A decode chunk is ``chunk`` steps of one packed ``decode_step`` over every
 slot. Rows of inactive slots are frozen with ``mask_decode_state``, and
 ``flush_segment(slot_mask=...)`` flushes exactly the slots whose position
-reached ``seg_len`` (ARMT models only: a pure-SSM model has no segment
-boundary, and its slots never flush). Which slots are active and which cross a boundary at
+reached ``seg_len`` (ARMT models in 'armt' mode only: a pure-SSM model has
+no segment boundary, and cache mode none; their slots never flush). In
+cache mode a request whose prompt and new tokens exceed ``max_len`` is
+rejected with ``invalid_request``. Which slots are active and which cross a boundary at
 each step is known on the host from each slot's position and remaining
 count (``_Slot.pos``, ``_Slot.remaining``): the arithmetic is the one the
 device runs, so the host never reads a device value to decide. The masks
@@ -43,8 +47,7 @@ from typing import Iterable, Iterator, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.models.model import (decode_state_init, decode_step,
-                                      flush_segment, mask_decode_state)
+from repro_torch.models.model import flush_segment, mask_decode_state
 
 
 @dataclass
@@ -113,9 +116,7 @@ class ContinuousScheduler:
         self.chunk = chunk
         self.max_queue = max_queue
         dev = engine.device
-        self.pool = decode_state_init(engine.cfg, n_slots,
-                                      dtype=engine.params["embed"].dtype,
-                                      device=dev, per_slot_pos=True)
+        self.pool = engine.decode_state(n_slots, per_slot_pos=True)
         self.tok = torch.zeros(n_slots, dtype=torch.long, device=dev)   # next input
         self.finite = torch.ones(n_slots, dtype=torch.bool, device=dev)
         self.slots = [_Slot() for _ in range(n_slots)]
@@ -134,6 +135,11 @@ class ContinuousScheduler:
             return RequestError(req.req_id, "invalid_request",
                                 f"prompt must be a [P>=1] id vector, got "
                                 f"shape {prompt.shape}")
+        if (self.engine.serve_mode == "cache"
+                and prompt.shape[0] + req.max_new > self.engine.max_len):
+            return RequestError(req.req_id, "invalid_request",
+                                f"prompt+max_new exceeds max_len {self.engine.max_len} "
+                                "of the KV cache")
         if req.session_id is not None:
             return RequestError(req.req_id, "invalid_request",
                                 "request carries a session_id but the "
@@ -208,7 +214,7 @@ class ContinuousScheduler:
             if not active[t].any():
                 continue
             act = masks[0, t]
-            logits, new = decode_step(eng.params, eng.cfg, self.pool, self.tok)
+            logits, new = eng.step(self.pool, self.tok)
             if not active[t].all():
                 new = mask_decode_state(act, new, self.pool)
             if boundary[t].any():

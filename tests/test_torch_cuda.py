@@ -9,13 +9,17 @@ paths; armt_read's split three-term bf16 product at ragged T and Dv; the
 flash kernel's TMA + wgmma route at
 ragged T, hd 64 and 128, windows and the cell's strided 5-D layout; the
 split decode kernel at chunk edges, and a row batched or alone giving the
-same bits. Needs a CUDA device and nvcc; skips without a card. This file
+same bits; the long shapes of the full-attention and full-KV paths (flash
+at T = S = 16,384 and 131,072, decode over 131,136 keys), the cache-mode
+prefill against full mode and sampling on the device. Needs a CUDA device and nvcc; skips without a card. This file
 imports no JAX; with ``--noconftest`` (tests/conftest.py imports JAX) it
 runs on a machine that has only PyTorch:
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``."""
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
 
 from repro_torch.kernels import (armt_memory, flash_attention, grouped_matmul,  # noqa: E402
                                  mamba_scan)
@@ -468,3 +472,108 @@ def test_armt_read_on_card(cuda, dtype, N, T, D, dm, Dv):
     torch.cuda.synchronize()
     assert armt_memory.read_launches == before + 1 and out.dtype == dtype
     _close(out, armt_memory.armt_read_plain(*_f32(x, wq), A, z), TOL[dtype])
+
+
+# ---------------------------------------------------------------- long shapes
+# The full-attention and full-KV paths: flash at T = S up to 131,072 and
+# decode over a 131,136-key cache (hd 64, llama-1b-armt's heads).
+
+def _flash_rows_plain(q, k, v, t0, t1):
+    """The plain causal attention of query rows [t0, t1) in fp32 (row t sees
+    keys <= t), without the [Hq, T, S] scores of every row."""
+    rep = q.shape[1] // k.shape[1]
+    kk = k[:, :, :t1].float().repeat_interleave(rep, 1)
+    vv = v[:, :, :t1].float().repeat_interleave(rep, 1)
+    s = torch.matmul(q[:, :, t0:t1].float(), kk.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    vis = torch.arange(t1, device=q.device)[None, :] <= torch.arange(t0, t1, device=q.device)[:, None]
+    return torch.matmul(torch.softmax(s.masked_fill(~vis, float("-inf")), -1), vv)
+
+
+@pytest.mark.cuda
+def test_flash_attention_16k_on_card(cuda):
+    """T = S = 16,384, 4 q heads over 1 kv head (at 32 heads the plain
+    version's fp32 scores would take 34 GB), on the TMA + wgmma route."""
+    r = _rand(torch.Generator().manual_seed(16384), cuda, torch.bfloat16)
+    q, k, v = r(1, 4, 16384, 64), r(1, 1, 16384, 64), r(1, 1, 16384, 64)
+    out = _flash_tc(lambda: flash_attention.flash_attention(q, k, v))
+    _close(out, flash_attention.flash_attention_plain(*_f32(q, k, v)), 1e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_131k_on_card(cuda):
+    """T = S = 131,072 at llama-1b-armt's 32 q heads over 8 kv heads (1,024
+    query tiles of 192 rows a head; h*T*hd reaches 2.7e8), held on three
+    slices of query rows: the first tile, one mid-sequence and the last."""
+    T = 131072
+    r = _rand(torch.Generator().manual_seed(T), cuda, torch.bfloat16)
+    q, k, v = r(1, 32, T, 64), r(1, 8, T, 64), r(1, 8, T, 64)
+    out = _flash_tc(lambda: flash_attention.flash_attention(q, k, v))
+    for t0 in (0, 65536 + 37, T - 192):
+        _close(out[:, :, t0:t0 + 192], _flash_rows_plain(q, k, v, t0, t0 + 192), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_131k_on_card(cuda, dtype):
+    """A cache of 131,136 keys (131,072 tokens + 64): split_plan gives 63
+    splits of 2,112 keys, the last of 192. Rows whose lengths leave that
+    split full, one key long and empty, and one mid-cache, with a window."""
+    from repro_torch.kernels import decode_attention as da
+    S = 131136
+    chunk, n = da.split_plan(S)
+    assert (chunk, n) == (2112, 63) and S - (n - 1) * chunk == 192
+    r = _rand(torch.Generator().manual_seed(S), cuda, dtype)
+    q, k, v = r(4, 32, 64), r(4, S, 8, 64), r(4, S, 8, 64)
+    lengths = torch.tensor([S, (n - 1) * chunk + 1, (n - 1) * chunk, 70000],
+                           dtype=torch.int32, device=cuda)
+    for window in (0, 5000):
+        _close(da.decode_attention(q, k, v, lengths, window=window),
+               da.decode_attention_plain(*_f32(q, k, v), lengths, window=window), TOL[dtype])
+
+
+def _mid_llama(cuda):
+    """llama-1b-armt's widths (hd 64, 32 over 8 heads) at 2 layers and a
+    small vocabulary, bf16, random weights from a seed."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("llama-1b-armt"), n_layers=2, vocab=1024)
+    return cfg, M.init_params(cfg, 0, device=cuda)
+
+
+@pytest.mark.cuda
+def test_cache_prefill_matches_full_mode_on_card(cuda):
+    """The cache-mode prefill (one decode_step chunk from position 0, its
+    attention on flash over the rows it wrote) against
+    forward_hidden(mode='full') on the fused cell, and the chunk's flash
+    launches on the TMA + wgmma route, one a layer."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+    cfg, params = _mid_llama(cuda)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 3000)))
+    eng = ServeEngine(params, cfg, serve_mode="cache", max_len=3072)
+    tc, simt = flash_attention.tc_launches, flash_attention.simt_launches
+    logits, state, pos = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    assert pos == 3000 and tuple(state["pattern"][0]["k"].shape) == (2, 2, 3072, 8, 64)
+    assert (flash_attention.tc_launches - tc, flash_attention.simt_launches - simt) == (2, 0)
+    with torch.no_grad():
+        h, _ = M.forward_hidden(params, cfg, prompts.to(cuda), mode="full")
+        want = M.last_logits(params, cfg, h)
+    _close(logits, want, 5e-2)
+
+
+@pytest.mark.cuda
+def test_sampling_deterministic_on_card(cuda):
+    """temperature / top-k sampling on the device: the same seed gives the
+    same tokens, another seed others, top_k = 1 the greedy tokens."""
+    from repro_torch.serve import ServeEngine
+    cfg, params = _mid_llama(cuda)
+    eng = ServeEngine(params, cfg, serve_mode="cache", max_len=512)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (2, 200))
+    kw = dict(temperature=1.0, top_k=50)
+    a = eng.generate(prompts, 24, seed=7, **kw).tokens
+    assert np.array_equal(eng.generate(prompts, 24, seed=7, **kw).tokens, a)
+    assert not np.array_equal(eng.generate(prompts, 24, seed=8, **kw).tokens, a)
+    greedy = eng.generate(prompts, 24).tokens
+    assert np.array_equal(eng.generate(prompts, 24, temperature=0.5, top_k=1).tokens, greedy)

@@ -158,7 +158,8 @@ def test_diagonal_equals_sequential_in_port():
     to the sequential executor to the bit; the grouped cell within fp32."""
     _, tc, _, tp = _model(4)
     toks = torch.from_numpy(_tokens(7, 2, 3 * 16, tc.vocab))
-    sh, sf = tmodel.forward_hidden(tp, tc, toks, schedule="sequential", seg_len=16)
+    sh, sf = tmodel.forward_hidden(tp, tc, toks, schedule="sequential", fused=False,
+                                   seg_len=16)
     oh, of = tmodel.forward_hidden(tp, tc, toks, schedule="diagonal", fused=False,
                                    seg_len=16)
     dh, df = tmodel.forward_hidden(tp, tc, toks, schedule="diagonal", seg_len=16)

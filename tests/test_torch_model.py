@@ -141,7 +141,7 @@ def test_sequential_matches_reference(arch, S):
     toks = _tokens(S, 2, S * jc.armt.segment_len, jc.vocab)
     jh, jf = jmodel.forward_hidden(jp, jc, jnp.asarray(toks), schedule="sequential")
     th, tf = tmodel.forward_hidden(tp, tc, torch.from_numpy(toks),
-                                   schedule="sequential")
+                                   schedule="sequential", fused=False)
     _close(jh, th)
     ref_state = state_from_jax(jax.tree_util.tree_map(np.asarray, jf), "cpu")
     for k in ("A", "z"):
@@ -169,7 +169,7 @@ def test_diagonal_fused_matches_reference_full_width(arch, n_layers, S):
 def test_diagonal_equals_sequential_in_port(arch, n_layers, S):
     jc, tc, jp, tp = _model(arch, n_layers if n_layers != 2 else None)
     toks = torch.from_numpy(_tokens(20 + S, 2, S * tc.armt.segment_len, tc.vocab))
-    sh, sf = tmodel.forward_hidden(tp, tc, toks, schedule="sequential")
+    sh, sf = tmodel.forward_hidden(tp, tc, toks, schedule="sequential", fused=False)
     dh, df = tmodel.forward_hidden(tp, tc, toks, schedule="diagonal", fused=True)
     oh, of = tmodel.forward_hidden(tp, tc, toks, schedule="diagonal", fused=False)
     torch.testing.assert_close(dh, sh, atol=ATOL, rtol=RTOL)

@@ -15,14 +15,21 @@
   launches per call and median durations (torch.profiler).
 - ``Outputs``: saves named outputs for ``--outputs`` and counts the
   elements that differ, bit for bit, from another run's ``--against``.
+- ``profile``: one traced run of a function (torch.profiler, CPU and CUDA
+  activity): wall time (also unprofiled), summed device time, the
+  device's idle share, the device time by kind of kernel and the kernels
+  with the most device time; optionally a gzipped Chrome trace.
 
 The rates below are the H100 SXM's: bf16 989 TFLOP/s dense, fp32 67
 TFLOP/s, 3.35 TB/s of HBM, 132 SMs, 16 exponentials a clock per SM.
 """
 from __future__ import annotations
 
+import gzip
+import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -119,3 +126,67 @@ class Outputs:
         import torch
         if self.path:
             torch.save(self.kept, self.path)
+
+
+# a CUPTI record of the host waiting on a full launch queue, not device work
+QUEUE_FULL = "Command Buffer Full"
+
+
+def kind(name: str, kinds) -> str:
+    """The first kind in ``kinds`` ([(kind, (name fragment, ...)), ...])
+    whose fragment the kernel's name holds, else "other"."""
+    low = name.lower()
+    for k, keys in kinds:
+        if any(key.lower() in low for key in keys):
+            return k
+    return "other"
+
+
+def profile(label, fn, sync, kinds, trace_dir=None, top: int = 15, prefix: str = "trace"):
+    """One unprofiled and one traced run of fn; prints and returns wall,
+    device time, idle share (1 - device / wall), time the host was blocked
+    on a full launch queue, device time by kind and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    unprofiled = time.perf_counter() - t0
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    # device-side records only (kernels, copies, memsets): the CPU ops'
+    # device totals would count their kernels twice
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    blocked = sum(us for k, us, _ in rows if k == QUEUE_FULL) / 1e6
+    rows = sorted((r for r in rows if r[0] != QUEUE_FULL and r[1] > 0), key=lambda r: -r[1])
+    device = sum(us for _, us, _ in rows) / 1e6
+    print(f"== {label}: wall {wall:.4f} s ({unprofiled:.4f} s unprofiled), device "
+          f"{device:.4f} s, idle share {1 - device / wall:.3f}; host blocked on a full "
+          f"launch queue {blocked:.4f} s", flush=True)
+    split = {}
+    for key, us, count in rows:
+        ms, n = split.get(kind(key, kinds), (0.0, 0))
+        split[kind(key, kinds)] = (ms + us / 1e3, n + count)
+    print("  by kind: " + "; ".join(f"{k} {ms:.3f} ms ({100 * ms / 1e3 / device:.1f} %, "
+                                    f"{n} launches)" for k, (ms, n) in sorted(split.items())))
+    for key, us, count in rows[:top]:
+        print(f"  {us / 1e3:10.3f} ms  {100 * us / 1e6 / wall:5.1f} % of wall  "
+              f"{count:6d} x  {key[:100]}")
+    if trace_dir is not None:
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        path = trace_dir / f"{prefix}_{label.replace(' ', '_')}.json"
+        prof.export_chrome_trace(str(path))
+        with open(path, "rb") as f, gzip.open(f"{path}.gz", "wb") as g:
+            shutil.copyfileobj(f, g)
+        path.unlink()
+    return {"wall_s": wall, "unprofiled_wall_s": unprofiled, "device_s": device,
+            "idle_share": 1 - device / wall,
+            "queue_full_s": blocked,
+            "by_kind": {k: {"ms": ms, "launches": n} for k, (ms, n) in split.items()},
+            "top": [{"kernel": k[:100], "ms": us / 1e3, "count": c} for k, us, c in rows[:top]]}

@@ -109,12 +109,14 @@ def main() -> int:
                 sequential path from the same state."""
                 with torch.no_grad():
                     if not args.forced:
-                        h, fin = M.forward_hidden(params, cfg, toks, schedule=schedule)
+                        h, fin = M.forward_hidden(params, cfg, toks, schedule=schedule,
+                                                  fused=schedule == "diagonal")
                         return logits(h), fin["pattern"][0]["z"], None
                     lgs, st_errs = [], []
                     for s_ in range(args.segments):
                         part = toks[:, s_ * seg:(s_ + 1) * seg]
                         h, fin = M.forward_hidden(params, cfg, part, schedule=schedule,
+                                                  fused=schedule == "diagonal",
                                                   state0=ref_states[s_])
                         lgs.append(logits(h))
                         want = ref_states[s_ + 1]["pattern"][0]
@@ -128,7 +130,7 @@ def main() -> int:
                     for s_ in range(args.segments):
                         part = toks[:, s_ * seg:(s_ + 1) * seg]
                         ref_states.append(M.forward_hidden(params, cfg, part, schedule="sequential",
-                                                           state0=ref_states[s_])[1])
+                                                           fused=False, state0=ref_states[s_])[1])
             ref, zs, _ = run("sequential")
             print(f"== {spec} seed {seed}{' forced' if args.forced else ''}: sequential "
                   f"plain max|z| {zs.abs().max().item():.2e}", flush=True)

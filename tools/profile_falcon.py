@@ -26,80 +26,22 @@ trace of each goes there. Nothing is gated.
 from __future__ import annotations
 
 import argparse
-import gzip
 import json
-import shutil
 import subprocess
 import sys
-import time
 from dataclasses import replace
 from pathlib import Path
+
+from cardtools import profile
 
 ROOT = Path(__file__).resolve().parent.parent
 
 
-# a CUPTI record of the host waiting on a full launch queue, not device work
-QUEUE_FULL = "Command Buffer Full"
 # device time by kind of kernel, from the kernel's name (first match wins)
 KINDS = [("scan", ("mamba_scan",)),
          ("gemm", ("gemm", "gmm_", "xmma", "nvjet", "cutlass", "cublas")),
          ("elementwise", ("elementwise", "vectorized", "reduce_kernel", "CatArrayBatchedCopy",
                           "copy_kernel", "fill_kernel"))]
-
-
-def kind(name: str) -> str:
-    low = name.lower()
-    for k, keys in KINDS:
-        if any(key.lower() in low for key in keys):
-            return k
-    return "other"
-
-
-def profile(label, fn, sync, trace_dir, top: int):
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    t0 = time.perf_counter()
-    fn()
-    sync()
-    unprofiled = time.perf_counter() - t0
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        sync()
-        wall = time.perf_counter() - t0
-    # device-side records only (kernels, copies, memsets): the CPU ops'
-    # device totals would count their kernels twice
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    blocked = sum(us for k, us, _ in rows if k == QUEUE_FULL) / 1e6
-    rows = sorted((r for r in rows if r[0] != QUEUE_FULL and r[1] > 0), key=lambda r: -r[1])
-    device = sum(us for _, us, _ in rows) / 1e6
-    print(f"== {label}: wall {wall:.4f} s ({unprofiled:.4f} s unprofiled), device "
-          f"{device:.4f} s, idle share {1 - device / wall:.3f}; host blocked on a full "
-          f"launch queue {blocked:.4f} s", flush=True)
-    split = {}
-    for key, us, count in rows:
-        ms, n = split.get(kind(key), (0.0, 0))
-        split[kind(key)] = (ms + us / 1e3, n + count)
-    print("  by kind: " + "; ".join(f"{k} {ms:.3f} ms ({100 * ms / 1e3 / device:.1f} %, "
-                                    f"{n} launches)" for k, (ms, n) in sorted(split.items())))
-    for key, us, count in rows[:top]:
-        print(f"  {us / 1e3:10.3f} ms  {100 * us / 1e6 / wall:5.1f} % of wall  "
-              f"{count:6d} x  {key[:100]}")
-    if trace_dir is not None:
-        trace_dir.mkdir(parents=True, exist_ok=True)
-        path = trace_dir / f"falcon_{label}.json"
-        prof.export_chrome_trace(str(path))
-        with open(path, "rb") as f, gzip.open(f"{path}.gz", "wb") as g:
-            shutil.copyfileobj(f, g)
-        path.unlink()
-    return {"wall_s": wall, "unprofiled_wall_s": unprofiled, "device_s": device,
-            "idle_share": 1 - device / wall,
-            "queue_full_s": blocked,
-            "by_kind": {k: {"ms": ms, "launches": n} for k, (ms, n) in split.items()},
-            "top": [{"kernel": k[:100], "ms": us / 1e3, "count": c} for k, us, c in rows[:top]]}
 
 
 def main() -> int:
@@ -157,8 +99,10 @@ def main() -> int:
     sync()
     out = {"src": str(args.src), "layers": args.layers, "segments": args.segments, "batch": args.batch,
            "decode_steps": args.decode_steps,
-           "prefill": profile("prefill", prefill, sync, args.trace_dir, args.top),
-           "decode": profile("decode", decode, sync, args.trace_dir, args.top)}
+           "prefill": profile("prefill", prefill, sync, KINDS, args.trace_dir, args.top,
+                              "falcon"),
+           "decode": profile("decode", decode, sync, KINDS, args.trace_dir, args.top,
+                             "falcon")}
     print(json.dumps(out))
     return 0
 

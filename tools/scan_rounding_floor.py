@@ -62,7 +62,7 @@ def main() -> int:
 
         @torch.no_grad()
         def run():
-            h, fin = M.forward_hidden(params, cfg, toks, schedule="sequential")
+            h, fin = M.forward_hidden(params, cfg, toks, schedule="sequential", fused=False)
             return h, fin["pattern"][0]["h"]
         h0, H0 = run()
         for eps in args.eps:
