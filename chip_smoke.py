@@ -41,15 +41,22 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       against a tight tolerance;
   (d) serving through generate: ServeEngine.generate for B = 1 (a prompt
       of 4 segments + 1000 tokens, 48 new, crossing a segment flush) and
-      B = 2 (4 segments + 300 tokens, 32 new), logits held finite; plus
-      generate at smoke size (B = 1 and B = 2, fp32) on the card against
-      the CPU path, token for token;
+      B = 2 (4 segments + 300 tokens, 32 new), logits held finite, decode
+      on CUDA graphs; each run again on the graphs (repeated bit for bit)
+      and on an eager engine (the same programs uncaptured): tokens, every
+      step's logits and the final decode state equal to the bit, launch
+      counts equal; B = 1 sampled (temperature 0.8, top_k 40, seed 0) the
+      same; one decode step's host span and device time, graph and eager;
+      plus generate at smoke size (B = 1 and B = 2, fp32) on the card
+      against the CPU path, token for token;
   (e) serving through the continuous-batching front door, the main path:
       ServeEngine.serve with 4 slots, chunk 8 and 6 requests (1-3 segments
       plus 10-1010 tail tokens, 24-64 new, slots crossing their segment
       flushes at different steps); each request's first token against a
-      B = 1 generate of its prompt; and serve at smoke size (fp32) on the
-      card against the CPU path, token for token.
+      B = 1 generate of its prompt; graph against eager (every request's
+      events, launch counts, tok/s); one step over the 4 slots timed; and
+      serve at smoke size (fp32) on the card against the CPU path, token
+      for token.
   (i) full attention, the paper's baseline: forward_hidden(mode="full") at
       4,096 tokens, B = 1, full depth, bf16 on the kernels against the plain
       path in fp32 on the same weights (the last 1,024 positions' hidden
@@ -57,26 +64,31 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       control that must fail; the diagonal executor (one segment) and the
       sequential one on the fused cell equal to the bit; fp32 at 2 layers,
       kernels vs plain, within 1e-3, with the same control;
-  (j) the 16-segment ARMT prefill, diagonal against sequential, both on
-      the kernels: the largest relative difference per segment (hidden
-      states, logits) and per layer (final A, z), gated on equality to the
-      bit (or, if they differ, on the first 2 segments within 5e-2);
+  (j) the 16-segment ARMT prefill, diagonal against sequential (each
+      segment a replay of a captured CUDA graph), both on the kernels: the
+      largest relative difference per segment (hidden states, logits) and
+      per layer (final A, z), gated on equality to the bit (or, if they
+      differ, on the first 2 segments within 5e-2); the captured
+      sequential run against the eager one to the bit, launches equal;
   (k) ServeEngine(serve_mode="cache", max_len=17432).generate: B = 1 on
       16,384 + 1,000 tokens (48 new), B = 2 on 4,096 + 300 (32 new), logits
       finite and the prefill's last logits within 5e-2 of the full-mode
-      forward's; sampling (temperature 0.8, top_k 40, seed 0) twice equal,
-      top_k 1 equal to greedy;
+      forward's; each run again on the graphs and on an eager engine, to
+      the bit (tokens, logits, state); sampling (temperature 0.8, top_k
+      40, seed 0) twice equal, top_k 1 equal to greedy;
   (l) ServeEngine(serve_mode="cache", max_len=8192).serve: 6 requests of
       1,000-6,000 tokens + 32 new on 4 slots, chunk 8, each first token
-      against a B = 1 generate;
+      against a B = 1 generate; graph against eager;
   (m) one cache-mode decode step over a full cache of 17,432 and 131,136
-      rows beside the copies its functional contract makes (each layer's
-      cache clone, the executor's stack of the layers' caches);
+      rows, the engine's captured step (the cache written in place, which
+      must keep its address) and the same step eager: host span and device
+      time;
   (n) the three schedules timed (informational: gated on finite times and a
-      finite full-mode output): full attention, ARMT sequential and ARMT
-      diagonal, all on the kernels, at 16,384 and 131,072 tokens, B = 1;
-      1 warm-up and 3 runs each, host wall and CUDA-event time, peak memory,
-      and the ratios beside the paper's 3.3x and 1.8x.
+      finite full-mode output): full attention, ARMT sequential (captured
+      segments) and ARMT diagonal, all on the kernels, and the sequential
+      one eager, at 16,384 and 131,072 tokens, B = 1; 1 warm-up and 3 runs
+      each, host wall and CUDA-event time, peak memory, and the ratios
+      beside the paper's 3.3x and 1.8x (quoted).
 
   (f) falcon-mamba-7b at full width and depth (random weights from a seed,
       bf16): the 16-segment prefill, diagonal on the kernels against the
@@ -90,15 +102,25 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       scan's output x0.98) that the check must reject; the smoke config in
       fp32, card against CPU;
   (g) ServeEngine(max_len=8192).generate: B = 1 on 2 x 8192 + 1000 tokens
-      (48 new), repeated bit for bit, and B = 2 on 8192 + 500 (32 new);
-      smoke config card vs CPU, token for token;
+      (48 new) and B = 2 on 8192 + 500 (32 new), each repeated bit for bit
+      and held against an eager engine (tokens, logits, h and conv tail
+      to the bit); one step timed, graph and eager; smoke config card vs
+      CPU, token for token;
   (h) ServeEngine.serve: 6 requests of 8,192-17,384 tokens on 4 slots,
-      chunk 8, each first token against a B = 1 generate; smoke config
-      card vs CPU.
+      chunk 8, each first token against a B = 1 generate; graph against
+      eager; smoke config card vs CPU.
 
-The kernels' launch counters are set to 0 just before each of (d), (e),
-(i), (k), (l), (g) and (h) and read just after it: every llama kernel must
-have been launched in (d), every one but armt_update (which runs only at
+Decode runs on CUDA graphs (``DecodeProgram``: the step, with sampling
+and the finite flag, and the masked flush, over static state updated in
+place), and so does the sequential schedule's segment; the eager engines
+(``ServeEngine(eager=True)``, ``forward_hidden(eager=True)``) exist only
+to be held against them here and in the card tests.
+
+The kernels' launch counters are set to 0 just before each main-path run
+of (d), (e), (i), (k), (l), (g) and (h) and read just after it (a phase's
+count is the sum over its runs; a graph replay counts what its capture
+launched, so the counts read the same under graphs as eager): every
+llama kernel must have been launched in (d), every one but armt_update (which runs only at
 B > 1) in (e), the GEMM and flash in (i) and flash and decode attention in
 (k) and (l), with none of the ARMT memory kernels there, and mamba_scan in
 (g) and in (h). The GEMM's and flash attention's
@@ -107,8 +129,10 @@ kernel; for the GEMM whoever called it: projections, the fused op, the
 ARMT kernels' projections): the bf16 llama runs of (d),
 (e), (i), (k) and (l) must launch no SIMT GEMM and no SIMT flash. One decode_attention
 call (its partials and their combine) counts as one launch.
-The script prints one JSON line per kernel summary, the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``. Any failure exits
+The script prints JSON lines of the schedules' timing, of the graph
+phase (every graph-against-eager check with its rates) and of the kernel
+summaries, the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``. Any failure exits
 non-zero before that line; without a CUDA device it exits 2.
 """
 from __future__ import annotations
@@ -211,17 +235,18 @@ def main() -> int:
     def sync():
         torch.cuda.synchronize(dev)
 
-    def time_ms(fn, iters=10, warmup=2):
-        """Median device time of one call: the card spins ~0.5 ms first, so
-        the host has enqueued the call before the start event is reached
-        and its Python time is not counted."""
+    def time_ms(fn, iters=10, warmup=2, spin=1_000_000):
+        """Median device time of one call: the card spins first (~0.5 ms
+        at the default ``spin`` cycles; longer where the host takes longer
+        to enqueue the call), so the host has enqueued the call before the
+        start event is reached and its Python time is not counted."""
         for _ in range(warmup):
             fn()
         sync()
         ts = []
         for _ in range(iters):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(1_000_000)
+            torch.cuda._sleep(spin)
             a.record()
             fn()
             b.record()
@@ -276,6 +301,72 @@ def main() -> int:
             f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none'}  bound {b_ms:.4f} ms "
             f"({b_by})  kernel/bound {ms / b_ms:.2f}")
         return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+    def counted(fn):
+        """fn() run from launch counts set to 0 -> (its result, its
+        launches, its GEMM and flash launches by route)."""
+        reset_counts()
+        out = fn()
+        sync()
+        return out, read_counts(), read_routes()
+
+    def merged(total, more):
+        """Counts (or nested counts) summed over the runs of one path."""
+        if isinstance(more, dict):
+            return {k: merged(total.get(k, 0 if not isinstance(v, dict) else {}), v)
+                    for k, v in more.items()}
+        return total + more
+
+    def bits(t):
+        return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32,
+                       torch.int64: torch.int64, torch.bool: torch.bool}[t.dtype])
+
+    def same_bits(a, b):
+        """Equal to the bit (NaN and inf included)."""
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(bits(a), bits(b))
+
+    def same_state(a, b):
+        """Two decode states equal to the bit, every leaf and pos."""
+        return same_bits(a["pos"], b["pos"]) and all(
+            da.keys() == db.keys() and all(same_bits(da[k], db[k]) for k in da)
+            for part in ("prelude", "pattern") for da, db in zip(a[part], b[part]))
+
+    graph_phase = {}      # what the graph runs were held against, and the rates
+
+    def check_graph(label, same, counts_g, counts_e, **rates):
+        """Logs and records one graph-against-eager check (each item of
+        ``same`` must be true, and the launch counts equal)."""
+        ok = all(same.values()) and counts_g == counts_e
+        log(f"  graph vs eager, {label}: "
+            + ", ".join(f"{k} {v}" for k, v in same.items())
+            + f", launches equal {counts_g == counts_e} -> {'ok' if ok else 'FAIL'}")
+        if counts_g != counts_e:
+            log(f"    launches graph {counts_g} eager {counts_e}")
+        if not ok:
+            failures.append(f"graph vs eager: {label}")
+        graph_phase[label] = dict(same, launches_equal=counts_g == counts_e, **rates)
+
+    def check_generate(label, g, e, counts_g, counts_e, **rates):
+        """generate(keep=True) on a graph engine against an eager one."""
+        check_graph(label, {"tokens equal": bool(np.array_equal(g.tokens, e.tokens)),
+                            "every step's logits to the bit": same_bits(g.logits, e.logits),
+                            "final decode state to the bit": same_state(g.state, e.state)},
+                    counts_g, counts_e, **rates)
+
+    def step_times(prog, eager):
+        """One decode step of a program over all its rows: host span per
+        step over 32 steps ending in a sync, and device time (CUDA events;
+        an eager step is enqueued behind a ~100 ms spin)."""
+        prog.active.fill_(True)
+        prog.step()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(32):
+            prog.step()
+        sync()
+        span = (time.perf_counter() - t0) / 32 * 1e3
+        return dict(span_ms=span, device_ms=time_ms(prog.step, iters=5, warmup=1,
+                                                     spin=200_000_000 if eager else 1_000_000))
 
     # ------------------------------------------------------------ (b) kernels
     log("== kernel phase (main-path shapes: G=16, B=1, T=1152, bf16; odd shapes)")
@@ -922,33 +1013,55 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ (d) serving
-    log("== generate phase: ServeEngine.generate, greedy")
-    reset_counts()
+    log("== generate phase: ServeEngine.generate, greedy, decode on CUDA graphs")
     engine = ServeEngine(params, cfg)
+    eager_engine = ServeEngine(params, cfg, eager=True)     # the same programs, uncaptured
+    launches_gen, routes_gen = {}, {}
     # 4 segments: on 4 seeds no diagonal variant, kernels or plain versions,
     # overflowed before segment 11 (PERF.md §6), while 16 segments overflow
     # on some seeds whatever the path, so the logits are held finite here
     runs = [(1, 4 * seg + 1000, 48), (2, 4 * seg + 300, 32)]
     for B, plen, new in runs:
         prompts = rng.integers(0, cfg.vocab, (B, plen))
-        res = engine.generate(prompts, new)
+        res, n, r = counted(lambda: engine.generate(prompts, new))
+        again, ng, rg = counted(lambda: engine.generate(prompts, new, keep=True))
+        launches_gen = merged(merged(launches_gen, n), ng)
+        routes_gen = merged(merged(routes_gen, r), rg)
         good = (res.finite and res.tokens.shape == (B, new)
                 and res.tokens.min() >= 0 and res.tokens.max() < cfg.vocab)
         log(f"  B={B} prompt {plen} new {new}: TTFT {res.ttft_s:.3f} s, decode "
-            f"{res.tok_s:.1f} tok/s, logits finite {res.finite} -> {'ok' if good else 'FAIL'}")
+            f"{res.tok_s:.1f} tok/s (capture {res.capture_s:.3f} s before the prefill); "
+            f"again on the captured graphs: TTFT {again.ttft_s:.3f} s, {again.tok_s:.1f} tok/s; "
+            f"logits finite {res.finite} -> {'ok' if good else 'FAIL'}; card {smi}")
         for b in range(B):
             log(f"    tokens[{b}]: {res.tokens[b].tolist()}")
         if not good:
             failures.append(f"generate B={B}")
+        # the untrained ARMT state is chaotic over segments (PERF.md §6),
+        # so show that a run reproduces bit for bit: no atomics anywhere
+        same = bool((again.tokens == res.tokens).all())
+        log(f"  B={B} repeated: tokens equal {same}")
+        if not same:
+            failures.append(f"generate B={B} not reproducible")
+        ge, ne, _ = counted(lambda: eager_engine.generate(prompts, new, keep=True))
+        log(f"  B={B} eager: TTFT {ge.ttft_s:.3f} s, decode {ge.tok_s:.1f} tok/s")
+        check_generate(f"llama ARMT generate B={B}", again, ge, ng, ne,
+                       graph_tok_s=again.tok_s, eager_tok_s=ge.tok_s,
+                       graph_ttft_s=again.ttft_s, eager_ttft_s=ge.ttft_s)
         if B == 1:
-            # the untrained ARMT state is chaotic over segments (PERF.md §6),
-            # so show that a run reproduces bit for bit: no atomics anywhere
-            again = engine.generate(prompts, new).tokens
-            same = bool((again == res.tokens).all())
-            log(f"  B=1 repeated: tokens equal {same}")
-            if not same:
-                failures.append("generate B=1 not reproducible")
-    launches_gen, routes_gen = read_counts(), read_routes()
+            kw = dict(temperature=0.8, top_k=40, seed=0)
+            sg, ng, rg = counted(lambda: engine.generate(prompts, new, keep=True, **kw))
+            launches_gen, routes_gen = merged(launches_gen, ng), merged(routes_gen, rg)
+            se, ne, _ = counted(lambda: eager_engine.generate(prompts, new, keep=True, **kw))
+            check_generate(f"llama ARMT generate B=1 sampled {kw}", sg, se, ng, ne,
+                           differs_from_greedy=int((sg.tokens != res.tokens).sum()))
+            steps = {"graph": step_times(engine.program(1), False),
+                     "eager": step_times(eager_engine.program(1), True)}
+            log(f"  one decode step at B=1: graph span {steps['graph']['span_ms']:.3f} ms, "
+                f"device {steps['graph']['device_ms']:.3f} ms; eager span "
+                f"{steps['eager']['span_ms']:.3f} ms, device {steps['eager']['device_ms']:.3f} "
+                f"ms; card {smi}")
+            graph_phase["llama ARMT decode step B=1"] = steps
     log(f"  launches in the generate phase: {launches_gen}; GEMM and flash launches by "
         f"route {routes_gen}")
     for name in llama_kernels:
@@ -980,12 +1093,22 @@ def main() -> int:
             (1, 10, 32)]
     reqs = [Request(i, rng.integers(0, cfg.vocab, n * seg + tail), new)
             for i, (n, tail, new) in enumerate(spec)]
-    reset_counts()
     t0 = time.perf_counter()
-    events = list(engine.serve(reqs, n_slots=4, chunk=8))
-    sync()
-    t_serve = time.perf_counter() - t0
-    launches_serve, routes_serve = read_counts(), read_routes()
+    engine.program(4, "serve").prepare()
+    log(f"  capture of the 4-slot step and flush: {time.perf_counter() - t0:.3f} s")
+
+    def serve_run(eng, rq, **kw):
+        """(events, host seconds) of one serve call."""
+        t0 = time.perf_counter()
+        evs = list(eng.serve(rq, n_slots=4, chunk=8, **kw))
+        sync()
+        return evs, time.perf_counter() - t0
+
+    def streams(evs):
+        return [(e.req_id, e.token, e.index, e.done, e.finite) for e in evs
+                if not isinstance(e, RequestError)]
+
+    (events, t_serve), launches_serve, routes_serve = counted(lambda: serve_run(engine, reqs))
     log(f"  launches in the serve phase: {launches_serve}; GEMM and flash launches by "
         f"route {routes_serve}")
     for name in llama_kernels:
@@ -1013,6 +1136,20 @@ def main() -> int:
         log(f"    tokens: {toks}")
         if not good:
             failures.append(f"serve request {r.req_id}")
+    (e_events, t_eserve), ne, _ = counted(lambda: serve_run(eager_engine, reqs))
+    log(f"  eager: {n_tok} tokens in {t_eserve:.3f} s, {n_tok / t_eserve:.1f} tok/s")
+    check_graph("llama ARMT serve, 6 requests on 4 slots", {
+        "every request's events equal": streams(events) == streams(e_events)},
+        launches_serve, ne, graph_tok_s=n_tok / t_serve, eager_tok_s=n_tok / t_eserve,
+        graph_ttft_s={e.req_id: e.ttft_s for e in events if e.index == 0},
+        eager_ttft_s={e.req_id: e.ttft_s for e in e_events if e.index == 0})
+    steps = {"graph": step_times(engine.program(4, "serve"), False),
+             "eager": step_times(eager_engine.program(4, "serve"), True)}
+    log(f"  one decode step over 4 slots: graph span {steps['graph']['span_ms']:.3f} ms, "
+        f"device {steps['graph']['device_ms']:.3f} ms; eager span "
+        f"{steps['eager']['span_ms']:.3f} ms, device {steps['eager']['device_ms']:.3f} ms; "
+        f"card {smi}")
+    graph_phase["llama ARMT decode step 4 slots"] = steps
     # ------------------------------------------------------------ (i) full attention
     log("== full-attention phase: llama-1b-armt, forward_hidden(mode='full'), 4,096 tokens, "
         "B = 1, bf16")
@@ -1032,13 +1169,6 @@ def main() -> int:
         pat = dict(p["pattern"][0])
         pat["attn"] = dict(pat["attn"], wo=pat["attn"]["wo"] * scale)
         return dict(p, pattern=(pat,))
-
-    def bits(t):
-        return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}[t.dtype])
-
-    def same_bits(a, b):
-        """Equal to the bit (NaN and inf included)."""
-        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(bits(a), bits(b))
 
     reset_counts()
     hfd, lfd = full_run(params, cfg)
@@ -1106,12 +1236,27 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ (j) exactness of the schedules
-    log("== schedules: 16-segment ARMT prefill, diagonal vs sequential, both on the kernels")
+    log("== schedules: 16-segment ARMT prefill, diagonal vs sequential (its segment a "
+        "captured CUDA graph), both on the kernels; the sequential one also eager")
     xtk = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 16 * seg))).to(dev)
-    with torch.no_grad():
-        hxd, fxd = M.forward_hidden(params, cfg, xtk, schedule="diagonal")
-        hxs, fxs = M.forward_hidden(params, cfg, xtk, schedule="sequential", fused=True)
-        lxd, lxs = seg_logits(params, cfg, hxd), seg_logits(params, cfg, hxs)
+
+    def prefill16(**kw):
+        with torch.no_grad():
+            h, f = M.forward_hidden(params, cfg, xtk, **kw)
+            return h, f, seg_logits(params, cfg, h)
+    hxd, fxd, lxd = prefill16(schedule="diagonal")
+    t0 = time.perf_counter()
+    prefill16(schedule="sequential")            # captures the segment graph
+    sync()
+    log(f"  first captured sequential run (capture included): {time.perf_counter() - t0:.3f} s")
+    (hxs, fxs, lxs), n_seq, _ = counted(lambda: prefill16(schedule="sequential"))
+    (hxe, fxe, lxe), n_eag, _ = counted(lambda: prefill16(schedule="sequential", eager=True))
+    check_graph("llama ARMT sequential 16-segment prefill", {
+        "hidden to the bit": same_bits(hxs, hxe), "logits to the bit": same_bits(lxs, lxe),
+        "every layer's A to the bit": same_bits(fxs["pattern"][0]["A"], fxe["pattern"][0]["A"]),
+        "every layer's z to the bit": same_bits(fxs["pattern"][0]["z"], fxe["pattern"][0]["z"])},
+        n_seq, n_eag)
+    del hxe, fxe, lxe
 
     def max_rel(a, b):
         """Largest |a - b| over the largest |b|, finite elements only."""
@@ -1153,6 +1298,7 @@ def main() -> int:
     # ------------------------------------------------------------ (k) cache-mode generate
     log("== cache-mode generate: ServeEngine(serve_mode='cache', max_len=17432), greedy")
     ceng = ServeEngine(params, cfg, serve_mode="cache", max_len=17432)
+    ceng_eager = ServeEngine(params, cfg, serve_mode="cache", max_len=17432, eager=True)
     cruns = [(1, 16384 + 1000, 48), (2, 4096 + 300, 32)]
     cprompts = [rng.integers(0, cfg.vocab, (B, plen)) for B, plen, _ in cruns]
     reset_counts()
@@ -1178,6 +1324,14 @@ def main() -> int:
             log(f"    tokens[{b}]: {res.tokens[b].tolist()}")
         if not good:
             failures.append(f"cache-mode generate B={B}")
+        again, ng, _ = counted(lambda: ceng.generate(pr, new, keep=True))
+        ce, ne, _ = counted(lambda: ceng_eager.generate(pr, new, keep=True))
+        log(f"  B={B} again on the captured graphs: TTFT {again.ttft_s:.3f} s, "
+            f"{again.tok_s:.1f} tok/s; eager: TTFT {ce.ttft_s:.3f} s, {ce.tok_s:.1f} tok/s")
+        check_generate(f"cache-mode generate B={B} at {plen} tokens", again, ce, ng, ne,
+                       graph_tok_s=again.tok_s, eager_tok_s=ce.tok_s,
+                       graph_ttft_s=again.ttft_s, eager_ttft_s=ce.ttft_s)
+        del again, ce
         # two code paths for one function: the cache-mode prefill (one
         # decode_step chunk: torch.matmul projections, flash inside
         # decode_attention) and forward_hidden(mode='full') on the fused cell
@@ -1203,7 +1357,7 @@ def main() -> int:
             log(f"    sampled tokens: {s1[0].tolist()}")
             if not ok:
                 failures.append("cache-mode sampling")
-    del ceng, cres
+    del ceng, ceng_eager, cres
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ (l) cache-mode serve
@@ -1212,12 +1366,9 @@ def main() -> int:
     seng = ServeEngine(params, cfg, serve_mode="cache", max_len=8192)
     cspec = [(1000, 32), (6000, 32), (2500, 32), (4096, 32), (1500, 32), (5200, 32)]
     creqs = [Request(i, rng.integers(0, cfg.vocab, n), new) for i, (n, new) in enumerate(cspec)]
-    reset_counts()
-    t0 = time.perf_counter()
-    cevents = list(seng.serve(creqs, n_slots=4, chunk=8))
-    sync()
-    t_cserve = time.perf_counter() - t0
-    launches_cserve, routes_cserve = read_counts(), read_routes()
+    seng.program(4, "serve").prepare()
+    (cevents, t_cserve), launches_cserve, routes_cserve = counted(
+        lambda: serve_run(seng, creqs))
     log(f"  launches: {launches_cserve}; GEMM and flash launches by route {routes_cserve}")
     for name in ("flash_attention", "decode_attention"):
         if launches_cserve[name] == 0:
@@ -1242,47 +1393,54 @@ def main() -> int:
             f"token {ctoks[0]} vs B=1 generate {first_gen} -> {'ok' if good else 'FAIL'}")
         if not good:
             failures.append(f"cache-mode serve request {r.req_id}")
-    del seng, cevents
+    seng_eager = ServeEngine(params, cfg, serve_mode="cache", max_len=8192, eager=True)
+    (e_events, t_eserve), ne, _ = counted(lambda: serve_run(seng_eager, creqs))
+    log(f"  eager: {n_tok} tokens in {t_eserve:.3f} s, {n_tok / t_eserve:.1f} tok/s")
+    check_graph("cache-mode serve, 6 requests on 4 slots", {
+        "every request's events equal": streams(cevents) == streams(e_events)},
+        launches_cserve, ne, graph_tok_s=n_tok / t_cserve, eager_tok_s=n_tok / t_eserve)
+    del seng, seng_eager, cevents, e_events
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ (m) cache decode step
     # One cache-mode decode step (B = 1) against a full cache of 17,432 and
     # 131,136 rows (random contents: the step reads what a prompt of that
-    # length would leave), beside the copies the functional contract makes:
-    # decode_attention clones each layer's k and v, and the sequential
-    # executor stacks the layers' new caches.
-    log("== cache-mode decode step: B = 1, full cache, device times")
+    # length would leave), as the engine runs it: the captured step over
+    # the static state, which writes the new k/v row in place (a
+    # functional step would clone every layer's cache and stack them
+    # again), beside the same program run eagerly.
+    log("== cache-mode decode step: B = 1, full cache, the captured step and the eager one")
     decode_step_rows = {}
     cgen = torch.Generator(device=dev).manual_seed(SEED)
     for Sl in (17432, 131136):
-        st = M.decode_state_init(cfg, 1, dtype=torch.bfloat16, device=dev, serve_mode="cache",
-                                 max_len=Sl)
-        for k in ("k", "v"):
-            st["pattern"][0][k].normal_(generator=cgen)
-        st["pos"] = Sl - 1
-        tok1 = torch.tensor([int(rng.integers(cfg.vocab))], device=dev)
-        with torch.no_grad():
-            reset_counts()
-            M.decode_step(params, cfg, st, tok1, serve_mode="cache")
-            sync()
-            n_dec = decode_attention.launches
-            ms_step = time_ms(lambda: M.decode_step(params, cfg, st, tok1, serve_mode="cache"),
-                              iters=5, warmup=1)
-        cache = st["pattern"][0]
-        ms_clone = time_ms(lambda: [cache[k][j].clone() for k in ("k", "v")
-                                    for j in range(cfg.n_layers)], iters=5, warmup=1)
-        ms_stack = time_ms(lambda: [torch.stack([cache[k][j] for j in range(cfg.n_layers)])
-                                    for k in ("k", "v")], iters=5, warmup=1)
-        gb = 2 * cache["k"].numel() * 2 / 1e9
-        log(f"  cache of {Sl} rows ({gb:.2f} GB of k and v): decode step {ms_step:.3f} ms "
-            f"({n_dec} decode_attention launches); the per-call clones {ms_clone:.3f} ms "
-            f"({ms_clone / ms_step:.2f} of the step), the executor's stack {ms_stack:.3f} ms "
-            f"({ms_stack / ms_step:.2f}); byte bound of the keys read "
+        row = {}
+        for label, eager in (("graph", False), ("eager", True)):
+            prog = ServeEngine(params, cfg, serve_mode="cache", max_len=Sl,
+                               eager=eager).program(1)
+            prog.prepare()
+            cache = prog.state["pattern"][0]
+            for k in ("k", "v"):
+                cache[k].normal_(generator=cgen)
+            prog.state["pos"].fill_(Sl - 1)
+            prog.tok.fill_(int(rng.integers(cfg.vocab)))
+            ptrs = [cache[k].data_ptr() for k in ("k", "v")]
+            _, n, _ = counted(prog.step)
+            row[label] = dict(step_times(prog, eager), decode_launches=n["decode_attention"],
+                              cache_kept_address=ptrs == [cache[k].data_ptr()
+                                                          for k in ("k", "v")])
+            del prog, cache
+            torch.cuda.empty_cache()
+        gb = 2 * cfg.n_layers * Sl * cfg.n_kv_heads * cfg.head_dim * 2 / 1e9
+        log(f"  cache of {Sl} rows ({gb:.2f} GB of k and v): captured step span "
+            f"{row['graph']['span_ms']:.3f} ms, device {row['graph']['device_ms']:.3f} ms; "
+            f"eager span {row['eager']['span_ms']:.3f} ms, device "
+            f"{row['eager']['device_ms']:.3f} ms ({row['graph']['decode_launches']} "
+            f"decode_attention launches a step; the cache kept its address "
+            f"{row['graph']['cache_kept_address']}); byte bound of the keys read "
             f"{gb / (PEAK_BYTES / 1e9) * 1e3:.3f} ms; card {smi}")
-        decode_step_rows[f"S={Sl}"] = dict(step_ms=ms_step, clone_ms=ms_clone,
-                                           stack_ms=ms_stack, decode_launches=n_dec)
-        del st, cache
-        torch.cuda.empty_cache()
+        if not row["graph"]["cache_kept_address"]:
+            failures.append(f"the captured cache step over {Sl} rows moved the cache")
+        decode_step_rows[f"S={Sl}"] = row
 
     # ------------------------------------------------------------ (n) schedules timing
     # Informational, gated on nothing but finite times (and a finite
@@ -1323,8 +1481,10 @@ def main() -> int:
         tk = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n_tok))).to(dev)
         runs = {"full attention (sequential, fused cell)":
                 fwd(tk, mode="full", schedule="sequential"),
-                "ARMT sequential (fused cell)": fwd(tk, schedule="sequential"),
-                "ARMT diagonal (fused cell)": fwd(tk, schedule="diagonal")}
+                "ARMT sequential (fused cell, captured segment)": fwd(tk, schedule="sequential"),
+                "ARMT diagonal (fused cell)": fwd(tk, schedule="diagonal"),
+                "ARMT sequential (fused cell, eager)": fwd(tk, schedule="sequential",
+                                                          eager=True)}
         row = {}
         for label, fn in runs.items():
             r, out = timed_runs(fn)
@@ -1345,18 +1505,19 @@ def main() -> int:
                 failures.append(f"full attention at {n_tok} tokens: non-finite output")
             del out
             torch.cuda.empty_cache()
-        full_, seq_, diag_ = (row[k]["device_s"] for k in runs)
-        log(f"  {n_tok} tokens: CUDA-event ratios full/diagonal {med(full_) / med(diag_):.2f}, "
-            f"sequential/diagonal {med(seq_) / med(diag_):.2f} (host wall "
-            f"{med(row[list(runs)[0]]['wall_s']) / med(row[list(runs)[2]]['wall_s']):.2f}, "
-            f"{med(row[list(runs)[1]]['wall_s']) / med(row[list(runs)[2]]['wall_s']):.2f}); "
-            f"the paper's figures at 131,072 tokens, not measured here: 3.3x and 1.8x; card {smi}")
+        full_, seq_, diag_, eseq_ = ([med(row[k][m]) for m in ("device_s", "wall_s")]
+                                     for k in runs)
+        log(f"  {n_tok} tokens: CUDA-event ratios full/diagonal {full_[0] / diag_[0]:.2f}, "
+            f"sequential/diagonal {seq_[0] / diag_[0]:.2f} captured, {eseq_[0] / diag_[0]:.2f} "
+            f"eager (host wall {full_[1] / diag_[1]:.2f}; {seq_[1] / diag_[1]:.2f} captured, "
+            f"{eseq_[1] / diag_[1]:.2f} eager); the paper's figures at 131,072 tokens, quoted, "
+            f"not measured here: 3.3x and 1.8x; card {smi}")
         sched_timing[str(n_tok)] = row
         del tk
     print(json.dumps({"schedules": sched_timing, "schedules_exact": schedules_exact,
                       "decode_step": decode_step_rows, "card": smi}))
 
-    del engine, params, events
+    del engine, eager_engine, params, events
     torch.cuda.empty_cache()
 
     sspec = [(1, 5, 20), (2, 3, 14), (0, 7, 25), (3, 0, 9), (1, 11, 17)]
@@ -1530,25 +1691,41 @@ def main() -> int:
     # ------------------------------------------------------------ (g) falcon-mamba generate
     log("== generate phase: falcon-mamba-7b, ServeEngine(max_len=8192).generate, greedy")
     feng = ServeEngine(fparams, fcfg, max_len=8192)
-    reset_counts()
+    feng_eager = ServeEngine(fparams, fcfg, max_len=8192, eager=True)
+    flaunch_gen = {}
     for B, plen, new in [(1, 2 * 8192 + 1000, 48), (2, 8192 + 500, 32)]:
         prompts = rng.integers(0, fcfg.vocab, (B, plen))
-        res = feng.generate(prompts, new)
+        res, n, _ = counted(lambda: feng.generate(prompts, new))
+        again, ng, _ = counted(lambda: feng.generate(prompts, new, keep=True))
+        flaunch_gen = merged(merged(flaunch_gen, n), ng)
         good = (res.finite and res.tokens.shape == (B, new)
                 and res.tokens.min() >= 0 and res.tokens.max() < fcfg.vocab)
         log(f"  B={B} prompt {plen} new {new}: TTFT {res.ttft_s:.3f} s, decode "
-            f"{res.tok_s:.1f} tok/s, logits finite {res.finite} -> {'ok' if good else 'FAIL'}")
+            f"{res.tok_s:.1f} tok/s (capture {res.capture_s:.3f} s before the prefill); "
+            f"again on the captured graphs: TTFT {again.ttft_s:.3f} s, {again.tok_s:.1f} tok/s; "
+            f"logits finite {res.finite} -> {'ok' if good else 'FAIL'}; card {smi}")
         for b in range(B):
             log(f"    tokens[{b}]: {res.tokens[b].tolist()}")
         if not good:
             failures.append(f"falcon-mamba generate B={B}")
+        same = bool((again.tokens == res.tokens).all())
+        log(f"  B={B} repeated: tokens equal {same}")
+        if not same:
+            failures.append(f"falcon-mamba generate B={B} not reproducible")
+        fe, ne, _ = counted(lambda: feng_eager.generate(prompts, new, keep=True))
+        log(f"  B={B} eager: TTFT {fe.ttft_s:.3f} s, decode {fe.tok_s:.1f} tok/s")
+        check_generate(f"falcon-mamba generate B={B}", again, fe, ng, ne,
+                       graph_tok_s=again.tok_s, eager_tok_s=fe.tok_s,
+                       graph_ttft_s=again.ttft_s, eager_ttft_s=fe.ttft_s)
+        del again, fe
         if B == 1:
-            again = feng.generate(prompts, new).tokens
-            same = bool((again == res.tokens).all())
-            log(f"  B=1 repeated: tokens equal {same}")
-            if not same:
-                failures.append("falcon-mamba generate B=1 not reproducible")
-    flaunch_gen = read_counts()
+            steps = {"graph": step_times(feng.program(1), False),
+                     "eager": step_times(feng_eager.program(1), True)}
+            log(f"  one decode step at B=1: graph span {steps['graph']['span_ms']:.3f} ms, "
+                f"device {steps['graph']['device_ms']:.3f} ms; eager span "
+                f"{steps['eager']['span_ms']:.3f} ms, device {steps['eager']['device_ms']:.3f} "
+                f"ms; card {smi}")
+            graph_phase["falcon-mamba decode step B=1"] = steps
     log(f"  launches in the falcon-mamba generate phase: {flaunch_gen}")
     for name in falcon_kernels:
         if flaunch_gen[name] == 0:
@@ -1569,12 +1746,8 @@ def main() -> int:
     fspec = [(8192, 40), (2 * 8192 + 1000, 24), (9000, 32), (12000, 48), (8193, 16),
              (16384, 20)]
     freqs = [Request(i, rng.integers(0, fcfg.vocab, n), new) for i, (n, new) in enumerate(fspec)]
-    reset_counts()
-    t0 = time.perf_counter()
-    events = list(feng.serve(freqs, n_slots=4, chunk=8))
-    sync()
-    t_serve = time.perf_counter() - t0
-    flaunch_serve = read_counts()
+    feng.program(4, "serve").prepare()
+    (events, t_serve), flaunch_serve, _ = counted(lambda: serve_run(feng, freqs))
     log(f"  launches in the falcon-mamba serve phase: {flaunch_serve}")
     for name in falcon_kernels:
         if flaunch_serve[name] == 0:
@@ -1597,7 +1770,12 @@ def main() -> int:
             f"token {toks[0]} vs B=1 generate {first_gen} -> {'ok' if good else 'FAIL'}")
         if not good:
             failures.append(f"falcon-mamba serve request {r.req_id}")
-    del feng, fparams, events
+    (e_events, t_eserve), ne, _ = counted(lambda: serve_run(feng_eager, freqs))
+    log(f"  eager: {n_tok} tokens in {t_eserve:.3f} s, {n_tok / t_eserve:.1f} tok/s")
+    check_graph("falcon-mamba serve, 6 requests on 4 slots", {
+        "every request's events equal": streams(events) == streams(e_events)},
+        flaunch_serve, ne, graph_tok_s=n_tok / t_serve, eager_tok_s=n_tok / t_eserve)
+    del feng, feng_eager, fparams, events, e_events
     torch.cuda.empty_cache()
     fsreqs = [Request(i, rng.integers(0, fsmoke.vocab, n), new)
               for i, (n, new) in enumerate([(40, 9), (70, 14), (5, 20), (96, 6), (33, 11)])]
@@ -1614,6 +1792,7 @@ def main() -> int:
     if not same:
         failures.append("falcon-mamba smoke serve card vs cpu")
 
+    print(json.dumps({"graphs": graph_phase, "card": smi}))
     if failures:
         log(f"FAILED: {failures}")
         return 1

@@ -19,6 +19,8 @@ its blocks read A while others write A'.
 """
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from repro_torch.kernels import build
@@ -28,6 +30,7 @@ from repro_torch.kernels.ref import armt_update_ref as armt_update_plain
 
 read_launches = 0     # armt_read launches since the last reset
 update_launches = 0   # armt_update launches since the last reset
+build.count_launches(sys.modules[__name__], "read_launches", "update_launches")
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D_MEM = 64        # the kernels keep q/k rows of d_mem floats on chip

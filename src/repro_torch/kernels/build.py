@@ -8,6 +8,11 @@ git), and is reused while the sources are unchanged. A failed build raises.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception.
+
+Each kernel wrapper module counts its launches in module globals, which it
+names here with ``count_launches`` when it is imported; ``launch_counts``
+reads them all (``core/capture.py`` replays what a captured program
+launched).
 """
 from __future__ import annotations
 
@@ -66,6 +71,9 @@ SIGNATURES = {
     "mamba_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _P],
 }
+
+# module name -> (module, counter names), for every kernel wrapper module
+_COUNTED: dict = {}
 
 _lib = None
 build_seconds = None   # wall time of the build this process ran (None: reused)
@@ -160,3 +168,14 @@ def check(code: int, what: str) -> None:
 def stream_ptr(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def count_launches(module, *names: str) -> None:
+    """Declares launch counters of a kernel wrapper module: globals of
+    ``module`` that its wrappers add one to where they launch a kernel."""
+    _COUNTED[module.__name__] = (module, names)
+
+
+def launch_counts() -> dict:
+    """{(module, counter name): value} of every declared launch counter."""
+    return {(m, n): getattr(m, n) for m, names in _COUNTED.values() for n in names}

@@ -17,12 +17,15 @@ row's window and length, then their combine. It counts as one
 """
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import decode_attention_ref as decode_attention_plain
 
 launches = 0   # kernel launches since the last reset
+build.count_launches(sys.modules[__name__], "launches")
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128

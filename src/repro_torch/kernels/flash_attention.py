@@ -15,6 +15,8 @@ rest.
 """
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from repro_torch.kernels import build
@@ -23,6 +25,7 @@ from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 launches = 0        # kernel launches since the last reset
 tc_launches = 0     # of those, on the TMA + wgmma kernel
 simt_launches = 0   # of those, on flash_simt
+build.count_launches(sys.modules[__name__], "launches", "tc_launches", "simt_launches")
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128

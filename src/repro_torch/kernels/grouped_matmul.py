@@ -27,6 +27,8 @@ memory kernels' projections (their launches count as theirs, not here).
 """
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from repro_torch.kernels import build
@@ -40,6 +42,8 @@ fused_launches = 0   # grouped_matmul_armt_update launches since the last reset
 # (grouped_matmul, the fused op, project_f32)
 tc_launches = 0      # the TMA + wgmma mainloop
 simt_launches = 0    # gmm_simt, fp32 FMAs
+build.count_launches(sys.modules[__name__], "launches", "fused_launches", "tc_launches",
+                     "simt_launches")
 
 _ACT = {None: 0, "silu": 1, "gelu": 2}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}

@@ -17,12 +17,15 @@ them the function is the TPU kernel's. CUDA source:
 """
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import mamba_scan_ref as mamba_scan_plain
 
 launches = 0   # kernel launches since the last reset
+build.count_launches(sys.modules[__name__], "launches")
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 D_STATES = (4, 8, 16)   # the kernel keeps h[dS] in registers, one build per dS

@@ -70,10 +70,32 @@ def attention(x, p, cfg):
     return torch.matmul(o, p["wo"])
 
 
-def decode_attention(x, p, cfg, cache: Dict, pos):
-    """Tq >= 1 queries against a KV cache. x: [B,Tq,D]; pos: Python int
-    (tokens already in the cache) or int tensor [B] of per-row positions.
-    Returns (out, new_cache); the input cache is not modified.
+def _write_rows(cache: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
+                mask=None) -> None:
+    """In place: cache [B,S,H,hd] row pos[b] + t of batch row b takes rows[b,
+    t] ([B,Tq,H,hd]). Positions past the cache are clamped to its last row,
+    as the reference's dynamic_update_slice clamps. With mask (bool [B]) a
+    row where it is False gets its own old values back, bit for bit."""
+    B, S = cache.shape[:2]
+    Tq = rows.shape[1]
+    at = (pos[:, None] + torch.arange(Tq, device=cache.device)[None]).clamp_max(S - 1)
+    idx = (at + torch.arange(B, device=cache.device)[:, None] * S).reshape(-1)
+    flat = cache.view((B * S,) + tuple(cache.shape[2:]))
+    rows = rows.reshape((B * Tq,) + tuple(rows.shape[2:])).to(cache.dtype)
+    if mask is not None:
+        keep = mask[:, None].expand(B, Tq).reshape((-1,) + (1,) * (rows.dim() - 1))
+        rows = torch.where(keep, rows, flat.index_select(0, idx))
+    flat.index_copy_(0, idx, rows)
+
+
+def decode_attention(x, p, cfg, cache: Dict, pos, mask=None):
+    """Tq >= 1 queries against a KV cache, which it updates in place: the
+    new k/v rows are written at positions pos..pos+Tq-1. x: [B,Tq,D]; pos:
+    Python int (tokens already in the cache) or int64 tensor [B] of per-row
+    positions, read on the device; mask: optional bool [B] with a per-row
+    pos, the rows whose cache takes the new rows (the others keep theirs,
+    bit for bit, and their outputs are to be discarded). Returns the
+    attention output [B,Tq,D].
 
     A single token (the serve hot path) goes through ``kops.decode_attention``
     with per-row lengths pos + 1, which reads only each row's valid cache
@@ -86,21 +108,23 @@ def decode_attention(x, p, cfg, cache: Dict, pos):
     CPU takes the masked ``sdpa``, as the reference does."""
     B, Tq, _ = x.shape
     q, k, v = _project_qkv(x, p, cfg)
-    S = cache["k"].shape[1]
-    ck, cv = cache["k"].clone(), cache["v"].clone()
+    ck, cv = cache["k"], cache["v"]
+    S = ck.shape[1]
     per_slot = isinstance(pos, torch.Tensor)
+    if mask is not None and not per_slot:
+        raise ValueError("decode_attention(mask=...) needs a per-row pos tensor")
     if per_slot:
         positions = pos[:, None] + torch.arange(Tq, device=x.device)[None]
         q, k = rope_qk(q, k, cfg, positions)
-        rows = torch.arange(B, device=x.device)[:, None]
-        ck[rows, positions] = k
-        cv[rows, positions] = v
+        _write_rows(ck, k, pos, mask)
+        _write_rows(cv, v, pos, mask)
     else:
         q, k = rope_qk(q, k, cfg, (pos + torch.arange(Tq, device=x.device))[None])
         ck[:, pos:pos + Tq] = k
         cv[:, pos:pos + Tq] = v
     if Tq == 1:
-        lens = ((pos + 1).to(torch.int32) if per_slot else
+        # a frozen row may sit at the cache's end; its output is discarded
+        lens = ((pos + 1).clamp_max(S).to(torch.int32) if per_slot else
                 torch.full((B,), pos + 1, dtype=torch.int32, device=x.device))
         o = kops.decode_attention(q[:, 0], ck, cv, lens, window=cfg.sliding_window)
     elif not per_slot and pos == 0 and x.device.type != "cpu":
@@ -109,12 +133,12 @@ def decode_attention(x, p, cfg, cache: Dict, pos):
     elif per_slot:
         qpos = positions[:, :, None]                               # [B,Tq,1]
         kpos = torch.arange(S, device=x.device)[None, None, :]
-        mask = kpos <= qpos
+        mask_ = kpos <= qpos
         if cfg.sliding_window > 0:
-            mask &= kpos > (qpos - cfg.sliding_window)
-        o = sdpa(q, ck, cv, mask[:, None])                         # [B,1,Tq,S]
+            mask_ &= kpos > (qpos - cfg.sliding_window)
+        o = sdpa(q, ck, cv, mask_[:, None])                        # [B,1,Tq,S]
     else:
         o = sdpa(q, ck, cv, causal_mask(Tq, S, offset=pos, window=cfg.sliding_window,
                                         device=x.device))
     o = o.reshape(B, Tq, cfg.n_heads * cfg.head_dim)
-    return torch.matmul(o, p["wo"]), {"k": ck, "v": cv}
+    return torch.matmul(o, p["wo"])

@@ -2,7 +2,9 @@
 
 Layer-local recurrent state = (h [B, dI, dS] fp32, conv tail [B, d_conv-1,
 dI] in the model dtype), carried across segments like ARMT's (A, z), so the
-diagonal executor schedules Mamba layers with no special casing.
+diagonal executor schedules Mamba layers with no special casing. The block
+returns the new h and tail; the executors write them into the state's
+buffers in place (``core/sequential.py`` ``apply_layer_``).
 
 Every function takes one layer (x ``[B, T, D]``, parameter leaves as
 ``init_params`` makes them for one layer) or a band of G stacked layers (x
@@ -72,13 +74,13 @@ def _bcast(v, x):
 def _causal_conv(xi, tail, w, b):
     """Depthwise causal conv1d. xi: [.., T, dI]; tail: [.., dc-1, dI] (the
     previous inputs); w: [(G,) dc, dI]; b: [(G,) dI] -> (y [.., T, dI],
-    new tail)."""
+    new tail: a view, which the executors copy into the state's buffer)."""
     dc, T = w.shape[-2], xi.shape[-2]
     xp = torch.cat([tail.to(xi.dtype), xi], dim=-2)            # [.., T+dc-1, dI]
     y = xp[..., 0:T, :] * _bcast(w.select(-2, 0), xi)
     for j in range(1, dc):
         y = y + xp[..., j:j + T, :] * _bcast(w.select(-2, j), xi)
-    return y + _bcast(b, xi), xp[..., T:T + dc - 1, :].contiguous()
+    return y + _bcast(b, xi), xp[..., T:T + dc - 1, :]
 
 
 def _ssm_inputs(xc, p, scfg: SSMConfig):

@@ -16,16 +16,18 @@ position whose leaves are stacked over the ``n_super`` layers on dim 0.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.configs import ArchConfig
+from repro_torch.core.capture import Program
 from repro_torch.core.diagonal import run_diagonal
 from repro_torch.core.memory import mem_read, mem_update
 from repro_torch.core.schedule import StackLayout
-from repro_torch.core.sequential import run_sequential
+from repro_torch.core.sequential import clone_state, run_sequential, run_sequential_
 from repro_torch.models.attention import decode_attention
 from repro_torch.models.blocks import block_state_init, check_mode, make_apply_block
 from repro_torch.models.grouped_blocks import make_grouped_apply
@@ -210,7 +212,7 @@ def _one_layer_cell(grouped_apply):
 def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
                    schedule: str = "diagonal", fused: bool = True,
                    mode: str = "segmented", state0: Optional[Dict] = None,
-                   seg_len: Optional[int] = None):
+                   seg_len: Optional[int] = None, eager: bool = False):
     """tokens: [B, S*seg_len] -> (hidden [S, B, seg_len, D] with the
     memory-token rows stripped, final executor state).
 
@@ -227,7 +229,13 @@ def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     reference's ``init_state``): the executor state to start from, e.g. a
     final state of an earlier call; zero memory when None. seg_len: tokens
     per segment (default ``segment_len(cfg)``), cut to the whole input when
-    shorter; full mode ignores it."""
+    shorter; full mode ignores it.
+
+    On a CUDA device the sequential schedule on the fused cell in segmented
+    mode replays one captured CUDA graph per segment (``SegmentProgram``,
+    captured once per shape and weights); ``eager=True`` runs
+    ``run_sequential`` instead, for comparisons, as the CPU always does.
+    Every other path runs eagerly."""
     check_mode(mode)
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r}; expected one of {SCHEDULES}")
@@ -247,10 +255,77 @@ def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     exec_params = {"prelude": params["prelude"], "pattern": params["pattern"]}
     if schedule == "diagonal":
         ys, fin = run_diagonal(layout, exec_params, state0, x, apply, grouped_apply=grouped)
+    elif fused and mode == "segmented" and x.device.type == "cuda" and not eager:
+        ys, fin = SegmentProgram.get(params, cfg, x.shape[1:]).run(x, state0)
     else:
         ys, fin = run_sequential(layout, exec_params, state0, x,
                                  _one_layer_cell(grouped) if fused else apply)
     return ys[:, :, :seg_len], fin
+
+
+class SegmentProgram:
+    """The sequential schedule's segment body as a captured program: the
+    fused cell of every layer, in order, over one segment, from a static
+    input segment ``x`` [B, T, D] into the graph's output, with the layers'
+    state (A, z; or h and the conv tail) in static buffers updated in
+    place. ``run`` replays it once per segment. capture=False runs the
+    same body uncaptured (its CPU tests).
+
+    ``get`` keeps the last few captured programs, keyed by the segment's
+    shape and dtype and by the address, shape and strides of every layer
+    weight (the graph reads them where they were at capture; the TMA
+    descriptors of the kernels hold their addresses)."""
+
+    CACHED = 4
+    _cache: "OrderedDict" = OrderedDict()
+
+    def __init__(self, params: Dict, cfg: ArchConfig, shape, dtype, device, *,
+                 capture: bool = True):
+        B, T, D = shape
+        layout = StackLayout.from_config(cfg)
+        self.x = torch.zeros(B, T, D, dtype=dtype, device=device)
+        self.state = init_state(cfg, B, device, params["embed"].dtype)
+        exec_params = {"prelude": params["prelude"], "pattern": params["pattern"]}
+        cell = _one_layer_cell(make_grouped_apply(cfg))
+        x, state = self.x, self.state
+
+        def body():
+            return run_sequential_(layout, exec_params, state, x[None], cell)[0]
+        self.program = Program(body, device, capture=capture)
+
+    @classmethod
+    def get(cls, params: Dict, cfg: ArchConfig, shape) -> "SegmentProgram":
+        dtype, device = params["embed"].dtype, params["embed"].device
+        leaves = []
+        _tree_map(lambda path, t: leaves.append((t.data_ptr(), tuple(t.shape),
+                                                 t.stride(), t.dtype)),
+                  (params["prelude"], params["pattern"]))
+        key = (cfg, tuple(shape), dtype, device, tuple(leaves))
+        if key in cls._cache:
+            cls._cache.move_to_end(key)
+        else:
+            cls._cache[key] = cls(params, cfg, shape, dtype, device)
+            while len(cls._cache) > cls.CACHED:
+                cls._cache.popitem(last=False)
+        return cls._cache[key]
+
+    def run(self, segments: torch.Tensor, state0: Dict):
+        """segments [S, B, T, D] from state0 -> (ys [S, B, T, D], a copy of
+        the final state)."""
+        copy_state_(self.state, state0)
+        ys = torch.empty_like(segments)
+        for s in range(segments.shape[0]):
+            self.x.copy_(segments[s])
+            ys[s].copy_(self.program())
+        return ys, clone_state(self.state)
+
+
+def copy_state_(dst: Dict, src: Dict) -> None:
+    """dst's layer leaves <- src's, in place (by key; src's dtype cast)."""
+    for part in ("prelude", "pattern"):
+        for d, s in zip(dst[part], src[part]):
+            for k, leaf in d.items():
+                leaf.copy_(s[k])
 
 
 def _head_matmul(params: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
@@ -304,10 +379,12 @@ def decode_state_init(cfg: ArchConfig, batch: int, *, dtype, device,
     return state
 
 
-def make_decode_apply(cfg: ArchConfig, serve_mode: str, pos):
+def make_decode_apply(cfg: ArchConfig, serve_mode: str, pos, mask=None):
     """Block apply for decode: x [B, Tq, D] against the layer's cache
-    (attn; with the memory read in 'armt' mode) or its carried SSM state
-    (mamba)."""
+    (attn; with the memory read in 'armt' mode), which it updates in place
+    (with mask, bool [B], only the True rows), or its carried SSM state
+    (mamba: the new h and conv tail are returned for the executor to
+    write)."""
     check_serve_mode(serve_mode)
     armt_on = serve_mode == "armt" and cfg.armt is not None
 
@@ -316,14 +393,11 @@ def make_decode_apply(cfg: ArchConfig, serve_mode: str, pos):
             return mamba_block(p, x, cfg.ssm, st)
         if t != "attn":
             raise ValueError(t)
-        new = dict(st)
         if armt_on:
             x = x + mem_read(p["mem"], st, x, cfg.armt)
-        a, kvc = decode_attention(rmsnorm(x, p["ln1"]), p["attn"], cfg,
-                                  {"k": st["k"], "v": st["v"]}, pos)
-        new["k"], new["v"] = kvc["k"], kvc["v"]
-        h = x + a
-        return h + swiglu(rmsnorm(h, p["ln2"]), p["ffn"]), new
+        h = x + decode_attention(rmsnorm(x, p["ln1"]), p["attn"], cfg,
+                                 {"k": st["k"], "v": st["v"]}, pos, mask)
+        return h + swiglu(rmsnorm(h, p["ln2"]), p["ffn"]), st
     return apply
 
 
@@ -332,28 +406,55 @@ def _exec(params, state):
             {"prelude": state["prelude"], "pattern": state["pattern"]})
 
 
-def decode_step(params: Dict, cfg: ArchConfig, state: Dict, tokens: torch.Tensor, *,
-                serve_mode: str = "armt"):
-    """tokens: [B] (one step) or [B, Tq] (a chunk) -> (fp32 logits of the
-    last position [B, V], new state). serve_mode must be the one the state
-    was made for."""
+def _check_mask(state: Dict, mask, what: str) -> None:
+    if mask is not None and not isinstance(state["pos"], torch.Tensor):
+        raise ValueError(f"{what} needs a per-slot pos vector "
+                         "(decode_state_init(per_slot_pos=True)); a scalar pos "
+                         "cannot be masked per row")
+
+
+def decode_step_(params: Dict, cfg: ArchConfig, state: Dict, tokens: torch.Tensor, *,
+                 serve_mode: str = "armt", mask: Optional[torch.Tensor] = None):
+    """In place (the port of the reference's donated state): tokens [B]
+    (one step) or [B, Tq] (a chunk) -> fp32 logits of the last position [B,
+    V]; the new k/v rows are written into the caches, each layer's new
+    recurrent leaves into the stacked state, and pos advances by Tq (a
+    per-slot tensor on the device; a Python int is replaced). mask: bool
+    [B] (per-slot pos only): rows where it is False keep every leaf and pos
+    bit for bit, their logits to be discarded. serve_mode must be the one
+    the state was made for."""
+    _check_mask(state, mask, "decode_step_(mask=...)")
     layout = StackLayout.from_config(cfg)
     pos = state["pos"]
     toks = tokens if tokens.dim() == 2 else tokens[:, None]
     x = params["embed"][toks]
     exec_params, exec_state = _exec(params, state)
-    ys, fin = run_sequential(layout, exec_params, exec_state, x[None],
-                             make_decode_apply(cfg, serve_mode, pos))
+    ys = run_sequential_(layout, exec_params, exec_state, x[None],
+                         make_decode_apply(cfg, serve_mode, pos, mask), row_mask=mask)
     h = rmsnorm(ys[0, :, -1], params["final_norm"])
-    return (_head_matmul(params, cfg, h).float(),
-            {"prelude": fin["prelude"], "pattern": fin["pattern"],
-             "pos": pos + toks.shape[1]})
+    Tq = toks.shape[1]
+    if not isinstance(pos, torch.Tensor):
+        state["pos"] = pos + Tq
+    elif mask is None:
+        pos.add_(Tq)
+    else:
+        pos.add_(mask.long() * Tq)
+    return _head_matmul(params, cfg, h).float()
+
+
+def decode_step(params: Dict, cfg: ArchConfig, state: Dict, tokens: torch.Tensor, *,
+                serve_mode: str = "armt"):
+    """Functional ``decode_step_``: (logits [B, V], new state); ``state`` is
+    not modified."""
+    new = clone_state(state)
+    return decode_step_(params, cfg, new, tokens, serve_mode=serve_mode), new
 
 
 def mask_decode_state(mask: torch.Tensor, new_state: Dict, old_state: Dict) -> Dict:
     """Per-row merge of two decode states: rows where ``mask`` (bool [B]) is
     True take ``new_state``, the others keep ``old_state``. Pattern leaves
-    are [n_super, B, ...]; a per-slot ``pos`` is [B]."""
+    are [n_super, B, ...]; a per-slot ``pos`` is [B]. (The serving path
+    freezes rows in place instead: ``decode_step_(mask=)``.)"""
     def sel(n, o, axis):
         shape = [1] * n.dim()
         shape[axis] = mask.shape[0]
@@ -373,41 +474,51 @@ def mask_decode_state(mask: torch.Tensor, new_state: Dict, old_state: Dict) -> D
     return out
 
 
-def flush_segment(params: Dict, cfg: ArchConfig, state: Dict,
-                  slot_mask: Optional[torch.Tensor] = None) -> Dict:
-    """ARMT segment boundary: run the memory tokens through the stack
-    against the current-segment cache (at positions pos..pos+M-1),
-    delta-update every layer's (A, z), then reset the cache and pos.
+def flush_segment_(params: Dict, cfg: ArchConfig, state: Dict,
+                   mask: Optional[torch.Tensor] = None) -> None:
+    """ARMT segment boundary, in place: run the memory tokens through the
+    stack against the current-segment cache (at positions pos..pos+M-1),
+    delta-update every layer's (A, z), then zero the caches and reset pos.
 
-    slot_mask: optional bool [B]: flush only those rows (decode slots). The
-    flush is computed for every row and merged with ``mask_decode_state``,
-    so the other rows' state, cache and pos stay as they were; it needs a
-    per-slot ``pos`` vector."""
+    mask: optional bool [B] (per-slot pos only): flush only those rows; the
+    others keep every leaf and pos bit for bit."""
     if cfg.armt is None:
         raise ValueError(f"{cfg.name}: flush_segment needs cfg.armt; a model "
                          "without ARMT has no segment boundary to flush")
-    if slot_mask is not None and not isinstance(state["pos"], torch.Tensor):
-        raise ValueError("flush_segment(slot_mask=...) needs a per-slot pos vector "
-                         "(decode_state_init(per_slot_pos=True)); a scalar pos "
-                         "cannot be reset per row")
+    _check_mask(state, mask, "flush_segment(slot_mask=...)")
     layout = StackLayout.from_config(cfg)
     mem = params["mem_tokens"]
     batch = state["pattern"][0]["A"].shape[1]
     x = mem[None].expand(batch, -1, -1)
-    base = make_decode_apply(cfg, "armt", state["pos"])
+    base = make_decode_apply(cfg, "armt", state["pos"], mask)
+    drop = None if mask is None else mask.reshape(-1, 1, 1, 1)
 
     def apply(t, p, xx, st):
         y, new = base(t, p, xx, st)
-        new.update(mem_update(p["mem"], {"A": st["A"], "z": st["z"]}, y, cfg.armt))
-        new["k"] = torch.zeros_like(st["k"])
-        new["v"] = torch.zeros_like(st["v"])
+        new = dict(new, **mem_update(p["mem"], {"A": st["A"], "z": st["z"]}, y, cfg.armt))
+        for k in ("k", "v"):
+            if drop is None:
+                st[k].zero_()
+            else:
+                st[k].masked_fill_(drop, 0)
         return y, new
 
     exec_params, exec_state = _exec(params, state)
-    _, fin = run_sequential(layout, exec_params, exec_state, x[None], apply)
+    run_sequential_(layout, exec_params, exec_state, x[None], apply, row_mask=mask)
     pos = state["pos"]
-    flushed = {"prelude": fin["prelude"], "pattern": fin["pattern"],
-               "pos": torch.zeros_like(pos) if isinstance(pos, torch.Tensor) else 0}
-    if slot_mask is None:
-        return flushed
-    return mask_decode_state(slot_mask, flushed, state)
+    if not isinstance(pos, torch.Tensor):
+        state["pos"] = 0
+    elif mask is None:
+        pos.zero_()
+    else:
+        pos.masked_fill_(mask, 0)
+
+
+def flush_segment(params: Dict, cfg: ArchConfig, state: Dict,
+                  slot_mask: Optional[torch.Tensor] = None) -> Dict:
+    """Functional ``flush_segment_``: the flushed state; ``state`` is not
+    modified. slot_mask: optional bool [B]: flush only those rows (decode
+    slots); it needs a per-slot ``pos`` vector."""
+    new = clone_state(state)
+    flush_segment_(params, cfg, new, slot_mask)
+    return new

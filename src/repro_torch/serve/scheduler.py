@@ -1,12 +1,13 @@
 """Continuous-batching scheduler: a fixed pool of decode slots fed from a
 request queue, with blocking admission.
 
-Each slot is one batch row of a pooled decode state (``per_slot_pos``: the
-state's ``pos`` is an int64 [n_slots] vector) and owns that request's
+Each slot is one batch row of a pooled decode state (the static state of the
+engine's ``DecodeProgram`` of n_slots rows: its ``pos`` is an int64
+[n_slots] vector) and owns that request's
 recurrent state of every layer (ARMT memory A, z and the current-segment
 KV cache; or Mamba's h and conv tail; in the engine's cache mode a KV cache
 of ``max_len`` rows) and its position, so requests at different segment
-phases decode together in one ``decode_step``.
+phases decode together in one step.
 
 A request is admitted by prefilling it alone at B = 1 (``ServeEngine.prefill``:
 the diagonal prefill on the fused cell, then the prompt tail; in cache mode
@@ -16,11 +17,15 @@ touched. Admission blocks: it runs between decode chunks, which is the
 reference's ``prefill_groups_per_chunk=0`` mode. Interleaved admission
 (the resumable prefill pipeline) is not ported.
 
-A decode chunk is ``chunk`` steps of one packed ``decode_step`` over every
-slot. Rows of inactive slots are frozen with ``mask_decode_state``, and
-``flush_segment(slot_mask=...)`` flushes exactly the slots whose position
-reached ``seg_len`` (ARMT models in 'armt' mode only: a pure-SSM model has
-no segment boundary, and cache mode none; their slots never flush). In
+A decode chunk is ``chunk`` steps of the program's packed step over every
+slot (a CUDA graph on the card, replayed per step), reading its static
+``active`` mask: the rows of inactive slots keep every leaf bit for bit.
+The program's masked flush, reading its static ``boundary`` mask, flushes
+exactly the slots whose position reached ``seg_len`` (ARMT models in
+'armt' mode only: a pure-SSM model has no segment boundary, and cache mode
+none; their slots never flush). Both are applied masked whatever the
+masks hold; a step in which no slot is active, and a flush no slot
+reaches, are not replayed. In
 cache mode a request whose prompt and new tokens exceed ``max_len`` is
 rejected with ``invalid_request``. Which slots are active and which cross a boundary at
 each step is known on the host from each slot's position and remaining
@@ -46,8 +51,6 @@ from typing import Iterable, Iterator, Optional, Union
 
 import numpy as np
 import torch
-
-from repro_torch.models.model import flush_segment, mask_decode_state
 
 
 @dataclass
@@ -115,10 +118,13 @@ class ContinuousScheduler:
         self.n_slots = n_slots
         self.chunk = chunk
         self.max_queue = max_queue
-        dev = engine.device
-        self.pool = engine.decode_state(n_slots, per_slot_pos=True)
-        self.tok = torch.zeros(n_slots, dtype=torch.long, device=dev)   # next input
-        self.finite = torch.ones(n_slots, dtype=torch.bool, device=dev)
+        self.prog = engine.program(n_slots, "serve")
+        self.prog.prepare()                 # capture before any slot holds data
+        self.pool = self.prog.state
+        self.tok = self.prog.tok            # each slot's next input
+        self.finite = self.prog.finite
+        self.tok.zero_()
+        self.finite.fill_(True)
         self.slots = [_Slot() for _ in range(n_slots)]
         self.free: deque = deque(range(n_slots))
 
@@ -205,25 +211,21 @@ class ContinuousScheduler:
         (the step inputs [chunk, n_slots] on the device, the emit mask on
         the host). A step in which no slot is active changes nothing and is
         skipped."""
-        eng = self.engine
+        prog = self.prog
         active, boundary = self._plan_chunk()
-        masks = torch.from_numpy(np.stack([active, boundary])).to(eng.device)
-        toks = []
+        masks = torch.from_numpy(np.stack([active, boundary])).to(self.engine.device)
+        toks = torch.empty(self.chunk, self.n_slots, dtype=torch.long,
+                           device=self.engine.device)
         for t in range(self.chunk):
-            toks.append(self.tok)
+            toks[t] = self.tok
             if not active[t].any():
                 continue
-            act = masks[0, t]
-            logits, new = eng.step(self.pool, self.tok)
-            if not active[t].all():
-                new = mask_decode_state(act, new, self.pool)
+            prog.active.copy_(masks[0, t])
+            prog.step()
             if boundary[t].any():
-                new = flush_segment(eng.params, eng.cfg, new,
-                                    slot_mask=None if boundary[t].all() else masks[1, t])
-            self.pool = new
-            self.finite &= torch.isfinite(logits).all(-1) | ~act
-            self.tok = torch.where(act, logits.argmax(-1), self.tok)
-        return torch.stack(toks), active
+                prog.boundary.copy_(masks[1, t])
+                prog.flush()
+        return toks, active
 
     def _drain_chunk(self, toks, active) -> Iterator[StreamEvent]:
         """Bring one chunk's tokens (and the slots' finite flags) to the host

@@ -11,7 +11,12 @@ ragged T, hd 64 and 128, windows and the cell's strided 5-D layout; the
 split decode kernel at chunk edges, and a row batched or alone giving the
 same bits; the long shapes of the full-attention and full-KV paths (flash
 at T = S = 16,384 and 131,072, decode over 131,136 keys), the cache-mode
-prefill against full mode and sampling on the device. Needs a CUDA device and nvcc; skips without a card. This file
+prefill against full mode and sampling on the device; and the captured
+programs (llama's generate, greedy and sampled, and serve; cache-mode
+generate; falcon's generate and serve; the sequential schedule's segment)
+against the same programs run
+eagerly, to the bit, with equal launch counts, and a failed capture
+raising. Needs a CUDA device and nvcc; skips without a card. This file
 imports no JAX; with ``--noconftest`` (tests/conftest.py imports JAX) it
 runs on a machine that has only PyTorch:
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``."""
@@ -577,3 +582,165 @@ def test_sampling_deterministic_on_card(cuda):
     assert not np.array_equal(eng.generate(prompts, 24, seed=8, **kw).tokens, a)
     greedy = eng.generate(prompts, 24).tokens
     assert np.array_equal(eng.generate(prompts, 24, temperature=0.5, top_k=1).tokens, greedy)
+
+
+# ------------------------------------------------------------ captured programs
+def _bits(t):
+    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32,
+                   torch.int64: torch.int64, torch.bool: torch.bool}[t.dtype])
+
+
+def _same(a, b):
+    """Equal to the bit (NaN and inf included)."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+def _same_state(a, b):
+    assert _same(a["pos"], b["pos"])
+    for part in ("prelude", "pattern"):
+        for da, db in zip(a[part], b[part]):
+            assert da.keys() == db.keys()
+            for k in da:
+                assert _same(da[k], db[k]), (part, k)
+
+
+def _counts():
+    from repro_torch.kernels import build
+    return {f"{m.__name__.rsplit('.', 1)[-1]}.{n}": v
+            for (m, n), v in build.launch_counts().items()}
+
+
+def _counted(fn):
+    """fn() and the kernel launches it counted."""
+    before = _counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+
+
+def _graph_and_eager(params, cfg, run, **engine_kw):
+    """run(engine) on a graph engine and on an eager one: both results and
+    both launch counts (the graph run's first call captures)."""
+    from repro_torch.serve import ServeEngine
+    return [_counted(lambda: run(ServeEngine(params, cfg, eager=eager, **engine_kw)))
+            for eager in (False, True)]
+
+
+def _mid_falcon(cuda):
+    """falcon-mamba-7b's widths (d_model 4096, d_inner 8192, d_state 16) at
+    2 layers and a small vocabulary, bf16, random weights from a seed."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=2, vocab=1024)
+    return cfg, M.init_params(cfg, 0, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,tail,new,sampled", [(1, 1000, 48, False), (2, 990, 40, False),
+                                                (2, 1000, 40, True)])
+def test_generate_graph_equals_eager_on_card(cuda, B, tail, new, sampled):
+    """ARMT generate across a segment flush: the captured step and flush
+    against the same programs run eagerly, to the bit in every token, every
+    step's logits and the final decode state; the same kernel launches."""
+    cfg, params = _mid_llama(cuda)
+    prompts = np.random.default_rng(B).integers(0, cfg.vocab, (B, cfg.armt.segment_len + tail))
+    kw = dict(temperature=0.8, top_k=40, seed=3) if sampled else {}
+    (g, ng), (e, ne) = _graph_and_eager(
+        params, cfg, lambda eng: eng.generate(prompts, new, keep=True, **kw))
+    assert np.array_equal(g.tokens, e.tokens) and g.finite and e.finite
+    assert _same(g.logits, e.logits)
+    _same_state(g.state, e.state)
+    assert ng == ne and ng["decode_attention.launches"] == (new - 1) * cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_serve_graph_equals_eager_on_card(cuda):
+    """6 requests on 4 slots, chunk 8, slots flushing at different steps:
+    the captured packed step and masked flush against eager, each
+    request's events equal; the same kernel launches."""
+    from repro_torch.serve import Request
+    cfg, params = _mid_llama(cuda)
+    seg = cfg.armt.segment_len
+    rng = np.random.default_rng(4)
+    spec = [(1000, 40), (990, 30), (1010, 24), (300, 20), (980, 36), (10, 16)]
+    reqs = [Request(i, rng.integers(0, cfg.vocab, seg + n), m) for i, (n, m) in enumerate(spec)]
+
+    def run(eng):
+        return [(e.req_id, e.token, e.index, e.done, e.finite)
+                for e in eng.serve(reqs, n_slots=4, chunk=8)]
+    (g, ng), (e, ne) = _graph_and_eager(params, cfg, run)
+    assert g == e and len(g) == sum(m for _, m in spec)
+    assert ng == ne
+
+
+@pytest.mark.cuda
+def test_cache_generate_graph_equals_eager_on_card(cuda):
+    """Full-KV decode from a captured step over a 2,048-row cache: graph
+    and eager equal to the bit; the cache keeps its address (no clone)."""
+    cfg, params = _mid_llama(cuda)
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab, (2, 1500))
+    (g, ng), (e, ne) = _graph_and_eager(
+        params, cfg, lambda eng: eng.generate(prompts, 48, keep=True),
+        serve_mode="cache", max_len=2048)
+    assert np.array_equal(g.tokens, e.tokens) and _same(g.logits, e.logits)
+    _same_state(g.state, e.state)
+    assert ng == ne
+
+
+@pytest.mark.cuda
+def test_falcon_graph_equals_eager_on_card(cuda):
+    """Mamba decode (h and the conv tail in static buffers) from a captured
+    step: generate and serve equal graph and eager, the same launches."""
+    from repro_torch.serve import Request
+    cfg, params = _mid_falcon(cuda)
+    rng = np.random.default_rng(6)
+    prompts = rng.integers(0, cfg.vocab, (2, 300))
+    (g, ng), (e, ne) = _graph_and_eager(
+        params, cfg, lambda eng: eng.generate(prompts, 24, keep=True), max_len=256)
+    assert np.array_equal(g.tokens, e.tokens) and _same(g.logits, e.logits)
+    _same_state(g.state, e.state)
+    assert ng == ne and ng["mamba_scan.launches"] > 23 * cfg.n_layers
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n), m)
+            for i, (n, m) in enumerate([(300, 9), (40, 14), (520, 6)])]
+
+    def run(eng):
+        return [(e.req_id, e.token, e.index, e.done) for e in eng.serve(reqs, n_slots=2, chunk=4)]
+    (g, ng), (e, ne) = _graph_and_eager(params, cfg, run, max_len=256)
+    assert g == e and ng == ne
+
+
+@pytest.mark.cuda
+def test_sequential_segment_graph_on_card(cuda):
+    """forward_hidden(schedule='sequential') replays one captured graph
+    per segment: equal to the bit to the eager sequential run and to the
+    diagonal one (hidden states and every layer's final A and z), with the
+    eager run's launch counts; a second call reuses the graph."""
+    from repro_torch.models import model as M
+    cfg, params = _mid_llama(cuda)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (1, 4 * cfg.armt.segment_len))).to(cuda)
+
+    def fwd(**kw):
+        with torch.no_grad():
+            return M.forward_hidden(params, cfg, toks, **kw)
+    _counted(lambda: fwd(schedule="sequential"))                    # captures
+    (hg, fg), ng = _counted(lambda: fwd(schedule="sequential"))
+    (he, fe), ne = _counted(lambda: fwd(schedule="sequential", eager=True))
+    hd, fd = fwd(schedule="diagonal")
+    assert ng == ne and ng["flash_attention.launches"] == 4 * cfg.n_layers
+    for h, f in ((he, fe), (hd, fd)):
+        assert _same(hg, h)
+        for k in ("A", "z"):
+            assert _same(fg["pattern"][0][k], f["pattern"][0][k]), k
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_on_card(cuda):
+    """A program that reads a device value on the host cannot be captured:
+    the capture raises, nothing falls back."""
+    from repro_torch.core.capture import Program
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError):
+        Program(lambda: x.sum().item(), cuda, capture=True)
+    torch.cuda.synchronize()

@@ -10,7 +10,9 @@ with torch.profiler (CPU and CUDA activity):
 
   prefill  one diagonal prefill of ``--segments`` 1024-token segments
            (forward_hidden on the fused grouped cell)
-  decode   ``--decode-steps`` greedy decode_step calls at ``--batch`` rows
+  decode   ``--decode-steps`` greedy steps at ``--batch`` rows as
+           ``ServeEngine`` runs them: replays of its ``DecodeProgram``'s
+           captured step; "decode eager" the same step uncaptured
 
 For each it prints the wall time (host clock, ending in a synchronize; also
 of one run without the profiler, which costs host time per op), the
@@ -66,6 +68,7 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
 
     dev = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -84,25 +87,32 @@ def main() -> int:
     def prefill():
         M.forward_hidden(params, cfg, toks, schedule="diagonal")
 
-    state = M.decode_state_init(cfg, args.batch, dtype=params["embed"].dtype, device=dev)
     tok = torch.from_numpy(rng.integers(0, cfg.vocab, args.batch)).to(dev)
 
-    @torch.no_grad()
-    def decode():
-        st, t = state, tok
-        for _ in range(args.decode_steps):
-            logits, st = M.decode_step(params, cfg, st, t)
-            t = logits.argmax(-1)
+    def decoder(eager):
+        prog = ServeEngine(params, cfg, eager=eager).program(args.batch)
+        prog.prepare()
+        prog.tok.copy_(tok)
+
+        @torch.no_grad()
+        def decode():
+            for _ in range(args.decode_steps):
+                prog.step()
+        return decode
 
     prefill()
+    decode, decode_eager = decoder(False), decoder(True)
     decode()
+    decode_eager()
     sync()
     out = {"src": str(args.src), "layers": args.layers, "segments": args.segments, "batch": args.batch,
            "decode_steps": args.decode_steps,
            "prefill": profile("prefill", prefill, sync, KINDS, args.trace_dir, args.top,
                               "falcon"),
            "decode": profile("decode", decode, sync, KINDS, args.trace_dir, args.top,
-                             "falcon")}
+                             "falcon"),
+           "decode eager": profile("decode eager", decode_eager, sync, KINDS, args.trace_dir,
+                                   args.top, "falcon")}
     print(json.dumps(out))
     return 0
 

@@ -12,18 +12,23 @@ paper's three schedules, all on the port's kernels, after a warm-up:
               segment of the whole prompt, no memory (the full-attention
               baseline)
   sequential  forward_hidden(schedule="sequential"): the fused cell one
-              (segment, layer) at a time (sequential ARMT)
+              (segment, layer) at a time (sequential ARMT), each segment a
+              replay of one captured CUDA graph; "sequential eager" the
+              same uncaptured
   diagonal    forward_hidden(schedule="diagonal"): the fused cell over the
               anti-diagonal bands (diagonal batching)
 
-and one cache-mode decode step (B = 1) over a full KV cache of
-``--cache-rows`` rows. For each it prints the wall time (host clock ending
-in a synchronize; also of one run without the profiler), the summed device
-time of every kernel and copy, the device's idle share (1 - device / wall),
-the device time by kind (flash attention, the grouped GEMM and cuBLAS,
-the ARMT memory kernels, decode attention, copies, PyTorch's elementwise
-kernels) and the kernels with the most device time, and last one JSON line.
-Nothing is gated. ``--src`` imports ``repro_torch`` from another tree.
+then decode as ``ServeEngine`` runs it, each step of its ``DecodeProgram``
+a CUDA graph replay ("graph") or the same step uncaptured ("eager"): one
+cache-mode step (B = 1) over a full KV cache of ``--cache-rows`` rows, and
+``--decode-steps`` ARMT steps at B = 1. For each it prints the wall time
+(host clock ending in a synchronize; also of one run without the
+profiler), the summed device time of every kernel and copy, the device's
+idle share (1 - device / wall), the device time by kind (flash attention,
+the grouped GEMM and cuBLAS, the ARMT memory kernels, decode attention,
+copies, PyTorch's elementwise and indexing kernels) and the kernels with
+the most device time, and last one JSON line. Nothing is gated. ``--src``
+imports ``repro_torch`` from another tree (one with ``DecodeProgram``).
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ def main() -> int:
                     help="directory holding the repro_torch package to profile")
     ap.add_argument("--tokens", type=int, nargs="+", default=[16384, 131072])
     ap.add_argument("--cache-rows", type=int, default=131136)
+    ap.add_argument("--decode-steps", type=int, default=32)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--trace-dir", type=Path, default=None,
                     help="write gzipped Chrome traces here")
@@ -67,6 +73,7 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -92,6 +99,7 @@ def main() -> int:
         tk = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n_tok))).to(dev)
         for label, kw in [("full", dict(mode="full", schedule="sequential")),
                           ("sequential", dict(schedule="sequential")),
+                          ("sequential eager", dict(schedule="sequential", eager=True)),
                           ("diagonal", dict(schedule="diagonal"))]:
             fn = run(tk, **kw)
             fn()
@@ -99,21 +107,33 @@ def main() -> int:
             out[f"{label} {n_tok}"] = profile(f"{label} {n_tok}", fn, sync, KINDS,
                                               args.trace_dir, args.top, "schedules")
             torch.cuda.empty_cache()
-    state = M.decode_state_init(cfg, 1, dtype=torch.bfloat16, device=dev, serve_mode="cache",
-                                max_len=args.cache_rows)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for k in ("k", "v"):
-        state["pattern"][0][k].normal_(generator=gen)
-    state["pos"] = args.cache_rows - 1
-    tok = torch.from_numpy(rng.integers(0, cfg.vocab, 1)).to(dev)
+    for label, eager in (("graph", False), ("eager", True)):
+        prog = ServeEngine(params, cfg, serve_mode="cache", max_len=args.cache_rows,
+                           eager=eager).program(1)
+        prog.prepare()
+        for k in ("k", "v"):
+            prog.state["pattern"][0][k].normal_(generator=gen)
+        prog.state["pos"].fill_(args.cache_rows - 1)
+        step = torch.no_grad()(prog.step)
+        step()
+        sync()
+        name = f"cache decode step {args.cache_rows} {label}"
+        out[name] = profile(name, step, sync, KINDS, args.trace_dir, args.top, "schedules")
+        del prog, step
+        torch.cuda.empty_cache()
+        prog = ServeEngine(params, cfg, eager=eager).program(1)
+        prog.prepare()
 
-    @torch.no_grad()
-    def step():
-        M.decode_step(params, cfg, state, tok, serve_mode="cache")
-    step()
-    sync()
-    label = f"cache decode step {args.cache_rows}"
-    out[label] = profile(label, step, sync, KINDS, args.trace_dir, args.top, "schedules")
+        @torch.no_grad()
+        def steps():
+            for _ in range(args.decode_steps):
+                prog.step()
+        steps()
+        sync()
+        name = f"ARMT decode {args.decode_steps} steps B=1 {label}"
+        out[name] = profile(name, steps, sync, KINDS, args.trace_dir, args.top, "schedules")
+        del prog
     print(json.dumps(out))
     return 0
 
