@@ -90,6 +90,31 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       each, host wall and CUDA-event time, peak memory, and the ratios
       beside the paper's 3.3x and 1.8x (quoted).
 
+  (o) interleaved admission, llama-1b-armt at full width and depth: the
+      resumable pipeline (pipeline_step at k = 1, 4 and 31, then one
+      overshoot step) against run_diagonal over 16 segments, every
+      segment's hidden states, the last logits and every layer's A and z
+      to the bit; boundary states c = 1, 4, 16 of the capture against
+      run_diagonal over c segments, and stream_ys's brow and win against
+      the full ys, to the bit; the pooled step over members of 4, 8 and 16
+      segments at cursors 0, 5 and past the end (k = 4), each member to
+      the bit against its own steps, one pooled band step launching what
+      one member's band step launches; (e)'s requests through serve at k
+      = 0 (blocking), 1, 4 (phase (e)'s run), -1, one admission at a
+      time, oldest first and fused, every request's events equal to
+      blocking's, with tok/s and the band steps pooled; the stall run (3
+      requests decoding on 4 slots while a 16-segment prompt arrives) at
+      k = 0 and 4: aggregate tok/s, each request's TTFT and the longest
+      host gap between two chunks of a decoding slot (informational); the
+      byte budget (prefill_activation_bytes(4, stream)) streaming the
+      16-segment prompt in stages of 4, its tokens equal to blocking's,
+      and the admission's peak memory, streaming and full ys, each at or
+      below its estimate. After (h): falcon-mamba's (h) run (k = 4) and a fused k = 4
+      run against a blocking run, every request's events equal. Prints a
+      ``{"interleave": ...}`` and an ``{"interleave_falcon": ...}`` line.
+      The kernel phase also holds the GEMM's layer index (24 groups over
+      16 layers at the FFN up shape, and an odd shape) to the bit against
+      the launch on the gathered weights, and times both.
   (f) falcon-mamba-7b at full width and depth (random weights from a seed,
       bf16): the 16-segment prefill, diagonal on the kernels against the
       sequential schedule on the kernels (every segment's hidden states and
@@ -117,17 +142,20 @@ place), and so does the sequential schedule's segment; the eager engines
 to be held against them here and in the card tests.
 
 The kernels' launch counters are set to 0 just before each main-path run
-of (d), (e), (i), (k), (l), (g) and (h) and read just after it (a phase's
-count is the sum over its runs; a graph replay counts what its capture
-launched, so the counts read the same under graphs as eager): every
-llama kernel must have been launched in (d), every one but armt_update (which runs only at
-B > 1) in (e), the GEMM and flash in (i) and flash and decode attention in
-(k) and (l), with none of the ARMT memory kernels there, and mamba_scan in
-(g) and in (h). The GEMM's and flash attention's
+of (d), (e), (i), (k), (l), (o), (g), (h) and falcon's fused run of (o),
+and read just after it (a phase's count is the sum over its runs; a
+graph replay counts what its capture launched, so the counts read the
+same under graphs as eager): every llama kernel must have been launched
+in (d), every one but armt_update (which runs only at B > 1) in (e) and
+in (o)'s interleaved serve runs (``serve_interleaved``), the GEMM and
+flash in (i) and flash and decode attention in (k) and (l), with none of
+the ARMT memory kernels there, and mamba_scan in (g), (h) and falcon's
+interleaved run. ``serve`` runs at its default of 4 band steps per
+chunk (interleaved admission) in (e), (l) and (h). The GEMM's and flash attention's
 launches are also counted by route (the TMA + wgmma kernel or the fp32 SIMT
 kernel; for the GEMM whoever called it: projections, the fused op, the
 ARMT kernels' projections): the bf16 llama runs of (d),
-(e), (i), (k) and (l) must launch no SIMT GEMM and no SIMT flash. One decode_attention
+(e), (i), (k), (l) and (o) must launch no SIMT GEMM and no SIMT flash. One decode_attention
 call (its partials and their combine) counts as one launch.
 The script prints JSON lines of the schedules' timing, of the graph
 phase (every graph-against-eager check with its rates) and of the kernel
@@ -177,8 +205,9 @@ def main() -> int:
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import (armt_memory, build, decode_attention, flash_attention,
                                      grouped_matmul, mamba_scan, ops, swap)
+    from repro_torch.core import diagonal as diag
     from repro_torch.models import model as M
-    from repro_torch.serve import Request, RequestError, ServeEngine
+    from repro_torch.serve import ContinuousScheduler, Request, RequestError, ServeEngine
 
     counters = {"grouped_matmul": (grouped_matmul, "launches"),
                 "flash_attention": (flash_attention, "launches"),
@@ -409,6 +438,44 @@ def main() -> int:
               grouped_matmul.grouped_matmul_plain(xo.float(), wo.float(), bo.float(),
                                                   activation="gelu"),
               TOL_F32 if dtype == torch.float32 else TOL_BF16)
+
+    # the layer index of a pooled band step: group i reads w[widx[i]] of the
+    # stack, held to the bit against the same launch on the weights
+    # gathered into group order; the main-path shape is two bands (16 + 8
+    # layers) of the FFN up projection in one launch over the 16-layer stack
+    gmm_index = {}
+    for label, (g_, r_, k_, n_, lw, act, with_bias) in [
+            ("main 24 groups from 16 layers, up 2048x8192", (24, T, D, F, 16, None, False)),
+            ("odd 5 groups from 3 layers, bias+gelu", (5, 130, 72, 136, 3, "gelu", True))]:
+        xo, wo = rnd(g_, r_, k_), rnd(lw, k_, n_, scale=k_ ** -0.5)
+        bo = rnd(lw, n_) if with_bias else None
+        order = (list(range(16)) + list(range(8)) if g_ == 24
+                 else [2, 0, 0, 1, 2])
+        idx = torch.tensor(order, device=dev)
+        widx = idx.to(torch.int32)
+        wg = wo[idx].contiguous()
+        bg = bo[idx].contiguous() if with_bias else None
+        got = grouped_matmul.grouped_matmul(xo, wo, bo, activation=act, widx=widx)
+        want = grouped_matmul.grouped_matmul(xo, wg, bg, activation=act)
+        same = same_bits(got, want)
+        row = dict(bitwise=same,
+                   ms_indexed=time_ms(lambda: grouped_matmul.grouped_matmul(
+                       xo, wo, bo, activation=act, widx=widx)),
+                   ms_gathered=time_ms(lambda: grouped_matmul.grouped_matmul(
+                       xo, wg, bg, activation=act)),
+                   ms_gather_then_launch=time_ms(lambda: grouped_matmul.grouped_matmul(
+                       xo, wo[idx], None if bo is None else bo[idx], activation=act)),
+                   route=grouped_matmul.route(xo, wo, got))
+        log(f"  grouped_matmul layer index, {label}: equal to the gathered launch to the "
+            f"bit {same}; indexed {row['ms_indexed']:.4f} ms, gathered weights "
+            f"{row['ms_gathered']:.4f} ms, gather + launch {row['ms_gather_then_launch']:.4f} "
+            f"ms (route {row['route']}) -> {'ok' if same else 'FAIL'}; card {smi}")
+        if not same:
+            failures.append(f"grouped_matmul layer index {label}")
+        gmm_index[label] = row
+        del xo, wo, bo, wg, bg, got, want
+    summary["grouped_matmul"]["layer_index"] = gmm_index
+    torch.cuda.empty_cache()
 
     # flash_attention: the cell's 5-D layout, read through strides
     q5, k5, v5 = rnd(G, 1, T, Hq, hd), rnd(G, 1, T, Hkv, hd), rnd(G, 1, T, Hkv, hd)
@@ -1097,18 +1164,26 @@ def main() -> int:
     engine.program(4, "serve").prepare()
     log(f"  capture of the 4-slot step and flush: {time.perf_counter() - t0:.3f} s")
 
-    def serve_run(eng, rq, **kw):
-        """(events, host seconds) of one serve call."""
+    pooled = {}
+    first_serve = "k=4 (phase (e), the first interleaved serve)"
+
+    def serve_run(eng, rq, label=None, **kw):
+        """(events, host seconds) of one serve call; under ``label``, the
+        band steps its admission rounds pooled (``diag.pool_counts``)."""
+        diag.pool_counts.update(steps=0, member_steps=0)
         t0 = time.perf_counter()
         evs = list(eng.serve(rq, n_slots=4, chunk=8, **kw))
         sync()
+        if label is not None:
+            pooled[label] = dict(diag.pool_counts)
         return evs, time.perf_counter() - t0
 
     def streams(evs):
         return [(e.req_id, e.token, e.index, e.done, e.finite) for e in evs
                 if not isinstance(e, RequestError)]
 
-    (events, t_serve), launches_serve, routes_serve = counted(lambda: serve_run(engine, reqs))
+    (events, t_serve), launches_serve, routes_serve = counted(
+        lambda: serve_run(engine, reqs, first_serve))
     log(f"  launches in the serve phase: {launches_serve}; GEMM and flash launches by "
         f"route {routes_serve}")
     for name in llama_kernels:
@@ -1120,7 +1195,8 @@ def main() -> int:
     errors = [e for e in events if isinstance(e, RequestError)]
     n_tok = len(events) - len(errors)
     log(f"  {len(reqs)} requests, {n_tok} tokens in {t_serve:.3f} s: aggregate "
-        f"{n_tok / t_serve:.1f} tok/s (admission prefills included); card {smi}")
+        f"{n_tok / t_serve:.1f} tok/s (admission prefills included); pooled band steps "
+        f"{pooled[first_serve]}; card {smi}")
     if errors:
         failures.append(f"serve rejected {errors}")
     for r in reqs:
@@ -1517,6 +1593,260 @@ def main() -> int:
     print(json.dumps({"schedules": sched_timing, "schedules_exact": schedules_exact,
                       "decode_step": decode_step_rows, "card": smi}))
 
+    # ------------------------------------------------------------ (o) interleaved admission
+    log("== interleaved admission: llama-1b-armt, full width and depth, bf16, seed 0")
+    from repro_torch.core.schedule import StackLayout, n_diagonal_groups
+    layout = StackLayout.from_config(cfg)
+    L = layout.n_layers
+    exec_p = {"prelude": params["prelude"], "pattern": params["pattern"]}
+    interleave = {}
+
+    def same_tree(a, b):
+        return all(same_bits(a[k], b[k]) for k in a)
+
+    def embedded(n_seg, seed):
+        tk = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (1, n_seg * seg))).to(dev)
+        return M.embed_segments(params, cfg, tk, seg)
+
+    with torch.no_grad():
+        # (o1) the resumable pipeline against the one-shot executor, to the bit
+        x16 = embedded(16, 101)
+        st0 = M.init_state(cfg, 1, dev)
+        n_steps = n_diagonal_groups(16, L)
+        ys_ref, fin_ref, cap_ref = diag.run_diagonal(layout, exec_p, st0, x16, engine._apply,
+                                                  grouped_apply=engine._gapply,
+                                                  capture_states=True)
+        logits_ref = M.last_logits(params, cfg, ys_ref[:, :, :seg])
+        pipe_ok = {}
+        for k in (1, 4, n_steps):
+            xs, carry = diag.pipeline_init(layout, st0, x16)
+            calls = 0
+            t0 = time.perf_counter()
+            while calls * k < n_steps:
+                engine.prefill_step(xs, carry, k)
+                calls += 1
+            sync()
+            t_pipe = time.perf_counter() - t0
+            before = carry["ys"].clone()
+            engine.prefill_step(xs, carry, 1)              # one overshoot step: a no-op
+            ys_p, fin_p, _ = diag.pipeline_finalize(layout, carry)
+            ok = (same_bits(ys_p, ys_ref) and same_bits(before, ys_p)
+                  and same_bits(M.last_logits(params, cfg, ys_p[:, :, :seg]), logits_ref)
+                  and same_tree(fin_p["pattern"][0], fin_ref["pattern"][0]))
+            pipe_ok[f"k={k}"] = dict(bitwise=ok, calls=calls, host_s=t_pipe)
+            log(f"  pipeline_step k={k} ({calls} calls + 1 overshoot, {t_pipe:.3f} s host) vs "
+                f"run_diagonal, 16 segments: every segment's hidden states, the last logits, "
+                f"every layer's A and z to the bit {ok} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"pipeline_step k={k} vs run_diagonal")
+            del xs, carry, before, ys_p, fin_p
+        interleave["pipeline_vs_run_diagonal"] = pipe_ok
+
+        # (o2) capture: boundary c against a run over the first c segments;
+        # stream: brow and win against the full ys
+        bs = diag.boundary_states_from_capture(layout, cap_ref, 16)
+        cap_ok = {}
+        for c in (1, 4, 16):
+            _, fin_c = diag.run_diagonal(layout, exec_p, st0, x16[:c], engine._apply,
+                                      grouped_apply=engine._gapply)
+            ok = all(same_bits(bs["pattern"][0][k][c - 1], fin_c["pattern"][0][k])
+                     for k in ("A", "z"))
+            cap_ok[f"c={c}"] = ok
+            log(f"  capture: boundary {c} vs the final state of run_diagonal over {c} "
+                f"segments, every layer's A and z to the bit {ok} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"capture boundary {c}")
+        del bs, cap_ref
+        out_s, fin_s = diag.run_diagonal(layout, exec_p, st0, x16, engine._apply,
+                                      grouped_apply=engine._gapply, stream_ys=True,
+                                      retain_pos=seg - 1)
+        W = out_s["win"].shape[0]
+        ok = (same_bits(out_s["brow"], ys_ref[:, :, seg - 1])
+              and all(same_bits(out_s["win"][s % W], ys_ref[s]) for s in range(16 - W, 16))
+              and same_tree(fin_s["pattern"][0], fin_ref["pattern"][0]))
+        cap_ok["stream"] = ok
+        log(f"  stream_ys: brow (16 rows) and win ({W} segments) vs the full ys to the bit "
+            f"{ok} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("stream_ys vs full ys")
+        interleave["capture_and_stream"] = cap_ok
+        del out_s, fin_s, ys_ref, fin_ref, x16
+        torch.cuda.empty_cache()
+
+        # (o3) the pooled step: members of 4, 8 and 16 segments at cursors 0,
+        # 5 and past the end, k = 4; each to the bit against its own steps
+        def members():
+            out = []
+            for i, (n_seg, done) in enumerate([(4, 0), (8, 5), (16, n_diagonal_groups(16, L) + 1)]):
+                xs, carry = diag.pipeline_init(layout, st0, embedded(n_seg, 200 + i))
+                engine.prefill_step(xs, carry, done)
+                out.append((None, xs, carry))
+            return out
+        pool_m, own_m = members(), members()
+        sync()
+        _, n_pool, r_pool = counted(lambda: engine.pool_prefill_step_run(1, pool_m))
+        _, n_one, _ = counted(lambda: engine.prefill_step(own_m[1][1], own_m[1][2], 1))
+        for i in (0, 2):
+            engine.prefill_step(own_m[i][1], own_m[i][2], 1)
+        engine.pool_prefill_step_run(4, pool_m)
+        for _, xs, carry in own_m:
+            engine.prefill_step(xs, carry, 4)
+        sync()
+        ok_m = [a[2]["step"] == b[2]["step"] and same_bits(a[2]["ys"], b[2]["ys"])
+                and same_bits(a[2]["buf"], b[2]["buf"])
+                and same_tree(a[2]["state"]["pattern"][0], b[2]["state"]["pattern"][0])
+                for a, b in zip(pool_m, own_m)]
+        launches_ok = n_pool == n_one
+        log(f"  pooled step (members of 4, 8, 16 segments at cursors 0, 5, past the end; 1 + "
+            f"4 steps) vs each member's own steps, buffers, outputs, A and z to the bit: "
+            f"{ok_m}; launches of one pooled step {n_pool} vs one member's band step {n_one} "
+            f"(routes {r_pool}) -> {'ok' if all(ok_m) and launches_ok else 'FAIL'}")
+        if not all(ok_m):
+            failures.append(f"pooled step vs own steps {ok_m}")
+        if not launches_ok:
+            failures.append("a pooled band step launched more kernels than one band step")
+        interleave["pooled_step"] = dict(bitwise=ok_m, launches_pool=n_pool,
+                                         launches_one=n_one)
+        del pool_m, own_m
+        torch.cuda.empty_cache()
+
+    # (o4) interleaved serve against blocking, phase (e)'s requests
+    def by_req(evs):
+        out = {}
+        for e in evs:
+            if not isinstance(e, RequestError):
+                out.setdefault(e.req_id, []).append((e.token, e.index, e.done, e.finite))
+        return out
+    (b_events, t_block), _, _ = counted(lambda: serve_run(engine, reqs,
+                                                          prefill_groups_per_chunk=0))
+    blocking = by_req(b_events)
+    n_tok = sum(len(v) for v in blocking.values())
+    settings = {first_serve: None,
+                "k=4": {},
+                "k=1": dict(prefill_groups_per_chunk=1),
+                "k=-1": dict(prefill_groups_per_chunk=-1),
+                "k=4 max_concurrent_admissions=1": dict(max_concurrent_admissions=1),
+                "k=4 oldest_first": dict(admission_fairness="oldest_first"),
+                "k=4 fused": dict(fused_admission=True),
+                "k=1 fused max_concurrent_admissions=1": dict(
+                    prefill_groups_per_chunk=1, fused_admission=True,
+                    max_concurrent_admissions=1)}
+    launches_inter, routes_inter = {}, {}
+    serve_rows = {"k=0 (blocking)": dict(tok_s=n_tok / t_block)}
+    for label, kw in settings.items():
+        if kw is None:
+            evs, t_run = events, t_serve
+        else:
+            (evs, t_run), nl, nr = counted(lambda: serve_run(engine, reqs, label, **kw))
+            launches_inter, routes_inter = merged(launches_inter, nl), merged(routes_inter, nr)
+        ok = by_req(evs) == blocking
+        serve_rows[label] = dict(events_equal_blocking=ok, tok_s=n_tok / t_run,
+                                 pooled_band_steps=pooled[label])
+        log(f"  serve {label}: every request's events equal blocking's {ok}; "
+            f"{n_tok / t_run:.1f} tok/s (blocking {n_tok / t_block:.1f}); pooled band steps "
+            f"{pooled[label]} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"interleaved serve {label} vs blocking")
+    log(f"  launches in the interleaved serve runs: {launches_inter}; GEMM and flash "
+        f"launches by route {routes_inter}")
+    for name in llama_kernels:
+        if launches_inter[name] == 0 and name != "armt_update":   # B > 1 only
+            failures.append(f"{name} never launched by interleaved serve")
+    for k in routed:
+        if routes_inter[k]["simt"] or not routes_inter[k]["wgmma"]:
+            failures.append(f"interleaved serve's {k} left the TMA + wgmma route: "
+                            f"{routes_inter[k]}")
+    interleave["serve_vs_blocking"] = serve_rows
+
+    # the stall run: 3 requests decode on 4 slots while a 16-segment prompt
+    # arrives (the source has nothing for its first pulls after them)
+    short = [Request(f"s{i}", rng.integers(0, cfg.vocab, seg + 100 * (i + 1)), 128)
+             for i in range(3)]
+    long_req = Request("long", rng.integers(0, cfg.vocab, 16 * seg), 16)
+
+    def stall_source():
+        yield from short
+        for _ in range(4):
+            yield None
+        yield long_req
+
+    def stall_run(**kw):
+        diag.pool_counts.update(steps=0, member_steps=0)
+        t0 = time.perf_counter()
+        evs = [e for e in engine.serve(stall_source(), n_slots=4, chunk=8, **kw)
+               if not isinstance(e, RequestError)]
+        sync()
+        wall = time.perf_counter() - t0
+        gaps = []
+        for r in short:
+            ts = sorted({e.t_emit for e in evs if e.req_id == r.req_id})
+            gaps += [b - a for a, b in zip(ts, ts[1:])]
+        return evs, dict(tok_s=len(evs) / wall, wall_s=wall,
+                         ttft_s={e.req_id: e.ttft_s for e in evs if e.index == 0},
+                         longest_gap_s=max(gaps), tokens=len(evs),
+                         pooled_band_steps=dict(diag.pool_counts))
+    stall = {}
+    stall_events = {}
+    stall_run(prefill_groups_per_chunk=0)        # warm-up: the allocator's first 16 segments
+    for i, k in enumerate((0, 4, 4, 0)):
+        stall_events[k], stall[f"k={k} run {i + 1}"] = stall_run(prefill_groups_per_chunk=k)
+        row = stall[f"k={k} run {i + 1}"]
+        log(f"  stall run {i + 1}, k={k}: {row['tokens']} tokens in {row['wall_s']:.3f} s, "
+            f"aggregate {row['tok_s']:.1f} tok/s; TTFT " + ", ".join(
+                f"{r} {t:.3f} s" for r, t in row["ttft_s"].items())
+            + f"; longest host gap between two chunks of a decoding slot "
+            f"{row['longest_gap_s'] * 1e3:.1f} ms; pooled band steps "
+            f"{row['pooled_band_steps']}; card {smi}")
+    ok = by_req(stall_events[0]) == by_req(stall_events[4])
+    log(f"  stall run: k=4 events equal k=0's {ok} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("stall run k=4 vs blocking")
+    interleave["stall_run"] = stall
+
+    # (o5) the byte budget: the 16-segment prompt through the streaming carry
+    # in stages of 4 segments; its tokens, and the admission's peak memory
+    budget = engine.prefill_activation_bytes(4, stream=True)
+    b_evs = list(engine.serve(stall_source(), n_slots=4, chunk=8,
+                              admission_byte_budget=budget))
+    ok = by_req(b_evs) == by_req(stall_events[0])
+    sched = ContinuousScheduler(engine, admission_byte_budget=budget)
+    plan = sched._admission_plan(len(long_req.prompt))
+    ok = ok and plan == (True, 4)
+    peaks = {}
+    with torch.no_grad():
+        for label, kw, est in [
+                ("stream, stages of 4", dict(stream=True, max_stage_segments=4),
+                 budget),
+                ("full ys, one stage of 16", {},
+                 engine.prefill_activation_bytes(16, stream=False))]:
+            torch.cuda.empty_cache()
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            pipe = engine.start_prefill(long_req.prompt[None], groups_per_call=4, **kw)
+            while not pipe.advance():
+                pass
+            sync()
+            peaks[label] = dict(peak_bytes=torch.cuda.max_memory_allocated() - base,
+                                estimate_bytes=est)
+            del pipe
+    bounded = all(v["peak_bytes"] <= v["estimate_bytes"] for v in peaks.values())
+    log(f"  byte budget {budget} B (prefill_activation_bytes(4, stream)): plan {plan}, "
+        f"tokens equal blocking's -> {'ok' if ok else 'FAIL'}; peak memory above the "
+        f"admission's start: " + "; ".join(
+            f"{k} {v['peak_bytes'] / 1e6:.1f} MB (estimate {v['estimate_bytes'] / 1e6:.1f} MB)"
+            for k, v in peaks.items()) + f"; every peak within its estimate "
+        f"-> {'ok' if bounded else 'FAIL'}; card {smi}")
+    if not ok:
+        failures.append("byte-budget serve vs blocking")
+    if not bounded:
+        failures.append(f"an admission's peak memory above prefill_activation_bytes: {peaks}")
+    interleave["byte_budget"] = dict(budget_bytes=budget, plan=list(plan), tokens_equal=ok,
+                                     peaks=peaks)
+    print(json.dumps({"interleave": interleave, "card": smi}))
+    torch.cuda.empty_cache()
+
     del engine, eager_engine, params, events
     torch.cuda.empty_cache()
 
@@ -1775,6 +2105,27 @@ def main() -> int:
     check_graph("falcon-mamba serve, 6 requests on 4 slots", {
         "every request's events equal": streams(events) == streams(e_events)},
         flaunch_serve, ne, graph_tok_s=n_tok / t_serve, eager_tok_s=n_tok / t_eserve)
+    # (o6) falcon-mamba: phase (h)'s run is interleaved (k = 4); blocking
+    # and a fused k = 4 run beside it, every request's events equal
+    (fb_events, t_fblock), _, _ = counted(lambda: serve_run(feng, freqs,
+                                                            prefill_groups_per_chunk=0))
+    (ff_events, t_ffused), flaunch_inter, froutes_inter = counted(
+        lambda: serve_run(feng, freqs, fused_admission=True))
+    fblock = by_req(fb_events)
+    ok = by_req(events) == fblock and by_req(ff_events) == fblock
+    log(f"  falcon-mamba serve k=4 (phase (h)) and k=4 fused vs blocking: every request's "
+        f"events equal {ok}; {n_tok / t_serve:.1f} / {n_tok / t_ffused:.1f} tok/s, blocking "
+        f"{n_tok / t_fblock:.1f}; launches of the fused run {flaunch_inter} -> "
+        f"{'ok' if ok else 'FAIL'}; card {smi}")
+    if not ok:
+        failures.append("falcon-mamba interleaved serve vs blocking")
+    for name in falcon_kernels:
+        if flaunch_inter[name] == 0:
+            failures.append(f"{name} never launched by falcon-mamba interleaved serve")
+    interleave_falcon = {"events_equal_blocking": ok, "tok_s_k4": n_tok / t_serve,
+                         "tok_s_k4_fused": n_tok / t_ffused, "tok_s_blocking": n_tok / t_fblock}
+    print(json.dumps({"interleave_falcon": interleave_falcon, "card": smi}))
+    del fb_events, ff_events
     del feng, feng_eager, fparams, events, e_events
     torch.cuda.empty_cache()
     fsreqs = [Request(i, rng.integers(0, fsmoke.vocab, n), new)
@@ -1817,10 +2168,12 @@ def main() -> int:
     # forward and cache-mode generate and serve; falcon's generate and serve
     llama_paths = {"generate": launches_gen, "serve": launches_serve,
                    "full_forward": launches_full, "cache_generate": launches_cgen,
-                   "cache_serve": launches_cserve}
+                   "cache_serve": launches_cserve, "serve_interleaved": launches_inter}
     llama_routes = {"generate": routes_gen, "serve": routes_serve, "full_forward": routes_full,
-                    "cache_generate": routes_cgen, "cache_serve": routes_cserve}
-    falcon_paths = {"generate": flaunch_gen, "serve": flaunch_serve}
+                    "cache_generate": routes_cgen, "cache_serve": routes_cserve,
+                    "serve_interleaved": routes_inter}
+    falcon_paths = {"generate": flaunch_gen, "serve": flaunch_serve,
+                    "serve_interleaved": flaunch_inter}
     kernels = []
     for name, (src, replaces) in sources.items():
         s = summary[name]
@@ -1832,8 +2185,8 @@ def main() -> int:
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                         "shape": s["shape"]})
-        kernels[-1].update({k: s[k] for k in ("unfused", "ms_by_rows", "device_launches_per_call")
-                            if k in s})
+        kernels[-1].update({k: s[k] for k in ("unfused", "ms_by_rows", "device_launches_per_call",
+                                              "layer_index") if k in s})
         if name in routed:   # every GEMM / flash launch of the llama runs, by route
             kernels[-1]["launches_by_route"] = {
                 r: sum(v[name][r] for v in llama_routes.values()) for r in routes}

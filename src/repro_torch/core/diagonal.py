@@ -10,15 +10,48 @@ steps run exactly the cells that exist, with no masking: S*L cell applies,
 as in the sequential schedule. The recurrence is exact: every layer's state
 is updated by the same functions in the same order as the sequential
 executor, only grouped across slots.
+
+Every form of the executor runs one band step, ``band_step``: ``(carry,
+i) -> carry``, in place, with the group cursor i a host int in the carry.
+So they are equal by construction:
+
+  * ``run_diagonal``, the one-shot executor, runs all S + L - 1 steps;
+  * ``pipeline_init`` / ``pipeline_step`` / ``pipeline_finalize``, the
+    resumable pipeline: the carry (slot buffer, executor state, cursor,
+    outputs, optional state capture) is explicit, and each
+    ``pipeline_step`` runs a bounded number of steps, so a long prefill can
+    be suspended between calls (to let decode chunks run,
+    ``serve/scheduler.py``) and resumed to the bit;
+  * ``pipeline_step_pool`` advances several such carries, whose cursors
+    may differ: per step the live members' bands go through one grouped
+    cell call along the group axis, each group reading its own layer's
+    weights through a layer index (the ``attn`` cell; other cells advance
+    the members one after another).
+
+A carry's buffers are its own (``pipeline_init`` copies the state), so a
+caller's state updated in place, a decode pool say, never aliases one.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import torch
 
+from repro_torch.core.memory import RECURRENT_KEYS
 from repro_torch.core.schedule import band, n_diagonal_groups
 from repro_torch.core.sequential import ApplyBlock, layer_slice, stack_layers
+
+
+# band steps that ran as one cell call over two or more pipelines
+# (``pipeline_step_pool``), and the member band steps they covered; a
+# caller that reads them sets them to 0 first
+pool_counts = {"steps": 0, "member_steps": 0}
+
+
+def _check_layout(layout) -> None:
+    if layout.prelude or len(layout.pattern) != 1:
+        raise ValueError("the diagonal executor supports one pattern position "
+                         "and no prelude")
 
 
 def _band_slice(tree, lo: int, hi: int):
@@ -39,42 +72,238 @@ def _per_slot_apply(apply_block: ApplyBlock):
     return grouped
 
 
+def boundary_states_from_capture(layout, captured: Dict, n_segments: int) -> Dict:
+    """Per-boundary recurrent states from a per-step capture
+    (``run_diagonal(capture_states=True)``): layer l's state after segment
+    c - 1 was written at step (c - 1) + l, so boundary c (index c - 1) of
+    each leaf gathers those steps. One gather per leaf, on the device ->
+    leaves with a leading [S] boundary axis."""
+    _check_layout(layout)
+    tree = captured["pattern"][0]
+    device = next(iter(tree.values())).device
+    steps = torch.arange(n_segments, device=device)[:, None]
+    layers = torch.arange(layout.n_layers, device=device)[None, :]
+    return {"prelude": (),
+            "pattern": ({k: a[steps + layers, layers] for k, a in tree.items()},)}
+
+
+def _cell(apply_block: ApplyBlock, grouped_apply):
+    return grouped_apply if grouped_apply is not None else _per_slot_apply(apply_block)
+
+
+def _segments(carry: Dict) -> int:
+    return carry["brow"].shape[0] if "win" in carry else carry["ys"].shape[0]
+
+
+def _band_in(xs: torch.Tensor, carry: Dict, n_layers: int):
+    """The band (lo, hi) of the carry's next step, with the entering
+    segment written into slot 0."""
+    i = carry["step"]
+    lo, hi = band(i, xs.shape[0], n_layers)
+    if lo == 0:
+        carry["buf"][0] = xs[i]
+    return lo, hi
+
+
+def _band_out(carry: Dict, lo: int, hi: int, y: torch.Tensor, new: Dict, *,
+              retain_pos: int) -> None:
+    """The band's results into the carry: the state's band slots, the
+    finished segment (if the band reached the top slot) into ``ys`` or
+    ``win``/``brow``, the shifted band into the slot buffer, the capture of
+    this step; then the cursor moves on."""
+    i, buf = carry["step"], carry["buf"]
+    L = buf.shape[0]
+    state = carry["state"]["pattern"][0]
+    for k, v in new.items():
+        state[k][lo:hi + 1] = v
+    y = y.to(buf.dtype)
+    if hi == L - 1:                   # segment i - (L-1) finished every layer
+        s = i - (L - 1)
+        if "win" in carry:
+            carry["win"][s % carry["win"].shape[0]].copy_(y[-1])
+            carry["brow"][s].copy_(y[-1][:, retain_pos])
+        else:
+            carry["ys"][s].copy_(y[-1])
+        y = y[:-1]
+    buf[lo + 1:lo + 1 + y.shape[0]] = y
+    if "cap" in carry:
+        for k, c in carry["cap"]["pattern"][0].items():
+            c[i].copy_(state[k])
+    carry["step"] = i + 1
+
+
+def band_step(layout, params: Dict, xs: torch.Tensor, carry: Dict, cell, *,
+              retain_pos: int = -1) -> Dict:
+    """One anti-diagonal step of a carry, in place: the cell over the band
+    of step ``carry['step']``, then the cursor moves on. A cursor past the
+    grid is a no-op (it only moves on)."""
+    L = layout.n_layers
+    if carry["step"] >= n_diagonal_groups(xs.shape[0], L):
+        carry["step"] += 1
+        return carry
+    lo, hi = _band_in(xs, carry, L)
+    state = carry["state"]["pattern"][0]
+    y, new = cell(layout.pattern[0], _band_slice(params["pattern"][0], lo, hi),
+                  carry["buf"][lo:hi + 1], _band_slice(state, lo, hi))
+    _band_out(carry, lo, hi, y, new, retain_pos=retain_pos)
+    return carry
+
+
 def run_diagonal(layout, params: Dict, state0: Dict, segments: torch.Tensor,
-                 apply_block: ApplyBlock, *, grouped_apply=None):
+                 apply_block: ApplyBlock, *, grouped_apply=None,
+                 capture_states: bool = False, stream_ys: bool = False,
+                 retain_pos: int = -1):
     """segments: [S, B, T, D] -> (ys [S, B, T, D], final_state); the same
-    params/state structure as ``run_sequential``.
+    params/state structure as ``run_sequential``; state0 is not modified.
 
     grouped_apply: the fused grouped cell ``(btype, params [G, ...], x [G, B,
     T, D], state [G, B, ...]) -> (y, new_state)``
     (``models.grouped_blocks.make_grouped_apply``); None applies the plain
-    block slot by slot (the oracle)."""
-    if layout.prelude or len(layout.pattern) != 1:
-        raise ValueError("the diagonal executor supports one pattern position "
-                         "and no prelude")
-    S = segments.shape[0]
-    L = layout.n_layers
-    t = layout.pattern[0]
-    cell = grouped_apply if grouped_apply is not None else _per_slot_apply(apply_block)
-    pattern_params = params["pattern"][0]
-    # one private copy of the stacked state, updated band by band in place
+    block slot by slot (the oracle).
+
+    capture_states: also return, third, every step's recurrent state (A
+    and z; or h and the conv tail) of every layer, leaves with a leading
+    [S + L - 1] step axis (``boundary_states_from_capture`` gathers the
+    segment boundaries from it). Only the band's slots change at a step,
+    so step i's capture is the whole stacked state after it.
+
+    stream_ys: bounded memory; return ``{"win": [W, B, T, D], "brow": [S,
+    B, D]}`` in place of ys: ``win`` holds the last W = min(L, S) finished
+    segments (segment s at ``win[s % W]``) and ``brow`` each segment's row
+    ``retain_pos``, the same bits as ``ys[s, :, retain_pos]``."""
+    xs, carry = pipeline_init(layout, state0, segments, capture_states=capture_states,
+                              stream_ys=stream_ys)
+    cell = _cell(apply_block, grouped_apply)
+    for _ in range(n_diagonal_groups(segments.shape[0], layout.n_layers)):
+        band_step(layout, params, xs, carry, cell, retain_pos=retain_pos)
+    out = ({"win": carry["win"], "brow": carry["brow"]} if stream_ys else carry["ys"])
+    final = {"prelude": state0["prelude"], "pattern": carry["state"]["pattern"]}
+    if capture_states:
+        return out, final, carry["cap"]
+    return out, final
+
+
+# ---------------------------------------------------------------------------
+# Resumable pipeline (interleaved admission)
+# ---------------------------------------------------------------------------
+
+def pipeline_init(layout, state0: Dict, segments: torch.Tensor, *,
+                  capture_states: bool = False, stream_ys: bool = False):
+    """(xs, carry) of a resumable diagonal prefill over ``segments [S, B,
+    T, D]``. xs is the segments themselves (read-only; the port reads
+    segment i at step i, so it needs no drain padding). The carry, all of
+    it the pipeline's own buffers:
+
+      * ``buf``   [L, B, T, D], the slot buffer;
+      * ``state`` a copy of state0 (the executor state tree);
+      * ``step``  the group cursor, a host int (``core.schedule``'s
+        ``segments_completed`` / ``segments_entered`` read it);
+      * ``ys``    [S, B, T, D], each segment written as it finishes; or,
+        with stream_ys, ``win`` [min(L, S), B, T, D] and ``brow`` [S, B, D]
+        (see ``run_diagonal``);
+      * ``cap``   with capture_states, the per-step recurrent state, leading
+        axis [S + L - 1]."""
+    _check_layout(layout)
+    S, L = segments.shape[0], layout.n_layers
+    shape, kw = tuple(segments.shape[1:]), dict(dtype=segments.dtype, device=segments.device)
     state = {k: v.clone() for k, v in state0["pattern"][0].items()}
-    buf = torch.zeros((L,) + tuple(segments.shape[1:]), dtype=segments.dtype,
-                      device=segments.device)
-    ys = []
-    for i in range(n_diagonal_groups(S, L)):
-        lo, hi = band(i, S, L)
-        if lo == 0:
-            buf[0] = segments[i]
-        y, new = cell(t, _band_slice(pattern_params, lo, hi), buf[lo:hi + 1],
-                      _band_slice(state, lo, hi))
-        for k, v in new.items():
-            state[k][lo:hi + 1] = v
-        y = y.to(buf.dtype)
-        if hi == L - 1:               # segment i - (L-1) finished every layer
-            # a copy: a view would keep the band's whole output alive
-            # until the final stack (G times the segment, every segment)
-            ys.append(y[-1].clone())
-            y = y[:-1]
-        buf[lo + 1:lo + 1 + y.shape[0]] = y
-    final = {"prelude": state0["prelude"], "pattern": (state,)}
-    return torch.stack(ys), final
+    carry = {"buf": torch.zeros((L,) + shape, **kw),
+             "state": {"prelude": (), "pattern": (state,)}, "step": 0}
+    if stream_ys:
+        carry["win"] = torch.zeros((min(L, S),) + shape, **kw)
+        carry["brow"] = torch.zeros((S, shape[0], shape[2]), **kw)
+    else:
+        carry["ys"] = torch.zeros((S,) + shape, **kw)
+    if capture_states:
+        n = n_diagonal_groups(S, L)
+        carry["cap"] = {"prelude": (), "pattern": (
+            {k: torch.zeros((n,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+             for k, v in state.items() if k in RECURRENT_KEYS},)}
+    return segments, carry
+
+
+def pipeline_step(layout, params: Dict, xs: torch.Tensor, carry: Dict,
+                  apply_block: ApplyBlock, *, n_groups: int = 1, grouped_apply=None,
+                  retain_pos: int = -1) -> Dict:
+    """Advance a suspended pipeline by ``n_groups`` steps, in place (the
+    carry is also returned). Steps past the end of the grid are no-ops, so
+    a budget that overshoots the last group is safe. retain_pos: the row
+    a streaming carry keeps of each segment."""
+    cell = _cell(apply_block, grouped_apply)
+    for _ in range(n_groups):
+        band_step(layout, params, xs, carry, cell, retain_pos=retain_pos)
+    return carry
+
+
+def pipeline_step_pool(layout, params: Dict, xs_pool: Sequence[torch.Tensor],
+                       carry_pool: Sequence[Dict], apply_block: ApplyBlock, *,
+                       n_groups: int = 1, grouped_apply=None,
+                       retain_pos: int = -1) -> List[Dict]:
+    """Advance a pool of suspended pipelines by ``n_groups`` steps each, in
+    place; their cursors (and grids) may differ.
+
+    With a cell that takes a layer index (``grouped_apply.indexed``, the
+    ``attn`` cell), each step concatenates the live members' bands along
+    the group axis into one cell call over G' = sum of the band widths,
+    each group reading its own layer's weights (the GEMM's ``widx``), and
+    writes each member's part back into its own carry: one launch of each
+    kernel per step for the whole pool. Members are not stacked along the
+    batch axis, which would take the B = 1 cell off its fused route and
+    round differently. A member whose cursor is past its grid contributes
+    no group; a step with one live member is that member's own band step.
+    Other cells advance the members one after another."""
+    cell = _cell(apply_block, grouped_apply)
+    t = layout.pattern[0]
+    if grouped_apply is None or t not in getattr(grouped_apply, "indexed", ()):
+        for xs, carry in zip(xs_pool, carry_pool):
+            pipeline_step(layout, params, xs, carry, apply_block, n_groups=n_groups,
+                          grouped_apply=grouped_apply, retain_pos=retain_pos)
+        return list(carry_pool)
+    L = layout.n_layers
+    pattern_params = params["pattern"][0]
+    layers = None
+    for _ in range(n_groups):
+        live = []
+        for xs, carry in zip(xs_pool, carry_pool):
+            if carry["step"] >= n_diagonal_groups(xs.shape[0], L):
+                carry["step"] += 1
+            else:
+                live.append((xs, carry))
+        if len(live) < 2:
+            for xs, carry in live:
+                band_step(layout, params, xs, carry, cell, retain_pos=retain_pos)
+            continue
+        if layers is None:
+            layers = torch.arange(L, dtype=torch.int32, device=live[0][0].device)
+        bands = [_band_in(xs, carry, L) for xs, carry in live]
+        states = [carry["state"]["pattern"][0] for _, carry in live]
+        x = torch.cat([carry["buf"][lo:hi + 1] for (_, carry), (lo, hi) in zip(live, bands)])
+        st = {k: torch.cat([s[k][lo:hi + 1] for s, (lo, hi) in zip(states, bands)])
+              for k in states[0]}
+        widx = torch.cat([layers[lo:hi + 1] for lo, hi in bands])
+        y, new = grouped_apply(t, pattern_params, x, st, widx=widx)
+        pool_counts["steps"] += 1
+        pool_counts["member_steps"] += len(live)
+        off = 0
+        for (_, carry), (lo, hi) in zip(live, bands):
+            g = hi - lo + 1
+            _band_out(carry, lo, hi, y[off:off + g],
+                      {k: v[off:off + g] for k, v in new.items()}, retain_pos=retain_pos)
+            off += g
+    return list(carry_pool)
+
+
+def pipeline_finalize(layout, carry: Dict):
+    """A completed carry (cursor at or past S + L - 1) -> (ys [S, B, T, D],
+    or ``{"win", "brow"}`` for a streaming carry; the final state; the
+    boundary states gathered from the capture, or None)."""
+    S = _segments(carry)
+    if carry["step"] < n_diagonal_groups(S, layout.n_layers):
+        raise ValueError(f"pipeline at step {carry['step']} of "
+                         f"{n_diagonal_groups(S, layout.n_layers)} is not finished")
+    captured = None
+    if "cap" in carry:
+        captured = boundary_states_from_capture(layout, carry["cap"], S)
+    out = ({"win": carry["win"], "brow": carry["brow"]} if "win" in carry
+           else carry["ys"])
+    return out, carry["state"], captured

@@ -30,6 +30,49 @@ def band(i: int, n_segments: int, n_layers: int) -> Tuple[int, int]:
     return max(0, i - n_segments + 1), min(i, n_layers - 1)
 
 
+# ---------------------------------------------------------------------------
+# Cursors of a suspended pipeline (core/diagonal.py ``pipeline_step``) and of
+# a pool of them (``pipeline_step_pool``): host arithmetic on the group
+# cursor, never a device read
+# ---------------------------------------------------------------------------
+
+def segments_completed(step: int, n_segments: int, n_layers: int) -> int:
+    """Segments that have passed every layer after ``step`` groups (segment
+    s finishes at group s + L - 1), clipped to [0, S]: an overshot cursor
+    reads as all done."""
+    return max(0, min(step - (n_layers - 1), n_segments))
+
+
+def segments_entered(step: int, n_segments: int, n_layers: int) -> int:
+    """Segments inserted into slot 0 after ``step`` groups (segment s
+    enters at group s), clipped to the grid."""
+    del n_layers
+    return max(0, min(step, n_segments))
+
+
+def group_size(i: int, n_segments: int, n_layers: int) -> int:
+    """Cells in anti-diagonal group i: the width of its band."""
+    lo = max(0, i - (n_layers - 1))
+    hi = min(n_segments - 1, i)
+    return max(0, hi - lo + 1)
+
+
+def cells_completed(step: int, n_segments: int, n_layers: int) -> int:
+    """(segment, layer) cells run after ``step`` groups; S*L once the grid
+    is done (overshoot groups run nothing)."""
+    n = max(0, min(step, n_diagonal_groups(n_segments, n_layers)))
+    return sum(group_size(i, n_segments, n_layers) for i in range(n))
+
+
+def pool_cells_remaining(steps, segment_counts, n_layers: int) -> int:
+    """Cells not yet run across a pool of suspended pipelines; ``steps`` and
+    ``segment_counts`` are parallel per-member lists."""
+    if len(steps) != len(segment_counts):
+        raise ValueError(f"{len(steps)} cursors for {len(segment_counts)} members")
+    return sum(S * n_layers - cells_completed(st, S, n_layers)
+               for st, S in zip(steps, segment_counts))
+
+
 @dataclass(frozen=True)
 class StackLayout:
     """Prelude layers followed by ``pattern`` repeated ``n_super`` times."""

@@ -37,10 +37,11 @@ _F = ctypes.c_float
 # C signatures of the entry points (all return cudaError_t as int)
 SIGNATURES = {
     # x, w, bias, res, out, G, R, K, N, x group and row strides, res group
-    # and row strides, weight batch, dtype (0 f32, 1 bf16), out_f32, act
+    # and row strides, weight batch, layer index (int32 [G] or null),
+    # weight groups (w's leading dim), dtype (0 f32, 1 bf16), out_f32, act
     # (0 none, 1 silu, 2 gelu), route (1 TMA + wgmma, 0 SIMT), stream
     "gmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
-                   _I, _I, _I, _I, _I, _P],
+                   _I, _P, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, N, Hq, Hkv, T, S, hd, q strides (n, h, t),
     # k strides (n, h, s), v strides (n, h, s), causal, window, scale, dtype,
     # route (1 TMA + wgmma, 0 SIMT), stream

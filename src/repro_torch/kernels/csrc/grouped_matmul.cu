@@ -1,11 +1,19 @@
 // Grouped matmul with a fused bias + activation epilogue, for sm_90a.
 //
 // Replaces: repro/kernels/grouped_matmul.py `grouped_matmul` (Pallas,
-// `_gmm_kernel` / `_gmm_bias_kernel`): out[i] = act(x[i] @ w[i / wbatch] +
-// bias[i / wbatch]) (+ res[i]), x [G,R,K] (rows read through group and row
+// `_gmm_kernel` / `_gmm_bias_kernel`): out[i] = act(x[i] @ w[j] + bias[j])
+// (+ res[i]), j = i / wbatch, x [G,R,K] (rows read through group and row
 // strides, so the grouped cell's [G,B*T,K] activations and y's memory-row
 // view need no copy), w [G/wbatch,K,N], out [G,R,N] contiguous, in the
 // input dtype or in fp32.
+//
+// With a layer index widx (int32 [G] on the device) j = widx[i] instead,
+// over a stack w [wgroups,K,N]: a pooled band step of several pipelines
+// runs each group with its own layer in one launch, reading the model's
+// own stacked weights (the w tensor map spans the whole stack), where a
+// gathered copy would move the weights' bytes once more. The producer
+// reads j per tile; the k loop and the tile walk are those of the plain
+// launch, so a group's sums do not depend on the groups beside it.
 //
 // The optional residual res [G,R,N] (read through its strides) is added to
 // the fp32 accumulator before the single cast: that is the GEMM half of
@@ -153,8 +161,8 @@ template <int BN, typename OutT, bool READ>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 gmm_wgmma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
           const bf16* __restrict__ bias, const bf16* __restrict__ res, OutT* __restrict__ out,
-          int R, int K, int N, ll srg, ll srr, int wbatch, int act, int m_tiles, int n_pairs,
-          int tiles, const float* __restrict__ den) {
+          int R, int K, int N, ll srg, ll srr, int wbatch, const int* __restrict__ widx, int act,
+          int m_tiles, int n_pairs, int tiles, const float* __restrict__ den) {
   using C = TcCfg<BN>;
   extern __shared__ unsigned char smem_raw[];
   // 128-byte-swizzled tiles must start on 1024-byte boundaries; the layout
@@ -189,7 +197,7 @@ gmm_wgmma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUten
       uint32_t phase = 0;
       for (int t = cluster; t < tiles; t += clusters) {
         const Tile tl(t, m_tiles, n_pairs, BN, rank);
-        const int gw = tl.g / wbatch;
+        const int gw = widx ? widx[tl.g] : tl.g / wbatch;
         for (int kt = 0; kt < nk; ++kt) {
           int k0 = kt * TBK, xg = tl.g, wgr = gw;
           if constexpr (READ) {   // x and w hold a hi and a lo half per group:
@@ -268,7 +276,7 @@ gmm_wgmma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUten
       // epilogue, 64 columns at a time through shared memory: the unrolled
       // part only moves registers; bias, activation, res and the one cast
       // run in short loops that store whole rows
-      const int gw = tl.g / wbatch;
+      const int gw = widx ? widx[tl.g] : tl.g / wbatch;
       float dr[8];   // READ: den of this thread's rows, loaded once a tile
       if constexpr (READ) {
 #pragma unroll
@@ -384,10 +392,10 @@ template <typename T, typename OutT>
 __global__ void __launch_bounds__(256)
 gmm_simt(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ bias,
          const T* __restrict__ res, OutT* __restrict__ out, int R, int K, int N, ll sxg,
-         ll sxr, ll srg, ll srr, int wbatch, int act) {
+         ll sxr, ll srg, ll srr, int wbatch, const int* __restrict__ widx, int act) {
   __shared__ float xs[TK][TM + 1];
   __shared__ float ws[TK][TN + 1];
-  const int g = blockIdx.z, gw = g / wbatch;
+  const int g = blockIdx.z, gw = widx ? widx[g] : g / wbatch;
   const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
   const T* xg = x + (ll)g * sxg;
   const T* wg = w + (ll)gw * K * N;
@@ -490,7 +498,8 @@ int resident_clusters() {
 template <int BN, typename OutT, bool READ = false>
 cudaError_t launch_tc_bn(const CUtensorMap& mx, const CUtensorMap& mw, const void* bias,
                          const void* res, void* out, int G, int R, int K, int N, ll srg, ll srr,
-                         int wbatch, int act, cudaStream_t s, const float* den = nullptr) {
+                         int wbatch, const int* widx, int act, cudaStream_t s,
+                         const float* den = nullptr) {
   const int clusters = resident_clusters<BN, OutT, READ>();
   const int m_tiles = (R + TBM - 1) / TBM, n_pairs = ((N + BN - 1) / BN + 1) / 2;
   const int tiles = G * m_tiles * n_pairs;   // walk steps: two column tiles each
@@ -508,8 +517,8 @@ cudaError_t launch_tc_bn(const CUtensorMap& mx, const CUtensorMap& mw, const voi
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, gmm_wgmma<BN, OutT, READ>, mx, mw,
                             static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
-                            static_cast<OutT*>(out), R, K, N, srg, srr, wbatch, act, m_tiles,
-                            n_pairs, tiles, den);
+                            static_cast<OutT*>(out), R, K, N, srg, srr, wbatch, widx, act,
+                            m_tiles, n_pairs, tiles, den);
 }
 
 // The TMA + wgmma route, or cudaErrorInvalidValue where its operands do not
@@ -517,61 +526,69 @@ cudaError_t launch_tc_bn(const CUtensorMap& mx, const CUtensorMap& mw, const voi
 template <typename OutT>
 cudaError_t launch_tc(const void* x, const void* w, const void* bias, const void* res,
                       void* out, int G, int R, int K, int N, ll sxg, ll sxr, ll srg, ll srr,
-                      int wbatch, int act, cudaStream_t s) {
+                      int wbatch, const int* widx, int wgroups, int act, cudaStream_t s) {
   if (K <= 0 || K % 8 || N % 8 || sxg <= 0 || sxr <= 0 || sxg % 8 || sxr % 8 ||
       !aligned16(x) || !aligned16(w) || !aligned16(out))
     return cudaErrorInvalidValue;
   CUtensorMap mx, mw;   // x in 64-row half tiles, one per CTA of a cluster
   if (!encode_3d(&mx, x, K, R, G, sxr * 2, sxg * 2, TBK, TBM / 2) ||
-      !encode_3d(&mw, w, N, K, G / wbatch, (ll)N * 2, (ll)K * N * 2, 64, TBK))
+      !encode_3d(&mw, w, N, K, wgroups, (ll)N * 2, (ll)K * N * 2, 64, TBK))
     return cudaErrorInvalidValue;
   if (choose_bn(G, R, N, resident_clusters<256, OutT>()) == 256)
-    return launch_tc_bn<256, OutT>(mx, mw, bias, res, out, G, R, K, N, srg, srr, wbatch, act, s);
-  return launch_tc_bn<128, OutT>(mx, mw, bias, res, out, G, R, K, N, srg, srr, wbatch, act, s);
+    return launch_tc_bn<256, OutT>(mx, mw, bias, res, out, G, R, K, N, srg, srr, wbatch, widx,
+                                   act, s);
+  return launch_tc_bn<128, OutT>(mx, mw, bias, res, out, G, R, K, N, srg, srr, wbatch, widx,
+                                 act, s);
 }
 
 template <typename T, typename OutT>
 void launch_simt(const void* x, const void* w, const void* bias, const void* res, void* out,
                  int G, int R, int K, int N, ll sxg, ll sxr, ll srg, ll srr, int wbatch,
-                 int act, cudaStream_t s) {
+                 const int* widx, int act, cudaStream_t s) {
   dim3 grid((N + TN - 1) / TN, (R + TM - 1) / TM, G);
   gmm_simt<T, OutT><<<grid, 256, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(bias),
       static_cast<const T*>(res), static_cast<OutT*>(out), R, K, N, sxg, sxr, srg, srr,
-      wbatch, act);
+      wbatch, widx, act);
 }
 
 }  // namespace
 
-// x [G,R,K] through (group, row) strides; w [G/wbatch,K,N]; bias [G/wbatch,N]
-// or null; res [G,R,N] through (group, row) strides, or null; out [G,R,N].
-// dtype: 0 float32, 1 bfloat16 (x, w, bias, res); out_f32: 1 writes fp32,
-// 0 the input dtype. act: 0 none, 1 silu, 2 tanh-gelu (applied before res
-// is added). tc: 1 the TMA + wgmma route (bf16 only; refused with
-// cudaErrorInvalidValue where the operands do not allow it), 0 gmm_simt.
+// x [G,R,K] through (group, row) strides; w [wgroups,K,N] with wgroups =
+// G/wbatch, or any depth with a layer index widx (int32 [G], values in
+// [0, wgroups); wbatch is then 1); bias [wgroups,N] or null; res [G,R,N]
+// through (group, row) strides, or null; out [G,R,N]. dtype: 0 float32, 1
+// bfloat16 (x, w, bias, res); out_f32: 1 writes fp32, 0 the input dtype.
+// act: 0 none, 1 silu, 2 tanh-gelu (applied before res is added). tc: 1 the
+// TMA + wgmma route (bf16 only; refused with cudaErrorInvalidValue where
+// the operands do not allow it), 0 gmm_simt.
 extern "C" int gmm_launch(const void* x, const void* w, const void* bias, const void* res,
                           void* out, int G, int R, int K, int N, long long sxg, long long sxr,
-                          long long srg, long long srr, int wbatch, int dtype, int out_f32,
-                          int act, int tc, void* stream) {
+                          long long srg, long long srr, int wbatch, const void* layer_index,
+                          int wgroups, int dtype, int out_f32, int act, int tc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* widx = static_cast<const int*>(layer_index);
+  if (wbatch < 1 || wgroups < 1 || (widx == nullptr && wgroups * wbatch != G) ||
+      (widx != nullptr && wbatch != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (tc) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(
         out_f32 ? launch_tc<float>(x, w, bias, res, out, G, R, K, N, sxg, sxr, srg, srr, wbatch,
-                                   act, s)
+                                   widx, wgroups, act, s)
                 : launch_tc<bf16>(x, w, bias, res, out, G, R, K, N, sxg, sxr, srg, srr, wbatch,
-                                  act, s));
+                                  widx, wgroups, act, s));
   }
   if (dtype == 1) {
     if (out_f32)
       launch_simt<bf16, float>(x, w, bias, res, out, G, R, K, N, sxg, sxr, srg, srr, wbatch,
-                               act, s);
+                               widx, act, s);
     else
       launch_simt<bf16, bf16>(x, w, bias, res, out, G, R, K, N, sxg, sxr, srg, srr, wbatch,
-                              act, s);
+                              widx, act, s);
   } else {
     launch_simt<float, float>(x, w, bias, res, out, G, R, K, N, sxg, sxr, srg, srr, wbatch,
-                              act, s);
+                              widx, act, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -598,7 +615,7 @@ extern "C" int armt_read_gemm_launch(const void* phi, const void* W, const void*
   const float* d = static_cast<const float*>(den);
   if (choose_bn(N, T, Dv, resident_clusters<256, bf16, true>()) == 256)
     return static_cast<int>(launch_tc_bn<256, bf16, true>(mx, mw, nullptr, nullptr, out, N, T, P,
-                                                          Dv, 0, 0, 1, 0, s, d));
+                                                          Dv, 0, 0, 1, nullptr, 0, s, d));
   return static_cast<int>(launch_tc_bn<128, bf16, true>(mx, mw, nullptr, nullptr, out, N, T, P,
-                                                        Dv, 0, 0, 1, 0, s, d));
+                                                        Dv, 0, 0, 1, nullptr, 0, s, d));
 }

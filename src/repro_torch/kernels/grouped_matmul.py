@@ -3,7 +3,14 @@ down projection + ARMT update of the B == 1 cell.
 
 ``grouped_matmul`` replaces the Pallas kernel ``grouped_matmul``
 (repro/kernels/grouped_matmul.py:198): ``x[G,R,K] @ w[G,K,N] (+ bias[G,N])``
-with silu or tanh-gelu applied to the fp32 accumulator. Its plain version is
+with silu or tanh-gelu applied to the fp32 accumulator. With a layer index
+``widx`` (int32 [G] on the device) group i reads ``w[widx[i]]`` and
+``bias[widx[i]]`` of a stack of any depth, in place of ``w[i]``: a pooled
+band step (``core/diagonal.py`` ``pipeline_step_pool``) runs the bands of
+several pipelines, each group with its own layer, in one launch over the
+model's own stacked weights, with no gathered copy; each group's sums are
+the ones it gets alone (the k loop does not depend on the other groups).
+Its plain version is
 ``grouped_matmul_plain``. Every launch takes one of two routes in
 ``csrc/grouped_matmul.cu``, which ``route()`` picks and the module counts:
 the TMA + wgmma mainloop for bf16 operands with 16-byte rows, the fp32 SIMT
@@ -72,27 +79,41 @@ def route(x, w, out) -> str:
     return "simt"
 
 
-def launch(x, w, bias, out, *, wbatch: int = 1, activation=None, res=None):
-    """out[i] = act(x[i] @ w[i // wbatch] + bias[i // wbatch]) (+ res[i]) on
-    the card, res added to the fp32 accumulator before the cast. x: [G,R,K]
-    and res: [G,R,N], each with a contiguous last dim; w: [G/wbatch,K,N]
-    contiguous; out: [G,R,N] contiguous, in x.dtype or float32. Returns
-    whether a kernel was launched (nothing is launched for an empty
-    output)."""
+def _check_widx(widx, G: int, x) -> None:
+    if (widx.dtype != torch.int32 or widx.shape != (G,) or not widx.is_contiguous()
+            or widx.device != x.device):
+        raise ValueError(f"grouped_matmul: widx must be a contiguous int32 [{G}] tensor "
+                         f"on {x.device}, got {widx.dtype} {tuple(widx.shape)} on "
+                         f"{widx.device}")
+
+
+def launch(x, w, bias, out, *, wbatch: int = 1, activation=None, res=None, widx=None):
+    """out[i] = act(x[i] @ w[j] + bias[j]) (+ res[i]) on the card, j = i //
+    wbatch, or widx[i] with a layer index; res added to the fp32
+    accumulator before the cast. x: [G,R,K] and res: [G,R,N], each with a
+    contiguous last dim; w: [G/wbatch,K,N] contiguous, or [Lw,K,N] with
+    widx (int32 [G] on the device, values in [0, Lw), not checked on the
+    host); out: [G,R,N] contiguous, in x.dtype or float32. Returns whether a
+    kernel was launched (nothing is launched for an empty output)."""
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"grouped_matmul: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} must be 3-D")
     G, R, K = x.shape
-    if G % wbatch or w.shape[:2] != (G // wbatch, K):
+    if widx is not None:
+        _check_widx(widx, G, x)
+        if wbatch != 1 or w.shape[1] != K:
+            raise ValueError(f"grouped_matmul: x {tuple(x.shape)} vs w {tuple(w.shape)} "
+                             f"with a layer index (wbatch {wbatch})")
+    elif G % wbatch or w.shape[:2] != (G // wbatch, K):
         raise ValueError(f"grouped_matmul: x {tuple(x.shape)} vs w {tuple(w.shape)}")
-    N = w.shape[2]
+    Lw, N = w.shape[0], w.shape[2]
     if x.dtype not in _DTYPE or w.dtype != x.dtype:
         raise ValueError(f"grouped_matmul: dtypes {x.dtype}/{w.dtype}")
     if x.stride(2) != 1:
         raise ValueError("grouped_matmul: x's last dim must be contiguous")
     if not w.is_contiguous():
         raise ValueError("grouped_matmul: w must be contiguous")
-    if bias is not None and (bias.shape != (G // wbatch, N) or bias.dtype != x.dtype
+    if bias is not None and (bias.shape != (Lw, N) or bias.dtype != x.dtype
                              or not bias.is_contiguous()):
         raise ValueError(f"grouped_matmul: bias {tuple(bias.shape)} {bias.dtype}")
     if out.shape != (G, R, N) or not out.is_contiguous() or \
@@ -111,7 +132,8 @@ def launch(x, w, bias, out, *, wbatch: int = 1, activation=None, res=None):
         x.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
         res.data_ptr() if res is not None else None, out.data_ptr(), G, R, K, N,
         *_x_strides(x), res.stride(0) if res is not None else 0,
-        res.stride(1) if res is not None else 0, wbatch, _DTYPE[x.dtype],
+        res.stride(1) if res is not None else 0, wbatch,
+        widx.data_ptr() if widx is not None else None, Lw, _DTYPE[x.dtype],
         int(out.dtype == torch.float32), _ACT[activation], int(tc), build.stream_ptr(x))
     build.check(code, "grouped_matmul")
     if tc:
@@ -121,39 +143,42 @@ def launch(x, w, bias, out, *, wbatch: int = 1, activation=None, res=None):
     return True
 
 
-def grouped_matmul(x, w, bias=None, *, activation: str | None = None):
+def grouped_matmul(x, w, bias=None, *, activation: str | None = None, widx=None):
     """x: [G,R,K] (rows may be strided; the last dim contiguous), w:
-    [G,K,N] contiguous, bias: [G,N] or None -> [G,R,N] in x.dtype.
+    [G,K,N] contiguous, bias: [G,N] or None -> [G,R,N] in x.dtype. widx:
+    int32 [G] layer index into w [Lw,K,N] (and bias [Lw,N]): group i reads
+    w[widx[i]].
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
     global launches
     if x.device.type == "cpu":
-        return grouped_matmul_plain(x, w, bias, activation=activation)
+        return grouped_matmul_plain(x, w, bias, activation=activation, widx=widx)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul: unsupported device {x.device}")
     if activation not in _ACT:
         raise ValueError(f"grouped_matmul: unknown activation {activation!r}")
     out = torch.empty(x.shape[0], x.shape[1], w.shape[-1], dtype=x.dtype,
                       device=x.device)
-    if launch(x, w, bias, out, activation=activation):
+    if launch(x, w, bias, out, activation=activation, widx=widx):
         launches += 1
     return out
 
 
 def grouped_matmul_armt_update(x, w, res, wk, wv, wb, A, z, bias=None, *,
-                               M: int, nu: int = 3):
+                               M: int, nu: int = 3, widx=None):
     """x: [G,R,K] (rows may be strided; the last dim contiguous); w: [G,K,N]
     contiguous; res: [G,R,N] in x.dtype (last dim contiguous); bias: [G,N]
     or None; wk/wv/wb: [N,*] or [G,N,*]; A: [G,P,Dv]; z: [G,P] ->
-    (y [G,R,N] in x.dtype, A', z' in new buffers).
+    (y [G,R,N] in x.dtype, A', z' in new buffers). widx: the GEMM's layer
+    index into w [Lw,K,N] (see ``grouped_matmul``); wk/wv/wb stay per group.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernels
     or raises."""
     global fused_launches
     if x.device.type == "cpu":
         return grouped_matmul_armt_update_plain(x, w, res, wk, wv, wb, A, z, bias,
-                                                M=M, nu=nu)
+                                                M=M, nu=nu, widx=widx)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul_armt_update: unsupported device {x.device}")
     from repro_torch.kernels import armt_memory   # it imports this module
@@ -166,7 +191,7 @@ def grouped_matmul_armt_update(x, w, res, wk, wv, wb, A, z, bias=None, *,
     y = torch.empty(G, R, w.shape[-1], dtype=x.dtype, device=x.device)
     mem = y[:, R - M:, :]                   # the memory rows, a strided view
     dims = armt_memory.check_update(mem, wk, wv, wb, A, z, nu=nu)
-    launched = launch(x, w, bias, y, res=res)
+    launched = launch(x, w, bias, y, res=res, widx=widx)
     A2, z2, _ = armt_memory.launch_update(mem, wk, wv, wb, A, z, dims)
     if launched:
         fused_launches += 1

@@ -14,32 +14,35 @@ from repro_torch.kernels.grouped_matmul import grouped_matmul, grouped_matmul_ar
 from repro_torch.kernels.mamba_scan import mamba_scan
 
 
-def grouped_gemm(x, w, bias=None, *, activation: str | None = None):
+def grouped_gemm(x, w, bias=None, *, activation: str | None = None, widx=None):
     """x: [G,R,K] or the grouped-block layout [G,B,T,K]; w: [G,K,N];
-    bias: [G,N] or None -> [G,R,N] / [G,B,T,N]."""
+    bias: [G,N] or None -> [G,R,N] / [G,B,T,N]. widx: int32 [G] layer
+    index into a stack w [Lw,K,N] (group i reads w[widx[i]])."""
     if x.dim() == 4:
         G, B, T, K = x.shape
         out = grouped_matmul(x.reshape(G, B * T, K), w, bias,
-                             activation=activation)
+                             activation=activation, widx=widx)
         return out.reshape(G, B, T, out.shape[-1])
-    return grouped_matmul(x, w, bias, activation=activation)
+    return grouped_matmul(x, w, bias, activation=activation, widx=widx)
 
 
 def grouped_gemm_armt_update(x, w, res, wk, wv, wb, A, z, bias=None, *,
-                             M: int, nu: int = 3):
+                             M: int, nu: int = 3, widx=None):
     """The B == 1 cell's down projection with the ARMT update fused in.
     x: [G,R,K] or the cell layout [G,1,T,K]; res: [G,R,N] / [G,1,T,N];
-    w: [G,K,N] -> (y shaped like res, A', z'), y = res + x @ w (+ bias)
-    and (A, z) updated from the last M rows of each group's y."""
+    w: [G,K,N] (or a stack with the layer index widx) -> (y shaped like
+    res, A', z'), y = res + x @ w (+ bias) and (A, z) updated from the last
+    M rows of each group's y."""
     if x.dim() == 4:
         G, B, T, K = x.shape
         if B != 1:
             raise ValueError(f"grouped_gemm_armt_update: batch {B} != 1")
         y, A2, z2 = grouped_matmul_armt_update(
             x.reshape(G, T, K), w, res.reshape(G, T, res.shape[-1]), wk, wv, wb,
-            A, z, bias, M=M, nu=nu)
+            A, z, bias, M=M, nu=nu, widx=widx)
         return y.reshape(res.shape), A2, z2
-    return grouped_matmul_armt_update(x, w, res, wk, wv, wb, A, z, bias, M=M, nu=nu)
+    return grouped_matmul_armt_update(x, w, res, wk, wv, wb, A, z, bias, M=M, nu=nu,
+                                      widx=widx)
 
 
 def segment_attention(q, k, v, *, causal: bool = True, window: int = 0):

@@ -17,9 +17,14 @@ EPS = 1e-6
 NEG_INF = -1e30
 
 
-def grouped_matmul_ref(x, w, bias=None, *, activation: str | None = None):
+def grouped_matmul_ref(x, w, bias=None, *, activation: str | None = None, widx=None):
     """x: [G,R,K] @ w: [G,K,N] (+ bias [G,N]) -> [G,R,N] in x.dtype; fp32
-    accumulation, bias + silu / tanh-gelu applied to the fp32 accumulator."""
+    accumulation, bias + silu / tanh-gelu applied to the fp32 accumulator.
+    widx: int [G] layer index, group i taking w[widx[i]] (and its bias) of
+    a stack w [Lw,K,N]."""
+    if widx is not None:
+        w = w.index_select(0, widx)
+        bias = None if bias is None else bias.index_select(0, widx)
     acc = torch.matmul(x.float(), w.float())
     if bias is not None:
         acc = acc + bias.float()[:, None, :]
@@ -111,13 +116,14 @@ def armt_update_ref(m, wk, wv, wb, A, z, *, nu: int = 3):
 
 
 def grouped_matmul_armt_update_ref(x, w, res, wk, wv, wb, A, z, bias=None, *,
-                                   M: int, nu: int = 3):
+                                   M: int, nu: int = 3, widx=None):
     """The fused down projection + ARMT update of the B == 1 cell. x:
-    [G,R,K]; w: [G,K,N]; res: [G,R,N] -> (y, A', z'): y = res + x @ w
-    (+ bias), accumulated and summed in fp32 and cast once, then (A, z)
-    delta-updated from the last M rows of each group's y, read after the
-    cast."""
-    y = (grouped_matmul_ref(x.float(), w.float(), bias) + res.float()).to(res.dtype)
+    [G,R,K]; w: [G,K,N] (or [Lw,K,N] with the layer index widx); res:
+    [G,R,N] -> (y, A', z'): y = res + x @ w (+ bias), accumulated and summed
+    in fp32 and cast once, then (A, z) delta-updated from the last M rows
+    of each group's y, read after the cast."""
+    y = (grouped_matmul_ref(x.float(), w.float(), bias, widx=widx)
+         + res.float()).to(res.dtype)
     A2, z2 = armt_update_ref(y[:, -M:, :], wk, wv, wb, A, z, nu=nu)
     return y, A2, z2
 

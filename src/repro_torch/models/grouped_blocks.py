@@ -33,6 +33,18 @@ stay two launches, and y is rounded before the residual is added.
 In ``"full"`` mode (the full-attention baseline) the attn cell touches no
 memory: no ``assoc_read``, no update, and the down projection is
 ``h + grouped_gemm(...)``. The mamba cell is the same in both modes.
+
+The attn cell also takes a layer index (``widx``, int32 [G] on the
+device): its params are then the model's whole stacked pattern and group i
+is layer ``widx[i]``. The GEMMs read their weights through the index (the
+model's own tensors; no copy), and the small per-layer leaves (the norm
+weights and the memory's wq, wk, wv, wb) are gathered with
+``index_select``. That is how a pooled band step runs the bands of several
+pipelines as one cell call (``core/diagonal.py`` ``pipeline_step_pool``).
+The mamba cell has no such form: its projections are matmuls over the
+stacked weights, whose gathered copy would be ~230 MB a layer at
+falcon-mamba's width. ``grouped_apply.indexed`` names the cells that take
+an index.
 """
 from __future__ import annotations
 
@@ -49,11 +61,19 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
     check_mode(mode)
     armt_on = mode == "segmented" and cfg.armt is not None
 
-    def snorm(h, p):
-        # per-layer norm weights [G, D] broadcast against h [G, B, T, D]
-        return rmsnorm(h, {"w": p["w"][:, None, None, :]})
+    def fused_attn(p, x, state, widx=None):
+        def small(leaf):
+            # a per-layer leaf the cell reads whole: the band's, or the
+            # indexed layers' gathered
+            return leaf if widx is None else leaf.index_select(0, widx)
 
-    def fused_attn(p, x, state):
+        def snorm(h, pn):
+            # per-layer norm weights [G, D] broadcast against h [G, B, T, D]
+            return rmsnorm(h, {"w": small(pn["w"])[:, None, None, :]})
+
+        def gemm(h, w, **kw):
+            return kops.grouped_gemm(h, w, widx=widx, **kw)
+
         hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
         G, B, T, D = x.shape
         N = G * B
@@ -62,35 +82,36 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
             M, nu = cfg.armt.num_mem_tokens, cfg.armt.nu
             A_f = state["A"].reshape((N,) + state["A"].shape[2:])
             z_f = state["z"].reshape((N,) + state["z"].shape[2:])
-            read = kops.assoc_read(x.reshape(N, T, D), p["mem"]["wq"], A_f, z_f, nu=nu)
+            read = kops.assoc_read(x.reshape(N, T, D), small(p["mem"]["wq"]), A_f, z_f,
+                                   nu=nu)
             x = x + read.reshape(G, B, T, -1)
 
         pa = p["attn"]
         hln = snorm(x, p["ln1"])
-        q = kops.grouped_gemm(hln, pa["wq"]).reshape(G, B, T, nq, hd)
-        k = kops.grouped_gemm(hln, pa["wk"]).reshape(G, B, T, nkv, hd)
-        v = kops.grouped_gemm(hln, pa["wv"]).reshape(G, B, T, nkv, hd)
+        q = gemm(hln, pa["wq"]).reshape(G, B, T, nq, hd)
+        k = gemm(hln, pa["wk"]).reshape(G, B, T, nkv, hd)
+        v = gemm(hln, pa["wv"]).reshape(G, B, T, nkv, hd)
         q, k = rope_qk(q, k, cfg)
         o = kops.segment_attention(q, k, v, causal=True, window=cfg.sliding_window)
-        h = x + kops.grouped_gemm(o.reshape(G, B, T, nq * hd), pa["wo"])
+        h = x + gemm(o.reshape(G, B, T, nq * hd), pa["wo"])
 
         pf = p["ffn"]
         h2 = snorm(h, p["ln2"])
-        gate = kops.grouped_gemm(h2, pf["wg"], activation="silu")
-        up = kops.grouped_gemm(h2, pf["wu"])
+        gate = gemm(h2, pf["wg"], activation="silu")
+        up = gemm(h2, pf["wu"])
         if not armt_on:
-            return h + kops.grouped_gemm(gate * up, pf["wd"]), new_state
+            return h + gemm(gate * up, pf["wd"]), new_state
         pm = p["mem"]
+        wk, wv, wb = small(pm["wk"]), small(pm["wv"]), small(pm["wb"])
         if M > 0 and B == 1:
             y, A2, z2 = kops.grouped_gemm_armt_update(
-                gate * up, pf["wd"], h, pm["wk"], pm["wv"], pm["wb"], A_f, z_f,
-                M=M, nu=nu)
+                gate * up, pf["wd"], h, wk, wv, wb, A_f, z_f, M=M, nu=nu, widx=widx)
         else:
-            y = h + kops.grouped_gemm(gate * up, pf["wd"])
+            y = h + gemm(gate * up, pf["wd"])
             if M == 0:
                 return y, new_state
-            A2, z2 = kops.assoc_update(y[:, :, -M:, :].reshape(N, M, D), pm["wk"],
-                                       pm["wv"], pm["wb"], A_f, z_f, nu=nu)
+            A2, z2 = kops.assoc_update(y[:, :, -M:, :].reshape(N, M, D), wk, wv, wb,
+                                       A_f, z_f, nu=nu)
         new_state["A"] = A2.reshape(state["A"].shape)
         new_state["z"] = z2.reshape(state["z"].shape)
         return y, new_state
@@ -98,9 +119,14 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
     cells = {"attn": fused_attn,
              "mamba": lambda p, x, state: mamba_block(p, x, cfg.ssm, state)}
 
-    def grouped_apply(t, p, x, state):
+    def grouped_apply(t, p, x, state, widx=None):
         if t not in cells:
             raise ValueError(f"no fused cell for block type {t!r}")
-        return cells[t](p, x, state)
+        if widx is None:
+            return cells[t](p, x, state)
+        if t not in grouped_apply.indexed:
+            raise ValueError(f"the {t!r} cell takes no layer index")
+        return cells[t](p, x, state, widx)
 
+    grouped_apply.indexed = ("attn",)
     return grouped_apply

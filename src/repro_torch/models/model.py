@@ -340,6 +340,14 @@ def last_logits(params: Dict, cfg: ArchConfig, hidden: torch.Tensor) -> torch.Te
     return _head_matmul(params, cfg, h).float()
 
 
+def boundary_logits(params: Dict, cfg: ArchConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of the last position of every segment: hidden [S, B, T,
+    D] -> [S, B, V] (what a segment-boundary snapshot keeps beside its
+    state)."""
+    h = rmsnorm(hidden[:, :, -1], params["final_norm"])
+    return _head_matmul(params, cfg, h).float()
+
+
 # ---------------------------------------------------------------------------
 # Decode / serving ('armt': memory + current-segment cache; 'cache': full KV)
 # ---------------------------------------------------------------------------

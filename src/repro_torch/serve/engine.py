@@ -42,6 +42,18 @@ Sampling (``sample``) runs on the device: temperature-scaled logits, those
 below the k-th largest masked when ``top_k > 0``, one Gumbel-max draw from
 a ``torch.Generator`` on the engine's device seeded from ``seed``; the
 tokens come to the host once, at the end.
+
+The prefill is also a resumable pipeline (``start_prefill`` ->
+``PrefillPipeline``): the blocking prefill's work cut into bounded units,
+each ``advance()`` running one of them: ``groups_per_call`` band steps of
+the current diagonal stage (``core/diagonal.py`` ``pipeline_step``, the
+one-shot executor's band step) or one tail piece (``_tail_pieces``, the
+decomposition ``_chunk`` runs). ``serve``'s scheduler interleaves these
+units with decode chunks, so a long admission no longer stalls every
+decoding slot, and each admission's tokens are those of the blocking path
+by construction. ``AdmissionPool`` advances several such admissions per
+round, the diagonal stages of one signature through one pooled band step
+(``pipeline_step_pool``). The band steps run eagerly.
 """
 from __future__ import annotations
 
@@ -53,13 +65,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.core import diagonal as diag
 from repro_torch.core.capture import Program
 from repro_torch.core.memory import RECURRENT_KEYS
+from repro_torch.core.schedule import StackLayout, n_diagonal_groups, pool_cells_remaining
 from repro_torch.core.sequential import clone_state
+from repro_torch.models.blocks import make_apply_block
+from repro_torch.models.grouped_blocks import make_grouped_apply
 from repro_torch.models.model import (SCHEDULES, check_serve_mode, copy_state_,
-                                      decode_state_init, decode_step_, flush_segment_,
-                                      forward_hidden, last_logits, resolve_device,
-                                      segment_len)
+                                      decode_state_init, decode_step_, embed_segments,
+                                      flush_segment_, forward_hidden, init_state,
+                                      last_logits, resolve_device, segment_len)
 from repro_torch.serve.scheduler import ContinuousScheduler
 
 
@@ -247,6 +263,16 @@ class ServeEngine:
         self.flushes = serve_mode == "armt" and cfg.armt is not None
         self.capture = self.device.type == "cuda" and not eager
         self._programs: Dict = {}
+        self._layout = StackLayout.from_config(cfg)
+        self._n_layers = self._layout.n_layers
+        # the blocking prefill's executor pair (forward_hidden's, fused):
+        # the pipeline's band steps run the same cells
+        self._apply = make_apply_block(cfg, "segmented")
+        self._gapply = make_grouped_apply(cfg, "segmented")
+        # the row of each segment a streaming carry keeps: the last prompt
+        # token's, before the memory tokens (the last row without them)
+        M = cfg.armt.num_mem_tokens if cfg.armt is not None else 0
+        self._retain_pos = segment_len(cfg) - 1 if M else -1
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -290,15 +316,19 @@ class ServeEngine:
                                  device=self.device, serve_mode=self.serve_mode,
                                  max_len=self.max_len, per_slot_pos=per_slot_pos)
 
+    def _cuts(self, T: int):
+        """The token ends of the forward calls that prefill T tokens of whole
+        pieces in the model's segments: one call, or, when T is not a whole
+        number of segments, the whole ones and then one shorter segment."""
+        seg = segment_len(self.cfg)
+        return [T] if T <= seg or T % seg == 0 else [T - T % seg, T]
+
     def _prefill_full(self, toks: torch.Tensor):
-        """The prefill of whole pieces in the model's segments; a
-        length that is not a whole number of them ends in one shorter
-        segment, run from the state the whole ones left (exact: the state is
+        """The prefill of whole pieces in the model's segments (``_cuts``),
+        each call from the state the one before left (exact: the state is
         layer-local)."""
-        seg, T = segment_len(self.cfg), toks.shape[1]
-        cuts = [T] if T <= seg or T % seg == 0 else [T - T % seg, T]
         state, start = None, 0
-        for end in cuts:
+        for end in self._cuts(toks.shape[1]):
             hidden, state = forward_hidden(self.params, self.cfg, toks[:, start:end],
                                            schedule=self.schedule, fused=True,
                                            state0=state, eager=True)
@@ -306,21 +336,132 @@ class ServeEngine:
         return hidden, state
 
     def _chunk(self, dstate, toks: torch.Tensor):
-        """Feed a token chunk through the decode step, in place, in pieces
-        that end at segment boundaries, flushing an ARMT model at each
-        boundary; in cache mode as one piece. -> the last logits."""
+        """Feed a token chunk through the decode step, in place, in the
+        pieces of ``_tail_pieces``. -> the last logits."""
         logits = None
-        t = 0
-        while t < toks.shape[1]:
-            pos = dstate["pos"]
-            room = self.seg_len - pos if self.serve_mode == "armt" else toks.shape[1] - t
-            take = min(room, toks.shape[1] - t)
-            logits = decode_step_(self.params, self.cfg, dstate, toks[:, t:t + take],
-                                  serve_mode=self.serve_mode)
-            t += take
-            if self.flushes and dstate["pos"] >= self.seg_len:
-                flush_segment_(self.params, self.cfg, dstate)
+        for piece in _tail_pieces(self, toks.shape[1], dstate["pos"]):
+            logits = self._tail_piece(dstate, toks, piece)
         return logits
+
+    def _tail_piece(self, dstate, toks: torch.Tensor, piece):
+        """One piece (start, take, flush) of a token feed, in place -> its
+        last logits."""
+        t, take, flush = piece
+        logits = decode_step_(self.params, self.cfg, dstate, toks[:, t:t + take],
+                              serve_mode=self.serve_mode)
+        if flush:
+            flush_segment_(self.params, self.cfg, dstate)
+        return logits
+
+    # ------------------------------------------------------------------
+    # Resumable prefill pipeline (interleaved admission)
+    # ------------------------------------------------------------------
+
+    def _exec_params(self) -> Dict:
+        return {"prelude": self.params["prelude"], "pattern": self.params["pattern"]}
+
+    @torch.no_grad()
+    def prefill_step(self, xs: torch.Tensor, carry: Dict, n_groups: int) -> Dict:
+        """Advance one suspended diagonal stage (``diag.pipeline_init``'s
+        carry over the embedded segments ``xs``) by ``n_groups`` band
+        steps, in place, on the blocking prefill's cells."""
+        return diag.pipeline_step(self._layout, self._exec_params(), xs, carry,
+                                  self._apply, n_groups=n_groups,
+                                  grouped_apply=self._gapply,
+                                  retain_pos=self._retain_pos)
+
+    @torch.no_grad()
+    def pool_prefill_step_run(self, n_groups: int, group) -> list:
+        """Advance every member of ``group``, ``[(pipe, xs, carry), ...]``,
+        by ``n_groups`` band steps through one pooled step
+        (``diag.pipeline_step_pool``: one cell call per step over all the
+        members' bands for the attn cell; one member after another for
+        the mamba cell), in place -> the carries in member order."""
+        return diag.pipeline_step_pool(self._layout, self._exec_params(),
+                                       [xs for _, xs, _ in group],
+                                       [c for _, _, c in group], self._apply,
+                                       n_groups=n_groups, grouped_apply=self._gapply,
+                                       retain_pos=self._retain_pos)
+
+    def _segment_rows(self) -> int:
+        """T, the rows of one segment: seg_len tokens and the memory tokens."""
+        return self.seg_len + (self.cfg.armt.num_mem_tokens if self.cfg.armt is not None else 0)
+
+    def prefill_carry_bytes(self, n_segments: int, batch: int = 1, *,
+                            stream: bool = True) -> int:
+        """The carry of one suspended diagonal stage of ``n_segments``
+        segments, in units of one [B, seg_len + M, D] segment: the embedded
+        segments (S), the slot buffer (L), and the outputs, ``win`` (min(L,
+        S)) and ``brow`` (S rows) when streaming, else ``ys`` (S). The
+        reference's estimate counts S + L - 1 input segments, its drain
+        padding; the port reads the S segments themselves."""
+        cfg = self.cfg
+        item = self.params["embed"].element_size()
+        seg = batch * self._segment_rows() * cfg.d_model * item
+        L, S = self._n_layers, n_segments
+        total = (S + L) * seg
+        if stream:
+            total += min(L, S) * seg + S * batch * cfg.d_model * item
+        else:
+            total += S * seg
+        return total
+
+    def prefill_activation_bytes(self, n_segments: int, batch: int = 1, *,
+                                 stream: bool = True) -> int:
+        """Host estimate of the device bytes one admission of ``n_segments``
+        whole segments holds at its peak; the scheduler's byte budget reads
+        it per request. It adds:
+
+          * the carry (``prefill_carry_bytes``);
+          * two executor states (the stage's own copy and the one chained
+            from the stage before) and the decode state the tail fills;
+          * what the cell holds at its peak over the widest band, min(L, S)
+            layers, per group of B * T rows: the attn cell at its down
+            projection (gate, up and their product, F wide each; q, k, v;
+            seven D-wide activations; a pooled step's copy of the band) and
+            three copies of a layer's recurrent state (the new one, the
+            memory update's, a pooled step's); the mamba cell at its scan
+            (the in projection, 2 d_inner wide; the conv's input and output,
+            dt and the scan's output, d_inner each; three D-wide) and the
+            same state copies.
+
+        A pooled round holds the sum of its members'. Host arithmetic only:
+        the states are counted on the meta device."""
+        cfg = self.cfg
+        meta = torch.device("meta")
+        dtype = self.params["embed"].dtype
+        item = self.params["embed"].element_size()
+        L, S = self._n_layers, n_segments
+        state = _tree_bytes(init_state(cfg, batch, meta, dtype))
+        dstate = _tree_bytes(decode_state_init(
+            cfg, batch, dtype=dtype, device=meta, serve_mode=self.serve_mode,
+            max_len=self.max_len))
+        rows, D = batch * self._segment_rows(), cfg.d_model
+        if self._layout.pattern[0] == "attn":
+            width = (3 * cfg.d_ff + 8 * D
+                     + (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim)
+        else:
+            width = 3 * D + 6 * cfg.ssm.expand * D
+        cell = rows * width * item + 3 * state // L
+        return (self.prefill_carry_bytes(S, batch, stream=stream) + 2 * state + dstate
+                + min(L, S) * cell)
+
+    def start_prefill(self, prompts, *, groups_per_call: Optional[int] = 4,
+                      stream: bool = False,
+                      max_stage_segments: Optional[int] = None) -> "PrefillPipeline":
+        """A resumable admission of ``prompts`` [B, P]: a ``PrefillPipeline``
+        whose ``advance()`` runs ``groups_per_call`` band steps of its
+        current diagonal stage (None: the whole stage), or one tail piece;
+        its ``result()`` is ``prefill(prompts)``'s.
+
+        stream: the diagonal stages carry ``win``/``brow`` in place of the
+        full ``ys`` (bounded memory; the same logits and state).
+        max_stage_segments: cut the whole segments into stages of at most
+        this many (the largest power of two under it, then the remainder's
+        powers of two, as the reference does), the state chained across
+        them; the scheduler's byte budget sets it with ``stream``."""
+        return PrefillPipeline(self, prompts, groups_per_call=groups_per_call,
+                               stream=stream, max_stage_segments=max_stage_segments)
 
     @torch.no_grad()
     def generate(self, prompts, max_new: int, *, temperature: float = 0.0,
@@ -376,21 +517,313 @@ class ServeEngine:
             state=clone_state(prog.state) if keep else None)
 
     def serve(self, requests: Iterable, *, n_slots: int = 4, chunk: int = 8,
-              max_queue: Optional[int] = None,
-              prefill_groups_per_chunk: int = 0) -> Iterator:
+              max_queue: Optional[int] = None, prefill_groups_per_chunk: int = 4,
+              fused_admission: bool = False,
+              max_concurrent_admissions: Optional[int] = None,
+              admission_fairness: str = "round_robin",
+              admission_byte_budget: Optional[int] = None) -> Iterator:
         """Continuous-batching streaming front door: admit ``Request``s into
         ``n_slots`` decode slots and yield ``StreamEvent``s as tokens reach
         the host (once per ``chunk`` decode steps). Rejections (invalid
         request, session_id, full queue) come back as ``RequestError``
         events on the same stream.
 
-        Only blocking admission exists: each request is prefilled alone
-        between decode chunks, the reference's ``prefill_groups_per_chunk=0``.
-        Any other value raises, since the resumable prefill pipeline that
-        interleaves admission with decoding is not ported."""
-        if prefill_groups_per_chunk != 0:
-            raise ValueError("only blocking admission is ported: "
-                             "prefill_groups_per_chunk must be 0")
-        sched = ContinuousScheduler(self, n_slots=n_slots, chunk=chunk,
-                                    max_queue=max_queue)
+        prefill_groups_per_chunk: an admission's prefill advances this many
+        band steps per decode chunk (interleaved admission, the default 4);
+        -1 a whole diagonal stage per chunk; 0 blocks, prefilling each
+        request alone between chunks. fused_admission: enqueue each round's
+        decode chunk first and the admissions' band steps right after it,
+        before the chunk's tokens are read (see ``ContinuousScheduler``).
+        max_concurrent_admissions: admissions in flight at once (None: as
+        many as free slots). admission_fairness: 'round_robin' (every
+        admission advances each round) or 'oldest_first'.
+        admission_byte_budget: a prompt whose prefill would hold more
+        device bytes at its peak (``prefill_activation_bytes``: the carry,
+        the states and the band's transients) goes through the streaming
+        carry in stages that fit; None: no budget."""
+        sched = ContinuousScheduler(self, n_slots=n_slots, chunk=chunk, max_queue=max_queue,
+                                    prefill_groups_per_chunk=prefill_groups_per_chunk,
+                                    fused_admission=fused_admission,
+                                    max_concurrent_admissions=max_concurrent_admissions,
+                                    admission_fairness=admission_fairness,
+                                    admission_byte_budget=admission_byte_budget)
         return sched.run(requests)
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of every tensor leaf of a state tree."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if isinstance(tree, torch.Tensor) else 0
+
+
+def _tail_pieces(engine: ServeEngine, total: int, pos: int):
+    """A token feed of ``total`` tokens from in-segment position ``pos``
+    cut into decode-step pieces: [(start, take, flush_after), ...]. In
+    'armt' mode a piece ends at the segment boundary, where an ARMT model
+    flushes; in cache mode the feed is one piece. The one decomposition of
+    the blocking ``_chunk`` and of the pipeline's tail pieces, so the two
+    cannot drift."""
+    pieces = []
+    t = 0
+    while t < total:
+        room = engine.seg_len - pos if engine.serve_mode == "armt" else total - t
+        take = min(room, total - t)
+        pos += take
+        flush = engine.flushes and pos >= engine.seg_len
+        pieces.append((t, take, flush))
+        if flush:
+            pos = 0
+        t += take
+    return pieces
+
+
+def _pow2_chunks(n: int):
+    """Descending powers of two summing to n (13 -> [8, 4, 1])."""
+    out = []
+    while n > 0:
+        p = 1 << (n.bit_length() - 1)
+        out.append(p)
+        n -= p
+    return out
+
+
+class PrefillPipeline:
+    """A suspended, resumable admission: ``ServeEngine.prefill`` cut into
+    bounded units that ``advance()`` runs one at a time.
+
+    Its stages follow the blocking prefill: the prompt's whole pieces as
+    diagonal stages (in the model's segments, ``ServeEngine._cuts``; with
+    ``max_stage_segments`` cut into several stages, the state chained
+    across them), each advanced ``groups_per_call`` band steps per
+    ``advance()`` (``ServeEngine.prefill_step``); then the tail, one piece
+    per ``advance()`` (``_tail_pieces``). After the last diagonal stage the
+    final state is transplanted into a fresh decode state, which the tail
+    pieces update in place. The band steps are the one-shot executor's and
+    the tail pieces the blocking ``_chunk``'s, so ``result()`` equals
+    ``prefill()``'s to the bit.
+
+    Every carry is the pipeline's own (``diag.pipeline_init`` copies the
+    state), so decode chunks that update the scheduler's pool in place
+    between ``advance()`` calls cannot touch a suspended admission."""
+
+    def __init__(self, engine: ServeEngine, prompts, *,
+                 groups_per_call: Optional[int] = 4, stream: bool = False,
+                 max_stage_segments: Optional[int] = None):
+        if groups_per_call is not None and groups_per_call < 1:
+            raise ValueError(f"groups_per_call must be >= 1 or None (a whole stage per "
+                             f"advance), got {groups_per_call}")
+        if max_stage_segments is not None and max_stage_segments < 1:
+            raise ValueError(f"max_stage_segments must be >= 1, got {max_stage_segments}")
+        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long)
+        if prompts.dim() != 2:
+            raise ValueError(f"prompts must be [B, P], got {tuple(prompts.shape)}")
+        self.engine = engine
+        self.groups_per_call = groups_per_call
+        self._stream = bool(stream)
+        self.prompts = prompts.to(engine.device)
+        self.B, P = prompts.shape
+        if engine.serve_mode == "cache" and P > engine.max_len:
+            raise ValueError(f"prompt_len {P} exceeds max_len {engine.max_len} of the "
+                             "KV cache")
+        self._dstate = engine.decode_state(self.B)
+        self._logits = None
+        self._exec_state = None
+        self._xs = self._carry = None
+        self._groups_done = self._n_steps = 0
+        self._stage = 0
+        self._stages = []      # ("diag", t0, t1, seg) | ("tail", start, take, flush)
+        n_full = P // engine.seg_len if engine.serve_mode == "armt" else 0
+        if n_full and engine.schedule != "diagonal":
+            raise ValueError("start_prefill needs the diagonal schedule for its "
+                             f"segment stages (engine.schedule={engine.schedule!r})")
+        if max_stage_segments is not None and n_full > max_stage_segments:
+            cap = 1 << (max_stage_segments.bit_length() - 1)
+            groups = [cap] * (n_full // cap) + _pow2_chunks(n_full % cap)
+        else:
+            groups = [n_full] if n_full else []
+        off = 0
+        for g in groups:
+            t0 = off * engine.seg_len
+            start = 0
+            for end in engine._cuts(g * engine.seg_len):
+                seg = min(segment_len(engine.cfg), end - start)
+                self._stages.append(("diag", t0 + start, t0 + end, seg))
+                start = end
+            off += g
+        self._tail = self.prompts[:, n_full * engine.seg_len:]
+        self._stages += [("tail",) + piece
+                         for piece in _tail_pieces(engine, self._tail.shape[1], 0)]
+        self._done = not self._stages
+        if self._done:
+            raise ValueError("empty prompt")
+
+    # -- progress ------------------------------------------------------------
+
+    @property
+    def done(self) -> bool:
+        return self._done
+
+    def result(self):
+        """(next-token logits [B, V] fp32, decode state, in-segment pos), as
+        ``ServeEngine.prefill`` returns them; once ``done``."""
+        if not self._done:
+            raise RuntimeError("the pipeline is not finished: keep calling advance()")
+        return self._logits, self._dstate, self._dstate["pos"]
+
+    def diag_segments(self) -> list:
+        """(segments, groups run) of each diagonal stage not finished yet,
+        from the host cursors."""
+        out = []
+        for idx, st in enumerate(self._stages[self._stage:]):
+            if st[0] == "diag":
+                done = self._groups_done if idx == 0 and self._carry is not None else 0
+                out.append(((st[2] - st[1]) // st[3], done))
+        return out
+
+    # -- diagonal stages -----------------------------------------------------
+
+    def _begin_diag(self, t0: int, t1: int, seg: int) -> None:
+        eng = self.engine
+        x = embed_segments(eng.params, eng.cfg, self.prompts[:, t0:t1], seg)
+        state0 = self._exec_state
+        if state0 is None:
+            state0 = init_state(eng.cfg, self.B, eng.device, eng.params["embed"].dtype)
+        self._xs, self._carry = diag.pipeline_init(eng._layout, state0, x,
+                                                   stream_ys=self._stream)
+        self._groups_done = 0
+        self._n_steps = n_diagonal_groups(x.shape[0], eng._n_layers)
+
+    def _finish_diag(self, seg: int) -> None:
+        eng = self.engine
+        out, fin, _ = diag.pipeline_finalize(eng._layout, self._carry)
+        # last_logits reads the last row of the last segment: brow's, or
+        # ys's with the memory-token rows stripped
+        hidden = out["brow"][:, :, None, :] if self._stream else out[:, :, :seg]
+        self._logits = last_logits(eng.params, eng.cfg, hidden)
+        self._exec_state = fin
+        self._xs = self._carry = None
+        self._stage += 1
+        if not any(st[0] == "diag" for st in self._stages[self._stage:]):
+            _transplant(fin, self._dstate)
+
+    def active_diag(self):
+        """(segments, xs, carry) of the diagonal stage the next unit
+        advances (begun if it was not yet), or None when the next unit is a
+        tail piece or the pipeline is done."""
+        if self._done or self._stages[self._stage][0] != "diag":
+            return None
+        _, t0, t1, seg = self._stages[self._stage]
+        if self._carry is None:
+            self._begin_diag(t0, t1, seg)
+        return self._xs.shape[0], self._xs, self._carry
+
+    def groups_per_advance(self) -> int:
+        return self.groups_per_call or self._n_steps
+
+    def apply_diag_result(self, carry) -> bool:
+        """Account for ``groups_per_advance()`` band steps a pooled step ran
+        on this pipeline's carry (in place) -> done, as ``advance()``."""
+        if carry is not self._carry:
+            raise ValueError("not this pipeline's carry")
+        self._groups_done += self.groups_per_advance()
+        if self._groups_done >= self._n_steps:
+            self._finish_diag(self._stages[self._stage][3])
+        self._done = self._stage >= len(self._stages)
+        return self._done
+
+    # -- advancing -----------------------------------------------------------
+
+    @torch.no_grad()
+    def advance(self) -> bool:
+        """Run one bounded unit (band steps of the diagonal stage, or one
+        tail piece) -> whether the admission is complete."""
+        if self._done:
+            return True
+        if self.active_diag() is not None:
+            self.engine.prefill_step(self._xs, self._carry, self.groups_per_advance())
+            return self.apply_diag_result(self._carry)
+        piece = self._stages[self._stage][1:]
+        self._logits = self.engine._tail_piece(self._dstate, self._tail, piece)
+        self._stage += 1
+        self._done = self._stage >= len(self._stages)
+        return self._done
+
+
+class AdmissionPool:
+    """Concurrent resumable admissions advanced together, FIFO. Each round
+    every member advances one unit; the members whose next unit is a
+    diagonal stage of one signature (batch, groups per advance) go through
+    one pooled band step (``ServeEngine.pool_prefill_step_run``), the
+    others advance alone. The pooled step takes members of any grid, at any
+    cursor, streaming or not, so the signature holds only what one call
+    needs alike; the reference also keys by segments and stream, for its
+    compiles. Pooling batches device work only: every member's host state
+    stays in its ``PrefillPipeline``, and its results are those of its own
+    pipeline."""
+
+    def __init__(self, engine: ServeEngine):
+        self.engine = engine
+        self.members: list = []
+
+    def __len__(self) -> int:
+        return len(self.members)
+
+    def add(self, pipe: PrefillPipeline) -> None:
+        self.members.append(pipe)
+
+    def grid_cells_remaining(self) -> int:
+        """(segment, layer) cells not yet run across every member's diagonal
+        stages, from the host cursors."""
+        total = 0
+        for pipe in self.members:
+            stages = pipe.diag_segments()
+            total += pool_cells_remaining([d for _, d in stages], [s for s, _ in stages],
+                                          self.engine._n_layers)
+        return total
+
+    def diag_buckets(self) -> Dict:
+        """{(batch, k): [(pipe, xs, carry), ...]} of the members whose next
+        unit is a diagonal stage, in member order."""
+        buckets: Dict = {}
+        for pipe in self.members:
+            ad = pipe.active_diag()
+            if ad is None:
+                continue
+            _, xs, carry = ad
+            sig = (pipe.B, pipe.groups_per_advance())
+            buckets.setdefault(sig, []).append((pipe, xs, carry))
+        return buckets
+
+    def advance_round(self):
+        """One round: every member advances one unit; a bucket of two or
+        more goes through one pooled step. -> the members that completed,
+        FIFO, removed from the pool."""
+        advanced = set()
+        for (_, k), group in self.diag_buckets().items():
+            if len(group) < 2:
+                continue
+            self.engine.pool_prefill_step_run(k, group)
+            for pipe, _, carry in group:
+                pipe.apply_diag_result(carry)
+                advanced.add(id(pipe))
+        done = []
+        for pipe in list(self.members):
+            if id(pipe) in advanced:
+                if pipe.done:
+                    done.append(pipe)
+            elif pipe.advance():
+                done.append(pipe)
+        for pipe in done:
+            self.members.remove(pipe)
+        return done
+
+    def advance_oldest(self):
+        """Head-of-line: only the oldest member advances."""
+        pipe = self.members[0]
+        if pipe.advance():
+            self.members.remove(pipe)
+            return [pipe]
+        return []

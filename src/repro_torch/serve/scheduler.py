@@ -1,5 +1,5 @@
 """Continuous-batching scheduler: a fixed pool of decode slots fed from a
-request queue, with blocking admission.
+request queue, with interleaved (or blocking) admission.
 
 Each slot is one batch row of a pooled decode state (the static state of the
 engine's ``DecodeProgram`` of n_slots rows: its ``pos`` is an int64
@@ -9,13 +9,37 @@ KV cache; or Mamba's h and conv tail; in the engine's cache mode a KV cache
 of ``max_len`` rows) and its position, so requests at different segment
 phases decode together in one step.
 
-A request is admitted by prefilling it alone at B = 1 (``ServeEngine.prefill``:
-the diagonal prefill on the fused cell, then the prompt tail; in cache mode
-the whole prompt as one chunk) and copying
-the resulting state into a free slot's row; the other slots' rows are not
-touched. Admission blocks: it runs between decode chunks, which is the
-reference's ``prefill_groups_per_chunk=0`` mode. Interleaved admission
-(the resumable prefill pipeline) is not ported.
+A request is admitted by prefilling it alone at B = 1 and copying the
+resulting decode state into a free slot's row; the other slots' rows are
+not touched. Admission is interleaved by default: the request reserves a
+slot and its prefill runs as a resumable pipeline
+(``ServeEngine.start_prefill``) that advances ``prefill_groups_per_chunk``
+band steps of its diagonal stage, or one tail piece, per decode chunk, so
+a long prompt no longer stalls every decoding slot for its whole prefill.
+Up to ``max_concurrent_admissions`` admissions are in flight (None: as
+many as free slots), FIFO, in the engine's ``AdmissionPool``: each round
+every one of them advances one unit ('round_robin'; same-signature
+diagonal stages through one pooled band step), or only the oldest
+('oldest_first'). ``prefill_groups_per_chunk=0`` blocks: the request is
+prefilled whole (``ServeEngine.prefill``) between chunks, and so does an
+engine whose schedule is not 'diagonal' in 'armt' mode (a cache-mode
+prompt is tail pieces only, one piece). The finished state is installed
+by the same ``_install`` either way, so the tokens are blocking
+admission's. ``admission_byte_budget``: a prompt whose full-``ys`` prefill
+would hold more device bytes at its peak (``ServeEngine.
+prefill_activation_bytes``: the carry, the states and the band's
+transients) goes through the streaming carry in stages that fit the
+budget.
+
+``fused_admission``: the reference runs the decode chunk and the round's
+band steps as one jitted program. Here the chunk is CUDA graph replays and
+the band steps eager launches, so it means an order: the chunk's replays
+are enqueued first and the round's band steps right after them, both
+before the chunk's one device-to-host read, so the host enqueues the
+admission's launches while the card runs the chunk. A member admitted by
+that round starts decoding with the next chunk, as in the reference's
+fused program; when no member is at a diagonal stage the round runs in the
+unfused order (admission work, then the chunk).
 
 A decode chunk is ``chunk`` steps of the program's packed step over every
 slot (a CUDA graph on the card, replayed per step), reading its static
@@ -68,10 +92,11 @@ class StreamEvent:
     """One generated token, streamed when its chunk reaches the host.
 
     Host-clock metrics, chunk-granular: ttft_s (from submission, queue wait
-    included) and queue_wait_s on the first and final events; tok_s (tokens
-    over the time since admission) and finite (every logit this request's
-    tokens were taken from was finite) on the final event; t_emit on every
-    event."""
+    included), queue_wait_s and concurrent_admissions (admissions in flight
+    when this one started, its own included) on the first and final
+    events; tok_s (tokens over the time since admission) and finite (every
+    logit this request's tokens were taken from was finite) on the final
+    event; t_emit on every event."""
     req_id: Union[int, str]
     token: int
     index: int                  # 0-based position within the request's output
@@ -81,6 +106,7 @@ class StreamEvent:
     t_emit: Optional[float] = None
     queue_wait_s: Optional[float] = None
     finite: Optional[bool] = None
+    concurrent_admissions: Optional[int] = None
 
 
 @dataclass
@@ -101,23 +127,68 @@ class _Slot:
     t_submit: float = 0.0
     t_admit: float = 0.0
     t_first: Optional[float] = None
+    n_concurrent: int = 1
     # host mirror of the slot's in-segment position: seeded by the
     # admission, one step per emitted token, reset at seg_len, as
     # decode_step and the masked flush_segment move it on the device
     pos: int = 0
 
 
+@dataclass
+class _Admission:
+    """An interleaved admission in flight: its suspended pipeline, the slot
+    it reserved and what the install needs."""
+    req: Request
+    slot: int
+    pipe: object                 # serve.engine.PrefillPipeline
+    t_submit: float
+    t_admit: float
+    n_concurrent: int = 1
+
+
+FAIRNESS = ("round_robin", "oldest_first")
+
+
 class ContinuousScheduler:
-    """Drives a ServeEngine over many requests with continuous batching."""
+    """Drives a ServeEngine over many requests with continuous batching
+    (the arguments are ``ServeEngine.serve``'s)."""
 
     def __init__(self, engine, *, n_slots: int = 4, chunk: int = 8,
-                 max_queue: Optional[int] = None):
+                 max_queue: Optional[int] = None, prefill_groups_per_chunk: int = 4,
+                 fused_admission: bool = False,
+                 max_concurrent_admissions: Optional[int] = None,
+                 admission_fairness: str = "round_robin",
+                 admission_byte_budget: Optional[int] = None):
+        from repro_torch.serve.engine import AdmissionPool   # it imports this module
         if n_slots < 1 or chunk < 1:
             raise ValueError(f"n_slots {n_slots} and chunk {chunk} must be >= 1")
+        if prefill_groups_per_chunk < -1:
+            raise ValueError("prefill_groups_per_chunk must be >= -1 (-1 a whole stage "
+                             f"per chunk, 0 blocking), got {prefill_groups_per_chunk}")
+        if max_concurrent_admissions is not None and max_concurrent_admissions < 1:
+            raise ValueError("max_concurrent_admissions must be >= 1 or None, got "
+                             f"{max_concurrent_admissions}")
+        if admission_fairness not in FAIRNESS:
+            raise ValueError(f"admission_fairness must be one of {FAIRNESS}, got "
+                             f"{admission_fairness!r}")
+        if admission_byte_budget is not None and admission_byte_budget <= 0:
+            raise ValueError(f"admission_byte_budget must be > 0 or None, got "
+                             f"{admission_byte_budget}")
         self.engine = engine
         self.n_slots = n_slots
         self.chunk = chunk
         self.max_queue = max_queue
+        self.prefill_groups_per_chunk = prefill_groups_per_chunk
+        self.fused_admission = fused_admission
+        self.max_concurrent_admissions = max_concurrent_admissions
+        self.admission_fairness = admission_fairness
+        self.admission_byte_budget = admission_byte_budget
+        self._adms: list = []                # FIFO
+        self._pool_adm = AdmissionPool(engine)
+        # rounds run by the loop that drains admissions while no slot decodes
+        self.idle_drain_rounds = 0
+        # (t_start, t_end) of every completed admission, host clock
+        self.admission_windows: list = []
         self.prog = engine.program(n_slots, "serve")
         self.prog.prepare()                 # capture before any slot holds data
         self.pool = self.prog.state
@@ -152,6 +223,23 @@ class ContinuousScheduler:
                                 "engine has no session_store")
         return None
 
+    def _admission_plan(self, prompt_len: int):
+        """The byte budget's decision for a prompt of ``prompt_len`` tokens:
+        (stream, max_stage_segments). A prompt whose full-``ys`` prefill
+        fits the budget keeps the default path; a larger one streams, in
+        stages halved until one fits. Host arithmetic only."""
+        budget = self.admission_byte_budget
+        if budget is None:
+            return False, None
+        eng = self.engine
+        S = prompt_len // eng.seg_len
+        if S < 2 or eng.prefill_activation_bytes(S, stream=False) <= budget:
+            return False, None
+        max_g = S
+        while max_g > 1 and eng.prefill_activation_bytes(max_g, stream=True) > budget:
+            max_g //= 2
+        return True, (max_g if max_g < S else None)
+
     @torch.no_grad()
     def _admit(self, req: Request, t_submit: float) -> Optional[RequestError]:
         """Prefill the request alone (B = 1) and install it in a free slot;
@@ -161,14 +249,92 @@ class ContinuousScheduler:
         if err is not None:
             return err
         t_admit = time.perf_counter()
-        prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long)
+        prompt = np.asarray(req.prompt)
         slot = self.free.popleft()
-        logits, one_state, pos = self.engine.prefill(prompt[None])
+        stream, max_g = self._admission_plan(prompt.shape[0])
+        if stream:
+            # over the byte budget: the streaming pipeline, drained here
+            pipe = self.engine.start_prefill(prompt[None], groups_per_call=None,
+                                             stream=True, max_stage_segments=max_g)
+            while not pipe.advance():
+                pass
+            logits, one_state, pos = pipe.result()
+        else:
+            logits, one_state, pos = self.engine.prefill(
+                torch.as_tensor(prompt, dtype=torch.long)[None])
         self._install(slot, req, logits, one_state, pos, t_submit, t_admit)
         return None
 
+    def _interleave(self) -> bool:
+        """Interleaved admission needs the diagonal pipeline for segment
+        stages; a cache-mode admission is tail pieces only. Anything else
+        blocks."""
+        if self.prefill_groups_per_chunk == 0:
+            return False
+        eng = self.engine
+        return eng.schedule == "diagonal" or eng.serve_mode != "armt"
+
+    def _can_admit(self) -> bool:
+        """Room for another admission to start (the caller checks for a
+        free slot): blocking admissions finish at once and are never
+        capped; interleaved ones are, by max_concurrent_admissions."""
+        return (self.max_concurrent_admissions is None
+                or len(self._adms) < self.max_concurrent_admissions)
+
+    @torch.no_grad()
+    def _start(self, req: Request, t_submit: float) -> Optional[RequestError]:
+        """Begin serving ``req``: blocking admission when interleaving is
+        off or unavailable, else reserve a slot and add the request's
+        pipeline to the admission pool. Returns a RequestError instead of
+        starting when the request is rejected."""
+        if not self._interleave():
+            return self._admit(req, t_submit)
+        err = self._validate(req)
+        if err is not None:
+            return err
+        t_admit = time.perf_counter()
+        prompt = np.asarray(req.prompt)
+        slot = self.free.popleft()
+        k = self.prefill_groups_per_chunk
+        stream, max_g = self._admission_plan(prompt.shape[0])
+        pipe = self.engine.start_prefill(prompt[None], groups_per_call=None if k < 0 else k,
+                                         stream=stream, max_stage_segments=max_g)
+        self._adms.append(_Admission(req, slot, pipe, t_submit, t_admit,
+                                     n_concurrent=len(self._adms) + 1))
+        self._pool_adm.add(pipe)
+        return None
+
+    def _finish_admissions(self, done_pipes) -> None:
+        """Install each completed pipeline's state into its reserved slot,
+        FIFO (from here as blocking admission)."""
+        for pipe in done_pipes:
+            adm = next(a for a in self._adms if a.pipe is pipe)
+            logits, one_state, pos = pipe.result()
+            self._install(adm.slot, adm.req, logits, one_state, pos, adm.t_submit,
+                          adm.t_admit, adm.n_concurrent)
+            self._adms.remove(adm)
+
+    @torch.no_grad()
+    def _advance_admissions(self):
+        """One round over the admissions in flight: each advances one unit
+        (the pool's round, or only the oldest). With ``fused_admission``,
+        decoding slots and a member at a diagonal stage, the decode chunk
+        is enqueued first and the band steps right after it. Completed
+        admissions are installed FIFO. -> (chunk tokens, emit mask) when
+        this round ran the chunk, else (None, None)."""
+        toks = active = None
+        run_fused = self.fused_admission and any(s.active for s in self.slots)
+        if self.admission_fairness == "oldest_first" and len(self._adms) > 1:
+            done = self._pool_adm.advance_oldest()
+        else:
+            if run_fused and self._pool_adm.diag_buckets():
+                toks, active = self._run_chunk()
+            done = self._pool_adm.advance_round()
+        self._finish_admissions(done)
+        return toks, active
+
     def _install(self, slot: int, req: Request, logits, one_state, pos: int,
-                 t_submit: float, t_admit: float) -> None:
+                 t_submit: float, t_admit: float, n_concurrent: int = 1) -> None:
         """Copy a B = 1 decode state into row ``slot`` of the pool, in place,
         with its first token and position."""
         for axis, part in ((0, "prelude"), (1, "pattern")):
@@ -181,7 +347,9 @@ class ContinuousScheduler:
         s = self.slots[slot]
         s.req_id, s.remaining, s.index, s.active = req.req_id, req.max_new, 0, True
         s.t_submit, s.t_admit, s.t_first = t_submit, t_admit, None
+        s.n_concurrent = n_concurrent
         s.pos = int(pos)
+        self.admission_windows.append((t_admit, time.perf_counter()))
 
     # ------------------------------------------------------------------
     # Decode
@@ -213,7 +381,14 @@ class ContinuousScheduler:
         skipped."""
         prog = self.prog
         active, boundary = self._plan_chunk()
-        masks = torch.from_numpy(np.stack([active, boundary])).to(self.engine.device)
+        masks = torch.from_numpy(np.stack([active, boundary]))
+        if self.engine.device.type == "cuda":
+            # from pinned memory, asynchronously: the host goes on to the
+            # replays without waiting for the work queued before them (an
+            # admission's band steps)
+            masks = masks.pin_memory().to(self.engine.device, non_blocking=True)
+        else:
+            masks = masks.to(self.engine.device)
         toks = torch.empty(self.chunk, self.n_slots, dtype=torch.long,
                            device=self.engine.device)
         for t in range(self.chunk):
@@ -252,6 +427,7 @@ class ContinuousScheduler:
                 ev = StreamEvent(s.req_id, tok, s.index, done, t_emit=now)
                 if first or done:
                     ev.queue_wait_s = s.t_admit - s.t_submit
+                    ev.concurrent_admissions = s.n_concurrent
                 if first:
                     ev.ttft_s = now - s.t_submit
                 if done:
@@ -270,9 +446,11 @@ class ContinuousScheduler:
 
     def run(self, requests: Iterable[Request]) -> Iterator[
             Union[StreamEvent, RequestError]]:
-        """Generator: pulls requests lazily, admits them as slots free up,
-        and yields one StreamEvent per generated token (chunk-granular
-        latency) plus a RequestError for each rejected request."""
+        """Generator: pulls requests lazily, admits them as slots free up
+        (interleaving their prefills with decode chunks unless
+        ``prefill_groups_per_chunk=0``), and yields one StreamEvent per
+        generated token (chunk-granular latency) plus a RequestError for
+        each rejected request."""
         it = iter(requests)
         exhausted = False
 
@@ -290,13 +468,13 @@ class ContinuousScheduler:
 
         queue: deque = deque()           # (request, t_submit at pull)
         while True:
-            while self.free and queue:
+            while self.free and queue and self._can_admit():
                 req, t_sub = queue.popleft()
-                err = self._admit(req, t_sub)
+                err = self._start(req, t_sub)
                 if err is not None:
                     yield err
             while not exhausted:
-                can_start = bool(self.free) and not queue
+                can_start = bool(self.free) and not queue and self._can_admit()
                 if not can_start and self.max_queue is None:
                     break                # pull model: backpressure by not pulling
                 if (not can_start and self.max_queue is not None
@@ -306,22 +484,38 @@ class ContinuousScheduler:
                         break
                     yield RequestError(
                         req.req_id, "queue_full",
-                        f"all {self.n_slots} slots busy and queue limit "
-                        f"{self.max_queue} reached")
+                        f"all {self.n_slots} slots busy or spoken for and queue "
+                        f"limit {self.max_queue} reached")
                     continue
                 req = pull()
                 if req is None:
                     break
                 t_sub = time.perf_counter()
                 if can_start:
-                    err = self._admit(req, t_sub)
+                    err = self._start(req, t_sub)
                     if err is not None:
                         yield err
                 else:
                     queue.append((req, t_sub))
 
-            if any(s.active for s in self.slots):
-                yield from self._drain_chunk(*self._run_chunk())
+            # one round over the admissions in flight, then the decode
+            # chunk (unless the fused round ran it)
+            toks = active = None
+            if self._adms:
+                toks, active = self._advance_admissions()
+            if toks is None and any(s.active for s in self.slots):
+                toks, active = self._run_chunk()
+            if toks is not None:
+                yield from self._drain_chunk(toks, active)
+            elif self._adms:
+                # no slot decodes, so there is no chunk to interleave with:
+                # drain the admissions until one lands or a new request
+                # could start
+                while (self._adms and not any(s.active for s in self.slots)
+                       and not (self.free and self._can_admit()
+                                and (queue or not exhausted))):
+                    self._advance_admissions()
+                    self.idle_drain_rounds += 1
             elif not queue and exhausted:
                 return
             elif not queue:

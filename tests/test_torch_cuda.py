@@ -744,3 +744,151 @@ def test_failed_capture_raises_on_card(cuda):
     with pytest.raises(RuntimeError):
         Program(lambda: x.sum().item(), cuda, capture=True)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------- interleaved admission
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,G,R,K,N,act,bias", [
+    (torch.bfloat16, 7, 130, 72, 136, "silu", True),    # TMA + wgmma, ragged
+    (torch.bfloat16, 24, 64, 256, 512, None, False),     # 24 groups over 16 layers
+    (torch.float32, 5, 37, 50, 29, "gelu", True),        # SIMT
+    (torch.bfloat16, 3, 37, 50, 29, None, False),        # SIMT: no 16-byte rows
+])
+def test_grouped_matmul_layer_index_on_card(cuda, dtype, G, R, K, N, act, bias):
+    """A launch with a layer index over a 16-layer stack equals, to the
+    bit, the same launch on the weights gathered into group order, on both
+    routes; one launch either way."""
+    r = _rand(torch.Generator().manual_seed(G + N), cuda, dtype)
+    x, w, b = r(G, R, K), r(16, K, N, sc=K ** -0.5), r(16, N) if bias else None
+    idx = torch.from_numpy(np.random.default_rng(G).integers(0, 16, G)).to(cuda)
+    widx = idx.to(torch.int32)
+    before = grouped_matmul.launches
+    got = grouped_matmul.grouped_matmul(x, w, b, activation=act, widx=widx)
+    want = grouped_matmul.grouped_matmul(x, w[idx].contiguous(),
+                                         None if b is None else b[idx].contiguous(),
+                                         activation=act)
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches - before == 2
+    assert _same(got, want)
+    with pytest.raises(ValueError):
+        grouped_matmul.grouped_matmul(x, w, b, widx=idx)          # int64 index
+
+
+@pytest.mark.cuda
+def test_fused_update_layer_index_on_card(cuda):
+    """grouped_matmul_armt_update with a layer index into the stacked down
+    projection equals the gathered launch to the bit (y, A, z)."""
+    r = _rand(torch.Generator().manual_seed(11), cuda, torch.bfloat16)
+    G, R, K, N, M, dm = 5, 160, 256, 128, 32, 16
+    P = 6 * dm
+    x, w, res = r(G, R, K), r(8, K, N, sc=K ** -0.5), r(G, R, N)
+    wk, wv, wb = r(G, N, dm, sc=N ** -0.5), r(G, N, N, sc=N ** -0.5), r(G, N, 1, sc=N ** -0.5)
+    A = torch.randn(G, P, N, generator=torch.Generator().manual_seed(2)).to(cuda) * 0.1
+    z = torch.rand(G, P, generator=torch.Generator().manual_seed(3)).to(cuda) + 0.5
+    idx = torch.tensor([7, 0, 3, 3, 5], device=cuda)
+    got = grouped_matmul.grouped_matmul_armt_update(x, w, res, wk, wv, wb, A, z, M=M,
+                                                    widx=idx.to(torch.int32))
+    want = grouped_matmul.grouped_matmul_armt_update(x, w[idx].contiguous(), res, wk, wv, wb,
+                                                     A, z, M=M)
+    for a, b in zip(got, want):
+        assert _same(a, b)
+
+
+def _mid_pipeline(cuda, cfg, params, specs):
+    """Carries over random embedded segments, (segments, groups run) each."""
+    from repro_torch.core import diagonal as D
+    from repro_torch.core.schedule import StackLayout
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(params, cfg)
+    layout = StackLayout.from_config(cfg)
+    rng = np.random.default_rng(12)
+    out = []
+    for S, done in specs:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S * cfg.armt.segment_len)))
+        x = M.embed_segments(params, cfg, toks.to(cuda), cfg.armt.segment_len)
+        xs, carry = D.pipeline_init(layout, M.init_state(cfg, 1, cuda), x)
+        eng.prefill_step(xs, carry, done)
+        out.append((None, xs, carry))
+    return eng, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4])
+def test_pooled_step_equals_each_members_step_on_card(cuda, k):
+    """At 2 layers and full width, members of 2, 3 and 4 segments at
+    cursors 0, 2 and past the end: the pooled step equals each member's own
+    pipeline_step to the bit, and a step of several live members launches
+    each kernel once."""
+    cfg, params = _mid_llama(cuda)
+    specs = [(2, 0), (3, 2), (4, 9)]
+    eng, pool = _mid_pipeline(cuda, cfg, params, specs)
+    _, own = _mid_pipeline(cuda, cfg, params, specs)
+    with torch.no_grad():
+        _, n_pool = _counted(lambda: eng.pool_prefill_step_run(1, pool))
+        _, n_one = _counted(lambda: eng.prefill_step(own[1][1], own[1][2], 1))
+        eng.prefill_step(own[0][1], own[0][2], 1)
+        eng.prefill_step(own[2][1], own[2][2], 1)
+        eng.pool_prefill_step_run(k, pool)
+        for _, xs, carry in own:
+            eng.prefill_step(xs, carry, k)
+    torch.cuda.synchronize()
+    assert n_pool == n_one
+    for (_, _, got), (_, _, want) in zip(pool, own):
+        assert got["step"] == want["step"]
+        for key in ("buf", "ys"):
+            assert _same(got[key], want[key]), key
+        for leaf in ("A", "z"):
+            assert _same(got["state"]["pattern"][0][leaf], want["state"]["pattern"][0][leaf])
+
+
+@pytest.mark.cuda
+def test_interleaved_serve_equals_blocking_on_card(cuda):
+    """llama at full width, 2 layers: interleaved serve (k = 1 and 4,
+    pooled, fused, oldest first) gives blocking's events, to the token."""
+    from repro_torch.serve import Request, ServeEngine
+    cfg, params = _mid_llama(cuda)
+    seg = cfg.armt.segment_len
+    rng = np.random.default_rng(13)
+    spec = [(2 * seg + 7, 12), (seg - 3, 20), (3 * seg, 9), (40, 16), (seg + 500, 10)]
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n), m) for i, (n, m) in enumerate(spec)]
+    eng = ServeEngine(params, cfg)
+
+    def run(**kw):
+        return [(e.req_id, e.token, e.index, e.done, e.finite)
+                for e in eng.serve(reqs, n_slots=3, chunk=4, **kw)]
+
+    def toks(evs):
+        out = {}
+        for e in evs:
+            out.setdefault(e[0], []).append(e[1])
+        return out
+    blocking = toks(run(prefill_groups_per_chunk=0))
+    for kw in (dict(prefill_groups_per_chunk=1), dict(),
+               dict(fused_admission=True), dict(admission_fairness="oldest_first"),
+               dict(max_concurrent_admissions=1, prefill_groups_per_chunk=-1)):
+        assert toks(run(**kw)) == blocking, kw
+
+
+@pytest.mark.cuda
+def test_interleaved_serve_card_equals_cpu(cuda):
+    """Smoke config, fp32: interleaved serve on the card's kernels equals
+    the CPU's plain path, token for token."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_smoke_config("llama-1b-armt")
+    cpu = M.init_params(cfg, 0, device="cpu")
+    card = M.Model(cfg, cpu).to(cuda).tree()
+    seg = cfg.armt.segment_len
+    rng = np.random.default_rng(14)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n), m)
+            for i, (n, m) in enumerate([(2 * seg + 3, 9), (seg, 7), (5, 12), (3 * seg + 1, 6)])]
+
+    def served(eng):
+        out = {}
+        for e in eng.serve(reqs, n_slots=2, chunk=3, prefill_groups_per_chunk=2):
+            out.setdefault(e.req_id, []).append(e.token)
+        return out
+    assert served(ServeEngine(card, cfg)) == served(ServeEngine(cpu, cfg, device="cpu"))

@@ -219,8 +219,10 @@ def test_generate_matches_reference(engines, B, n_full, tail):
 
 
 def test_serve_matches_reference(engines):
-    """6 requests on 2 slots, chunk 4: prompts of 0-3 max_len pieces plus
-    tails; the event streams are equal and no slot ever flushes."""
+    """6 requests on 2 slots, chunk 4, blocking admission on both sides
+    (interleaved admission against blocking: tests/test_torch_interleave.py):
+    prompts of 0-3 max_len pieces plus tails; the event streams are equal
+    and no slot ever flushes."""
     jeng, teng, vocab = engines
     rng = np.random.default_rng(5)
     spec = [(40, 9), (70, 14), (5, 20), (96, 6), (33, 11), (1, 7)]
@@ -228,7 +230,8 @@ def test_serve_matches_reference(engines):
     want = [(e.req_id, int(e.token), e.index, e.done) for e in jeng.serve(
         [JRequest(i, p, m) for i, p, m in reqs], n_slots=2, chunk=4,
         prefill_groups_per_chunk=0)]
-    got = list(teng.serve([Request(i, p, m) for i, p, m in reqs], n_slots=2, chunk=4))
+    got = list(teng.serve([Request(i, p, m) for i, p, m in reqs], n_slots=2, chunk=4,
+                          prefill_groups_per_chunk=0))
     assert [(e.req_id, int(e.token), e.index, e.done) for e in got] == want
     assert sum(e.done for e in got) == len(spec) and all(e.finite for e in got if e.done)
 

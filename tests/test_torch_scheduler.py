@@ -52,10 +52,13 @@ def _stream(events):
 
 
 def _both(engines, reqs, **kw):
+    """Both front doors with blocking admission (interleaved admission is
+    held against the reference in tests/test_torch_interleave.py)."""
     jeng, teng = engines[:2]
     want = _stream(jeng.serve([JRequest(i, p, m, sid) for i, p, m, sid in reqs],
                               prefill_groups_per_chunk=0, **kw))
-    got = list(teng.serve([Request(i, p, m, sid) for i, p, m, sid in reqs], **kw))
+    got = list(teng.serve([Request(i, p, m, sid) for i, p, m, sid in reqs],
+                          prefill_groups_per_chunk=0, **kw))
     return want, got
 
 
@@ -112,8 +115,62 @@ def test_host_position_mirror_matches_device(engines):
     assert all(not s.active for s in sched.slots) and len(sched.free) == 2
 
 
-def test_serve_refuses_interleaved_admission(engines):
-    teng = engines[1]
-    for groups in (1, 4):
+@pytest.mark.parametrize("kw", [dict(prefill_groups_per_chunk=-2),
+                                dict(prefill_groups_per_chunk=-5),
+                                dict(max_concurrent_admissions=0),
+                                dict(admission_fairness="fifo"),
+                                dict(admission_byte_budget=0)])
+def test_serve_argument_checks(engines, kw):
+    """The reference's argument checks: a group budget below -1 (-1 is a
+    whole stage per chunk), no admission slot, an unknown fairness policy
+    and an empty byte budget raise."""
+    with pytest.raises(ValueError):
+        ContinuousScheduler(engines[1], **kw)
+
+
+@pytest.mark.parametrize("groups", [0, -1, -2])
+def test_start_prefill_refuses_group_budget_below_one(engines, groups):
+    """start_prefill takes groups_per_call >= 1, or None for a whole stage
+    (serve's -1); 0 (blocking) never builds a pipeline."""
+    teng, seg = engines[1], engines[2]
+    with pytest.raises(ValueError):
+        teng.start_prefill(np.arange(2 * seg)[None], groups_per_call=groups)
+    assert teng.start_prefill(np.arange(2 * seg)[None], groups_per_call=None).advance()
+
+
+def test_start_prefill_refuses_stage_cap_below_one(engines):
+    teng, seg = engines[1], engines[2]
+    for cap in (0, -1):
         with pytest.raises(ValueError):
-            teng.serve([], prefill_groups_per_chunk=groups)
+            teng.start_prefill(np.arange(2 * seg)[None], max_stage_segments=cap)
+
+
+def test_whole_stage_per_chunk_through_serve(engines):
+    """prefill_groups_per_chunk=-1 through serve: each admission's stage in
+    one advance, with blocking's tokens."""
+    _, teng, seg, vocab = engines
+    reqs = _requests([(2 * seg + 3, 5, None), (seg - 1, 4, None)], seg, vocab, seed=4)
+    got = _stream(teng.serve([Request(i, p, m) for i, p, m, _ in reqs],
+                             prefill_groups_per_chunk=-1))
+    want = _stream(teng.serve([Request(i, p, m) for i, p, m, _ in reqs],
+                              prefill_groups_per_chunk=0))
+    assert sorted(got) == sorted(want)
+
+
+def test_sequential_schedule_falls_back_to_blocking(engines):
+    """The resumable pipeline needs the diagonal schedule: a sequential
+    engine admits blocking at any group budget, as the reference does, and
+    gives the reference's events."""
+    jeng, teng, seg, vocab = engines
+    seq = ServeEngine(teng.params, teng.cfg, device="cpu", schedule="sequential")
+    reqs = _requests([(seg + 5, 6, None), (2 * seg + 3, 5, None), (7, 4, None)], seg,
+                     vocab, seed=5)
+    sched = ContinuousScheduler(seq, n_slots=2, chunk=4, prefill_groups_per_chunk=4)
+    assert not sched._interleave()
+    got = _stream(sched.run([Request(i, p, m) for i, p, m, _ in reqs]))
+    assert not sched._adms and sched.idle_drain_rounds == 0
+    want = _stream(jeng.serve([JRequest(i, p, m) for i, p, m, _ in reqs], n_slots=2,
+                              chunk=4, prefill_groups_per_chunk=0))
+    assert got == want
+    with pytest.raises(ValueError):
+        seq.start_prefill(np.arange(2 * seg)[None])

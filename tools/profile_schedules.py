@@ -29,6 +29,19 @@ the grouped GEMM and cuBLAS, the ARMT memory kernels, decode attention,
 copies, PyTorch's elementwise and indexing kernels) and the kernels with
 the most device time, and last one JSON line. Nothing is gated. ``--src``
 imports ``repro_torch`` from another tree (one with ``DecodeProgram``).
+
+    python3 tools/profile_schedules.py --serve [--serve-runs 2]
+
+profiles ``serve`` instead: chip_smoke's phase (e) requests (6 prompts of
+1-3 segments and a tail, 4 slots, chunk 8, greedy) at blocking admission
+(k = 0), the default interleaved k = 4, k = 4 with ``fused_admission`` and
+k = -1. Per setting, from an instrumented ``ContinuousScheduler`` (its
+rounds and chunks wrapped, host clock): wall and tok/s, admission rounds
+and their host time, the host time to enqueue the decode chunks and the
+time waiting for each chunk's tokens, slot-chunks decoding, reserved by
+an admission in flight and free, the pooled band steps, and the round
+work's device span (CUDA events around each round); then one traced run
+(``profile``): device time, idle share, device time by kind.
 """
 from __future__ import annotations
 
@@ -62,6 +75,10 @@ def main() -> int:
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--trace-dir", type=Path, default=None,
                     help="write gzipped Chrome traces here")
+    ap.add_argument("--serve", action="store_true",
+                    help="profile serve's admission settings instead")
+    ap.add_argument("--serve-runs", type=int, default=2,
+                    help="instrumented runs per serve setting, alternating")
     args = ap.parse_args()
     sys.path.insert(0, str(args.src.resolve()))
 
@@ -95,6 +112,10 @@ def main() -> int:
         return fn
 
     out = {"src": str(args.src), "card": smi}
+    if args.serve:
+        out["serve"] = serve_profile(params, cfg, rng, sync, args)
+        print(json.dumps(out))
+        return 0
     for n_tok in args.tokens:
         tk = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n_tok))).to(dev)
         for label, kw in [("full", dict(mode="full", schedule="sequential")),
@@ -136,6 +157,109 @@ def main() -> int:
         del prog
     print(json.dumps(out))
     return 0
+
+
+SERVE_SETTINGS = {"k=0 (blocking)": dict(prefill_groups_per_chunk=0),
+                  "k=4 (default)": {},
+                  "k=4 fused": dict(fused_admission=True),
+                  "k=-1": dict(prefill_groups_per_chunk=-1)}
+
+
+def serve_profile(params, cfg, rng, sync, args) -> dict:
+    """Phase (e)'s serve at each admission setting: where a run's host and
+    device time go (see the module docstring)."""
+    import time
+
+    import torch
+    from repro_torch.core import diagonal as D
+    from repro_torch.serve import ContinuousScheduler, Request, ServeEngine
+
+    engine = ServeEngine(params, cfg)
+    seg = engine.seg_len
+    spec = [(1, 1000, 40), (2, 990, 64), (3, 1010, 24), (1, 300, 48), (2, 980, 56),
+            (1, 10, 32)]
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n * seg + tail), new)
+            for i, (n, tail, new) in enumerate(spec)]
+    n_tok = sum(r.max_new for r in reqs)
+
+    def instrumented(kw):
+        sched = ContinuousScheduler(engine, n_slots=4, chunk=8, **kw)
+        st = dict(rounds=0, round_host_s=0.0, round_device_ms=0.0, chunks=0,
+                  chunk_enqueue_s=0.0, chunk_wait_s=0.0, slot_chunks_decoding=0,
+                  slot_chunks_reserved=0, slot_chunks_free=0)
+        events = []
+        adv, run_chunk, drain = (sched._advance_admissions, sched._run_chunk,
+                                 sched._drain_chunk)
+
+        def advance():
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            out = adv()
+            b.record()
+            st["round_host_s"] += time.perf_counter() - t0
+            st["rounds"] += 1
+            events.append((a, b))
+            return out
+
+        def chunk():
+            active = sum(s.active for s in sched.slots)
+            st["slot_chunks_decoding"] += active
+            st["slot_chunks_reserved"] += len(sched._adms)
+            st["slot_chunks_free"] += sched.n_slots - active - len(sched._adms)
+            t0 = time.perf_counter()
+            out = run_chunk()
+            st["chunk_enqueue_s"] += time.perf_counter() - t0
+            st["chunks"] += 1
+            return out
+
+        def drained(toks, active):
+            t0 = time.perf_counter()
+            gen = drain(toks, active)
+            first = next(gen, None)         # the chunk's one device-to-host read
+            st["chunk_wait_s"] += time.perf_counter() - t0
+            if first is not None:
+                yield first
+                yield from gen
+
+        sched._advance_admissions, sched._run_chunk, sched._drain_chunk = (
+            advance, chunk, drained)
+        return sched, st, events
+
+    @torch.no_grad()
+    def one(kw):
+        sched, st, events = instrumented(kw)
+        D.pool_counts.update(steps=0, member_steps=0)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in sched.run(reqs))
+        sync()
+        st["wall_s"] = time.perf_counter() - t0
+        st["tok_s"] = n / st["wall_s"]
+        st["round_device_ms"] = sum(a.elapsed_time(b) for a, b in events)
+        st["pooled_band_steps"] = dict(D.pool_counts)
+        st["idle_drain_rounds"] = sched.idle_drain_rounds
+        assert n == n_tok, (n, n_tok)
+        return st
+
+    for kw in SERVE_SETTINGS.values():         # warm-up: captures and first launches
+        one(kw)
+    out = {label: [] for label in SERVE_SETTINGS}
+    order = list(SERVE_SETTINGS.items())
+    for r in range(args.serve_runs):
+        for label, kw in (order if r % 2 == 0 else order[::-1]):
+            st = one(kw)
+            out[label].append(st)
+            print(f"== serve {label}, run {r + 1}: " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in st.items()), flush=True)
+    for label, kw in SERVE_SETTINGS.items():
+        def fn(kw=kw):
+            with torch.no_grad():
+                for _ in engine.serve(reqs, n_slots=4, chunk=8, **kw):
+                    pass
+        out[label].append(profile(f"serve {label}", fn, sync, KINDS, args.trace_dir,
+                                  args.top, "serve"))
+    return out
 
 
 if __name__ == "__main__":
