@@ -135,6 +135,45 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       chunk 8, each first token against a B = 1 generate; graph against
       eager; smoke config card vs CPU.
 
+  (p1) the prefix cache through generate (llama-1b-armt after (o)): a
+      PrefixCache holding one 16-segment prompt's boundaries (and two more),
+      filled by a cold generate of 16 segments + 300 tokens (48 new); hits
+      sharing 8 and 16 of its segments with tails of 0 (the exact full hit),
+      1, 1,023 and 1,027 tokens, each against an engine without a cache:
+      tokens, every step's logits and the final decode state to the bit (the
+      exact full hit's first logits, the stored boundary logits, within
+      1e-2); the 8-segment hit run twice (aliasing); a snapshot's A scaled
+      by 1.01 in one layer, a control that must fail; the bytes of a
+      snapshot beside a KV prefix of 16,384 tokens; TTFT hit, no cache and
+      cold with a cache (median of 3);
+  (p2) the prefix cache through serve: 6 requests on 4 slots, 4 sharing an
+      8-segment prefix, at k = 4 and blocking, every request's events equal
+      serve without a cache; hits, misses, pooled band steps; a capturing
+      16-segment admission's peak memory at or below
+      prefill_activation_bytes (with its capture term);
+  (p3) a 3-turn session (2 segments + 5, 7, 2 segments) through generate,
+      and through serve (turn 1 beside another request, turn 2 at k = 4,
+      turn 3 through generate): kept in memory against spilled to disk and
+      restored (a store of 1 byte), to the bit; an evicted session raising
+      SessionEvicted and yielding session_evicted, an unknown id starting
+      fresh; the smoke config (fp32) card against CPU over the whole flow;
+      each generate turn against one generate over the history (first
+      logits within 5e-2 while the history is at most 2 segments, printed
+      past that), with both TTFTs;
+  (q) telemetry: phase (e)'s requests through serve with
+      Telemetry(trace=True): the exported trace valid (schema and the CLI
+      gate on the decode, admission, transplant and flush categories), the
+      events equal with telemetry off, one device-to-host conversion per
+      chunk on and off (counted on every CUDA tensor's conversions); tok/s
+      on against off (alternating), ITL percentiles, the stall run's
+      admission_stall_s beside its longest gap, and the span totals of the
+      process's first interleaved serve (phase (e), run with the trace
+      recorder on) beside a warm one. Prints a ``{"stores": ...}`` line;
+  (p4) after (h): a falcon-mamba-7b session (2 x 8192 + 1000 tokens, then
+      500), spilled and restored against kept in memory to the bit (h and
+      the bf16 conv tail), resume TTFT against re-prefilling the history
+      (a ``{"stores_falcon": ...}`` line).
+
 Decode runs on CUDA graphs (``DecodeProgram``: the step, with sampling
 and the finite flag, and the masked flush, over static state updated in
 place), and so does the sequential schedule's segment; the eager engines
@@ -142,20 +181,23 @@ place), and so does the sequential schedule's segment; the eager engines
 to be held against them here and in the card tests.
 
 The kernels' launch counters are set to 0 just before each main-path run
-of (d), (e), (i), (k), (l), (o), (g), (h) and falcon's fused run of (o),
-and read just after it (a phase's count is the sum over its runs; a
+of (d), (e), (i), (k), (l), (o), (p1)-(p4), (g), (h) and falcon's fused
+run of (o), and read just after it (a phase's count is the sum over its runs; a
 graph replay counts what its capture launched, so the counts read the
 same under graphs as eager): every llama kernel must have been launched
-in (d), every one but armt_update (which runs only at B > 1) in (e) and
-in (o)'s interleaved serve runs (``serve_interleaved``), the GEMM and
+in (d), every one but armt_update (which runs only at B > 1) in (e), in
+(o)'s interleaved serve runs (``serve_interleaved``) and in the
+prefix-cache (p1-p2) and session (p3) runs (``prefix_cache``,
+``sessions``), the GEMM and
 flash in (i) and flash and decode attention in (k) and (l), with none of
 the ARMT memory kernels there, and mamba_scan in (g), (h) and falcon's
-interleaved run. ``serve`` runs at its default of 4 band steps per
+interleaved run and session run (p4). ``serve`` runs at its default of 4 band steps per
 chunk (interleaved admission) in (e), (l) and (h). The GEMM's and flash attention's
 launches are also counted by route (the TMA + wgmma kernel or the fp32 SIMT
 kernel; for the GEMM whoever called it: projections, the fused op, the
 ARMT kernels' projections): the bf16 llama runs of (d),
-(e), (i), (k), (l) and (o) must launch no SIMT GEMM and no SIMT flash. One decode_attention
+(e), (i), (k), (l), (o) and (p1)-(p3) must launch no SIMT GEMM and no
+SIMT flash. One decode_attention
 call (its partials and their combine) counts as one launch.
 The script prints JSON lines of the schedules' timing, of the graph
 phase (every graph-against-eager check with its rates) and of the kernel
@@ -165,6 +207,7 @@ non-zero before that line; without a CUDA device it exits 2.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -195,6 +238,48 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
+# ---------------------------------------------------------------------------
+# The telemetry phase's (q) count of device-to-host conversions
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def device_reads(torch):
+    """Counts the device-to-host conversions of CUDA tensors made inside
+    the block (``.cpu()``, ``.item()``, ``.tolist()``, ``.numpy()``, a
+    ``.to`` that lands on the host, and bool / int / float / index /
+    array conversions): yields a one-element list holding the count."""
+    names = ("cpu", "item", "tolist", "numpy", "__bool__", "__int__", "__float__",
+             "__index__", "__array__")
+    count = [0]
+    own = {n: torch.Tensor.__dict__.get(n) for n in names + ("to",)}
+
+    def counting(fn):
+        def wrapped(self, *a, **k):
+            if self.is_cuda:
+                count[0] += 1
+            return fn(self, *a, **k)
+        return wrapped
+
+    def counting_to(fn):
+        def wrapped(self, *a, **k):
+            out = fn(self, *a, **k)
+            if self.is_cuda and isinstance(out, torch.Tensor) and not out.is_cuda:
+                count[0] += 1
+            return out
+        return wrapped
+    for n in names:
+        setattr(torch.Tensor, n, counting(getattr(torch.Tensor, n)))
+    torch.Tensor.to = counting_to(getattr(torch.Tensor, "to"))
+    try:
+        yield count
+    finally:
+        for n, fn in own.items():
+            if fn is None:
+                delattr(torch.Tensor, n)
+            else:
+                setattr(torch.Tensor, n, fn)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -207,7 +292,8 @@ def main() -> int:
                                      grouped_matmul, mamba_scan, ops, swap)
     from repro_torch.core import diagonal as diag
     from repro_torch.models import model as M
-    from repro_torch.serve import ContinuousScheduler, Request, RequestError, ServeEngine
+    from repro_torch.serve import (ContinuousScheduler, MetricsRegistry, Request, RequestError,
+                                   ServeEngine, Telemetry)
 
     counters = {"grouped_matmul": (grouped_matmul, "launches"),
                 "flash_attention": (flash_attention, "launches"),
@@ -1182,8 +1268,12 @@ def main() -> int:
         return [(e.req_id, e.token, e.index, e.done, e.finite) for e in evs
                 if not isinstance(e, RequestError)]
 
+    # the process's first interleaved serve runs with the trace recorder on
+    # (host spans only), for phase (q)'s split of where its time goes
+    engine.telemetry = Telemetry(trace=True, registry=MetricsRegistry())
     (events, t_serve), launches_serve, routes_serve = counted(
         lambda: serve_run(engine, reqs, first_serve))
+    first_trace, engine.telemetry = engine.telemetry.trace, Telemetry()
     log(f"  launches in the serve phase: {launches_serve}; GEMM and flash launches by "
         f"route {routes_serve}")
     for name in llama_kernels:
@@ -1847,6 +1937,376 @@ def main() -> int:
     print(json.dumps({"interleave": interleave, "card": smi}))
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------ (p1)-(p3), (q)
+    # each a function called once below, so that its names stay out of
+    # main's scope (several of them, new and sseg among them, are main's too)
+    def prefix_cache_phases():
+        """(p1) the prefix cache through generate, (p2) through serve. ->
+        (summary, launches, routes) of the cache engine's runs."""
+        from repro_torch.serve import PrefixCache, Request, ServeEngine
+        from repro_torch.serve.state_store import tree_nbytes
+        base, V = engine, cfg.vocab
+        # the cold prompt's tail; the tails of (p2)'s four requests sharing a prefix
+        p0_tail, serve_tails = 300, (10, 300, 990, 1010)
+        hit_tails = (0, 1, seg - 1, seg + 3)
+        out, launches, routes = {}, {}, {}
+
+        def tally(fn):
+            nonlocal launches, routes
+            res, n, r = counted(fn)
+            launches, routes = merged(launches, n), merged(routes, r)
+            return res
+
+        def same_run(a, b, first_bits=True):
+            """Tokens, every step's logits (the first only if first_bits) and
+            the final decode state to the bit."""
+            return (np.array_equal(a.tokens, b.tokens)
+                    and same_bits(a.logits[:, 1:], b.logits[:, 1:])
+                    and (not first_bits or same_bits(a.logits[:, :1], b.logits[:, :1]))
+                    and same_state(a.state, b.state))
+
+        # ---- (p1) generate
+        t_phase = time.perf_counter()
+        log("== (p1) prefix cache through generate: llama-1b-armt, bf16, seed 0")
+        snap_bytes = (tree_nbytes(M.init_state(cfg, 1, torch.device("meta"),
+                                               params["embed"].dtype)) + V * 4)
+        budget = 18 * snap_bytes              # one 16-segment prompt's boundaries, and two more
+        pc = PrefixCache(seg, max_bytes=budget)
+        ceng = ServeEngine(params, cfg, prefix_cache=pc)
+        p0 = rng.integers(0, V, 16 * seg + p0_tail)
+        cold = tally(lambda: ceng.generate(p0[None], 48, keep=True))
+        ref = base.generate(p0[None], 48, keep=True)
+        per_snap = pc.stats.bytes_in_ram / max(len(pc), 1)
+        L, kv = M.StackLayout.from_config(cfg).n_layers, cfg.n_kv_heads * cfg.head_dim
+        kv_16k = L * 2 * 16384 * kv * params["embed"].element_size()
+        ok = len(pc) == 16 and cold.cached_segments == 0 and same_run(cold, ref)
+        log(f"  cold generate, 16 segments + {p0_tail} tokens, 48 new: {len(pc)} snapshots of "
+            f"{per_snap / 1e6:.3f} MB each (estimate {snap_bytes / 1e6:.3f} MB) beside a KV "
+            f"prefix of 16,384 tokens {kv_16k / 1e6:.1f} MB; tokens, logits and final state "
+            f"equal the engine without a cache to the bit -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("prefix cache: the capturing cold run differs from the engine "
+                            "without a cache")
+        out.update(snapshot_bytes=per_snap, snapshot_estimate_bytes=snap_bytes,
+                   kv_prefix_16384_bytes=kv_16k, hits={})
+        prompt81 = first81 = None
+        for n_shared in (8, 16):
+            for tail in hit_tails:
+                prompt = np.concatenate([p0[:n_shared * seg], rng.integers(0, V, tail)])
+                hit = tally(lambda: ceng.generate(prompt[None], 48, keep=True))
+                nc = base.generate(prompt[None], 48, keep=True)
+                exact = tail == 0
+                first_bitwise = same_bits(hit.logits[:, :1], nc.logits[:, :1])
+                first_err = row_rel(hit.logits[:, 0], nc.logits[:, 0])
+                ok = (hit.cached_segments == n_shared and same_run(hit, nc, first_bits=not exact)
+                      and (first_err <= 1e-2 if exact else first_bitwise))
+                label = f"{n_shared} segments + {tail}"
+                out["hits"][label] = dict(ok=ok, first_logits_bitwise=first_bitwise,
+                                          first_logits_rel_err=first_err)
+                first = ("first logits bitwise" if first_bitwise
+                         else f"first logits rel err {first_err:.3e} (tol 1e-2)")
+                log(f"  hit {label}{' (the exact full hit)' if exact else ''}: cached "
+                    f"{hit.cached_segments}; tokens, logits and final state vs no cache: "
+                    f"{first} -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"prefix cache hit {label} vs no cache")
+                if n_shared == 8 and tail == 1:
+                    prompt81, first81 = prompt, hit
+        again = tally(lambda: ceng.generate(prompt81[None], 48, keep=True))
+        ok = again.cached_segments == 8 and same_run(again, first81)
+        out["second_hit_bitwise"] = ok
+        log(f"  the 8-segment + 1 hit again (aliasing): to the bit the first -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("prefix cache: a second hit on one prefix differs from the first")
+        # control: one layer of the 16-segment snapshot's A scaled by 1.01
+        n, snap = pc.match(p0[:16 * seg])
+        A = snap.state["pattern"][0]["A"]
+        saved = A[L // 3].clone()
+        A[L // 3].mul_(1.01)
+        prompt = np.concatenate([p0[:16 * seg], rng.integers(0, V, 1)])
+        bad = ceng.generate(prompt[None], 48, keep=True)
+        caught = bad.cached_segments == 16 and not same_run(bad, base.generate(prompt[None], 48,
+                                                                               keep=True))
+        A[L // 3].copy_(saved)
+        out["control_caught"] = caught
+        log(f"  control: layer {L // 3}'s A x1.01 in the stored snapshot: the hit differs from "
+            f"no cache {caught} -> {'ok' if caught else 'FAIL'}")
+        if not caught:
+            failures.append("prefix cache control (snapshot A x1.01) was not caught")
+        # TTFT, host clock, median of 3
+        pr = np.concatenate([p0[:16 * seg], rng.integers(0, V, seg - 1)])
+        def median3(fn):
+            return float(np.median([fn() for _ in range(3)]))
+        ttft = {"hit 16 + %d" % (seg - 1): median3(lambda: ceng.generate(pr[None], 48).ttft_s),
+                "no cache 16 + %d" % (seg - 1): median3(lambda: base.generate(pr[None], 48).ttft_s)}
+        colds = []
+        for _ in range(3):
+            ceng.prefix_cache = PrefixCache(seg, max_bytes=budget)
+            colds.append(ceng.generate(p0[None], 48).ttft_s)
+        ttft[f"cold with a cache 16 + {p0_tail} (capture)"] = float(np.median(colds))
+        ttft[f"no cache 16 + {p0_tail}"] = median3(lambda: base.generate(p0[None], 48).ttft_s)
+        ceng.prefix_cache = pc
+        out["ttft_s"] = ttft
+        log("  TTFT (host clock, median of 3): " + "; ".join(f"{k} {v:.4f} s"
+                                                             for k, v in ttft.items())
+            + f"; card {smi}")
+        out["stats_p1"] = pc.stats.as_dict()
+        log(f"  prefix cache stats: {out['stats_p1']}; phase {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- (p2) serve: 6 requests on 4 slots, 4 of them sharing 8 segments
+        t_phase = time.perf_counter()
+        log("== (p2) prefix cache through serve: 4 slots, chunk 8, 6 requests, 4 sharing 8 "
+            "segments")
+        shared = rng.integers(0, V, 8 * seg)
+        spec = [("c0", serve_tails[0], 40), ("o0", None, 32), ("c1", serve_tails[1], 48),
+                ("c2", serve_tails[2], 56), ("o1", None, 64), ("c3", serve_tails[3], 24)]
+        others = {"o0": seg + serve_tails[2], "o1": 2 * seg + serve_tails[2]}
+        reqs = [Request(rid, np.concatenate([shared, rng.integers(0, V, t)]) if t is not None
+                        else rng.integers(0, V, others[rid]), new) for rid, t, new in spec]
+        want, _ = serve_run(base, reqs)
+        want = by_req(want)
+        out["serve"] = {}
+        for label, kw in (("k=4", {}), ("blocking", dict(prefill_groups_per_chunk=0))):
+            ceng.prefix_cache = PrefixCache(seg, max_bytes=budget)
+            evs, t_run = tally(lambda: serve_run(ceng, reqs, **kw))
+            ok = by_req(evs) == want
+            st = ceng.prefix_cache.stats.as_dict()
+            out["serve"][label] = dict(events_equal=ok, hits=st["hits"], misses=st["misses"],
+                                       insertions=st["insertions"], tok_s=len(evs) / t_run,
+                                       pooled_band_steps=dict(diag.pool_counts))
+            log(f"  serve {label} with a cache: every request's events equal serve without "
+                f"one {ok}; hits {st['hits']}, misses {st['misses']}, insertions "
+                f"{st['insertions']}; {len(evs) / t_run:.1f} tok/s; pooled band steps "
+                f"{dict(diag.pool_counts)} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"prefix-cache serve {label} vs no cache")
+        # a capturing admission's peak against the byte estimate
+        ceng.prefix_cache = PrefixCache(seg, max_bytes=budget)
+        long_prompt = rng.integers(0, V, 16 * seg)
+        est = ceng.prefill_activation_bytes(16, stream=False)
+        peak = None
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            sync()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            pipe = ceng.start_prefill(long_prompt[None], groups_per_call=4)
+            while not pipe.advance():
+                pass
+        sync()
+        if dev.type == "cuda":
+            peak = torch.cuda.max_memory_allocated() - start
+        ok = peak is not None and peak <= est and len(ceng.prefix_cache) == 16
+        out["capturing_admission"] = dict(peak_bytes=peak, estimate_bytes=est)
+        log(f"  a capturing admission of 16 segments (k = 4, full ys): peak "
+            f"{(peak or 0) / 1e6:.1f} MB above its start, estimate {est / 1e6:.1f} MB "
+            f"(prefill_activation_bytes with the capture term) -> {'ok' if ok else 'FAIL'}; "
+            f"card {smi}")
+        if not ok:
+            failures.append(f"capturing admission peak {peak} above its estimate {est}")
+        del pipe, ceng
+        log(f"  phase {time.perf_counter() - t_phase:.1f} s")
+        return out, launches, routes
+
+    def session_phases():
+        """(p3) a 3-turn session through generate and serve: in memory against
+        spilled, evictions, smoke config card against CPU, against one
+        generate over the history. -> (summary, launches, routes) of the
+        in-memory runs."""
+        import tempfile
+        from repro_torch.serve import (Request, RequestError, ServeEngine, SessionEvicted,
+                                       SessionStore)
+        t_phase = time.perf_counter()
+        log("== (p3) sessions: llama-1b-armt, bf16; turns of 2 segments + 5, 7, and 2 segments")
+        eng, V, new = engine, cfg.vocab, 24       # new: each turn's new tokens
+        out, launches, routes = {}, {}, {}
+
+        def flow(e, turns, other):
+            """Turns through generate (session 'g'), then through serve (turn 1
+            beside another request, turn 2 at k = 4) and generate (turn 3)."""
+            gen = [e.generate(t[None], new, session_id="g", keep=True) for t in turns]
+            ev1 = list(e.serve([Request("s1", turns[0], new, "s"), Request("x", other, 16)],
+                               n_slots=4, chunk=8))
+            ev2 = list(e.serve([Request("s2", turns[1], new, "s")], n_slots=4, chunk=8))
+            g3 = e.generate(turns[2][None], new, session_id="s", keep=True)
+            return gen, ev1, ev2, g3
+
+        turns = [rng.integers(0, V, 2 * seg + 5), rng.integers(0, V, 7),
+                 rng.integers(0, V, 2 * seg)]
+        other = rng.integers(0, V, seg + 300)
+        with tempfile.TemporaryDirectory() as spill:
+            eng.session_store = SessionStore(max_bytes=4 << 30)
+            res, n, r = counted(lambda: flow(eng, turns, other))
+            launches, routes = merged(launches, n), merged(routes, r)
+            eng.session_store = SessionStore(max_bytes=1, spill_dir=spill)
+            spilled = flow(eng, turns, other)
+            spills = eng.session_store.stats.as_dict()
+        gen, ev1, ev2, g3 = res
+        same = (all(np.array_equal(a.tokens, b.tokens) and same_bits(a.logits, b.logits)
+                    and same_state(a.state, b.state)
+                    for a, b in zip(gen + [g3], spilled[0] + [spilled[3]]))
+                and streams(ev1) == streams(spilled[1]) and streams(ev2) == streams(spilled[2])
+                and all(x.resumed for x in gen[1:] + [g3]))
+        out["spilled_equals_in_memory"] = same
+        log(f"  (i) spilled and restored (store of 1 byte: {spills['spills']} spills, "
+            f"{spills['restores']} restores) vs kept in memory: tokens, every step's logits and "
+            f"state of each generate turn and the events of each serve turn to the bit "
+            f"{same} -> {'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append("sessions: spilled and restored differ from in memory")
+        # (ii) eviction is loud; an unknown id starts fresh
+        eng.session_store = SessionStore(max_bytes=1)
+        eng.generate(turns[1][None], 4, session_id="gone")
+        try:
+            eng.generate(turns[1][None], 4, session_id="gone")
+            raised = False
+        except SessionEvicted:
+            raised = True
+        evs = list(eng.serve([Request("e", turns[1], 4, "gone")], n_slots=4, chunk=8))
+        fresh = list(eng.serve([Request("f", turns[1], 4, "fresh")], n_slots=4, chunk=8))
+        ok = (raised and len(evs) == 1 and isinstance(evs[0], RequestError)
+              and evs[0].code == "session_evicted"
+              and [e.index for e in fresh if not isinstance(e, RequestError)] == [0, 1, 2, 3])
+        out["eviction_loud"] = ok
+        log(f"  (ii) an evicted session (no spill): generate raises SessionEvicted {raised}, "
+            f"serve yields {[getattr(e, 'code', None) for e in evs]}; an unknown id starts "
+            f"fresh -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("sessions: an evicted session was not loud")
+        eng.session_store = None
+        # (iii) smoke config, fp32: card against CPU over the whole flow
+        sseg = scfg.armt.segment_len
+        sturns = [rng.integers(0, scfg.vocab, n) for n in (2 * sseg + 5, 7, 2 * sseg)]
+        sother = rng.integers(0, scfg.vocab, sseg + 3)
+
+        def tokens_of(run):
+            gen, ev1, ev2, g3 = run
+            return ([x.tokens.tolist() for x in gen + [g3]],
+                    [(e.req_id, e.token) for e in ev1 + ev2 if not isinstance(e, RequestError)])
+        card = tokens_of(flow(ServeEngine(sp_gpu, scfg, session_store=SessionStore()),
+                              sturns, sother))
+        cpu = tokens_of(flow(ServeEngine(sp, scfg, device="cpu",
+                                         session_store=SessionStore()), sturns, sother))
+        ok = card == cpu
+        out["smoke_card_equals_cpu"] = ok
+        log(f"  (iii) smoke config (fp32), the whole flow, card vs CPU: tokens equal {ok} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("sessions: smoke config card vs cpu")
+        # (iv) each generate turn against one generate over the whole history
+        hist = np.empty(0, np.int64)
+        out["vs_history"] = []
+        for i, (t, x) in enumerate(zip(turns, gen)):
+            h = np.concatenate([hist, t])
+            ref = eng.generate(h[None], new, keep=True)
+            err = row_rel(x.logits[:, 0], ref.logits[:, 0])
+            gated = len(h) // seg <= 2
+            ok = err <= 5e-2 or not gated
+            row = dict(turn=i + 1, history_tokens=len(h), first_logits_rel_err=err, gated=gated,
+                       tokens_equal=bool(np.array_equal(x.tokens, ref.tokens)),
+                       ttft_resumed_s=x.ttft_s, ttft_reprefill_s=ref.ttft_s)
+            out["vs_history"].append(row)
+            log(f"  (iv) turn {i + 1} (history {len(h)} tokens) vs one generate over the "
+                f"history: first logits rel err {err:.3e}"
+                f"{' (tol 5e-2)' if gated else ' (printed only: past 2 segments)'}, tokens "
+                f"equal {row['tokens_equal']}; TTFT resumed {x.ttft_s:.4f} s vs re-prefill "
+                f"{ref.ttft_s:.4f} s -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"sessions: turn {i + 1} vs the history")
+            hist = np.concatenate([h, x.tokens[0]])
+        log(f"  phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
+        return out, launches, routes
+
+    def telemetry_phase():
+        """(q) phase (e)'s requests through serve with the trace on: the trace's
+        schema, the events against telemetry off, the device-to-host
+        conversions per chunk; tok/s on against off, ITL percentiles, the
+        stall run's admission stall, the first serve's span totals beside a
+        warm one's."""
+        import tempfile
+        from repro_torch.serve import MetricsRegistry, Telemetry, validate_chrome_trace
+        from repro_torch.serve.telemetry import _main as trace_cli
+        t_phase = time.perf_counter()
+        log("== (q) telemetry: phase (e)'s requests through serve, Telemetry(trace=True)")
+        eng, out = engine, {}
+
+        def traced():
+            return Telemetry(trace=True, registry=MetricsRegistry())
+        eng.telemetry = traced()
+        with device_reads(torch) as reads_on:
+            (evs_on, t_on) = serve_run(eng, reqs)
+        tel = eng.telemetry
+        n_chunks = sum(1 for s in tel.trace.spans if s.name == "decode_chunk")
+        eng.telemetry = Telemetry.disabled()
+        with device_reads(torch) as reads_off:
+            (evs_off, t_off) = serve_run(eng, reqs)
+        same = streams(evs_on) == streams(evs_off)
+        with tempfile.TemporaryDirectory() as d:
+            path = f"{d}/trace.json"
+            tel.trace.export(path)
+            errs = validate_chrome_trace(path)
+            cli = trace_cli([path, "--require-cats", "decode,admission,transplant,flush"])
+        reads_ok = reads_on[0] == n_chunks and reads_off[0] == reads_on[0]
+        ok = same and not errs and cli == 0 and reads_ok
+        out.update(trace_valid=not errs and cli == 0, events_equal_off=same, chunks=n_chunks,
+                   device_reads_on=reads_on[0], device_reads_off=reads_off[0],
+                   itl_p50_p99_s=list(tel.trace.itl_percentiles()))
+        log(f"  trace: {len(tel.trace.spans)} spans, schema problems {errs[:3]}, CLI gate "
+            f"(decode, admission, transplant, flush) rc {cli}; events with telemetry on equal "
+            f"off {same}; device-to-host conversions {reads_on[0]} on, {reads_off[0]} off, over "
+            f"{n_chunks} chunks (one per chunk: the tokens and finite flags) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("telemetry: trace, events or device reads")
+        # tok/s on against off, alternating
+        rates = {"off": [], "on": []}
+        for mode in ("off", "on", "on", "off"):
+            eng.telemetry = traced() if mode == "on" else Telemetry.disabled()
+            evs, t = serve_run(eng, reqs)
+            rates[mode].append(len(evs) / t)
+        out["tok_s"] = rates
+        log(f"  tok/s, telemetry off / on, alternating: {rates['off']} / {rates['on']}; ITL p50, "
+            f"p99 {out['itl_p50_p99_s']} s; card {smi}")
+        # the stall run's admission stall beside chip_smoke's own longest gap
+        # (after an untraced warm-up, as phase (o)'s: the allocator's first
+        # 16 segments since the caches above were freed)
+        stall_run(prefill_groups_per_chunk=4)
+        eng.telemetry = traced()
+        _, row = stall_run(prefill_groups_per_chunk=4)
+        out["stall_run"] = dict(admission_stall_s=eng.telemetry.trace.admission_stall_s(),
+                                longest_gap_s=row["longest_gap_s"])
+        log(f"  stall run (k = 4): admission_stall_s {out['stall_run']['admission_stall_s']:.4f} "
+            f"s, chip_smoke's longest gap of a decoding slot {row['longest_gap_s']:.4f} s")
+        # the process's first interleaved serve (phase (e)) beside a warm one
+        keys = ("admission_round", "decode_chunk", "transplant", "flush_segment", "admission",
+                "idle_drain_round")
+        first, warm = first_trace.span_totals(), tel.trace.span_totals()
+        out["spans_first_vs_warm"] = {k: dict(first=first.get(k), warm=warm.get(k)) for k in keys}
+        log("  span totals (count, s), phase (e)'s first serve / warm: " + "; ".join(
+            f"{k} {first.get(k, {}).get('count', 0)}, {first.get(k, {}).get('total_s', 0.0):.4f} / "
+            f"{warm.get(k, {}).get('count', 0)}, {warm.get(k, {}).get('total_s', 0.0):.4f}"
+            for k in keys) + f" (wall {t_serve:.3f} / {t_on:.3f} s)")
+        eng.telemetry = Telemetry()
+        log(f"  phase {time.perf_counter() - t_phase:.1f} s")
+        return out
+
+    stores = {}
+    stores["prefix_cache"], launches_prefix, routes_prefix = prefix_cache_phases()
+    stores["sessions"], launches_sess, routes_sess = session_phases()
+    for label, n, r in (("prefix_cache", launches_prefix, routes_prefix),
+                        ("sessions", launches_sess, routes_sess)):
+        log(f"  launches in the {label} runs: {n}; GEMM and flash launches by route {r}")
+        for name in llama_kernels:
+            if n[name] == 0 and name != "armt_update":   # B > 1 only
+                failures.append(f"{name} never launched by the {label} runs")
+        for k in routed:
+            if r[k]["simt"] or not r[k]["wgmma"]:
+                failures.append(f"the {label} runs' {k} left the TMA + wgmma route: {r[k]}")
+    stores["telemetry"] = telemetry_phase()
+    print(json.dumps({"stores": stores, "card": smi}))
+
     del engine, eager_engine, params, events
     torch.cuda.empty_cache()
 
@@ -2126,6 +2586,51 @@ def main() -> int:
                          "tok_s_k4_fused": n_tok / t_ffused, "tok_s_blocking": n_tok / t_fblock}
     print(json.dumps({"interleave_falcon": interleave_falcon, "card": smi}))
     del fb_events, ff_events
+    def falcon_session_phase(new=32):
+        """(p4) a falcon-mamba session (turn 1 of 2 x max_len + 1000 tokens),
+        in memory against spilled, and the resume against re-prefilling the
+        history. -> (summary, launches)."""
+        import tempfile
+        from repro_torch.serve import SessionStore
+        t_phase = time.perf_counter()
+        V = feng.cfg.vocab
+        turn1, turn2 = 2 * feng.max_len + 1000, 500
+        log(f"== (p4) falcon-mamba-7b session: turn 1 {turn1} tokens, turn 2 {turn2}")
+        turns = [rng.integers(0, V, turn1), rng.integers(0, V, turn2)]
+        runs = []
+        launches = {}
+        with tempfile.TemporaryDirectory() as spill:
+            for store in (SessionStore(max_bytes=8 << 30),
+                          SessionStore(max_bytes=1, spill_dir=spill)):
+                feng.session_store = store
+                res, n, _ = counted(lambda: [feng.generate(t[None], new, session_id="f", keep=True)
+                                             for t in turns])
+                launches = merged(launches, n)
+                runs.append(res)
+            spills = feng.session_store.stats.as_dict()
+        feng.session_store = None
+        same = all(np.array_equal(a.tokens, b.tokens) and same_bits(a.logits, b.logits)
+                   and same_state(a.state, b.state) for a, b in zip(*runs))
+        hist = np.concatenate([turns[0], runs[0][0].tokens[0], turns[1]])
+        ref = feng.generate(hist[None], new)
+        out = dict(spilled_equals_in_memory=same, spills=spills["spills"],
+                   ttft_resumed_s=runs[0][1].ttft_s, ttft_reprefill_s=ref.ttft_s,
+                   tokens_equal_history=bool(np.array_equal(runs[0][1].tokens, ref.tokens)))
+        log(f"  spilled and restored ({spills['spills']} spills, {spills['restores']} restores) "
+            f"vs in memory: tokens, logits, h and the bf16 conv tail to the bit {same} -> "
+            f"{'ok' if same else 'FAIL'}; TTFT resumed {runs[0][1].ttft_s:.4f} s vs re-prefill "
+            f"of the {len(hist)}-token history {ref.ttft_s:.4f} s (tokens equal "
+            f"{out['tokens_equal_history']}); phase {time.perf_counter() - t_phase:.1f} s; "
+            f"card {smi}")
+        if not same:
+            failures.append("falcon-mamba session: spilled differs from in memory")
+        return out, launches
+
+    stores_falcon, launches_fsess = falcon_session_phase()
+    for name in falcon_kernels:
+        if launches_fsess[name] == 0:
+            failures.append(f"{name} never launched by the falcon-mamba session runs")
+    print(json.dumps({"stores_falcon": stores_falcon, "card": smi}))
     del feng, feng_eager, fparams, events, e_events
     torch.cuda.empty_cache()
     fsreqs = [Request(i, rng.integers(0, fsmoke.vocab, n), new)
@@ -2165,15 +2670,22 @@ def main() -> int:
                               "src/repro/kernels/mamba_scan.py:44")}
     # the runs of each model's paths, each read from counts set to 0 just
     # before it: llama's generate and serve ('armt' mode), its full-mode
-    # forward and cache-mode generate and serve; falcon's generate and serve
+    # forward and cache-mode generate and serve, its interleaved serve, its
+    # prefix-cache and session runs; falcon's generate, serve, interleaved
+    # serve and session runs
     llama_paths = {"generate": launches_gen, "serve": launches_serve,
                    "full_forward": launches_full, "cache_generate": launches_cgen,
-                   "cache_serve": launches_cserve, "serve_interleaved": launches_inter}
+                   "cache_serve": launches_cserve, "serve_interleaved": launches_inter,
+                   "prefix_cache": launches_prefix, "sessions": launches_sess}
     llama_routes = {"generate": routes_gen, "serve": routes_serve, "full_forward": routes_full,
                     "cache_generate": routes_cgen, "cache_serve": routes_cserve,
-                    "serve_interleaved": routes_inter}
+                    "serve_interleaved": routes_inter, "prefix_cache": routes_prefix,
+                    "sessions": routes_sess}
+    # falcon-mamba has no prefix-cache run (its engine refuses a cache at
+    # max_len 8192: its seg_len is max_len, not the model's segment), so
+    # mamba_scan has no launches_prefix_cache
     falcon_paths = {"generate": flaunch_gen, "serve": flaunch_serve,
-                    "serve_interleaved": flaunch_inter}
+                    "serve_interleaved": flaunch_inter, "sessions": launches_fsess}
     kernels = []
     for name, (src, replaces) in sources.items():
         s = summary[name]

@@ -24,6 +24,7 @@ data.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, Dict
 
 import torch
@@ -31,6 +32,11 @@ import torch
 from repro_torch.kernels import build
 
 WARMUP = 2   # warm-up runs before a capture
+
+# CUDA graphs this process captured, and the host seconds their warm-ups and
+# captures took (the telemetry's ``graph_captures`` probe reads them)
+captures = 0
+capture_seconds = 0.0
 
 
 @contextlib.contextmanager
@@ -80,6 +86,8 @@ class Program:
         return self.out
 
     def _capture(self, device) -> None:
+        global captures, capture_seconds
+        t0 = time.perf_counter()
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with uncounted(), torch.cuda.stream(side):
@@ -91,3 +99,5 @@ class Program:
             self.out = self.fn()
         self.graph, self.fn = graph, None        # the graph holds what it needs
         torch.cuda.synchronize(device)
+        captures += 1
+        capture_seconds += time.perf_counter() - t0

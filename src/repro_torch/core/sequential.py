@@ -5,12 +5,19 @@ order; within a segment, layers in order (paper Fig. 3a).
 donated carry): each layer's new leaves are written into the stacked state
 with ``copy_``, so the state keeps its buffers, and a CUDA graph captured
 over it stays valid. ``run_sequential`` is the functional form: a copy of
-the state, then the same in-place run."""
+the state, then the same in-place run.
+
+With a capture (``capture_init``), the recurrent state after every segment
+is copied out into buffers with a leading [S] axis: in this schedule each
+segment's end is a segment boundary, so no reindexing is needed (the
+diagonal executor's capture is per step, ``core/diagonal.py``)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
 import torch
+
+from repro_torch.core.memory import RECURRENT_KEYS
 
 # apply_block(btype, layer_params, x, layer_state) -> (y, new_layer_state)
 ApplyBlock = Callable[[str, Any, torch.Tensor, Any], tuple]
@@ -61,15 +68,35 @@ def apply_layer_(apply_block: ApplyBlock, t: str, p, x, st: Dict,
     return y
 
 
+def capture_init(state: Dict, n_segments: int) -> Dict:
+    """Buffers for the recurrent leaves (A, z; h, conv) of a state tree,
+    each with a leading [n_segments] axis."""
+    def one(tree):
+        return {k: torch.empty((n_segments,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+                for k, v in tree.items() if k in RECURRENT_KEYS}
+    return {part: tuple(one(t) for t in state[part]) for part in ("prelude", "pattern")}
+
+
+def capture_write_(capture: Dict, state: Dict, s: int) -> None:
+    """Copies the recurrent leaves of ``state`` into entry s of a capture."""
+    for part in ("prelude", "pattern"):
+        for cap, st in zip(capture[part], state[part]):
+            for k, buf in cap.items():
+                buf[s].copy_(st[k])
+
+
 def run_sequential_(layout, params: Dict, state: Dict, segments, apply_block: ApplyBlock,
-                    *, row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    *, row_mask: Optional[torch.Tensor] = None,
+                    capture: Optional[Dict] = None) -> torch.Tensor:
     """segments: [S, B, T, D] -> ys [S, B, T, D]; ``state`` is updated in
-    place (with row_mask, bool [B], only its True rows).
+    place (with row_mask, bool [B], only its True rows). capture: buffers
+    from ``capture_init``, into which the recurrent state after segment s
+    is copied as entry s.
 
     params/state: {'prelude': tuple of per-layer trees, 'pattern': tuple of
     trees stacked over n_super on dim 0}."""
     ys = []
-    for x in segments:
+    for s, x in enumerate(segments):
         for j, t in enumerate(layout.prelude):
             x = apply_layer_(apply_block, t, params["prelude"][j], x, state["prelude"][j],
                              row_mask)
@@ -78,12 +105,17 @@ def run_sequential_(layout, params: Dict, state: Dict, segments, apply_block: Ap
                 x = apply_layer_(apply_block, t, layer_slice(params["pattern"][p], j), x,
                                  layer_slice(state["pattern"][p], j), row_mask)
         ys.append(x)
+        if capture is not None:
+            capture_write_(capture, state, s)
     return torch.stack(ys)
 
 
 def run_sequential(layout, params: Dict, state0: Dict, segments,
-                   apply_block: ApplyBlock):
+                   apply_block: ApplyBlock, *, capture_states: bool = False):
     """segments: [S, B, T, D] -> (ys [S, B, T, D], final_state); state0 is
-    not modified."""
+    not modified. capture_states: also return, third, the recurrent state
+    after every segment, leaves with a leading [S] axis."""
     state = clone_state({"prelude": state0["prelude"], "pattern": state0["pattern"]})
-    return run_sequential_(layout, params, state, segments, apply_block), state
+    cap = capture_init(state, segments.shape[0]) if capture_states else None
+    ys = run_sequential_(layout, params, state, segments, apply_block, capture=cap)
+    return (ys, state, cap) if capture_states else (ys, state)

@@ -155,6 +155,11 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+def loaded() -> bool:
+    """Whether this process has loaded the kernel library."""
+    return _lib is not None
+
+
 def ptxas_log() -> str:
     """What ``ptxas -v`` said of each kernel in the current build."""
     path = BUILD_ROOT / source_hash() / "ptxas.log"

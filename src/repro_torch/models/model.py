@@ -24,10 +24,11 @@ from torch import nn
 
 from repro_torch.configs import ArchConfig
 from repro_torch.core.capture import Program
-from repro_torch.core.diagonal import run_diagonal
+from repro_torch.core.diagonal import boundary_states_from_capture, run_diagonal
 from repro_torch.core.memory import mem_read, mem_update
 from repro_torch.core.schedule import StackLayout
-from repro_torch.core.sequential import clone_state, run_sequential, run_sequential_
+from repro_torch.core.sequential import (capture_init, capture_write_, clone_state,
+                                         run_sequential, run_sequential_)
 from repro_torch.models.attention import decode_attention
 from repro_torch.models.blocks import block_state_init, check_mode, make_apply_block
 from repro_torch.models.grouped_blocks import make_grouped_apply
@@ -212,9 +213,13 @@ def _one_layer_cell(grouped_apply):
 def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
                    schedule: str = "diagonal", fused: bool = True,
                    mode: str = "segmented", state0: Optional[Dict] = None,
-                   seg_len: Optional[int] = None, eager: bool = False):
+                   seg_len: Optional[int] = None, eager: bool = False,
+                   capture_states: bool = False):
     """tokens: [B, S*seg_len] -> (hidden [S, B, seg_len, D] with the
-    memory-token rows stripped, final executor state).
+    memory-token rows stripped, final executor state); with capture_states
+    a third output, the recurrent state at every segment boundary (leaves
+    with a leading [S] axis, boundary c at index c - 1): what the serving
+    prefix cache stores (``serve/state_store.py``).
 
     mode 'segmented' runs the model's segments with ARMT memory; 'full'
     (the paper's full-attention baseline) runs one segment of the whole
@@ -233,9 +238,10 @@ def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
 
     On a CUDA device the sequential schedule on the fused cell in segmented
     mode replays one captured CUDA graph per segment (``SegmentProgram``,
-    captured once per shape and weights); ``eager=True`` runs
-    ``run_sequential`` instead, for comparisons, as the CPU always does.
-    Every other path runs eagerly."""
+    captured once per shape and weights; a capture copies its static state
+    out after each replay); ``eager=True`` runs ``run_sequential`` instead,
+    for comparisons, as the CPU always does. Every other path runs
+    eagerly."""
     check_mode(mode)
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r}; expected one of {SCHEDULES}")
@@ -254,13 +260,18 @@ def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     grouped = make_grouped_apply(cfg, mode) if fused else None
     exec_params = {"prelude": params["prelude"], "pattern": params["pattern"]}
     if schedule == "diagonal":
-        ys, fin = run_diagonal(layout, exec_params, state0, x, apply, grouped_apply=grouped)
+        out = run_diagonal(layout, exec_params, state0, x, apply, grouped_apply=grouped,
+                           capture_states=capture_states)
+        if capture_states:      # per step -> per boundary; the step capture goes
+            out = out[:2] + (boundary_states_from_capture(layout, out[2], x.shape[0]),)
     elif fused and mode == "segmented" and x.device.type == "cuda" and not eager:
-        ys, fin = SegmentProgram.get(params, cfg, x.shape[1:]).run(x, state0)
+        out = SegmentProgram.get(params, cfg, x.shape[1:]).run(x, state0,
+                                                               capture_states=capture_states)
     else:
-        ys, fin = run_sequential(layout, exec_params, state0, x,
-                                 _one_layer_cell(grouped) if fused else apply)
-    return ys[:, :, :seg_len], fin
+        out = run_sequential(layout, exec_params, state0, x,
+                             _one_layer_cell(grouped) if fused else apply,
+                             capture_states=capture_states)
+    return (out[0][:, :, :seg_len],) + tuple(out[1:])
 
 
 class SegmentProgram:
@@ -309,15 +320,21 @@ class SegmentProgram:
                 cls._cache.popitem(last=False)
         return cls._cache[key]
 
-    def run(self, segments: torch.Tensor, state0: Dict):
+    def run(self, segments: torch.Tensor, state0: Dict, *, capture_states: bool = False):
         """segments [S, B, T, D] from state0 -> (ys [S, B, T, D], a copy of
-        the final state)."""
+        the final state); capture_states: also, third, the recurrent state
+        after every segment, copied out of the static state after each
+        replay (leading [S])."""
         copy_state_(self.state, state0)
         ys = torch.empty_like(segments)
+        cap = capture_init(self.state, segments.shape[0]) if capture_states else None
         for s in range(segments.shape[0]):
             self.x.copy_(segments[s])
             ys[s].copy_(self.program())
-        return ys, clone_state(self.state)
+            if cap is not None:
+                capture_write_(cap, self.state, s)
+        fin = clone_state(self.state)
+        return (ys, fin, cap) if capture_states else (ys, fin)
 
 
 def copy_state_(dst: Dict, src: Dict) -> None:

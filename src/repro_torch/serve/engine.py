@@ -54,10 +54,23 @@ decoding slot, and each admission's tokens are those of the blocking path
 by construction. ``AdmissionPool`` advances several such admissions per
 round, the diagonal stages of one signature through one pooled band step
 (``pipeline_step_pool``). The band steps run eagerly.
+
+The engine may carry the serving state stores (``serve/state_store.py``):
+a ``PrefixCache`` (the longest cached prefix of a B = 1 prompt, at segment
+granularity, is transplanted, and only the segments after it are
+prefilled, with their boundary states captured and inserted) and a
+``SessionStore`` (``generate(..., session_id=)`` and ``serve``'s requests
+resume a conversation from its stored end state, feeding only the new
+turn). Everything the stores keep, and everything taken from them, is a
+copy: the engine's programs and executors update their state in place.
+
+``telemetry`` (``serve/telemetry.py``): metrics into the process registry
+by default, spans when a trace recorder is asked for; host-side only.
 """
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Dict, Iterable, Iterator, Optional
 
@@ -72,11 +85,13 @@ from repro_torch.core.schedule import StackLayout, n_diagonal_groups, pool_cells
 from repro_torch.core.sequential import clone_state
 from repro_torch.models.blocks import make_apply_block
 from repro_torch.models.grouped_blocks import make_grouped_apply
-from repro_torch.models.model import (SCHEDULES, check_serve_mode, copy_state_,
-                                      decode_state_init, decode_step_, embed_segments,
-                                      flush_segment_, forward_hidden, init_state,
-                                      last_logits, resolve_device, segment_len)
+from repro_torch.models.model import (SCHEDULES, boundary_logits, check_serve_mode,
+                                      copy_state_, decode_state_init, decode_step_,
+                                      embed_segments, flush_segment_, forward_hidden,
+                                      init_state, last_logits, resolve_device, segment_len)
 from repro_torch.serve.scheduler import ContinuousScheduler
+from repro_torch.serve.state_store import prefix_hash_chain, tree_nbytes
+from repro_torch.serve.telemetry import Telemetry
 
 
 def _transplant(fin: Dict, dstate: Dict) -> None:
@@ -135,6 +150,10 @@ class GenerationResult:
     capture_s: float = 0.0      # host time this call spent capturing graphs
     logits: Optional[torch.Tensor] = None   # keep=True: [B, max_new, V] fp32
     state: Optional[Dict] = None            # keep=True: a copy of the final state
+    cached_segments: int = 0    # segments transplanted from the prefix cache
+    session_id: Optional[str] = None
+    resumed: bool = False       # restored from the session store
+    metrics: Optional[Dict] = None          # the telemetry snapshot (None: metrics off)
 
 
 class DecodeProgram:
@@ -235,13 +254,21 @@ class ServeEngine:
     eager: on the card, run decode without CUDA graphs (the same programs,
     uncaptured), only to hold the graphs against it; the CPU never
     captures.
+    prefix_cache / session_store: the serving state stores
+    (``serve/state_store.py``). The prefix cache needs serve_mode 'armt'
+    (its snapshots are the constant-size recurrent memory) and boundaries
+    of the model's own segments (``segment_len(cfg)``): a pure-SSM engine's
+    seg_len is ``max_len``, so it takes one only with max_len equal to it.
+    telemetry: a ``Telemetry`` (default: metrics into the process registry,
+    no trace).
 
     Decode programs are kept per batch size, one set for ``generate`` and
     one for ``serve``: one call of each at a time per engine."""
 
     def __init__(self, params: Dict, cfg: ArchConfig, *, serve_mode: str = "armt",
                  schedule: str = "diagonal", device=None, max_len: int = 8192,
-                 eager: bool = False):
+                 eager: bool = False, prefix_cache=None, session_store=None,
+                 telemetry: Optional[Telemetry] = None):
         check_serve_mode(serve_mode)
         if serve_mode == "armt" and cfg.armt is None and not cfg.is_recurrent:
             raise ValueError(f"serve_mode='armt' needs recurrent layer state, but "
@@ -273,6 +300,65 @@ class ServeEngine:
         # token's, before the memory tokens (the last row without them)
         M = cfg.armt.num_mem_tokens if cfg.armt is not None else 0
         self._retain_pos = segment_len(cfg) - 1 if M else -1
+        if prefix_cache is not None:
+            if serve_mode != "armt":
+                raise ValueError("prefix_cache needs serve_mode='armt': its snapshots are "
+                                 "the recurrent memory at segment boundaries, which "
+                                 "full-KV 'cache' mode does not have")
+            if prefix_cache.seg_len != self.seg_len:
+                raise ValueError(f"prefix_cache.seg_len {prefix_cache.seg_len} != engine "
+                                 f"segment length {self.seg_len}: boundary hashes would "
+                                 "never match this engine's prefill boundaries")
+            if self.seg_len != segment_len(cfg):
+                raise ValueError(
+                    f"prefix_cache needs the engine's seg_len ({self.seg_len}, max_len for "
+                    f"{cfg.name}) to be the model's segment ({segment_len(cfg)} tokens): "
+                    "the prefill captures a state per model segment, so other boundaries "
+                    "have no snapshot")
+        self.prefix_cache = prefix_cache
+        self.session_store = session_store
+        self.telemetry = telemetry if telemetry is not None else Telemetry()
+        reg = self.telemetry.registry
+        if reg is not None:
+            # sampled at snapshot time: always current, nothing per chunk. The
+            # probes hold the engine weakly: a process-wide registry must not
+            # keep an engine's weights and stores on the card
+            me = weakref.ref(self)
+            reg.register_probe("engine_program_counts",
+                               lambda: me() and me().program_counts())
+            if prefix_cache is not None:
+                reg.register_probe("prefix_cache",
+                                   lambda: me() and me().prefix_cache.stats.as_dict())
+            if session_store is not None:
+                reg.register_probe("session_store",
+                                   lambda: me() and me().session_store.stats.as_dict())
+
+    # ------------------------------------------------------------------
+    # Telemetry
+    # ------------------------------------------------------------------
+
+    def program_counts(self) -> Dict[str, int]:
+        """The engine's decode programs: steps (one per batch size, serve or
+        generate, and sampler) and flushes, and how many of them are
+        captured CUDA graphs (the counterpart of the reference's jit-cache
+        sizes; the process's captures and kernel build are the default
+        registry's probes)."""
+        progs = [p for prog in self._programs.values()
+                 for p in list(prog._steps.values()) + [prog._flush] if p is not None]
+        steps = sum(len(prog._steps) for prog in self._programs.values())
+        return {"decode_steps": steps, "flushes": len(progs) - steps,
+                "captured": sum(p.graph is not None for p in progs), "total": len(progs)}
+
+    def metrics_snapshot(self) -> Dict:
+        """The registry's snapshot with the engine's program counts and its
+        stores' stats beside it (empty counters when metrics are off)."""
+        snap = self.telemetry.snapshot() or {}
+        snap["program_counts"] = self.program_counts()
+        if self.prefix_cache is not None:
+            snap["prefix_cache"] = self.prefix_cache.stats.as_dict()
+        if self.session_store is not None:
+            snap["session_store"] = self.session_store.stats.as_dict()
+        return snap
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -290,25 +376,98 @@ class ServeEngine:
     def prefill(self, prompts: torch.Tensor):
         """prompts: [B, P] -> (next-token logits [B, V] fp32, decode state,
         position: in-segment, or in cache mode the tokens in the cache, a
-        host int as is the state's ``pos``)."""
+        host int as is the state's ``pos``; segments taken from the prefix
+        cache).
+
+        With a prefix cache (B = 1, at least one whole segment): the longest
+        cached prefix is transplanted, only the segments after it are
+        prefilled, capturing their boundary states, and each new boundary's
+        snapshot is inserted. An exact full-prefix hit runs no forward: its
+        logits are the snapshot's."""
         B, P = prompts.shape
         if self.serve_mode == "cache" and P > self.max_len:
             raise ValueError(f"prompt_len {P} exceeds max_len {self.max_len} of the "
                              "KV cache")
-        prompts = prompts.to(self.device)
         dstate = self.decode_state(B)
         n_full = P // self.seg_len if self.serve_mode == "armt" else 0
-        logits = None
-        if n_full:
-            hidden, fin = self._prefill_full(prompts[:, :n_full * self.seg_len])
-            logits = last_logits(self.params, self.cfg, hidden)
-            _transplant(fin, dstate)
+        logits, state0 = None, None
+        cached, snap, prompt_np, chain = self._probe(prompts, n_full)
+        if cached:
+            state0, logits = snap.state, snap.logits.clone()
+            if cached == n_full:
+                _transplant(state0, dstate)
+        prompts = prompts.to(self.device)
+        if n_full > cached:
+            out = self._prefill_full(prompts[:, cached * self.seg_len:n_full * self.seg_len],
+                                     state0, capture=chain is not None)
+            if chain is not None:
+                self._insert_boundaries(prompt_np, chain, cached, out[0], out[2])
+            logits = last_logits(self.params, self.cfg, out[0])
+            _transplant(out[1], dstate)
+            del out
         tail = prompts[:, n_full * self.seg_len:]
         if tail.shape[1]:
             logits = self._chunk(dstate, tail)
         if logits is None:
             raise ValueError("empty prompt")
+        return logits, dstate, dstate["pos"], cached
+
+    def _probe(self, prompts, n_full: int):
+        """The prefix cache's match for a prompt of ``n_full`` whole
+        segments -> (cached segments, snapshot or None, the prompt as int32
+        numpy, its hash chain); the last two None when the cache does not
+        apply: no cache, B > 1, or no whole segment."""
+        if self.prefix_cache is None or prompts.shape[0] != 1 or not n_full:
+            return 0, None, None, None
+        prompt_np = np.asarray(prompts[0].cpu(), np.int32)
+        chain = prefix_hash_chain(prompt_np, self.seg_len)
+        with self.telemetry.span("prefix_probe", "cache", n_segments=n_full):
+            n, snap = self.prefix_cache.match(prompt_np, chain=chain)
+        self.telemetry.inc("prefix_probe_total", result="hit" if n else "miss")
+        return n, snap, prompt_np, chain
+
+    def _insert_boundaries(self, prompt_np, chain, off: int, hidden: torch.Tensor,
+                           states: Dict) -> None:
+        """One snapshot per boundary of the segments prefilled from segment
+        ``off``: its recurrent leaves (``states``, leading [S]) and the
+        boundary's logits (``boundary_logits`` of ``hidden`` [S, 1, T, D]),
+        each a copy of its own, so that no snapshot keeps the capture alive
+        or shares storage with an executor."""
+        blogits = boundary_logits(self.params, self.cfg, hidden)
+        for c in range(hidden.shape[0]):
+            snap = {part: tuple({k: v[c].clone() for k, v in tree.items()}
+                                for tree in states[part]) for part in ("prelude", "pattern")}
+            self.prefix_cache.insert(prompt_np[:(off + c + 1) * self.seg_len], snap,
+                                     blogits[c].clone(), key=chain[off + c])
+
+    def restored(self, entry) -> Dict:
+        """A fresh B = 1 decode state holding a stored session's leaves (a
+        copy: what it runs updates in place) at the entry's position."""
+        dstate = self.decode_state(1)
+        copy_state_(dstate, entry.state)
+        dstate["pos"] = entry.pos
+        return dstate
+
+    def resume(self, entry, prompt):
+        """Resume a stored session with this turn's tokens [P]: its state
+        restored, then the pending token and the prompt through ``_chunk``
+        from the stored position. -> (logits [1, V], decode state, pos)."""
+        dstate = self.restored(entry)
+        feed = np.concatenate([entry.pending, np.asarray(prompt, np.int64)])
+        logits = self._chunk(dstate, torch.from_numpy(feed).long()[None].to(self.device))
         return logits, dstate, dstate["pos"]
+
+    def session_len_error(self, entry, P: int, max_new: int) -> Optional[str]:
+        """Cache mode: why a turn of P prompt tokens and max_new new ones does
+        not fit the KV cache after the session's stored tokens (none on a
+        first turn), or None when it fits."""
+        if self.serve_mode != "cache":
+            return None
+        base = entry.pos + len(entry.pending) if entry is not None else 0
+        if base + P + max_new <= self.max_len:
+            return None
+        return (f"prompt_len {P} + max_new {max_new} (+{base} session tokens) exceeds "
+                f"max_len {self.max_len} of the KV cache")
 
     def decode_state(self, batch: int, per_slot_pos: bool = False) -> Dict:
         """A zero decode state of this engine's serve mode for ``batch`` rows."""
@@ -323,17 +482,20 @@ class ServeEngine:
         seg = segment_len(self.cfg)
         return [T] if T <= seg or T % seg == 0 else [T - T % seg, T]
 
-    def _prefill_full(self, toks: torch.Tensor):
+    def _prefill_full(self, toks: torch.Tensor, state0: Optional[Dict] = None, *,
+                      capture: bool = False):
         """The prefill of whole pieces in the model's segments (``_cuts``),
         each call from the state the one before left (exact: the state is
-        layer-local)."""
-        state, start = None, 0
+        layer-local), the first from state0 (zero memory when None; not
+        modified). -> (hidden, final state), and with capture the boundary
+        states (one call: a prefix cache needs seg_len = the segment)."""
+        state, start = state0, 0
         for end in self._cuts(toks.shape[1]):
-            hidden, state = forward_hidden(self.params, self.cfg, toks[:, start:end],
-                                           schedule=self.schedule, fused=True,
-                                           state0=state, eager=True)
-            start = end
-        return hidden, state
+            out = forward_hidden(self.params, self.cfg, toks[:, start:end],
+                                 schedule=self.schedule, fused=True, state0=state,
+                                 eager=True, capture_states=capture)
+            state, start = out[1], end
+        return out
 
     def _chunk(self, dstate, toks: torch.Tensor):
         """Feed a token chunk through the decode step, in place, in the
@@ -350,7 +512,8 @@ class ServeEngine:
         logits = decode_step_(self.params, self.cfg, dstate, toks[:, t:t + take],
                               serve_mode=self.serve_mode)
         if flush:
-            flush_segment_(self.params, self.cfg, dstate)
+            with self.telemetry.span("flush_segment", "flush", take=take):
+                flush_segment_(self.params, self.cfg, dstate)
         return logits
 
     # ------------------------------------------------------------------
@@ -365,10 +528,11 @@ class ServeEngine:
         """Advance one suspended diagonal stage (``diag.pipeline_init``'s
         carry over the embedded segments ``xs``) by ``n_groups`` band
         steps, in place, on the blocking prefill's cells."""
-        return diag.pipeline_step(self._layout, self._exec_params(), xs, carry,
-                                  self._apply, n_groups=n_groups,
-                                  grouped_apply=self._gapply,
-                                  retain_pos=self._retain_pos)
+        with torch.profiler.record_function("serve.diag_stage"):
+            return diag.pipeline_step(self._layout, self._exec_params(), xs, carry,
+                                      self._apply, n_groups=n_groups,
+                                      grouped_apply=self._gapply,
+                                      retain_pos=self._retain_pos)
 
     @torch.no_grad()
     def pool_prefill_step_run(self, n_groups: int, group) -> list:
@@ -377,11 +541,12 @@ class ServeEngine:
         (``diag.pipeline_step_pool``: one cell call per step over all the
         members' bands for the attn cell; one member after another for
         the mamba cell), in place -> the carries in member order."""
-        return diag.pipeline_step_pool(self._layout, self._exec_params(),
-                                       [xs for _, xs, _ in group],
-                                       [c for _, _, c in group], self._apply,
-                                       n_groups=n_groups, grouped_apply=self._gapply,
-                                       retain_pos=self._retain_pos)
+        with torch.profiler.record_function("serve.pooled_diag_round"):
+            return diag.pipeline_step_pool(self._layout, self._exec_params(),
+                                           [xs for _, xs, _ in group],
+                                           [c for _, _, c in group], self._apply,
+                                           n_groups=n_groups, grouped_apply=self._gapply,
+                                           retain_pos=self._retain_pos)
 
     def _segment_rows(self) -> int:
         """T, the rows of one segment: seg_len tokens and the memory tokens."""
@@ -425,6 +590,12 @@ class ServeEngine:
             dt and the scan's output, d_inner each; three D-wide) and the
             same state copies.
 
+        With a prefix cache an admission captures its boundary states, and
+        it also holds, at its end, the per-step capture (S + L - 1 stacked
+        states) beside the boundaries gathered from it (S) or their
+        snapshots (S), and the boundaries' logits (fp32 [S, V], the bf16
+        product before it and the snapshots' copies).
+
         A pooled round holds the sum of its members'. Host arithmetic only:
         the states are counted on the meta device."""
         cfg = self.cfg
@@ -432,8 +603,8 @@ class ServeEngine:
         dtype = self.params["embed"].dtype
         item = self.params["embed"].element_size()
         L, S = self._n_layers, n_segments
-        state = _tree_bytes(init_state(cfg, batch, meta, dtype))
-        dstate = _tree_bytes(decode_state_init(
+        state = tree_nbytes(init_state(cfg, batch, meta, dtype))
+        dstate = tree_nbytes(decode_state_init(
             cfg, batch, dtype=dtype, device=meta, serve_mode=self.serve_mode,
             max_len=self.max_len))
         rows, D = batch * self._segment_rows(), cfg.d_model
@@ -443,16 +614,21 @@ class ServeEngine:
         else:
             width = 3 * D + 6 * cfg.ssm.expand * D
         cell = rows * width * item + 3 * state // L
-        return (self.prefill_carry_bytes(S, batch, stream=stream) + 2 * state + dstate
-                + min(L, S) * cell)
+        total = (self.prefill_carry_bytes(S, batch, stream=stream) + 2 * state + dstate
+                 + min(L, S) * cell)
+        if self.prefix_cache is not None:
+            total += (2 * S + L - 1) * state + S * batch * cfg.vocab * (8 + item)
+        return total
 
     def start_prefill(self, prompts, *, groups_per_call: Optional[int] = 4,
-                      stream: bool = False,
+                      session_entry=None, stream: bool = False,
                       max_stage_segments: Optional[int] = None) -> "PrefillPipeline":
         """A resumable admission of ``prompts`` [B, P]: a ``PrefillPipeline``
         whose ``advance()`` runs ``groups_per_call`` band steps of its
         current diagonal stage (None: the whole stage), or one tail piece;
-        its ``result()`` is ``prefill(prompts)``'s.
+        its ``result()`` is ``prefill(prompts)``'s. session_entry: resume a
+        stored session instead (B = 1): the entry's pending tokens and the
+        prompt are fed as tail pieces from its position.
 
         stream: the diagonal stages carry ``win``/``brow`` in place of the
         full ``ys`` (bounded memory; the same logits and state).
@@ -461,29 +637,52 @@ class ServeEngine:
         powers of two, as the reference does), the state chained across
         them; the scheduler's byte budget sets it with ``stream``."""
         return PrefillPipeline(self, prompts, groups_per_call=groups_per_call,
-                               stream=stream, max_stage_segments=max_stage_segments)
+                               session_entry=session_entry, stream=stream,
+                               max_stage_segments=max_stage_segments)
 
     @torch.no_grad()
     def generate(self, prompts, max_new: int, *, temperature: float = 0.0,
-                 top_k: int = 0, seed: int = 0, keep: bool = False) -> GenerationResult:
+                 top_k: int = 0, seed: int = 0, keep: bool = False,
+                 session_id: Optional[str] = None) -> GenerationResult:
         """Decode max_new tokens after the prompt [B, P]: greedy when
         temperature <= 0 (the default), else temperature / top-k sampling
         on the device (``sample``) from a generator seeded with ``seed``.
         Token 0 comes from the prefill's logits; the last token is never fed
         back. One device-to-host transfer for the whole call. keep: also
-        return every token's logits and a copy of the final decode state."""
+        return every token's logits and a copy of the final decode state.
+
+        session_id (B = 1, the engine's session store): when the store holds
+        this conversation, resume it: the prompt is this turn's tokens only,
+        fed after the stored pending token from the stored state, and the
+        history is not computed again (an evicted session raises
+        ``SessionEvicted``). Either way the end state is stored under the
+        id, with the last token, never fed, as the next turn's pending."""
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long)
         B, P = prompts.shape
-        if self.serve_mode == "cache" and P + max_new > self.max_len:
-            raise ValueError(f"prompt_len {P} + max_new {max_new} (+0 session tokens) "
-                             f"exceeds max_len {self.max_len} of the KV cache")
+        entry = None
+        if session_id is not None:
+            if self.session_store is None:
+                raise ValueError("session_id given but the engine has no session_store")
+            if B != 1:
+                raise ValueError("sessions are per conversation: B must be 1")
+            entry = self.session_store.get(session_id)      # None on a first turn
+        err = self.session_len_error(entry, P, max_new)
+        if err is not None:
+            raise ValueError(err)
+        tel = self.telemetry
         gen = None
         if not _greedy(temperature, top_k):
             gen = torch.Generator(device=self.device).manual_seed(seed)
         prog = self.program(B)
         capture_s = prog.prepare(temperature, top_k)
         t0 = time.perf_counter()
-        logits, dstate, pos = self.prefill(prompts)
+        cached = 0
+        if entry is not None:
+            with tel.span("session_restore", "session", session=session_id):
+                logits, dstate, pos = self.resume(entry, prompts[0].numpy())
+        else:
+            with tel.span("prefill", "prefill", prompt_len=P, batch=B):
+                logits, dstate, pos, cached = self.prefill(prompts)
         prog.load(dstate, pos)
         del dstate
         prog.draw(gen)
@@ -497,24 +696,38 @@ class ServeEngine:
         toks = torch.empty(B, max_new, dtype=torch.long, device=self.device)
         toks[:, 0] = prog.tok
         kept = [logits] if keep else None
-        for i in range(1, max_new):
-            step_logits = prog.step(temperature, top_k, gen)
-            if keep:
-                kept.append(step_logits.clone())
-            pos += 1
-            if self.flushes and pos >= self.seg_len:
-                prog.flush()
-                pos = 0
-            toks[:, i] = prog.tok
-        host = torch.cat([toks.reshape(-1), prog.finite.all().long()[None]]).cpu().numpy()
+        with tel.span("decode", "decode", max_new=max_new), \
+                torch.profiler.record_function("serve.decode_loop"):
+            for i in range(1, max_new):
+                step_logits = prog.step(temperature, top_k, gen)
+                if keep:
+                    kept.append(step_logits.clone())
+                pos += 1
+                if self.flushes and pos >= self.seg_len:
+                    prog.flush()
+                    pos = 0
+                toks[:, i] = prog.tok
+            host = torch.cat([toks.reshape(-1), prog.finite.all().long()[None]]).cpu().numpy()
         t_end = time.perf_counter()
+        tokens = host[:-1].reshape(B, max_new)
+        tok_s = B * max(max_new - 1, 0) / max(t_end - t_first, 1e-9)
+        tel.observe("generate_ttft_s", t_first - t0)
+        tel.observe("generate_decode_tok_s", tok_s)
+        if session_id is not None:
+            history = np.concatenate([entry.tokens if entry is not None
+                                      else np.empty(0, np.int32), prompts[0].numpy(),
+                                      tokens[0]]).astype(np.int32)
+            # a copy: the program's state is the next call's
+            self.session_store.put(session_id, state=clone_state(
+                {"prelude": prog.state["prelude"], "pattern": prog.state["pattern"]}),
+                pos=pos, pending=tokens[0, -1:], tokens=history)
         return GenerationResult(
-            host[:-1].reshape(B, max_new), P // self.seg_len, finite=bool(host[-1]),
-            ttft_s=t_first - t0,
-            tok_s=B * max(max_new - 1, 0) / max(t_end - t_first, 1e-9),
-            capture_s=capture_s,
+            tokens, P // self.seg_len, finite=bool(host[-1]),
+            ttft_s=t_first - t0, tok_s=tok_s, capture_s=capture_s,
             logits=torch.stack(kept, dim=1) if keep else None,
-            state=clone_state(prog.state) if keep else None)
+            state=clone_state(prog.state) if keep else None,
+            cached_segments=cached, session_id=session_id, resumed=entry is not None,
+            metrics=self.metrics_snapshot() if tel.registry is not None else None)
 
     def serve(self, requests: Iterable, *, n_slots: int = 4, chunk: int = 8,
               max_queue: Optional[int] = None, prefill_groups_per_chunk: int = 4,
@@ -525,8 +738,9 @@ class ServeEngine:
         """Continuous-batching streaming front door: admit ``Request``s into
         ``n_slots`` decode slots and yield ``StreamEvent``s as tokens reach
         the host (once per ``chunk`` decode steps). Rejections (invalid
-        request, session_id, full queue) come back as ``RequestError``
-        events on the same stream.
+        request, evicted session, full queue) come back as ``RequestError``
+        events on the same stream. A request with a ``session_id`` resumes
+        or starts that conversation in the engine's session store.
 
         prefill_groups_per_chunk: an admission's prefill advances this many
         band steps per decode chunk (interleaved admission, the default 4);
@@ -550,26 +764,18 @@ class ServeEngine:
         return sched.run(requests)
 
 
-def _tree_bytes(tree) -> int:
-    """Bytes of every tensor leaf of a state tree."""
-    if isinstance(tree, dict):
-        return sum(_tree_bytes(v) for v in tree.values())
-    if isinstance(tree, (tuple, list)):
-        return sum(_tree_bytes(v) for v in tree)
-    return tree.numel() * tree.element_size() if isinstance(tree, torch.Tensor) else 0
-
-
 def _tail_pieces(engine: ServeEngine, total: int, pos: int):
     """A token feed of ``total`` tokens from in-segment position ``pos``
-    cut into decode-step pieces: [(start, take, flush_after), ...]. In
-    'armt' mode a piece ends at the segment boundary, where an ARMT model
-    flushes; in cache mode the feed is one piece. The one decomposition of
-    the blocking ``_chunk`` and of the pipeline's tail pieces, so the two
-    cannot drift."""
+    cut into decode-step pieces: [(start, take, flush_after), ...]. A piece
+    ends at the segment boundary, where an ARMT model flushes; a model that
+    never flushes (cache mode, or a pure-SSM model, whose position only
+    grows: a resumed session's may be past seg_len) takes the feed as one
+    piece. The one decomposition of the blocking ``_chunk`` and of the
+    pipeline's tail pieces, so the two cannot drift."""
     pieces = []
     t = 0
     while t < total:
-        room = engine.seg_len - pos if engine.serve_mode == "armt" else total - t
+        room = engine.seg_len - pos if engine.flushes else total - t
         take = min(room, total - t)
         pos += take
         flush = engine.flushes and pos >= engine.seg_len
@@ -605,13 +811,21 @@ class PrefillPipeline:
     the tail pieces the blocking ``_chunk``'s, so ``result()`` equals
     ``prefill()``'s to the bit.
 
+    With the engine's prefix cache, the prompt is matched when the pipeline
+    is made, as ``prefill`` does: the diagonal stages start after the
+    cached segments, from the snapshot's state, and capture their boundary
+    states, which ``_finish_diag`` inserts; an exact full hit is
+    transplanted at once. With a session entry the pipeline is the resume's
+    tail pieces only, from the entry's position.
+
     Every carry is the pipeline's own (``diag.pipeline_init`` copies the
-    state), so decode chunks that update the scheduler's pool in place
-    between ``advance()`` calls cannot touch a suspended admission."""
+    state, a snapshot's too), so decode chunks that update the scheduler's
+    pool in place between ``advance()`` calls cannot touch a suspended
+    admission, nor can an admission touch a store's entry."""
 
     def __init__(self, engine: ServeEngine, prompts, *,
-                 groups_per_call: Optional[int] = 4, stream: bool = False,
-                 max_stage_segments: Optional[int] = None):
+                 groups_per_call: Optional[int] = 4, session_entry=None,
+                 stream: bool = False, max_stage_segments: Optional[int] = None):
         if groups_per_call is not None and groups_per_call < 1:
             raise ValueError(f"groups_per_call must be >= 1 or None (a whole stage per "
                              f"advance), got {groups_per_call}")
@@ -628,23 +842,42 @@ class PrefillPipeline:
         if engine.serve_mode == "cache" and P > engine.max_len:
             raise ValueError(f"prompt_len {P} exceeds max_len {engine.max_len} of the "
                              "KV cache")
-        self._dstate = engine.decode_state(self.B)
         self._logits = None
         self._exec_state = None
         self._xs = self._carry = None
         self._groups_done = self._n_steps = 0
         self._stage = 0
         self._stages = []      # ("diag", t0, t1, seg) | ("tail", start, take, flush)
+        self.cached = 0
+        self._prompt_np = self._chain = None
+        if session_entry is not None:
+            if self.B != 1:
+                raise ValueError("sessions are per conversation: B must be 1")
+            with engine.telemetry.span("session_restore", "session"):
+                self._dstate = engine.restored(session_entry)
+            feed = np.concatenate([session_entry.pending, prompts[0].numpy()])
+            self._tail = torch.from_numpy(feed).long()[None].to(engine.device)
+            self._stages = [("tail",) + piece for piece in _tail_pieces(
+                engine, self._tail.shape[1], session_entry.pos)]
+            self._done = False
+            return
+        self._dstate = engine.decode_state(self.B)
         n_full = P // engine.seg_len if engine.serve_mode == "armt" else 0
         if n_full and engine.schedule != "diagonal":
             raise ValueError("start_prefill needs the diagonal schedule for its "
                              f"segment stages (engine.schedule={engine.schedule!r})")
-        if max_stage_segments is not None and n_full > max_stage_segments:
+        self.cached, snap, self._prompt_np, self._chain = engine._probe(prompts, n_full)
+        if self.cached:
+            self._exec_state, self._logits = snap.state, snap.logits.clone()
+            if self.cached == n_full:       # nothing left for the executor
+                _transplant(snap.state, self._dstate)
+        rem = n_full - self.cached
+        if max_stage_segments is not None and rem > max_stage_segments:
             cap = 1 << (max_stage_segments.bit_length() - 1)
-            groups = [cap] * (n_full // cap) + _pow2_chunks(n_full % cap)
+            groups = [cap] * (rem // cap) + _pow2_chunks(rem % cap)
         else:
-            groups = [n_full] if n_full else []
-        off = 0
+            groups = [rem] if rem else []
+        off = self.cached
         for g in groups:
             t0 = off * engine.seg_len
             start = 0
@@ -657,7 +890,7 @@ class PrefillPipeline:
         self._stages += [("tail",) + piece
                          for piece in _tail_pieces(engine, self._tail.shape[1], 0)]
         self._done = not self._stages
-        if self._done:
+        if self._done and self._logits is None:
             raise ValueError("empty prompt")
 
     # -- progress ------------------------------------------------------------
@@ -667,11 +900,12 @@ class PrefillPipeline:
         return self._done
 
     def result(self):
-        """(next-token logits [B, V] fp32, decode state, in-segment pos), as
-        ``ServeEngine.prefill`` returns them; once ``done``."""
+        """(next-token logits [B, V] fp32, decode state, in-segment pos,
+        cached segments), as ``ServeEngine.prefill`` returns them; once
+        ``done``."""
         if not self._done:
             raise RuntimeError("the pipeline is not finished: keep calling advance()")
-        return self._logits, self._dstate, self._dstate["pos"]
+        return self._logits, self._dstate, self._dstate["pos"], self.cached
 
     def diag_segments(self) -> list:
         """(segments, groups run) of each diagonal stage not finished yet,
@@ -692,19 +926,25 @@ class PrefillPipeline:
         if state0 is None:
             state0 = init_state(eng.cfg, self.B, eng.device, eng.params["embed"].dtype)
         self._xs, self._carry = diag.pipeline_init(eng._layout, state0, x,
+                                                   capture_states=self._chain is not None,
                                                    stream_ys=self._stream)
         self._groups_done = 0
         self._n_steps = n_diagonal_groups(x.shape[0], eng._n_layers)
 
     def _finish_diag(self, seg: int) -> None:
         eng = self.engine
-        out, fin, _ = diag.pipeline_finalize(eng._layout, self._carry)
-        # last_logits reads the last row of the last segment: brow's, or
-        # ys's with the memory-token rows stripped
+        t0 = self._stages[self._stage][1]
+        out, fin, capd = diag.pipeline_finalize(eng._layout, self._carry)
+        self._xs = self._carry = None       # the step capture goes with the carry
+        # last_logits (and boundary_logits) read the last row of each
+        # segment: brow's, or ys's with the memory-token rows stripped
         hidden = out["brow"][:, :, None, :] if self._stream else out[:, :, :seg]
+        if capd is not None:
+            eng._insert_boundaries(self._prompt_np, self._chain, t0 // eng.seg_len,
+                                   hidden, capd)
+            del capd
         self._logits = last_logits(eng.params, eng.cfg, hidden)
         self._exec_state = fin
-        self._xs = self._carry = None
         self._stage += 1
         if not any(st[0] == "diag" for st in self._stages[self._stage:]):
             _transplant(fin, self._dstate)

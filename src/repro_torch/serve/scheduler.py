@@ -65,22 +65,45 @@ yet". With ``max_queue`` set (the push model) the source is drained into a
 bounded backlog, and overflow is rejected with a ``queue_full`` event.
 Rejections are ``RequestError`` events on the stream; ``run`` does not
 raise for a bad request.
+
+Sessions (the engine's ``SessionStore``): a request whose ``session_id``
+the store holds is admitted by resuming it, feeding only its pending
+tokens and the new prompt from the stored state (blocking, or as the
+pipeline's tail pieces); an evicted one is rejected with
+``session_evicted``, and in cache mode one whose stored tokens, prompt
+and max_new exceed max_len with ``invalid_request`` (as ``generate``
+refuses it); an unknown one starts fresh. When such a request
+finishes, its slot's row is copied out of the pool at that chunk's drain
+(the row was frozen, bit for bit, at the step it finished) and stored with
+the history. A slot's step consumes the token it emits, so nothing is
+pending. With a prefix cache on the engine, an admission prefills only the
+segments after its longest cached prefix.
+
+Telemetry (the engine's ``Telemetry``): spans per decode chunk (around its
+one device-to-host transfer), admission round, admission window,
+transplant, session restore and persist, and idle-drain round, an instant
+per segment flush (from the host's position mirror), per-chunk emit stamps
+and occupancy metrics; all from host values, with no device read of its
+own.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Iterable, Iterator, Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch.serve.state_store import SessionEvicted
+
 
 @dataclass
 class Request:
     """One generation request. prompt: int [P] token ids (P >= 1).
-    session_id: sessions are not ported; such a request is rejected."""
+    session_id: resume or start this conversation in the engine's session
+    store; the prompt is then this turn's new tokens only."""
     req_id: Union[int, str]
     prompt: np.ndarray
     max_new: int
@@ -112,7 +135,7 @@ class StreamEvent:
 @dataclass
 class RequestError:
     """Structured rejection streamed in-band. code: 'invalid_request' |
-    'queue_full'."""
+    'queue_full' | 'session_evicted'."""
     req_id: Union[int, str]
     code: str
     message: str
@@ -128,6 +151,10 @@ class _Slot:
     t_admit: float = 0.0
     t_first: Optional[float] = None
     n_concurrent: int = 1
+    tokens: list = field(default_factory=list)
+    session_id: Optional[str] = None
+    prompt: Optional[np.ndarray] = None
+    history: Optional[np.ndarray] = None    # a resumed session's earlier turns
     # host mirror of the slot's in-segment position: seeded by the
     # admission, one step per emitted token, reset at seg_len, as
     # decode_step and the masked flush_segment move it on the device
@@ -141,12 +168,18 @@ class _Admission:
     req: Request
     slot: int
     pipe: object                 # serve.engine.PrefillPipeline
+    entry: object                # the resumed SessionEntry, or None
     t_submit: float
     t_admit: float
     n_concurrent: int = 1
 
 
 FAIRNESS = ("round_robin", "oldest_first")
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """The scheduler's one device-to-host transfer per chunk."""
+    return t.cpu().numpy()
 
 
 class ContinuousScheduler:
@@ -199,6 +232,12 @@ class ContinuousScheduler:
         self.slots = [_Slot() for _ in range(n_slots)]
         self.free: deque = deque(range(n_slots))
 
+    @property
+    def tel(self):
+        """The engine's telemetry, read at each use (a caller may swap it
+        between serve calls)."""
+        return self.engine.telemetry
+
     # ------------------------------------------------------------------
     # Admission
     # ------------------------------------------------------------------
@@ -217,11 +256,27 @@ class ContinuousScheduler:
             return RequestError(req.req_id, "invalid_request",
                                 f"prompt+max_new exceeds max_len {self.engine.max_len} "
                                 "of the KV cache")
-        if req.session_id is not None:
+        if req.session_id is not None and self.engine.session_store is None:
             return RequestError(req.req_id, "invalid_request",
                                 "request carries a session_id but the "
                                 "engine has no session_store")
         return None
+
+    def _session(self, req: Request):
+        """(the stored session entry or None, a RequestError or None) of a
+        request: an evicted session is a ``session_evicted`` rejection, and
+        in cache mode a turn that does not fit the KV cache after the
+        session's stored tokens an ``invalid_request`` one."""
+        if req.session_id is None:
+            return None, None
+        try:
+            entry = self.engine.session_store.get(req.session_id)
+        except SessionEvicted as e:
+            return None, RequestError(req.req_id, "session_evicted", str(e))
+        err = self.engine.session_len_error(entry, len(req.prompt), req.max_new)
+        if err is not None:
+            return None, RequestError(req.req_id, "invalid_request", err)
+        return entry, None
 
     def _admission_plan(self, prompt_len: int):
         """The byte budget's decision for a prompt of ``prompt_len`` tokens:
@@ -238,6 +293,8 @@ class ContinuousScheduler:
         max_g = S
         while max_g > 1 and eng.prefill_activation_bytes(max_g, stream=True) > budget:
             max_g //= 2
+        self.tel.inc("overflow_admissions_total")
+        self.tel.set_gauge("admission_stage_cap_segments", max_g)
         return True, (max_g if max_g < S else None)
 
     @torch.no_grad()
@@ -250,19 +307,29 @@ class ContinuousScheduler:
             return err
         t_admit = time.perf_counter()
         prompt = np.asarray(req.prompt)
+        entry, err = self._session(req)
+        if err is not None:
+            return err
         slot = self.free.popleft()
-        stream, max_g = self._admission_plan(prompt.shape[0])
-        if stream:
-            # over the byte budget: the streaming pipeline, drained here
-            pipe = self.engine.start_prefill(prompt[None], groups_per_call=None,
-                                             stream=True, max_stage_segments=max_g)
-            while not pipe.advance():
-                pass
-            logits, one_state, pos = pipe.result()
+        eng = self.engine
+        if entry is not None:
+            # resume: the stored state, then pending + this turn's tokens
+            with self.tel.span("session_restore", "session", lane=str(req.req_id),
+                               session=req.session_id):
+                logits, one_state, pos = eng.resume(entry, prompt)
         else:
-            logits, one_state, pos = self.engine.prefill(
-                torch.as_tensor(prompt, dtype=torch.long)[None])
-        self._install(slot, req, logits, one_state, pos, t_submit, t_admit)
+            stream, max_g = self._admission_plan(prompt.shape[0])
+            if stream:
+                # over the byte budget: the streaming pipeline, drained here
+                pipe = eng.start_prefill(prompt[None], groups_per_call=None,
+                                         stream=True, max_stage_segments=max_g)
+                while not pipe.advance():
+                    pass
+                logits, one_state, pos, _ = pipe.result()
+            else:
+                logits, one_state, pos, _ = eng.prefill(
+                    torch.as_tensor(prompt, dtype=torch.long)[None])
+        self._install(slot, req, entry, logits, one_state, pos, t_submit, t_admit)
         return None
 
     def _interleave(self) -> bool:
@@ -294,12 +361,17 @@ class ContinuousScheduler:
             return err
         t_admit = time.perf_counter()
         prompt = np.asarray(req.prompt)
+        entry, err = self._session(req)
+        if err is not None:
+            return err
         slot = self.free.popleft()
         k = self.prefill_groups_per_chunk
-        stream, max_g = self._admission_plan(prompt.shape[0])
+        stream, max_g = (self._admission_plan(prompt.shape[0]) if entry is None
+                         else (False, None))
         pipe = self.engine.start_prefill(prompt[None], groups_per_call=None if k < 0 else k,
-                                         stream=stream, max_stage_segments=max_g)
-        self._adms.append(_Admission(req, slot, pipe, t_submit, t_admit,
+                                         session_entry=entry, stream=stream,
+                                         max_stage_segments=max_g)
+        self._adms.append(_Admission(req, slot, pipe, entry, t_submit, t_admit,
                                      n_concurrent=len(self._adms) + 1))
         self._pool_adm.add(pipe)
         return None
@@ -309,9 +381,9 @@ class ContinuousScheduler:
         FIFO (from here as blocking admission)."""
         for pipe in done_pipes:
             adm = next(a for a in self._adms if a.pipe is pipe)
-            logits, one_state, pos = pipe.result()
-            self._install(adm.slot, adm.req, logits, one_state, pos, adm.t_submit,
-                          adm.t_admit, adm.n_concurrent)
+            logits, one_state, pos, _ = pipe.result()
+            self._install(adm.slot, adm.req, adm.entry, logits, one_state, pos,
+                          adm.t_submit, adm.t_admit, adm.n_concurrent)
             self._adms.remove(adm)
 
     @torch.no_grad()
@@ -322,6 +394,11 @@ class ContinuousScheduler:
         is enqueued first and the band steps right after it. Completed
         admissions are installed FIFO. -> (chunk tokens, emit mask) when
         this round ran the chunk, else (None, None)."""
+        with self.tel.span("admission_round", "admission", n_adms=len(self._adms),
+                           fused=self.fused_admission):
+            return self._advance_admissions_inner()
+
+    def _advance_admissions_inner(self):
         toks = active = None
         run_fused = self.fused_admission and any(s.active for s in self.slots)
         if self.admission_fairness == "oldest_first" and len(self._adms) > 1:
@@ -333,23 +410,50 @@ class ContinuousScheduler:
         self._finish_admissions(done)
         return toks, active
 
-    def _install(self, slot: int, req: Request, logits, one_state, pos: int,
+    def _install(self, slot: int, req: Request, entry, logits, one_state, pos: int,
                  t_submit: float, t_admit: float, n_concurrent: int = 1) -> None:
         """Copy a B = 1 decode state into row ``slot`` of the pool, in place,
-        with its first token and position."""
-        for axis, part in ((0, "prelude"), (1, "pattern")):
-            for dst, src in zip(self.pool[part], one_state[part]):
-                for k, leaf in dst.items():
-                    leaf.select(axis, slot).copy_(src[k].select(axis, 0))
-        self.pool["pos"][slot] = pos
-        self.tok[slot] = logits[0].argmax(-1)
-        self.finite[slot] = torch.isfinite(logits).all()
+        with its first token and position: the one completion path of
+        blocking and interleaved admission."""
+        with self.tel.span("transplant", "transplant", lane=str(req.req_id), slot=slot):
+            for axis, part in ((0, "prelude"), (1, "pattern")):
+                for dst, src in zip(self.pool[part], one_state[part]):
+                    for k, leaf in dst.items():
+                        leaf.select(axis, slot).copy_(src[k].select(axis, 0))
+            self.pool["pos"][slot] = pos
+            self.tok[slot] = logits[0].argmax(-1)
+            self.finite[slot] = torch.isfinite(logits).all()
         s = self.slots[slot]
         s.req_id, s.remaining, s.index, s.active = req.req_id, req.max_new, 0, True
         s.t_submit, s.t_admit, s.t_first = t_submit, t_admit, None
         s.n_concurrent = n_concurrent
         s.pos = int(pos)
-        self.admission_windows.append((t_admit, time.perf_counter()))
+        s.tokens, s.session_id, s.prompt = [], req.session_id, np.asarray(req.prompt)
+        s.history = entry.tokens if entry is not None else np.empty(0, np.int32)
+        t_end = time.perf_counter()
+        self.admission_windows.append((t_admit, t_end))
+        # the whole admission window, start to transplant, on the request's lane
+        self.tel.add_span("admission", "admission", t_admit, t_end, lane=str(req.req_id),
+                          slot=slot, queue_wait_s=t_admit - t_submit, concurrent=n_concurrent)
+        self.tel.inc("admissions_total")
+        self.tel.observe("queue_wait_s", t_admit - t_submit)
+        self.tel.observe("admission_window_s", t_end - t_admit)
+
+    def _persist_session(self, b: int) -> None:
+        """A finished session's slot: its row, frozen at the step it finished,
+        copied out of the pool and stored with the history, its position
+        from the host mirror. The slot consumed every token it emitted, so
+        nothing is pending."""
+        s = self.slots[b]
+        with self.tel.span("session_persist", "session", lane=str(s.req_id),
+                           session=s.session_id):
+            row = {part: tuple({k: leaf.narrow(axis, b, 1).clone() for k, leaf in tree.items()}
+                               for tree in self.pool[part])
+                   for axis, part in ((0, "prelude"), (1, "pattern"))}
+            history = np.concatenate([s.history, s.prompt,
+                                      np.asarray(s.tokens, np.int32)]).astype(np.int32)
+            self.engine.session_store.put(s.session_id, state=row, pos=s.pos,
+                                          pending=np.empty(0, np.int32), tokens=history)
 
     # ------------------------------------------------------------------
     # Decode
@@ -391,23 +495,39 @@ class ContinuousScheduler:
             masks = masks.to(self.engine.device)
         toks = torch.empty(self.chunk, self.n_slots, dtype=torch.long,
                            device=self.engine.device)
-        for t in range(self.chunk):
-            toks[t] = self.tok
-            if not active[t].any():
-                continue
-            prog.active.copy_(masks[0, t])
-            prog.step()
-            if boundary[t].any():
-                prog.boundary.copy_(masks[1, t])
-                prog.flush()
+        with torch.profiler.record_function("serve.decode_chunk"):
+            for t in range(self.chunk):
+                toks[t] = self.tok
+                if not active[t].any():
+                    continue
+                prog.active.copy_(masks[0, t])
+                prog.step()
+                if boundary[t].any():
+                    prog.boundary.copy_(masks[1, t])
+                    prog.flush()
         return toks, active
 
     def _drain_chunk(self, toks, active) -> Iterator[StreamEvent]:
         """Bring one chunk's tokens (and the slots' finite flags) to the host
-        in one transfer and stream their events."""
-        host = torch.cat([toks, self.finite[None].long()]).cpu().numpy()
+        in one transfer and stream their events. The telemetry rides on
+        it: the ``decode_chunk`` span brackets that transfer (the wait for
+        the chunk and the copy), and the emit stamps and occupancy metrics
+        come from the host copies and the host masks."""
+        tel = self.tel
+        n_active = sum(s.active for s in self.slots)
+        with tel.span("decode_chunk", "decode", steps=self.chunk, active_slots=n_active):
+            host = _host(torch.cat([toks, self.finite[None].long()]))
         toks_np, finite = host[:-1], host[-1].astype(bool)
         now = time.perf_counter()
+        if tel.trace is not None:
+            for b, s in enumerate(self.slots):
+                n = int(active[:, b].sum())
+                if s.active and n:
+                    tel.emit(s.req_id, now, n)
+        tel.observe("chunk_active_slots", n_active)
+        tel.observe("chunk_admissions_in_flight", len(self._adms))
+        tel.set_gauge("pool_occupancy", self.n_slots - len(self.free))
+        tel.sample_device_memory(self.engine.device)
         seg_len = self.engine.seg_len
         for t in range(self.chunk):
             for b, s in enumerate(self.slots):
@@ -416,11 +536,14 @@ class ContinuousScheduler:
                 s.remaining -= 1
                 done = s.remaining == 0
                 tok = int(toks_np[t, b])
+                s.tokens.append(tok)
                 # the emitted token was the step's input: pos moved by one,
                 # and the chunk flushed an ARMT slot when it reached seg_len
                 s.pos += 1
                 if self.engine.flushes and s.pos >= seg_len:
                     s.pos = 0
+                    tel.instant("segment_flush", "flush", t=now, lane=str(s.req_id))
+                    tel.inc("decode_flushes_total")
                 first = s.t_first is None
                 if first:
                     s.t_first = now
@@ -438,6 +561,8 @@ class ContinuousScheduler:
                 s.index += 1
                 if done:
                     s.active = False
+                    if s.session_id is not None and self.engine.session_store is not None:
+                        self._persist_session(b)
                     self.free.append(b)
 
     # ------------------------------------------------------------------
@@ -506,6 +631,7 @@ class ContinuousScheduler:
             if toks is None and any(s.active for s in self.slots):
                 toks, active = self._run_chunk()
             if toks is not None:
+                self.tel.observe("chunk_queue_depth", len(queue))
                 yield from self._drain_chunk(toks, active)
             elif self._adms:
                 # no slot decodes, so there is no chunk to interleave with:
@@ -514,7 +640,8 @@ class ContinuousScheduler:
                 while (self._adms and not any(s.active for s in self.slots)
                        and not (self.free and self._can_admit()
                                 and (queue or not exhausted))):
-                    self._advance_admissions()
+                    with self.tel.span("idle_drain_round", "idle", pending=len(self._adms)):
+                        self._advance_admissions()
                     self.idle_drain_rounds += 1
             elif not queue and exhausted:
                 return

@@ -131,8 +131,8 @@ def test_cache_prefill_logits_match_full_mode(model):
     the fused cell, and the reference's cache-mode prefill."""
     jc, tc, jp, tp = model
     prompts = np.random.default_rng(12).integers(0, jc.vocab, (2, 45))
-    logits, dstate, pos = ServeEngine(tp, tc, serve_mode="cache", max_len=MAX_LEN,
-                                      device="cpu").prefill(torch.from_numpy(prompts))
+    logits, dstate, pos, _ = ServeEngine(tp, tc, serve_mode="cache", max_len=MAX_LEN,
+                                         device="cpu").prefill(torch.from_numpy(prompts))
     assert pos == 45 and dstate["pos"] == 45
     h, _ = tmodel.forward_hidden(tp, tc, torch.from_numpy(prompts), mode="full")
     torch.testing.assert_close(logits, tmodel.last_logits(tp, tc, h), atol=ATOL, rtol=RTOL)

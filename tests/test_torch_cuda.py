@@ -558,7 +558,7 @@ def test_cache_prefill_matches_full_mode_on_card(cuda):
     prompts = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 3000)))
     eng = ServeEngine(params, cfg, serve_mode="cache", max_len=3072)
     tc, simt = flash_attention.tc_launches, flash_attention.simt_launches
-    logits, state, pos = eng.prefill(prompts)
+    logits, state, pos, _ = eng.prefill(prompts)
     torch.cuda.synchronize()
     assert pos == 3000 and tuple(state["pattern"][0]["k"].shape) == (2, 2, 3072, 8, 64)
     assert (flash_attention.tc_launches - tc, flash_attention.simt_launches - simt) == (2, 0)
@@ -892,3 +892,97 @@ def test_interleaved_serve_card_equals_cpu(cuda):
             out.setdefault(e.req_id, []).append(e.token)
         return out
     assert served(ServeEngine(card, cfg)) == served(ServeEngine(cpu, cfg, device="cpu"))
+
+
+# ---------------------------------------------------------------- state stores
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+@pytest.mark.cuda
+def test_prefix_snapshot_unchanged_by_replays_on_card(cuda):
+    """A snapshot captured on the card is a copy of its own: two hits on
+    its prefix (the exact full hit and one with a tail), with the decode
+    graphs replayed in between and a serve run after, leave its bits as
+    they were; each hit's tokens equal those of an engine without a
+    cache."""
+    from repro_torch.serve import PrefixCache, Request, ServeEngine
+    cfg, params = _mid_llama(cuda)
+    seg = cfg.armt.segment_len
+    cache = PrefixCache(seg, max_bytes=1 << 30)
+    eng, base = ServeEngine(params, cfg, prefix_cache=cache), ServeEngine(params, cfg)
+    rng = np.random.default_rng(20)
+    shared = rng.integers(0, cfg.vocab, 2 * seg)
+    eng.generate(shared[None], 24)
+    n, snap = cache.match(shared)
+    assert n == 2
+    before = [t.clone() for t in _leaves((snap.state, snap.logits))]
+    for tail in (0, 300, 0, 300):
+        prompt = np.concatenate([shared, rng.integers(0, cfg.vocab, tail)])
+        r = eng.generate(prompt[None], 24)
+        assert r.cached_segments == 2
+        assert np.array_equal(r.tokens, base.generate(prompt[None], 24).tokens)
+    list(eng.serve([Request(i, np.concatenate([shared, rng.integers(0, cfg.vocab, 5 + i)]), 9)
+                    for i in range(3)], n_slots=2, chunk=4))
+    assert all(_same(a, b) for a, b in zip(before, _leaves((snap.state, snap.logits))))
+
+
+@pytest.mark.cuda
+def test_session_unchanged_by_replays_on_card(cuda, tmp_path):
+    """A session stored from the decode graphs (generate's program, and a
+    serve slot's row) is a copy: further generate and serve calls replaying
+    the same graphs leave it as it was, and a spilled and restored session
+    resumes to the bit as the one kept in memory."""
+    from repro_torch.serve import Request, ServeEngine, SessionStore
+    cfg, params = _mid_llama(cuda)
+    seg = cfg.armt.segment_len
+    rng = np.random.default_rng(21)
+    t1, t2 = rng.integers(0, cfg.vocab, seg + 40), rng.integers(0, cfg.vocab, 9)
+    kept = ServeEngine(params, cfg, session_store=SessionStore(max_bytes=1 << 30))
+    spilled = ServeEngine(params, cfg, session_store=SessionStore(max_bytes=1,
+                                                                  spill_dir=tmp_path))
+    for eng in (kept, spilled):
+        eng.generate(t1[None], 12, session_id="g")
+        list(eng.serve([Request("a", t1, 10, "s"), Request("b", t2, 6)], n_slots=2, chunk=4))
+    stored = {sid: [t.clone() for t in _leaves(kept.session_store.get(sid).state)]
+              for sid in ("g", "s")}
+    kept.generate(rng.integers(0, cfg.vocab, (1, 2 * seg + 7)), 20)
+    list(kept.serve([Request(i, rng.integers(0, cfg.vocab, 50 * (i + 1)), 12)
+                     for i in range(3)], n_slots=2, chunk=4))
+    for sid, leaves in stored.items():
+        assert all(_same(a, b) for a, b in zip(leaves, _leaves(
+            kept.session_store.get(sid).state))), sid
+    assert spilled.session_store.stats.spills >= 2
+    for sid in ("g", "s"):
+        a = kept.generate(t2[None], 10, session_id=sid, keep=True)
+        b = spilled.generate(t2[None], 10, session_id=sid, keep=True)
+        assert a.resumed and b.resumed
+        assert np.array_equal(a.tokens, b.tokens) and _same(a.logits, b.logits)
+        _same_state(a.state, b.state)
+
+
+@pytest.mark.cuda
+def test_sequential_capture_under_graphs_on_card(cuda):
+    """forward_hidden(capture_states=True) on the sequential schedule
+    copies each boundary out of the segment graph's static state after its
+    replay: equal to the bit to the eager sequential capture and to the
+    diagonal one, every boundary a buffer of its own."""
+    from repro_torch.models import model as M
+    cfg, params = _mid_llama(cuda)
+    toks = torch.from_numpy(np.random.default_rng(22).integers(
+        0, cfg.vocab, (1, 3 * cfg.armt.segment_len))).to(cuda)
+    with torch.no_grad():
+        M.forward_hidden(params, cfg, toks, schedule="sequential")          # captures
+        caps = [M.forward_hidden(params, cfg, toks, capture_states=True, **kw)[2]
+                for kw in (dict(schedule="sequential"), dict(schedule="sequential", eager=True),
+                           dict(schedule="diagonal"))]
+        M.forward_hidden(params, cfg, toks.flip(1), schedule="sequential")   # replays again
+    for k in ("A", "z"):
+        assert caps[0]["pattern"][0][k].shape[0] == 3
+        for other in caps[1:]:
+            assert _same(caps[0]["pattern"][0][k], other["pattern"][0][k]), k

@@ -173,13 +173,13 @@ def test_pipeline_result_equals_blocking_prefill(engines, k, stream, cap):
     differently, so those hold within tolerance here."""
     teng, seg, vocab = engines[1:]
     prompt = torch.from_numpy(np.random.default_rng(60).integers(0, vocab, (1, 3 * seg + 7)))
-    logits, dstate, pos = teng.prefill(prompt)
+    logits, dstate, pos, _ = teng.prefill(prompt)
     pipe = teng.start_prefill(prompt, groups_per_call=k, stream=stream,
                               max_stage_segments=cap)
     n = 0
     while not pipe.advance():
         n += 1
-    got_logits, got_state, got_pos = pipe.result()
+    got_logits, got_state, got_pos, _ = pipe.result()
     assert got_pos == pos and pipe.done and n > 0
     n_diag = sum(st[0] == "diag" for st in pipe._stages)
     assert n_diag == (1 if cap is None else -(-3 // cap))
@@ -226,7 +226,7 @@ def test_suspended_carry_survives_decode_chunks_in_place(engines):
         for leaf in jax.tree_util.tree_leaves((pool["pattern"], pool["prelude"])):
             leaf.fill_(float("nan"))
         pipe.advance()
-    logits, dstate, pos = pipe.result()
+    logits, dstate, pos, _ = pipe.result()
     torch.testing.assert_close(logits, ref[0], atol=0, rtol=0)
     assert pos == ref[2]
     for k in ("A", "z"):
@@ -296,7 +296,7 @@ def test_admission_pool_pools_members_of_different_grids(engines):
     assert tdiag.pool_counts == {"steps": 2 + L - 1, "member_steps": 2 * (2 + L - 1)}
     assert done == pipes
     for p, ref in zip(pipes, refs):
-        logits, dstate, pos = p.result()
+        logits, dstate, pos, _ = p.result()
         torch.testing.assert_close(logits, ref[0], atol=1e-4, rtol=1e-3)
         assert pos == ref[2]
         for k in ("A", "z"):

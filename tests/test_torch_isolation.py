@@ -21,6 +21,8 @@ def test_port_imports_without_jax_or_reference():
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
             "import repro_torch.serve, repro_torch.convert, repro_torch.kernels.ops\n"
+            "import repro_torch.checkpoint, repro_torch.serve.state_store\n"
+            "import repro_torch.serve.telemetry\n"
             "import repro_torch.models.model\n"
             "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
             " if sys.modules[m] is not None)\n")

@@ -243,7 +243,7 @@ def test_prefill_of_pieces_not_a_whole_number_of_segments():
     _, tc, _, tp = _model()
     eng = ServeEngine(tp, tc, device="cpu", max_len=600)
     toks = torch.from_numpy(_tokens(9, 1, 1200, tc.vocab))
-    logits, dstate, pos = eng.prefill(toks)
+    logits, dstate, pos, _ = eng.prefill(toks)
     st = tmodel.decode_state_init(tc, 1, dtype=torch.float32, device="cpu")
     want, st = tmodel.decode_step(tp, tc, st, toks)
     assert pos == 0

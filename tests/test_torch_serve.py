@@ -100,6 +100,6 @@ def test_prefill_logits_match_reference(model):
                                                 (2, 2 * jc.armt.segment_len + 3))
     jl, _ = JEngine(jp, jc, serve_mode="armt", max_len=256,
                     grouped_impl="fused").prefill(jnp.asarray(prompts))
-    tl, _, pos = ServeEngine(tp, tc, device="cpu").prefill(torch.from_numpy(prompts))
+    tl, _, pos, _ = ServeEngine(tp, tc, device="cpu").prefill(torch.from_numpy(prompts))
     assert pos == 3
     np.testing.assert_allclose(np.asarray(jl), tl.numpy(), atol=ATOL, rtol=RTOL)
