@@ -24,7 +24,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       q heads over 1 kv head) and 131,072 (held on three slices of query
       rows), timed at 32 over 8 heads beside SDPA's flash backend, and
       decode over 17,432 and 131,136 keys (the last split full, one key
-      long and empty) beside SDPA with a length mask;
+      long and empty) beside SDPA with a length mask; the dense configs'
+      head shapes: flash at hd 80 (h2o-danube-1.8b's band, and T = S =
+      16,384 held at 4 over 1 heads with its 4,096-key window, timed at
+      32 over 8 heads) and decode at 16 q heads per kv head of 128
+      (chatglm3-6b: 4 slots at 1,024 keys and 4 rows over 131,136 keys,
+      each row batched equal to the row alone to the bit);
   (c) model: llama-1b-armt at full width and depth (random weights from a
       seed, bf16), diagonal prefill on the kernels against the sequential
       schedule on the plain path: 16 segments free-running, gated on the
@@ -169,6 +174,21 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       admission_stall_s beside its longest gap, and the span totals of the
       process's first interleaved serve (phase (e), run with the trace
       recorder on) beside a warm one. Prints a ``{"stores": ...}`` line;
+  (r) after (q), before (f): the five other dense ARMT configs, one at a
+      time, bf16, full width, weights drawn on the card from the seed
+      with the QKV biases (normal x 0.02) and q/k norm weights (1 +
+      normal x 0.1) non-zero: h2o-danube-1.8b, chatglm3-6b and
+      minitron-8b at full depth, qwen2.5-32b at 16 of 64 layers and
+      chameleon-34b at 12 of 48 (reduced depth: the weights must fit the
+      card). Each: a 4-segment prefill, diagonal against sequential on the
+      fused cell to the bit (hidden, logits, A, z), its first 2 segments
+      within 5e-2 of the sequential plain path, warm prefill times;
+      generate B = 1 (16 new, crossing a flush) captured against eager to
+      the bit; for chatglm3-6b and h2o-danube-1.8b also cache-mode
+      generate over 6,144 tokens (past danube's window) against eager,
+      and a two-request serve, each first token against a B = 1
+      generate. No SIMT GEMM or flash may launch. Prints a
+      ``{"dense_configs": ...}`` line;
   (p4) after (h): a falcon-mamba-7b session (2 x 8192 + 1000 tokens, then
       500), spilled and restored against kept in memory to the bit (h and
       the bf16 conv tail), resume TTFT against re-prefilling the history
@@ -181,23 +201,23 @@ place), and so does the sequential schedule's segment; the eager engines
 to be held against them here and in the card tests.
 
 The kernels' launch counters are set to 0 just before each main-path run
-of (d), (e), (i), (k), (l), (o), (p1)-(p4), (g), (h) and falcon's fused
-run of (o), and read just after it (a phase's count is the sum over its runs; a
+of (d), (e), (i), (k), (l), (o), (p1)-(p4), (r), (g), (h) and falcon's
+fused run of (o), and read just after it (a phase's count is the sum over its runs; a
 graph replay counts what its capture launched, so the counts read the
 same under graphs as eager): every llama kernel must have been launched
 in (d), every one but armt_update (which runs only at B > 1) in (e), in
 (o)'s interleaved serve runs (``serve_interleaved``) and in the
 prefix-cache (p1-p2) and session (p3) runs (``prefix_cache``,
-``sessions``), the GEMM and
+``sessions``) and in (r) (``dense_configs``), the GEMM and
 flash in (i) and flash and decode attention in (k) and (l), with none of
 the ARMT memory kernels there, and mamba_scan in (g), (h) and falcon's
 interleaved run and session run (p4). ``serve`` runs at its default of 4 band steps per
 chunk (interleaved admission) in (e), (l) and (h). The GEMM's and flash attention's
 launches are also counted by route (the TMA + wgmma kernel or the fp32 SIMT
 kernel; for the GEMM whoever called it: projections, the fused op, the
-ARMT kernels' projections): the bf16 llama runs of (d),
-(e), (i), (k), (l), (o) and (p1)-(p3) must launch no SIMT GEMM and no
-SIMT flash. One decode_attention
+ARMT kernels' projections): the bf16 runs of (d),
+(e), (i), (k), (l), (o), (p1)-(p3) and (r) must launch no SIMT GEMM and
+no SIMT flash. One decode_attention
 call (its partials and their combine) counts as one launch.
 The script prints JSON lines of the schedules' timing, of the graph
 phase (every graph-against-eager check with its rates) and of the kernel
@@ -878,6 +898,93 @@ def main() -> int:
         long_rows["decode_attention"][f"S={Sl}"] = dict(t, max_abs_err=err, splits=n_splits_,
                                                         chunk=chunk_)
         del qd, kd, vd, q1, k1, v1, q4, k4, v4, mask4
+        torch.cuda.empty_cache()
+
+    # the dense configs' shapes (phase (r)): flash at h2o-danube-1.8b's head
+    # dim 80 (its band step, 32 q over 8 kv heads; and T = S = 16,384,
+    # held at 4 q heads over 1 kv head with its 4,096-key window, timed
+    # causal at 32 over 8 heads beside SDPA's flash backend), and decode at
+    # chatglm3-6b's 16 q heads per kv head (32 over 2, hd 128; 4 slots of a
+    # 1,152-row cache at 1,024 keys, and 4 rows over 131,136 keys)
+    Hqd, Hkvd, hdd = 32, 8, 80
+    q5, k5, v5 = rnd(G, 1, T, Hqd, hdd), rnd(G, 1, T, Hkvd, hdd), rnd(G, 1, T, Hkvd, hdd)
+    ref32 = flash_attention.flash_attention_plain(flat(q5).float(), flat(k5).float(),
+                                                  flat(v5).float())
+    err = check(f"flash_attention causal GQA hd 80 [16,{Hqd},1152,{hdd}]",
+                ops.segment_attention(q5, k5, v5, causal=True),
+                ref32.transpose(1, 2).reshape(q5.shape), TOL_BF16)
+    del ref32
+    qc, kc, vc = flat(q5).contiguous(), flat(k5).contiguous(), flat(v5).contiguous()
+    route80 = flash_attention.route(flat(q5), flat(k5), flat(v5))
+    pairs_b = T * (T + 1) / 2
+    t = timed(f"flash_attention hd 80 [16,{Hqd},1152,{hdd}] (route {route80})",
+              lambda: ops.segment_attention(q5, k5, v5, causal=True),
+              lambda: flash_attention.flash_attention_plain(flat(q5), flat(k5), flat(v5)),
+              lambda: torch.nn.functional.scaled_dot_product_attention(
+                  qc, kc, vc, is_causal=True, enable_gqa=True),
+              flops_bf16=4.0 * G * Hqd * hdd * pairs_b, exps=G * Hqd * pairs_b,
+              nbytes=2.0 * G * (2 * Hqd * T * hdd + 2 * Hkvd * T * hdd))
+    long_rows["flash_attention"]["hd 80 band [16,32,1152,80]"] = dict(
+        t, max_abs_err=err, route=route80)
+    if route80 != "wgmma":
+        failures.append(f"flash_attention at hd 80 took the {route80} route")
+    del q5, k5, v5, qc, kc, vc
+    Tl = 16384
+    ql, kl, vl = rnd(1, 4, Tl, hdd), rnd(1, 1, Tl, hdd), rnd(1, 1, Tl, hdd)
+    err = check(f"flash_attention causal window 4096 q[1,4,{Tl},{hdd}] k/v[1,1,{Tl},{hdd}]",
+                flash_attention.flash_attention(ql, kl, vl, window=4096),
+                flash_attention.flash_attention_plain(ql.float(), kl.float(), vl.float(),
+                                                      window=4096), TOL_BF16)
+    del ql, kl, vl
+    torch.cuda.empty_cache()
+    ql, kl, vl = rnd(1, Hqd, Tl, hdd), rnd(1, Hkvd, Tl, hdd), rnd(1, Hkvd, Tl, hdd)
+    pairs_l = Tl * (Tl + 1) / 2
+    lib, note = sdpa_causal(ql, kl, vl)
+    ms = time_ms(lambda: flash_attention.flash_attention(ql, kl, vl), iters=5, warmup=1)
+    lib_ms = time_ms(lib, iters=5, warmup=1)
+    b_ms, b_by = bound(flops_bf16=4.0 * Hqd * hdd * pairs_l, exps=Hqd * pairs_l,
+                       nbytes=2.0 * (2 * Hqd * Tl * hdd + 2 * Hkvd * Tl * hdd))
+    log(f"  flash_attention q[1,{Hqd},{Tl},{hdd}] k/v[1,{Hkvd},{Tl},{hdd}] causal: kernel "
+        f"{ms:.4f} ms  library {lib_ms:.4f} ms ({note})  bound {b_ms:.4f} ms ({b_by})  "
+        f"kernel/bound {ms / b_ms:.2f}  plain not measured; card {smi}")
+    long_rows["flash_attention"][f"hd 80 T=S={Tl}"] = dict(
+        ms=ms, library_ms=lib_ms, library=note, bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=err, plain_ms=None)
+    del ql, kl, vl, lib
+    torch.cuda.empty_cache()
+    Hqg, Hkvg, hdg = 32, 2, 128
+    log(f"  decode_attention at {Hqg // Hkvg} q heads per kv head of {hdg}: head groups "
+        f"{decode_attention.head_groups(Hqg // Hkvg, hdg)} (heads a block, blocks a kv head)")
+    for Bg, Sg, lens in [(4, T, (1024,) * 4), (4, 131136, (131136, 70001, 1, 131000))]:
+        qd = rnd(Bg, Hqg, hdg)
+        kd, vd = rnd(Bg, Sg, Hkvg, hdg), rnd(Bg, Sg, Hkvg, hdg)
+        Ld = torch.tensor(lens, dtype=torch.int32, device=dev)
+        err = check(f"decode_attention q[{Bg},{Hqg},{hdg}] k/v[{Bg},{Sg},{Hkvg},{hdg}] "
+                    f"lengths {lens}", decode_attention.decode_attention(qd, kd, vd, Ld),
+                    decode_attention.decode_attention_plain(qd.float(), kd.float(), vd.float(),
+                                                            Ld), TOL_BF16)
+        alone = all(same_bits(decode_attention.decode_attention(qd, kd, vd, Ld)[b],
+                              decode_attention.decode_attention(qd[b:b + 1], kd[b:b + 1],
+                                                                vd[b:b + 1], Ld[b:b + 1])[0])
+                    for b in range(Bg))
+        log(f"  each row batched equal to the row alone, to the bit: {alone} -> "
+            f"{'ok' if alone else 'FAIL'}")
+        if not alone:
+            failures.append(f"decode_attention rep 16 over {Sg} keys: a row's bits depend on "
+                            "its batch")
+        q4, k4, v4 = qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
+        mask4 = (torch.arange(Sg, device=dev) < Ld[:, None])[:, None, None, :]
+        n_keys = float(sum(lens))
+        t = timed(f"decode_attention rep 16 q[{Bg},{Hqg},{hdg}] over {Sg} keys, lengths {lens}",
+                  lambda: decode_attention.decode_attention(qd, kd, vd, Ld),
+                  lambda: decode_attention.decode_attention_plain(qd, kd, vd, Ld),
+                  lambda: torch.nn.functional.scaled_dot_product_attention(
+                      q4, k4, v4, attn_mask=mask4, enable_gqa=True),
+                  flops_fp32=4.0 * n_keys * Hqg * hdg,
+                  nbytes=2.0 * 2 * n_keys * Hkvg * hdg + 2.0 * 2 * Bg * Hqg * hdg + 4.0 * Bg)
+        long_rows["decode_attention"][f"rep 16 hd 128 B={Bg} S={Sg}"] = dict(
+            t, max_abs_err=err, lengths=list(lens))
+        del qd, kd, vd, q4, k4, v4, mask4
         torch.cuda.empty_cache()
 
     # mamba_scan: the falcon-mamba band step (G = 16 layers, B = 1, T = 1024,
@@ -2329,6 +2436,186 @@ def main() -> int:
     del sp, sp_gpu
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------ (r) dense configs
+    def dense_config_phase():
+        """(r) the five other dense ARMT configs, one at a time, at full width
+        in bf16, random weights drawn on the card from the seed, the QKV
+        biases (normal x 0.02) and q/k norm weights (1 + normal x 0.1) set
+        non-zero. qwen2.5-32b runs 16 of its 64 layers and chameleon-34b 12
+        of 48 (full depth would not fit the card: ~69 and ~75 GB of
+        weights); the others run at full depth. Returns (launches and
+        routes summed over the phase's graph, prefill and serve runs, the
+        per-config results)."""
+        from repro_torch.serve.state_store import tree_nbytes
+        log("== (r) dense configs: full width, bf16, QKV biases and q/k norm weights "
+            "non-zero")
+        M.SegmentProgram._cache.clear()
+        torch.cuda.empty_cache()
+        plan = [("h2o-danube-1.8b", None), ("chatglm3-6b", None), ("minitron-8b", None),
+                ("qwen2.5-32b", 16), ("chameleon-34b", 12)]
+        launches, routes, out = {}, {}, {}
+
+        def add(n, r):
+            nonlocal launches, routes
+            launches, routes = merged(launches, n), merged(routes, r)
+            return n, r
+
+        for arch, depth in plan:
+            t_phase = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats(dev)
+            cfg = get_config(arch)
+            full_depth = cfg.n_layers
+            if depth is not None:
+                cfg = replace(cfg, n_layers=depth)
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            params = M.init_params(cfg, g, device=dev)
+            attn = params["pattern"][0]["attn"]
+            for b in ("bq", "bk", "bv"):
+                if b in attn:
+                    attn[b].copy_(torch.randn(attn[b].shape, generator=g, device=dev) * 0.02)
+            for n in ("qn", "kn"):
+                if n in attn:
+                    attn[n]["w"].copy_(1 + 0.1 * torch.randn(attn[n]["w"].shape, generator=g,
+                                                             device=dev))
+            sync()
+            row = dict(depth=cfg.n_layers, full_depth=full_depth,
+                       weights_gb=tree_nbytes(params) / 1e9,
+                       init_s=time.perf_counter() - t_phase)
+            log(f"-- {arch}: {cfg.n_layers} of {full_depth} layers"
+                f"{' (reduced depth)' if depth else ''}, {row['weights_gb']:.2f} GB of bf16 "
+                f"weights, made on the card in {row['init_s']:.2f} s; hd "
+                f"{cfg.head_dim}, {cfg.n_heads}/{cfg.n_kv_heads} heads, qkv_bias "
+                f"{cfg.qkv_bias}, qk_norm {cfg.qk_norm}, rope_fraction {cfg.rope_fraction}, "
+                f"window {cfg.sliding_window}")
+            seg = cfg.armt.segment_len
+            tk = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 4 * seg))).to(dev)
+
+            def fwd(tokens=tk, **kw):
+                with torch.no_grad():
+                    h, f = M.forward_hidden(params, cfg, tokens, **kw)
+                    return h, f, seg_logits(params, cfg, h)
+
+            def timed_run(**kw):
+                t0 = time.perf_counter()
+                res = fwd(**kw)
+                sync()
+                return res, time.perf_counter() - t0
+            # the first runs launch each shape once (and capture the segment
+            # graph); the second are timed
+            (hd_, fd_, ld_), nd, rd = counted(lambda: fwd(schedule="diagonal"))
+            add(nd, rd)
+            (hs_, fs_, ls_), ns, rs = counted(lambda: fwd(schedule="sequential"))
+            add(ns, rs)
+            _, row["prefill_diagonal_s"] = timed_run(schedule="diagonal")
+            _, row["prefill_sequential_s"] = timed_run(schedule="sequential")
+            sd_, ss_ = fd_["pattern"][0], fs_["pattern"][0]
+            exact = {"hidden": same_bits(hd_, hs_), "logits": same_bits(ld_, ls_),
+                     "A": same_bits(sd_["A"], ss_["A"]), "z": same_bits(sd_["z"], ss_["z"])}
+            row["diagonal_equals_sequential"] = exact
+            ok = all(exact.values())
+            log(f"  4-segment prefill, diagonal vs sequential (captured segments), both on "
+                f"the fused cell: to the bit {exact} -> {'ok' if ok else 'FAIL'}; diagonal "
+                f"{row['prefill_diagonal_s']:.3f} s, sequential {row['prefill_sequential_s']:.3f}"
+                f" s; card {smi}")
+            if not ok:
+                failures.append(f"{arch}: diagonal vs sequential not bitwise {exact}")
+            hp, _, lp = fwd(tk[:, :2 * seg], schedule="sequential", fused=False)
+            errs = [rel_err(ld_[i], lp[i]) for i in range(2)]
+            herrs = [rel_err(hd_[i], hp[i]) for i in range(2)]
+            ok = bool(torch.isfinite(ld_).all()) and max(errs) <= 5e-2
+            row.update(plain_logits_rel_err=errs, plain_hidden_rel_err=herrs)
+            log(f"  segments 1-2, diagonal on the kernels vs sequential plain: last-token "
+                f"logits rel err {' '.join(f'{e:.2e}' for e in errs)} (tol 5e-2), hidden "
+                f"{' '.join(f'{e:.2e}' for e in herrs)} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{arch}: first 2 segments vs the plain path")
+            del hd_, fd_, ld_, hs_, fs_, ls_, sd_, ss_, hp, lp
+
+            eng, eng_e = ServeEngine(params, cfg), ServeEngine(params, cfg, eager=True)
+            prompt = rng.integers(0, cfg.vocab, (1, 2 * seg + 1020))   # flushes at token 4
+            gres, ng, rg = counted(lambda: eng.generate(prompt, 16, keep=True))
+            add(ng, rg)
+            eres, ne, _ = counted(lambda: eng_e.generate(prompt, 16, keep=True))
+            good = (gres.finite and gres.tokens.shape == (1, 16)
+                    and 0 <= gres.tokens.min() and gres.tokens.max() < cfg.vocab)
+            log(f"  generate B=1, prompt {prompt.shape[1]}, 16 new: TTFT {gres.ttft_s:.3f} s, "
+                f"{gres.tok_s:.1f} tok/s (capture {gres.capture_s:.3f} s); eager TTFT "
+                f"{eres.ttft_s:.3f} s, {eres.tok_s:.1f} tok/s; finite {gres.finite} -> "
+                f"{'ok' if good else 'FAIL'}; launches {ng}; card {smi}")
+            log(f"    tokens: {gres.tokens[0].tolist()}")
+            if not good:
+                failures.append(f"{arch}: generate")
+            check_generate(f"{arch} ARMT generate B=1", gres, eres, ng, ne,
+                           graph_tok_s=gres.tok_s, eager_tok_s=eres.tok_s,
+                           graph_ttft_s=gres.ttft_s, eager_ttft_s=eres.ttft_s)
+            row.update(generate_ttft_s=gres.ttft_s, generate_tok_s=gres.tok_s,
+                       generate_eager_tok_s=eres.tok_s)
+            if ng["decode_attention"] == 0 or ng["flash_attention"] == 0:
+                failures.append(f"{arch}: generate launched no decode or flash attention")
+            del gres, eres, eng_e
+
+            if arch in ("h2o-danube-1.8b", "chatglm3-6b"):
+                # cache mode over 6,144 tokens: past h2o-danube's 4,096-key
+                # window, so it binds in flash (the prompt) and in decode
+                P = 6144
+                ceng = ServeEngine(params, cfg, serve_mode="cache", max_len=P + 64)
+                ceng_e = ServeEngine(params, cfg, serve_mode="cache", max_len=P + 64,
+                                     eager=True)
+                cprompt = rng.integers(0, cfg.vocab, (1, P))
+                cres, nc, rc = counted(lambda: ceng.generate(cprompt, 16, keep=True))
+                add(nc, rc)
+                ceres, nce, _ = counted(lambda: ceng_e.generate(cprompt, 16, keep=True))
+                log(f"  cache-mode generate B=1, prompt {P}, 16 new: TTFT {cres.ttft_s:.3f} s, "
+                    f"{cres.tok_s:.1f} tok/s; eager {ceres.tok_s:.1f} tok/s; finite "
+                    f"{cres.finite}; launches {nc}")
+                if not cres.finite:
+                    failures.append(f"{arch}: cache-mode generate not finite")
+                check_generate(f"{arch} cache-mode generate B=1 at {P} tokens", cres, ceres,
+                               nc, nce, graph_tok_s=cres.tok_s, eager_tok_s=ceres.tok_s)
+                row.update(cache_generate_ttft_s=cres.ttft_s, cache_generate_tok_s=cres.tok_s)
+                del ceng, ceng_e, cres, ceres
+                sreq = [Request(0, rng.integers(0, cfg.vocab, seg + 500), 16),
+                        Request(1, rng.integers(0, cfg.vocab, 2 * seg + 1000), 16)]
+                eng.program(4, "serve").prepare()   # the capture, outside the timed run
+                (evs, t_srv), nsv, rsv = counted(lambda: serve_run(eng, sreq))
+                add(nsv, rsv)
+                n_tok = sum(1 for e in evs if not isinstance(e, RequestError))
+                good = n_tok == 32
+                for r in sreq:
+                    mine = [e for e in evs if not isinstance(e, RequestError)
+                            and e.req_id == r.req_id]
+                    first = int(eng.generate(r.prompt[None], 1).tokens[0, 0])
+                    good = good and (len(mine) == r.max_new and mine[-1].done
+                                     and bool(mine[-1].finite) and mine[0].token == first)
+                log(f"  serve, 2 requests ({', '.join(str(len(r.prompt)) for r in sreq)} "
+                    f"tokens, 16 new each) on 4 slots: {n_tok} tokens in {t_srv:.3f} s, "
+                    f"{n_tok / t_srv:.1f} tok/s; every request complete, finite, first token "
+                    f"= B=1 generate's -> {'ok' if good else 'FAIL'}; launches {nsv}")
+                if not good:
+                    failures.append(f"{arch}: serve")
+                row.update(serve_tok_s=n_tok / t_srv)
+                if nsv["decode_attention"] == 0:
+                    failures.append(f"{arch}: serve launched no decode attention")
+                del evs
+            row.update(peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                       phase_s=time.perf_counter() - t_phase)
+            log(f"  peak {row['peak_gb']:.2f} GB; {row['phase_s']:.1f} s")
+            out[arch] = row
+            del eng, params, attn
+            M.SegmentProgram._cache.clear()
+            torch.cuda.empty_cache()
+        log(f"  launches over the phase: {launches}; GEMM and flash launches by route {routes}")
+        for k in routed:
+            if routes[k]["simt"] or not routes[k]["wgmma"]:
+                failures.append(f"(r)'s {k} left the TMA + wgmma route: {routes[k]}")
+        for name in llama_kernels:
+            if launches[name] == 0 and name != "armt_update":   # B > 1 only
+                failures.append(f"{name} never launched by (r)")
+        return launches, routes, out
+
+    launches_dense, routes_dense, dense = dense_config_phase()
+    print(json.dumps({"dense_configs": dense, "card": smi}))
+
     # ------------------------------------------------------------ (f) falcon-mamba model
     log("== model phase: falcon-mamba-7b, full width and depth, bf16, seed 0")
     fcfg = get_config("falcon-mamba-7b")
@@ -2676,11 +2963,12 @@ def main() -> int:
     llama_paths = {"generate": launches_gen, "serve": launches_serve,
                    "full_forward": launches_full, "cache_generate": launches_cgen,
                    "cache_serve": launches_cserve, "serve_interleaved": launches_inter,
-                   "prefix_cache": launches_prefix, "sessions": launches_sess}
+                   "prefix_cache": launches_prefix, "sessions": launches_sess,
+                   "dense_configs": launches_dense}
     llama_routes = {"generate": routes_gen, "serve": routes_serve, "full_forward": routes_full,
                     "cache_generate": routes_cgen, "cache_serve": routes_cserve,
                     "serve_interleaved": routes_inter, "prefix_cache": routes_prefix,
-                    "sessions": routes_sess}
+                    "sessions": routes_sess, "dense_configs": routes_dense}
     # falcon-mamba has no prefix-cache run (its engine refuses a cache at
     # max_len 8192: its seg_len is max_len, not the model's segment), so
     # mamba_scan has no launches_prefix_cache

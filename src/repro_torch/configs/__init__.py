@@ -1,7 +1,8 @@
 """Architecture configs: the fields of the reference ``ArchConfig`` that the
-port's serving paths read, the ``llama-*-armt`` family and ``falcon-mamba-7b``,
-and the smoke reduction used by the CPU tests (a copy; the port never
-imports the JAX package)."""
+port's serving paths read; the ``llama-*-armt`` family, the five other dense
+ARMT configs (minitron-8b, qwen2.5-32b, chameleon-34b, h2o-danube-1.8b,
+chatglm3-6b) and ``falcon-mamba-7b``; and the smoke reduction used by the
+CPU tests (a copy; the port never imports the JAX package)."""
 from __future__ import annotations
 
 import importlib
@@ -31,7 +32,7 @@ class ARMTConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                # dense | ssm
+    family: str                # dense | vlm | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -43,7 +44,10 @@ class ArchConfig:
     prelude: Tuple[str, ...] = ()
     norm: str = "rmsnorm"
     act: str = "silu"
+    qkv_bias: bool = False      # bias on the q, k and v projections (qwen, chatglm)
+    qk_norm: bool = False       # per-head RMSNorm of q and k before rotary (chameleon)
     rope_theta: float = 10000.0
+    rope_fraction: float = 1.0  # rotary on the leading fraction of the head dims (chatglm)
     use_rope: bool = True
     sliding_window: int = 0    # 0 = full causal attention
     tie_embeddings: bool = False
@@ -77,7 +81,8 @@ class ArchConfig:
 
     def validate(self) -> None:
         """Accepts what the port has: the ARMT attn block (rmsnorm, swiglu,
-        rope), or a pure ``("mamba",)`` stack without FFN."""
+        rope, with or without QKV bias and q/k norm, rotary on a fraction
+        of the head dims), or a pure ``("mamba",)`` stack without FFN."""
         if not (self.d_model > 0 and self.n_layers > 0 and self.vocab > 0):
             raise ValueError(f"{self.name}: non-positive dims")
         types = set(self.layer_types)
@@ -89,6 +94,8 @@ class ArchConfig:
                                  "ARMT block with rope")
             if self.n_heads <= 0 or self.n_heads % self.n_kv_heads:
                 raise ValueError(f"{self.name}: bad head counts")
+            if not 0.0 < self.rope_fraction <= 1.0:
+                raise ValueError(f"{self.name}: rope_fraction {self.rope_fraction}")
         elif types == {"mamba"}:
             if self.ssm is None or self.armt is not None or self.d_ff:
                 raise ValueError(f"{self.name}: the port's mamba block needs "
@@ -100,6 +107,11 @@ class ArchConfig:
 
 
 _ARCH_MODULES = {
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "qwen2.5-32b": "qwen2_5_32b",
+    "minitron-8b": "minitron_8b",
+    "chatglm3-6b": "chatglm3_6b",
+    "chameleon-34b": "chameleon_34b",
     "llama-160m-armt": "llama_armt",
     "llama-1b-armt": "llama_armt",
     "llama-3b-armt": "llama_armt",
@@ -119,8 +131,10 @@ def get_config(arch_id: str) -> ArchConfig:
 
 def get_smoke_config(arch_id: str, *, seq_len: int = 64) -> ArchConfig:
     """The reference's ``get_smoke_config`` reduction: two superblocks,
-    d_model 32, 4 heads, vocab 256, fp32; ARMT shrunk to 4 memory tokens of
-    d_mem 8, SSM to d_state 4."""
+    d_model 32, 4 heads (at most 2 kv heads) of 8 dims, vocab 256, fp32;
+    ARMT shrunk to 4 memory tokens of d_mem 8, SSM to d_state 4. The
+    attention flags (QKV bias, q/k norm, rotary fraction, sliding window)
+    are kept."""
     cfg = get_config(arch_id)
     armt = ssm = None
     if cfg.armt is not None:

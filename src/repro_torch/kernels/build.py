@@ -58,9 +58,9 @@ SIGNATURES = {
     "armt_read_gemm_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _P],
     # q, k, v, lengths (int32), out, partial o and (m, l) workspaces (fp32),
     # B, Hq, Hkv, S, hd, q strides (b, h), k strides (b, s, h), v strides
-    # (b, s, h), window, scale, chunk, splits, dtype, stream
+    # (b, s, h), window, scale, chunk, splits, q heads a block, dtype, stream
     "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _L, _L, _L, _L, _L, _L, _L, _L, _I, _F, _I, _I, _I, _P],
+                                _L, _L, _L, _L, _L, _L, _L, _L, _I, _F, _I, _I, _I, _I, _P],
     # k, v (fp32 projections), m (memory rows), wb, A, z, A_out, z_out,
     # phi scratch, aux scratch, N, M, dm, P, phi row stride, Dv, D,
     # m strides (n, row), weight batch, dtype, stream

@@ -17,18 +17,23 @@
 // kernel must spread the keys of a few rows over the whole card.
 //
 // Design: two launches.
-// - decode_partial, grid (split, kv head, row): a split is a fixed chunk of
-//   keys that the host chooses from S alone (never from B or the lengths,
-//   which stay on the card), so a row's result does not depend on the rows
-//   batched with it. A block scores the rep q heads that share its kv head
-//   against its chunk's valid keys in 64-key tiles: K and V are loaded once
-//   into shared memory in their own dtype (for bf16 with 16-byte rows, all
-//   of a tile's 16-byte loads in flight at once, and K read back 8 elements
-//   a load), warp h scores head h with two keys per lane (fp32 dot in
-//   element order, shuffle max and sum), and every thread accumulates its
-//   (head, dim) outputs, two neighbours at a time for bf16, against V. It writes the partial (m, l, o[hd]) in
-//   fp32, o unnormalised; a chunk wholly outside [len - window, len) writes
-//   m = -inf, l = 0 and reads no K/V. At B = 4 and S = 1152: 18 chunks of
+// - decode_partial, grid (split, kv head x head group, row): a split is a
+//   fixed chunk of keys that the host chooses from S alone (never from B or
+//   the lengths, which stay on the card), so a row's result does not depend
+//   on the rows batched with it. The rep q heads that share a kv head are
+//   cut into groups of at most hg heads, hg * hd <= 1024 (the outputs one
+//   block's threads hold): one group at every shape but chatglm3-6b's (16
+//   heads of 128 dims, two groups of 8). A block scores its group's heads
+//   against its chunk's valid keys in 64-key tiles, so each group reads the
+//   chunk's K/V once and a head's sums do not depend on the grouping. K
+//   and V are loaded once into shared memory in their own dtype (for bf16
+//   with 16-byte rows, all of a tile's 16-byte loads in flight at once, and
+//   K read back 8 elements a load), warp h scores head h with two keys per
+//   lane (fp32 dot in element order, shuffle max and sum), and every thread
+//   accumulates its (head, dim) outputs, two neighbours at a time for bf16,
+//   against V. It writes the partial (m, l, o[hd]) in fp32, o
+//   unnormalised; a chunk wholly outside [len - window, len) writes m =
+//   -inf, l = 0 and reads no K/V. At B = 4 and S = 1152: 18 chunks of
 //   64 keys, 576 blocks, each reading 16 KB of K/V.
 // - decode_combine, one block per (row, q head), the partials' (m, l)
 //   staged in shared memory: M = the max m_i over the non-empty partials,
@@ -47,7 +52,7 @@ namespace {
 
 constexpr int THREADS = 128, WARPS = THREADS / 32, BK = 64;
 constexpr int MAX_HD = 128;
-constexpr int MAX_OUT = 8;   // rep * hd <= THREADS * MAX_OUT
+constexpr int MAX_OUT = 8;   // hg * hd <= THREADS * MAX_OUT
 constexpr int CHUNKS = BK * MAX_HD / 8 / THREADS;   // 16-byte pieces a thread loads per tile
 constexpr int MAX_COMBINE = 1024;                   // splits the combine's shared memory holds
 
@@ -63,50 +68,53 @@ template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 decode_partial(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const int* __restrict__ lengths, float* __restrict__ part_o,
-               float* __restrict__ part_ml, int S, int Hq, int rep, int hd, ll sqb, ll sqh,
-               ll skb, ll sks, ll skh, ll svb, ll svs, ll svh, int window, float scale,
-               int chunk, int n_splits) {
+               float* __restrict__ part_ml, int S, int Hq, int rep, int hg, int n_hg, int hd,
+               ll sqb, ll sqh, ll skb, ll sks, ll skh, ll svb, ll svs, ll svh, int window,
+               float scale, int chunk, int n_splits) {
   extern __shared__ __align__(16) float smem[];
-  const int c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int c = blockIdx.x, kvh = blockIdx.y / n_hg, b = blockIdx.z;
+  // this block's heads: hb .. hb + rep_b - 1, group blockIdx.y % n_hg of kv head kvh
+  const int g0 = (blockIdx.y - kvh * n_hg) * hg;
+  const int rep_b = min(hg, rep - g0), hb = kvh * rep + g0;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int len = lengths[b];
   const int hi = min(len, S);
   const int lo = window > 0 ? max(0, len - window) : 0;
   const int a = max(lo, c * chunk), e = min(hi, min(S, (c + 1) * chunk));
-  // partial (b, kvh * rep + h, c)
-  const ll p0 = ((ll)b * Hq + (ll)kvh * rep) * n_splits + c;
+  // partial (b, hb + h, c)
+  const ll p0 = ((ll)b * Hq + hb) * n_splits + c;
   if (a >= e) {
-    for (int h = tid; h < rep; h += THREADS) {
+    for (int h = tid; h < rep_b; h += THREADS) {
       part_ml[2 * (p0 + (ll)h * n_splits)] = -INFINITY;
       part_ml[2 * (p0 + (ll)h * n_splits) + 1] = 0.f;
     }
     return;
   }
   const int ldk = k_stride<T, VEC>(hd);
-  float* qs = smem;                                    // [rep][hd], pre-scaled
-  float* ps = qs + rep * hd;                           // [rep][BK] probabilities of the tile
-  float* alpha_s = ps + rep * BK;                      // [rep] rescale of the running sums
-  float* m_s = alpha_s + rep;                          // [rep] running max
-  float* l_s = m_s + rep;                              // [rep] running sum
-  T* ks = reinterpret_cast<T*>(smem + ((rep * (hd + BK + 3) + 3) & ~3));   // [BK][ldk]
+  float* qs = smem;                                    // [hg][hd], pre-scaled
+  float* ps = qs + hg * hd;                            // [hg][BK] probabilities of the tile
+  float* alpha_s = ps + hg * BK;                       // [hg] rescale of the running sums
+  float* m_s = alpha_s + hg;                           // [hg] running max
+  float* l_s = m_s + hg;                               // [hg] running sum
+  T* ks = reinterpret_cast<T*>(smem + ((hg * (hd + BK + 3) + 3) & ~3));   // [BK][ldk]
   T* vs = ks + ((BK * ldk + 7) & ~7);                  // [BK][hd], 16-byte aligned
   const T* kb = k + (ll)b * skb + (ll)kvh * skh;
   const T* vb = v + (ll)b * svb + (ll)kvh * svh;
 
-  // every load of q in flight at once (rep * hd <= THREADS * MAX_OUT)
+  // every load of q in flight at once (rep_b * hd <= THREADS * MAX_OUT)
   float qv[MAX_OUT];
 #pragma unroll
   for (int i = 0; i < MAX_OUT; ++i) {
     const int o = tid + i * THREADS;
-    if (o < rep * hd) {
+    if (o < rep_b * hd) {
       const int h = o / hd, d = o - h * hd;
-      qv[i] = to_f(q[(ll)b * sqb + (ll)(kvh * rep + h) * sqh + d]);
+      qv[i] = to_f(q[(ll)b * sqb + (ll)(hb + h) * sqh + d]);
     }
   }
 #pragma unroll
   for (int i = 0; i < MAX_OUT; ++i)
-    if (tid + i * THREADS < rep * hd) qs[tid + i * THREADS] = qv[i] * scale;
-  for (int h = tid; h < rep; h += THREADS) {
+    if (tid + i * THREADS < rep_b * hd) qs[tid + i * THREADS] = qv[i] * scale;
+  for (int h = tid; h < rep_b; h += THREADS) {
     m_s[h] = -INFINITY;
     l_s[h] = 0.f;
   }
@@ -146,7 +154,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     }
     __syncthreads();
 
-    for (int h = warp; h < rep; h += WARPS) {
+    for (int h = warp; h < rep_b; h += WARPS) {
       const float* qh = qs + h * hd;
       float s[2];
 #pragma unroll
@@ -202,7 +210,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 #pragma unroll
       for (int i = 0; i < MAX_OUT / 2; ++i) {
         const int o = 2 * (tid + i * THREADS);
-        if (o < rep * hd) {
+        if (o < rep_b * hd) {
           const int h = o / hd, d = o - h * hd;
           const float* ph = ps + h * BK;
           float r0 = acc[2 * i] * alpha_s[h], r1 = acc[2 * i + 1] * alpha_s[h];
@@ -219,7 +227,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 #pragma unroll
       for (int i = 0; i < MAX_OUT; ++i) {
         const int o = tid + i * THREADS;
-        if (o < rep * hd) {
+        if (o < rep_b * hd) {
           const int h = o / hd, d = o - h * hd;
           const float* ph = ps + h * BK;
           float r = acc[i] * alpha_s[h];
@@ -234,12 +242,12 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   for (int i = 0; i < MAX_OUT; ++i) {
     // output i of this thread: VEC pairs (tid + (i / 2) * THREADS), else tid + i * THREADS
     const int o = VEC ? 2 * (tid + (i / 2) * THREADS) + (i & 1) : tid + i * THREADS;
-    if (o < rep * hd) {
+    if (o < rep_b * hd) {
       const int h = o / hd, d = o - h * hd;
       part_o[(p0 + (ll)h * n_splits) * hd + d] = acc[i];
     }
   }
-  for (int h = tid; h < rep; h += THREADS) {   // m_s, l_s: written before the last barrier
+  for (int h = tid; h < rep_b; h += THREADS) {   // m_s, l_s: written before the last barrier
     part_ml[2 * (p0 + (ll)h * n_splits)] = m_s[h];
     part_ml[2 * (p0 + (ll)h * n_splits) + 1] = l_s[h];
   }
@@ -287,18 +295,18 @@ template <typename T, bool VEC>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* lengths, void* out,
                    float* part_o, float* part_ml, int B, int Hq, int Hkv, int S, int hd, ll sqb,
                    ll sqh, ll skb, ll sks, ll skh, ll svb, ll svs, ll svh, int window,
-                   float scale, int chunk, int n_splits, cudaStream_t s) {
-  const int rep = Hq / Hkv;
+                   float scale, int chunk, int n_splits, int hg, cudaStream_t s) {
+  const int rep = Hq / Hkv, n_hg = (rep + hg - 1) / hg;
   const int ldk = k_stride<T, VEC>(hd);
-  const size_t smem = sizeof(float) * ((rep * (hd + BK + 3) + 3) & ~3) +
+  const size_t smem = sizeof(float) * ((hg * (hd + BK + 3) + 3) & ~3) +
                       sizeof(T) * (((BK * ldk + 7) & ~7) + BK * hd);
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(decode_partial<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-  decode_partial<T, VEC><<<dim3(n_splits, Hkv, B), THREADS, smem, s>>>(
+  decode_partial<T, VEC><<<dim3(n_splits, Hkv * n_hg, B), THREADS, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(lengths), part_o, part_ml, S, Hq, rep, hd, sqb, sqh, skb, sks,
-      skh, svb, svs, svh, window, scale, chunk, n_splits);
+      static_cast<const int*>(lengths), part_o, part_ml, S, Hq, rep, hg, n_hg, hd, sqb, sqh,
+      skb, sks, skh, svb, svs, svh, window, scale, chunk, n_splits);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_combine<T><<<B * Hq, THREADS, 0, s>>>(part_o, part_ml, static_cast<T*>(out), hd,
@@ -312,16 +320,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* leng
 // (b, s, h); lengths [B] int32; out [B,Hq,hd] contiguous; the workspace
 // part_o [B,Hq,n_splits,hd] and part_ml [B,Hq,n_splits,2], fp32. The last
 // dim of every operand is contiguous. Split c covers keys [c * chunk,
-// (c + 1) * chunk), chunk a multiple of 64. dtype: 0 float32, 1 bfloat16.
-// Needs hd <= 128, Hq % Hkv == 0 and (Hq / Hkv) * hd <= 1024.
+// (c + 1) * chunk), chunk a multiple of 64. A block takes hg of the Hq / Hkv
+// q heads of one kv head (the last group of a kv head may hold fewer).
+// dtype: 0 float32, 1 bfloat16. Needs hd <= 128, Hq % Hkv == 0 and
+// 1 <= hg <= Hq / Hkv with hg * hd <= 1024.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* lengths, void* out, void* part_o,
                                        void* part_ml, int B, int Hq, int Hkv, int S, int hd,
                                        long long sqb, long long sqh, long long skb,
                                        long long sks, long long skh, long long svb,
                                        long long svs, long long svh, int window, float scale,
-                                       int chunk, int n_splits, int dtype, void* stream) {
-  if (hd > MAX_HD || Hkv <= 0 || Hq % Hkv != 0 || (Hq / Hkv) * hd > THREADS * MAX_OUT ||
+                                       int chunk, int n_splits, int hg, int dtype,
+                                       void* stream) {
+  if (hd > MAX_HD || Hkv <= 0 || Hq % Hkv != 0 || hg < 1 || hg > Hq / Hkv ||
+      hg * hd > THREADS * MAX_OUT ||
       chunk <= 0 || chunk % BK || n_splits <= 0 || n_splits > MAX_COMBINE ||
       (ll)n_splits * chunk < S)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -334,12 +346,13 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   cudaError_t err;
   if (dtype == 1 && vec)
     err = launch<bf16, true>(q, k, v, lengths, out, po, pml, B, Hq, Hkv, S, hd, sqb, sqh, skb,
-                             sks, skh, svb, svs, svh, window, scale, chunk, n_splits, s);
+                             sks, skh, svb, svs, svh, window, scale, chunk, n_splits, hg, s);
   else if (dtype == 1)
     err = launch<bf16, false>(q, k, v, lengths, out, po, pml, B, Hq, Hkv, S, hd, sqb, sqh, skb,
-                              sks, skh, svb, svs, svh, window, scale, chunk, n_splits, s);
+                              sks, skh, svb, svs, svh, window, scale, chunk, n_splits, hg, s);
   else
     err = launch<float, false>(q, k, v, lengths, out, po, pml, B, Hq, Hkv, S, hd, sqb, sqh,
-                               skb, sks, skh, svb, svs, svh, window, scale, chunk, n_splits, s);
+                               skb, sks, skh, svb, svs, svh, window, scale, chunk, n_splits,
+                               hg, s);
   return static_cast<int>(err);
 }

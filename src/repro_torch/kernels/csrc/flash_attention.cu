@@ -21,7 +21,7 @@
 // - The last warpgroup is the producer: one thread loads each item's Q tile
 //   once, into one of two buffers so that it runs an item ahead, and
 //   streams its K/V tiles of 64 keys (16 KB a stage at hd 64, 32 KB at hd
-//   128) through a 128 KB mbarrier ring, by TMA through 4-D tensor maps
+//   80 and 128) through a 128 KB mbarrier ring, by TMA through 4-D tensor maps
 //   over the strided [N, H, T, hd] views (dims hd, T, H, N), 128-byte
 //   swizzle; rows past T or S arrive as zeros. setmaxnreg gives its
 //   registers to the consumers.
@@ -53,7 +53,19 @@
 // - The epilogue scales by 1/l and stores bf16 pairs straight from the
 //   registers, rows past T skipped.
 //
-// fp32 inputs, head dims other than 64/128, and operands the TMA cannot
+// - Head dim 80 (h2o-danube-1.8b) runs hd 128's kernel over the same
+//   shared-memory layout: a 160-byte row is more than one 128-byte swizzle
+//   span, so each Q, K and V tile is two 64-column boxes, as at hd 128, and
+//   the TMA fills the second box's columns 80-127 with zeros (they lie past
+//   the tensor map's 80 columns; nothing past a row is read). S = Q K^T
+//   takes the 5 k16 steps that hold data, so scores and softmax are
+//   computed as for any head dim; O += P V multiplies all 128 columns,
+//   since a 128-byte-swizzled N-major operand spans whole 64-column boxes,
+//   and columns 80-127 stay zero and are never stored: 60 % more PV work
+//   than the data needs, no copy. (A 16-column box with 32-byte swizzle
+//   and an n80 PV product would do only the data's work.)
+//
+// fp32 inputs, head dims other than 64/80/128, and operands the TMA cannot
 // describe take `flash_simt`: one thread per query row, fp32 throughout.
 // The caller picks the route (the wrapper's `route()` in
 // kernels/flash_attention.py) and counts it; a wgmma launch the operands do
@@ -71,10 +83,15 @@ namespace {
 constexpr int WG_THREADS = 128;
 
 template <int HD> struct FlashCfg {
+  // the head dims a tile holds in shared memory: hd 80 takes hd 128's
+  // layout, two 64-column boxes of 128-byte-swizzled rows, the second
+  // zero-filled by the TMA past column 80 (see the design note)
+  static constexpr int HDP = HD == 80 ? 128 : HD;
+  static constexpr int KSTEPS = HD / 16;             // k16 steps of S = Q K^T: 5 at hd 80
   // consumer warpgroups, 64 query rows each: 3 at hd 64, where a third warp
   // a scheduler hides more of the softmax's latency (6 %, PERF.md);
-  // 2 at hd 128, since with 512 threads a thread gets 128 registers, too few
-  // beside hd 128's 64 O accumulators
+  // 2 at hd 80 and 128, since with 512 threads a thread gets 128 registers,
+  // too few beside hd 128's 64 O accumulators
   static constexpr int NWG = HD == 64 ? 3 : 2;
   static constexpr int BQ = 64 * NWG;                // query rows a work item
   static constexpr int THREADS = WG_THREADS * (NWG + 1);
@@ -82,11 +99,11 @@ template <int HD> struct FlashCfg {
   static constexpr int REG_LOAD = NWG == 2 ? 40 : 24;
   static constexpr int REG_MMA = NWG == 2 ? 232 : 160;
   static constexpr int BKV = 64;                     // keys a tile (see the design note)
-  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int Q_BYTES = BQ * HDP * 2;
   static constexpr int BOX = BKV * 128;             // one 64-column TMA box of K or V
-  static constexpr int KV_BYTES = BKV * HD * 2;     // K (or V) of a tile
-  static constexpr int STAGE = 2 * KV_BYTES;        // 16 KB at hd 64, 32 KB at hd 128
-  static constexpr int STAGES = 128 * 1024 / STAGE;   // 8 at hd 64, 4 at hd 128
+  static constexpr int KV_BYTES = BKV * HDP * 2;    // K (or V) of a tile
+  static constexpr int STAGE = 2 * KV_BYTES;        // 16 KB at hd 64, 32 KB at hd 80 and 128
+  static constexpr int STAGES = 128 * 1024 / STAGE;   // 8 at hd 64, 4 at hd 80 and 128
   // two Q buffers, the ring, 2 * STAGES + 4 barriers, slack to align to 1024 bytes
   static constexpr int SMEM = 2 * Q_BYTES + STAGES * STAGE + (2 * STAGES + 4) * 8 + 1024;
 };
@@ -145,24 +162,26 @@ struct Work {
 
 // o's rescale and p's packing complete before the wgmma fence, so no
 // write of a PV operand lands inside the products' pipeline stage
-template <int HD, int BKV>
+template <int HDP, int BKV>
 __device__ __forceinline__ void fence_operands(float* o, uint32_t (*p)[4]) {
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) reg_fence(o[i]);
+  for (int i = 0; i < HDP / 2; ++i) reg_fence(o[i]);
 #pragma unroll
   for (int kk = 0; kk < BKV / 16; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) reg_fence(p[kk][e]);
 }
 
-// o += P V over one tile: P from registers, V N-major in shared memory
+// o += P V over one tile: P from registers, V N-major in shared memory, all
+// HDP columns (at hd 80 the 48 zero columns too: a 128-byte-swizzled
+// N-major operand spans whole 64-column boxes)
 template <int HD>
 __device__ __forceinline__ void mma_pv(float* o, const uint32_t (*p)[4], const unsigned char* vs) {
   using C = FlashCfg<HD>;
 #pragma unroll
   for (int kk = 0; kk < C::BKV / 16; ++kk) {   // k16 steps: 16 key rows = 2048 bytes
     const uint64_t db = wgmma_desc_sw128(vs + kk * 2048, C::BOX, 1024);
-    if constexpr (HD == 64)
+    if constexpr (C::HDP == 64)
       wgmma_rs_m64n64k16_bf16(o, p[kk], db, 1);
     else
       wgmma_rs_m64n128k16_bf16(o, p[kk], db, 1);
@@ -180,7 +199,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   // 128-byte-swizzled tiles start on 1024-byte boundaries
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   // two Q buffers, item k's in buffer k % 2, so the next item's loads need
-  // not wait for this one's last products; each HD / 64 boxes of 128 rows x 128 bytes
+  // not wait for this one's last products; each HDP / 64 boxes of BQ rows x 128 bytes
   unsigned char* Qbuf = smem;
   unsigned char* ring = smem + 2 * C::Q_BYTES;   // per stage: K boxes, then V boxes
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES * C::STAGE);
@@ -219,7 +238,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
         mbar_wait(&q_empty[qb], ((k >> 1) & 1) ^ 1);
         mbar_arrive_expect_tx(&q_full[qb], C::Q_BYTES);
 #pragma unroll
-        for (int j = 0; j < HD / 64; ++j)
+        for (int j = 0; j < C::HDP / 64; ++j)
           tma_load_4d(Qbuf + qb * C::Q_BYTES + j * BQ * 128, &tq, &q_full[qb], 64 * j, w.q0,
                       w.h, w.n);
         for (int it = 0; it < nt; ++it) {
@@ -228,7 +247,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
           mbar_arrive_expect_tx(&full[stage], C::STAGE);
           const int kv0 = kv_begin + it * BKV;
 #pragma unroll
-          for (int j = 0; j < HD / 64; ++j) {
+          for (int j = 0; j < C::HDP / 64; ++j) {
             tma_load_4d(st + j * C::BOX, &tk, &full[stage], 64 * j, kv0, hk, w.n);
             tma_load_4d(st + C::KV_BYTES + j * C::BOX, &tv, &full[stage], 64 * j, kv0, hk, w.n);
           }
@@ -259,16 +278,16 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     mbar_wait(&q_full[qb], (k >> 1) & 1);
     if (nt == 0 && tid == 0) mbar_arrive(&q_empty[qb]);
 
-    float o[HD / 2];
+    float o[C::HDP / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < C::HDP / 2; ++i) o[i] = 0.f;
     float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f}, alpha[2];
     uint32_t p[BKV / 16][4];
 
     // S = Q K^T of the tile in stage st, into s (not yet waited for)
     auto issue_s = [&](float* s, const unsigned char* st) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {   // k16 steps: +32 bytes in a 64-column box
+      for (int kk = 0; kk < C::KSTEPS; ++kk) {   // k16 steps: +32 bytes in a 64-column box
         const int box = kk / 4, off = (kk % 4) * 32;
         const uint64_t da = wgmma_desc_sw128(Qs + box * BQ * 128 + wg * 64 * 128 + off, 16, 1024);
         const uint64_t db = wgmma_desc_sw128(st + box * C::BOX + off, 16, 1024);
@@ -361,7 +380,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
       for (int it = 1; it < nt; ++it) {
         float s[BKV / 2];
         mbar_wait(&full[stage], phase);
-        fence_operands<HD, BKV>(o, p);
+        fence_operands<C::HDP, BKV>(o, p);
         wgmma_fence();
         issue_s(s, ring + stage * C::STAGE);
         mma_pv<HD>(o, p, ring + prev * C::STAGE + C::KV_BYTES);
@@ -371,10 +390,10 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
         softmax(s, kv_begin + it * BKV);
         wgmma_wait<0>();   // PV is done: o, p and the previous stage are free
 #pragma unroll
-        for (int i = 0; i < HD / 2; ++i) reg_fence(o[i]);
+        for (int i = 0; i < C::HDP / 2; ++i) reg_fence(o[i]);
         if (lane == 0) mbar_arrive(&empty[prev]);
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j) {
+        for (int j = 0; j < HD / 8; ++j) {   // columns past HD hold zeros
           o[4 * j] *= alpha[0];
           o[4 * j + 1] *= alpha[0];
           o[4 * j + 2] *= alpha[1];
@@ -385,13 +404,13 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
         advance();
       }
       // the last tile's PV
-      fence_operands<HD, BKV>(o, p);
+      fence_operands<C::HDP, BKV>(o, p);
       wgmma_fence();
       mma_pv<HD>(o, p, ring + prev * C::STAGE + C::KV_BYTES);
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) reg_fence(o[i]);
+      for (int i = 0; i < C::HDP / 2; ++i) reg_fence(o[i]);
       if (lane == 0) mbar_arrive(&empty[prev]);
     }
 
@@ -530,7 +549,7 @@ void dispatch_simt(const void* q, const void* k, const void* v, void* out, int N
 
 // Strides are in elements (a size-1 dim's given as if contiguous); dtype:
 // 0 float32, 1 bfloat16; hd <= 128. tc: 1 the TMA + wgmma route (bf16, hd
-// 64 or 128, 16-byte-aligned bases and strides; refused with
+// 64, 80 or 128, 16-byte-aligned bases and strides; refused with
 // cudaErrorInvalidValue where the operands do not allow it), 0 flash_simt.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int N, int Hq, int Hkv, int T, int S,
@@ -543,12 +562,20 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const ll st[9] = {sqn, sqh, sqt, skn, skh, sks, svn, svh, svs};
   const float scale_log2 = scale * 1.4426950408889634f;   // softmax in base 2
   if (tc) {
-    if (dtype != 1 || (hd != 64 && hd != 128)) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(
-        hd == 64 ? launch_wgmma<64>(q, k, v, out, N, Hq, Hkv, T, S, st, causal, window,
-                                    scale_log2, s)
-                 : launch_wgmma<128>(q, k, v, out, N, Hq, Hkv, T, S, st, causal, window,
-                                     scale_log2, s));
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    switch (hd) {
+      case 64:
+        return static_cast<int>(launch_wgmma<64>(q, k, v, out, N, Hq, Hkv, T, S, st, causal,
+                                                 window, scale_log2, s));
+      case 80:
+        return static_cast<int>(launch_wgmma<80>(q, k, v, out, N, Hq, Hkv, T, S, st, causal,
+                                                 window, scale_log2, s));
+      case 128:
+        return static_cast<int>(launch_wgmma<128>(q, k, v, out, N, Hq, Hkv, T, S, st, causal,
+                                                  window, scale_log2, s));
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   if (dtype == 1)
     dispatch_simt<bf16>(q, k, v, out, N, Hq, Hkv, T, S, hd, st, causal, window, scale_log2, s);

@@ -9,11 +9,13 @@ Replaces the Pallas kernel ``decode_attention``
 
 On the card the keys are split into fixed chunks (``split_plan``, chosen
 from the cache length S alone, so the host never reads ``lengths`` and a
-row rounds the same whatever rows are batched with it). One call is two
-kernel launches: the partials (m, l, o) of every (chunk, kv head, row),
-read through q's and the cache's strides and skipping keys outside each
-row's window and length, then their combine. It counts as one
-``decode_attention`` launch.
+row rounds the same whatever rows are batched with it), and the q heads of
+a kv head into groups whose outputs one block holds (``head_groups``: one
+group but at chatglm3-6b's 16 heads of 128 dims, two of 8; a head's sums
+do not depend on its group). One call is two kernel launches: the partials
+(m, l, o) of every (chunk, kv head and head group, row), read through q's
+and the cache's strides and skipping keys outside each row's window and
+length, then their combine. It counts as one ``decode_attention`` launch.
 """
 from __future__ import annotations
 
@@ -29,9 +31,18 @@ build.count_launches(sys.modules[__name__], "launches")
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-MAX_GROUP_WIDTH = 1024   # (Hq // Hkv) * hd: the outputs one block holds
+MAX_GROUP_WIDTH = 1024   # heads a block * hd: the outputs one block holds
 TILE = 64                # keys a block scores at a time; a chunk is a multiple
 MAX_SPLITS = 64
+
+
+def head_groups(rep: int, hd: int) -> tuple[int, int]:
+    """(heads a block, groups a kv head) for rep q heads of hd dims per kv
+    head: the fewest groups of at most MAX_GROUP_WIDTH // hd heads, sized
+    as evenly as they go (the last may hold fewer)."""
+    n = -(-rep * hd // MAX_GROUP_WIDTH)
+    per = -(-rep // n)
+    return per, -(-rep // per)
 
 
 def split_plan(S: int) -> tuple[int, int]:
@@ -62,9 +73,8 @@ def decode_attention(q, k, v, lengths, *, window: int = 0):
     _, S, Hkv, _ = k.shape
     if k.shape[0] != B or k.shape[3] != hd or Hq % Hkv:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if hd > MAX_HEAD_DIM or (Hq // Hkv) * hd > MAX_GROUP_WIDTH:
-        raise ValueError(f"decode_attention: hd {hd}, {Hq // Hkv} heads per kv head "
-                         "unsupported")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"decode_attention: head dim {hd} > {MAX_HEAD_DIM}")
     if q.dtype not in _DTYPE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"decode_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
     if q.stride(2) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
@@ -88,8 +98,8 @@ def decode_attention(q, k, v, lengths, *, window: int = 0):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         part_o.data_ptr(), part_ml.data_ptr(), B, Hq, Hkv, S, hd, q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
-        int(window), float(hd ** -0.5), chunk, n_splits, _DTYPE[q.dtype],
-        build.stream_ptr(q))
+        int(window), float(hd ** -0.5), chunk, n_splits, head_groups(Hq // Hkv, hd)[0],
+        _DTYPE[q.dtype], build.stream_ptr(q))
     build.check(code, "decode_attention")
     launches += 1
     return out

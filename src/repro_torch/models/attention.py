@@ -8,28 +8,42 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import apply_rope, rope_cos_sin
+from repro_torch.models.layers import apply_rope, rmsnorm, rope_cos_sin, rope_dims
 
 NEG_INF = -1e30
 
 
 def _project_qkv(x, p, cfg):
+    """q [B,T,Hq,hd], k/v [B,T,Hkv,hd]: the projections, plus ``bq/bk/bv``
+    where the layer has them (``cfg.qkv_bias``), then the per-head RMSNorm
+    of q and k with ``qn``/``kn`` (``cfg.qk_norm``), before any rotary."""
     B, T, _ = x.shape
     hd = cfg.head_dim
-    q = torch.matmul(x, p["wq"]).reshape(B, T, cfg.n_heads, hd)
-    k = torch.matmul(x, p["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
-    v = torch.matmul(x, p["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+
+    def proj(w, b, heads):
+        y = torch.matmul(x, p[w])
+        if b in p:
+            y = y + p[b]
+        return y.reshape(B, T, heads, hd)
+    q = proj("wq", "bq", cfg.n_heads)
+    k = proj("wk", "bk", cfg.n_kv_heads)
+    v = proj("wv", "bv", cfg.n_kv_heads)
+    if cfg.qk_norm:
+        q, k = rmsnorm(q, p["qn"]), rmsnorm(k, p["kn"])
     return q, k, v
 
 
 def rope_qk(q, k, cfg, positions=None):
-    """RoPE on q/k [..., T, H, hd] from one cos/sin table; positions default
-    to the segment-local arange(T). Shared by the plain block and the fused
+    """RoPE on q/k [..., T, H, hd] from one cos/sin table, over the leading
+    ``cfg.rope_fraction`` of the head dims; positions default to the
+    segment-local arange(T). Shared by the plain block and the fused
     grouped cell so the rotary math is identical."""
     if positions is None:
         positions = torch.arange(q.shape[-3], device=q.device)[None]
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    cos, sin = rope_cos_sin(positions, rope_dims(cfg.head_dim, cfg.rope_fraction),
+                            cfg.rope_theta)
+    return (apply_rope(q, cos, sin, cfg.rope_fraction),
+            apply_rope(k, cos, sin, cfg.rope_fraction))
 
 
 def sdpa(q, k, v, mask=None) -> torch.Tensor:

@@ -15,7 +15,8 @@ The ``attn`` cell runs through the kernel entry points of
 ``kernels/ops.py``:
 
   grouped_gemm       QKV, output and FFN projections as ``[G, B*T, D]``
-                     grouped GEMMs; silu rides the gate projection's epilogue
+                     grouped GEMMs; silu rides the gate projection's epilogue,
+                     the QKV bias (``cfg.qkv_bias``) the QKV projections'
   segment_attention  one causal GQA launch over N = G*B, reading the 5-D
                      layout through strides
   assoc_read/update  ARMT memory (eqs. 3-6) with per-group weights, fp32 state
@@ -36,11 +37,12 @@ memory: no ``assoc_read``, no update, and the down projection is
 
 The attn cell also takes a layer index (``widx``, int32 [G] on the
 device): its params are then the model's whole stacked pattern and group i
-is layer ``widx[i]``. The GEMMs read their weights through the index (the
-model's own tensors; no copy), and the small per-layer leaves (the norm
-weights and the memory's wq, wk, wv, wb) are gathered with
-``index_select``. That is how a pooled band step runs the bands of several
-pipelines as one cell call (``core/diagonal.py`` ``pipeline_step_pool``).
+is layer ``widx[i]``. The GEMMs read their weights and biases through the
+index (the model's own tensors; no copy), and the small per-layer leaves
+(the norm weights, q/k norm weights included, and the memory's wq, wk, wv,
+wb) are gathered with ``index_select``. That is how a pooled band step
+runs the bands of several pipelines as one cell call (``core/diagonal.py``
+``pipeline_step_pool``).
 The mamba cell has no such form: its projections are matmuls over the
 stacked weights, whose gathered copy would be ~230 MB a layer at
 falcon-mamba's width. ``grouped_apply.indexed`` names the cells that take
@@ -71,8 +73,8 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
             # per-layer norm weights [G, D] broadcast against h [G, B, T, D]
             return rmsnorm(h, {"w": small(pn["w"])[:, None, None, :]})
 
-        def gemm(h, w, **kw):
-            return kops.grouped_gemm(h, w, widx=widx, **kw)
+        def gemm(h, w, bias=None, **kw):
+            return kops.grouped_gemm(h, w, bias, widx=widx, **kw)
 
         hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
         G, B, T, D = x.shape
@@ -88,9 +90,14 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
 
         pa = p["attn"]
         hln = snorm(x, p["ln1"])
-        q = gemm(hln, pa["wq"]).reshape(G, B, T, nq, hd)
-        k = gemm(hln, pa["wk"]).reshape(G, B, T, nkv, hd)
-        v = gemm(hln, pa["wv"]).reshape(G, B, T, nkv, hd)
+        # the QKV bias rides the GEMM's epilogue (with widx the whole stack
+        # [Lw, N], read through the index)
+        q = gemm(hln, pa["wq"], pa.get("bq")).reshape(G, B, T, nq, hd)
+        k = gemm(hln, pa["wk"], pa.get("bk")).reshape(G, B, T, nkv, hd)
+        v = gemm(hln, pa["wv"], pa.get("bv")).reshape(G, B, T, nkv, hd)
+        if cfg.qk_norm:   # per-layer head-dim weights [G, hd] against [G, B, T, H, hd]
+            q = rmsnorm(q, {"w": small(pa["qn"]["w"])[:, None, None, None, :]})
+            k = rmsnorm(k, {"w": small(pa["kn"]["w"])[:, None, None, None, :]})
         q, k = rope_qk(q, k, cfg)
         o = kops.segment_attention(q, k, v, causal=True, window=cfg.sliding_window)
         h = x + gemm(o.reshape(G, B, T, nq * hd), pa["wo"])

@@ -1,4 +1,5 @@
-"""Elementary layers: RMSNorm, rotate-half RoPE, SwiGLU. Plain functions
+"""Elementary layers: RMSNorm, rotate-half RoPE (over all or a leading part
+of the head dims), SwiGLU. Plain functions
 on tensors; parameters are dicts of tensors in the reference layout."""
 from __future__ import annotations
 
@@ -20,12 +21,26 @@ def rope_cos_sin(positions: torch.Tensor, d_rot: int, theta: float):
     return torch.cos(ang), torch.sin(ang)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x: [..., T, H, hd]; rotate-half over the full head dim, fp32 math."""
-    x1, x2 = x.float().chunk(2, dim=-1)
+def rope_dims(hd: int, fraction: float = 1.0) -> int:
+    """The rotary width: the leading int(hd * fraction) dims, rounded down
+    to even."""
+    d_rot = int(hd * fraction)
+    return d_rot - d_rot % 2
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               fraction: float = 1.0) -> torch.Tensor:
+    """x: [..., T, H, hd]; rotate-half over the leading ``rope_dims(hd,
+    fraction)`` dims (the llama convention, also for chatglm's half), fp32
+    math; the other dims pass through unchanged."""
+    d_rot = rope_dims(x.shape[-1], fraction)
+    x1, x2 = x[..., :d_rot].float().chunk(2, dim=-1)
     c = cos[..., None, :]
     s = sin[..., None, :]
-    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
+    out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
+    if d_rot == x.shape[-1]:
+        return out
+    return torch.cat([out, x[..., d_rot:]], dim=-1)
 
 
 def swiglu(x: torch.Tensor, p) -> torch.Tensor:

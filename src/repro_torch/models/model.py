@@ -58,24 +58,29 @@ def resolve_device(device) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def _normal(shape, scale, gen, device, dtype):
-    """Normal weights drawn in fp32 on the CPU generator, then cast and
-    moved: the same seed gives the same weights on every device. A stacked
-    leaf ([n_super, ...]) is drawn one layer at a time into its destination,
-    so the host holds one layer's fp32 draw, not the stack's; the values
-    equal one draw of the whole stack wherever a layer's size is a multiple
-    of 16 (the CPU generator's block)."""
+    """Normal weights drawn in fp32 on the generator's device, then cast and
+    moved: with a CPU generator the same seed gives the same weights on
+    every device. A stacked leaf ([n_super, ...]) is drawn one layer at a
+    time into its destination, so the generator's device holds one layer's
+    fp32 draw, not the stack's; on the CPU the values equal one draw of the
+    whole stack wherever a layer's size is a multiple of 16 (the CPU
+    generator's block)."""
     if len(shape) < 3:
-        return (torch.randn(shape, generator=gen) * scale).to(device=device, dtype=dtype)
+        return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(
+            device=device, dtype=dtype)
     out = torch.empty(shape, dtype=dtype, device=device)
     for j in range(shape[0]):
-        out[j].copy_(torch.randn(shape[1:], generator=gen) * scale)
+        out[j].copy_(torch.randn(shape[1:], generator=gen, device=gen.device) * scale)
     return out
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, *, device=None) -> Dict:
     """Random weights in the reference tree layout and distributions, in
     ``cfg.dtype`` (Mamba's A_log and D in fp32). generator: a CPU
-    ``torch.Generator`` (or an int seed)."""
+    ``torch.Generator`` (or an int seed), or a generator on ``device``,
+    which draws there (much faster for a model of billions of weights,
+    other numbers than the CPU generator's). The QKV biases start at zero
+    and the q/k norm weights at one, as in the reference."""
     device = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     if isinstance(generator, int):
@@ -88,6 +93,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *, device=None) -> 
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     params: Dict = {"embed": nrm((cfg.vocab, D), 0.02), "final_norm": {"w": ones(D)}}
     if not cfg.tie_embeddings:
@@ -104,12 +112,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *, device=None) -> 
             continue
         F, hd, nq, nkv = cfg.d_ff, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
         s = D ** -0.5
-        block = {
-            "ln1": {"w": ones(n, D)},
-            "attn": {"wq": nrm((n, D, nq * hd), s), "wk": nrm((n, D, nkv * hd), s),
-                     "wv": nrm((n, D, nkv * hd), s),
-                     "wo": nrm((n, nq * hd, D), (nq * hd) ** -0.5)},
-        }
+        attn = {"wq": nrm((n, D, nq * hd), s), "wk": nrm((n, D, nkv * hd), s),
+                "wv": nrm((n, D, nkv * hd), s), "wo": nrm((n, nq * hd, D), (nq * hd) ** -0.5)}
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(n, nq * hd), bk=zeros(n, nkv * hd), bv=zeros(n, nkv * hd))
+        if cfg.qk_norm:
+            attn.update(qn={"w": ones(n, hd)}, kn={"w": ones(n, hd)})
+        block = {"ln1": {"w": ones(n, D)}, "attn": attn}
         if a is not None:     # a plain Llama (no ARMT) has no memory weights
             block["mem"] = {"wq": nrm((n, D, a.d_mem), s), "wk": nrm((n, D, a.d_mem), s),
                             "wv": nrm((n, D, a.d_val or D), s), "wb": nrm((n, D, 1), s)}

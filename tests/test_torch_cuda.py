@@ -7,9 +7,10 @@ Mamba scan, the scan's dt prologue and gate epilogue on strided raw dt and
 z, 256-channel and small blocks giving the same bits, and the fp32
 paths; armt_read's split three-term bf16 product at ragged T and Dv; the
 flash kernel's TMA + wgmma route at
-ragged T, hd 64 and 128, windows and the cell's strided 5-D layout; the
-split decode kernel at chunk edges, and a row batched or alone giving the
-same bits; the long shapes of the full-attention and full-KV paths (flash
+ragged T, hd 64, 80 and 128, windows and the cell's strided 5-D layout; the
+split decode kernel at chunk edges and at 16 q heads per kv head, and a row
+batched or alone giving the same bits; the QKV bias with a layer index;
+the long shapes of the full-attention and full-KV paths (flash
 at T = S = 16,384 and 131,072, decode over 131,136 keys), the cache-mode
 prefill against full mode and sampling on the device; and the captured
 programs (llama's generate, greedy and sampled, and serve; cache-mode
@@ -196,9 +197,30 @@ def test_flash_attention_tc_on_card(cuda, N, Hq, Hkv, T, hd, causal, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N,Hq,Hkv,T,hd,causal,window", [
+    (1, 4, 1, 1, 80, True, 0),        # one row
+    (2, 8, 2, 129, 80, True, 0),      # two query tiles, the second of one row
+    (1, 32, 8, 1100, 80, True, 0),    # h2o-danube's heads over 18 key tiles
+    (1, 4, 1, 1100, 80, True, 300),   # a causal window starting mid-tile
+    (1, 4, 2, 200, 80, False, 50),    # a non-causal window
+])
+def test_flash_attention_tc_hd_80_on_card(cuda, N, Hq, Hkv, T, hd, causal, window):
+    """Head dim 80 (h2o-danube-1.8b) on the TMA + wgmma kernel: hd 128's
+    tile layout with the last 48 columns zero-filled on chip."""
+    r = _rand(torch.Generator().manual_seed(T + window + 80), cuda, torch.bfloat16)
+    q, k, v = r(N, Hq, T, hd), r(N, Hkv, T, hd), r(N, Hkv, T, hd)
+    assert flash_attention.route(q, k, v) == "wgmma"
+    out = _flash_tc(lambda: flash_attention.flash_attention(q, k, v, causal=causal,
+                                                            window=window))
+    _close(out, flash_attention.flash_attention_plain(*_f32(q, k, v), causal=causal,
+                                                      window=window), 1e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("G,B,T,Hq,Hkv,hd", [
     (16, 1, 1152, 32, 8, 64),    # llama-1b-armt's full band step, the main shape
     (4, 2, 1152, 24, 8, 128),    # llama-3b-armt's heads, two batch rows
+    (4, 1, 1152, 32, 8, 80),     # h2o-danube-1.8b's heads
 ])
 def test_flash_attention_cell_layout_on_card(cuda, G, B, T, Hq, Hkv, hd):
     """The grouped cell's [G,B,T,H,hd] activations through
@@ -268,6 +290,29 @@ def test_decode_attention_split_on_card(cuda, dtype, B, Hq, Hkv, S, hd, lens, wi
     out = da.decode_attention(q, k, v, lengths, window=window)
     assert da.launches == before + 1   # partials and combine count as one
     _close(out, da.decode_attention_plain(*_f32(q, k, v), lengths, window=window), TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,lens,window", [
+    (1152, (1152, 517, 1, 1000), 0),      # chatglm3-6b's ARMT decode cache
+    (4100, (4100, 64, 65, 2000), 1000),   # a window across chunks
+])
+def test_decode_attention_rep_16_on_card(cuda, dtype, S, lens, window):
+    """chatglm3-6b's grouping, 32 q heads over 2 kv heads of 128 dims: each
+    kv head's 16 q heads in two blocks of 8, against the plain version; a
+    row batched with 3 others equals, bit for bit, the row alone."""
+    from repro_torch.kernels import decode_attention as da
+    assert da.head_groups(16, 128) == (8, 2)
+    r = _rand(torch.Generator().manual_seed(S + 16), cuda, dtype)
+    q, k, v = r(4, 32, 128), r(4, S, 2, 128), r(4, S, 2, 128)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = da.decode_attention(q, k, v, lengths, window=window)
+    _close(out, da.decode_attention_plain(*_f32(q, k, v), lengths, window=window), TOL[dtype])
+    for b in range(4):
+        alone = da.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], lengths[b:b + 1],
+                                    window=window)
+        assert torch.equal(out[b], alone[0]), b
 
 
 @pytest.mark.cuda
@@ -773,6 +818,23 @@ def test_grouped_matmul_layer_index_on_card(cuda, dtype, G, R, K, N, act, bias):
     assert _same(got, want)
     with pytest.raises(ValueError):
         grouped_matmul.grouped_matmul(x, w, b, widx=idx)          # int64 index
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,R,K,N,Lw", [
+    (6, 1152, 512, 256, 8),    # chatglm3-6b's k/v width (2 kv heads of 128), six bands
+    (4, 300, 256, 5120, 16),   # qwen2.5-32b's q width (40 heads of 128)
+])
+def test_grouped_matmul_bias_layer_index_on_card(cuda, G, R, K, N, Lw):
+    """The QKV bias on the GEMM's epilogue with a layer index, as a pooled
+    band step of qwen2.5-32b or chatglm3-6b runs it: the bias is the whole
+    stack [Lw, N], read through the index, against the plain version."""
+    r = _rand(torch.Generator().manual_seed(N + G), cuda, torch.bfloat16)
+    x, w, b = r(G, R, K), r(Lw, K, N, sc=K ** -0.5), r(Lw, N, sc=0.02)
+    widx = torch.from_numpy(np.random.default_rng(N).integers(0, Lw, G)).to(
+        cuda, torch.int32)
+    out = _tc_launch(lambda: grouped_matmul.grouped_matmul(x, w, b, widx=widx))
+    _close(out, grouped_matmul.grouped_matmul_plain(*_f32(x, w, b), widx=widx.long()), 1e-2)
 
 
 @pytest.mark.cuda

@@ -324,6 +324,19 @@ def test_flash_route_takes_tensor_cores_only_for_aligned_bf16_hd_64_or_128(q, k,
     assert flash_attention.route(q, k, k) == want
 
 
+@pytest.mark.parametrize("q,k,want", [
+    (_attn(2, 32, 33, 80), _attn(2, 8, 33, 80), "wgmma"),                 # h2o-danube's hd
+    (_cell(40, 32, 80), _cell(40, 8, 80), "wgmma"),                       # its cell's strided views
+    (_attn(2, 8, 33, 80, torch.float32), _attn(2, 2, 33, 80, torch.float32), "simt"),
+    (_attn(2, 8, 33, 84)[..., :80], _attn(2, 2, 33, 80), "simt"),         # 168-byte q rows
+])
+def test_flash_route_takes_tensor_cores_at_hd_80(q, k, want):
+    """Head dim 80 takes the TMA + wgmma kernel under the same conditions
+    as 64 and 128 (bf16, 16-byte-aligned bases, strides multiples of 8)."""
+    assert 80 in flash_attention.TC_HEAD_DIMS
+    assert flash_attention.route(q, k, k) == want
+
+
 def test_flash_strides_replace_size_one_dims():
     one = _attn(1, 1, 1, 64).as_strided((1, 1, 1, 64), (3, 5, 7, 1))
     assert flash_attention._strides(one) == (64, 64, 64)
@@ -342,6 +355,25 @@ def test_decode_split_plan_covers_the_cache_exactly(S):
     assert da.split_plan(S) == (chunk, n)
     if S <= da.TILE * da.MAX_SPLITS:
         assert chunk == da.TILE
+
+
+@pytest.mark.parametrize("rep,hd,want", [
+    (4, 64, (4, 1)),      # llama-1b-armt: one group, as before the split
+    (4, 80, (4, 1)),      # h2o-danube-1.8b
+    (5, 128, (5, 1)),     # qwen2.5-32b
+    (8, 128, (8, 1)),     # chameleon-34b: 1,024 outputs, one block
+    (16, 128, (8, 2)),    # chatglm3-6b: two groups of 8
+    (17, 128, (6, 3)),    # uneven: 6 + 6 + 5
+    (64, 16, (64, 1)),
+])
+def test_decode_head_groups_fit_a_block(rep, hd, want):
+    """The q heads of a kv head are cut into the fewest groups whose
+    outputs one block holds (heads * hd <= MAX_GROUP_WIDTH), covering every
+    head, none empty."""
+    from repro_torch.kernels import decode_attention as da
+    per, n = da.head_groups(rep, hd)
+    assert (per, n) == want
+    assert per * hd <= da.MAX_GROUP_WIDTH and (n - 1) * per < rep <= n * per
 
 
 # ---------------------------------------------------------------- C interface

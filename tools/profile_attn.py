@@ -25,7 +25,11 @@ decode), the bound and the kernel's multiple of it:
   decode       4 slots of a 1152-row cache, 32 q heads, 8 kv heads, hd 64,
                every slot at 1024 keys, then lengths (1024, 517, 1, 1000);
                the bound is the bytes of the valid K/V rows, q and out at
-               3.35 TB/s.
+               3.35 TB/s;
+  decode rep16 the same cache with chatglm3-6b's heads: 32 q heads over 2
+               kv heads of 128 dims, every slot at 1024 keys;
+  flash hd80   the flash hd64 case with h2o-danube-1.8b's heads: 32 q
+               heads, 8 kv heads, hd 80.
 
 With ``--outputs FILE`` it saves each case's output; with ``--against
 FILE`` it counts the output elements that differ from another run's saved
@@ -87,16 +91,29 @@ def main() -> int:
                    qc, kc, vc, is_causal=True, enable_gqa=True), bound)
         del q5, k5, v5, qc, kc, vc
 
-    B, S, Hq, Hkv, hd = 4, 1152, 32, 8, 64
-    qd, kd, vd = rnd(B, Hq, hd), rnd(B, S, Hkv, hd), rnd(B, S, Hkv, hd)
-    q4, k4, v4 = qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
-    for lens in [(1024,) * B, (1024, 517, 1, 1000)]:
-        L = torch.tensor(lens, dtype=torch.int32, device=dev)
-        mask = (torch.arange(S, device=dev) < L[:, None])[:, None, None, :]
-        nbytes = 2.0 * 2 * sum(lens) * Hkv * hd + 2.0 * 2 * B * Hq * hd + 4.0 * B
-        report(f"decode lengths {lens}", lambda: decode_attention.decode_attention(qd, kd, vd, L),
-               lambda: torch.nn.functional.scaled_dot_product_attention(
-                   q4, k4, v4, attn_mask=mask, enable_gqa=True), nbytes / PEAK_BYTES * 1e3)
+    # the cases added later draw their inputs after the earlier ones', so
+    # that a tree timed before them gets the same inputs for those
+    B, S = 4, 1152
+    for label, Hq, Hkv, hd, cases in [("decode", 32, 8, 64, [(1024,) * B, (1024, 517, 1, 1000)]),
+                                      ("decode rep16", 32, 2, 128, [(1024,) * B])]:
+        qd, kd, vd = rnd(B, Hq, hd), rnd(B, S, Hkv, hd), rnd(B, S, Hkv, hd)
+        q4, k4, v4 = qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
+        for lens in cases:
+            L = torch.tensor(lens, dtype=torch.int32, device=dev)
+            mask = (torch.arange(S, device=dev) < L[:, None])[:, None, None, :]
+            nbytes = 2.0 * 2 * sum(lens) * Hkv * hd + 2.0 * 2 * B * Hq * hd + 4.0 * B
+            report(f"{label} lengths {lens}",
+                   lambda: decode_attention.decode_attention(qd, kd, vd, L),
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       q4, k4, v4, attn_mask=mask, enable_gqa=True), nbytes / PEAK_BYTES * 1e3)
+    G, T, Hq, Hkv, hd = 16, 1152, 32, 8, 80
+    q5, k5, v5 = rnd(G, 1, T, Hq, hd), rnd(G, 1, T, Hkv, hd), rnd(G, 1, T, Hkv, hd)
+    qc, kc, vc = (a[:, 0].transpose(1, 2).contiguous() for a in (q5, k5, v5))
+    pairs = T * (T + 1) / 2
+    bound = max(4.0 * G * Hq * hd * pairs / PEAK_BF16, G * Hq * pairs / exp_rate) * 1e3
+    report("flash hd80", lambda: ops.segment_attention(q5, k5, v5, causal=True),
+           lambda: torch.nn.functional.scaled_dot_product_attention(
+               qc, kc, vc, is_causal=True, enable_gqa=True), bound)
     outputs.save()
     print(json.dumps({"card": smi, "src": str(args.src), **results}))
     return 0
