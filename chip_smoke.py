@@ -29,7 +29,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       16,384 held at 4 over 1 heads with its 4,096-key window, timed at
       32 over 8 heads) and decode at 16 q heads per kv head of 128
       (chatglm3-6b: 4 slots at 1,024 keys and 4 rows over 131,136 keys,
-      each row batched equal to the row alone to the bit);
+      each row batched equal to the row alone to the bit); the MoE configs'
+      shapes: flash at hd 112 (kimi-k2-1t-a32b's band, 64 q over 8 kv
+      heads, against its plain version and SDPA), decode at kimi-k2's 64 q
+      over 8 kv heads of 112 and qwen2-moe-a2.7b's 16 over 16 of 128 (4
+      slots on the ARMT decode cache of 1,152 rows and on the cache mode's
+      2,112, each row batched equal to the row alone to the bit, beside
+      SDPA) and armt_update at kimi-k2's width (3 layers' last 128 rows of
+      7,168, B = 1, as the attn_moe cell calls it);
   (c) model: llama-1b-armt at full width and depth (random weights from a
       seed, bf16), diagonal prefill on the kernels against the sequential
       schedule on the plain path: 16 segments free-running, gated on the
@@ -189,6 +196,29 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       and a two-request serve, each first token against a B = 1
       generate. No SIMT GEMM or flash may launch. Prints a
       ``{"dense_configs": ...}`` line;
+  (s) after (r): the two MoE ARMT configs, one at a time, bf16, weights
+      drawn on the card: qwen2-moe-a2.7b at full width and depth (24
+      layers, 60 experts top-4, QKV biases normal x 0.02) and
+      kimi-k2-1t-a32b at full width with its dense prelude layer and 3 of
+      60 MoE layers, 128 of 384 experts (top-8; ~41 GB). Each: 4-segment
+      prefill at B = 1 and B = 2, diagonal against sequential on the
+      fused cells to the bit (hidden, logits, every layer's A and z);
+      warm 4- and 16-segment prefill times; the fused path against the
+      plain path, where routing is discontinuous: at the first MoE layer
+      (the model cut after it, 2 segments, each from the fused path's
+      state) the tokens whose top-k set or capacity keep differ are
+      counted and the others held within 5e-2, the new A and z within
+      5e-2 (the prelude's always, the MoE layer's where none of its
+      memory rows was routed differently), and at full depth the flips
+      per layer reported; generate B = 1 captured against eager to
+      the bit, ARMT and cache mode; serve on 4 slots, blocking against
+      interleaved (k = 4), every request's tokens equal; an admission's
+      peak memory at or below prefill_activation_bytes; the MoE layer
+      alone at the band's shape (every pattern layer, T = 1152): the
+      expert gate GEMM held against fp32 torch.bmm and timed beside
+      torch.bmm, the whole fused moe_ffn against its plain version in
+      fp32. No SIMT GEMM or flash may launch. Prints a
+      ``{"moe_configs": ...}`` line;
   (p4) after (h): a falcon-mamba-7b session (2 x 8192 + 1000 tokens, then
       500), spilled and restored against kept in memory to the bit (h and
       the bf16 conv tail), resume TTFT against re-prefilling the history
@@ -201,14 +231,16 @@ place), and so does the sequential schedule's segment; the eager engines
 to be held against them here and in the card tests.
 
 The kernels' launch counters are set to 0 just before each main-path run
-of (d), (e), (i), (k), (l), (o), (p1)-(p4), (r), (g), (h) and falcon's
+of (d), (e), (i), (k), (l), (o), (p1)-(p4), (r), (s), (g), (h) and falcon's
 fused run of (o), and read just after it (a phase's count is the sum over its runs; a
 graph replay counts what its capture launched, so the counts read the
 same under graphs as eager): every llama kernel must have been launched
 in (d), every one but armt_update (which runs only at B > 1) in (e), in
 (o)'s interleaved serve runs (``serve_interleaved``) and in the
 prefix-cache (p1-p2) and session (p3) runs (``prefix_cache``,
-``sessions``) and in (r) (``dense_configs``), the GEMM and
+``sessions``) and in (r) (``dense_configs``), every one in (s)
+(``moe_configs``: armt_update through the MoE cell at B = 1, the fused
+update through kimi's dense prelude layer), the GEMM and
 flash in (i) and flash and decode attention in (k) and (l), with none of
 the ARMT memory kernels there, and mamba_scan in (g), (h) and falcon's
 interleaved run and session run (p4). ``serve`` runs at its default of 4 band steps per
@@ -216,7 +248,7 @@ chunk (interleaved admission) in (e), (l) and (h). The GEMM's and flash attentio
 launches are also counted by route (the TMA + wgmma kernel or the fp32 SIMT
 kernel; for the GEMM whoever called it: projections, the fused op, the
 ARMT kernels' projections): the bf16 runs of (d),
-(e), (i), (k), (l), (o), (p1)-(p3) and (r) must launch no SIMT GEMM and
+(e), (i), (k), (l), (o), (p1)-(p3), (r) and (s) must launch no SIMT GEMM and
 no SIMT flash. One decode_attention
 call (its partials and their combine) counts as one launch.
 The script prints JSON lines of the schedules' timing, of the graph
@@ -952,6 +984,31 @@ def main() -> int:
         max_abs_err=err, plain_ms=None)
     del ql, kl, vl, lib
     torch.cuda.empty_cache()
+    # kimi-k2-1t-a32b's head shape (phase (s)): flash at hd 112, 64 q over 8
+    # kv heads, a band step of 16 layers, against its plain version and SDPA
+    Hqk, Hkvk, hdk = 64, 8, 112
+    q5, k5, v5 = rnd(G, 1, T, Hqk, hdk), rnd(G, 1, T, Hkvk, hdk), rnd(G, 1, T, Hkvk, hdk)
+    ref32 = flash_attention.flash_attention_plain(flat(q5).float(), flat(k5).float(),
+                                                  flat(v5).float())
+    err = check(f"flash_attention causal GQA hd 112 [16,{Hqk},1152,{hdk}]",
+                ops.segment_attention(q5, k5, v5, causal=True),
+                ref32.transpose(1, 2).reshape(q5.shape), TOL_BF16)
+    del ref32
+    qc, kc, vc = flat(q5).contiguous(), flat(k5).contiguous(), flat(v5).contiguous()
+    route112 = flash_attention.route(flat(q5), flat(k5), flat(v5))
+    t = timed(f"flash_attention hd 112 [16,{Hqk},1152,{hdk}] (route {route112})",
+              lambda: ops.segment_attention(q5, k5, v5, causal=True),
+              lambda: flash_attention.flash_attention_plain(flat(q5), flat(k5), flat(v5)),
+              lambda: torch.nn.functional.scaled_dot_product_attention(
+                  qc, kc, vc, is_causal=True, enable_gqa=True),
+              flops_bf16=4.0 * G * Hqk * hdk * pairs_b, exps=G * Hqk * pairs_b,
+              nbytes=2.0 * G * (2 * Hqk * T * hdk + 2 * Hkvk * T * hdk))
+    long_rows["flash_attention"]["hd 112 band [16,64,1152,112]"] = dict(
+        t, max_abs_err=err, route=route112)
+    if route112 != "wgmma":
+        failures.append(f"flash_attention at hd 112 took the {route112} route")
+    del q5, k5, v5, qc, kc, vc
+    torch.cuda.empty_cache()
     Hqg, Hkvg, hdg = 32, 2, 128
     log(f"  decode_attention at {Hqg // Hkvg} q heads per kv head of {hdg}: head groups "
         f"{decode_attention.head_groups(Hqg // Hkvg, hdg)} (heads a block, blocks a kv head)")
@@ -986,6 +1043,67 @@ def main() -> int:
             t, max_abs_err=err, lengths=list(lens))
         del qd, kd, vd, q4, k4, v4, mask4
         torch.cuda.empty_cache()
+    # the MoE configs' decode heads (phase (s)): kimi-k2's 64 q over 8 kv
+    # heads of 112 (rep 8, one head group of 896 outputs) and qwen2-moe's 16
+    # over 16 of 128 (rep 1), 4 slots, on the ARMT decode cache (seg_len + M
+    # rows) and the cache mode's (a 2048-token prompt + 64 rows)
+    for Hqm, Hkvm, hdm in ((64, 8, 112), (16, 16, 128)):
+        rep = Hqm // Hkvm
+        for Sm, lens in ((T, (1152, 517, 1, 1025)), (2112, (2049, 2064, 1, 1500))):
+            qd = rnd(4, Hqm, hdm)
+            kd, vd = rnd(4, Sm, Hkvm, hdm), rnd(4, Sm, Hkvm, hdm)
+            Ld = torch.tensor(lens, dtype=torch.int32, device=dev)
+            err = check(f"decode_attention rep {rep} q[4,{Hqm},{hdm}] k/v[4,{Sm},{Hkvm},{hdm}] "
+                        f"lengths {lens}", decode_attention.decode_attention(qd, kd, vd, Ld),
+                        decode_attention.decode_attention_plain(qd.float(), kd.float(),
+                                                                vd.float(), Ld), TOL_BF16)
+            alone = all(same_bits(decode_attention.decode_attention(qd, kd, vd, Ld)[b],
+                                  decode_attention.decode_attention(qd[b:b + 1], kd[b:b + 1],
+                                                                    vd[b:b + 1], Ld[b:b + 1])[0])
+                        for b in range(4))
+            log(f"  each row batched equal to the row alone, to the bit: {alone} -> "
+                f"{'ok' if alone else 'FAIL'}")
+            if not alone:
+                failures.append(f"decode_attention rep {rep} hd {hdm} over {Sm} keys: a row's "
+                                "bits depend on its batch")
+            q4, k4, v4 = qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
+            mask4 = (torch.arange(Sm, device=dev) < Ld[:, None])[:, None, None, :]
+            n_keys = float(sum(lens))
+            t = timed(f"decode_attention rep {rep} q[4,{Hqm},{hdm}] over {Sm} keys, "
+                      f"lengths {lens}",
+                      lambda: decode_attention.decode_attention(qd, kd, vd, Ld),
+                      lambda: decode_attention.decode_attention_plain(qd, kd, vd, Ld),
+                      lambda: torch.nn.functional.scaled_dot_product_attention(
+                          q4, k4, v4, attn_mask=mask4, enable_gqa=True),
+                      flops_fp32=4.0 * n_keys * Hqm * hdm,
+                      nbytes=2.0 * 2 * n_keys * Hkvm * hdm + 2.0 * 2 * 4 * Hqm * hdm + 4.0 * 4)
+            long_rows["decode_attention"][f"rep {rep} hd {hdm} B=4 S={Sm}"] = dict(
+                t, max_abs_err=err, lengths=list(lens))
+            del qd, kd, vd, q4, k4, v4, mask4
+    torch.cuda.empty_cache()
+    # armt_update at kimi-k2's width, as the attn_moe cell calls it at B = 1:
+    # the last 128 rows of a band of 3 layers' y [3, 1, 1152, 7168]
+    # (strided), d_mem 64, against its plain version
+    Gk, Dk = 3, 7168
+    Ak = rnd(Gk, P, Dk, scale=0.1, dtype=torch.float32)
+    zk = torch.rand(Gk, P, generator=gen).to(dev) + 0.5
+    wkk, wvk = rnd(Gk, Dk, dm, scale=Dk ** -0.5), rnd(Gk, Dk, Dk, scale=Dk ** -0.5)
+    wbk = rnd(Gk, Dk, 1, scale=Dk ** -0.5)
+    yk = rnd(Gk, 1, T, Dk)
+    mk = yk[:, :, -Mt:, :].reshape(Gk, Mt, Dk)
+    err = check(f"armt_update m[{Gk},{Mt},{Dk}] A[{Gk},{P},{Dk}]",
+                armt_memory.armt_update(mk, wkk, wvk, wbk, Ak, zk),
+                armt_memory.armt_update_plain(mk.float(), wkk.float(), wvk.float(), wbk.float(),
+                                              Ak, zk), TOL_STATE)
+    t = timed(f"armt_update at kimi-k2's width m[{Gk},{Mt},{Dk}]",
+              lambda: armt_memory.armt_update(mk, wkk, wvk, wbk, Ak, zk),
+              lambda: armt_memory.armt_update_plain(mk, wkk, wvk, wbk, Ak, zk),
+              flops_bf16=2.0 * Gk * Mt * Dk * (dm + 1 + Dk),
+              flops_fp32=4.0 * Gk * Mt * P * Dk,
+              nbytes=2.0 * Gk * (Mt * Dk + Dk * (dm + 1 + Dk)) + 8.0 * Gk * P * (Dk + 1))
+    long_rows["armt_update"] = {f"m[{Gk},{Mt},{Dk}] A[{Gk},{P},{Dk}]": dict(t, max_abs_err=err)}
+    del Ak, zk, wkk, wvk, wbk, yk, mk
+    torch.cuda.empty_cache()
 
     # mamba_scan: the falcon-mamba band step (G = 16 layers, B = 1, T = 1024,
     # d_inner 8192, d_state 16; x bf16, B/C column slices of the fp32 x_proj
@@ -2616,6 +2734,396 @@ def main() -> int:
     launches_dense, routes_dense, dense = dense_config_phase()
     print(json.dumps({"dense_configs": dense, "card": smi}))
 
+    # ------------------------------------------------------------ (s) MoE configs
+    def moe_config_phase():
+        """(s) the two MoE ARMT configs, one at a time, in bf16, random weights
+        drawn on the card from the seed (qwen's QKV biases normal x 0.02):
+        qwen2-moe-a2.7b at full width and depth, kimi-k2-1t-a32b at full
+        width with 1 prelude and 3 MoE layers of 61 and 128 of its 384
+        experts (the whole model would not fit the card). Returns (launches
+        and routes summed over the phase's prefill, generate and serve runs,
+        the per-config results)."""
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.models.layers import swiglu
+        from repro_torch.serve.state_store import tree_nbytes
+        log("== (s) MoE configs: qwen2-moe-a2.7b full, kimi-k2-1t-a32b at 1 + 3 layers and "
+            "128 experts; bf16, weights drawn on the card")
+        M.SegmentProgram._cache.clear()
+        torch.cuda.empty_cache()
+        plan = [("qwen2-moe-a2.7b", None), ("kimi-k2-1t-a32b", (4, 128))]
+        launches, routes, out = {}, {}, {}
+
+        def add(n, r):
+            nonlocal launches, routes
+            launches, routes = merged(launches, n), merged(routes, r)
+            return n, r
+
+        # every routing decision of an eager run, recorded around the one
+        # function both the plain and the fused paths route through
+        real_route = moe_mod.route
+        records = []
+        recording = [False]
+
+        def recording_route(*a, **k):
+            r = real_route(*a, **k)
+            if recording[0]:
+                records.append((r.eidx.clone(), r.keep.clone()))
+            return r
+
+        def routed_run(fn):
+            records.clear()
+            recording[0] = True
+            try:
+                res = fn()
+                sync()
+            finally:
+                recording[0] = False
+            return res, list(records)
+
+        def routing_code(rec, E):
+            """[Q, N, E] per token and expert: 0 not chosen, 1 chosen and
+            dropped at the capacity, 2 chosen and kept."""
+            eidx, keep = rec
+            return torch.zeros(eidx.shape[:2] + (E,), dtype=torch.int8, device=dev).scatter_(
+                2, eidx, (1 + keep).to(torch.int8))
+
+        moe_mod.route = recording_route
+        try:
+            for arch, cut in plan:
+                t_phase = time.perf_counter()
+                torch.cuda.reset_peak_memory_stats(dev)
+                cfg = get_config(arch)
+                full_depth, full_e = cfg.n_layers, cfg.moe.n_experts
+                if cut is not None:
+                    cfg = replace(cfg, n_layers=cut[0], moe=replace(cfg.moe, n_experts=cut[1]))
+                mc = cfg.moe
+                g = torch.Generator(device=dev).manual_seed(SEED)
+                params = M.init_params(cfg, g, device=dev)
+                attn = params["pattern"][0]["attn"]
+                for b in ("bq", "bk", "bv"):
+                    if b in attn:
+                        attn[b].copy_(torch.randn(attn[b].shape, generator=g, device=dev) * 0.02)
+                sync()
+                row = dict(depth=cfg.n_layers, full_depth=full_depth, experts=mc.n_experts,
+                           full_experts=full_e, weights_gb=tree_nbytes(params) / 1e9,
+                           init_s=time.perf_counter() - t_phase)
+                log(f"-- {arch}: {cfg.n_layers} of {full_depth} layers (prelude "
+                    f"{cfg.prelude}), {mc.n_experts} of {full_e} experts (top {mc.top_k}, "
+                    f"{mc.d_expert} wide, shared {mc.d_shared}), {row['weights_gb']:.2f} GB of "
+                    f"bf16 weights, made on the card in {row['init_s']:.2f} s; hd "
+                    f"{cfg.head_dim}, {cfg.n_heads}/{cfg.n_kv_heads} heads, qkv_bias "
+                    f"{cfg.qkv_bias}; router {params['pattern'][0]['moe']['router'].dtype}")
+                seg = cfg.armt.segment_len
+                E = mc.n_experts
+
+                def fwd(tokens, p=params, c=cfg, **kw):
+                    with torch.no_grad():
+                        h, f = M.forward_hidden(p, c, tokens, **kw)
+                        return h, f, seg_logits(p, c, h)
+
+                # (s1) diagonal = sequential on the fused cells, B = 1 and 2
+                for B in (1, 2):
+                    tk = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 4 * seg))).to(dev)
+                    (hd_, fd_, ld_), nd, rd = counted(lambda: fwd(tk, schedule="diagonal"))
+                    add(nd, rd)
+                    (hs_, fs_, ls_), ns, rs = counted(lambda: fwd(tk, schedule="sequential"))
+                    add(ns, rs)
+                    exact = {"hidden": same_bits(hd_, hs_), "logits": same_bits(ld_, ls_)}
+                    for part in ("prelude", "pattern"):
+                        for j, (a, b) in enumerate(zip(fd_[part], fs_[part])):
+                            for k in ("A", "z"):
+                                exact[f"{part}{j}.{k}"] = same_bits(a[k], b[k])
+                    ok = all(exact.values())
+                    row[f"diagonal_equals_sequential_B{B}"] = exact
+                    log(f"  4-segment prefill B={B}, diagonal vs sequential (captured "
+                        f"segments), both on the fused cells: to the bit {exact} -> "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failures.append(f"{arch}: diagonal vs sequential B={B} not bitwise")
+                    if B == 1:
+                        tk1 = tk
+                    del hd_, fd_, ld_, hs_, fs_, ls_
+                for label, n_seg in (("prefill_diagonal_s", 4), ("prefill_diagonal_16_s", 16)):
+                    tkn = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n_seg * seg))).to(dev)
+                    fwd(tkn, schedule="diagonal")
+                    sync()
+                    t0 = time.perf_counter()
+                    fwd(tkn, schedule="diagonal")
+                    sync()
+                    row[label] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                fwd(tk1, schedule="sequential")
+                sync()
+                row["prefill_sequential_s"] = time.perf_counter() - t0
+                log(f"  warm diagonal prefill B=1: 4 segments {row['prefill_diagonal_s']:.4f} s, "
+                    f"16 segments {row['prefill_diagonal_16_s']:.4f} s; sequential (captured) "
+                    f"4 segments {row['prefill_sequential_s']:.4f} s; card {smi}")
+
+                # (s2) the fused path against the plain path. Routing is
+                # discontinuous: a last-bit difference before the router can
+                # flip a token's top-k set or its capacity drop. At the first
+                # MoE layer (the model cut after it), each of 2 segments from
+                # the fused path's state: the tokens whose routing agrees are
+                # held within 5e-2 (row relative), the others counted; the
+                # new A and z (rel err) within 5e-2 too: the prelude's always,
+                # the MoE layer's where none of the M memory rows its update
+                # reads was routed differently; at full depth the flips per
+                # layer are reported
+                n1 = len(cfg.prelude) + 1
+                cfg1 = replace(cfg, n_layers=n1)
+                M_ = cfg.armt.num_mem_tokens
+                def first_layer(tree):
+                    if isinstance(tree, dict):
+                        return {k: first_layer(v) for k, v in tree.items()}
+                    return tree[:1]
+                p1 = dict(params, pattern=(first_layer(params["pattern"][0]),))
+                state, first = None, dict(flipped=[], tokens=[], worst_agreeing=[],
+                                          memory_rows_flipped=[], state_rel_err=[])
+                held_state = []
+                for s in range(2):
+                    ts = tk1[:, s * seg:(s + 1) * seg]
+                    (hf, ff, _), rf = routed_run(lambda: fwd(ts, p1, cfg1, schedule="sequential",
+                                                              eager=True, state0=state))
+                    (hp, fp_, _), rp = routed_run(lambda: fwd(ts, p1, cfg1, schedule="sequential",
+                                                              fused=False, state0=state))
+                    differ = (routing_code(rf[-1], E) != routing_code(rp[-1], E)).any(-1)[0]
+                    agree = ~differ[:seg]
+                    first["flipped"].append(int(differ.sum()))
+                    first["tokens"].append(int(differ.numel()))
+                    first["worst_agreeing"].append(row_rel(hf[0, 0][agree], hp[0, 0][agree]))
+                    n_mem = int(differ[seg:seg + M_].sum())
+                    errs = {f"{part}{j}.{k}": rel_err(a[k], b[k])
+                            for part in ("prelude", "pattern")
+                            for j, (a, b) in enumerate(zip(ff[part], fp_[part])) for k in ("A", "z")}
+                    first["memory_rows_flipped"].append(n_mem)
+                    first["state_rel_err"].append(errs)
+                    held_state += [e for k, e in errs.items()
+                                   if k.startswith("prelude") or n_mem == 0]
+                    state = ff
+                    del hf, hp, fp_
+                ok = max(first["worst_agreeing"]) <= 5e-2
+                ok_state = all(e <= 5e-2 for e in held_state)
+                first["state_errors_held"] = len(held_state)
+                row["first_moe_layer"] = first
+                log(f"  first MoE layer (layer {n1 - 1}), fused vs plain, 2 segments each from "
+                    f"the fused state: tokens routed differently (top-k set or keep) "
+                    f"{first['flipped']} of {first['tokens']} (memory rows included); worst "
+                    f"row rel err of the agreeing tokens "
+                    f"{' '.join(f'{e:.2e}' for e in first['worst_agreeing'])} (tol 5e-2) -> "
+                    f"{'ok' if ok else 'FAIL'}")
+                log(f"  the new A and z, fused vs plain: memory rows routed differently "
+                    f"{first['memory_rows_flipped']} of {M_}; rel err per segment "
+                    f"{[{k: f'{e:.2e}' for k, e in d.items()} for d in first['state_rel_err']]}; "
+                    f"{len(held_state)} held (the prelude's, and the MoE layer's where no memory "
+                    f"row flipped; tol 5e-2) -> {'ok' if ok_state else 'FAIL'}")
+                if not ok:
+                    failures.append(f"{arch}: first MoE layer, agreeing tokens vs plain")
+                if not ok_state:
+                    failures.append(f"{arch}: first MoE layer, A and z vs plain")
+                tk2 = tk1[:, :2 * seg]
+                (hf, _, lf), rf = routed_run(lambda: fwd(tk2, schedule="sequential", eager=True))
+                (hp, _, lp), rp = routed_run(lambda: fwd(tk2, schedule="sequential",
+                                                         fused=False))
+                n_moe = cfg.n_layers - len(cfg.prelude)
+                flips = [[int((routing_code(a, E) != routing_code(b, E)).any(-1).sum())
+                          for a, b in zip(rf[s * n_moe:(s + 1) * n_moe],
+                                          rp[s * n_moe:(s + 1) * n_moe])] for s in range(2)]
+                ever = torch.zeros(hf.shape[2], dtype=torch.bool, device=dev)
+                for a, b in zip(rf[:n_moe], rp[:n_moe]):
+                    ever |= (routing_code(a, E) != routing_code(b, E)).any(-1)[0, :seg]
+                never = ~ever
+                full = dict(flipped_per_layer=flips,
+                            segment1_tokens_never_flipped=int(never.sum()),
+                            segment1_hidden_rel_err_never_flipped=row_rel(
+                                hf[0, 0][never], hp[0, 0][never]) if never.any() else None,
+                            logits_rel_err=[rel_err(lf[i], lp[i]) for i in range(2)])
+                row["full_depth_routing"] = full
+                log(f"  full depth, fused vs plain, 2 segments (informational): tokens routed "
+                    f"differently per MoE layer {flips}; segment 1's tokens never flipped "
+                    f"{full['segment1_tokens_never_flipped']} of {seg}, their worst row rel "
+                    f"err {full['segment1_hidden_rel_err_never_flipped']}; last-token logits "
+                    f"rel err {' '.join(f'{e:.2e}' for e in full['logits_rel_err'])}")
+                del hf, hp, lf, lp, rf, rp
+
+                # (s3) generate, captured against eager, ARMT and cache mode
+                eng, eng_e = ServeEngine(params, cfg), ServeEngine(params, cfg, eager=True)
+                prompt = rng.integers(0, cfg.vocab, (1, 2 * seg + 1020))   # flushes at token 4
+                gres, ng, rg = counted(lambda: eng.generate(prompt, 16, keep=True))
+                add(ng, rg)
+                eres, ne, _ = counted(lambda: eng_e.generate(prompt, 16, keep=True))
+                good = (gres.finite and gres.tokens.shape == (1, 16)
+                        and 0 <= gres.tokens.min() and gres.tokens.max() < cfg.vocab)
+                log(f"  generate B=1, prompt {prompt.shape[1]}, 16 new: TTFT {gres.ttft_s:.3f} s, "
+                    f"{gres.tok_s:.1f} tok/s (capture {gres.capture_s:.3f} s); eager TTFT "
+                    f"{eres.ttft_s:.3f} s, {eres.tok_s:.1f} tok/s; finite {gres.finite} -> "
+                    f"{'ok' if good else 'FAIL'}; launches {ng}; card {smi}")
+                if not good:
+                    failures.append(f"{arch}: generate")
+                check_generate(f"{arch} ARMT generate B=1", gres, eres, ng, ne,
+                               graph_tok_s=gres.tok_s, eager_tok_s=eres.tok_s,
+                               graph_ttft_s=gres.ttft_s, eager_ttft_s=eres.ttft_s)
+                row.update(generate_ttft_s=gres.ttft_s, generate_tok_s=gres.tok_s,
+                           generate_eager_tok_s=eres.tok_s)
+                del gres, eres, eng_e
+                P = 2048
+                ceng = ServeEngine(params, cfg, serve_mode="cache", max_len=P + 64)
+                ceng_e = ServeEngine(params, cfg, serve_mode="cache", max_len=P + 64,
+                                     eager=True)
+                cprompt = rng.integers(0, cfg.vocab, (1, P))
+                cres, nc, rc = counted(lambda: ceng.generate(cprompt, 16, keep=True))
+                add(nc, rc)
+                ceres, nce, _ = counted(lambda: ceng_e.generate(cprompt, 16, keep=True))
+                log(f"  cache-mode generate B=1, prompt {P}, 16 new: TTFT {cres.ttft_s:.3f} s, "
+                    f"{cres.tok_s:.1f} tok/s; eager {ceres.tok_s:.1f} tok/s; finite "
+                    f"{cres.finite}; launches {nc}")
+                if not cres.finite:
+                    failures.append(f"{arch}: cache-mode generate not finite")
+                check_generate(f"{arch} cache-mode generate B=1 at {P} tokens", cres, ceres,
+                               nc, nce, graph_tok_s=cres.tok_s, eager_tok_s=ceres.tok_s)
+                row.update(cache_generate_ttft_s=cres.ttft_s, cache_generate_tok_s=cres.tok_s)
+                del ceng, ceng_e, cres, ceres
+
+                # (s4) serve on 4 slots: blocking against interleaved (k = 4)
+                sreq = [Request(i, rng.integers(0, cfg.vocab, n), 12)
+                        for i, n in enumerate([seg + 500, 2 * seg + 1000, 600, seg])]
+                eng.program(4, "serve").prepare()   # the capture, outside the timed runs
+                srv = {}
+                for label, k in (("blocking", 0), ("k=4", 4)):
+                    (evs, t_srv), nsv, rsv = counted(lambda: serve_run(
+                        eng, sreq, prefill_groups_per_chunk=k))
+                    add(nsv, rsv)
+                    n_tok = sum(1 for e in evs if not isinstance(e, RequestError))
+                    srv[label] = (by_req(evs), n_tok / t_srv, n_tok)
+                same = srv["blocking"][0] == srv["k=4"][0]
+                good = same and srv["blocking"][2] == 48 and all(
+                    v[-1][2] and bool(v[-1][3]) for v in srv["blocking"][0].values())
+                log(f"  serve, 4 requests ({', '.join(str(len(r.prompt)) for r in sreq)} tokens, "
+                    f"12 new each) on 4 slots: blocking {srv['blocking'][1]:.1f} tok/s, k=4 "
+                    f"{srv['k=4'][1]:.1f} tok/s; every request's tokens equal "
+                    f"{same}, complete and finite -> {'ok' if good else 'FAIL'}")
+                if not good:
+                    failures.append(f"{arch}: serve blocking vs interleaved")
+                row.update(serve_blocking_tok_s=srv["blocking"][1], serve_k4_tok_s=srv["k=4"][1],
+                           serve_tokens_equal=same)
+                del srv, evs
+
+                # the byte estimate of an admission against its measured peak
+                n_est = 16 if cut is None else 4
+                est = eng.prefill_activation_bytes(n_est, stream=False)
+                long_prompt = rng.integers(0, cfg.vocab, n_est * seg + 100)
+                with torch.no_grad():
+                    torch.cuda.empty_cache()
+                    sync()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    pipe = eng.start_prefill(long_prompt[None], groups_per_call=4)
+                    while not pipe.advance():
+                        pass
+                    sync()
+                    peak = torch.cuda.max_memory_allocated() - base
+                    del pipe
+                ok = peak <= est
+                row.update(admission_peak_bytes=peak, admission_estimate_bytes=est)
+                log(f"  a {n_est}-segment admission's peak above its start {peak / 1e6:.1f} MB, "
+                    f"prefill_activation_bytes({n_est}) {est / 1e6:.1f} MB -> "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"{arch}: admission peak above prefill_activation_bytes")
+                del eng
+
+                # (s5) the MoE layer alone at the band's shape: every pattern
+                # layer, B = 1, T = seg + M, on the model's weights
+                pm = params["pattern"][0]["moe"]
+                Gb, T_ = cfg.n_layers - len(cfg.prelude), seg + cfg.armt.num_mem_tokens
+                D, F = cfg.d_model, mc.d_expert
+                C = moe_mod.capacity(T_, mc)
+                xs = rnd(Gb, 1, T_, D)
+                buf = rnd(Gb * E, C, D)
+                wg = pm["wg"].reshape(-1, D, F)
+                sl = E      # the held slice: one layer's experts
+                want = torch.bmm(buf[:sl].float(), wg[:sl].float())
+                gerr = check(f"{arch} expert gate GEMM [{Gb}*{E},{C},{D}]x[{D},{F}] silu "
+                             f"(first {sl} groups) vs fp32 torch.bmm",
+                             grouped_matmul.grouped_matmul(buf[:sl], wg[:sl], activation="silu"),
+                             want * torch.sigmoid(want), TOL_BF16)
+                del want
+                gt = dict(ms=time_ms(lambda: grouped_matmul.grouped_matmul(
+                              buf, wg, activation="silu")),
+                          library_ms=time_ms(lambda: torch.bmm(buf, wg)),
+                          # the plain version's fp32 copy of kimi's experts would not fit
+                          plain_ms=time_ms(lambda: grouped_matmul.grouped_matmul_plain(
+                              buf, wg, activation="silu"), iters=3)
+                          if arch == "qwen2-moe-a2.7b" else None)
+                gt["bound_ms"], gt["bound_by"] = bound(
+                    flops_bf16=2.0 * Gb * E * C * D * F,
+                    nbytes=2.0 * Gb * E * (C * D + D * F + C * F))
+                log(f"  {arch} expert gate GEMM [{Gb}*{E},{C},{D}]x[{D},{F}] silu: kernel "
+                    f"{gt['ms']:.4f} ms  plain {gt['plain_ms']} ms  library {gt['library_ms']:.4f}"
+                    f" ms (torch.bmm, no silu)  bound {gt['bound_ms']:.4f} ms ({gt['bound_by']})"
+                    f"  kernel/bound {gt['ms'] / gt['bound_ms']:.2f}; card {smi}")
+                row["expert_gemm"] = dict(gt, max_abs_err=gerr,
+                                          route=grouped_matmul.route(buf, wg, buf),
+                                          shape=f"[{Gb}*{E},{C},{D}]@[{D},{F}]")
+                del buf
+
+                def plain32(x4):
+                    """The plain MoE in fp32 on the bf16 input's values (so the
+                    same routing), a layer and an expert at a time."""
+                    ys = []
+                    for gi in range(Gb):
+                        def experts(b, gi=gi):
+                            o = torch.empty_like(b)
+                            for e in range(E):
+                                be = b[:, e]
+                                gg = be @ pm["wg"][gi, e].float()
+                                uu = be @ pm["wu"][gi, e].float()
+                                o[:, e] = ((torch.nn.functional.silu(gg) * uu)
+                                           @ pm["wd"][gi, e].float())
+                            return o
+                        xg = x4[gi].float().reshape(1, -1, D)
+                        y = moe_mod.moe_tokens(xg, pm["router"][gi][None], mc, experts)
+                        if "shared" in pm:
+                            y = y + swiglu(xg, {k: v[gi].float()
+                                                        for k, v in pm["shared"].items()})
+                        ys.append(y.reshape(x4.shape[1:]))
+                    return torch.stack(ys)
+
+                def plain_bf16(x4):
+                    return torch.stack([moe_mod.moe_ffn(
+                        x4[gi], {k: (v[gi] if not isinstance(v, dict) else
+                                     {kk: vv[gi] for kk, vv in v.items()})
+                                 for k, v in pm.items()}, mc) for gi in range(Gb)])
+                got = moe_mod.moe_ffn_grouped(xs, pm, mc)
+                merr = check(f"{arch} moe_ffn band [{Gb},1,{T_},{D}] (C {C}) vs its plain "
+                             "version in fp32", got, plain32(xs), TOL_BF16)
+                mt = dict(ms=time_ms(lambda: moe_mod.moe_ffn_grouped(xs, pm, mc), iters=5),
+                          plain_ms=time_ms(lambda: plain_bf16(xs), iters=3))
+                log(f"  {arch} moe_ffn band: fused {mt['ms']:.3f} ms, plain (bf16 torch "
+                    f"matmuls) {mt['plain_ms']:.3f} ms; card {smi}")
+                row["moe_ffn_band"] = dict(mt, max_abs_err=merr, capacity=C)
+                del xs, got, pm, wg
+
+                row.update(peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                           phase_s=time.perf_counter() - t_phase)
+                log(f"  peak {row['peak_gb']:.2f} GB; {row['phase_s']:.1f} s")
+                out[arch] = row
+                del params, attn, p1
+                M.SegmentProgram._cache.clear()
+                torch.cuda.empty_cache()
+        finally:
+            moe_mod.route = real_route
+        log(f"  launches over the phase: {launches}; GEMM and flash launches by route {routes}")
+        for k in routed:
+            if routes[k]["simt"] or not routes[k]["wgmma"]:
+                failures.append(f"(s)'s {k} left the TMA + wgmma route: {routes[k]}")
+        for name in llama_kernels:
+            if launches[name] == 0:
+                failures.append(f"{name} never launched by (s)")
+        return launches, routes, out
+
+    launches_moe, routes_moe, moe_rows = moe_config_phase()
+    print(json.dumps({"moe_configs": moe_rows, "card": smi}))
+
     # ------------------------------------------------------------ (f) falcon-mamba model
     log("== model phase: falcon-mamba-7b, full width and depth, bf16, seed 0")
     fcfg = get_config("falcon-mamba-7b")
@@ -2964,11 +3472,12 @@ def main() -> int:
                    "full_forward": launches_full, "cache_generate": launches_cgen,
                    "cache_serve": launches_cserve, "serve_interleaved": launches_inter,
                    "prefix_cache": launches_prefix, "sessions": launches_sess,
-                   "dense_configs": launches_dense}
+                   "dense_configs": launches_dense, "moe_configs": launches_moe}
     llama_routes = {"generate": routes_gen, "serve": routes_serve, "full_forward": routes_full,
                     "cache_generate": routes_cgen, "cache_serve": routes_cserve,
                     "serve_interleaved": routes_inter, "prefix_cache": routes_prefix,
-                    "sessions": routes_sess, "dense_configs": routes_dense}
+                    "sessions": routes_sess, "dense_configs": routes_dense,
+                    "moe_configs": routes_moe}
     # falcon-mamba has no prefix-cache run (its engine refuses a cache at
     # max_len 8192: its seg_len is max_len, not the model's segment), so
     # mamba_scan has no launches_prefix_cache

@@ -1,13 +1,34 @@
 """Architecture configs: the fields of the reference ``ArchConfig`` that the
 port's serving paths read; the ``llama-*-armt`` family, the five other dense
 ARMT configs (minitron-8b, qwen2.5-32b, chameleon-34b, h2o-danube-1.8b,
-chatglm3-6b) and ``falcon-mamba-7b``; and the smoke reduction used by the
-CPU tests (a copy; the port never imports the JAX package)."""
+chatglm3-6b), the two MoE ARMT configs (qwen2-moe-a2.7b, and
+kimi-k2-1t-a32b with its dense prelude layer) and ``falcon-mamba-7b``; and
+the smoke reduction used by the CPU tests (a copy; the port never imports
+the JAX package)."""
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
+
+
+DISPATCHES = ("global", "per_row")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int              # per-expert FFN hidden size
+    d_shared: int = 0          # shared-expert FFN hidden size (0 = no shared expert)
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"   # the router is fp32 (weights and product); kept
+                                    # for parity with the reference, validate()
+                                    # refuses any other value
+    # 'global': one dispatch over all B*T tokens of a call (capacity over
+    # them); 'per_row': one dispatch per batch row. The reference's
+    # 'einsum' (its mesh path's sharding-local form) is not ported.
+    dispatch: str = "global"
 
 
 @dataclass(frozen=True)
@@ -32,7 +53,7 @@ class ARMTConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                # dense | vlm | ssm
+    family: str                # dense | vlm | moe | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -51,6 +72,8 @@ class ArchConfig:
     use_rope: bool = True
     sliding_window: int = 0    # 0 = full causal attention
     tie_embeddings: bool = False
+    prelude_d_ff: int = 0       # dense FFN width of the prelude layers (kimi)
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     armt: Optional[ARMTConfig] = None
     dtype: str = "bfloat16"
@@ -80,15 +103,34 @@ class ArchConfig:
             t.startswith("mamba") for t in self.layer_types)
 
     def validate(self) -> None:
-        """Accepts what the port has: the ARMT attn block (rmsnorm, swiglu,
+        """Accepts what the port has: ARMT attn blocks (rmsnorm, swiglu,
         rope, with or without QKV bias and q/k norm, rotary on a fraction
-        of the head dims), or a pure ``("mamba",)`` stack without FFN."""
+        of the head dims), with a dense FFN (``attn``) or a MoE FFN
+        (``attn_moe``, global or per-row dispatch), ``attn`` prelude
+        layers before a one-position pattern; or a pure ``("mamba",)``
+        stack without FFN."""
         if not (self.d_model > 0 and self.n_layers > 0 and self.vocab > 0):
             raise ValueError(f"{self.name}: non-positive dims")
         types = set(self.layer_types)
         if self.norm != "rmsnorm" or self.act != "silu":
             raise ValueError(f"{self.name}: the port has rmsnorm + swiglu only")
-        if types == {"attn"}:
+        if "attn_moe" in types:
+            if self.moe is None:
+                raise ValueError(f"{self.name}: attn_moe layers need cfg.moe")
+            if self.moe.dispatch not in DISPATCHES:
+                raise ValueError(f"{self.name}: MoE dispatch {self.moe.dispatch!r}; the "
+                                 f"port has {DISPATCHES}")
+            if self.moe.router_dtype != "float32":
+                raise ValueError(f"{self.name}: router_dtype {self.moe.router_dtype!r}; the "
+                                 "router is fp32")
+            if not 0 < self.moe.top_k <= self.moe.n_experts:
+                raise ValueError(f"{self.name}: top_k {self.moe.top_k} of "
+                                 f"{self.moe.n_experts} experts")
+        if set(self.prelude) - {"attn"} or (self.prelude and len(self.block_pattern) != 1):
+            raise ValueError(f"{self.name}: the port takes attn prelude layers before a "
+                             f"one-position pattern, got {self.prelude} + "
+                             f"{self.block_pattern}")
+        if types <= {"attn", "attn_moe"}:
             if self.armt is None or not self.use_rope:
                 raise ValueError(f"{self.name}: the port's attn block is the "
                                  "ARMT block with rope")
@@ -101,7 +143,7 @@ class ArchConfig:
                 raise ValueError(f"{self.name}: the port's mamba block needs "
                                  "cfg.ssm, no ARMT and no FFN")
         else:
-            raise ValueError(f"{self.name}: the port has pure attn or pure "
+            raise ValueError(f"{self.name}: the port has attn (dense or MoE) or pure "
                              f"mamba stacks only, got {self.layer_types}")
         _ = self.n_superblocks
 
@@ -112,6 +154,8 @@ _ARCH_MODULES = {
     "minitron-8b": "minitron_8b",
     "chatglm3-6b": "chatglm3_6b",
     "chameleon-34b": "chameleon_34b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "llama-160m-armt": "llama_armt",
     "llama-1b-armt": "llama_armt",
     "llama-3b-armt": "llama_armt",
@@ -130,28 +174,37 @@ def get_config(arch_id: str) -> ArchConfig:
 
 
 def get_smoke_config(arch_id: str, *, seq_len: int = 64) -> ArchConfig:
-    """The reference's ``get_smoke_config`` reduction: two superblocks,
-    d_model 32, 4 heads (at most 2 kv heads) of 8 dims, vocab 256, fp32;
-    ARMT shrunk to 4 memory tokens of d_mem 8, SSM to d_state 4. The
-    attention flags (QKV bias, q/k norm, rotary fraction, sliding window)
+    """The reference's ``get_smoke_config`` reduction: the prelude and two
+    superblocks (one of a pattern of 4 or more positions), d_model 32, 4
+    heads (at most 2 kv heads) of 8 dims, vocab 256, fp32; ARMT shrunk to 4
+    memory tokens of d_mem 8, SSM to d_state 4, MoE to 4 experts (top-k at
+    most 2) of 32 wide and a shared expert of 32, dense FFNs (the
+    prelude's too) to 64. The attention flags (QKV bias, q/k norm, rotary
+    fraction, sliding window) and the MoE's capacity factor and dispatch
     are kept."""
     cfg = get_config(arch_id)
-    armt = ssm = None
+    armt = ssm = moe = None
     if cfg.armt is not None:
         armt = replace(cfg.armt, segment_len=max(8, seq_len // 4),
                        num_mem_tokens=4, d_mem=8, d_val=0)
     if cfg.ssm is not None:
         ssm = replace(cfg.ssm, d_state=4, d_conv=4, expand=2)
+    if cfg.moe is not None:
+        moe = replace(cfg.moe, n_experts=4, top_k=min(2, cfg.moe.top_k), d_expert=32,
+                      d_shared=32 if cfg.moe.d_shared else 0)
+    n_sb = 1 if len(cfg.block_pattern) >= 4 else 2
     return replace(
         cfg,
-        n_layers=2 * len(cfg.block_pattern),
+        n_layers=len(cfg.prelude) + n_sb * len(cfg.block_pattern),
         d_model=32,
         n_heads=4,
         n_kv_heads=max(1, min(cfg.n_kv_heads, 2)),
         d_head=8,
         d_ff=64 if cfg.d_ff else 0,
+        prelude_d_ff=64 if cfg.prelude_d_ff else 0,
         vocab=256,
         armt=armt,
+        moe=moe,
         ssm=ssm,
         dtype="float32",
     )

@@ -3,8 +3,9 @@
 The reference's trees, converted leaf by leaf to numpy arrays, hold dicts
 and tuples of arrays; the port uses the same layout with torch tensors.
 Each float leaf keeps its role's dtype: the leaves that are fp32 whatever
-the model dtype (Mamba's A_log and D; the recurrent state A, z and h) stay
-fp32, the others (weights, the conv tail, KV caches) take the model dtype.
+the model dtype (Mamba's A_log and D; the MoE router; the recurrent state
+A, z and h) stay fp32, the others (weights, the conv tail, KV caches) take
+the model dtype.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-FP32_LEAVES = frozenset({"A_log", "D", "A", "z", "h"})
+FP32_LEAVES = frozenset({"A_log", "D", "router", "A", "z", "h"})
 
 
 def _to_torch(tree, device, dtype, name=""):
@@ -32,7 +33,8 @@ def _to_torch(tree, device, dtype, name=""):
 
 def params_from_jax(np_tree: Dict, device, dtype=torch.float32) -> Dict:
     """Reference ``init_params`` tree (numpy leaves) -> port parameters on
-    ``device``: A_log and D in fp32, every other float leaf in ``dtype``."""
+    ``device``: A_log, D and the MoE router in fp32, every other float
+    leaf in ``dtype``."""
     return _to_torch(np_tree, torch.device(device), dtype)
 
 

@@ -11,6 +11,12 @@ as in the sequential schedule. The recurrence is exact: every layer's state
 is updated by the same functions in the same order as the sequential
 executor, only grouped across slots.
 
+Prelude layers (kimi's dense first layer) take the first slots: slot j <
+n_prelude is prelude layer j, applied as that layer's one-group cell when
+the band covers it, and the pattern's layers follow; the pattern cell
+applies the rest of the band. The per-slot math does not depend on the
+band, so the executors stay equal to the sequential one.
+
 Every form of the executor runs one band step, ``band_step``: ``(carry,
 i) -> carry``, in place, with the group cursor i a host int in the carry.
 So they are equal by construction:
@@ -25,8 +31,9 @@ So they are equal by construction:
   * ``pipeline_step_pool`` advances several such carries, whose cursors
     may differ: per step the live members' bands go through one grouped
     cell call along the group axis, each group reading its own layer's
-    weights through a layer index (the ``attn`` cell; other cells advance
-    the members one after another).
+    weights through a layer index (the ``attn`` and ``attn_moe`` cells;
+    other cells advance the members one after another; prelude slots go
+    member by member).
 
 A carry's buffers are its own (``pipeline_init`` copies the state), so a
 caller's state updated in place, a decode pool say, never aliases one.
@@ -39,7 +46,7 @@ import torch
 
 from repro_torch.core.memory import RECURRENT_KEYS
 from repro_torch.core.schedule import band, n_diagonal_groups
-from repro_torch.core.sequential import ApplyBlock, layer_slice, stack_layers
+from repro_torch.core.sequential import ApplyBlock, layer_slice, one_layer_cell, stack_layers
 
 
 # band steps that ran as one cell call over two or more pipelines
@@ -49,9 +56,9 @@ pool_counts = {"steps": 0, "member_steps": 0}
 
 
 def _check_layout(layout) -> None:
-    if layout.prelude or len(layout.pattern) != 1:
+    if len(layout.pattern) != 1:
         raise ValueError("the diagonal executor supports one pattern position "
-                         "and no prelude")
+                         f"(after any prelude), got {layout.pattern}")
 
 
 def _band_slice(tree, lo: int, hi: int):
@@ -76,15 +83,18 @@ def boundary_states_from_capture(layout, captured: Dict, n_segments: int) -> Dic
     """Per-boundary recurrent states from a per-step capture
     (``run_diagonal(capture_states=True)``): layer l's state after segment
     c - 1 was written at step (c - 1) + l, so boundary c (index c - 1) of
-    each leaf gathers those steps. One gather per leaf, on the device ->
+    each leaf gathers those steps (prelude layer j: slot j; the pattern's
+    layer m: slot n_prelude + m). One gather per leaf, on the device ->
     leaves with a leading [S] boundary axis."""
     _check_layout(layout)
+    P = len(layout.prelude)
     tree = captured["pattern"][0]
     device = next(iter(tree.values())).device
     steps = torch.arange(n_segments, device=device)[:, None]
-    layers = torch.arange(layout.n_layers, device=device)[None, :]
-    return {"prelude": (),
-            "pattern": ({k: a[steps + layers, layers] for k, a in tree.items()},)}
+    layers = torch.arange(layout.n_super, device=device)[None, :]
+    return {"prelude": tuple({k: a[steps[:, 0] + j] for k, a in captured["prelude"][j].items()}
+                             for j in range(P)),
+            "pattern": ({k: a[steps + P + layers, layers] for k, a in tree.items()},)}
 
 
 def _cell(apply_block: ApplyBlock, grouped_apply):
@@ -105,47 +115,80 @@ def _band_in(xs: torch.Tensor, carry: Dict, n_layers: int):
     return lo, hi
 
 
-def _band_out(carry: Dict, lo: int, hi: int, y: torch.Tensor, new: Dict, *,
+def _pattern_band(layout, lo: int, hi: int):
+    """The pattern layers (plo, phi) a slot band covers, or None."""
+    P = len(layout.prelude)
+    return (max(lo, P) - P, hi - P) if hi >= P else None
+
+
+def _apply_prelude(layout, params: Dict, carry: Dict, lo: int, hi: int, cell):
+    """The prelude slots of band lo..hi, each its layer as a one-group
+    cell -> ([(slot, y [1, B, T, D])], {slot: its new state})."""
+    parts, new = [], {}
+    one = one_layer_cell(cell)
+    for j in range(lo, min(hi, len(layout.prelude) - 1) + 1):
+        y, new[j] = one(layout.prelude[j], params["prelude"][j], carry["buf"][j],
+                        carry["state"]["prelude"][j])
+        parts.append((j, y[None]))
+    return parts, new
+
+
+def _band_out(carry: Dict, parts, new_prelude: Dict, new_pattern, pband, *,
               retain_pos: int) -> None:
-    """The band's results into the carry: the state's band slots, the
-    finished segment (if the band reached the top slot) into ``ys`` or
-    ``win``/``brow``, the shifted band into the slot buffer, the capture of
-    this step; then the cursor moves on."""
+    """The band's results into the carry: the state's band slots (prelude
+    layers and the pattern's layers ``pband``), the finished segment (if
+    the band reached the top slot) into ``ys`` or ``win``/``brow``, the
+    shifted band into the slot buffer, the capture of this step; then the
+    cursor moves on. parts: [(first slot, y)] in slot order."""
     i, buf = carry["step"], carry["buf"]
     L = buf.shape[0]
-    state = carry["state"]["pattern"][0]
-    for k, v in new.items():
-        state[k][lo:hi + 1] = v
-    y = y.to(buf.dtype)
-    if hi == L - 1:                   # segment i - (L-1) finished every layer
-        s = i - (L - 1)
-        if "win" in carry:
-            carry["win"][s % carry["win"].shape[0]].copy_(y[-1])
-            carry["brow"][s].copy_(y[-1][:, retain_pos])
-        else:
-            carry["ys"][s].copy_(y[-1])
-        y = y[:-1]
-    buf[lo + 1:lo + 1 + y.shape[0]] = y
+    state = carry["state"]
+    for j, new in new_prelude.items():
+        for k, v in new.items():
+            state["prelude"][j][k].copy_(v)
+    if new_pattern is not None:
+        for k, v in new_pattern.items():
+            state["pattern"][0][k][pband[0]:pband[1] + 1] = v
+    for s0, y in parts:
+        y = y.to(buf.dtype)
+        if s0 + y.shape[0] == L:          # segment i - (L-1) finished every layer
+            s = i - (L - 1)
+            if "win" in carry:
+                carry["win"][s % carry["win"].shape[0]].copy_(y[-1])
+                carry["brow"][s].copy_(y[-1][:, retain_pos])
+            else:
+                carry["ys"][s].copy_(y[-1])
+            y = y[:-1]
+        buf[s0 + 1:s0 + 1 + y.shape[0]] = y
     if "cap" in carry:
-        for k, c in carry["cap"]["pattern"][0].items():
-            c[i].copy_(state[k])
+        for part in ("prelude", "pattern"):
+            for cap, st in zip(carry["cap"][part], state[part]):
+                for k, c in cap.items():
+                    c[i].copy_(st[k])
     carry["step"] = i + 1
 
 
 def band_step(layout, params: Dict, xs: torch.Tensor, carry: Dict, cell, *,
               retain_pos: int = -1) -> Dict:
     """One anti-diagonal step of a carry, in place: the cell over the band
-    of step ``carry['step']``, then the cursor moves on. A cursor past the
-    grid is a no-op (it only moves on)."""
+    of step ``carry['step']`` (a prelude slot as its layer's one-group
+    cell, the pattern's slots as one cell over their layers), then the
+    cursor moves on. A cursor past the grid is a no-op (it only moves
+    on)."""
     L = layout.n_layers
     if carry["step"] >= n_diagonal_groups(xs.shape[0], L):
         carry["step"] += 1
         return carry
     lo, hi = _band_in(xs, carry, L)
-    state = carry["state"]["pattern"][0]
-    y, new = cell(layout.pattern[0], _band_slice(params["pattern"][0], lo, hi),
-                  carry["buf"][lo:hi + 1], _band_slice(state, lo, hi))
-    _band_out(carry, lo, hi, y, new, retain_pos=retain_pos)
+    parts, new_pre = _apply_prelude(layout, params, carry, lo, hi, cell)
+    pband, new = _pattern_band(layout, lo, hi), None
+    if pband is not None:
+        P = len(layout.prelude)
+        y, new = cell(layout.pattern[0], _band_slice(params["pattern"][0], *pband),
+                      carry["buf"][P + pband[0]:P + pband[1] + 1],
+                      _band_slice(carry["state"]["pattern"][0], *pband))
+        parts.append((P + pband[0], y))
+    _band_out(carry, parts, new_pre, new, pband, retain_pos=retain_pos)
     return carry
 
 
@@ -177,7 +220,7 @@ def run_diagonal(layout, params: Dict, state0: Dict, segments: torch.Tensor,
     for _ in range(n_diagonal_groups(segments.shape[0], layout.n_layers)):
         band_step(layout, params, xs, carry, cell, retain_pos=retain_pos)
     out = ({"win": carry["win"], "brow": carry["brow"]} if stream_ys else carry["ys"])
-    final = {"prelude": state0["prelude"], "pattern": carry["state"]["pattern"]}
+    final = carry["state"]
     if capture_states:
         return out, final, carry["cap"]
     return out, final
@@ -206,9 +249,9 @@ def pipeline_init(layout, state0: Dict, segments: torch.Tensor, *,
     _check_layout(layout)
     S, L = segments.shape[0], layout.n_layers
     shape, kw = tuple(segments.shape[1:]), dict(dtype=segments.dtype, device=segments.device)
-    state = {k: v.clone() for k, v in state0["pattern"][0].items()}
-    carry = {"buf": torch.zeros((L,) + shape, **kw),
-             "state": {"prelude": (), "pattern": (state,)}, "step": 0}
+    state = {part: tuple({k: v.clone() for k, v in tree.items()} for tree in state0[part])
+             for part in ("prelude", "pattern")}
+    carry = {"buf": torch.zeros((L,) + shape, **kw), "state": state, "step": 0}
     if stream_ys:
         carry["win"] = torch.zeros((min(L, S),) + shape, **kw)
         carry["brow"] = torch.zeros((S, shape[0], shape[2]), **kw)
@@ -216,9 +259,10 @@ def pipeline_init(layout, state0: Dict, segments: torch.Tensor, *,
         carry["ys"] = torch.zeros((S,) + shape, **kw)
     if capture_states:
         n = n_diagonal_groups(S, L)
-        carry["cap"] = {"prelude": (), "pattern": (
+        carry["cap"] = {part: tuple(
             {k: torch.zeros((n,) + tuple(v.shape), dtype=v.dtype, device=v.device)
-             for k, v in state.items() if k in RECURRENT_KEYS},)}
+             for k, v in tree.items() if k in RECURRENT_KEYS} for tree in state[part])
+            for part in ("prelude", "pattern")}
     return segments, carry
 
 
@@ -243,15 +287,17 @@ def pipeline_step_pool(layout, params: Dict, xs_pool: Sequence[torch.Tensor],
     place; their cursors (and grids) may differ.
 
     With a cell that takes a layer index (``grouped_apply.indexed``, the
-    ``attn`` cell), each step concatenates the live members' bands along
-    the group axis into one cell call over G' = sum of the band widths,
+    ``attn`` and ``attn_moe`` cells), each step concatenates the live
+    members' pattern bands along the group axis into one cell call over G'
+    = sum of the band widths,
     each group reading its own layer's weights (the GEMM's ``widx``), and
     writes each member's part back into its own carry: one launch of each
     kernel per step for the whole pool. Members are not stacked along the
     batch axis, which would take the B = 1 cell off its fused route and
     round differently. A member whose cursor is past its grid contributes
     no group; a step with one live member is that member's own band step.
-    Other cells advance the members one after another."""
+    A member's prelude slots run as its own one-group cells before the
+    pooled call. Other cells advance the members one after another."""
     cell = _cell(apply_block, grouped_apply)
     t = layout.pattern[0]
     if grouped_apply is None or t not in getattr(grouped_apply, "indexed", ()):
@@ -259,7 +305,7 @@ def pipeline_step_pool(layout, params: Dict, xs_pool: Sequence[torch.Tensor],
             pipeline_step(layout, params, xs, carry, apply_block, n_groups=n_groups,
                           grouped_apply=grouped_apply, retain_pos=retain_pos)
         return list(carry_pool)
-    L = layout.n_layers
+    L, P = layout.n_layers, len(layout.prelude)
     pattern_params = params["pattern"][0]
     layers = None
     for _ in range(n_groups):
@@ -274,22 +320,30 @@ def pipeline_step_pool(layout, params: Dict, xs_pool: Sequence[torch.Tensor],
                 band_step(layout, params, xs, carry, cell, retain_pos=retain_pos)
             continue
         if layers is None:
-            layers = torch.arange(L, dtype=torch.int32, device=live[0][0].device)
+            layers = torch.arange(layout.n_super, dtype=torch.int32, device=live[0][0].device)
         bands = [_band_in(xs, carry, L) for xs, carry in live]
-        states = [carry["state"]["pattern"][0] for _, carry in live]
-        x = torch.cat([carry["buf"][lo:hi + 1] for (_, carry), (lo, hi) in zip(live, bands)])
-        st = {k: torch.cat([s[k][lo:hi + 1] for s, (lo, hi) in zip(states, bands)])
-              for k in states[0]}
-        widx = torch.cat([layers[lo:hi + 1] for lo, hi in bands])
-        y, new = grouped_apply(t, pattern_params, x, st, widx=widx)
+        pre = [_apply_prelude(layout, params, carry, lo, hi, cell)
+               for (_, carry), (lo, hi) in zip(live, bands)]
+        pbands = [_pattern_band(layout, lo, hi) for lo, hi in bands]
+        members = [(carry, pb) for (_, carry), pb in zip(live, pbands) if pb is not None]
+        if members:
+            states = [carry["state"]["pattern"][0] for carry, _ in members]
+            x = torch.cat([carry["buf"][P + plo:P + phi + 1] for carry, (plo, phi) in members])
+            st = {k: torch.cat([s[k][plo:phi + 1] for s, (_, (plo, phi)) in
+                                zip(states, members)]) for k in states[0]}
+            widx = torch.cat([layers[plo:phi + 1] for _, (plo, phi) in members])
+            y, new = grouped_apply(t, pattern_params, x, st, widx=widx)
         pool_counts["steps"] += 1
         pool_counts["member_steps"] += len(live)
         off = 0
-        for (_, carry), (lo, hi) in zip(live, bands):
-            g = hi - lo + 1
-            _band_out(carry, lo, hi, y[off:off + g],
-                      {k: v[off:off + g] for k, v in new.items()}, retain_pos=retain_pos)
-            off += g
+        for (_, carry), (parts, new_pre), pb in zip(live, pre, pbands):
+            new_pat = None
+            if pb is not None:
+                g = pb[1] - pb[0] + 1
+                parts.append((P + pb[0], y[off:off + g]))
+                new_pat = {k: v[off:off + g] for k, v in new.items()}
+                off += g
+            _band_out(carry, parts, new_pre, new_pat, pb, retain_pos=retain_pos)
     return list(carry_pool)
 
 

@@ -38,6 +38,21 @@ def stack_layers(trees):
     return torch.stack(trees)
 
 
+def one_layer_cell(cell):
+    """A grouped cell applied to one layer: the executors' block signature
+    on a band of G = 1 (param and state leaves gain a leading dim of 1, x
+    [B, T, D] becomes [1, B, T, D]; views, no copies)."""
+    def lift(tree):
+        if isinstance(tree, dict):
+            return {k: lift(v) for k, v in tree.items()}
+        return tree[None]
+
+    def apply(t, p, x, state):
+        y, new = cell(t, lift(p), x[None], lift(state))
+        return y[0], {k: v[0] for k, v in new.items()}
+    return apply
+
+
 def clone_state(tree):
     """A copy of a state tree (dicts and tuples of tensors; other leaves,
     such as a Python int position, as they are)."""

@@ -64,8 +64,11 @@
 //   and columns 80-127 stay zero and are never stored: 60 % more PV work
 //   than the data needs, no copy. (A 16-column box with 32-byte swizzle
 //   and an n80 PV product would do only the data's work.)
+// - Head dim 112 (kimi-k2-1t-a32b) takes the same layout: the TMA zero-fills
+//   columns 112-127, S = Q K^T takes 7 k16 steps and O += P V runs at n128
+//   (14 % more PV work than the data needs).
 //
-// fp32 inputs, head dims other than 64/80/128, and operands the TMA cannot
+// fp32 inputs, head dims other than 64/80/112/128, and operands the TMA cannot
 // describe take `flash_simt`: one thread per query row, fp32 throughout.
 // The caller picks the route (the wrapper's `route()` in
 // kernels/flash_attention.py) and counts it; a wgmma launch the operands do
@@ -83,14 +86,14 @@ namespace {
 constexpr int WG_THREADS = 128;
 
 template <int HD> struct FlashCfg {
-  // the head dims a tile holds in shared memory: hd 80 takes hd 128's
-  // layout, two 64-column boxes of 128-byte-swizzled rows, the second
-  // zero-filled by the TMA past column 80 (see the design note)
-  static constexpr int HDP = HD == 80 ? 128 : HD;
-  static constexpr int KSTEPS = HD / 16;             // k16 steps of S = Q K^T: 5 at hd 80
+  // the head dims a tile holds in shared memory: hd 80 and 112 take hd
+  // 128's layout, two 64-column boxes of 128-byte-swizzled rows, the second
+  // zero-filled by the TMA past column 80 or 112 (see the design note)
+  static constexpr int HDP = HD == 80 || HD == 112 ? 128 : HD;
+  static constexpr int KSTEPS = HD / 16;   // k16 steps of S = Q K^T: 5 at hd 80, 7 at 112
   // consumer warpgroups, 64 query rows each: 3 at hd 64, where a third warp
   // a scheduler hides more of the softmax's latency (6 %, PERF.md);
-  // 2 at hd 80 and 128, since with 512 threads a thread gets 128 registers,
+  // 2 at hd 80, 112 and 128, since with 512 threads a thread gets 128 registers,
   // too few beside hd 128's 64 O accumulators
   static constexpr int NWG = HD == 64 ? 3 : 2;
   static constexpr int BQ = 64 * NWG;                // query rows a work item
@@ -102,8 +105,8 @@ template <int HD> struct FlashCfg {
   static constexpr int Q_BYTES = BQ * HDP * 2;
   static constexpr int BOX = BKV * 128;             // one 64-column TMA box of K or V
   static constexpr int KV_BYTES = BKV * HDP * 2;    // K (or V) of a tile
-  static constexpr int STAGE = 2 * KV_BYTES;        // 16 KB at hd 64, 32 KB at hd 80 and 128
-  static constexpr int STAGES = 128 * 1024 / STAGE;   // 8 at hd 64, 4 at hd 80 and 128
+  static constexpr int STAGE = 2 * KV_BYTES;        // 16 KB at hd 64, 32 KB at hd 80-128
+  static constexpr int STAGES = 128 * 1024 / STAGE;   // 8 at hd 64, 4 at hd 80-128
   // two Q buffers, the ring, 2 * STAGES + 4 barriers, slack to align to 1024 bytes
   static constexpr int SMEM = 2 * Q_BYTES + STAGES * STAGE + (2 * STAGES + 4) * 8 + 1024;
 };
@@ -173,7 +176,7 @@ __device__ __forceinline__ void fence_operands(float* o, uint32_t (*p)[4]) {
 }
 
 // o += P V over one tile: P from registers, V N-major in shared memory, all
-// HDP columns (at hd 80 the 48 zero columns too: a 128-byte-swizzled
+// HDP columns (at hd 80 and 112 the zero columns too: a 128-byte-swizzled
 // N-major operand spans whole 64-column boxes)
 template <int HD>
 __device__ __forceinline__ void mma_pv(float* o, const uint32_t (*p)[4], const unsigned char* vs) {
@@ -549,7 +552,7 @@ void dispatch_simt(const void* q, const void* k, const void* v, void* out, int N
 
 // Strides are in elements (a size-1 dim's given as if contiguous); dtype:
 // 0 float32, 1 bfloat16; hd <= 128. tc: 1 the TMA + wgmma route (bf16, hd
-// 64, 80 or 128, 16-byte-aligned bases and strides; refused with
+// 64, 80, 112 or 128, 16-byte-aligned bases and strides; refused with
 // cudaErrorInvalidValue where the operands do not allow it), 0 flash_simt.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int N, int Hq, int Hkv, int T, int S,
@@ -570,6 +573,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
       case 80:
         return static_cast<int>(launch_wgmma<80>(q, k, v, out, N, Hq, Hkv, T, S, st, causal,
                                                  window, scale_log2, s));
+      case 112:
+        return static_cast<int>(launch_wgmma<112>(q, k, v, out, N, Hq, Hkv, T, S, st, causal,
+                                                  window, scale_log2, s));
       case 128:
         return static_cast<int>(launch_wgmma<128>(q, k, v, out, N, Hq, Hkv, T, S, st, causal,
                                                   window, scale_log2, s));

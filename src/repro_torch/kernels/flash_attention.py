@@ -9,10 +9,10 @@ transpose copy; the output is a ``[N,Hq,T,hd]`` view of a contiguous
 ``[N,T,Hq,hd]`` buffer. CUDA source: ``csrc/flash_attention.cu``.
 
 Every launch takes one of two routes, which ``route()`` picks and the module
-counts: the TMA + wgmma kernel for bf16 operands with head dim 64, 80 or
-128 whose bases and strides the TMA can describe (hd 80 on hd 128's tile
-layout, its last 48 columns zero-filled on chip: no padded copy), the fp32
-SIMT kernel for the rest.
+counts: the TMA + wgmma kernel for bf16 operands with head dim 64, 80, 112
+or 128 whose bases and strides the TMA can describe (hd 80 and 112 on hd
+128's tile layout, the columns past the head dim zero-filled on chip: no
+padded copy), the fp32 SIMT kernel for the rest.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ build.count_launches(sys.modules[__name__], "launches", "tc_launches", "simt_lau
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-TC_HEAD_DIMS = (64, 80, 128)
+TC_HEAD_DIMS = (64, 80, 112, 128)
 
 
 def _strides(x):
@@ -46,7 +46,7 @@ def _strides(x):
 
 def route(q, k, v) -> str:
     """The kernel a launch of these operands takes: "wgmma" (the TMA +
-    wgmma kernel: bf16, head dim 64, 80 or 128, T and S > 0, 16-byte-aligned
+    wgmma kernel: bf16, head dim 64, 80, 112 or 128, T and S > 0, 16-byte-aligned
     bases and every (n, h, t) stride a positive multiple of 8 elements, so
     the TMA reads whole 16-byte pieces) or "simt" (any dtype and head dim)."""
     hd = q.shape[3]

@@ -1,7 +1,8 @@
 """The port's block types and their layer-local state.
 
-  attn   pre-norm attention + SwiGLU FFN + ARMT memory (A, z)
-  mamba  pre-norm Mamba-1 mixer (SSM state h and the conv tail)
+  attn      pre-norm attention + SwiGLU FFN + ARMT memory (A, z)
+  attn_moe  pre-norm attention + MoE FFN + ARMT memory (A, z)
+  mamba     pre-norm Mamba-1 mixer (SSM state h and the conv tail)
 
 ``make_apply_block(cfg, mode)`` binds ``apply_block(btype, p, x, state) ->
 (y, new_state)``, the signature both executors share. In ``"segmented"``
@@ -18,9 +19,29 @@ from repro_torch.core.memory import mem_read, mem_state_init, mem_update
 from repro_torch.models.attention import attention
 from repro_torch.models.layers import rmsnorm, swiglu
 from repro_torch.models.mamba import mamba_block, mamba_state_init
+from repro_torch.models.moe import moe_ffn
 
 
 MODES = ("segmented", "full")
+ATTN_TYPES = ("attn", "attn_moe")
+
+
+def block_d_ff(cfg, t: str, prelude: bool) -> int:
+    """The dense FFN width of a layer: none for a MoE layer, the prelude's
+    own width where the config has one (kimi), else ``cfg.d_ff``."""
+    if t.endswith("moe"):
+        return 0
+    if prelude and cfg.prelude_d_ff:
+        return cfg.prelude_d_ff
+    return cfg.d_ff
+
+
+def apply_ffn(cfg, t: str, h, p):
+    """The block's FFN with its residual: h + moe_ffn(rmsnorm(h)) for a MoE
+    layer, h + swiglu(rmsnorm(h)) for a dense one."""
+    if t == "attn_moe":
+        return h + moe_ffn(rmsnorm(h, p["ln2"]), p["moe"], cfg.moe)
+    return h + swiglu(rmsnorm(h, p["ln2"]), p["ffn"])
 
 
 def check_mode(mode: str) -> None:
@@ -30,11 +51,11 @@ def check_mode(mode: str) -> None:
 
 def block_state_init(t: str, cfg, batch: int, device, dtype,
                      mode: str = "segmented") -> Dict:
-    """Layer-local recurrent state: fp32 A, z (attn, segmented mode; none
-    in full mode or without ARMT), or fp32 h and a conv tail in ``dtype``
-    (mamba, either mode)."""
+    """Layer-local recurrent state: fp32 A, z (attn and attn_moe, segmented
+    mode; none in full mode or without ARMT), or fp32 h and a conv tail in
+    ``dtype`` (mamba, either mode)."""
     check_mode(mode)
-    if t == "attn":
+    if t in ATTN_TYPES:
         if mode == "full" or cfg.armt is None:
             return {}
         return mem_state_init(batch, cfg.d_model, cfg.armt, device)
@@ -51,13 +72,13 @@ def make_apply_block(cfg, mode: str = "segmented"):
     def apply_block(t: str, p, x, state):
         if t == "mamba":
             return mamba_block(p, x, cfg.ssm, state)
-        if t != "attn":
+        if t not in ATTN_TYPES:
             raise ValueError(f"unknown block type {t!r}")
         new_state = dict(state)
         if armt_on:
             x = x + mem_read(p["mem"], state, x, cfg.armt)
         h = x + attention(rmsnorm(x, p["ln1"]), p["attn"], cfg)
-        y = h + swiglu(rmsnorm(h, p["ln2"]), p["ffn"])
+        y = apply_ffn(cfg, t, h, p)
         if M > 0:
             new_state.update(mem_update(p["mem"], {"A": state["A"], "z": state["z"]},
                                         y[:, -M:, :], cfg.armt))

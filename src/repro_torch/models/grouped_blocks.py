@@ -31,16 +31,25 @@ and the update fuse, as in the reference (grouped_blocks.py:186). B > 1
 interleaves batch rows, so there the down projection and ``assoc_update``
 stay two launches, and y is rounded before the residual is added.
 
+The ``attn_moe`` cell shares the attn cell's front (memory read, QKV,
+flash, output projection) and replaces the FFN with the MoE
+(``models/moe.py`` ``moe_ffn_grouped``), dispatched per group as the
+reference's vmap over the band does: the expert products and the shared
+expert on the grouped GEMM, with a layer index read as ``widx·E + e`` of
+the flattened expert stack. Its down projections are per expert, so
+nothing fuses with the memory update, which is ``assoc_update`` at every
+B.
+
 In ``"full"`` mode (the full-attention baseline) the attn cell touches no
 memory: no ``assoc_read``, no update, and the down projection is
 ``h + grouped_gemm(...)``. The mamba cell is the same in both modes.
 
-The attn cell also takes a layer index (``widx``, int32 [G] on the
+The attn cells also take a layer index (``widx``, int32 [G] on the
 device): its params are then the model's whole stacked pattern and group i
 is layer ``widx[i]``. The GEMMs read their weights and biases through the
 index (the model's own tensors; no copy), and the small per-layer leaves
-(the norm weights, q/k norm weights included, and the memory's wq, wk, wv,
-wb) are gathered with ``index_select``. That is how a pooled band step
+(the norm weights, q/k norm weights included, the memory's wq, wk, wv,
+wb, and the MoE router) are gathered with ``index_select``. That is how a pooled band step
 runs the bands of several pipelines as one cell call (``core/diagonal.py``
 ``pipeline_step_pool``).
 The mamba cell has no such form: its projections are matmuls over the
@@ -55,6 +64,7 @@ from repro_torch.models.attention import rope_qk
 from repro_torch.models.blocks import check_mode
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.mamba import mamba_block
+from repro_torch.models.moe import moe_ffn_grouped
 
 
 def make_grouped_apply(cfg, mode: str = "segmented"):
@@ -63,7 +73,7 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
     check_mode(mode)
     armt_on = mode == "segmented" and cfg.armt is not None
 
-    def fused_attn(p, x, state, widx=None):
+    def helpers(widx):
         def small(leaf):
             # a per-layer leaf the cell reads whole: the band's, or the
             # indexed layers' gathered
@@ -75,17 +85,21 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
 
         def gemm(h, w, bias=None, **kw):
             return kops.grouped_gemm(h, w, bias, widx=widx, **kw)
+        return small, snorm, gemm
 
+    def attend(p, x, state, widx):
+        """The attn cells' front: the memory read, QKV, flash and the
+        output projection -> (h, the flat memory state (A, z) or None)."""
+        small, snorm, gemm = helpers(widx)
         hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
         G, B, T, D = x.shape
         N = G * B
-        new_state = dict(state)
+        A_f = z_f = None
         if armt_on:
-            M, nu = cfg.armt.num_mem_tokens, cfg.armt.nu
             A_f = state["A"].reshape((N,) + state["A"].shape[2:])
             z_f = state["z"].reshape((N,) + state["z"].shape[2:])
             read = kops.assoc_read(x.reshape(N, T, D), small(p["mem"]["wq"]), A_f, z_f,
-                                   nu=nu)
+                                   nu=cfg.armt.nu)
             x = x + read.reshape(G, B, T, -1)
 
         pa = p["attn"]
@@ -100,30 +114,50 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
             k = rmsnorm(k, {"w": small(pa["kn"]["w"])[:, None, None, None, :]})
         q, k = rope_qk(q, k, cfg)
         o = kops.segment_attention(q, k, v, causal=True, window=cfg.sliding_window)
-        h = x + gemm(o.reshape(G, B, T, nq * hd), pa["wo"])
+        return x + gemm(o.reshape(G, B, T, nq * hd), pa["wo"]), A_f, z_f
 
+    def update(p, y, state, A_f, z_f, widx):
+        """The ARMT update from the last M rows of each group's y (two
+        launches at any B) -> the new state."""
+        small = helpers(widx)[0]
+        G, B, _, D = y.shape
+        M, pm = cfg.armt.num_mem_tokens, p["mem"]
+        A2, z2 = kops.assoc_update(y[:, :, -M:, :].reshape(G * B, M, D), small(pm["wk"]),
+                                   small(pm["wv"]), small(pm["wb"]), A_f, z_f,
+                                   nu=cfg.armt.nu)
+        return dict(state, A=A2.reshape(state["A"].shape), z=z2.reshape(state["z"].shape))
+
+    def fused_attn(p, x, state, widx=None):
+        small, snorm, gemm = helpers(widx)
+        B = x.shape[1]
+        h, A_f, z_f = attend(p, x, state, widx)
         pf = p["ffn"]
         h2 = snorm(h, p["ln2"])
         gate = gemm(h2, pf["wg"], activation="silu")
         up = gemm(h2, pf["wu"])
         if not armt_on:
-            return h + gemm(gate * up, pf["wd"]), new_state
-        pm = p["mem"]
-        wk, wv, wb = small(pm["wk"]), small(pm["wv"]), small(pm["wb"])
+            return h + gemm(gate * up, pf["wd"]), dict(state)
+        M, pm = cfg.armt.num_mem_tokens, p["mem"]
         if M > 0 and B == 1:
             y, A2, z2 = kops.grouped_gemm_armt_update(
-                gate * up, pf["wd"], h, wk, wv, wb, A_f, z_f, M=M, nu=nu, widx=widx)
-        else:
-            y = h + gemm(gate * up, pf["wd"])
-            if M == 0:
-                return y, new_state
-            A2, z2 = kops.assoc_update(y[:, :, -M:, :].reshape(N, M, D), wk, wv, wb,
-                                       A_f, z_f, nu=nu)
-        new_state["A"] = A2.reshape(state["A"].shape)
-        new_state["z"] = z2.reshape(state["z"].shape)
-        return y, new_state
+                gate * up, pf["wd"], h, small(pm["wk"]), small(pm["wv"]), small(pm["wb"]),
+                A_f, z_f, M=M, nu=cfg.armt.nu, widx=widx)
+            return y, dict(state, A=A2.reshape(state["A"].shape),
+                           z=z2.reshape(state["z"].shape))
+        y = h + gemm(gate * up, pf["wd"])
+        if M == 0:
+            return y, dict(state)
+        return y, update(p, y, state, A_f, z_f, widx)
 
-    cells = {"attn": fused_attn,
+    def fused_attn_moe(p, x, state, widx=None):
+        snorm = helpers(widx)[1]
+        h, A_f, z_f = attend(p, x, state, widx)
+        y = h + moe_ffn_grouped(snorm(h, p["ln2"]), p["moe"], cfg.moe, widx)
+        if not armt_on or cfg.armt.num_mem_tokens == 0:
+            return y, dict(state)
+        return y, update(p, y, state, A_f, z_f, widx)
+
+    cells = {"attn": fused_attn, "attn_moe": fused_attn_moe,
              "mamba": lambda p, x, state: mamba_block(p, x, cfg.ssm, state)}
 
     def grouped_apply(t, p, x, state, widx=None):
@@ -135,5 +169,5 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
             raise ValueError(f"the {t!r} cell takes no layer index")
         return cells[t](p, x, state, widx)
 
-    grouped_apply.indexed = ("attn",)
+    grouped_apply.indexed = ("attn", "attn_moe")
     return grouped_apply

@@ -4,14 +4,18 @@ schedule (``mode="segmented"``: the ARMT segments with memory;
 whole prompt and no memory), and the serving path (``decode_step``;
 ``serve_mode="armt"``: for ARMT models against the current-segment KV cache,
 with ``flush_segment`` at segment boundaries; ``serve_mode="cache"``: plain
-full-KV decoding against a cache of ``max_len`` rows). Two block types: the
-ARMT Llama ``attn`` block and the pure Mamba ``mamba`` block (falcon-mamba),
+full-KV decoding against a cache of ``max_len`` rows). Three block types:
+the ARMT ``attn`` block (dense SwiGLU FFN), the ARMT ``attn_moe`` block (MoE
+FFN; qwen2-moe, kimi-k2) and the pure Mamba ``mamba`` block (falcon-mamba),
 whose layer state (h, conv tail) the executors carry like ARMT's (A, z).
 
 Parameters are a dict tree in the reference layout: ``embed``,
 ``final_norm``, ``head`` (untied models), ``mem_tokens`` (ARMT),
-``prelude`` (empty here) and ``pattern``, a tuple with one dict per pattern
-position whose leaves are stacked over the ``n_super`` layers on dim 0.
+``prelude``, a tuple of one tree per prelude layer (kimi's dense first
+layer; empty for the other configs), and ``pattern``, a tuple with one
+dict per pattern position whose leaves are stacked over the ``n_super``
+layers on dim 0. Every executor and the decode path run the prelude
+layers first, as the reference does.
 ``Model`` holds such a tree as an ``nn.Module``.
 """
 from __future__ import annotations
@@ -29,11 +33,14 @@ from repro_torch.core.memory import mem_read, mem_update
 from repro_torch.core.schedule import StackLayout
 from repro_torch.core.sequential import (capture_init, capture_write_, clone_state,
                                          run_sequential, run_sequential_)
+from repro_torch.core.sequential import one_layer_cell as _one_layer_cell
 from repro_torch.models.attention import decode_attention
-from repro_torch.models.blocks import block_state_init, check_mode, make_apply_block
+from repro_torch.models.blocks import (ATTN_TYPES, apply_ffn, block_d_ff, block_state_init,
+                                       check_mode, make_apply_block)
 from repro_torch.models.grouped_blocks import make_grouped_apply
-from repro_torch.models.layers import rmsnorm, swiglu
+from repro_torch.models.layers import rmsnorm
 from repro_torch.models.mamba import mamba_block, mamba_param_init
+from repro_torch.models.moe import moe_param_init
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # segment length of a model without ARMT (the reference's fallback): no
@@ -61,35 +68,46 @@ def _normal(shape, scale, gen, device, dtype):
     """Normal weights drawn in fp32 on the generator's device, then cast and
     moved: with a CPU generator the same seed gives the same weights on
     every device. A stacked leaf ([n_super, ...]) is drawn one layer at a
-    time into its destination, so the generator's device holds one layer's
-    fp32 draw, not the stack's; on the CPU the values equal one draw of the
-    whole stack wherever a layer's size is a multiple of 16 (the CPU
+    time into its destination (a stack of experts, [n_super, E, ...], one
+    expert at a time), so the generator's device holds one such fp32 draw,
+    not the stack's; on the CPU the values equal one draw of the whole
+    stack wherever each draw's size is a multiple of 16 (the CPU
     generator's block)."""
     if len(shape) < 3:
         return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(
             device=device, dtype=dtype)
     out = torch.empty(shape, dtype=dtype, device=device)
     for j in range(shape[0]):
-        out[j].copy_(torch.randn(shape[1:], generator=gen, device=gen.device) * scale)
+        if len(shape) < 4:
+            out[j].copy_(torch.randn(shape[1:], generator=gen, device=gen.device) * scale)
+            continue
+        for e in range(shape[1]):
+            out[j, e].copy_(torch.randn(shape[2:], generator=gen, device=gen.device)
+                            * scale)
     return out
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, *, device=None) -> Dict:
     """Random weights in the reference tree layout and distributions, in
-    ``cfg.dtype`` (Mamba's A_log and D in fp32). generator: a CPU
-    ``torch.Generator`` (or an int seed), or a generator on ``device``,
-    which draws there (much faster for a model of billions of weights,
-    other numbers than the CPU generator's). The QKV biases start at zero
-    and the q/k norm weights at one, as in the reference."""
+    ``cfg.dtype`` (Mamba's A_log and D and the MoE router in fp32).
+    generator: a CPU ``torch.Generator`` (or an int seed), or a generator
+    on ``device``, which draws there (much faster for a model of billions
+    of weights, other numbers than the CPU generator's). The QKV biases
+    start at zero and the q/k norm weights at one, as in the reference.
+    Prelude layers are one tree each (leaves without the stack dim), the
+    pattern's leaves stacked over its ``n_super`` layers."""
     device = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     if isinstance(generator, int):
         generator = torch.Generator().manual_seed(generator)
     layout = StackLayout.from_config(cfg)
-    D, n = cfg.d_model, layout.n_super
+    D = cfg.d_model
 
     def nrm(shape, scale):
         return _normal(shape, scale, generator, device, dtype)
+
+    def nrm32(shape, scale):
+        return _normal(shape, scale, generator, device, torch.float32)
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
@@ -103,14 +121,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *, device=None) -> 
     a = cfg.armt
     if a is not None and a.num_mem_tokens > 0:
         params["mem_tokens"] = nrm((a.num_mem_tokens, D), 0.02)
-    params["prelude"] = ()
-    pattern = []
-    for t in layout.pattern:
+
+    def block(t, n, prelude=False):
+        """One block type's leaves stacked over n layers."""
         if t == "mamba":
-            pattern.append({"ln1": {"w": ones(n, D)},
-                            "mixer": mamba_param_init(D, cfg.ssm, n, nrm, dtype, device)})
-            continue
-        F, hd, nq, nkv = cfg.d_ff, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+            return {"ln1": {"w": ones(n, D)},
+                    "mixer": mamba_param_init(D, cfg.ssm, n, nrm, dtype, device)}
+        hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
         s = D ** -0.5
         attn = {"wq": nrm((n, D, nq * hd), s), "wk": nrm((n, D, nkv * hd), s),
                 "wv": nrm((n, D, nkv * hd), s), "wo": nrm((n, nq * hd, D), (nq * hd) ** -0.5)}
@@ -118,15 +135,22 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *, device=None) -> 
             attn.update(bq=zeros(n, nq * hd), bk=zeros(n, nkv * hd), bv=zeros(n, nkv * hd))
         if cfg.qk_norm:
             attn.update(qn={"w": ones(n, hd)}, kn={"w": ones(n, hd)})
-        block = {"ln1": {"w": ones(n, D)}, "attn": attn}
+        out = {"ln1": {"w": ones(n, D)}, "attn": attn}
         if a is not None:     # a plain Llama (no ARMT) has no memory weights
-            block["mem"] = {"wq": nrm((n, D, a.d_mem), s), "wk": nrm((n, D, a.d_mem), s),
-                            "wv": nrm((n, D, a.d_val or D), s), "wb": nrm((n, D, 1), s)}
-        block["ln2"] = {"w": ones(n, D)}
-        block["ffn"] = {"wg": nrm((n, D, F), s), "wu": nrm((n, D, F), s),
-                        "wd": nrm((n, F, D), F ** -0.5)}
-        pattern.append(block)
-    params["pattern"] = tuple(pattern)
+            out["mem"] = {"wq": nrm((n, D, a.d_mem), s), "wk": nrm((n, D, a.d_mem), s),
+                          "wv": nrm((n, D, a.d_val or D), s), "wb": nrm((n, D, 1), s)}
+        out["ln2"] = {"w": ones(n, D)}
+        if t == "attn_moe":
+            out["moe"] = moe_param_init(D, cfg.moe, n, nrm, nrm32)
+        else:
+            F = block_d_ff(cfg, t, prelude)
+            out["ffn"] = {"wg": nrm((n, D, F), s), "wu": nrm((n, D, F), s),
+                          "wd": nrm((n, F, D), F ** -0.5)}
+        return out
+
+    params["prelude"] = tuple(_tree_map(lambda path, leaf: leaf[0], block(t, 1, True))
+                              for t in layout.prelude)
+    params["pattern"] = tuple(block(t, layout.n_super) for t in layout.pattern)
     return params
 
 
@@ -143,7 +167,9 @@ def init_state(cfg: ArchConfig, batch: int, device, dtype=None,
         pattern.append({k: torch.zeros((layout.n_super,) + tuple(v.shape),
                                        dtype=v.dtype, device=device)
                         for k, v in st.items()})
-    return {"prelude": (), "pattern": tuple(pattern)}
+    prelude = tuple(block_state_init(t, cfg, batch, device, dtype, mode)
+                    for t in layout.prelude)
+    return {"prelude": prelude, "pattern": tuple(pattern)}
 
 
 def _tree_map(fn, tree, path=()):
@@ -202,21 +228,6 @@ def embed_segments(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
 def segment_len(cfg: ArchConfig) -> int:
     """Tokens per segment: the ARMT segment, else ``DEFAULT_SEG_LEN``."""
     return cfg.armt.segment_len if cfg.armt is not None else DEFAULT_SEG_LEN
-
-
-def _one_layer_cell(grouped_apply):
-    """The fused grouped cell applied to one layer: the executors' block
-    signature on a band of G = 1 (param and state leaves gain a leading dim
-    of 1, x [B, T, D] becomes [1, B, T, D]; views, no copies)."""
-    def lift(tree):
-        if isinstance(tree, dict):
-            return {k: lift(v) for k, v in tree.items()}
-        return tree[None]
-
-    def apply(t, p, x, state):
-        y, new = grouped_apply(t, lift(p), x[None], lift(state))
-        return y[0], {k: v[0] for k, v in new.items()}
-    return apply
 
 
 def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -397,17 +408,19 @@ def decode_state_init(cfg: ArchConfig, batch: int, *, dtype, device,
     check_serve_mode(serve_mode)
     layout = StackLayout.from_config(cfg)
     a = cfg.armt if serve_mode == "armt" else None
-    if a is None and max_len is None and "attn" in layout.pattern:
+    if a is None and max_len is None and set(layout.layer_types) & set(ATTN_TYPES):
         raise ValueError(f"decode_state_init(serve_mode={serve_mode!r}) of "
                          f"{cfg.name} needs max_len for its KV cache")
     state = init_state(cfg, batch, device, dtype,
                        "segmented" if serve_mode == "armt" else "full")
-    for t, st in zip(layout.pattern, state["pattern"]):
-        if t == "attn":
-            rows = a.segment_len + a.num_mem_tokens if a is not None else max_len
-            cache = (layout.n_super, batch, rows, cfg.n_kv_heads, cfg.head_dim)
-            st["k"] = torch.zeros(cache, dtype=dtype, device=device)
-            st["v"] = torch.zeros(cache, dtype=dtype, device=device)
+    rows = a.segment_len + a.num_mem_tokens if a is not None else max_len
+    for lead, types, part in (((), layout.prelude, "prelude"),
+                              ((layout.n_super,), layout.pattern, "pattern")):
+        for t, st in zip(types, state[part]):
+            if t in ATTN_TYPES:
+                cache = lead + (batch, rows, cfg.n_kv_heads, cfg.head_dim)
+                st["k"] = torch.zeros(cache, dtype=dtype, device=device)
+                st["v"] = torch.zeros(cache, dtype=dtype, device=device)
     state["pos"] = (torch.zeros(batch, dtype=torch.long, device=device)
                     if per_slot_pos else 0)
     return state
@@ -415,23 +428,24 @@ def decode_state_init(cfg: ArchConfig, batch: int, *, dtype, device,
 
 def make_decode_apply(cfg: ArchConfig, serve_mode: str, pos, mask=None):
     """Block apply for decode: x [B, Tq, D] against the layer's cache
-    (attn; with the memory read in 'armt' mode), which it updates in place
-    (with mask, bool [B], only the True rows), or its carried SSM state
-    (mamba: the new h and conv tail are returned for the executor to
-    write)."""
+    (attn and attn_moe; with the memory read in 'armt' mode), which it
+    updates in place (with mask, bool [B], only the True rows), or its
+    carried SSM state (mamba: the new h and conv tail are returned for the
+    executor to write). A MoE layer dispatches all B * Tq tokens, the rows
+    the mask freezes included, as the reference does."""
     check_serve_mode(serve_mode)
     armt_on = serve_mode == "armt" and cfg.armt is not None
 
     def apply(t, p, x, st):
         if t == "mamba":
             return mamba_block(p, x, cfg.ssm, st)
-        if t != "attn":
+        if t not in ATTN_TYPES:
             raise ValueError(t)
         if armt_on:
             x = x + mem_read(p["mem"], st, x, cfg.armt)
         h = x + decode_attention(rmsnorm(x, p["ln1"]), p["attn"], cfg,
                                  {"k": st["k"], "v": st["v"]}, pos, mask)
-        return h + swiglu(rmsnorm(h, p["ln2"]), p["ffn"]), st
+        return apply_ffn(cfg, t, h, p), st
     return apply
 
 

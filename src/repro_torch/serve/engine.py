@@ -83,8 +83,9 @@ from repro_torch.core.capture import Program
 from repro_torch.core.memory import RECURRENT_KEYS
 from repro_torch.core.schedule import StackLayout, n_diagonal_groups, pool_cells_remaining
 from repro_torch.core.sequential import clone_state
-from repro_torch.models.blocks import make_apply_block
+from repro_torch.models.blocks import block_d_ff, make_apply_block
 from repro_torch.models.grouped_blocks import make_grouped_apply
+from repro_torch.models.moe import capacity
 from repro_torch.models.model import (SCHEDULES, boundary_logits, check_serve_mode,
                                       copy_state_, decode_state_init, decode_step_,
                                       embed_segments, flush_segment_, forward_hidden,
@@ -581,14 +582,26 @@ class ServeEngine:
           * two executor states (the stage's own copy and the one chained
             from the stage before) and the decode state the tail fills;
           * what the cell holds at its peak over the widest band, min(L, S)
-            layers, per group of B * T rows: the attn cell at its down
-            projection (gate, up and their product, F wide each; q, k, v;
-            seven D-wide activations; a pooled step's copy of the band) and
-            three copies of a layer's recurrent state (the new one, the
-            memory update's, a pooled step's); the mamba cell at its scan
-            (the in projection, 2 d_inner wide; the conv's input and output,
-            dt and the scan's output, d_inner each; three D-wide) and the
-            same state copies.
+            layers (the pattern's cell over min(n_super, S) layers, or a
+            prelude layer's cell alone, whichever is more), per group of B
+            * T rows: the attn cell at its down projection (gate, up and
+            their product, F wide each, F the prelude's width in a prelude
+            layer; q, k, v; seven D-wide activations; a pooled step's copy
+            of the band); the attn_moe cell at the larger of its attention
+            (the attn cell without the FFN) and its MoE: the eight D-wide
+            activations and the largest of the MoE's phases, which run one
+            after another: the router (x in fp32, the logits, their
+            softmax), per dispatch group of capacity C the expert products
+            (E * C rows of the dispatch buffer and the gate product, and
+            either the up product or the experts' output, F and D wide),
+            the combine (the experts' output, the fp32 accumulator and a
+            term, a gathered row and its gated copy) and the shared expert
+            (its three activations, the routed output, its down product and
+            the sum); the mamba cell at its scan (the in
+            projection, 2 d_inner wide; the conv's input and output, dt and
+            the scan's output, d_inner each; three D-wide); and three
+            copies of a layer's recurrent state (the new one, the memory
+            update's, a pooled step's).
 
         With a prefix cache an admission captures its boundary states, and
         it also holds, at its end, the per-step capture (S + L - 1 stacked
@@ -608,14 +621,29 @@ class ServeEngine:
             cfg, batch, dtype=dtype, device=meta, serve_mode=self.serve_mode,
             max_len=self.max_len))
         rows, D = batch * self._segment_rows(), cfg.d_model
-        if self._layout.pattern[0] == "attn":
-            width = (3 * cfg.d_ff + 8 * D
-                     + (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim)
-        else:
-            width = 3 * D + 6 * cfg.ssm.expand * D
-        cell = rows * width * item + 3 * state // L
+        lay = self._layout
+
+        def cell(t: str, prelude: bool) -> int:
+            """One layer's transients at its cell's peak."""
+            if t == "mamba":
+                return rows * (3 * D + 6 * cfg.ssm.expand * D) * item
+            width = 8 * D + (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+            if t != "attn_moe":
+                return rows * (width + 3 * block_d_ff(cfg, t, prelude)) * item
+            m = cfg.moe
+            Q = batch if m.dispatch == "per_row" and batch > 1 else 1
+            C = capacity(rows // Q, m)
+            E, F = m.n_experts, m.d_expert
+            moe = max(rows * 4 * (D + 3 * E),
+                      Q * E * C * max(2 * D + F, D + 2 * F) * item,
+                      Q * E * C * D * item + rows * D * (8 + 2 * item),
+                      rows * (3 * D + 3 * m.d_shared) * item)
+            return max(rows * width * item, rows * 8 * D * item + moe)
+
+        band = max([cell(t, True) for t in lay.prelude]
+                   + [min(lay.n_super, S) * cell(lay.pattern[0], False)])
         total = (self.prefill_carry_bytes(S, batch, stream=stream) + 2 * state + dstate
-                 + min(L, S) * cell)
+                 + band + min(L, S) * (3 * state // L))
         if self.prefix_cache is not None:
             total += (2 * S + L - 1) * state + S * batch * cfg.vocab * (8 + item)
         return total

@@ -217,10 +217,34 @@ def test_flash_attention_tc_hd_80_on_card(cuda, N, Hq, Hkv, T, hd, causal, windo
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Hq,Hkv,T,causal,window", [
+    (1, 8, 1, 1, True, 0),          # one row
+    (2, 8, 1, 129, True, 0),        # two query tiles, the second of one row
+    (1, 64, 8, 1100, True, 0),      # kimi-k2's heads over 18 key tiles
+    (1, 8, 1, 1100, True, 300),     # a causal window starting mid-tile
+    (1, 8, 2, 200, False, 50),      # a non-causal window
+])
+def test_flash_attention_hd_112_on_card(cuda, dtype, N, Hq, Hkv, T, causal, window):
+    """Head dim 112 (kimi-k2-1t-a32b): bf16 on the TMA + wgmma kernel (hd
+    128's tile layout, the last 16 columns zero-filled on chip), fp32 on
+    flash_simt, each against its plain version."""
+    r = _rand(torch.Generator().manual_seed(T + window + 112), cuda, dtype)
+    q, k, v = r(N, Hq, T, 112), r(N, Hkv, T, 112), r(N, Hkv, T, 112)
+    assert flash_attention.route(q, k, v) == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    run = lambda: flash_attention.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                                  window=window)
+    out = _flash_tc(run) if dtype == torch.bfloat16 else run()
+    _close(out, flash_attention.flash_attention_plain(*_f32(q, k, v), causal=causal,
+                                                      window=window), TOL[dtype])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("G,B,T,Hq,Hkv,hd", [
     (16, 1, 1152, 32, 8, 64),    # llama-1b-armt's full band step, the main shape
     (4, 2, 1152, 24, 8, 128),    # llama-3b-armt's heads, two batch rows
     (4, 1, 1152, 32, 8, 80),     # h2o-danube-1.8b's heads
+    (2, 1, 1152, 64, 8, 112),    # kimi-k2-1t-a32b's heads
 ])
 def test_flash_attention_cell_layout_on_card(cuda, G, B, T, Hq, Hkv, hd):
     """The grouped cell's [G,B,T,H,hd] activations through
@@ -260,6 +284,8 @@ def test_armt_memory_on_card(cuda, dtype):
     (3, 4, 4, 77, 64, (77, 40, 1), 0),               # rep 1, ragged cache length
     (2, 8, 2, 100, 40, (100, 63), 17),               # hd 40, sliding window
     (2, 4, 1, 33, 128, (33, 5), 9),                  # MQA, hd 128, window past the start
+    (4, 64, 8, 1152, 112, (1152, 517, 1, 1025), 0),  # kimi-k2: rep 8, hd 112, ARMT cache
+    (4, 16, 16, 2112, 128, (2049, 2064, 1, 1500), 0),  # qwen2-moe: rep 1, cache mode
 ])
 def test_decode_attention_on_card(cuda, dtype, B, Hq, Hkv, S, hd, lens, window):
     from repro_torch.kernels import decode_attention as da
@@ -312,6 +338,30 @@ def test_decode_attention_rep_16_on_card(cuda, dtype, S, lens, window):
     for b in range(4):
         alone = da.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], lengths[b:b + 1],
                                     window=window)
+        assert torch.equal(out[b], alone[0]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,hd,S,lens", [
+    (64, 8, 112, 1152, (1152, 517, 1, 1025)),    # kimi-k2's ARMT decode cache
+    (64, 8, 112, 2112, (2049, 2064, 1, 1500)),   # kimi-k2's cache mode
+    (16, 16, 128, 1152, (1152, 517, 1, 1025)),   # qwen2-moe's ARMT decode cache
+    (16, 16, 128, 2112, (2049, 2064, 1, 1500)),  # qwen2-moe's cache mode
+])
+def test_decode_attention_moe_heads_on_card(cuda, dtype, Hq, Hkv, hd, S, lens):
+    """The MoE configs' decode heads, rep 8 at hd 112 (one head group of
+    896 outputs) and rep 1 at hd 128, on contiguous caches as the model
+    holds them: against the plain version, and a row batched with 3 others
+    equal, to the bit, to the row alone."""
+    from repro_torch.kernels import decode_attention as da
+    r = _rand(torch.Generator().manual_seed(S + hd), cuda, dtype)
+    q, k, v = r(4, Hq, hd), r(4, S, Hkv, hd), r(4, S, Hkv, hd)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = da.decode_attention(q, k, v, lengths)
+    _close(out, da.decode_attention_plain(*_f32(q, k, v), lengths), TOL[dtype])
+    for b in range(4):
+        alone = da.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], lengths[b:b + 1])
         assert torch.equal(out[b], alone[0]), b
 
 
@@ -1048,3 +1098,109 @@ def test_sequential_capture_under_graphs_on_card(cuda):
         assert caps[0]["pattern"][0][k].shape[0] == 3
         for other in caps[1:]:
             assert _same(caps[0]["pattern"][0][k], other["pattern"][0][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,E,C,D,F,pooled", [
+    (2, 60, 96, 256, 1408, False),   # qwen2-moe's experts at its capacity (D cut)
+    (3, 8, 40, 136, 72, True),       # ragged, a layer index over a 4-layer stack
+])
+def test_moe_expert_gemm_on_card(cuda, G, E, C, D, F, pooled):
+    """The MoE cell's expert products: grouped GEMMs over [G*E, C, D] against
+    the view [Lw*E, D, F] of the stacked experts, the silu on the gate's
+    epilogue, group (g, e) reading expert widx[g] * E + e with a layer
+    index; against torch.bmm on the gathered experts (fp32), each launch on
+    the TMA + wgmma route."""
+    r = _rand(torch.Generator().manual_seed(E + D), cuda, torch.bfloat16)
+    Lw = 4 if pooled else G
+    x, wg, wu = r(G * E, C, D), r(Lw, E, D, F, sc=D ** -0.5), r(Lw, E, D, F, sc=D ** -0.5)
+    lw = torch.tensor([3, 0, 3][:G], device=cuda) if pooled else torch.arange(G, device=cuda)
+    e = (lw[:, None] * E + torch.arange(E, device=cuda)).reshape(-1)
+    widx = e.to(torch.int32) if pooled else None
+    g = _tc_launch(lambda: grouped_matmul.grouped_matmul(
+        x, wg.reshape(-1, D, F), activation="silu", widx=widx))
+    u = _tc_launch(lambda: grouped_matmul.grouped_matmul(x, wu.reshape(-1, D, F), widx=widx))
+    xf = x.float()
+    want_g = torch.bmm(xf, wg.reshape(-1, D, F)[e].float())
+    _close(g, want_g * torch.sigmoid(want_g), 1e-2)
+    _close(u, torch.bmm(xf, wu.reshape(-1, D, F)[e].float()), 1e-2)
+
+
+def _moe_cfg(dtype="float32"):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    return dataclasses.replace(cfg, d_model=64, n_heads=4, n_kv_heads=4, d_head=16,
+                               moe=dataclasses.replace(cfg.moe, n_experts=8, top_k=2,
+                                                       d_expert=48, d_shared=64),
+                               dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,dispatch,indexed", [(1, "global", False), (2, "global", True),
+                                               (2, "per_row", False)])
+def test_fused_moe_cell_matches_plain_block_on_card(cuda, B, dispatch, indexed):
+    """The fused attn_moe cell on the kernels (fp32, so that its routing is
+    the plain block's) against the plain block applied slot by slot over a
+    band of both layers; with a layer index [1, 0] over the stack too."""
+    import dataclasses
+    from repro_torch.core.diagonal import _per_slot_apply
+    from repro_torch.models import model as M
+    from repro_torch.models.blocks import make_apply_block
+    from repro_torch.models.grouped_blocks import make_grouped_apply
+    cfg = _moe_cfg()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch=dispatch))
+    p = M.init_params(cfg, 0, device=cuda)["pattern"][0]
+    T = cfg.armt.segment_len + cfg.armt.num_mem_tokens
+    x = _rand(torch.Generator().manual_seed(B), cuda, torch.float32)(2, B, T, cfg.d_model)
+    g = torch.Generator().manual_seed(1)
+    st = {k: (torch.rand(v.shape, generator=g) + 0.1).to(cuda)
+          for k, v in M.init_state(cfg, B, "cpu")["pattern"][0].items()}
+    cell = make_grouped_apply(cfg)
+    if indexed:
+        got, gst = cell("attn_moe", p, x, st, torch.tensor([1, 0], dtype=torch.int32,
+                                                           device=cuda))
+
+        def pick(t):
+            return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) else t[[1, 0]]
+        p = pick(p)
+    else:
+        got, gst = cell("attn_moe", p, x, st)
+    want, wst = _per_slot_apply(make_apply_block(cfg))("attn_moe", p, x, st)
+    _close(got, want, 1e-4)
+    _close(gst["A"], wst["A"], 1e-4)
+
+
+@pytest.mark.cuda
+def test_moe_tokens_kernel_experts_match_plain_on_card(cuda):
+    """bf16 moe_tokens with the experts on the grouped GEMM against the same
+    call with torch.matmul experts: one routing (the same input), so only
+    the products' rounding differs."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    cfg = _moe_cfg("bfloat16")
+    mcfg = cfg.moe
+    r = _rand(torch.Generator().manual_seed(3), cuda, torch.bfloat16)
+    D, E, F = cfg.d_model, mcfg.n_experts, mcfg.d_expert
+    p = {"router": torch.randn(2, D, E, generator=torch.Generator().manual_seed(4)
+                               ).to(cuda) * D ** -0.5,
+         "wg": r(2, E, D, F, sc=D ** -0.5), "wu": r(2, E, D, F, sc=D ** -0.5),
+         "wd": r(2, E, F, D, sc=F ** -0.5)}
+    x = r(2, 300, D)
+
+    def kernel(buf):
+        Q, _, C, _ = buf.shape
+        xb = buf.reshape(Q * E, C, D)
+        g = ops.grouped_gemm(xb, p["wg"].reshape(-1, D, F), activation="silu")
+        g = g * ops.grouped_gemm(xb, p["wu"].reshape(-1, D, F))
+        return ops.grouped_gemm(g, p["wd"].reshape(-1, F, D)).reshape(Q, E, C, D)
+
+    def plain(buf):
+        g = torch.matmul(buf.float(), p["wg"].float())
+        u = torch.matmul(buf.float(), p["wu"].float())
+        return torch.matmul(torch.nn.functional.silu(g) * u, p["wd"].float()).to(buf.dtype)
+    tc = grouped_matmul.tc_launches
+    got = moe.moe_tokens(x, p["router"], mcfg, kernel)
+    want = moe.moe_tokens(x, p["router"], mcfg, plain)
+    assert grouped_matmul.tc_launches - tc == 3
+    _close(got, want, 1e-2)

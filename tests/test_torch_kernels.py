@@ -337,6 +337,19 @@ def test_flash_route_takes_tensor_cores_at_hd_80(q, k, want):
     assert flash_attention.route(q, k, k) == want
 
 
+@pytest.mark.parametrize("q,k,want", [
+    (_attn(2, 64, 33, 112), _attn(2, 8, 33, 112), "wgmma"),               # kimi-k2's heads
+    (_cell(40, 64, 112), _cell(40, 8, 112), "wgmma"),                     # its cell's strided views
+    (_attn(2, 8, 33, 112, torch.float32), _attn(2, 1, 33, 112, torch.float32), "simt"),
+    (_attn(2, 8, 33, 116)[..., :112], _attn(2, 1, 33, 112), "simt"),      # 232-byte q rows
+])
+def test_flash_route_takes_tensor_cores_at_hd_112(q, k, want):
+    """Head dim 112 takes the TMA + wgmma kernel under the same conditions
+    as 64, 80 and 128 (bf16, 16-byte-aligned bases, strides multiples of 8)."""
+    assert 112 in flash_attention.TC_HEAD_DIMS
+    assert flash_attention.route(q, k, k) == want
+
+
 def test_flash_strides_replace_size_one_dims():
     one = _attn(1, 1, 1, 64).as_strided((1, 1, 1, 64), (3, 5, 7, 1))
     assert flash_attention._strides(one) == (64, 64, 64)

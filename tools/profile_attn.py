@@ -29,12 +29,17 @@ decode), the bound and the kernel's multiple of it:
   decode rep16 the same cache with chatglm3-6b's heads: 32 q heads over 2
                kv heads of 128 dims, every slot at 1024 keys;
   flash hd80   the flash hd64 case with h2o-danube-1.8b's heads: 32 q
-               heads, 8 kv heads, hd 80.
+               heads, 8 kv heads, hd 80;
+  flash hd112  the same with kimi-k2-1t-a32b's heads: 64 q heads, 8 kv
+               heads, hd 112 (a tree from before hd 112's TMA + wgmma
+               route runs it on flash_simt, so against such a tree its
+               count is not a claim of equal bits).
 
 With ``--outputs FILE`` it saves each case's output; with ``--against
 FILE`` it counts the output elements that differ from another run's saved
-outputs (the parent's kernels against the change's, bit for bit). The last
-line is a JSON object of every number. Nothing is gated.
+outputs (the parent's kernels against the change's, bit for bit), and
+prints the cases with none differing. The last line is a JSON object of
+every number. Nothing is gated.
 """
 from __future__ import annotations
 
@@ -106,15 +111,20 @@ def main() -> int:
                    lambda: decode_attention.decode_attention(qd, kd, vd, L),
                    lambda: torch.nn.functional.scaled_dot_product_attention(
                        q4, k4, v4, attn_mask=mask, enable_gqa=True), nbytes / PEAK_BYTES * 1e3)
-    G, T, Hq, Hkv, hd = 16, 1152, 32, 8, 80
-    q5, k5, v5 = rnd(G, 1, T, Hq, hd), rnd(G, 1, T, Hkv, hd), rnd(G, 1, T, Hkv, hd)
-    qc, kc, vc = (a[:, 0].transpose(1, 2).contiguous() for a in (q5, k5, v5))
-    pairs = T * (T + 1) / 2
-    bound = max(4.0 * G * Hq * hd * pairs / PEAK_BF16, G * Hq * pairs / exp_rate) * 1e3
-    report("flash hd80", lambda: ops.segment_attention(q5, k5, v5, causal=True),
-           lambda: torch.nn.functional.scaled_dot_product_attention(
-               qc, kc, vc, is_causal=True, enable_gqa=True), bound)
+    for name, (G, T, Hq, Hkv, hd) in [("flash hd80", (16, 1152, 32, 8, 80)),
+                                      ("flash hd112", (16, 1152, 64, 8, 112))]:
+        q5, k5, v5 = rnd(G, 1, T, Hq, hd), rnd(G, 1, T, Hkv, hd), rnd(G, 1, T, Hkv, hd)
+        qc, kc, vc = (a[:, 0].transpose(1, 2).contiguous() for a in (q5, k5, v5))
+        pairs = T * (T + 1) / 2
+        bound = max(4.0 * G * Hq * hd * pairs / PEAK_BF16, G * Hq * pairs / exp_rate) * 1e3
+        report(name, lambda: ops.segment_attention(q5, k5, v5, causal=True),
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qc, kc, vc, is_causal=True, enable_gqa=True), bound)
+        del q5, k5, v5, qc, kc, vc
     outputs.save()
+    if args.against:
+        same = [k for k, v in results.items() if v.get("differing_from_against") == 0]
+        print(f"  cases with 0 differing elements against {args.against}: {same}", flush=True)
     print(json.dumps({"card": smi, "src": str(args.src), **results}))
     return 0
 
