@@ -36,7 +36,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       slots on the ARMT decode cache of 1,152 rows and on the cache mode's
       2,112, each row batched equal to the row alone to the bit, beside
       SDPA) and armt_update at kimi-k2's width (3 layers' last 128 rows of
-      7,168, B = 1, as the attn_moe cell calls it);
+      7,168, B = 1, as the attn_moe cell calls it); jamba-1.5-large's
+      shapes: flash over its attention band (2 layers, 64 q over 8 kv
+      heads of 128), decode at 64 q over 8 kv heads of 128 (the same
+      slots and caches, rows alone = batched) and mamba_scan over its
+      band (2 layers, T = 1,152, d_inner 16,384, fused);
   (c) model: llama-1b-armt at full width and depth (random weights from a
       seed, bf16), diagonal prefill on the kernels against the sequential
       schedule on the plain path: 16 segments free-running, gated on the
@@ -219,6 +223,35 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       torch.bmm, the whole fused moe_ffn against its plain version in
       fp32. No SIMT GEMM or flash may launch. Prints a
       ``{"moe_configs": ...}`` line;
+  (t) after (s): (t4) the blockwise cell FFN on llama-1b-armt at full
+      width and depth (cell_block 256, 16 segments, B = 1): diagonal
+      against sequential to the bit, the hidden states against cell_block
+      0 (the first 2 segments' relative error within 1e-2, the worst row
+      printed), armt_update launched in place
+      of the fused update, and a 16-segment admission's peak lower than
+      at cell_block 0 and at or below its estimate; then
+      jamba-1.5-large-398b at full width (d_model 8,192, 64/8 heads of
+      128 without rotary, FFN and experts 24,576, top-2, d_inner 16,384,
+      vocab 65,536) with 2 of its 9 superblocks (16 of 72 layers: 2 attn,
+      6 mamba with their dense FFN, 8 mamba_moe) and 4 of its 16 experts,
+      bf16, weights drawn on the card (the cuts listed with their bytes
+      from init_params' leaves): (t1) the 4- and 16-segment prefill at B =
+      1 and 2, diagonal (its strided bands) against sequential to the bit
+      (hidden, logits, every layer's state), and at 16 segments B = 1 the
+      boundary states of both captures; the warm prefill times (median
+      of 3); (t2) at segment 0 the fused mamba_moe and mamba cells over
+      both superblocks' layers of their position (a strided band) against
+      the plain block: the first mamba layer within 5e-2 (its h and conv
+      tail too), the first MoE layer's routing-agreeing tokens within
+      5e-2, the flips counted; the MoE band timed; (t5) the expert gate
+      GEMM at [2*4, 720, 8192] x [8192, 24576] on the model's experts,
+      each of layer 1's against fp32 torch.bmm, timed beside torch.bmm;
+      (t3) generate captured against eager in ARMT mode (a flush crossed)
+      and cache mode (2,048 tokens), serve blocking against k = 4, a
+      3-segment prefix-cache hit against an engine without a cache (the
+      cold run too), and the admission's peak at or below
+      prefill_activation_bytes at 4 and 16 segments. No SIMT GEMM or flash
+      may launch, and every kernel must. Prints a ``{"jamba": ...}`` line;
   (p4) after (h): a falcon-mamba-7b session (2 x 8192 + 1000 tokens, then
       500), spilled and restored against kept in memory to the bit (h and
       the bf16 conv tail), resume TTFT against re-prefilling the history
@@ -231,7 +264,7 @@ place), and so does the sequential schedule's segment; the eager engines
 to be held against them here and in the card tests.
 
 The kernels' launch counters are set to 0 just before each main-path run
-of (d), (e), (i), (k), (l), (o), (p1)-(p4), (r), (s), (g), (h) and falcon's
+of (d), (e), (i), (k), (l), (o), (p1)-(p4), (r), (s), (t), (g), (h) and falcon's
 fused run of (o), and read just after it (a phase's count is the sum over its runs; a
 graph replay counts what its capture launched, so the counts read the
 same under graphs as eager): every llama kernel must have been launched
@@ -240,7 +273,8 @@ in (d), every one but armt_update (which runs only at B > 1) in (e), in
 prefix-cache (p1-p2) and session (p3) runs (``prefix_cache``,
 ``sessions``) and in (r) (``dense_configs``), every one in (s)
 (``moe_configs``: armt_update through the MoE cell at B = 1, the fused
-update through kimi's dense prelude layer), the GEMM and
+update through kimi's dense prelude layer) and in (t) (``jamba``, with
+mamba_scan), the GEMM and
 flash in (i) and flash and decode attention in (k) and (l), with none of
 the ARMT memory kernels there, and mamba_scan in (g), (h) and falcon's
 interleaved run and session run (p4). ``serve`` runs at its default of 4 band steps per
@@ -248,7 +282,7 @@ chunk (interleaved admission) in (e), (l) and (h). The GEMM's and flash attentio
 launches are also counted by route (the TMA + wgmma kernel or the fp32 SIMT
 kernel; for the GEMM whoever called it: projections, the fused op, the
 ARMT kernels' projections): the bf16 runs of (d),
-(e), (i), (k), (l), (o), (p1)-(p3), (r) and (s) must launch no SIMT GEMM and
+(e), (i), (k), (l), (o), (p1)-(p3), (r), (s) and (t) must launch no SIMT GEMM and
 no SIMT flash. One decode_attention
 call (its partials and their combine) counts as one launch.
 The script prints JSON lines of the schedules' timing, of the graph
@@ -1009,6 +1043,34 @@ def main() -> int:
         failures.append(f"flash_attention at hd 112 took the {route112} route")
     del q5, k5, v5, qc, kc, vc
     torch.cuda.empty_cache()
+    # jamba-1.5-large's attention band (phase (t)): 2 layers (its 2
+    # superblocks' attn layers), 64 q over 8 kv heads of 128, no rotary
+    Gj, Hqj, Hkvj, hdj = 2, 64, 8, 128
+
+    def flat_j(a):
+        return a.reshape((Gj,) + a.shape[2:]).transpose(1, 2)
+    q5, k5, v5 = rnd(Gj, 1, T, Hqj, hdj), rnd(Gj, 1, T, Hkvj, hdj), rnd(Gj, 1, T, Hkvj, hdj)
+    ref32 = flash_attention.flash_attention_plain(flat_j(q5).float(), flat_j(k5).float(),
+                                                  flat_j(v5).float())
+    err = check(f"flash_attention causal GQA jamba band [{Gj},{Hqj},1152,{hdj}]",
+                ops.segment_attention(q5, k5, v5, causal=True),
+                ref32.transpose(1, 2).reshape(q5.shape), TOL_BF16)
+    del ref32
+    qc, kc, vc = flat_j(q5).contiguous(), flat_j(k5).contiguous(), flat_j(v5).contiguous()
+    routej = flash_attention.route(flat_j(q5), flat_j(k5), flat_j(v5))
+    t = timed(f"flash_attention jamba band [{Gj},{Hqj},1152,{hdj}] (route {routej})",
+              lambda: ops.segment_attention(q5, k5, v5, causal=True),
+              lambda: flash_attention.flash_attention_plain(flat_j(q5), flat_j(k5), flat_j(v5)),
+              lambda: torch.nn.functional.scaled_dot_product_attention(
+                  qc, kc, vc, is_causal=True, enable_gqa=True),
+              flops_bf16=4.0 * Gj * Hqj * hdj * pairs_b, exps=Gj * Hqj * pairs_b,
+              nbytes=2.0 * Gj * (2 * Hqj * T * hdj + 2 * Hkvj * T * hdj))
+    long_rows["flash_attention"]["jamba band [2,64,1152,128]"] = dict(
+        t, max_abs_err=err, route=routej)
+    if routej != "wgmma":
+        failures.append(f"flash_attention at jamba's band took the {routej} route")
+    del q5, k5, v5, qc, kc, vc
+    torch.cuda.empty_cache()
     Hqg, Hkvg, hdg = 32, 2, 128
     log(f"  decode_attention at {Hqg // Hkvg} q heads per kv head of {hdg}: head groups "
         f"{decode_attention.head_groups(Hqg // Hkvg, hdg)} (heads a block, blocks a kv head)")
@@ -1047,7 +1109,8 @@ def main() -> int:
     # heads of 112 (rep 8, one head group of 896 outputs) and qwen2-moe's 16
     # over 16 of 128 (rep 1), 4 slots, on the ARMT decode cache (seg_len + M
     # rows) and the cache mode's (a 2048-token prompt + 64 rows)
-    for Hqm, Hkvm, hdm in ((64, 8, 112), (16, 16, 128)):
+    # (and jamba-1.5-large's 64 over 8 of 128, rep 8, phase (t))
+    for Hqm, Hkvm, hdm in ((64, 8, 112), (16, 16, 128), (64, 8, 128)):
         rep = Hqm // Hkvm
         for Sm, lens in ((T, (1152, 517, 1, 1025)), (2112, (2049, 2064, 1, 1500))):
             qd = rnd(4, Hqm, hdm)
@@ -1197,6 +1260,18 @@ def main() -> int:
         unfused={k: by_rows["G=16 unfused"][k] for k in ("ms", "plain_ms", "bound_ms")},
         ms_by_rows={k: v["ms"] for k, v in by_rows.items()},
         shape=f"x[16,{Tm},{dIm}] bf16 dS {dSm}, 16 groups, raw dt, dt_bias and z fused")
+    # jamba-1.5-large's band (phase (t)): 2 layers of one pattern position,
+    # B = 1, T = 1152, d_inner 16,384, the fused form
+    Nj, Tj, dIj = 2, 1152, 16384
+    c = scan_inputs(Nj, Tj, dIj, dSm, Nj, torch.bfloat16)
+    e = scan_check(f"mamba_scan jamba band G={Nj} x[{Nj},{Tj},{dIj}] bf16 dS {dSm} fused,", c,
+                   True)
+    t = timed(f"mamba_scan jamba band G={Nj} [{Nj},{Tj},{dIj}] dS {dSm} fused",
+              lambda: run_scan(c, True), lambda: plain_scan(c, True, f32=False),
+              **scan_bound(float(Nj * Tj * dIj), Nj, Tj, dIj, dSm, True))
+    long_rows["mamba_scan"] = {f"jamba band G={Nj} [{Nj},{Tj},{dIj}] fused": dict(
+        t, max_abs_err=e)}
+    del c
     dec = scan_inputs(4, 1, dIm, dSm, 1, torch.bfloat16)
     for fused in (False, True):
         scan_check(f"mamba_scan decode x[4,1,{dIm}] bf16 {'fused' if fused else 'unfused'},",
@@ -3124,11 +3199,459 @@ def main() -> int:
     launches_moe, routes_moe, moe_rows = moe_config_phase()
     print(json.dumps({"moe_configs": moe_rows, "card": smi}))
 
+    # ------------------------------------------------------------ (t) cell_block, jamba
+    def jamba_phase():
+        """(t4) the blockwise cell FFN on llama-1b-armt at full width and
+        depth, then (t1)-(t3) jamba-1.5-large-398b at full width with 2 of
+        its 9 superblocks and 4 of its 16 experts (the whole model, 398 B
+        parameters, fits no card), bf16, weights drawn on the card from the
+        seed; (t5) the expert gate GEMM at the band's shape. Returns
+        (launches and routes summed over the phase's runs, the results)."""
+        from repro_torch.core.sequential import layer_slice
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.models.blocks import make_apply_block
+        from repro_torch.models.grouped_blocks import make_grouped_apply
+        from repro_torch.serve import PrefixCache
+        from repro_torch.serve.state_store import tree_nbytes
+        t_phase = time.perf_counter()
+        M.SegmentProgram._cache.clear()
+        torch.cuda.empty_cache()
+        launches, routes, out = {}, {}, {}
+
+        def add(n, r):
+            nonlocal launches, routes
+            launches, routes = merged(launches, n), merged(routes, r)
+            return n, r
+
+        def fwd(p, c, tk, **kw):
+            with torch.no_grad():
+                res = M.forward_hidden(p, c, tk, **kw)
+                return res[0], res[1:], M.boundary_logits(p, c, res[0])
+
+        def states_equal(a, b):
+            return {f"{part}{j}.{k}": same_bits(x[k], y[k])
+                    for part in ("prelude", "pattern")
+                    for j, (x, y) in enumerate(zip(a[part], b[part])) for k in x}
+
+        def admission_peak(eng, n_seg, seg):
+            """An admission of n_seg whole segments + 100 tokens through the
+            resumable pipeline (4 band steps a call): its peak memory above
+            its start, and prefill_activation_bytes(n_seg)."""
+            est = eng.prefill_activation_bytes(n_seg, stream=False)
+            prompt = rng.integers(0, eng.cfg.vocab, n_seg * seg + 100)
+            with torch.no_grad():
+                torch.cuda.empty_cache()
+                sync()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                pipe = eng.start_prefill(prompt[None], groups_per_call=4)
+                while not pipe.advance():
+                    pass
+                sync()
+                peak = torch.cuda.max_memory_allocated() - base
+                del pipe
+            return peak, est
+
+        # (t4) cell_block on llama-1b-armt: 16 segments, B = 1, the main path
+        log("== (t4) cell_block 256 on llama-1b-armt, full width and depth, bf16, weights "
+            "drawn on the card")
+        lcfg = get_config("llama-1b-armt")
+        bcfg = replace(lcfg, cell_block=256)
+        lp = M.init_params(lcfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        lseg = lcfg.armt.segment_len
+        ltk = torch.from_numpy(rng.integers(0, lcfg.vocab, (1, 16 * lseg))).to(dev)
+        (h0, _, _), n0, _ = counted(lambda: fwd(lp, lcfg, ltk))
+        (hb, (fb,), lb), nb, rb = counted(lambda: fwd(lp, bcfg, ltk))
+        add(nb, rb)
+        (hbs, (fbs,), lbs), nbs, rbs = counted(lambda: fwd(lp, bcfg, ltk,
+                                                          schedule="sequential"))
+        add(nbs, rbs)
+        exact = dict(hidden=same_bits(hb, hbs), logits=same_bits(lb, lbs),
+                     **states_equal(fb, fbs))
+        same_0 = same_bits(hb, h0)
+        errs = [rel_err(hb[s], h0[s]) for s in range(16)]
+        worst_rows = [row_rel(hb[s], h0[s]) for s in range(16)]
+        swapped = (n0["grouped_matmul_armt_update"] > 0 and n0["armt_update"] == 0
+                   and nb["grouped_matmul_armt_update"] == 0 and nb["armt_update"] > 0)
+        peaks = {}
+        for label, c in (("cell_block 0", lcfg), ("cell_block 256", bcfg)):
+            peaks[label] = admission_peak(ServeEngine(lp, c), 16, lseg)
+        (p0, e0), (pb, eb) = peaks["cell_block 0"], peaks["cell_block 256"]
+        ok_exact, ok_close = all(exact.values()), max(errs[:2]) <= 1e-2
+        ok_peak = pb < p0 and pb <= eb and p0 <= e0
+        log(f"  16 segments B=1 at cell_block 256, diagonal vs sequential (captured "
+            f"segments): to the bit {ok_exact} -> {'ok' if ok_exact else 'FAIL'}")
+        log(f"  hidden vs cell_block 0: to the bit {same_0}; rel err per segment "
+            f"{' '.join(f'{e:.2e}' for e in errs)}, gated on the first 2 (tol 1e-2; the "
+            f"random-weight model is chaotic past a few segments) -> "
+            f"{'ok' if ok_close else 'FAIL'}; worst row rel err per segment "
+            f"{' '.join(f'{e:.2e}' for e in worst_rows)}")
+        log(f"  launches cell_block 0: fused update {n0['grouped_matmul_armt_update']}, "
+            f"armt_update {n0['armt_update']}, GEMM {n0['grouped_matmul']}; cell_block 256: "
+            f"fused update {nb['grouped_matmul_armt_update']}, armt_update "
+            f"{nb['armt_update']}, GEMM {nb['grouped_matmul']} -> "
+            f"{'ok' if swapped else 'FAIL'}")
+        log(f"  a 16-segment admission's peak above its start: cell_block 0 {p0 / 1e6:.1f} MB "
+            f"(estimate {e0 / 1e6:.1f}), 256 {pb / 1e6:.1f} MB (estimate {eb / 1e6:.1f}) -> "
+            f"{'ok' if ok_peak else 'FAIL'}")
+        for ok, what in ((ok_exact, "diagonal vs sequential"), (ok_close, "vs cell_block 0"),
+                         (swapped, "armt_update in place of the fused update"),
+                         (ok_peak, "peak lower than unblocked and within its estimate")):
+            if not ok:
+                failures.append(f"(t4) cell_block 256: {what}")
+        out["cell_block"] = dict(diagonal_equals_sequential=exact, equals_0_bitwise=same_0,
+                                 rel_err_vs_0=errs,
+                                 worst_row_rel_err_vs_0=worst_rows,
+                                 launches_0=n0, launches_256=nb,
+                                 peak_bytes={k: v[0] for k, v in peaks.items()},
+                                 estimate_bytes={k: v[1] for k, v in peaks.items()})
+        del lp, h0, hb, fb, lb, hbs, fbs, lbs
+        M.SegmentProgram._cache.clear()
+        torch.cuda.empty_cache()
+
+        # jamba-1.5-large-398b cut to 2 of its 9 superblocks (16 of 72
+        # layers) and 4 of its 16 experts, by init_params' own leaves: an
+        # attn layer 1.646 GB, a mamba layer with its FFN 2.049 GB, a
+        # mamba_moe layer 5.673 GB (4 experts of 1.208 GB), embedding, head
+        # and memory tokens 2.150 GB: 63.12 GB, of 798.4 GB for the whole
+        # model in bf16 (the phase prints them)
+        full = get_config("jamba-1.5-large-398b")
+        n_super, n_exp = 2, 4
+        cfg = replace(full, n_layers=n_super * len(full.block_pattern),
+                      moe=replace(full.moe, n_experts=n_exp))
+        log(f"== (t) jamba-1.5-large-398b: {cfg.n_layers} of {full.n_layers} layers ({n_super} "
+            f"of {full.n_superblocks} superblocks of {full.block_pattern}), {n_exp} of "
+            f"{full.moe.n_experts} experts (top {full.moe.top_k}); d_model {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, no rotary, FFN and "
+            f"experts {cfg.d_ff}, d_inner {cfg.ssm.expand * cfg.d_model}, vocab {cfg.vocab}; "
+            "bf16")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        sync()
+        init_s = time.perf_counter() - t0
+        layer_bytes = {t: tree_nbytes(layer_slice(params["pattern"][cfg.block_pattern.index(t)],
+                                                  0))
+                       for t in ("attn", "mamba", "mamba_moe")}
+        expert = tree_nbytes({k: v[0, 0] for k, v in params["pattern"][1]["moe"].items()
+                              if k != "router"})
+        outer = sum(tree_nbytes(params[k]) for k in ("embed", "head", "final_norm",
+                                                      "mem_tokens"))
+        weights = tree_nbytes(params)
+        n_t = {t: full.block_pattern.count(t) * full.n_superblocks
+               for t in ("attn", "mamba", "mamba_moe")}
+        whole = outer + sum(n_t[t] * layer_bytes[t] for t in n_t) + n_t["mamba_moe"] * (
+            full.moe.n_experts - n_exp) * expert
+        row = dict(layers=cfg.n_layers, full_layers=full.n_layers, experts=n_exp,
+                   full_experts=full.moe.n_experts, weights_bytes=weights,
+                   layer_bytes=layer_bytes, expert_bytes=expert, embed_head_bytes=outer,
+                   whole_model_bytes=whole, init_s=init_s)
+        log(f"  weights {weights / 1e9:.2f} GB (init_params' own leaves), drawn on the card in "
+            f"{init_s:.2f} s: an attn layer {layer_bytes['attn'] / 1e9:.3f} GB, a mamba layer "
+            f"(with its FFN) {layer_bytes['mamba'] / 1e9:.3f} GB, a mamba_moe layer "
+            f"{layer_bytes['mamba_moe'] / 1e9:.3f} GB ({n_exp} experts of "
+            f"{expert / 1e9:.3f} GB), embedding, head and memory tokens {outer / 1e9:.3f} GB; "
+            f"the whole model would be {whole / 1e9:.1f} GB (cuts: depth 72 -> 16, experts "
+            f"16 -> 4)")
+        seg = cfg.armt.segment_len
+
+        # (t1) diagonal = sequential, B = 1 and 2, 4 and 16 segments; the
+        # boundary states of both captures at 16 segments, B = 1
+        for B in (1, 2):
+            for n_seg in (4, 16):
+                tk = torch.from_numpy(rng.integers(0, cfg.vocab, (B, n_seg * seg))).to(dev)
+                cap = B == 1 and n_seg == 16
+                (hd_, rest_d, ld_), nd, rd = counted(lambda: fwd(params, cfg, tk,
+                                                                 capture_states=cap))
+                add(nd, rd)
+                (hs_, rest_s, ls_), ns, rs = counted(lambda: fwd(params, cfg, tk,
+                                                                 schedule="sequential",
+                                                                 capture_states=cap))
+                add(ns, rs)
+                exact = dict(hidden=same_bits(hd_, hs_), logits=same_bits(ld_, ls_),
+                             **states_equal(rest_d[0], rest_s[0]))
+                if cap:
+                    exact["boundaries"] = all(states_equal(rest_d[1], rest_s[1]).values())
+                ok = all(exact.values())
+                row[f"diagonal_equals_sequential_B{B}_S{n_seg}"] = ok
+                log(f"  {n_seg}-segment prefill B={B}, diagonal (strided bands) vs sequential "
+                    f"(captured segments){', and the boundary captures' if cap else ''}: to "
+                    f"the bit {ok} ({sum(exact.values())} of {len(exact)} tensors) -> "
+                    f"{'ok' if ok else 'FAIL'}; launches {nd}")
+                if not ok:
+                    failures.append(f"jamba: diagonal vs sequential B={B} S={n_seg}: "
+                                    f"{[k for k, v in exact.items() if not v]}")
+                if B == 1 and n_seg == 4:
+                    tk1 = tk
+                del hd_, rest_d, ld_, hs_, rest_s, ls_
+            M.SegmentProgram._cache.clear()     # its graphs' pools: one shape at a time
+            torch.cuda.empty_cache()
+        times = {}
+        for n_seg in (4, 16):
+            tkn = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n_seg * seg))).to(dev)
+            for schedule in ("diagonal", "sequential"):
+                fwd(params, cfg, tkn, schedule=schedule)
+                ts = []
+                for _ in range(3):
+                    sync()
+                    t0 = time.perf_counter()
+                    fwd(params, cfg, tkn, schedule=schedule)
+                    sync()
+                    ts.append(time.perf_counter() - t0)
+                times[f"{schedule}_{n_seg}"] = float(np.median(ts))
+        row["prefill_s"] = times
+        M.SegmentProgram._cache.clear()
+        torch.cuda.empty_cache()
+        log(f"  warm prefill B=1, median of 3: 4 segments diagonal {times['diagonal_4']:.4f} s, "
+            f"sequential {times['sequential_4']:.4f} s; 16 segments diagonal "
+            f"{times['diagonal_16']:.4f} s, sequential {times['sequential_16']:.4f} s; "
+            f"card {smi}")
+
+        # (t2) the fused mamba cells against the plain block, segment 0, at
+        # the band of both superblocks' layers of a position (G = 2, a
+        # strided view of a slot buffer), each group from the plain path's
+        # input to the position's first layer: the first mamba layer (layer
+        # 2) within 5e-2 (row relative), with its h and conv tail; at the
+        # first MoE layer (layer 1) the tokens whose routing agrees held
+        # within 5e-2, the others counted (routing is discontinuous)
+        apply = make_apply_block(cfg)
+        cell = make_grouped_apply(cfg)
+        per_slot = diag._per_slot_apply(apply)
+        real_route = moe_mod.route
+        records = []
+
+        def recording_route(*a, **k):
+            r = real_route(*a, **k)
+            records.append((r.eidx.clone(), r.keep.clone()))
+            return r
+
+        def routing_code(rec):
+            eidx, keep = rec
+            return torch.zeros(eidx.shape[:2] + (n_exp,), dtype=torch.int8,
+                               device=dev).scatter_(2, eidx, (1 + keep).to(torch.int8))
+        T_ = seg + cfg.armt.num_mem_tokens
+        D_ = cfg.d_model
+        n_pat = len(cfg.block_pattern)
+        cells = {}
+        with torch.no_grad():
+            x0 = M.embed_segments(params, cfg, tk1[:, :seg], seg)[0]
+            st1 = M.init_state(cfg, 1, dev)
+            y, _ = apply("attn", layer_slice(params["pattern"][0], 0), x0,
+                         layer_slice(st1["pattern"][0], 0))
+            buf = torch.zeros(cfg.n_layers, 1, T_, D_, dtype=y.dtype, device=dev)
+            moe_mod.route = recording_route
+            try:
+                for p in (1, 2):
+                    t = cfg.block_pattern[p]
+                    buf[p::n_pat] = y
+                    xb = buf[p::n_pat]
+                    records.clear()
+                    got, gst = cell(t, params["pattern"][p], xb, st1["pattern"][p])
+                    rec_f = list(records)
+                    records.clear()
+                    want, wst = per_slot(t, params["pattern"][p], xb, st1["pattern"][p])
+                    rec_p = list(records)
+                    res = dict(state_rel_err={k: [rel_err(gst[k][j], wst[k][j])
+                                                  for j in range(2)] for k in gst})
+                    if t == "mamba_moe":
+                        differ = [(routing_code(rec_f[0])[j] != routing_code(rec_p[j])[0]
+                                   ).any(-1) for j in range(2)]
+                        res["flipped"] = [int(d.sum()) for d in differ]
+                        res["worst_agreeing"] = [row_rel(got[j, 0][~d], want[j, 0][~d])
+                                                 for j, d in enumerate(differ)]
+                        ok = res["worst_agreeing"][0] <= 5e-2
+                        log(f"  first MoE layer (layer 1) and layer 9, the fused mamba_moe "
+                            f"cell at G=2 vs the plain block: tokens routed differently "
+                            f"{res['flipped']} of {T_}; worst row rel err of the agreeing "
+                            f"tokens {' '.join(f'{e:.2e}' for e in res['worst_agreeing'])} "
+                            f"(layer 1 gated, tol 5e-2); h, conv rel err "
+                            f"{res['state_rel_err']} -> {'ok' if ok else 'FAIL'}")
+                    else:
+                        res["worst_row_rel"] = [row_rel(got[j], want[j]) for j in range(2)]
+                        ok = (res["worst_row_rel"][0] <= 5e-2
+                              and max(e[0] for e in res["state_rel_err"].values()) <= 5e-2)
+                        log(f"  first mamba layer (layer 2) and layer 10, the fused mamba cell "
+                            f"(with its FFN) at G=2 vs the plain block: worst row rel err "
+                            f"{' '.join(f'{e:.2e}' for e in res['worst_row_rel'])}; h, conv "
+                            f"rel err {res['state_rel_err']} (layer 2 gated, tol 5e-2) -> "
+                            f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failures.append(f"jamba: fused {t} cell vs plain")
+                    cells[t] = res
+                    y = want[0]
+                    del got, gst, want, wst
+            finally:
+                moe_mod.route = real_route
+            # the MoE band alone: both MoE layers of position 1 at T = 1152
+            pm = params["pattern"][1]["moe"]
+            xs = rnd(2, 1, T_, D_)
+            mt = dict(ms=time_ms(lambda: moe_mod.moe_ffn_grouped(xs, pm, cfg.moe), iters=5),
+                      plain_ms=time_ms(lambda: torch.stack([moe_mod.moe_ffn(
+                          xs[j], {k: v[j] for k, v in pm.items()}, cfg.moe) for j in range(2)]),
+                          iters=3))
+            log(f"  moe_ffn band [2,1,{T_},{D_}], {n_exp} experts of {cfg.moe.d_expert}: fused "
+                f"{mt['ms']:.3f} ms, plain (bf16 torch matmuls) {mt['plain_ms']:.3f} ms; "
+                f"card {smi}")
+            cells["moe_ffn_band"] = mt
+            # (t5) the expert gate GEMM at the band's shape on the model's
+            # experts: [G*E, C, D] x [D, F] with silu, each expert of layer 1
+            # held against fp32 torch.bmm on its own
+            C = moe_mod.capacity(T_, cfg.moe)
+            Fe = cfg.moe.d_expert
+            wg = pm["wg"].reshape(-1, D_, Fe)
+            xe = rnd(2 * n_exp, C, D_)
+            got = grouped_matmul.grouped_matmul(xe, wg, activation="silu")
+            gerr = 0.0
+            for e in range(n_exp):
+                w32 = torch.bmm(xe[e:e + 1].float(), wg[e:e + 1].float())
+                gerr = max(gerr, check(f"jamba expert gate GEMM group {e} [{C},{D_}]x[{D_},"
+                                       f"{Fe}] silu vs fp32 torch.bmm", got[e:e + 1],
+                                       w32 * torch.sigmoid(w32), TOL_BF16))
+                del w32
+            del got
+            gt = dict(ms=time_ms(lambda: grouped_matmul.grouped_matmul(xe, wg,
+                                                                       activation="silu")),
+                      library_ms=time_ms(lambda: torch.bmm(xe, wg)), plain_ms=None)
+            gt["bound_ms"], gt["bound_by"] = bound(
+                flops_bf16=2.0 * 2 * n_exp * C * D_ * Fe,
+                nbytes=2.0 * 2 * n_exp * (C * D_ + D_ * Fe + C * Fe))
+            gt.update(max_abs_err=gerr, route=grouped_matmul.route(xe, wg, xe),
+                      shape=f"[2*{n_exp},{C},{D_}]@[{D_},{Fe}]")
+            log(f"  expert gate GEMM [2*{n_exp},{C},{D_}]x[{D_},{Fe}] silu (route "
+                f"{gt['route']}): kernel {gt['ms']:.4f} ms  library {gt['library_ms']:.4f} ms "
+                f"(torch.bmm, no silu)  bound {gt['bound_ms']:.4f} ms ({gt['bound_by']})  "
+                f"kernel/bound {gt['ms'] / gt['bound_ms']:.2f}  plain not measured (its fp32 "
+                f"experts would not fit beside the weights); card {smi}")
+            cells["expert_gemm"] = gt
+            del xs, xe, wg, pm, buf, x0, y
+        row["cells"] = cells
+        torch.cuda.empty_cache()
+
+        # (t3) serving: generate graph vs eager in both modes, serve blocking
+        # vs interleaved, a prefix-cache hit vs the uncached run, the
+        # admission's peak against its estimate at 4 and 16 segments
+        eng, eng_e = ServeEngine(params, cfg), ServeEngine(params, cfg, eager=True)
+        prompt = rng.integers(0, cfg.vocab, (1, 2 * seg + 1020))     # flushes at token 4
+        gres, ng, rg = counted(lambda: eng.generate(prompt, 16, keep=True))
+        add(ng, rg)
+        eres, ne, _ = counted(lambda: eng_e.generate(prompt, 16, keep=True))
+        good = (gres.finite and gres.tokens.shape == (1, 16)
+                and 0 <= gres.tokens.min() and gres.tokens.max() < cfg.vocab)
+        log(f"  generate B=1, prompt {prompt.shape[1]}, 16 new (a flush at token 4): TTFT "
+            f"{gres.ttft_s:.3f} s, {gres.tok_s:.1f} tok/s (capture {gres.capture_s:.3f} s); "
+            f"eager TTFT {eres.ttft_s:.3f} s, {eres.tok_s:.1f} tok/s; finite {gres.finite} -> "
+            f"{'ok' if good else 'FAIL'}; launches {ng}; card {smi}")
+        if not good:
+            failures.append("jamba: generate")
+        check_generate("jamba ARMT generate B=1", gres, eres, ng, ne,
+                       graph_tok_s=gres.tok_s, eager_tok_s=eres.tok_s,
+                       graph_ttft_s=gres.ttft_s, eager_ttft_s=eres.ttft_s)
+        row.update(generate_ttft_s=gres.ttft_s, generate_tok_s=gres.tok_s,
+                   generate_eager_ttft_s=eres.ttft_s, generate_eager_tok_s=eres.tok_s)
+        del gres, eres, eng_e
+        P = 2048
+        ceng = ServeEngine(params, cfg, serve_mode="cache", max_len=P + 64)
+        ceng_e = ServeEngine(params, cfg, serve_mode="cache", max_len=P + 64, eager=True)
+        cprompt = rng.integers(0, cfg.vocab, (1, P))
+        cres, nc, rc = counted(lambda: ceng.generate(cprompt, 16, keep=True))
+        add(nc, rc)
+        ceres, nce, _ = counted(lambda: ceng_e.generate(cprompt, 16, keep=True))
+        log(f"  cache-mode generate B=1, prompt {P}, 16 new: TTFT {cres.ttft_s:.3f} s, "
+            f"{cres.tok_s:.1f} tok/s; eager TTFT {ceres.ttft_s:.3f} s, {ceres.tok_s:.1f} tok/s; "
+            f"finite {cres.finite}; launches {nc}")
+        if not cres.finite:
+            failures.append("jamba: cache-mode generate not finite")
+        check_generate(f"jamba cache-mode generate B=1 at {P} tokens", cres, ceres, nc, nce,
+                       graph_tok_s=cres.tok_s, eager_tok_s=ceres.tok_s,
+                       graph_ttft_s=cres.ttft_s, eager_ttft_s=ceres.ttft_s)
+        row.update(cache_generate_ttft_s=cres.ttft_s, cache_generate_tok_s=cres.tok_s,
+                   cache_generate_eager_ttft_s=ceres.ttft_s,
+                   cache_generate_eager_tok_s=ceres.tok_s)
+        del ceng, ceng_e, cres, ceres
+
+        sreq = [Request(i, rng.integers(0, cfg.vocab, n), 12)
+                for i, n in enumerate([seg + 500, 2 * seg + 1000, 600, seg])]
+        eng.program(4, "serve").prepare()   # the capture, outside the timed runs
+        srv = {}
+        for label, k in (("blocking", 0), ("k=4", 4)):
+            (evs, t_srv), nsv, rsv = counted(lambda: serve_run(
+                eng, sreq, prefill_groups_per_chunk=k))
+            add(nsv, rsv)
+            n_tok = sum(1 for e in evs if not isinstance(e, RequestError))
+            srv[label] = (by_req(evs), n_tok / t_srv, n_tok)
+        same = srv["blocking"][0] == srv["k=4"][0]
+        good = same and srv["blocking"][2] == 48 and all(
+            v[-1][2] and bool(v[-1][3]) for v in srv["blocking"][0].values())
+        log(f"  serve, 4 requests ({', '.join(str(len(r.prompt)) for r in sreq)} tokens, 12 "
+            f"new each) on 4 slots: blocking {srv['blocking'][1]:.1f} tok/s, k=4 "
+            f"{srv['k=4'][1]:.1f} tok/s; every request's tokens equal {same}, complete and "
+            f"finite -> {'ok' if good else 'FAIL'}")
+        if not good:
+            failures.append("jamba: serve blocking vs interleaved")
+        row.update(serve_blocking_tok_s=srv["blocking"][1], serve_k4_tok_s=srv["k=4"][1],
+                   serve_tokens_equal=same)
+        del srv, evs
+
+        pprompt = rng.integers(0, cfg.vocab, (1, 3 * seg + 300))
+        peng = ServeEngine(params, cfg, prefix_cache=PrefixCache(seg))
+        cold, nco, rco = counted(lambda: peng.generate(pprompt, 8, keep=True))
+        add(nco, rco)
+        hit, nh, rh = counted(lambda: peng.generate(pprompt, 8, keep=True))
+        add(nh, rh)
+        base_run = eng.generate(pprompt, 8, keep=True)
+        same = dict(cached_segments=(cold.cached_segments, hit.cached_segments) == (0, 3),
+                    tokens=bool(np.array_equal(hit.tokens, base_run.tokens)
+                                and np.array_equal(cold.tokens, base_run.tokens)),
+                    logits=same_bits(hit.logits, base_run.logits)
+                    and same_bits(cold.logits, base_run.logits),
+                    state=same_state(hit.state, base_run.state))
+        ok = all(same.values())
+        log(f"  prefix cache: a 3-segment hit (+300 tokens, 8 new) and the cold capturing run "
+            f"against an engine without a cache: {same} -> {'ok' if ok else 'FAIL'}; TTFT "
+            f"hit {hit.ttft_s:.3f} s, cold {cold.ttft_s:.3f} s, no cache "
+            f"{base_run.ttft_s:.3f} s")
+        if not ok:
+            failures.append("jamba: prefix-cache hit vs uncached")
+        row.update(prefix_hit_equal=ok, prefix_hit_ttft_s=hit.ttft_s,
+                   prefix_cold_ttft_s=cold.ttft_s, no_cache_ttft_s=base_run.ttft_s)
+        del peng, cold, hit, base_run
+
+        for n_seg in (4, 16):
+            peak, est = admission_peak(eng, n_seg, seg)
+            ok = peak <= est
+            row[f"admission_{n_seg}"] = dict(peak_bytes=peak, estimate_bytes=est)
+            log(f"  a {n_seg}-segment admission's peak above its start {peak / 1e6:.1f} MB, "
+                f"prefill_activation_bytes({n_seg}) {est / 1e6:.1f} MB -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"jamba: {n_seg}-segment admission peak above its estimate")
+        del eng
+        row.update(peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                   phase_s=time.perf_counter() - t_phase)
+        log(f"  jamba peak {row['peak_gb']:.2f} GB; (t) {row['phase_s']:.1f} s")
+        out["jamba"] = row
+        del params
+        M.SegmentProgram._cache.clear()
+        torch.cuda.empty_cache()
+        log(f"  launches over the phase: {launches}; GEMM and flash launches by route {routes}")
+        for k in routed:
+            if routes[k]["simt"] or not routes[k]["wgmma"]:
+                failures.append(f"(t)'s {k} left the TMA + wgmma route: {routes[k]}")
+        for name in counters:
+            if launches[name] == 0:
+                failures.append(f"{name} never launched by (t)")
+        return launches, routes, out
+
+    launches_jamba, routes_jamba, jamba_rows = jamba_phase()
+    print(json.dumps({"jamba": jamba_rows, "card": smi}))
+
     # ------------------------------------------------------------ (f) falcon-mamba model
-    log("== model phase: falcon-mamba-7b, full width and depth, bf16, seed 0")
+    log("== model phase: falcon-mamba-7b, full width and depth, bf16, seed 0 on the card")
     fcfg = get_config("falcon-mamba-7b")
     t0 = time.perf_counter()
-    fparams = M.init_params(fcfg, SEED, device=dev)
+    # drawn on the card from the seed (seconds; the CPU generator took ~70 s
+    # for the 7.27 B normals)
+    fparams = M.init_params(fcfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     sync()
     n_par = sum(t.numel() for t in M.Model(fcfg, fparams).buffers())
     log(f"  init_params: {n_par / 1e9:.3f} B parameters in {time.perf_counter() - t0:.1f} s, "
@@ -3472,17 +3995,20 @@ def main() -> int:
                    "full_forward": launches_full, "cache_generate": launches_cgen,
                    "cache_serve": launches_cserve, "serve_interleaved": launches_inter,
                    "prefix_cache": launches_prefix, "sessions": launches_sess,
-                   "dense_configs": launches_dense, "moe_configs": launches_moe}
+                   "dense_configs": launches_dense, "moe_configs": launches_moe,
+                   "jamba": launches_jamba}
     llama_routes = {"generate": routes_gen, "serve": routes_serve, "full_forward": routes_full,
                     "cache_generate": routes_cgen, "cache_serve": routes_cserve,
                     "serve_interleaved": routes_inter, "prefix_cache": routes_prefix,
                     "sessions": routes_sess, "dense_configs": routes_dense,
-                    "moe_configs": routes_moe}
+                    "moe_configs": routes_moe, "jamba": routes_jamba}
     # falcon-mamba has no prefix-cache run (its engine refuses a cache at
     # max_len 8192: its seg_len is max_len, not the model's segment), so
-    # mamba_scan has no launches_prefix_cache
+    # mamba_scan has no launches_prefix_cache; jamba's (t) runs every
+    # kernel, so each has a launches_jamba
     falcon_paths = {"generate": flaunch_gen, "serve": flaunch_serve,
-                    "serve_interleaved": flaunch_inter, "sessions": launches_fsess}
+                    "serve_interleaved": flaunch_inter, "sessions": launches_fsess,
+                    "jamba": launches_jamba}
     kernels = []
     for name, (src, replaces) in sources.items():
         s = summary[name]

@@ -2,8 +2,9 @@
 port's serving paths read; the ``llama-*-armt`` family, the five other dense
 ARMT configs (minitron-8b, qwen2.5-32b, chameleon-34b, h2o-danube-1.8b,
 chatglm3-6b), the two MoE ARMT configs (qwen2-moe-a2.7b, and
-kimi-k2-1t-a32b with its dense prelude layer) and ``falcon-mamba-7b``; and
-the smoke reduction used by the CPU tests (a copy; the port never imports
+kimi-k2-1t-a32b with its dense prelude layer), the hybrid
+``jamba-1.5-large-398b`` (attention without rotary, Mamba layers with a
+dense or MoE FFN) and ``falcon-mamba-7b``; and the smoke reduction used by the CPU tests (a copy; the port never imports
 the JAX package)."""
 from __future__ import annotations
 
@@ -77,6 +78,10 @@ class ArchConfig:
     ssm: Optional[SSMConfig] = None
     armt: Optional[ARMTConfig] = None
     dtype: str = "bfloat16"
+    # the blockwise cell FFN: a dense FFN runs (norm, FFN) over chunks of
+    # this many tokens, so one chunk's F-wide intermediates are live at a
+    # time; 0 (the default) runs it whole. A MoE FFN is never blocked.
+    cell_block: int = 0
     source: str = ""
 
     @property
@@ -107,16 +112,20 @@ class ArchConfig:
         rope, with or without QKV bias and q/k norm, rotary on a fraction
         of the head dims), with a dense FFN (``attn``) or a MoE FFN
         (``attn_moe``, global or per-row dispatch), ``attn`` prelude
-        layers before a one-position pattern; or a pure ``("mamba",)``
-        stack without FFN."""
+        layers before a one-position pattern; a pure ``("mamba",)`` stack
+        without FFN; or a hybrid ARMT pattern of ``attn`` (rotary or none),
+        ``mamba`` (a dense FFN when ``d_ff > 0``) and ``mamba_moe``
+        positions, without prelude layers."""
         if not (self.d_model > 0 and self.n_layers > 0 and self.vocab > 0):
             raise ValueError(f"{self.name}: non-positive dims")
+        if self.cell_block < 0:
+            raise ValueError(f"{self.name}: cell_block {self.cell_block} < 0")
         types = set(self.layer_types)
         if self.norm != "rmsnorm" or self.act != "silu":
             raise ValueError(f"{self.name}: the port has rmsnorm + swiglu only")
-        if "attn_moe" in types:
+        if types & {"attn_moe", "mamba_moe"}:
             if self.moe is None:
-                raise ValueError(f"{self.name}: attn_moe layers need cfg.moe")
+                raise ValueError(f"{self.name}: MoE layers need cfg.moe")
             if self.moe.dispatch not in DISPATCHES:
                 raise ValueError(f"{self.name}: MoE dispatch {self.moe.dispatch!r}; the "
                                  f"port has {DISPATCHES}")
@@ -130,21 +139,27 @@ class ArchConfig:
             raise ValueError(f"{self.name}: the port takes attn prelude layers before a "
                              f"one-position pattern, got {self.prelude} + "
                              f"{self.block_pattern}")
-        if types <= {"attn", "attn_moe"}:
-            if self.armt is None or not self.use_rope:
-                raise ValueError(f"{self.name}: the port's attn block is the "
-                                 "ARMT block with rope")
+        if types & {"attn", "attn_moe"}:
             if self.n_heads <= 0 or self.n_heads % self.n_kv_heads:
                 raise ValueError(f"{self.name}: bad head counts")
             if not 0.0 < self.rope_fraction <= 1.0:
                 raise ValueError(f"{self.name}: rope_fraction {self.rope_fraction}")
+        if types <= {"attn", "attn_moe"}:
+            if self.armt is None or not self.use_rope:
+                raise ValueError(f"{self.name}: the port's attn block is the "
+                                 "ARMT block with rope")
         elif types == {"mamba"}:
             if self.ssm is None or self.armt is not None or self.d_ff:
                 raise ValueError(f"{self.name}: the port's mamba block needs "
                                  "cfg.ssm, no ARMT and no FFN")
+        elif types <= {"attn", "mamba", "mamba_moe"} and "attn" in types:
+            if self.ssm is None or self.armt is None:
+                raise ValueError(f"{self.name}: the port's hybrid stack needs cfg.ssm "
+                                 "and ARMT")
         else:
-            raise ValueError(f"{self.name}: the port has attn (dense or MoE) or pure "
-                             f"mamba stacks only, got {self.layer_types}")
+            raise ValueError(f"{self.name}: the port has attn (dense or MoE), pure "
+                             f"mamba or hybrid attn/mamba/mamba_moe stacks only, got "
+                             f"{self.layer_types}")
         _ = self.n_superblocks
 
 
@@ -161,6 +176,7 @@ _ARCH_MODULES = {
     "llama-3b-armt": "llama_armt",
     "llama-8b-armt": "llama_armt",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 

@@ -11,11 +11,19 @@ as in the sequential schedule. The recurrence is exact: every layer's state
 is updated by the same functions in the same order as the sequential
 executor, only grouped across slots.
 
+A pattern of several positions (jamba's attn, mamba and mamba_moe
+layers) puts position p's layer j at slot ``p + len(pattern) * j``
+(``StackLayout.position_slots``): a step applies one cell per position to
+that position's slots in the band, a strided view of the slot buffer, as
+the reference's ``_diag_step`` does. Every cell of a step reads the buffer
+before any output is written back (as the reference's separate ``y``
+buffer), so position p never sees position p - 1's output of the same step.
+
 Prelude layers (kimi's dense first layer) take the first slots: slot j <
 n_prelude is prelude layer j, applied as that layer's one-group cell when
-the band covers it, and the pattern's layers follow; the pattern cell
-applies the rest of the band. The per-slot math does not depend on the
-band, so the executors stay equal to the sequential one.
+the band covers it, and the pattern's layers follow (one position only
+after a prelude: no config has more). The per-slot math does not depend on
+the band, so the executors stay equal to the sequential one.
 
 Every form of the executor runs one band step, ``band_step``: ``(carry,
 i) -> carry``, in place, with the group cursor i a host int in the carry.
@@ -32,8 +40,7 @@ So they are equal by construction:
     may differ: per step the live members' bands go through one grouped
     cell call along the group axis, each group reading its own layer's
     weights through a layer index (the ``attn`` and ``attn_moe`` cells;
-    other cells advance the members one after another; prelude slots go
-    member by member).
+    the mamba cells and prelude slots go member by member).
 
 A carry's buffers are its own (``pipeline_init`` copies the state), so a
 caller's state updated in place, a decode pool say, never aliases one.
@@ -56,16 +63,23 @@ pool_counts = {"steps": 0, "member_steps": 0}
 
 
 def _check_layout(layout) -> None:
-    if len(layout.pattern) != 1:
-        raise ValueError("the diagonal executor supports one pattern position "
-                         f"(after any prelude), got {layout.pattern}")
+    if layout.prelude and len(layout.pattern) != 1:
+        raise ValueError("the diagonal executor supports one pattern position after "
+                         f"prelude layers, got {layout.prelude} + {layout.pattern}")
 
 
 def _band_slice(tree, lo: int, hi: int):
-    """Slots lo..hi of a stacked dict tree (views, no copy)."""
+    """Layers lo..hi of a stacked dict tree (views, no copy)."""
     if isinstance(tree, dict):
         return {k: _band_slice(v, lo, hi) for k, v in tree.items()}
     return tree[lo:hi + 1]
+
+
+def _position_slots(layout, p: int, jb) -> slice:
+    """The slots of position p's superblocks jb = (j0, j1): a strided slice
+    of the slot buffer (stride len(pattern); contiguous for one position)."""
+    slots = layout.position_slots(p)
+    return slice(slots[jb[0]], slots[jb[1]] + 1, slots.step)
 
 
 def _per_slot_apply(apply_block: ApplyBlock):
@@ -83,18 +97,22 @@ def boundary_states_from_capture(layout, captured: Dict, n_segments: int) -> Dic
     """Per-boundary recurrent states from a per-step capture
     (``run_diagonal(capture_states=True)``): layer l's state after segment
     c - 1 was written at step (c - 1) + l, so boundary c (index c - 1) of
-    each leaf gathers those steps (prelude layer j: slot j; the pattern's
-    layer m: slot n_prelude + m). One gather per leaf, on the device ->
-    leaves with a leading [S] boundary axis."""
+    each leaf gathers those steps (prelude layer j: slot j; pattern
+    position p's layer j: its slot ``layout.position_slots(p)[j]``). One
+    gather per leaf, on the device -> leaves with a leading [S] boundary
+    axis."""
     _check_layout(layout)
     P = len(layout.prelude)
-    tree = captured["pattern"][0]
-    device = next(iter(tree.values())).device
+    device = next(iter(captured["pattern"][0].values())).device
     steps = torch.arange(n_segments, device=device)[:, None]
     layers = torch.arange(layout.n_super, device=device)[None, :]
+    pattern = []
+    for p, tree in enumerate(captured["pattern"]):
+        slots = torch.tensor(list(layout.position_slots(p)), device=device)[None, :]
+        pattern.append({k: a[steps + slots, layers] for k, a in tree.items()})
     return {"prelude": tuple({k: a[steps[:, 0] + j] for k, a in captured["prelude"][j].items()}
                              for j in range(P)),
-            "pattern": ({k: a[steps + P + layers, layers] for k, a in tree.items()},)}
+            "pattern": tuple(pattern)}
 
 
 def _cell(apply_block: ApplyBlock, grouped_apply):
@@ -115,43 +133,52 @@ def _band_in(xs: torch.Tensor, carry: Dict, n_layers: int):
     return lo, hi
 
 
-def _pattern_band(layout, lo: int, hi: int):
-    """The pattern layers (plo, phi) a slot band covers, or None."""
-    P = len(layout.prelude)
-    return (max(lo, P) - P, hi - P) if hi >= P else None
-
-
 def _apply_prelude(layout, params: Dict, carry: Dict, lo: int, hi: int, cell):
     """The prelude slots of band lo..hi, each its layer as a one-group
-    cell -> ([(slot, y [1, B, T, D])], {slot: its new state})."""
+    cell -> ([(slot, 1, y [1, B, T, D])], {slot: its new state})."""
     parts, new = [], {}
     one = one_layer_cell(cell)
     for j in range(lo, min(hi, len(layout.prelude) - 1) + 1):
         y, new[j] = one(layout.prelude[j], params["prelude"][j], carry["buf"][j],
                         carry["state"]["prelude"][j])
-        parts.append((j, y[None]))
+        parts.append((j, 1, y[None]))
     return parts, new
 
 
-def _band_out(carry: Dict, parts, new_prelude: Dict, new_pattern, pband, *,
+def _apply_position(layout, params: Dict, carry: Dict, p: int, jb, cell, parts,
+                    new_pattern: Dict) -> None:
+    """Pattern position p's superblocks jb of a carry's band as one cell
+    call over their strided slots; its output and new state are appended to
+    ``parts`` and ``new_pattern`` (written back only after every position
+    has read the buffer)."""
+    sl = _position_slots(layout, p, jb)
+    y, new = cell(layout.pattern[p], _band_slice(params["pattern"][p], *jb),
+                  carry["buf"][sl], _band_slice(carry["state"]["pattern"][p], *jb))
+    parts.append((sl.start, sl.step, y))
+    new_pattern[p] = (jb, new)
+
+
+def _band_out(carry: Dict, parts, new_prelude: Dict, new_pattern: Dict, *,
               retain_pos: int) -> None:
-    """The band's results into the carry: the state's band slots (prelude
-    layers and the pattern's layers ``pband``), the finished segment (if
-    the band reached the top slot) into ``ys`` or ``win``/``brow``, the
-    shifted band into the slot buffer, the capture of this step; then the
-    cursor moves on. parts: [(first slot, y)] in slot order."""
+    """The band's results into the carry, after every cell of the step has
+    run: the state's band layers (prelude layers, and per pattern position
+    p its superblocks ``new_pattern[p] = ((j0, j1), new)``), the finished
+    segment (if the band reached the top slot) into ``ys`` or
+    ``win``/``brow``, each output shifted one slot up in the slot buffer,
+    the capture of this step; then the cursor moves on. parts: [(first
+    slot, slot stride, y)]."""
     i, buf = carry["step"], carry["buf"]
     L = buf.shape[0]
     state = carry["state"]
     for j, new in new_prelude.items():
         for k, v in new.items():
             state["prelude"][j][k].copy_(v)
-    if new_pattern is not None:
-        for k, v in new_pattern.items():
-            state["pattern"][0][k][pband[0]:pband[1] + 1] = v
-    for s0, y in parts:
+    for p, ((j0, j1), new) in new_pattern.items():
+        for k, v in new.items():
+            state["pattern"][p][k][j0:j1 + 1] = v
+    for s0, st, y in parts:
         y = y.to(buf.dtype)
-        if s0 + y.shape[0] == L:          # segment i - (L-1) finished every layer
+        if s0 + st * (y.shape[0] - 1) == L - 1:     # segment i - (L-1) finished
             s = i - (L - 1)
             if "win" in carry:
                 carry["win"][s % carry["win"].shape[0]].copy_(y[-1])
@@ -159,7 +186,8 @@ def _band_out(carry: Dict, parts, new_prelude: Dict, new_pattern, pband, *,
             else:
                 carry["ys"][s].copy_(y[-1])
             y = y[:-1]
-        buf[s0 + 1:s0 + 1 + y.shape[0]] = y
+        if y.shape[0]:
+            buf[s0 + 1:s0 + 2 + st * (y.shape[0] - 1):st] = y
     if "cap" in carry:
         for part in ("prelude", "pattern"):
             for cap, st in zip(carry["cap"][part], state[part]):
@@ -170,25 +198,24 @@ def _band_out(carry: Dict, parts, new_prelude: Dict, new_pattern, pband, *,
 
 def band_step(layout, params: Dict, xs: torch.Tensor, carry: Dict, cell, *,
               retain_pos: int = -1) -> Dict:
-    """One anti-diagonal step of a carry, in place: the cell over the band
+    """One anti-diagonal step of a carry, in place: the cells over the band
     of step ``carry['step']`` (a prelude slot as its layer's one-group
-    cell, the pattern's slots as one cell over their layers), then the
-    cursor moves on. A cursor past the grid is a no-op (it only moves
-    on)."""
+    cell; per pattern position, one cell over its layers in the band, at
+    the strided slots ``position_slots``), every cell reading the slot
+    buffer before any output is written back; then the cursor moves on. A
+    cursor past the grid is a no-op (it only moves on)."""
     L = layout.n_layers
     if carry["step"] >= n_diagonal_groups(xs.shape[0], L):
         carry["step"] += 1
         return carry
     lo, hi = _band_in(xs, carry, L)
     parts, new_pre = _apply_prelude(layout, params, carry, lo, hi, cell)
-    pband, new = _pattern_band(layout, lo, hi), None
-    if pband is not None:
-        P = len(layout.prelude)
-        y, new = cell(layout.pattern[0], _band_slice(params["pattern"][0], *pband),
-                      carry["buf"][P + pband[0]:P + pband[1] + 1],
-                      _band_slice(carry["state"]["pattern"][0], *pband))
-        parts.append((P + pband[0], y))
-    _band_out(carry, parts, new_pre, new, pband, retain_pos=retain_pos)
+    new_pat: Dict = {}
+    for p in range(len(layout.pattern)):
+        jb = layout.position_band(p, lo, hi)
+        if jb is not None:
+            _apply_position(layout, params, carry, p, jb, cell, parts, new_pat)
+    _band_out(carry, parts, new_pre, new_pat, retain_pos=retain_pos)
     return carry
 
 
@@ -286,27 +313,28 @@ def pipeline_step_pool(layout, params: Dict, xs_pool: Sequence[torch.Tensor],
     """Advance a pool of suspended pipelines by ``n_groups`` steps each, in
     place; their cursors (and grids) may differ.
 
-    With a cell that takes a layer index (``grouped_apply.indexed``, the
-    ``attn`` and ``attn_moe`` cells), each step concatenates the live
-    members' pattern bands along the group axis into one cell call over G'
-    = sum of the band widths,
-    each group reading its own layer's weights (the GEMM's ``widx``), and
-    writes each member's part back into its own carry: one launch of each
-    kernel per step for the whole pool. Members are not stacked along the
-    batch axis, which would take the B = 1 cell off its fused route and
-    round differently. A member whose cursor is past its grid contributes
-    no group; a step with one live member is that member's own band step.
-    A member's prelude slots run as its own one-group cells before the
-    pooled call. Other cells advance the members one after another."""
+    At a pattern position whose cell takes a layer index
+    (``grouped_apply.indexed``, the ``attn`` and ``attn_moe`` cells), each
+    step concatenates the live members' bands of that position along the
+    group axis into one cell call over G' = sum of the band widths, each
+    group reading its own layer's weights (the GEMM's ``widx``), and writes
+    each member's part back into its own carry: one launch of each kernel
+    per step for the whole pool. Members are not stacked along the batch
+    axis, which would take the B = 1 cell off its fused route and round
+    differently. A member whose cursor is past its grid contributes no
+    group; a step with one live member is that member's own band step. A
+    member's prelude slots run as its own one-group cells, and the other
+    positions' cells (the mamba cells) member by member, in the same step;
+    every output is written back after the step's last cell. A pattern
+    with no indexed cell (falcon) advances the members one after another."""
     cell = _cell(apply_block, grouped_apply)
-    t = layout.pattern[0]
-    if grouped_apply is None or t not in getattr(grouped_apply, "indexed", ()):
+    indexed = getattr(grouped_apply, "indexed", ()) if grouped_apply is not None else ()
+    if not any(t in indexed for t in layout.pattern):
         for xs, carry in zip(xs_pool, carry_pool):
             pipeline_step(layout, params, xs, carry, apply_block, n_groups=n_groups,
                           grouped_apply=grouped_apply, retain_pos=retain_pos)
         return list(carry_pool)
-    L, P = layout.n_layers, len(layout.prelude)
-    pattern_params = params["pattern"][0]
+    L = layout.n_layers
     layers = None
     for _ in range(n_groups):
         live = []
@@ -322,28 +350,36 @@ def pipeline_step_pool(layout, params: Dict, xs_pool: Sequence[torch.Tensor],
         if layers is None:
             layers = torch.arange(layout.n_super, dtype=torch.int32, device=live[0][0].device)
         bands = [_band_in(xs, carry, L) for xs, carry in live]
-        pre = [_apply_prelude(layout, params, carry, lo, hi, cell)
-               for (_, carry), (lo, hi) in zip(live, bands)]
-        pbands = [_pattern_band(layout, lo, hi) for lo, hi in bands]
-        members = [(carry, pb) for (_, carry), pb in zip(live, pbands) if pb is not None]
-        if members:
-            states = [carry["state"]["pattern"][0] for carry, _ in members]
-            x = torch.cat([carry["buf"][P + plo:P + phi + 1] for carry, (plo, phi) in members])
-            st = {k: torch.cat([s[k][plo:phi + 1] for s, (_, (plo, phi)) in
+        outs = [_apply_prelude(layout, params, carry, lo, hi, cell) + ({},)
+                for (_, carry), (lo, hi) in zip(live, bands)]
+        for p, t in enumerate(layout.pattern):
+            members = [(m, jb) for m, jb in
+                       ((m, layout.position_band(p, lo, hi)) for m, (lo, hi) in enumerate(bands))
+                       if jb is not None]
+            if not members:
+                continue
+            if t not in indexed:
+                for m, jb in members:
+                    _apply_position(layout, params, live[m][1], p, jb, cell, outs[m][0],
+                                    outs[m][2])
+                continue
+            sls = [_position_slots(layout, p, jb) for _, jb in members]
+            states = [live[m][1]["state"]["pattern"][p] for m, _ in members]
+            x = torch.cat([live[m][1]["buf"][sl] for (m, _), sl in zip(members, sls)])
+            st = {k: torch.cat([s[k][j0:j1 + 1] for s, (_, (j0, j1)) in
                                 zip(states, members)]) for k in states[0]}
-            widx = torch.cat([layers[plo:phi + 1] for _, (plo, phi) in members])
-            y, new = grouped_apply(t, pattern_params, x, st, widx=widx)
+            widx = torch.cat([layers[j0:j1 + 1] for _, (j0, j1) in members])
+            y, new = grouped_apply(t, params["pattern"][p], x, st, widx=widx)
+            off = 0
+            for (m, jb), sl in zip(members, sls):
+                g = jb[1] - jb[0] + 1
+                outs[m][0].append((sl.start, sl.step, y[off:off + g]))
+                outs[m][2][p] = (jb, {k: v[off:off + g] for k, v in new.items()})
+                off += g
         pool_counts["steps"] += 1
         pool_counts["member_steps"] += len(live)
-        off = 0
-        for (_, carry), (parts, new_pre), pb in zip(live, pre, pbands):
-            new_pat = None
-            if pb is not None:
-                g = pb[1] - pb[0] + 1
-                parts.append((P + pb[0], y[off:off + g]))
-                new_pat = {k: v[off:off + g] for k, v in new.items()}
-                off += g
-            _band_out(carry, parts, new_pre, new_pat, pb, retain_pos=retain_pos)
+        for (_, carry), (parts, new_pre, new_pat) in zip(live, outs):
+            _band_out(carry, parts, new_pre, new_pat, retain_pos=retain_pos)
     return list(carry_pool)
 
 

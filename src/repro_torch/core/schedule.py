@@ -88,6 +88,20 @@ class StackLayout:
     def layer_types(self) -> Tuple[str, ...]:
         return tuple(self.prelude) + tuple(self.pattern) * self.n_super
 
+    def position_slots(self, p: int) -> range:
+        """Slots of pattern position p, superblock j's at P_prelude + p +
+        len(pattern) * j."""
+        base, n = len(self.prelude) + p, len(self.pattern)
+        return range(base, base + n * self.n_super, n)
+
+    def position_band(self, p: int, lo: int, hi: int):
+        """The superblocks (j0, j1) of position p whose slots lie in the
+        slot band lo..hi, or None."""
+        base, n = len(self.prelude) + p, len(self.pattern)
+        j0 = max(0, -(-(lo - base) // n))
+        j1 = min(self.n_super - 1, (hi - base) // n) if hi >= base else -1
+        return (j0, j1) if j0 <= j1 else None
+
     @staticmethod
     def from_config(cfg) -> "StackLayout":
         return StackLayout(prelude=tuple(cfg.prelude),

@@ -17,11 +17,13 @@ EPS = 1e-6
 NEG_INF = -1e30
 
 
-def grouped_matmul_ref(x, w, bias=None, *, activation: str | None = None, widx=None):
+def grouped_matmul_ref(x, w, bias=None, *, activation: str | None = None, widx=None,
+                       res=None):
     """x: [G,R,K] @ w: [G,K,N] (+ bias [G,N]) -> [G,R,N] in x.dtype; fp32
-    accumulation, bias + silu / tanh-gelu applied to the fp32 accumulator.
-    widx: int [G] layer index, group i taking w[widx[i]] (and its bias) of
-    a stack w [Lw,K,N]."""
+    accumulation, bias + silu / tanh-gelu applied to the fp32 accumulator,
+    then res ([G,R,N]) added before the one cast. widx: int [G] layer
+    index, group i taking w[widx[i]] (and its bias) of a stack w
+    [Lw,K,N]."""
     if widx is not None:
         w = w.index_select(0, widx)
         bias = None if bias is None else bias.index_select(0, widx)
@@ -34,6 +36,8 @@ def grouped_matmul_ref(x, w, bias=None, *, activation: str | None = None, widx=N
         acc = torch.nn.functional.gelu(acc, approximate="tanh")
     elif activation is not None:
         raise ValueError(f"unknown activation {activation!r}")
+    if res is not None:
+        acc = acc + res.float()
     return acc.to(x.dtype)
 
 

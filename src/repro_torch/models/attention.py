@@ -36,8 +36,11 @@ def _project_qkv(x, p, cfg):
 def rope_qk(q, k, cfg, positions=None):
     """RoPE on q/k [..., T, H, hd] from one cos/sin table, over the leading
     ``cfg.rope_fraction`` of the head dims; positions default to the
-    segment-local arange(T). Shared by the plain block and the fused
-    grouped cell so the rotary math is identical."""
+    segment-local arange(T). Shared by the plain block, the fused grouped
+    cell and decode, so the rotary math is identical. With
+    ``cfg.use_rope`` off (jamba) q and k pass through unrotated."""
+    if not cfg.use_rope:
+        return q, k
     if positions is None:
         positions = torch.arange(q.shape[-3], device=q.device)[None]
     cos, sin = rope_cos_sin(positions, rope_dims(cfg.head_dim, cfg.rope_fraction),

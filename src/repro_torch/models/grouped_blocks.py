@@ -4,12 +4,15 @@ Each anti-diagonal step advances a band of G stacked layers at once. A cell
 applies one block type to the band's slot slice ``x [G, B, T, D]`` with the
 per-layer weights stacked on the group dim.
 
-The ``mamba`` cell computes what the reference's vmap of the plain block
-over the band computes (the reference has no fused Mamba cell): the
-projections as batched matmuls over ``[G, B*T, .]``, the depthwise conv and
-the elementwise work broadcast over the band, and one ``mamba_scan`` launch
-over all G*B rows, each with its layer's A_log and D: ``models/mamba.py``
-``mamba_block`` takes the band layout as it is.
+The ``mamba`` and ``mamba_moe`` cells compute what the reference's vmap of
+the plain block over the band computes (the reference has no fused Mamba
+cell): the mixer's projections as batched matmuls over ``[G, B*T, .]``, the
+depthwise conv and the elementwise work broadcast over the band, and one
+``mamba_scan`` launch over all G*B rows, each with its layer's A_log and D
+(``models/mamba.py`` ``mamba_block`` takes the band layout as it is); then
+the layer's FFN: none (falcon), the dense SwiGLU on the grouped GEMM as the
+attn cell's (jamba's ``mamba``), or the MoE (``mamba_moe``,
+``moe_ffn_grouped``).
 
 The ``attn`` cell runs through the kernel entry points of
 ``kernels/ops.py``:
@@ -42,7 +45,17 @@ B.
 
 In ``"full"`` mode (the full-attention baseline) the attn cell touches no
 memory: no ``assoc_read``, no update, and the down projection is
-``h + grouped_gemm(...)``. The mamba cell is the same in both modes.
+``h + grouped_gemm(...)``. The mamba cells are the same in both modes.
+
+With ``cfg.cell_block > 0`` and more rows than that (the blockwise cell
+FFN, the reference's ``blockwise_ffn``), a dense FFN (norm, gate, up,
+down, residual) runs over ``[G, B, cell_block, D]`` chunks in order, so
+only one chunk's F-wide intermediates are live; the B == 1 fusion of the
+down projection with the memory update is then off, as in the reference
+(grouped_blocks.py:182-189): the down projections and ``assoc_update``. A
+chunk's residual rides its down projection's epilogue (added before the
+cast, as the fused update adds it), so a blocked B == 1 cell's output and
+memory are the unblocked cell's to the bit on the card.
 
 The attn cells also take a layer index (``widx``, int32 [G] on the
 device): its params are then the model's whole stacked pattern and group i
@@ -52,12 +65,14 @@ index (the model's own tensors; no copy), and the small per-layer leaves
 wb, and the MoE router) are gathered with ``index_select``. That is how a pooled band step
 runs the bands of several pipelines as one cell call (``core/diagonal.py``
 ``pipeline_step_pool``).
-The mamba cell has no such form: its projections are matmuls over the
+The mamba cells have no such form: their projections are matmuls over the
 stacked weights, whose gathered copy would be ~230 MB a layer at
 falcon-mamba's width. ``grouped_apply.indexed`` names the cells that take
 an index.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import rope_qk
@@ -72,6 +87,7 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
     leaves ``[G, ...]``, x ``[G, B, T, D]``, state leaves ``[G, B, ...]``."""
     check_mode(mode)
     armt_on = mode == "segmented" and cfg.armt is not None
+    cb = cfg.cell_block
 
     def helpers(widx):
         def small(leaf):
@@ -98,8 +114,10 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
         if armt_on:
             A_f = state["A"].reshape((N,) + state["A"].shape[2:])
             z_f = state["z"].reshape((N,) + state["z"].shape[2:])
-            read = kops.assoc_read(x.reshape(N, T, D), small(p["mem"]["wq"]), A_f, z_f,
-                                   nu=cfg.armt.nu)
+            # a strided band (a position of a several-position pattern) at
+            # B = 1 reshapes to a strided view; the read takes contiguous rows
+            read = kops.assoc_read(x.reshape(N, T, D).contiguous(), small(p["mem"]["wq"]),
+                                   A_f, z_f, nu=cfg.armt.nu)
             x = x + read.reshape(G, B, T, -1)
 
         pa = p["attn"]
@@ -127,24 +145,45 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
                                    nu=cfg.armt.nu)
         return dict(state, A=A2.reshape(state["A"].shape), z=z2.reshape(state["z"].shape))
 
+    def ffn(p, h, widx):
+        """h + the dense SwiGLU FFN of the band (norm, gate with silu on
+        its epilogue, up, down): whole, or chunk by chunk of cell_block
+        rows over a segment of more. A chunk's residual rides its down
+        projection's epilogue, added before the one cast as the B == 1
+        fused update adds it, so a blocked B == 1 cell gives the unblocked
+        one's rows to the bit."""
+        snorm, gemm = helpers(widx)[1:]
+        pf = p["ffn"]
+
+        def mid(hc):
+            h2 = snorm(hc, p["ln2"])
+            return gemm(h2, pf["wg"], activation="silu") * gemm(h2, pf["wu"])
+        T = h.shape[2]
+        if not 0 < cb < T:
+            return h + gemm(mid(h), pf["wd"])
+        y = torch.empty_like(h)
+        for i in range(0, T, cb):
+            hc = h[:, :, i:i + cb]
+            y[:, :, i:i + cb] = gemm(mid(hc), pf["wd"], res=hc)
+        return y
+
     def fused_attn(p, x, state, widx=None):
         small, snorm, gemm = helpers(widx)
-        B = x.shape[1]
+        B, T = x.shape[1], x.shape[2]
         h, A_f, z_f = attend(p, x, state, widx)
-        pf = p["ffn"]
-        h2 = snorm(h, p["ln2"])
-        gate = gemm(h2, pf["wg"], activation="silu")
-        up = gemm(h2, pf["wu"])
         if not armt_on:
-            return h + gemm(gate * up, pf["wd"]), dict(state)
+            return ffn(p, h, widx), dict(state)
         M, pm = cfg.armt.num_mem_tokens, p["mem"]
-        if M > 0 and B == 1:
+        if M > 0 and B == 1 and not 0 < cb < T:
+            pf = p["ffn"]
+            h2 = snorm(h, p["ln2"])
+            mid = gemm(h2, pf["wg"], activation="silu") * gemm(h2, pf["wu"])
             y, A2, z2 = kops.grouped_gemm_armt_update(
-                gate * up, pf["wd"], h, small(pm["wk"]), small(pm["wv"]), small(pm["wb"]),
+                mid, pf["wd"], h, small(pm["wk"]), small(pm["wv"]), small(pm["wb"]),
                 A_f, z_f, M=M, nu=cfg.armt.nu, widx=widx)
             return y, dict(state, A=A2.reshape(state["A"].shape),
                            z=z2.reshape(state["z"].shape))
-        y = h + gemm(gate * up, pf["wd"])
+        y = ffn(p, h, widx)
         if M == 0:
             return y, dict(state)
         return y, update(p, y, state, A_f, z_f, widx)
@@ -157,8 +196,16 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
             return y, dict(state)
         return y, update(p, y, state, A_f, z_f, widx)
 
-    cells = {"attn": fused_attn, "attn_moe": fused_attn_moe,
-             "mamba": lambda p, x, state: mamba_block(p, x, cfg.ssm, state)}
+    def fused_mamba(p, x, state):
+        h, new = mamba_block(p, x, cfg.ssm, state)
+        return (ffn(p, h, None) if "ffn" in p else h), new
+
+    def fused_mamba_moe(p, x, state):
+        h, new = mamba_block(p, x, cfg.ssm, state)
+        return h + moe_ffn_grouped(helpers(None)[1](h, p["ln2"]), p["moe"], cfg.moe), new
+
+    cells = {"attn": fused_attn, "attn_moe": fused_attn_moe, "mamba": fused_mamba,
+             "mamba_moe": fused_mamba_moe}
 
     def grouped_apply(t, p, x, state, widx=None):
         if t not in cells:

@@ -9,9 +9,11 @@ buffers in place (``core/sequential.py`` ``apply_layer_``).
 Every function takes one layer (x ``[B, T, D]``, parameter leaves as
 ``init_params`` makes them for one layer) or a band of G stacked layers (x
 ``[G, B, T, D]``, leaves ``[G, ...]``, state ``[G, B, ...]``): the
-projections are then batched matmuls over ``[G, B*T, .]``, the conv and the
-elementwise work broadcast the per-layer weights, and the scan is one
-kernel launch over all G*B rows (``kernels/ops.py selective_scan_fused``).
+projections are then batched matmuls over ``[G, B*T, .]`` (the narrow x
+projection one matmul per layer, so that a layer's bits do not depend on
+the band), the conv and the elementwise work broadcast the per-layer
+weights, and the scan is one kernel launch over all G*B rows
+(``kernels/ops.py selective_scan_fused``).
 """
 from __future__ import annotations
 
@@ -65,6 +67,20 @@ def _proj(x, w):
     return out.reshape(x.shape[:-1] + (w.shape[-1],))
 
 
+def _proj_by_group(x, w):
+    """``_proj`` as one matmul per layer of a band. For the x projection:
+    its output is narrow (dt_rank + 2 d_state) and its K long, and the
+    library's batched GEMM splits K by the band's group count (jamba's
+    [16,384 x 544] at 1,152 rows: a group's bits at G = 2 are not its bits
+    at G = 1), so a layer's projection would depend on the band. One call
+    per layer is the sequential schedule's call."""
+    if w.dim() == 2:
+        return torch.matmul(x, w)
+    xf = x.reshape(w.shape[0], -1, x.shape[-1])
+    out = torch.stack([torch.matmul(xf[g], w[g]) for g in range(w.shape[0])])
+    return out.reshape(x.shape[:-1] + (w.shape[-1],))
+
+
 def _bcast(v, x):
     """A per-channel leaf ([dI], or [G, dI] for a band) shaped to broadcast
     against x [(G,) B, T, dI]."""
@@ -90,7 +106,7 @@ def _ssm_inputs(xc, p, scfg: SSMConfig):
     the x_proj output, which the scan kernel reads through their strides."""
     dS = scfg.d_state
     dtr = p["dt_proj"].shape[-2]
-    proj = _proj(xc, p["x_proj"])                               # [.., T, dtr + 2dS]
+    proj = _proj_by_group(xc, p["x_proj"])                      # [.., T, dtr + 2dS]
     dt = _proj(proj[..., :dtr], p["dt_proj"])
     bc = proj[..., dtr:].float()
     return dt, bc[..., :dS], bc[..., dS:]

@@ -4,10 +4,11 @@ schedule (``mode="segmented"``: the ARMT segments with memory;
 whole prompt and no memory), and the serving path (``decode_step``;
 ``serve_mode="armt"``: for ARMT models against the current-segment KV cache,
 with ``flush_segment`` at segment boundaries; ``serve_mode="cache"``: plain
-full-KV decoding against a cache of ``max_len`` rows). Three block types:
+full-KV decoding against a cache of ``max_len`` rows). Four block types:
 the ARMT ``attn`` block (dense SwiGLU FFN), the ARMT ``attn_moe`` block (MoE
-FFN; qwen2-moe, kimi-k2) and the pure Mamba ``mamba`` block (falcon-mamba),
-whose layer state (h, conv tail) the executors carry like ARMT's (A, z).
+FFN; qwen2-moe, kimi-k2), the ``mamba`` block (falcon-mamba without FFN,
+jamba's with a dense FFN) and jamba's ``mamba_moe`` block, whose layer
+state (h, conv tail) the executors carry like ARMT's (A, z).
 
 Parameters are a dict tree in the reference layout: ``embed``,
 ``final_norm``, ``head`` (untied models), ``mem_tokens`` (ARMT),
@@ -35,8 +36,8 @@ from repro_torch.core.sequential import (capture_init, capture_write_, clone_sta
                                          run_sequential, run_sequential_)
 from repro_torch.core.sequential import one_layer_cell as _one_layer_cell
 from repro_torch.models.attention import decode_attention
-from repro_torch.models.blocks import (ATTN_TYPES, apply_ffn, block_d_ff, block_state_init,
-                                       check_mode, make_apply_block)
+from repro_torch.models.blocks import (ATTN_TYPES, MAMBA_TYPES, apply_ffn, block_d_ff,
+                                       block_state_init, check_mode, make_apply_block)
 from repro_torch.models.grouped_blocks import make_grouped_apply
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.mamba import mamba_block, mamba_param_init
@@ -124,9 +125,19 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *, device=None) -> 
 
     def block(t, n, prelude=False):
         """One block type's leaves stacked over n layers."""
-        if t == "mamba":
-            return {"ln1": {"w": ones(n, D)},
-                    "mixer": mamba_param_init(D, cfg.ssm, n, nrm, dtype, device)}
+        F = block_d_ff(cfg, t, prelude)
+
+        def ffn():
+            return {"wg": nrm((n, D, F), D ** -0.5), "wu": nrm((n, D, F), D ** -0.5),
+                    "wd": nrm((n, F, D), F ** -0.5)}
+        if t in MAMBA_TYPES:
+            out = {"ln1": {"w": ones(n, D)},
+                   "mixer": mamba_param_init(D, cfg.ssm, n, nrm, dtype, device)}
+            if t == "mamba_moe":
+                out.update(ln2={"w": ones(n, D)}, moe=moe_param_init(D, cfg.moe, n, nrm, nrm32))
+            elif F:
+                out.update(ln2={"w": ones(n, D)}, ffn=ffn())
+            return out
         hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
         s = D ** -0.5
         attn = {"wq": nrm((n, D, nq * hd), s), "wk": nrm((n, D, nkv * hd), s),
@@ -143,9 +154,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *, device=None) -> 
         if t == "attn_moe":
             out["moe"] = moe_param_init(D, cfg.moe, n, nrm, nrm32)
         else:
-            F = block_d_ff(cfg, t, prelude)
-            out["ffn"] = {"wg": nrm((n, D, F), s), "wu": nrm((n, D, F), s),
-                          "wd": nrm((n, F, D), F ** -0.5)}
+            out["ffn"] = ffn()
         return out
 
     params["prelude"] = tuple(_tree_map(lambda path, leaf: leaf[0], block(t, 1, True))
@@ -430,15 +439,17 @@ def make_decode_apply(cfg: ArchConfig, serve_mode: str, pos, mask=None):
     """Block apply for decode: x [B, Tq, D] against the layer's cache
     (attn and attn_moe; with the memory read in 'armt' mode), which it
     updates in place (with mask, bool [B], only the True rows), or its
-    carried SSM state (mamba: the new h and conv tail are returned for the
-    executor to write). A MoE layer dispatches all B * Tq tokens, the rows
-    the mask freezes included, as the reference does."""
+    carried SSM state (mamba and mamba_moe: the new h and conv tail are
+    returned for the executor to write), then the layer's FFN, never
+    blockwise (as the reference's decode). A MoE layer dispatches all B *
+    Tq tokens, the rows the mask freezes included, as the reference does."""
     check_serve_mode(serve_mode)
     armt_on = serve_mode == "armt" and cfg.armt is not None
 
     def apply(t, p, x, st):
-        if t == "mamba":
-            return mamba_block(p, x, cfg.ssm, st)
+        if t in MAMBA_TYPES:
+            h, new = mamba_block(p, x, cfg.ssm, st)
+            return apply_ffn(cfg, t, h, p), new
         if t not in ATTN_TYPES:
             raise ValueError(t)
         if armt_on:
@@ -526,7 +537,10 @@ def flush_segment_(params: Dict, cfg: ArchConfig, state: Dict,
                    mask: Optional[torch.Tensor] = None) -> None:
     """ARMT segment boundary, in place: run the memory tokens through the
     stack against the current-segment cache (at positions pos..pos+M-1),
-    delta-update every layer's (A, z), then zero the caches and reset pos.
+    delta-update every attn layer's (A, z), then zero its cache; reset pos.
+    In a hybrid stack (jamba) the memory tokens also pass through the Mamba
+    layers, whose scan over the M tokens advances their h and conv tail, as
+    the reference's flush does.
 
     mask: optional bool [B] (per-slot pos only): flush only those rows; the
     others keep every leaf and pos bit for bit."""
@@ -536,13 +550,15 @@ def flush_segment_(params: Dict, cfg: ArchConfig, state: Dict,
     _check_mask(state, mask, "flush_segment(slot_mask=...)")
     layout = StackLayout.from_config(cfg)
     mem = params["mem_tokens"]
-    batch = state["pattern"][0]["A"].shape[1]
+    batch = next(iter(state["pattern"][0].values())).shape[1]
     x = mem[None].expand(batch, -1, -1)
     base = make_decode_apply(cfg, "armt", state["pos"], mask)
     drop = None if mask is None else mask.reshape(-1, 1, 1, 1)
 
     def apply(t, p, xx, st):
         y, new = base(t, p, xx, st)
+        if t in MAMBA_TYPES:
+            return y, new
         new = dict(new, **mem_update(p["mem"], {"A": st["A"], "z": st["z"]}, y, cfg.armt))
         for k in ("k", "v"):
             if drop is None:

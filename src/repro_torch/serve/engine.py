@@ -83,7 +83,7 @@ from repro_torch.core.capture import Program
 from repro_torch.core.memory import RECURRENT_KEYS
 from repro_torch.core.schedule import StackLayout, n_diagonal_groups, pool_cells_remaining
 from repro_torch.core.sequential import clone_state
-from repro_torch.models.blocks import block_d_ff, make_apply_block
+from repro_torch.models.blocks import MAMBA_TYPES, block_d_ff, make_apply_block
 from repro_torch.models.grouped_blocks import make_grouped_apply
 from repro_torch.models.moe import capacity
 from repro_torch.models.model import (SCHEDULES, boundary_logits, check_serve_mode,
@@ -581,13 +581,20 @@ class ServeEngine:
           * the carry (``prefill_carry_bytes``);
           * two executor states (the stage's own copy and the one chained
             from the stage before) and the decode state the tail fills;
-          * what the cell holds at its peak over the widest band, min(L, S)
-            layers (the pattern's cell over min(n_super, S) layers, or a
-            prelude layer's cell alone, whichever is more), per group of B
-            * T rows: the attn cell at its down projection (gate, up and
-            their product, F wide each, F the prelude's width in a prelude
-            layer; q, k, v; seven D-wide activations; a pooled step's copy
-            of the band); the attn_moe cell at the larger of its attention
+          * what the cells hold at their peak over the widest band, min(L,
+            S) layers. With one pattern position: the pattern's cell over
+            min(n_super, S) layers, or a prelude layer's cell alone,
+            whichever is more. With several (jamba), whose cells run one
+            after another in a step and whose outputs are all held until it
+            ends: the band's min(L, S) outputs, plus the largest of the
+            positions' cells over its layers in the band, each layer's count
+            with one more D-wide copy (a strided band's input reshaped to N
+            rows). Per group of B * T rows: the attn cell at its down
+            projection (gate, up and their product, F wide each, F the
+            prelude's width in a prelude layer, over only min(T,
+            cell_block) rows when the FFN is blockwise, and then one more
+            D-wide output; q, k, v; seven D-wide activations; a pooled
+            step's copy of the band); the attn_moe cell at the larger of its attention
             (the attn cell without the FFN) and its MoE: the eight D-wide
             activations and the largest of the MoE's phases, which run one
             after another: the router (x in fp32, the logits, their
@@ -599,7 +606,9 @@ class ServeEngine:
             (its three activations, the routed output, its down product and
             the sum); the mamba cell at its scan (the in
             projection, 2 d_inner wide; the conv's input and output, dt and
-            the scan's output, d_inner each; three D-wide); and three
+            the scan's output, d_inner each; three D-wide), plus its FFN:
+            a dense one's F-wide three and three D-wide, or the MoE as
+            attn_moe's with its eight D-wide activations; and three
             copies of a layer's recurrent state (the new one, the memory
             update's, a pooled step's).
 
@@ -623,25 +632,44 @@ class ServeEngine:
         rows, D = batch * self._segment_rows(), cfg.d_model
         lay = self._layout
 
-        def cell(t: str, prelude: bool) -> int:
-            """One layer's transients at its cell's peak."""
-            if t == "mamba":
-                return rows * (3 * D + 6 * cfg.ssm.expand * D) * item
-            width = 8 * D + (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
-            if t != "attn_moe":
-                return rows * (width + 3 * block_d_ff(cfg, t, prelude)) * item
+        cb = cfg.cell_block
+        blocked = 0 < cb < self._segment_rows()
+        rows_f = batch * cb if blocked else rows     # the F-wide rows live at once
+
+        def moe_bytes() -> int:
             m = cfg.moe
             Q = batch if m.dispatch == "per_row" and batch > 1 else 1
             C = capacity(rows // Q, m)
             E, F = m.n_experts, m.d_expert
-            moe = max(rows * 4 * (D + 3 * E),
-                      Q * E * C * max(2 * D + F, D + 2 * F) * item,
-                      Q * E * C * D * item + rows * D * (8 + 2 * item),
-                      rows * (3 * D + 3 * m.d_shared) * item)
-            return max(rows * width * item, rows * 8 * D * item + moe)
+            return max(rows * 4 * (D + 3 * E),
+                       Q * E * C * max(2 * D + F, D + 2 * F) * item,
+                       Q * E * C * D * item + rows * D * (8 + 2 * item),
+                       rows * (3 * D + 3 * m.d_shared) * item)
 
-        band = max([cell(t, True) for t in lay.prelude]
-                   + [min(lay.n_super, S) * cell(lay.pattern[0], False)])
+        def ffn_bytes(F: int) -> int:
+            return rows_f * 3 * F * item + (rows * D * item if blocked else 0)
+
+        def cell(t: str, prelude: bool) -> int:
+            """One layer's transients at its cell's peak."""
+            F = block_d_ff(cfg, t, prelude)
+            if t in MAMBA_TYPES:
+                mixer = rows * (3 * D + 6 * cfg.ssm.expand * D) * item
+                if t == "mamba_moe":
+                    return mixer + rows * 8 * D * item + moe_bytes()
+                return mixer + (ffn_bytes(F) + rows * 3 * D * item if F else 0)
+            width = 8 * D + (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+            if t != "attn_moe":
+                return rows * width * item + ffn_bytes(F)
+            return max(rows * width * item, rows * 8 * D * item + moe_bytes())
+
+        if len(lay.pattern) == 1:
+            band = max([cell(t, True) for t in lay.prelude]
+                       + [min(lay.n_super, S) * cell(lay.pattern[0], False)])
+        else:
+            w = min(L, S)
+            n_in = min(lay.n_super, -(-w // len(lay.pattern)))
+            band = w * rows * D * item + max(n_in * (cell(t, False) + rows * D * item)
+                                             for t in set(lay.pattern))
         total = (self.prefill_carry_bytes(S, batch, stream=stream) + 2 * state + dstate
                  + band + min(L, S) * (3 * state // L))
         if self.prefix_cache is not None:

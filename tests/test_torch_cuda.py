@@ -17,7 +17,9 @@ programs (llama's generate, greedy and sampled, and serve; cache-mode
 generate; falcon's generate and serve; the sequential schedule's segment)
 against the same programs run
 eagerly, to the bit, with equal launch counts, and a failed capture
-raising. Needs a CUDA device and nvcc; skips without a card. This file
+raising; jamba's fused cells on a strided band against the plain block,
+its diagonal schedule's strided bands against the sequential one to the
+bit, and the blockwise cell FFN (cell_block) on the attn cell. Needs a CUDA device and nvcc; skips without a card. This file
 imports no JAX; with ``--noconftest`` (tests/conftest.py imports JAX) it
 runs on a machine that has only PyTorch:
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``."""
@@ -1204,3 +1206,132 @@ def test_moe_tokens_kernel_experts_match_plain_on_card(cuda):
     want = moe.moe_tokens(x, p["router"], mcfg, plain)
     assert grouped_matmul.tc_launches - tc == 3
     _close(got, want, 1e-2)
+
+
+# ------------------------------------------------------------ jamba and cell_block
+def _mid_jamba(cuda, dtype="bfloat16", **kw):
+    """jamba-1.5-large's pattern (attn without rotary, mamba with a dense
+    FFN, mamba_moe) at 2 superblocks, hd 128, narrower (d_model 1024, 8/1
+    heads, FFN and 4 experts 2048 wide, top-2, d_inner 2048) and a small
+    vocabulary; random weights from a seed."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("jamba-1.5-large-398b")
+    cfg = dataclasses.replace(cfg, n_layers=16, d_model=1024, n_heads=8, n_kv_heads=1,
+                              d_ff=2048, vocab=1024, dtype=dtype,
+                              moe=dataclasses.replace(cfg.moe, n_experts=4, d_expert=2048),
+                              **kw)
+    return cfg, M.init_params(cfg, 0, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("t", ["attn", "mamba", "mamba_moe"])
+def test_jamba_fused_cells_match_plain_block_on_card(cuda, t, B):
+    """Each of jamba's fused cells on the kernels (fp32, so that the MoE's
+    routing is the plain block's), its input a strided band of a slot
+    buffer (stride 8 on the group axis, as the diagonal executor passes
+    it), against the plain block slot by slot; the same cell on a
+    contiguous copy gives the same bits."""
+    from repro_torch.core.diagonal import _per_slot_apply
+    from repro_torch.models import model as M
+    from repro_torch.models.blocks import make_apply_block
+    from repro_torch.models.grouped_blocks import make_grouped_apply
+    cfg, params = _mid_jamba(cuda, "float32")
+    p = cfg.block_pattern.index(t)
+    T = cfg.armt.segment_len + cfg.armt.num_mem_tokens
+    buf = _rand(torch.Generator().manual_seed(B), cuda, torch.float32)(16, B, T, cfg.d_model)
+    x = buf[p::8]
+    g = torch.Generator().manual_seed(1)
+    st = {k: (torch.rand(v.shape, generator=g) * 0.1).to(cuda, v.dtype)
+          for k, v in M.init_state(cfg, B, "cpu")["pattern"][p].items()}
+    cell = make_grouped_apply(cfg)
+    got, gst = cell(t, params["pattern"][p], x, st)
+    want, wst = _per_slot_apply(make_apply_block(cfg))(t, params["pattern"][p], x, st)
+    _close(got, want, 1e-4)
+    for k in st:
+        _close(gst[k], wst[k], 1e-4)
+    again, ast = cell(t, params["pattern"][p], x.contiguous(), st)
+    assert _same(again, got) and all(_same(ast[k], gst[k]) for k in st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2])
+def test_jamba_strided_bands_diagonal_equals_sequential_on_card(cuda, B):
+    """bf16, 9 segments: the diagonal executor's strided bands (every
+    position's cell at G = 2 from step 8) against the sequential schedule
+    (the same cells a layer at a time, eager), to the bit: hidden states
+    and every layer's final state; every GEMM and flash launch on the TMA +
+    wgmma route; one mamba_scan launch per position's band."""
+    from repro_torch.core.schedule import StackLayout, band
+    from repro_torch.models import model as M
+    cfg, params = _mid_jamba(cuda)
+    toks = torch.from_numpy(np.random.default_rng(B).integers(
+        0, cfg.vocab, (B, 9 * cfg.armt.segment_len))).to(cuda)
+    routes = (grouped_matmul.simt_launches, flash_attention.simt_launches)
+    with torch.no_grad():
+        (hd, fd), nd = _counted(lambda: M.forward_hidden(params, cfg, toks))
+        hs, fs = M.forward_hidden(params, cfg, toks, schedule="sequential", eager=True)
+    assert (grouped_matmul.simt_launches, flash_attention.simt_launches) == routes
+    layout = StackLayout.from_config(cfg)
+    cells = sum(layout.position_band(p, *band(i, 9, 16)) is not None
+                for i in range(9 + 16 - 1) for p in range(8) if cfg.block_pattern[p] != "attn")
+    assert nd["mamba_scan.launches"] == cells < 9 * 14      # one launch a position's band
+    assert _same(hd, hs)
+    for a, b in zip(fd["pattern"], fs["pattern"]):
+        for k in a:
+            assert _same(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2])
+def test_cell_block_fused_cell_on_card(cuda, B):
+    """llama-1b-armt's widths at 2 layers, cell_block 256 (1,152 rows: 4
+    chunks of 256 and one of 128), each chunk's residual on its down
+    projection's epilogue: at B = 1 the blocked attn cell gives the
+    unblocked one's output and memory to the bit, running the down
+    projections and armt_update in place of the fused update; at B = 2
+    (where the unblocked cell rounds the down projection before adding the
+    residual) within bf16 tolerance, the memory within 1e-2 as a whole
+    (A's rows vary in size); the GEMM's residual epilogue against its plain
+    version on a strided residual; with it the diagonal schedule equals
+    the sequential one to the bit."""
+    import dataclasses
+    from repro_torch.models import model as M
+    from repro_torch.models.grouped_blocks import make_grouped_apply
+    cfg, params = _mid_llama(cuda)
+    blk = dataclasses.replace(cfg, cell_block=256)
+    T = cfg.armt.segment_len + cfg.armt.num_mem_tokens
+    r = _rand(torch.Generator().manual_seed(B), cuda, torch.bfloat16)
+    x = r(2, B, T, cfg.d_model)
+    g = torch.Generator().manual_seed(1)
+    st = {k: (torch.rand(v.shape, generator=g) * 0.1).to(cuda)
+          for k, v in M.init_state(cfg, B, "cpu")["pattern"][0].items()}
+    with torch.no_grad():
+        (y0, s0), n0 = _counted(lambda: make_grouped_apply(cfg)("attn", params["pattern"][0],
+                                                               x, st))
+        (yb, sb), nb = _counted(lambda: make_grouped_apply(blk)("attn", params["pattern"][0],
+                                                               x, st))
+    fused = "grouped_matmul.fused_launches"
+    if B == 1:
+        assert _same(yb, y0) and _same(sb["A"], s0["A"]) and _same(sb["z"], s0["z"])
+        assert n0.get(fused) == 1 and "armt_memory.update_launches" not in n0
+        assert fused not in nb and nb["armt_memory.update_launches"] == 1
+    else:
+        _close(yb, y0, 1e-2)
+        for k in ("A", "z"):
+            assert ((sb[k] - s0[k]).norm() / s0[k].norm()).item() <= 1e-2, k
+    assert nb["grouped_matmul.launches"] - n0.get("grouped_matmul.launches", 0) == 4 * 3 + (
+        1 if B == 1 else 0)
+    xg, w = r(3, 300, 256), r(3, 256, 136, sc=256 ** -0.5)
+    res = r(3, 2, 300, 136)[:, 1]                       # strided rows
+    got = _tc_launch(lambda: grouped_matmul.grouped_matmul(xg, w, res=res))
+    want = grouped_matmul.grouped_matmul_plain(*_f32(xg, w), res=res.float())
+    _close(got, want, 1e-2)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, 3 * cfg.armt.segment_len))).to(cuda)
+    with torch.no_grad():
+        hd, fd = M.forward_hidden(params, blk, toks)
+        hs, fs = M.forward_hidden(params, blk, toks, schedule="sequential", eager=True)
+    assert _same(hd, hs) and _same(fd["pattern"][0]["A"], fs["pattern"][0]["A"])
