@@ -40,7 +40,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       shapes: flash over its attention band (2 layers, 64 q over 8 kv
       heads of 128), decode at 64 q over 8 kv heads of 128 (the same
       slots and caches, rows alone = batched) and mamba_scan over its
-      band (2 layers, T = 1,152, d_inner 16,384, fused);
+      band (2 layers, T = 1,152, d_inner 16,384, fused); whisper-medium's
+      shapes: the GEMM's bias + tanh-GELU epilogue at its MLP up
+      projection over the band [16,1152,1024]x[16,1024,4096], flash
+      without a mask at T != S over a ragged 1,500 keys (the dec cell's
+      cross-attention, k/v read as views of a [G,B,F,H,hd] cross K/V
+      buffer) and at T = S = 1,500 (the encoder), and decode's
+      cross-attention at rep 1 x hd 64 over 1,500 frames (rows alone =
+      batched), each beside its library call;
   (c) model: llama-1b-armt at full width and depth (random weights from a
       seed, bf16), diagonal prefill on the kernels against the sequential
       schedule on the plain path: 16 segments free-running, gated on the
@@ -136,9 +143,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       sequential schedule on the kernels (every segment's hidden states and
       last-token logits, every layer's final h), with the mamba_scan
       launches counted (S + L - 1 band steps) and those of one decoded
-      token (one per layer); 2 segments against the sequential plain path,
-      printed in bf16 beside the bf16 stack's own rounding floor, and gated
-      on the same weights in fp32 at 1e-3, with two negative controls on
+      token (one per layer); 1 segment against the sequential plain path,
+      printed in bf16 beside the bf16 stack's own rounding floor, and 2
+      gated on the same weights in fp32 at 1e-3, with two negative controls on
       the kernel path (dt x~1.02 into the scan through its bias, the
       scan's output x0.98) that the check must reject; the smoke config in
       fp32, card against CPU;
@@ -252,6 +259,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       cold run too), and the admission's peak at or below
       prefill_activation_bytes at 4 and 16 segments. No SIMT GEMM or flash
       may launch, and every kernel must. Prints a ``{"jamba": ...}`` line;
+  (u) after (t): whisper-medium at full width and depth (24 encoder and
+      24 decoder layers, 975.8 M parameters, weights drawn on the card,
+      every bias and layernorm leaf away from its init value, frame
+      embeddings from the seed): the encoder on the kernels within 1e-2 of
+      the plain path in fp32 (rel err of the output; a control, every
+      layer's output projection x0.98, must fail it), and timed; diagonal
+      = sequential to the bit at B = 1 and 2, 4 and 16 segments (hidden,
+      logits, every layer's A, z and cross K/V); the first 2 segments
+      free-running against the sequential plain path in fp32 at 5e-2, and
+      all 16 teacher-forced from its states (held where the plain versions
+      on the card agree within half the tolerance); generate captured
+      against eager to the bit in ARMT mode (a flush crossed) and cache
+      mode (2,048 tokens); frames A, B, A on one engine's graphs: the A
+      runs equal to the bit, B's run equal to the bit to an eager engine's
+      B, its logits not A's; the blocking prefill's peak at or below
+      prefill_activation_bytes at 4 and 16 segments; no SIMT, every
+      kernel but mamba_scan launched. Prints a ``{"whisper": ...}`` line;
   (p4) after (h): a falcon-mamba-7b session (2 x 8192 + 1000 tokens, then
       500), spilled and restored against kept in memory to the bit (h and
       the bf16 conv tail), resume TTFT against re-prefilling the history
@@ -264,7 +288,7 @@ place), and so does the sequential schedule's segment; the eager engines
 to be held against them here and in the card tests.
 
 The kernels' launch counters are set to 0 just before each main-path run
-of (d), (e), (i), (k), (l), (o), (p1)-(p4), (r), (s), (t), (g), (h) and falcon's
+of (d), (e), (i), (k), (l), (o), (p1)-(p4), (r), (s), (t), (u), (g), (h) and falcon's
 fused run of (o), and read just after it (a phase's count is the sum over its runs; a
 graph replay counts what its capture launched, so the counts read the
 same under graphs as eager): every llama kernel must have been launched
@@ -274,7 +298,7 @@ prefix-cache (p1-p2) and session (p3) runs (``prefix_cache``,
 ``sessions``) and in (r) (``dense_configs``), every one in (s)
 (``moe_configs``: armt_update through the MoE cell at B = 1, the fused
 update through kimi's dense prelude layer) and in (t) (``jamba``, with
-mamba_scan), the GEMM and
+mamba_scan) and in (u) (``whisper``), the GEMM and
 flash in (i) and flash and decode attention in (k) and (l), with none of
 the ARMT memory kernels there, and mamba_scan in (g), (h) and falcon's
 interleaved run and session run (p4). ``serve`` runs at its default of 4 band steps per
@@ -282,7 +306,7 @@ chunk (interleaved admission) in (e), (l) and (h). The GEMM's and flash attentio
 launches are also counted by route (the TMA + wgmma kernel or the fp32 SIMT
 kernel; for the GEMM whoever called it: projections, the fused op, the
 ARMT kernels' projections): the bf16 runs of (d),
-(e), (i), (k), (l), (o), (p1)-(p3), (r), (s) and (t) must launch no SIMT GEMM and
+(e), (i), (k), (l), (o), (p1)-(p3), (r), (s), (t) and (u) must launch no SIMT GEMM and
 no SIMT flash. One decode_attention
 call (its partials and their combine) counts as one launch.
 The script prints JSON lines of the schedules' timing, of the graph
@@ -1168,6 +1192,87 @@ def main() -> int:
     del Ak, zk, wkk, wvk, wbk, yk, mk
     torch.cuda.empty_cache()
 
+    # whisper-medium's shapes (phase (u)): the GELU MLP's up projection over
+    # the 16-layer band with its bias and tanh-GELU on the epilogue; the
+    # dec cell's cross-attention, q [16,16,1152,64] against a cross K/V of
+    # 1,500 frames read as [N,H,F,hd] views of its [G,B,F,H,hd] buffer, no
+    # mask; the encoder's attention [1,16,1500,64] without a mask; and
+    # decode's cross-attention, one query of 16 heads of 64 over the 1,500
+    # frames (rep 1, every length 1,500), 4 slots
+    Dw, Fw, Hw, hdw, Fr = 1024, 4096, 16, 64, 1500
+    xw, ww, bw = rnd(G, T, Dw), rnd(G, Dw, Fw, scale=Dw ** -0.5), rnd(G, Fw)
+    err = check(f"grouped_matmul whisper MLP up [{G},{T},{Dw}]x[{G},{Dw},{Fw}] bias+gelu",
+                grouped_matmul.grouped_matmul(xw, ww, bw, activation="gelu"),
+                grouped_matmul.grouped_matmul_plain(xw.float(), ww.float(), bw.float(),
+                                                    activation="gelu"), TOL_BF16)
+    routew = grouped_matmul.route(xw, ww, xw)
+    t = timed(f"grouped_matmul whisper MLP up bias+gelu (route {routew})",
+              lambda: grouped_matmul.grouped_matmul(xw, ww, bw, activation="gelu"),
+              lambda: grouped_matmul.grouped_matmul_plain(xw, ww, bw, activation="gelu"),
+              lambda: torch.baddbmm(bw[:, None, :], xw, ww),
+              flops_bf16=2.0 * G * T * Dw * Fw,
+              nbytes=2.0 * G * (T * Dw + Dw * Fw + T * Fw + Fw))
+    long_rows["grouped_matmul"] = {
+        f"whisper MLP up [{G},{T},{Dw}]x[{G},{Dw},{Fw}] bias+gelu": dict(
+            t, max_abs_err=err, route=routew, library="torch.baddbmm (bias, no GELU)")}
+    if routew != "wgmma":
+        failures.append(f"grouped_matmul at whisper's MLP took the {routew} route")
+    del xw, ww, bw
+    for label, (Gq, Tq) in (("whisper cross", (G, T)), ("whisper encoder", (1, Fr))):
+        q5 = rnd(Gq, 1, Tq, Hw, hdw)
+        ck5, cv5 = rnd(Gq, 1, Fr, Hw, hdw), rnd(Gq, 1, Fr, Hw, hdw)
+
+        def flat_w(a, Gq=Gq):
+            return a.reshape((Gq,) + a.shape[2:]).transpose(1, 2)
+        ref32 = flash_attention.flash_attention_plain(flat_w(q5).float(), flat_w(ck5).float(),
+                                                      flat_w(cv5).float(), causal=False)
+        shape = f"q[{Gq},{Hw},{Tq},{hdw}] k/v[{Gq},{Hw},{Fr},{hdw}]"
+        err = check(f"flash_attention non-causal {label} {shape}",
+                    ops.segment_attention(q5, ck5, cv5, causal=False),
+                    ref32.transpose(1, 2).reshape(q5.shape), TOL_BF16)
+        del ref32
+        routew = flash_attention.route(flat_w(q5), flat_w(ck5), flat_w(cv5))
+        qc, kc, vc = flat_w(q5).contiguous(), flat_w(ck5).contiguous(), flat_w(cv5).contiguous()
+        pairs_w = float(Tq * Fr)
+        t = timed(f"flash_attention {label} {shape} no mask (route {routew})",
+                  lambda: ops.segment_attention(q5, ck5, cv5, causal=False),
+                  lambda: flash_attention.flash_attention_plain(flat_w(q5), flat_w(ck5),
+                                                                flat_w(cv5), causal=False),
+                  lambda: torch.nn.functional.scaled_dot_product_attention(qc, kc, vc),
+                  flops_bf16=4.0 * Gq * Hw * hdw * pairs_w, exps=Gq * Hw * pairs_w,
+                  nbytes=2.0 * Gq * Hw * hdw * (2 * Tq + 2 * Fr))
+        long_rows["flash_attention"][f"{label} {shape}"] = dict(t, max_abs_err=err,
+                                                                route=routew)
+        if routew != "wgmma":
+            failures.append(f"flash_attention at {label} took the {routew} route")
+        del q5, ck5, cv5, qc, kc, vc
+    qd, kd, vd = rnd(4, Hw, hdw), rnd(4, Fr, Hw, hdw), rnd(4, Fr, Hw, hdw)
+    Ld = torch.full((4,), Fr, dtype=torch.int32, device=dev)
+    err = check(f"decode_attention whisper cross rep 1 q[4,{Hw},{hdw}] over {Fr} frames",
+                decode_attention.decode_attention(qd, kd, vd, Ld),
+                decode_attention.decode_attention_plain(qd.float(), kd.float(), vd.float(), Ld),
+                TOL_BF16)
+    alone = all(same_bits(decode_attention.decode_attention(qd, kd, vd, Ld)[b],
+                          decode_attention.decode_attention(qd[b:b + 1], kd[b:b + 1],
+                                                            vd[b:b + 1], Ld[b:b + 1])[0])
+                for b in range(4))
+    log(f"  split plan over {Fr} keys {decode_attention.split_plan(Fr)}, head groups "
+        f"{decode_attention.head_groups(1, hdw)}; each row batched equal to the row alone, to "
+        f"the bit: {alone} -> {'ok' if alone else 'FAIL'}")
+    if not alone:
+        failures.append("decode_attention whisper cross: a row's bits depend on its batch")
+    q4, k4, v4 = qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
+    t = timed(f"decode_attention whisper cross q[4,{Hw},{hdw}] over {Fr} frames",
+              lambda: decode_attention.decode_attention(qd, kd, vd, Ld),
+              lambda: decode_attention.decode_attention_plain(qd, kd, vd, Ld),
+              lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4),
+              flops_fp32=4.0 * 4 * Fr * Hw * hdw,
+              nbytes=2.0 * 2 * 4 * Fr * Hw * hdw + 2.0 * 2 * 4 * Hw * hdw + 4.0 * 4)
+    long_rows["decode_attention"][f"whisper cross rep 1 hd 64 B=4 S={Fr}"] = dict(
+        t, max_abs_err=err, lengths=[Fr] * 4)
+    del qd, kd, vd, q4, k4, v4, Ld
+    torch.cuda.empty_cache()
+
     # mamba_scan: the falcon-mamba band step (G = 16 layers, B = 1, T = 1024,
     # d_inner 8192, d_state 16; x bf16, B/C column slices of the fp32 x_proj
     # output), each group its own A_log, D and dt_bias so a wrong group index
@@ -1305,7 +1410,7 @@ def main() -> int:
 
     def seg_logits(p, c, h):
         """fp32 logits of the last token of every segment: [S, 1, V]."""
-        return M._head_matmul(p, c, M.rmsnorm(h[:, :, -1], p["final_norm"])).float()
+        return M.boundary_logits(p, c, h)
 
     with torch.no_grad():
         prefill("diagonal", params, cfg, toks[:, :2 * seg])      # warm-up
@@ -3645,6 +3750,320 @@ def main() -> int:
     launches_jamba, routes_jamba, jamba_rows = jamba_phase()
     print(json.dumps({"jamba": jamba_rows, "card": smi}))
 
+    # ------------------------------------------------------------ (u) whisper-medium
+    def whisper_phase():
+        """(u) whisper-medium at full width and depth (24 encoder and 24
+        decoder layers, 1,500 frames), bf16, weights drawn on the card from
+        the seed, every bias and layernorm leaf set away from its init value
+        (normal x 0.02; 1 + normal x 0.02); two sets of frame embeddings
+        drawn from the seed (the frontend is a stub). Returns (launches and
+        routes summed over the phase's runs, the results)."""
+        t_phase = time.perf_counter()
+        M.SegmentProgram._cache.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        launches, routes = {}, {}
+
+        def add(n, r):
+            nonlocal launches, routes
+            launches, routes = merged(launches, n), merged(routes, r)
+            return n, r
+
+        cfg = get_config("whisper-medium")
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        params = M.init_params(cfg, g, device=dev)
+
+        def perturb(tree):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    perturb(v)
+                elif k in ("bq", "bk", "bv", "bi", "bo", "b"):
+                    v.copy_(torch.randn(v.shape, generator=g, device=dev) * 0.02)
+                elif k == "w":
+                    v.add_(torch.randn(v.shape, generator=g, device=dev) * 0.02)
+        perturb({"dec": params["pattern"][0], "enc": params["enc"], "f": params["final_norm"]})
+        D, F, seg = cfg.d_model, cfg.encoder.n_frames, cfg.armt.segment_len
+        frames = [torch.randn((2, F, D), generator=g, device=dev).to(torch.bfloat16)
+                  for _ in range(2)]
+        fA, fB = frames[0][:1], frames[1][:1]
+        sync()
+
+        def numel(tree):
+            return sum(numel(v) for v in tree.values()) if isinstance(tree, dict) else (
+                sum(numel(v) for v in tree) if isinstance(tree, tuple) else tree.numel())
+        counts = dict(total=numel(params), encoder=numel(params["enc"]),
+                      decoder=numel(params["pattern"]), embed=numel(params["embed"]),
+                      head=numel(params["head"]), pos_embed=numel(params["pos_embed"]))
+        row = dict(params=counts, init_s=time.perf_counter() - t_phase,
+                   cross_kv_bytes_per_row=2 * cfg.n_layers * F * D * 2)
+        log(f"== (u) whisper-medium: {cfg.encoder.n_layers} + {cfg.n_layers} layers, d_model "
+            f"{D}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab}, {F} frames, bf16: {counts['total'] / 1e6:.1f} M parameters "
+            f"(encoder {counts['encoder'] / 1e6:.1f}, decoder {counts['decoder'] / 1e6:.1f}, "
+            f"embedding {counts['embed'] / 1e6:.1f}, head {counts['head'] / 1e6:.1f}, "
+            f"positions {counts['pos_embed'] / 1e6:.1f}), drawn on the card in "
+            f"{row['init_s']:.2f} s; cross K/V {row['cross_kv_bytes_per_row'] / 1e6:.1f} MB a "
+            "batch row")
+
+        # (u1) the encoder on the kernels (bf16) against the plain path in
+        # fp32 on the same weights, B = 1, as (i) holds full mode: the
+        # output's rel err within 1e-2 (the worst row's logged), with a
+        # negative control (every encoder layer's output projection x0.98)
+        # that must fail it; then timed, device time behind a spin longer
+        # than the host's enqueue of its ~1,000 launches, and host wall
+        p32 = M._tree_map(lambda path, t: t.float(), params)
+        tol_enc = 1e-2
+        with torch.no_grad():
+            enc, ne, re_ = counted(lambda: M.encode(params, cfg, fA))
+            add(ne, re_)
+            enc32 = M.encode(p32, cfg, fA.float(), fused=False)
+            enc_err, enc_row = rel_err(enc, enc32), row_rel(enc, enc32)
+            encp_err = rel_err(M.encode(params, cfg, fA, fused=False), enc32)
+            ok = bool(torch.isfinite(enc).all()) and enc_err <= tol_enc
+            blocks = params["enc"]["blocks"]
+            ctl = dict(params, enc=dict(params["enc"], blocks=dict(blocks, attn=dict(
+                blocks["attn"], wo=blocks["attn"]["wo"] * 0.98))))
+            ctl_err = rel_err(M.encode(ctl, cfg, fA), enc32)
+            del ctl
+            row.update(encode_rel_err=enc_err, encode_worst_row_rel_err=enc_row,
+                       encode_plain_bf16_rel_err=encp_err, encode_control_rel_err=ctl_err,
+                       encode_ms=time_ms(lambda: M.encode(params, cfg, fA), iters=5,
+                                         spin=200_000_000),
+                       encode_plain_ms=time_ms(lambda: M.encode(params, cfg, fA, fused=False),
+                                               iters=3, spin=200_000_000))
+            sync()
+            t0 = time.perf_counter()
+            M.encode(params, cfg, fA)
+            sync()
+            row["encode_host_s"] = time.perf_counter() - t0
+        caught = ctl_err > tol_enc
+        log(f"  encode B=1 [1,{F},{D}], bf16 on the kernels vs the plain path in fp32: rel err "
+            f"{enc_err:.3e} (worst row {enc_row:.3e}; the plain path in bf16 {encp_err:.3e}) "
+            f"(tol {tol_enc:g}) -> {'ok' if ok else 'FAIL'}; negative control, every layer's "
+            f"output projection x0.98: {ctl_err:.3e} -> {'caught, ok' if caught else 'FAIL'}; "
+            f"{row['encode_ms']:.3f} ms device (plain bf16 {row['encode_plain_ms']:.3f} ms), "
+            f"{row['encode_host_s'] * 1e3:.1f} ms host wall; launches {ne}; card {smi}")
+        if not ok:
+            failures.append("whisper: encoder vs plain")
+        if not caught:
+            failures.append("whisper: encoder check blind to the x0.98 control")
+        del enc
+
+        def fwd(tk, fr, **kw):
+            with torch.no_grad():
+                h, f = M.forward_hidden(params, cfg, tk, enc_frames=fr, **kw)
+                return h, f, M.boundary_logits(params, cfg, h)
+
+        # (u2) diagonal = sequential (captured segments), B = 1 and 2, 4 and
+        # 16 segments: hidden states, logits, every layer's A, z and cross K/V
+        for B in (1, 2):
+            for n_seg in (4, 16):
+                tk = torch.from_numpy(rng.integers(0, cfg.vocab, (B, n_seg * seg))).to(dev)
+                (hd_, fd_, ld_), nd, rd = counted(lambda: fwd(tk, frames[0][:B]))
+                add(nd, rd)
+                (hs_, fs_, ls_), ns, rs = counted(lambda: fwd(tk, frames[0][:B],
+                                                              schedule="sequential"))
+                add(ns, rs)
+                exact = dict(hidden=same_bits(hd_, hs_), logits=same_bits(ld_, ls_),
+                             **{k: same_bits(v, fs_["pattern"][0][k])
+                                for k, v in fd_["pattern"][0].items()})
+                ok = all(exact.values())
+                row[f"diagonal_equals_sequential_B{B}_S{n_seg}"] = ok
+                log(f"  {n_seg}-segment prefill B={B}, diagonal vs sequential (captured "
+                    f"segments): to the bit {ok} ({sum(exact.values())} of {len(exact)} "
+                    f"tensors) -> {'ok' if ok else 'FAIL'}; launches {nd}")
+                if not ok:
+                    failures.append(f"whisper: diagonal vs sequential B={B} S={n_seg}: "
+                                    f"{[k for k, v in exact.items() if not v]}")
+                if B == 1 and n_seg == 16:
+                    tk16, ld16 = tk, ld_
+                del hd_, fd_, ld_, hs_, fs_, ls_
+            M.SegmentProgram._cache.clear()
+            torch.cuda.empty_cache()
+        times = {}
+        for n_seg in (4, 16):
+            tkn = tk16[:, :n_seg * seg]
+            for schedule in ("diagonal", "sequential"):
+                fwd(tkn, fA, schedule=schedule)
+                ts = []
+                for _ in range(3):
+                    sync()
+                    t0 = time.perf_counter()
+                    fwd(tkn, fA, schedule=schedule)
+                    sync()
+                    ts.append(time.perf_counter() - t0)
+                times[f"{schedule}_{n_seg}"] = float(np.median(ts))
+        row["prefill_s"] = times
+        M.SegmentProgram._cache.clear()
+        torch.cuda.empty_cache()
+        log(f"  warm prefill B=1 with the encoder, median of 3: 4 segments diagonal "
+            f"{times['diagonal_4']:.4f} s, sequential {times['sequential_4']:.4f} s; 16 "
+            f"segments diagonal {times['diagonal_16']:.4f} s, sequential "
+            f"{times['sequential_16']:.4f} s; card {smi}")
+
+        # (u3) the kernels (bf16) against the plain path in fp32 on the same
+        # weights: 16 segments free-running, the first 2 gated; then all 16
+        # teacher-forced, each from the state the fp32 plain path reached
+        # before it (its cross K/V from the fp32 plain encoder, in bf16),
+        # held where a second rounding of the same math (the plain versions
+        # of the kernels on the card, bf16) agrees within half the tolerance
+        n_free, tol = 2, 5e-2
+        with torch.no_grad():
+            h32, _ = M.forward_hidden(p32, cfg, tk16[:, :n_free * seg], schedule="sequential",
+                                      fused=False, enc_frames=fA.float())
+            l32 = M.boundary_logits(p32, cfg, h32)
+        free = [rel_err(ld16[i], l32[i]) for i in range(n_free)]
+        ok = bool(torch.isfinite(ld16[:n_free]).all()) and max(free) <= tol
+        row["free_running_logits_rel_err"] = free
+        log(f"  segments 1-{n_free} free-running, diagonal on the kernels vs sequential plain "
+            f"in fp32: last-token logits rel err {' '.join(f'{e:.2e}' for e in free)} (tol "
+            f"{tol:g}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("whisper: first segments vs the plain path")
+        forced_in = []
+        with torch.no_grad():
+            st = M.init_state(cfg, 1, dev, torch.float32)
+            M.fill_cross_kv_(p32, cfg, st, enc32, fused=False)
+            ck16, cv16 = (st["pattern"][0][k].to(torch.bfloat16) for k in ("ck", "cv"))
+            for i in range(16):
+                part = tk16[:, i * seg:(i + 1) * seg]
+                hs_, fs_ = M.forward_hidden(p32, cfg, part, schedule="sequential",
+                                            fused=False, state0=st)
+                st0 = {"prelude": (), "pattern": (dict(st["pattern"][0], ck=ck16, cv=cv16),)}
+                forced_in.append((part, st0, M.boundary_logits(p32, cfg, hs_),
+                                  fs_["pattern"][0]))
+                st = fs_
+        del h32, l32, hs_, st, enc32, p32
+
+        def forced_errors():
+            """Per segment: (the worst of the logits' and every layer's A
+            and z rel err, all finite, the worst quantity's name)."""
+            errs = []
+            with torch.no_grad():
+                for part, st0, lref, sref in forced_in:
+                    h, f = M.forward_hidden(params, cfg, part, state0=st0)
+                    lg, sd = M.boundary_logits(params, cfg, h), f["pattern"][0]
+                    each = {"logits": rel_err(lg, lref)}
+                    each.update({f"{k}{j}": rel_err(sd[k][j], sref[k][j])
+                                 for k in ("A", "z") for j in range(cfg.n_layers)})
+                    worst_k = max(each, key=each.get)
+                    errs.append((each[worst_k], all(torch.isfinite(t).all().item()
+                                                    for t in (lg, sd["A"], sd["z"])), worst_k))
+            return errs
+        with swap.plain_versions():
+            probe = forced_errors()
+        held = [i for i, (e, f, _) in enumerate(probe) if f and e <= tol / 2]
+        errs = forced_errors()
+        ok = (all(f for _, f, _ in errs) and len(held) >= 8
+              and all(errs[i][0] <= tol for i in held))
+        row.update(forced_rel_err=[e for e, _, _ in errs],
+                   forced_worst=[w for _, _, w in errs],
+                   forced_plain_rel_err=[e for e, _, _ in probe],
+                   forced_held=[i + 1 for i in held])
+        log(f"  16 segments teacher-forced from the fp32 plain path's states, worst of "
+            f"logits/A/z rel err per segment: kernels "
+            f"{' '.join(f'{e:.1e} ({w})' for e, _, w in errs)}; plain versions "
+            f"{' '.join(f'{e:.1e}' for e, _, _ in probe)}; held at segments "
+            f"{[i + 1 for i in held]} (tol {tol:g}, at least 8), kernels finite at all "
+            f"{all(f for _, f, _ in errs)} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("whisper: teacher-forced segments")
+        del forced_in
+        torch.cuda.empty_cache()
+
+        # (u4) generate: captured decode against eager in both serve modes
+        # (ARMT: a flush at token 4; cache mode after 2,048 tokens), and one
+        # engine's graphs reading each request's frames: A, B, then A again
+        new = 24
+        for mode, P in (("armt", 2 * seg + 1020), ("cache", 2048)):
+            kw = dict(serve_mode=mode, max_len=P + 64) if mode == "cache" else {}
+            eng, eng_e = ServeEngine(params, cfg, **kw), ServeEngine(params, cfg, eager=True, **kw)
+            prompt = rng.integers(0, cfg.vocab, (1, P))
+            gres, ng, rg = counted(lambda: eng.generate(prompt, new, keep=True, enc_frames=fA))
+            add(ng, rg)
+            eres, ne_, _ = counted(lambda: eng_e.generate(prompt, new, keep=True, enc_frames=fA))
+            good = (gres.finite and gres.tokens.shape == (1, new)
+                    and 0 <= gres.tokens.min() and gres.tokens.max() < cfg.vocab)
+            log(f"  {mode} generate B=1, prompt {P}, {new} new: TTFT {gres.ttft_s:.3f} s, "
+                f"{gres.tok_s:.1f} tok/s (capture {gres.capture_s:.3f} s); eager TTFT "
+                f"{eres.ttft_s:.3f} s, {eres.tok_s:.1f} tok/s; finite {gres.finite} -> "
+                f"{'ok' if good else 'FAIL'}; launches {ng}; card {smi}")
+            log(f"    tokens: {gres.tokens[0].tolist()}")
+            if not good:
+                failures.append(f"whisper: {mode} generate")
+            check_generate(f"whisper {mode} generate B=1", gres, eres, ng, ne_,
+                           graph_tok_s=gres.tok_s, eager_tok_s=eres.tok_s,
+                           graph_ttft_s=gres.ttft_s, eager_ttft_s=eres.ttft_s)
+            row[f"{mode}_generate"] = dict(ttft_s=gres.ttft_s, tok_s=gres.tok_s,
+                                           eager_ttft_s=eres.ttft_s, eager_tok_s=eres.tok_s)
+            del eres
+            # the graphs follow each request's frames: after A, B's run on
+            # the same graphs equals B's on an eager engine that never saw
+            # A, to the bit, and its logits are not A's; A again repeats A
+            (rB, rA), nf, rf = counted(lambda: [eng.generate(prompt, new, keep=True,
+                                                             enc_frames=f) for f in (fB, fA)])
+            add(nf, rf)
+            eB = eng_e.generate(prompt, new, keep=True, enc_frames=fB)
+            same_a = (np.array_equal(gres.tokens, rA.tokens) and same_bits(gres.logits, rA.logits)
+                      and same_state(gres.state, rA.state))
+            b_fresh = (np.array_equal(rB.tokens, eB.tokens) and same_bits(rB.logits, eB.logits)
+                       and same_state(rB.state, eB.state))
+            b_other = not torch.equal(rB.logits, gres.logits)
+            tokens_differ = not np.array_equal(gres.tokens, rB.tokens)
+            ok = same_a and b_fresh and b_other
+            row[f"{mode}_frames_A_B_A"] = dict(A_twice_to_the_bit=same_a,
+                                               B_equals_fresh_eager=b_fresh,
+                                               B_logits_differ=b_other,
+                                               B_tokens_differ=tokens_differ)
+            log(f"  {mode} generate on one engine's graphs, frames A, B, A: the two A runs "
+                f"equal to the bit (tokens, logits, state) {same_a}; B equal to the bit to an "
+                f"eager engine's B {b_fresh}, its logits not A's {b_other} -> "
+                f"{'ok' if ok else 'FAIL'}; B's tokens differ from A's {tokens_differ}")
+            if not ok:
+                failures.append(f"whisper: {mode} graphs do not follow the request's frames")
+            del gres, rA, rB, eB, eng, eng_e
+            torch.cuda.empty_cache()
+
+        # (u5) the blocking prefill's peak above its start against
+        # prefill_activation_bytes (the encoder's transients and the cross K/V
+        # counted), at 4 and 16 segments
+        row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        eng = ServeEngine(params, cfg)
+        for n_seg in (4, 16):
+            est = eng.prefill_activation_bytes(n_seg, stream=False)
+            prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n_seg * seg + 100)))
+            torch.cuda.empty_cache()
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats(dev)
+            res, nprf, rprf = counted(lambda: eng.prefill(prompt, enc_frames=fA))
+            add(nprf, rprf)
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            del res
+            ok = peak <= est
+            row[f"prefill_{n_seg}"] = dict(peak_bytes=peak, estimate_bytes=est)
+            log(f"  a {n_seg}-segment prefill's peak above its start {peak / 1e6:.1f} MB, "
+                f"prefill_activation_bytes({n_seg}) {est / 1e6:.1f} MB -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"whisper: {n_seg}-segment prefill peak above its estimate")
+        del eng, params, frames, fA, fB
+        M.SegmentProgram._cache.clear()
+        torch.cuda.empty_cache()
+        row["phase_s"] = time.perf_counter() - t_phase
+        log(f"  whisper peak {row['peak_gb']:.2f} GB; (u) {row['phase_s']:.1f} s")
+        log(f"  launches over the phase: {launches}; GEMM and flash launches by route {routes}")
+        for k in routed:
+            if routes[k]["simt"] or not routes[k]["wgmma"]:
+                failures.append(f"(u)'s {k} left the TMA + wgmma route: {routes[k]}")
+        for name in llama_kernels:
+            if launches[name] == 0:
+                failures.append(f"{name} never launched by (u)")
+        return launches, routes, row
+
+    launches_whisper, routes_whisper, whisper_row = whisper_phase()
+    print(json.dumps({"whisper": whisper_row, "card": smi}))
+
     # ------------------------------------------------------------ (f) falcon-mamba model
     log("== model phase: falcon-mamba-7b, full width and depth, bf16, seed 0 on the card")
     fcfg = get_config("falcon-mamba-7b")
@@ -3746,16 +4165,19 @@ def main() -> int:
 
     def dt_scaled(*a, dt_bias, **k):
         return scan(*a, dt_bias=dt_bias + math.log(1.02), **k)
+    # (the informational bf16 comparison over the first segment only: the
+    # plain scan is a token loop, ~12 s a segment)
+    one = ftoks[:, :fseg]
     t0 = time.perf_counter()
     with swap.plain_versions():
-        plain2 = frun("sequential", two)
+        plain2 = frun("sequential", one)
     sync()
     t_plain2 = time.perf_counter() - t0
-    diag2 = frun("diagonal", two)
+    diag2 = frun("diagonal", one)
     errs, _ = mamba_errors(diag2, plain2)
     with swap.replaced(mamba_scan=scaled_D(1 + 1e-6)):
-        floor, _ = mamba_errors(frun("diagonal", two), diag2)
-    log(f"  bf16, 2 segments ({t_plain2:.1f} s plain): diagonal on kernels vs sequential "
+        floor, _ = mamba_errors(frun("diagonal", one), diag2)
+    log(f"  bf16, 1 segment ({t_plain2:.1f} s plain): diagonal on kernels vs sequential "
         f"plain, worst rel err {worst(errs)}; the bf16 floor, kernels vs themselves with "
         f"the scan's D x(1 + 1e-6): {worst(floor)} (not gated)")
     del plain2, diag2
@@ -3996,12 +4418,13 @@ def main() -> int:
                    "cache_serve": launches_cserve, "serve_interleaved": launches_inter,
                    "prefix_cache": launches_prefix, "sessions": launches_sess,
                    "dense_configs": launches_dense, "moe_configs": launches_moe,
-                   "jamba": launches_jamba}
+                   "jamba": launches_jamba, "whisper": launches_whisper}
     llama_routes = {"generate": routes_gen, "serve": routes_serve, "full_forward": routes_full,
                     "cache_generate": routes_cgen, "cache_serve": routes_cserve,
                     "serve_interleaved": routes_inter, "prefix_cache": routes_prefix,
                     "sessions": routes_sess, "dense_configs": routes_dense,
-                    "moe_configs": routes_moe, "jamba": routes_jamba}
+                    "moe_configs": routes_moe, "jamba": routes_jamba,
+                    "whisper": routes_whisper}
     # falcon-mamba has no prefix-cache run (its engine refuses a cache at
     # max_len 8192: its seg_len is max_len, not the model's segment), so
     # mamba_scan has no launches_prefix_cache; jamba's (t) runs every

@@ -4,8 +4,11 @@ ARMT configs (minitron-8b, qwen2.5-32b, chameleon-34b, h2o-danube-1.8b,
 chatglm3-6b), the two MoE ARMT configs (qwen2-moe-a2.7b, and
 kimi-k2-1t-a32b with its dense prelude layer), the hybrid
 ``jamba-1.5-large-398b`` (attention without rotary, Mamba layers with a
-dense or MoE FFN) and ``falcon-mamba-7b``; and the smoke reduction used by the CPU tests (a copy; the port never imports
-the JAX package)."""
+dense or MoE FFN), ``falcon-mamba-7b`` and the encoder–decoder
+``whisper-medium`` (a bidirectional encoder over stub frame embeddings,
+ARMT ``dec`` blocks with cross-attention, layernorm, the GELU MLP and
+learned positions); and the smoke reduction used by the CPU tests (a
+copy; the port never imports the JAX package)."""
 from __future__ import annotations
 
 import importlib
@@ -52,9 +55,17 @@ class ARMTConfig:
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """The encoder stack of an encoder–decoder (whisper). The frontend is a
+    stub: callers pass frame embeddings [B, n_frames, d_model]."""
+    n_layers: int
+    n_frames: int = 1500
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                # dense | vlm | moe | ssm
+    family: str                # dense | vlm | moe | ssm | hybrid | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -77,6 +88,8 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     armt: Optional[ARMTConfig] = None
+    encoder: Optional[EncoderConfig] = None
+    max_position: int = 131072  # rows of the learned position table (whisper)
     dtype: str = "bfloat16"
     # the blockwise cell FFN: a dense FFN runs (norm, FFN) over chunks of
     # this many tokens, so one chunk's F-wide intermediates are live at a
@@ -113,16 +126,28 @@ class ArchConfig:
         of the head dims), with a dense FFN (``attn``) or a MoE FFN
         (``attn_moe``, global or per-row dispatch), ``attn`` prelude
         layers before a one-position pattern; a pure ``("mamba",)`` stack
-        without FFN; or a hybrid ARMT pattern of ``attn`` (rotary or none),
+        without FFN; a hybrid ARMT pattern of ``attn`` (rotary or none),
         ``mamba`` (a dense FFN when ``d_ff > 0``) and ``mamba_moe``
-        positions, without prelude layers."""
+        positions, without prelude layers; or the audio stack: an encoder
+        and a ``("dec",)`` ARMT pattern, layernorm, the GELU MLP and
+        learned positions, no rotary."""
         if not (self.d_model > 0 and self.n_layers > 0 and self.vocab > 0):
             raise ValueError(f"{self.name}: non-positive dims")
         if self.cell_block < 0:
             raise ValueError(f"{self.name}: cell_block {self.cell_block} < 0")
         types = set(self.layer_types)
-        if self.norm != "rmsnorm" or self.act != "silu":
-            raise ValueError(f"{self.name}: the port has rmsnorm + swiglu only")
+        audio = (self.norm, self.act, self.use_rope) == ("layernorm", "gelu", False)
+        if self.encoder is not None or "dec" in types:
+            if not (types == {"dec"} and not self.prelude and self.encoder is not None
+                    and audio and self.armt is not None):
+                raise ValueError(f"{self.name}: the port's encoder-decoder is a ('dec',) "
+                                 "ARMT pattern with an encoder, layernorm, the GELU MLP "
+                                 "and learned positions")
+            if self.encoder.n_layers <= 0 or self.encoder.n_frames <= 0:
+                raise ValueError(f"{self.name}: bad encoder {self.encoder}")
+        elif self.norm != "rmsnorm" or self.act != "silu":
+            raise ValueError(f"{self.name}: the port has rmsnorm + swiglu, or layernorm + "
+                             "the GELU MLP in the encoder-decoder only")
         if types & {"attn_moe", "mamba_moe"}:
             if self.moe is None:
                 raise ValueError(f"{self.name}: MoE layers need cfg.moe")
@@ -139,7 +164,7 @@ class ArchConfig:
             raise ValueError(f"{self.name}: the port takes attn prelude layers before a "
                              f"one-position pattern, got {self.prelude} + "
                              f"{self.block_pattern}")
-        if types & {"attn", "attn_moe"}:
+        if types & {"attn", "attn_moe", "dec"}:
             if self.n_heads <= 0 or self.n_heads % self.n_kv_heads:
                 raise ValueError(f"{self.name}: bad head counts")
             if not 0.0 < self.rope_fraction <= 1.0:
@@ -156,9 +181,9 @@ class ArchConfig:
             if self.ssm is None or self.armt is None:
                 raise ValueError(f"{self.name}: the port's hybrid stack needs cfg.ssm "
                                  "and ARMT")
-        else:
+        elif types != {"dec"}:      # the encoder-decoder is checked above
             raise ValueError(f"{self.name}: the port has attn (dense or MoE), pure "
-                             f"mamba or hybrid attn/mamba/mamba_moe stacks only, got "
+                             f"mamba, hybrid attn/mamba/mamba_moe or dec stacks only, got "
                              f"{self.layer_types}")
         _ = self.n_superblocks
 
@@ -177,6 +202,7 @@ _ARCH_MODULES = {
     "llama-8b-armt": "llama_armt",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "whisper-medium": "whisper_medium",
 }
 
 
@@ -195,11 +221,12 @@ def get_smoke_config(arch_id: str, *, seq_len: int = 64) -> ArchConfig:
     heads (at most 2 kv heads) of 8 dims, vocab 256, fp32; ARMT shrunk to 4
     memory tokens of d_mem 8, SSM to d_state 4, MoE to 4 experts (top-k at
     most 2) of 32 wide and a shared expert of 32, dense FFNs (the
-    prelude's too) to 64. The attention flags (QKV bias, q/k norm, rotary
-    fraction, sliding window) and the MoE's capacity factor and dispatch
-    are kept."""
+    prelude's too) to 64, an encoder to 2 layers over 16 frames, the
+    position table to max(2048, seq_len) rows. The attention flags (QKV
+    bias, q/k norm, rotary fraction, sliding window), the norm and
+    activation, and the MoE's capacity factor and dispatch are kept."""
     cfg = get_config(arch_id)
-    armt = ssm = moe = None
+    armt = ssm = moe = enc = None
     if cfg.armt is not None:
         armt = replace(cfg.armt, segment_len=max(8, seq_len // 4),
                        num_mem_tokens=4, d_mem=8, d_val=0)
@@ -208,6 +235,8 @@ def get_smoke_config(arch_id: str, *, seq_len: int = 64) -> ArchConfig:
     if cfg.moe is not None:
         moe = replace(cfg.moe, n_experts=4, top_k=min(2, cfg.moe.top_k), d_expert=32,
                       d_shared=32 if cfg.moe.d_shared else 0)
+    if cfg.encoder is not None:
+        enc = replace(cfg.encoder, n_layers=2, n_frames=16)
     n_sb = 1 if len(cfg.block_pattern) >= 4 else 2
     return replace(
         cfg,
@@ -222,5 +251,7 @@ def get_smoke_config(arch_id: str, *, seq_len: int = 64) -> ArchConfig:
         armt=armt,
         moe=moe,
         ssm=ssm,
+        encoder=enc,
+        max_position=max(2048, seq_len),
         dtype="float32",
     )

@@ -44,6 +44,9 @@ So they are equal by construction:
 
 A carry's buffers are its own (``pipeline_init`` copies the state), so a
 caller's state updated in place, a decode pool say, never aliases one.
+Only the recurrent leaves (``RECURRENT_KEYS``) are copied, written back
+and captured: a whisper ``dec`` layer's cross K/V (``ck``/``cv``) is
+constant for the whole forward, and the cells read the caller's tensors.
 """
 from __future__ import annotations
 
@@ -53,7 +56,8 @@ import torch
 
 from repro_torch.core.memory import RECURRENT_KEYS
 from repro_torch.core.schedule import band, n_diagonal_groups
-from repro_torch.core.sequential import ApplyBlock, layer_slice, one_layer_cell, stack_layers
+from repro_torch.core.sequential import (ApplyBlock, exec_state_copy, layer_slice,
+                                         one_layer_cell, stack_layers)
 
 
 # band steps that ran as one cell call over two or more pipelines
@@ -89,7 +93,8 @@ def _per_slot_apply(apply_block: ApplyBlock):
         outs = [apply_block(t, layer_slice(p, g), x[g], layer_slice(state, g))
                 for g in range(x.shape[0])]
         return (torch.stack([y for y, _ in outs]),
-                stack_layers([st for _, st in outs]))
+                stack_layers([{k: v for k, v in st.items() if k in RECURRENT_KEYS}
+                              for _, st in outs]))
     return grouped
 
 
@@ -172,10 +177,12 @@ def _band_out(carry: Dict, parts, new_prelude: Dict, new_pattern: Dict, *,
     state = carry["state"]
     for j, new in new_prelude.items():
         for k, v in new.items():
-            state["prelude"][j][k].copy_(v)
+            if k in RECURRENT_KEYS:
+                state["prelude"][j][k].copy_(v)
     for p, ((j0, j1), new) in new_pattern.items():
         for k, v in new.items():
-            state["pattern"][p][k][j0:j1 + 1] = v
+            if k in RECURRENT_KEYS:
+                state["pattern"][p][k][j0:j1 + 1] = v
     for s0, st, y in parts:
         y = y.to(buf.dtype)
         if s0 + st * (y.shape[0] - 1) == L - 1:     # segment i - (L-1) finished
@@ -265,7 +272,8 @@ def pipeline_init(layout, state0: Dict, segments: torch.Tensor, *,
     it the pipeline's own buffers:
 
       * ``buf``   [L, B, T, D], the slot buffer;
-      * ``state`` a copy of state0 (the executor state tree);
+      * ``state`` a copy of state0 (the executor state tree; its constant
+        ck/cv shared, not copied);
       * ``step``  the group cursor, a host int (``core.schedule``'s
         ``segments_completed`` / ``segments_entered`` read it);
       * ``ys``    [S, B, T, D], each segment written as it finishes; or,
@@ -276,8 +284,7 @@ def pipeline_init(layout, state0: Dict, segments: torch.Tensor, *,
     _check_layout(layout)
     S, L = segments.shape[0], layout.n_layers
     shape, kw = tuple(segments.shape[1:]), dict(dtype=segments.dtype, device=segments.device)
-    state = {part: tuple({k: v.clone() for k, v in tree.items()} for tree in state0[part])
-             for part in ("prelude", "pattern")}
+    state = exec_state_copy(state0)
     carry = {"buf": torch.zeros((L,) + shape, **kw), "state": state, "step": 0}
     if stream_ys:
         carry["win"] = torch.zeros((min(L, S),) + shape, **kw)

@@ -10,7 +10,11 @@ the state, then the same in-place run.
 With a capture (``capture_init``), the recurrent state after every segment
 is copied out into buffers with a leading [S] axis: in this schedule each
 segment's end is a segment boundary, so no reindexing is needed (the
-diagonal executor's capture is per step, ``core/diagonal.py``)."""
+diagonal executor's capture is per step, ``core/diagonal.py``).
+
+Only the recurrent leaves (``RECURRENT_KEYS``) change: a whisper ``dec``
+layer's cross K/V (``ck``/``cv``) is read, never written back, copied or
+captured."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
@@ -53,6 +57,14 @@ def one_layer_cell(cell):
     return apply
 
 
+def exec_state_copy(state: Dict) -> Dict:
+    """An executor state ({'prelude', 'pattern'}) for a run to update in
+    place: its recurrent leaves copied, the constant ones (``ck``/``cv``)
+    the same tensors."""
+    return {part: tuple({k: v.clone() if k in RECURRENT_KEYS else v for k, v in tree.items()}
+                        for tree in state[part]) for part in ("prelude", "pattern")}
+
+
 def clone_state(tree):
     """A copy of a state tree (dicts and tuples of tensors; other leaves,
     such as a Python int position, as they are)."""
@@ -73,12 +85,12 @@ def masked_copy_(dst: torch.Tensor, new: torch.Tensor, row_mask: Optional[torch.
 
 def apply_layer_(apply_block: ApplyBlock, t: str, p, x, st: Dict,
                  row_mask: Optional[torch.Tensor] = None):
-    """One layer in place: y from apply_block, and each new leaf that is
-    not the state's own buffer (a cache the block updated in place) written
-    into it."""
+    """One layer in place: y from apply_block, and each new recurrent leaf
+    that is not the state's own buffer written into it (a cache the block
+    updated in place, or a constant cross K/V, is left as it is)."""
     y, new = apply_block(t, p, x, st)
     for k, v in new.items():
-        if v is not st[k]:
+        if k in RECURRENT_KEYS and v is not st[k]:
             masked_copy_(st[k], v, row_mask)
     return y
 
@@ -130,7 +142,7 @@ def run_sequential(layout, params: Dict, state0: Dict, segments,
     """segments: [S, B, T, D] -> (ys [S, B, T, D], final_state); state0 is
     not modified. capture_states: also return, third, the recurrent state
     after every segment, leaves with a leading [S] axis."""
-    state = clone_state({"prelude": state0["prelude"], "pattern": state0["pattern"]})
+    state = exec_state_copy(state0)
     cap = capture_init(state, segments.shape[0]) if capture_states else None
     ys = run_sequential_(layout, params, state, segments, apply_block, capture=cap)
     return (ys, state, cap) if capture_states else (ys, state)

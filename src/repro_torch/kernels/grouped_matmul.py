@@ -144,25 +144,29 @@ def launch(x, w, bias, out, *, wbatch: int = 1, activation=None, res=None, widx=
 
 
 def grouped_matmul(x, w, bias=None, *, activation: str | None = None, widx=None,
-                   res=None):
+                   res=None, out=None):
     """x: [G,R,K] (rows may be strided; the last dim contiguous), w:
     [G,K,N] contiguous, bias: [G,N] or None -> [G,R,N] in x.dtype. widx:
     int32 [G] layer index into w [Lw,K,N] (and bias [Lw,N]): group i reads
     w[widx[i]]. res: [G,R,N] in x.dtype (rows may be strided), added to the
     fp32 accumulator before the cast (the fused update's residual
-    epilogue, without the update).
+    epilogue, without the update). out: a contiguous [G,R,N] tensor to
+    write the result into (and return), e.g. a view of a state buffer; a
+    new one in x.dtype when None.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
     global launches
     if x.device.type == "cpu":
-        return grouped_matmul_plain(x, w, bias, activation=activation, widx=widx, res=res)
+        return grouped_matmul_plain(x, w, bias, activation=activation, widx=widx, res=res,
+                                    out=out)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul: unsupported device {x.device}")
     if activation not in _ACT:
         raise ValueError(f"grouped_matmul: unknown activation {activation!r}")
-    out = torch.empty(x.shape[0], x.shape[1], w.shape[-1], dtype=x.dtype,
-                      device=x.device)
+    if out is None:
+        out = torch.empty(x.shape[0], x.shape[1], w.shape[-1], dtype=x.dtype,
+                          device=x.device)
     if launch(x, w, bias, out, activation=activation, widx=widx, res=res):
         launches += 1
     return out

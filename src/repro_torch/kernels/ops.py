@@ -14,17 +14,21 @@ from repro_torch.kernels.grouped_matmul import grouped_matmul, grouped_matmul_ar
 from repro_torch.kernels.mamba_scan import mamba_scan
 
 
-def grouped_gemm(x, w, bias=None, *, activation: str | None = None, widx=None, res=None):
+def grouped_gemm(x, w, bias=None, *, activation: str | None = None, widx=None, res=None,
+                 out=None):
     """x: [G,R,K] or the grouped-block layout [G,B,T,K]; w: [G,K,N];
     bias: [G,N] or None -> [G,R,N] / [G,B,T,N]. widx: int32 [G] layer
     index into a stack w [Lw,K,N] (group i reads w[widx[i]]). res: shaped
-    like the output, added before the cast."""
+    like the output, added before the cast. out: a contiguous [G,R,N]
+    tensor the result is written into (x 3-D only)."""
     if x.dim() == 4:
+        if out is not None:
+            raise ValueError("grouped_gemm(out=...) takes a 3-D x")
         G, B, T, K = x.shape
-        out = grouped_matmul(x.reshape(G, B * T, K), w, bias, activation=activation,
-                             widx=widx, res=None if res is None else res.reshape(G, B * T, -1))
-        return out.reshape(G, B, T, out.shape[-1])
-    return grouped_matmul(x, w, bias, activation=activation, widx=widx, res=res)
+        y = grouped_matmul(x.reshape(G, B * T, K), w, bias, activation=activation,
+                           widx=widx, res=None if res is None else res.reshape(G, B * T, -1))
+        return y.reshape(G, B, T, y.shape[-1])
+    return grouped_matmul(x, w, bias, activation=activation, widx=widx, res=res, out=out)
 
 
 def grouped_gemm_armt_update(x, w, res, wk, wv, wb, A, z, bias=None, *,

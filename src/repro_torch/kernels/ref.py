@@ -18,12 +18,13 @@ NEG_INF = -1e30
 
 
 def grouped_matmul_ref(x, w, bias=None, *, activation: str | None = None, widx=None,
-                       res=None):
+                       res=None, out=None):
     """x: [G,R,K] @ w: [G,K,N] (+ bias [G,N]) -> [G,R,N] in x.dtype; fp32
     accumulation, bias + silu / tanh-gelu applied to the fp32 accumulator,
     then res ([G,R,N]) added before the one cast. widx: int [G] layer
     index, group i taking w[widx[i]] (and its bias) of a stack w
-    [Lw,K,N]."""
+    [Lw,K,N]. out: a [G,R,N] tensor the result is copied into (and
+    returned)."""
     if widx is not None:
         w = w.index_select(0, widx)
         bias = None if bias is None else bias.index_select(0, widx)
@@ -38,7 +39,7 @@ def grouped_matmul_ref(x, w, bias=None, *, activation: str | None = None, widx=N
         raise ValueError(f"unknown activation {activation!r}")
     if res is not None:
         acc = acc + res.float()
-    return acc.to(x.dtype)
+    return acc.to(x.dtype) if out is None else out.copy_(acc)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):

@@ -1,6 +1,9 @@
-"""Attention: GQA self-attention over a segment (the dense plain path the
-flash-attention kernel is held against) and the KV-cache decode attention,
-whose single-token step runs the decode-attention kernel."""
+"""Attention: GQA self-attention over a segment, causal or bidirectional
+(the dense plain path the flash-attention kernel is held against), the
+KV-cache decode attention, whose single-token step runs the
+decode-attention kernel, and whisper's cross-attention to the encoder's
+K/V: plain (``cross_attention``) and on the kernels for decode
+(``decode_cross_attention``)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -76,15 +79,61 @@ def causal_mask(T: int, S: int, *, offset: int = 0, window: int = 0,
     return m[None, None]
 
 
-def attention(x, p, cfg):
-    """Causal self-attention over x [B,T,D] (a full segment, positions
-    0..T-1, no cache)."""
+def attention(x, p, cfg, *, causal: bool = True):
+    """Self-attention over x [B,T,D] (a full segment, positions 0..T-1, no
+    cache): causal, or bidirectional with causal=False (whisper's
+    encoder)."""
     B, T, _ = x.shape
     q, k, v = _project_qkv(x, p, cfg)
     q, k = rope_qk(q, k, cfg)
-    mask = causal_mask(T, T, window=cfg.sliding_window, device=x.device)
+    mask = causal_mask(T, T, window=cfg.sliding_window, device=x.device) if causal else None
     o = sdpa(q, k, v, mask).reshape(B, T, cfg.n_heads * cfg.head_dim)
     return torch.matmul(o, p["wo"])
+
+
+def _cross_q(x, p, cfg):
+    q = torch.matmul(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    return q.reshape(x.shape[0], x.shape[1], cfg.n_heads, cfg.head_dim)
+
+
+def cross_attention(x, p, ck, cv, cfg):
+    """x [B,T,D] against the encoder's K/V ck/cv [B,F,Hkv,hd], every frame
+    visible: the plain path (sdpa)."""
+    B, T, _ = x.shape
+    o = sdpa(_cross_q(x, p, cfg), ck, cv).reshape(B, T, cfg.n_heads * cfg.head_dim)
+    return torch.matmul(o, p["wo"])
+
+
+def decode_cross_attention(x, p, ck, cv, cfg):
+    """``cross_attention`` on the kernels, for decode: one token through
+    ``kops.decode_attention`` with every row's length F (the reference's
+    sdpa over all frames), a chunk (the flush's memory tokens, a prompt
+    tail) through ``kops.flash_attention`` without a mask, both reading
+    ck/cv [B,F,Hkv,hd] through their strides."""
+    B, Tq, _ = x.shape
+    q = _cross_q(x, p, cfg)
+    if Tq == 1:
+        lens = torch.full((B,), ck.shape[1], dtype=torch.int32, device=x.device)
+        o = kops.decode_attention(q[:, 0], ck, cv, lens)
+    else:
+        o = kops.flash_attention(q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2),
+                                 causal=False).transpose(1, 2)
+    return torch.matmul(o.reshape(B, Tq, cfg.n_heads * cfg.head_dim), p["wo"])
+
+
+def cross_kv(enc_out, p, cfg):
+    """The cross-attention K/V of one decoder layer from the encoder's output
+    [B,F,D] -> (ck, cv) [B,F,Hkv,hd], biases included: the plain path."""
+    B, F, _ = enc_out.shape
+
+    def proj(w, b):
+        y = torch.matmul(enc_out, p[w])
+        if b in p:
+            y = y + p[b]
+        return y.reshape(B, F, cfg.n_kv_heads, cfg.head_dim)
+    return proj("wk", "bk"), proj("wv", "bv")
 
 
 def _write_rows(cache: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,

@@ -43,6 +43,20 @@ the flattened expert stack. Its down projections are per expert, so
 nothing fuses with the memory update, which is ``assoc_update`` at every
 B.
 
+The ``dec`` cell (whisper's decoder layer; the reference has no fused
+form and takes its vmap fallback) is the attn cell with the
+cross-attention between the self-attention and the FFN: the norm
+(layernorm, weight and bias per layer), the biased q projection on the
+GEMM, one flash launch without a mask of ``[G*B, H, T, hd]`` against the
+band's cross K/V ``[G, B, F, Hkv, hd]`` read as ``[G*B, Hkv, F, hd]``
+views (no copy), and the output projection with the residual on its
+epilogue. Its FFN is the GELU MLP: the up projection with its bias and
+tanh-GELU on the epilogue, the down projection with its bias ``bo`` (on
+the fused update at B == 1). The norm and the FFN follow ``cfg.norm`` and
+``cfg.act`` in every attn cell. The ``enc`` cell is whisper's encoder
+layer (bidirectional, no memory), which ``models/model.py`` ``encode``
+runs at G = 1.
+
 In ``"full"`` mode (the full-attention baseline) the attn cell touches no
 memory: no ``assoc_read``, no update, and the down projection is
 ``h + grouped_gemm(...)``. The mamba cells are the same in both modes.
@@ -57,7 +71,7 @@ chunk's residual rides its down projection's epilogue (added before the
 cast, as the fused update adds it), so a blocked B == 1 cell's output and
 memory are the unblocked cell's to the bit on the card.
 
-The attn cells also take a layer index (``widx``, int32 [G] on the
+The attn and dec cells also take a layer index (``widx``, int32 [G] on the
 device): its params are then the model's whole stacked pattern and group i
 is layer ``widx[i]``. The GEMMs read their weights and biases through the
 index (the model's own tensors; no copy), and the small per-layer leaves
@@ -77,7 +91,7 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import rope_qk
 from repro_torch.models.blocks import check_mode
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import layernorm, rmsnorm
 from repro_torch.models.mamba import mamba_block
 from repro_torch.models.moe import moe_ffn_grouped
 
@@ -96,8 +110,12 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
             return leaf if widx is None else leaf.index_select(0, widx)
 
         def snorm(h, pn):
-            # per-layer norm weights [G, D] broadcast against h [G, B, T, D]
-            return rmsnorm(h, {"w": small(pn["w"])[:, None, None, :]})
+            # per-layer norm weights (and layernorm's biases) [G, D]
+            # broadcast against h [G, B, T, D]
+            if cfg.norm == "rmsnorm":
+                return rmsnorm(h, {"w": small(pn["w"])[:, None, None, :]})
+            return layernorm(h, {"w": small(pn["w"])[:, None, None, :],
+                                 "b": small(pn["b"])[:, None, None, :]})
 
         def gemm(h, w, bias=None, **kw):
             return kops.grouped_gemm(h, w, bias, widx=widx, **kw)
@@ -145,42 +163,69 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
                                    nu=cfg.armt.nu)
         return dict(state, A=A2.reshape(state["A"].shape), z=z2.reshape(state["z"].shape))
 
-    def ffn(p, h, widx):
-        """h + the dense SwiGLU FFN of the band (norm, gate with silu on
-        its epilogue, up, down): whole, or chunk by chunk of cell_block
-        rows over a segment of more. A chunk's residual rides its down
-        projection's epilogue, added before the one cast as the B == 1
-        fused update adds it, so a blocked B == 1 cell gives the unblocked
-        one's rows to the bit."""
+    def ffn_mid(p, h, widx):
+        """The dense FFN's F-wide product of the band: SwiGLU's silu(gate)
+        (silu on the gate projection's epilogue) times up, or the GELU
+        MLP's gelu(h Wi + bi) (bias and GELU on the epilogue), after the
+        norm -> (it, the down projection's weight and bias)."""
         snorm, gemm = helpers(widx)[1:]
         pf = p["ffn"]
+        h2 = snorm(h, p["ln2"])
+        if cfg.act == "silu":
+            return (gemm(h2, pf["wg"], activation="silu") * gemm(h2, pf["wu"]),
+                    pf["wd"], None)
+        return gemm(h2, pf["wi"], pf.get("bi"), activation="gelu"), pf["wo"], pf.get("bo")
 
-        def mid(hc):
-            h2 = snorm(hc, p["ln2"])
-            return gemm(h2, pf["wg"], activation="silu") * gemm(h2, pf["wu"])
+    def ffn(p, h, widx):
+        """h + the dense FFN of the band (``ffn_mid``, then the down
+        projection): whole, or chunk by chunk of cell_block rows over a
+        segment of more. A chunk's residual rides its down projection's
+        epilogue, added before the one cast as the B == 1 fused update
+        adds it, so a blocked B == 1 cell gives the unblocked one's rows
+        to the bit. Unblocked, the GELU MLP's residual rides the epilogue
+        too (one rounding, as the fused update's); SwiGLU's is added after
+        the cast (the bits the llama gates pin)."""
+        gemm = helpers(widx)[2]
         T = h.shape[2]
         if not 0 < cb < T:
-            return h + gemm(mid(h), pf["wd"])
+            mid, wd, bd = ffn_mid(p, h, widx)
+            if cfg.act == "gelu":
+                return gemm(mid, wd, bd, res=h)
+            return h + gemm(mid, wd, bd)
         y = torch.empty_like(h)
         for i in range(0, T, cb):
             hc = h[:, :, i:i + cb]
-            y[:, :, i:i + cb] = gemm(mid(hc), pf["wd"], res=hc)
+            mid, wd, bd = ffn_mid(p, hc, widx)
+            y[:, :, i:i + cb] = gemm(mid, wd, bd, res=hc)
         return y
 
+    def cross(p, h, state, widx):
+        """h + the dec cell's cross-attention: the norm, the biased q
+        projection on the GEMM, one flash launch without a mask against the
+        band's ck/cv [G, B, F, Hkv, hd] (read through their strides, no
+        copy), the output projection with h added on its epilogue."""
+        snorm, gemm = helpers(widx)[1:]
+        G, B, T, _ = h.shape
+        px = p["xattn"]
+        q = gemm(snorm(h, p["ln_x"]), px["wq"], px.get("bq")).reshape(
+            G, B, T, cfg.n_heads, cfg.head_dim)
+        o = kops.segment_attention(q, state["ck"], state["cv"], causal=False)
+        return gemm(o.reshape(G, B, T, cfg.n_heads * cfg.head_dim), px["wo"], res=h)
+
     def fused_attn(p, x, state, widx=None):
-        small, snorm, gemm = helpers(widx)
+        small = helpers(widx)[0]
         B, T = x.shape[1], x.shape[2]
         h, A_f, z_f = attend(p, x, state, widx)
+        if "xattn" in p:       # the dec cell
+            h = cross(p, h, state, widx)
         if not armt_on:
             return ffn(p, h, widx), dict(state)
         M, pm = cfg.armt.num_mem_tokens, p["mem"]
         if M > 0 and B == 1 and not 0 < cb < T:
-            pf = p["ffn"]
-            h2 = snorm(h, p["ln2"])
-            mid = gemm(h2, pf["wg"], activation="silu") * gemm(h2, pf["wu"])
+            mid, wd, bd = ffn_mid(p, h, widx)
             y, A2, z2 = kops.grouped_gemm_armt_update(
-                mid, pf["wd"], h, small(pm["wk"]), small(pm["wv"]), small(pm["wb"]),
-                A_f, z_f, M=M, nu=cfg.armt.nu, widx=widx)
+                mid, wd, h, small(pm["wk"]), small(pm["wv"]), small(pm["wb"]),
+                A_f, z_f, bd, M=M, nu=cfg.armt.nu, widx=widx)
             return y, dict(state, A=A2.reshape(state["A"].shape),
                            z=z2.reshape(state["z"].shape))
         y = ffn(p, h, widx)
@@ -204,8 +249,25 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
         h, new = mamba_block(p, x, cfg.ssm, state)
         return h + moe_ffn_grouped(helpers(None)[1](h, p["ln2"]), p["moe"], cfg.moe), new
 
+    def fused_enc(p, x, state):
+        """Whisper's encoder layer over [G, B, F, D] (the encoder runs it at
+        G = 1): the norm, the biased QKV on the GEMM, one flash launch
+        without a mask, the output projection with the residual on its
+        epilogue, then the GELU MLP."""
+        snorm, gemm = helpers(None)[1:]
+        G, B, F, _ = x.shape
+        hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        pa = p["attn"]
+        hln = snorm(x, p["ln1"])
+        q = gemm(hln, pa["wq"], pa.get("bq")).reshape(G, B, F, nq, hd)
+        k = gemm(hln, pa["wk"], pa.get("bk")).reshape(G, B, F, nkv, hd)
+        v = gemm(hln, pa["wv"], pa.get("bv")).reshape(G, B, F, nkv, hd)
+        o = kops.segment_attention(q, k, v, causal=False)
+        h = gemm(o.reshape(G, B, F, nq * hd), pa["wo"], res=x)
+        return ffn(p, h, None), dict(state)
+
     cells = {"attn": fused_attn, "attn_moe": fused_attn_moe, "mamba": fused_mamba,
-             "mamba_moe": fused_mamba_moe}
+             "mamba_moe": fused_mamba_moe, "dec": fused_attn, "enc": fused_enc}
 
     def grouped_apply(t, p, x, state, widx=None):
         if t not in cells:
@@ -216,5 +278,5 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
             raise ValueError(f"the {t!r} cell takes no layer index")
         return cells[t](p, x, state, widx)
 
-    grouped_apply.indexed = ("attn", "attn_moe")
+    grouped_apply.indexed = ("attn", "attn_moe", "dec")
     return grouped_apply

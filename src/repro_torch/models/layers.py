@@ -1,5 +1,5 @@
-"""Elementary layers: RMSNorm, rotate-half RoPE (over all or a leading part
-of the head dims), SwiGLU. Plain functions
+"""Elementary layers: RMSNorm and LayerNorm, rotate-half RoPE (over all or a
+leading part of the head dims), SwiGLU and the GELU MLP. Plain functions
 on tensors; parameters are dicts of tensors in the reference layout."""
 from __future__ import annotations
 
@@ -11,6 +11,20 @@ def rmsnorm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
     var = (x32 * x32).mean(-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * p["w"].float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
+    """fp32 math (the population variance), cast back. ``p["w"]`` and
+    ``p["b"]`` broadcast against x."""
+    x32 = x.float()
+    xc = x32 - x32.mean(-1, keepdim=True)
+    var = (xc * xc).mean(-1, keepdim=True)
+    return (xc * torch.rsqrt(var + eps) * p["w"].float() + p["b"].float()).to(x.dtype)
+
+
+def norm(kind: str, x: torch.Tensor, p) -> torch.Tensor:
+    """``cfg.norm``'s norm: "rmsnorm" or "layernorm"."""
+    return rmsnorm(x, p) if kind == "rmsnorm" else layernorm(x, p)
 
 
 def rope_cos_sin(positions: torch.Tensor, d_rot: int, theta: float):
@@ -48,3 +62,18 @@ def swiglu(x: torch.Tensor, p) -> torch.Tensor:
     g = torch.matmul(x, p["wg"])
     u = torch.matmul(x, p["wu"])
     return torch.matmul(torch.nn.functional.silu(g) * u, p["wd"])
+
+
+def mlp_gelu(x: torch.Tensor, p) -> torch.Tensor:
+    """The whisper FFN: gelu_tanh(x Wi + bi) Wo + bo, in the activation
+    dtype; the biases where the layer has them."""
+    h = torch.matmul(x, p["wi"])
+    if "bi" in p:
+        h = h + p["bi"]
+    y = torch.matmul(torch.nn.functional.gelu(h, approximate="tanh"), p["wo"])
+    return y + p["bo"] if "bo" in p else y
+
+
+def ffn(act: str, x: torch.Tensor, p) -> torch.Tensor:
+    """``cfg.act``'s dense FFN: "silu" (SwiGLU) or "gelu" (the GELU MLP)."""
+    return swiglu(x, p) if act == "silu" else mlp_gelu(x, p)

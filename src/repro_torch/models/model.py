@@ -30,16 +30,17 @@ from torch import nn
 from repro_torch.configs import ArchConfig
 from repro_torch.core.capture import Program
 from repro_torch.core.diagonal import boundary_states_from_capture, run_diagonal
-from repro_torch.core.memory import mem_read, mem_update
+from repro_torch.core.memory import RECURRENT_KEYS, mem_read, mem_update
 from repro_torch.core.schedule import StackLayout
 from repro_torch.core.sequential import (capture_init, capture_write_, clone_state,
-                                         run_sequential, run_sequential_)
+                                         layer_slice, run_sequential, run_sequential_)
 from repro_torch.core.sequential import one_layer_cell as _one_layer_cell
-from repro_torch.models.attention import decode_attention
+from repro_torch.kernels import ops as kops
+from repro_torch.models.attention import cross_kv, decode_attention, decode_cross_attention
 from repro_torch.models.blocks import (ATTN_TYPES, MAMBA_TYPES, apply_ffn, block_d_ff,
                                        block_state_init, check_mode, make_apply_block)
 from repro_torch.models.grouped_blocks import make_grouped_apply
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import norm
 from repro_torch.models.mamba import mamba_block, mamba_param_init
 from repro_torch.models.moe import moe_param_init
 
@@ -116,41 +117,60 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *, device=None) -> 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    params: Dict = {"embed": nrm((cfg.vocab, D), 0.02), "final_norm": {"w": ones(D)}}
+    def norm_w(*lead):
+        """cfg.norm's weights: rmsnorm's w, layernorm's w and b."""
+        if cfg.norm == "rmsnorm":
+            return {"w": ones(*lead, D)}
+        return {"w": ones(*lead, D), "b": zeros(*lead, D)}
+
+    params: Dict = {"embed": nrm((cfg.vocab, D), 0.02), "final_norm": norm_w()}
     if not cfg.tie_embeddings:
         params["head"] = nrm((D, cfg.vocab), D ** -0.5)
     a = cfg.armt
     if a is not None and a.num_mem_tokens > 0:
         params["mem_tokens"] = nrm((a.num_mem_tokens, D), 0.02)
+    if not cfg.use_rope and cfg.encoder is not None:
+        params["pos_embed"] = nrm((cfg.max_position, D), 0.02)
+
+    def attn_w(n):
+        hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        s = D ** -0.5
+        attn = {"wq": nrm((n, D, nq * hd), s), "wk": nrm((n, D, nkv * hd), s),
+                "wv": nrm((n, D, nkv * hd), s), "wo": nrm((n, nq * hd, D), (nq * hd) ** -0.5)}
+        if cfg.qkv_bias or cfg.norm == "layernorm":   # layernorm implies the biases
+            attn.update(bq=zeros(n, nq * hd), bk=zeros(n, nkv * hd), bv=zeros(n, nkv * hd))
+        if cfg.qk_norm:
+            attn.update(qn={"w": ones(n, hd)}, kn={"w": ones(n, hd)})
+        return attn
 
     def block(t, n, prelude=False):
         """One block type's leaves stacked over n layers."""
         F = block_d_ff(cfg, t, prelude)
 
         def ffn():
-            return {"wg": nrm((n, D, F), D ** -0.5), "wu": nrm((n, D, F), D ** -0.5),
-                    "wd": nrm((n, F, D), F ** -0.5)}
+            if cfg.act == "silu":
+                return {"wg": nrm((n, D, F), D ** -0.5), "wu": nrm((n, D, F), D ** -0.5),
+                        "wd": nrm((n, F, D), F ** -0.5)}
+            out = {"wi": nrm((n, D, F), D ** -0.5), "wo": nrm((n, F, D), F ** -0.5)}
+            if cfg.norm == "layernorm":
+                out.update(bi=zeros(n, F), bo=zeros(n, D))
+            return out
         if t in MAMBA_TYPES:
-            out = {"ln1": {"w": ones(n, D)},
+            out = {"ln1": norm_w(n),
                    "mixer": mamba_param_init(D, cfg.ssm, n, nrm, dtype, device)}
             if t == "mamba_moe":
-                out.update(ln2={"w": ones(n, D)}, moe=moe_param_init(D, cfg.moe, n, nrm, nrm32))
+                out.update(ln2=norm_w(n), moe=moe_param_init(D, cfg.moe, n, nrm, nrm32))
             elif F:
-                out.update(ln2={"w": ones(n, D)}, ffn=ffn())
+                out.update(ln2=norm_w(n), ffn=ffn())
             return out
-        hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-        s = D ** -0.5
-        attn = {"wq": nrm((n, D, nq * hd), s), "wk": nrm((n, D, nkv * hd), s),
-                "wv": nrm((n, D, nkv * hd), s), "wo": nrm((n, nq * hd, D), (nq * hd) ** -0.5)}
-        if cfg.qkv_bias:
-            attn.update(bq=zeros(n, nq * hd), bk=zeros(n, nkv * hd), bv=zeros(n, nkv * hd))
-        if cfg.qk_norm:
-            attn.update(qn={"w": ones(n, hd)}, kn={"w": ones(n, hd)})
-        out = {"ln1": {"w": ones(n, D)}, "attn": attn}
-        if a is not None:     # a plain Llama (no ARMT) has no memory weights
+        out = {"ln1": norm_w(n), "attn": attn_w(n)}
+        if a is not None and t != "enc":   # a plain Llama (no ARMT) has no memory weights
+            s = D ** -0.5
             out["mem"] = {"wq": nrm((n, D, a.d_mem), s), "wk": nrm((n, D, a.d_mem), s),
                           "wv": nrm((n, D, a.d_val or D), s), "wb": nrm((n, D, 1), s)}
-        out["ln2"] = {"w": ones(n, D)}
+        if t == "dec":
+            out.update(ln_x=norm_w(n), xattn=attn_w(n))
+        out["ln2"] = norm_w(n)
         if t == "attn_moe":
             out["moe"] = moe_param_init(D, cfg.moe, n, nrm, nrm32)
         else:
@@ -160,21 +180,29 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *, device=None) -> 
     params["prelude"] = tuple(_tree_map(lambda path, leaf: leaf[0], block(t, 1, True))
                               for t in layout.prelude)
     params["pattern"] = tuple(block(t, layout.n_super) for t in layout.pattern)
+    if cfg.encoder is not None:
+        e = cfg.encoder
+        params["enc"] = {"blocks": block("enc", e.n_layers), "final_norm": norm_w(),
+                         "pos": nrm((e.n_frames, D), 0.02)}
     return params
 
 
 def init_state(cfg: ArchConfig, batch: int, device, dtype=None,
-               mode: str = "segmented") -> Dict:
+               mode: str = "segmented", cross_from: Optional[Dict] = None) -> Dict:
     """Zero executor state; dtype (default ``cfg.dtype``) is that of the
-    Mamba conv tail, every other leaf is fp32. In ``"full"`` mode an attn
-    layer has no state."""
+    Mamba conv tail and of a dec layer's cross K/V, every other leaf is
+    fp32. In ``"full"`` mode an attn layer has no state. cross_from: a
+    state (executor or decode) whose dec layers' ``ck``/``cv`` this state
+    shares (the same tensors, not copies), in place of zeros."""
     dtype = dtype or DTYPES[cfg.dtype]
     layout = StackLayout.from_config(cfg)
     pattern = []
-    for t in layout.pattern:
-        st = block_state_init(t, cfg, batch, device, dtype, mode)
-        pattern.append({k: torch.zeros((layout.n_super,) + tuple(v.shape),
-                                       dtype=v.dtype, device=device)
+    for p, t in enumerate(layout.pattern):
+        st = block_state_init(t, cfg, batch, "meta", dtype, mode)
+        pattern.append({k: (cross_from["pattern"][p][k] if cross_from is not None
+                            and k in ("ck", "cv") else
+                            torch.zeros((layout.n_super,) + tuple(v.shape), dtype=v.dtype,
+                                        device=device))
                         for k, v in st.items()})
     prelude = tuple(block_state_init(t, cfg, batch, device, dtype, mode)
                     for t in layout.prelude)
@@ -222,7 +250,9 @@ def embed_segments(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                    seg_len: int, with_mem: bool = True) -> torch.Tensor:
     """tokens: [B, S*seg_len] -> [S, B, seg_len (+ M), D]: with_mem appends
     the memory tokens to every segment, so with segment-local positions they
-    sit at seg_len..seg_len+M-1."""
+    sit at seg_len..seg_len+M-1. A model with learned positions (whisper)
+    adds rows 0..seg_len+M-1 of its table to every segment, the memory
+    rows included."""
     B, total = tokens.shape
     if total % seg_len:
         raise ValueError(f"{total} tokens do not split into segments of {seg_len}")
@@ -231,7 +261,51 @@ def embed_segments(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     if with_mem and "mem_tokens" in params:
         M, D = params["mem_tokens"].shape
         x = torch.cat([x, params["mem_tokens"].expand(S, B, M, D)], dim=2)
+    if "pos_embed" in params:
+        x = x + params["pos_embed"][:x.shape[2]]
     return x
+
+
+def encode(params: Dict, cfg: ArchConfig, frames: torch.Tensor, *,
+           fused: bool = True) -> torch.Tensor:
+    """Whisper's encoder: frame embeddings [B, F, D] (the frontend is a
+    stub) plus the learned frame positions, the ``enc`` layers in order,
+    then the final norm -> [B, F, D]. fused: each layer as the ``enc``
+    cell at G = 1 (the biased projections and the GELU on the GEMM's
+    epilogue, the attention one flash launch without a mask); False: the
+    plain block (sdpa), the oracle."""
+    enc = params["enc"]
+    x = frames.to(enc["pos"].dtype) + enc["pos"][:frames.shape[1]]
+    apply = (_one_layer_cell(make_grouped_apply(cfg, "full")) if fused
+             else make_apply_block(cfg, "full"))
+    for j in range(cfg.encoder.n_layers):
+        x, _ = apply("enc", layer_slice(enc["blocks"], j), x, {})
+    return norm(cfg.norm, x, enc["final_norm"])
+
+
+def fill_cross_kv_(params: Dict, cfg: ArchConfig, state: Dict, enc_out: torch.Tensor, *,
+                   fused: bool = True) -> None:
+    """Every dec layer's cross K/V from the encoder's output [B, F, D],
+    written in place into ``state``'s ``ck``/``cv`` [n_super, B, F, Hkv,
+    hd] (an executor or a decode state). fused: two grouped-GEMM launches
+    (K and V) over all the layers, the bias on the epilogue, writing
+    straight into ck/cv; False: the plain ``cross_kv`` a layer at a time."""
+    layout = StackLayout.from_config(cfg)
+    B, F, D = enc_out.shape
+    for p, t in enumerate(layout.pattern):
+        if t != "dec":
+            continue
+        st, px = state["pattern"][p], params["pattern"][p]["xattn"]
+        L = layout.n_super
+        if fused:
+            x = enc_out.reshape(1, B * F, D).expand(L, B * F, D).contiguous()
+            for w, b, out in (("wk", "bk", st["ck"]), ("wv", "bv", st["cv"])):
+                kops.grouped_gemm(x, px[w], px.get(b), out=out.view(L, B * F, -1))
+            continue
+        for j in range(L):
+            ck, cv = cross_kv(enc_out, {k: v[j] for k, v in px.items()}, cfg)
+            st["ck"][j].copy_(ck)
+            st["cv"][j].copy_(cv)
 
 
 def segment_len(cfg: ArchConfig) -> int:
@@ -243,7 +317,8 @@ def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
                    schedule: str = "diagonal", fused: bool = True,
                    mode: str = "segmented", state0: Optional[Dict] = None,
                    seg_len: Optional[int] = None, eager: bool = False,
-                   capture_states: bool = False):
+                   capture_states: bool = False,
+                   enc_frames: Optional[torch.Tensor] = None):
     """tokens: [B, S*seg_len] -> (hidden [S, B, seg_len, D] with the
     memory-token rows stripped, final executor state); with capture_states
     a third output, the recurrent state at every segment boundary (leaves
@@ -265,6 +340,13 @@ def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     per segment (default ``segment_len(cfg)``), cut to the whole input when
     shorter; full mode ignores it.
 
+    An encoder-decoder (whisper) needs the encoder's cross K/V: either
+    ``enc_frames`` [B, F, D] (frame embeddings; encoded, on the kernels
+    when fused, and written into a zero state's ck/cv), or a state0 that
+    holds them (e.g. a decode state's, shared through ``init_state(...,
+    cross_from=)``), not both. The executors read ck/cv and never copy
+    them.
+
     On a CUDA device the sequential schedule on the fused cell in segmented
     mode replays one captured CUDA graph per segment (``SegmentProgram``,
     captured once per shape and weights; a capture copies its static state
@@ -282,9 +364,17 @@ def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     layout = StackLayout.from_config(cfg)
     if schedule == "auto":
         schedule = "diagonal" if x.shape[0] >= layout.n_layers else "sequential"
+    if cfg.encoder is None and enc_frames is not None:
+        raise ValueError(f"{cfg.name} has no encoder: enc_frames is for whisper")
+    if cfg.encoder is not None and (state0 is None) == (enc_frames is None):
+        raise ValueError(f"{cfg.name}: pass enc_frames (the stub frontend's frame "
+                         "embeddings) or a state0 holding the cross K/V, one of the two")
     if state0 is None:
         state0 = init_state(cfg, tokens.shape[0], tokens.device, params["embed"].dtype,
                             mode)
+        if enc_frames is not None:
+            fill_cross_kv_(params, cfg, state0, encode(params, cfg, enc_frames, fused=fused),
+                           fused=fused)
     apply = make_apply_block(cfg, mode)
     grouped = make_grouped_apply(cfg, mode) if fused else None
     exec_params = {"prelude": params["prelude"], "pattern": params["pattern"]}
@@ -362,7 +452,12 @@ class SegmentProgram:
             ys[s].copy_(self.program())
             if cap is not None:
                 capture_write_(cap, self.state, s)
-        fin = clone_state(self.state)
+        # the recurrent leaves copied out; the constant ones (a dec layer's
+        # ck/cv) are state0's
+        fin = {part: tuple({k: v.clone() if k in RECURRENT_KEYS else s0[k]
+                            for k, v in st.items()}
+                           for st, s0 in zip(self.state[part], state0[part]))
+               for part in ("prelude", "pattern")}
         return (ys, fin, cap) if capture_states else (ys, fin)
 
 
@@ -382,7 +477,7 @@ def _head_matmul(params: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor
 
 def last_logits(params: Dict, cfg: ArchConfig, hidden: torch.Tensor) -> torch.Tensor:
     """fp32 logits of the final position of the final segment [B, V]."""
-    h = rmsnorm(hidden[-1, :, -1], params["final_norm"])
+    h = norm(cfg.norm, hidden[-1, :, -1], params["final_norm"])
     return _head_matmul(params, cfg, h).float()
 
 
@@ -390,7 +485,7 @@ def boundary_logits(params: Dict, cfg: ArchConfig, hidden: torch.Tensor) -> torc
     """fp32 logits of the last position of every segment: hidden [S, B, T,
     D] -> [S, B, V] (what a segment-boundary snapshot keeps beside its
     state)."""
-    h = rmsnorm(hidden[:, :, -1], params["final_norm"])
+    h = norm(cfg.norm, hidden[:, :, -1], params["final_norm"])
     return _head_matmul(params, cfg, h).float()
 
 
@@ -411,8 +506,10 @@ def decode_state_init(cfg: ArchConfig, batch: int, *, dtype, device,
     a current-segment KV cache of seg_len + M rows (``max_len`` rows for a
     model without ARMT); 'cache': for attn, a full KV cache of ``max_len``
     rows and no A/z. For mamba either way h (fp32) and the conv tail
-    (``dtype``), no cache. ``pos`` (the in-segment position, or in cache
-    mode the tokens in the cache) is a Python int, or an int64 [batch]
+    (``dtype``), no cache. A dec layer also holds its cross K/V ``ck``/``cv``
+    (zeros: ``fill_cross_kv_`` writes them from the encoder). ``pos`` (the
+    in-segment position, or in cache mode the tokens in the cache; the
+    learned positions' row too) is a Python int, or an int64 [batch]
     tensor with per_slot_pos."""
     check_serve_mode(serve_mode)
     layout = StackLayout.from_config(cfg)
@@ -437,12 +534,14 @@ def decode_state_init(cfg: ArchConfig, batch: int, *, dtype, device,
 
 def make_decode_apply(cfg: ArchConfig, serve_mode: str, pos, mask=None):
     """Block apply for decode: x [B, Tq, D] against the layer's cache
-    (attn and attn_moe; with the memory read in 'armt' mode), which it
+    (attn, attn_moe and dec; with the memory read in 'armt' mode), which it
     updates in place (with mask, bool [B], only the True rows), or its
     carried SSM state (mamba and mamba_moe: the new h and conv tail are
-    returned for the executor to write), then the layer's FFN, never
-    blockwise (as the reference's decode). A MoE layer dispatches all B *
-    Tq tokens, the rows the mask freezes included, as the reference does."""
+    returned for the executor to write), then, in a dec layer, the
+    cross-attention to its ck/cv on the kernels (``decode_cross_attention``),
+    then the layer's FFN, never blockwise (as the reference's decode). A
+    MoE layer dispatches all B * Tq tokens, the rows the mask freezes
+    included, as the reference does."""
     check_serve_mode(serve_mode)
     armt_on = serve_mode == "armt" and cfg.armt is not None
 
@@ -454,10 +553,29 @@ def make_decode_apply(cfg: ArchConfig, serve_mode: str, pos, mask=None):
             raise ValueError(t)
         if armt_on:
             x = x + mem_read(p["mem"], st, x, cfg.armt)
-        h = x + decode_attention(rmsnorm(x, p["ln1"]), p["attn"], cfg,
+        h = x + decode_attention(norm(cfg.norm, x, p["ln1"]), p["attn"], cfg,
                                  {"k": st["k"], "v": st["v"]}, pos, mask)
+        if t == "dec":
+            h = h + decode_cross_attention(norm(cfg.norm, h, p["ln_x"]), p["xattn"],
+                                           st["ck"], st["cv"], cfg)
         return apply_ffn(cfg, t, h, p), st
     return apply
+
+
+def _with_positions(params: Dict, x: torch.Tensor, pos) -> torch.Tensor:
+    """x [B, Tq, D] plus rows pos..pos+Tq-1 of the learned position table,
+    where the model has one (whisper); pos a host int or per-row [B]. The
+    first row is clamped to [0, max_position - Tq], as the reference's
+    dynamic slice clamps."""
+    if "pos_embed" not in params:
+        return x
+    table = params["pos_embed"]
+    Tq, top = x.shape[1], params["pos_embed"].shape[0] - x.shape[1]
+    if not isinstance(pos, torch.Tensor):
+        start = min(max(pos, 0), top)
+        return x + table[start:start + Tq]
+    rows = pos.clamp(0, top)[:, None] + torch.arange(Tq, device=x.device)[None]
+    return x + table[rows]
 
 
 def _exec(params, state):
@@ -486,11 +604,11 @@ def decode_step_(params: Dict, cfg: ArchConfig, state: Dict, tokens: torch.Tenso
     layout = StackLayout.from_config(cfg)
     pos = state["pos"]
     toks = tokens if tokens.dim() == 2 else tokens[:, None]
-    x = params["embed"][toks]
+    x = _with_positions(params, params["embed"][toks], pos)
     exec_params, exec_state = _exec(params, state)
     ys = run_sequential_(layout, exec_params, exec_state, x[None],
                          make_decode_apply(cfg, serve_mode, pos, mask), row_mask=mask)
-    h = rmsnorm(ys[0, :, -1], params["final_norm"])
+    h = norm(cfg.norm, ys[0, :, -1], params["final_norm"])
     Tq = toks.shape[1]
     if not isinstance(pos, torch.Tensor):
         state["pos"] = pos + Tq
@@ -551,7 +669,7 @@ def flush_segment_(params: Dict, cfg: ArchConfig, state: Dict,
     layout = StackLayout.from_config(cfg)
     mem = params["mem_tokens"]
     batch = next(iter(state["pattern"][0].values())).shape[1]
-    x = mem[None].expand(batch, -1, -1)
+    x = _with_positions(params, mem[None].expand(batch, -1, -1), state["pos"])
     base = make_decode_apply(cfg, "armt", state["pos"], mask)
     drop = None if mask is None else mask.reshape(-1, 1, 1, 1)
 

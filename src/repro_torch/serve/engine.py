@@ -80,7 +80,7 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.core import diagonal as diag
 from repro_torch.core.capture import Program
-from repro_torch.core.memory import RECURRENT_KEYS
+from repro_torch.core.memory import RECURRENT_KEYS, recurrent_state
 from repro_torch.core.schedule import StackLayout, n_diagonal_groups, pool_cells_remaining
 from repro_torch.core.sequential import clone_state
 from repro_torch.models.blocks import MAMBA_TYPES, block_d_ff, make_apply_block
@@ -88,8 +88,9 @@ from repro_torch.models.grouped_blocks import make_grouped_apply
 from repro_torch.models.moe import capacity
 from repro_torch.models.model import (SCHEDULES, boundary_logits, check_serve_mode,
                                       copy_state_, decode_state_init, decode_step_,
-                                      embed_segments, flush_segment_, forward_hidden,
-                                      init_state, last_logits, resolve_device, segment_len)
+                                      embed_segments, encode, fill_cross_kv_,
+                                      flush_segment_, forward_hidden, init_state,
+                                      last_logits, resolve_device, segment_len)
 from repro_torch.serve.scheduler import ContinuousScheduler
 from repro_torch.serve.state_store import prefix_hash_chain, tree_nbytes
 from repro_torch.serve.telemetry import Telemetry
@@ -373,8 +374,21 @@ class ServeEngine:
             self._programs[key] = DecodeProgram(self, batch)
         return self._programs[key]
 
+    def _check_frames(self, enc_frames) -> None:
+        if self.cfg.encoder is None and enc_frames is not None:
+            raise ValueError(f"{self.cfg.name} has no encoder: enc_frames is for whisper")
+        if self.cfg.encoder is not None and enc_frames is None:
+            raise ValueError(f"{self.cfg.name} needs enc_frames, the stub frontend's frame "
+                             f"embeddings [B, {self.cfg.encoder.n_frames}, "
+                             f"{self.cfg.d_model}]")
+
+    def _refuse_encoder(self, what: str) -> None:
+        if self.cfg.encoder is not None:
+            raise ValueError(f"{what} is not ported for an encoder config ({self.cfg.name}): "
+                             "use generate(..., enc_frames=)")
+
     @torch.no_grad()
-    def prefill(self, prompts: torch.Tensor):
+    def prefill(self, prompts: torch.Tensor, enc_frames=None):
         """prompts: [B, P] -> (next-token logits [B, V] fp32, decode state,
         position: in-segment, or in cache mode the tokens in the cache, a
         host int as is the state's ``pos``; segments taken from the prefix
@@ -384,15 +398,36 @@ class ServeEngine:
         cached prefix is transplanted, only the segments after it are
         prefilled, capturing their boundary states, and each new boundary's
         snapshot is inserted. An exact full-prefix hit runs no forward: its
-        logits are the snapshot's."""
+        logits are the snapshot's.
+
+        An encoder config (whisper) needs enc_frames [B, F, D], the stub
+        frontend's frame embeddings: the encoder runs once, on the kernels,
+        and every dec layer's cross K/V is written in place into the
+        decode state's ck/cv, in both serve modes, whatever the prompt's
+        length; the whole segments' forward reads the same ck/cv (shared,
+        not copied). The prefix cache is skipped then, as in the
+        reference: its snapshots do not hold the frames."""
         B, P = prompts.shape
+        self._check_frames(enc_frames)
         if self.serve_mode == "cache" and P > self.max_len:
             raise ValueError(f"prompt_len {P} exceeds max_len {self.max_len} of the "
                              "KV cache")
         dstate = self.decode_state(B)
         n_full = P // self.seg_len if self.serve_mode == "armt" else 0
         logits, state0 = None, None
-        cached, snap, prompt_np, chain = self._probe(prompts, n_full)
+        if enc_frames is not None:
+            frames = torch.as_tensor(enc_frames).to(self.device)
+            if frames.shape != (B, self.cfg.encoder.n_frames, self.cfg.d_model):
+                raise ValueError(f"enc_frames {tuple(frames.shape)} for {B} prompts: expected "
+                                 f"[{B}, {self.cfg.encoder.n_frames}, {self.cfg.d_model}]")
+            with self.telemetry.span("encode", "prefill", batch=B):
+                fill_cross_kv_(self.params, self.cfg, dstate,
+                               encode(self.params, self.cfg, frames))
+            if n_full:
+                state0 = init_state(self.cfg, B, self.device, self.params["embed"].dtype,
+                                    cross_from=dstate)
+        cached, snap, prompt_np, chain = (self._probe(prompts, n_full) if enc_frames is None
+                                          else (0, None, None, None))
         if cached:
             state0, logits = snap.state, snap.logits.clone()
             if cached == n_full:
@@ -618,6 +653,14 @@ class ServeEngine:
         snapshots (S), and the boundaries' logits (fp32 [S, V], the bf16
         product before it and the snapshots' copies).
 
+        An encoder config (whisper) also holds its cross K/V, in the decode
+        state (the executor states share it, so they count only their
+        recurrent leaves), and before the forward the encoder's transients
+        over its B * F frames: a layer's cell (eight D-wide activations, q,
+        k and v, the F-wide MLP product and its GELU input) and the cross
+        K/V fill's input (the encoder's output repeated over the decoder's
+        layers); the larger of that and the band's is counted.
+
         A pooled round holds the sum of its members'. Host arithmetic only:
         the states are counted on the meta device."""
         cfg = self.cfg
@@ -625,7 +668,7 @@ class ServeEngine:
         dtype = self.params["embed"].dtype
         item = self.params["embed"].element_size()
         L, S = self._n_layers, n_segments
-        state = tree_nbytes(init_state(cfg, batch, meta, dtype))
+        state = tree_nbytes(recurrent_state(init_state(cfg, batch, meta, dtype)))
         dstate = tree_nbytes(decode_state_init(
             cfg, batch, dtype=dtype, device=meta, serve_mode=self.serve_mode,
             max_len=self.max_len))
@@ -670,6 +713,11 @@ class ServeEngine:
             n_in = min(lay.n_super, -(-w // len(lay.pattern)))
             band = w * rows * D * item + max(n_in * (cell(t, False) + rows * D * item)
                                              for t in set(lay.pattern))
+        if cfg.encoder is not None:
+            frames = batch * cfg.encoder.n_frames
+            band = max(band, frames * item * (
+                8 * D + (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim + 2 * cfg.d_ff
+                + lay.n_super * D))
         total = (self.prefill_carry_bytes(S, batch, stream=stream) + 2 * state + dstate
                  + band + min(L, S) * (3 * state // L))
         if self.prefix_cache is not None:
@@ -692,6 +740,7 @@ class ServeEngine:
         this many (the largest power of two under it, then the remainder's
         powers of two, as the reference does), the state chained across
         them; the scheduler's byte budget sets it with ``stream``."""
+        self._refuse_encoder("interleaved admission (start_prefill)")
         return PrefillPipeline(self, prompts, groups_per_call=groups_per_call,
                                session_entry=session_entry, stream=stream,
                                max_stage_segments=max_stage_segments)
@@ -699,7 +748,7 @@ class ServeEngine:
     @torch.no_grad()
     def generate(self, prompts, max_new: int, *, temperature: float = 0.0,
                  top_k: int = 0, seed: int = 0, keep: bool = False,
-                 session_id: Optional[str] = None) -> GenerationResult:
+                 session_id: Optional[str] = None, enc_frames=None) -> GenerationResult:
         """Decode max_new tokens after the prompt [B, P]: greedy when
         temperature <= 0 (the default), else temperature / top-k sampling
         on the device (``sample``) from a generator seeded with ``seed``.
@@ -712,11 +761,18 @@ class ServeEngine:
         fed after the stored pending token from the stored state, and the
         history is not computed again (an evicted session raises
         ``SessionEvicted``). Either way the end state is stored under the
-        id, with the last token, never fed, as the next turn's pending."""
+        id, with the last token, never fed, as the next turn's pending.
+
+        enc_frames: an encoder config's frame embeddings [B, F, D] (see
+        ``prefill``); the decode program's static cross K/V take them by a
+        copy into the buffers its graphs were captured on. Sessions of an
+        encoder config are not ported (a ValueError)."""
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long)
         B, P = prompts.shape
+        self._check_frames(enc_frames)
         entry = None
         if session_id is not None:
+            self._refuse_encoder("session_id=")
             if self.session_store is None:
                 raise ValueError("session_id given but the engine has no session_store")
             if B != 1:
@@ -738,7 +794,7 @@ class ServeEngine:
                 logits, dstate, pos = self.resume(entry, prompts[0].numpy())
         else:
             with tel.span("prefill", "prefill", prompt_len=P, batch=B):
-                logits, dstate, pos, cached = self.prefill(prompts)
+                logits, dstate, pos, cached = self.prefill(prompts, enc_frames)
         prog.load(dstate, pos)
         del dstate
         prog.draw(gen)
@@ -811,6 +867,7 @@ class ServeEngine:
         device bytes at its peak (``prefill_activation_bytes``: the carry,
         the states and the band's transients) goes through the streaming
         carry in stages that fit; None: no budget."""
+        self._refuse_encoder("serve()")
         sched = ContinuousScheduler(self, n_slots=n_slots, chunk=chunk, max_queue=max_queue,
                                     prefill_groups_per_chunk=prefill_groups_per_chunk,
                                     fused_admission=fused_admission,

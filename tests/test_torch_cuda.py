@@ -19,7 +19,12 @@ against the same programs run
 eagerly, to the bit, with equal launch counts, and a failed capture
 raising; jamba's fused cells on a strided band against the plain block,
 its diagonal schedule's strided bands against the sequential one to the
-bit, and the blockwise cell FFN (cell_block) on the attn cell. Needs a CUDA device and nvcc; skips without a card. This file
+bit, and the blockwise cell FFN (cell_block) on the attn cell; whisper's
+shapes (flash without a mask at T != S over 1,500 keys read from a cross
+K/V buffer, decode's cross-attention at rep 1 x hd 64), its fused dec cell
+against the plain block, and its forward and generate at full width (the
+encoder, diagonal = sequential, graphs = eager, graphs that follow each
+request's frames). Needs a CUDA device and nvcc; skips without a card. This file
 imports no JAX; with ``--noconftest`` (tests/conftest.py imports JAX) it
 runs on a machine that has only PyTorch:
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``."""
@@ -1335,3 +1340,142 @@ def test_cell_block_fused_cell_on_card(cuda, B):
         hd, fd = M.forward_hidden(params, blk, toks)
         hs, fs = M.forward_hidden(params, blk, toks, schedule="sequential", eager=True)
     assert _same(hd, hs) and _same(fd["pattern"][0]["A"], fs["pattern"][0]["A"])
+
+
+# ---------------------------------------------------------------- whisper-medium
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S", [(1152, 1500), (128, 1500), (1, 1500), (1500, 1500)])
+def test_flash_attention_cross_on_card(cuda, T, S):
+    """Whisper's cross-attention and encoder shapes: non-causal, T != S, a
+    ragged key length (1,500 = 11 tiles of 128 + 92), hd 64 at rep 1, k/v
+    read straight from a cross K/V buffer [G, B, F, H, hd] as [N, H, F, hd]
+    views (no copy), on the TMA + wgmma route against the plain version."""
+    G, B, H, hd = 2, 1, 16, 64
+    r = _rand(torch.Generator().manual_seed(T + S), cuda, torch.bfloat16)
+    q = r(G * B, T, H, hd).transpose(1, 2)
+    ck, cv = r(G, B, S, H, hd), r(G, B, S, H, hd)
+    k, v = (a.reshape(G * B, S, H, hd).transpose(1, 2) for a in (ck, cv))
+    assert k.data_ptr() == ck.data_ptr() and flash_attention.route(q, k, v) == "wgmma"
+    out = _flash_tc(lambda: flash_attention.flash_attention(q, k, v, causal=False))
+    _close(out, flash_attention.flash_attention_plain(*_f32(q, k, v), causal=False), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_cross_on_card(cuda, dtype):
+    """Whisper's cross-attention decode: one query of 16 heads of 64 (rep
+    1) against a constant cross cache of 1,500 frames, every length 1,500
+    (24 splits of 64 keys), against its plain version; a row batched with
+    3 others equals the row alone to the bit."""
+    from repro_torch.kernels import decode_attention as dattn
+    r = _rand(torch.Generator().manual_seed(1500), cuda, dtype)
+    q, k, v = r(4, 16, 64), r(4, 1500, 16, 64), r(4, 1500, 16, 64)
+    lens = torch.full((4,), 1500, dtype=torch.int32, device=cuda)
+    assert dattn.split_plan(1500) == (64, 24) and dattn.head_groups(1, 64) == (1, 1)
+    out = dattn.decode_attention(q, k, v, lens)
+    _close(out, dattn.decode_attention_plain(*_f32(q, k, v), lens), TOL[dtype])
+    alone = dattn.decode_attention(q[2:3], k[2:3], v[2:3], lens[2:3])
+    assert _same(alone, out[2:3])
+
+
+def _mid_whisper(cuda, dtype="bfloat16"):
+    """whisper-medium's widths (d_model 1024, 16 heads of 64, d_ff 4096,
+    1,500 frames) at 2 encoder and 2 decoder layers and a small
+    vocabulary; random weights from a seed, every bias and layernorm
+    leaf drawn away from its init value."""
+    import dataclasses
+    from repro_torch.configs import EncoderConfig, get_config
+    from repro_torch.models import model as M
+    cfg = get_config("whisper-medium")
+    cfg = dataclasses.replace(cfg, n_layers=2, vocab=1024, dtype=dtype, max_position=4096,
+                              encoder=EncoderConfig(n_layers=2, n_frames=1500))
+    params = M.init_params(cfg, 0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+
+    def perturb(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                perturb(v)
+            elif k in ("bq", "bk", "bv", "bi", "bo", "b"):
+                v.copy_(torch.randn(v.shape, generator=g, device=cuda) * 0.05)
+            elif k == "w":
+                v.add_(torch.randn(v.shape, generator=g, device=cuda) * 0.05)
+    for tree in (params["pattern"][0], params["enc"], {"f": params["final_norm"]}):
+        perturb(tree)
+    return cfg, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2])
+def test_whisper_dec_cell_on_card(cuda, B):
+    """The fused dec cell over a band of 2 layers (fp32, 1,152 rows)
+    against the plain block slot by slot, within 1e-4, its memory too; in
+    bf16 every GEMM and flash launch on the TMA + wgmma route, the cross
+    flash one launch over the band's ck/cv; at B = 1 the down projection
+    (bias bo) is the fused update."""
+    from repro_torch.core.diagonal import _per_slot_apply
+    from repro_torch.models import model as M
+    from repro_torch.models.blocks import make_apply_block
+    from repro_torch.models.grouped_blocks import make_grouped_apply
+    for dtype in ("float32", "bfloat16"):
+        cfg, params = _mid_whisper(cuda, dtype)
+        T = cfg.armt.segment_len + cfg.armt.num_mem_tokens
+        r = _rand(torch.Generator().manual_seed(B), cuda, M.DTYPES[dtype])
+        x = r(2, B, T, cfg.d_model)
+        st = M.init_state(cfg, B, cuda)["pattern"][0]
+        g = torch.Generator().manual_seed(2)
+        st["A"].copy_(torch.rand(st["A"].shape, generator=g) * 0.1)
+        st["z"].copy_(torch.rand(st["z"].shape, generator=g))
+        enc = M.encode(params, cfg, r(B, 1500, cfg.d_model))
+        M.fill_cross_kv_(params, cfg, {"prelude": (), "pattern": (st,)}, enc)
+        with torch.no_grad():
+            (got, gst), n = _counted(lambda: make_grouped_apply(cfg)(
+                "dec", params["pattern"][0], x, st))
+            if dtype == "float32":
+                want, wst = _per_slot_apply(make_apply_block(cfg))(
+                    "dec", params["pattern"][0], x, st)
+                _close(got, want, 1e-4)
+                for k in ("A", "z"):
+                    assert ((gst[k] - wst[k]).norm() / wst[k].norm()).item() <= 1e-4, k
+                continue
+        assert "grouped_matmul.simt_launches" not in n and "flash_attention.simt_launches" \
+            not in n
+        assert n["flash_attention.launches"] == 2
+        assert (n.get("grouped_matmul.fused_launches") == 1) == (B == 1)
+
+
+@pytest.mark.cuda
+def test_whisper_forward_and_generate_on_card(cuda):
+    """bf16 at whisper-medium's widths (2 + 2 layers): the encoder on the
+    kernels within 1e-2 of the plain path; 3 segments, B = 2, diagonal =
+    sequential (captured segments) to the bit; generate on graphs against
+    an eager engine to the bit in both serve modes; and one engine's graphs
+    read each request's frames: frames A, then B, then A again give A's
+    tokens twice and B's differ."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+    cfg, params = _mid_whisper(cuda)
+    rng = np.random.default_rng(0)
+    fr = [torch.from_numpy(rng.standard_normal((2, 1500, cfg.d_model)).astype(np.float32))
+          .to(cuda) for _ in range(2)]
+    with torch.no_grad():
+        enc = M.encode(params, cfg, fr[0])
+        plain = M.encode(params, cfg, fr[0], fused=False)
+    row = (enc.float() - plain.float()).norm(dim=-1) / plain.float().norm(dim=-1)
+    assert row.max().item() <= 1e-2
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 3 * 1024))).to(cuda)
+    with torch.no_grad():
+        hd, fd = M.forward_hidden(params, cfg, toks, enc_frames=fr[0])
+        hs, fs = M.forward_hidden(params, cfg, toks, enc_frames=fr[0], schedule="sequential")
+    assert _same(hd, hs) and _same(fd["pattern"][0]["A"], fs["pattern"][0]["A"])
+    prompt = rng.integers(0, cfg.vocab, (1, 1024 + 1020))
+    for mode in ("armt", "cache"):
+        (g, _), (e, _) = _graph_and_eager(
+            params, cfg, lambda eng: eng.generate(prompt, 8, keep=True,
+                                                  enc_frames=fr[0][:1]),
+            serve_mode=mode, max_len=4096)
+        assert np.array_equal(g.tokens, e.tokens) and _same(g.logits, e.logits)
+        eng = ServeEngine(params, cfg, serve_mode=mode, max_len=4096)
+        runs = [eng.generate(prompt, 8, keep=True, enc_frames=fr[f][:1]) for f in (0, 1, 0)]
+        assert _same(runs[0].logits, runs[2].logits) and not _same(runs[0].logits,
+                                                                   runs[1].logits)

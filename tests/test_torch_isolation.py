@@ -23,7 +23,7 @@ def test_port_imports_without_jax_or_reference():
             "import repro_torch.serve, repro_torch.convert, repro_torch.kernels.ops\n"
             "import repro_torch.checkpoint, repro_torch.serve.state_store\n"
             "import repro_torch.serve.telemetry\n"
-            "import repro_torch.models.model\n"
+            "import repro_torch.models.model, repro_torch.configs.whisper_medium\n"
             "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
             " if sys.modules[m] is not None)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

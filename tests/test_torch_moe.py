@@ -100,6 +100,16 @@ def _model(arch, n_layers=None, **moe_kw):
     return jc, tc, jp, tp
 
 
+_REF = {}
+
+
+def _ref(key, fn):
+    """A reference result computed once per module."""
+    if key not in _REF:
+        _REF[key] = fn()
+    return _REF[key]
+
+
 def _tokens(seed, B, n, vocab):
     return np.random.default_rng(seed).integers(0, vocab, (B, n))
 
@@ -213,9 +223,9 @@ def test_attn_moe_block_matches_reference(arch):
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, _rows(jc), jc.d_model)).astype(np.float32)
     st = _memory(rng, (2,), 6 * jc.armt.d_mem, jc.d_model)
-    jy, js = jblocks.make_apply_block(jc)(
-        "attn_moe", jax.tree_util.tree_map(lambda a: a[1], jp["pattern"][0]),
-        jnp.asarray(x), {k: jnp.asarray(v) for k, v in st.items()})
+    jy, js = jax.jit(lambda p, x_, s_: jblocks.make_apply_block(jc)("attn_moe", p, x_, s_))(
+        jax.tree_util.tree_map(lambda a: a[1], jp["pattern"][0]), jnp.asarray(x),
+        {k: jnp.asarray(v) for k, v in st.items()})
     ty, ts = tblocks.make_apply_block(tc)(
         "attn_moe", layer_slice(tp["pattern"][0], 1), torch.from_numpy(x),
         {k: torch.from_numpy(v) for k, v in st.items()})
@@ -300,8 +310,9 @@ def test_diagonal_with_a_prelude_matches_sequential(S, n_super):
     torch.testing.assert_close(ys_f, ys_s, atol=ATOL, rtol=RTOL)
     jl = jsched.StackLayout.from_config(jc)
     jst0 = jmodel.init_state(jc, 2, "segmented", jnp.float32)
-    jys, jfin = jseq.run_sequential(jl, {"prelude": jp["prelude"], "pattern": jp["pattern"]},
-                                    jst0, jnp.asarray(segs), jblocks.make_apply_block(jc))
+    jys, jfin = jax.jit(lambda p, s0, x: jseq.run_sequential(
+        jl, {"prelude": p["prelude"], "pattern": p["pattern"]}, s0, x,
+        jblocks.make_apply_block(jc)))(jp, jst0, jnp.asarray(segs))
     _close(jys, ys_f)
     _close(jfin["prelude"][0]["z"], fin_f["prelude"][0]["z"], rtol=RTOL_Z)
     _close(jfin["pattern"][0]["A"], fin_f["pattern"][0]["A"])
@@ -371,8 +382,9 @@ def test_forward_hidden_matches_reference_full_width(arch, schedule):
     skipping); the final state (prelude included) and the last logits."""
     jc, tc, jp, tp = _model(arch)
     toks = _tokens(13, 2, 3 * jc.armt.segment_len, jc.vocab)
-    jh, jf = jmodel.forward_hidden(jp, jc, jnp.asarray(toks), schedule="diagonal",
-                                   grouped_impl="vmap")
+    jh, jf = _ref(("forward", arch), lambda: jax.jit(
+        lambda p, t: jmodel.forward_hidden(p, jc, t, schedule="diagonal",
+                                           grouped_impl="vmap"))(jp, jnp.asarray(toks)))
     th, tf = tmodel.forward_hidden(tp, tc, torch.from_numpy(toks), schedule=schedule)
     assert th.shape == jh.shape
     _close(jh, th)
@@ -403,12 +415,13 @@ def test_decode_steps_match_reference(arch, serve_mode):
               "pattern": tuple(seeded(s) for s in js["pattern"])}
     ts = state_from_jax(jax.tree_util.tree_map(np.asarray, js), "cpu")
     toks = _tokens(17, B, 9, jc.vocab)
+    step = jax.jit(lambda p, s, t: jmodel.decode_step(p, jc, s, t, serve_mode=serve_mode))
     for feed in [toks[:, :5]] + [toks[:, t] for t in range(5, 9)]:
-        jl, js = jmodel.decode_step(jp, jc, js, jnp.asarray(feed), serve_mode=serve_mode)
+        jl, js = step(jp, js, jnp.asarray(feed))
         tl, ts = tmodel.decode_step(tp, tc, ts, torch.from_numpy(feed), serve_mode=serve_mode)
         _close(jl, tl)
     if serve_mode == "armt":
-        js = jmodel.flush_segment(jp, jc, js)
+        js = jax.jit(lambda p, s: jmodel.flush_segment(p, jc, s))(jp, js)
         ts = tmodel.flush_segment(tp, tc, ts)
     want = state_from_jax(jax.tree_util.tree_map(np.asarray, js), "cpu")
     for part in ("prelude", "pattern"):

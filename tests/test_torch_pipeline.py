@@ -354,7 +354,7 @@ def test_fused_cell_with_layer_index_equals_the_gathered_band():
     bit on the CPU, the cell given those layers' weights gathered."""
     jc, tc, jp, tp = _model(4)
     gapply = make_grouped_apply(tc)
-    assert gapply.indexed == ("attn", "attn_moe")
+    assert gapply.indexed == ("attn", "attn_moe", "dec")
     widx = torch.tensor([3, 0, 1, 1], dtype=torch.int32)
     pat = tp["pattern"][0]
     gathered = jax.tree_util.tree_map(lambda a: a[widx.long()], pat)

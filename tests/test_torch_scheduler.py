@@ -27,7 +27,7 @@ ARCH = "llama-1b-armt"
 @pytest.fixture(scope="module")
 def engines():
     jc, tc = j_smoke(ARCH), t_smoke(ARCH)
-    jp = jmodel.init_params(jc, jax.random.PRNGKey(0))
+    jp = jax.jit(lambda key: jmodel.init_params(jc, key))(jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
     jeng = JEngine(jp, jc, serve_mode="armt", schedule="diagonal", max_len=256)
     return jeng, ServeEngine(tp, tc, device="cpu"), jc.armt.segment_len, jc.vocab

@@ -46,12 +46,23 @@ ATOL, RTOL = 1e-4, 1e-3
 MAX_LEN = 256
 
 
+_MODELS = {}
+
+
+def _model(arch):
+    """(jax cfg, port cfg, jax params, port params) of a smoke config, the
+    reference's weights drawn once per module (jitted)."""
+    if arch not in _MODELS:
+        jc, tc = j_smoke(arch), t_smoke(arch)
+        jp = jax.jit(lambda key: jmodel.init_params(jc, key))(jax.random.PRNGKey(0))
+        _MODELS[arch] = (jc, tc, jp, params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                                     "cpu"))
+    return _MODELS[arch]
+
+
 @pytest.fixture(scope="module")
 def setup():
-    jc, tc = j_smoke(ARCH), t_smoke(ARCH)
-    jp = jmodel.init_params(jc, jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
-    return jc, tc, jp, tp
+    return _model(ARCH)
 
 
 @pytest.fixture(scope="module")
@@ -59,6 +70,27 @@ def base(setup):
     """The port's engine without stores: the tokens every hit and resume
     must give."""
     return ServeEngine(setup[3], setup[1], device="cpu", max_len=MAX_LEN)
+
+
+# The reference engine's jitted programs (decode step, flush, decode
+# loops, scheduler and pipeline steps) close over the config, serve mode and
+# segment length only, never over its stores (host-side), so every engine
+# of one setting shares the first one's: each program compiles once per
+# module, not once per engine.
+_JIT_ATTRS = ("_step", "_flush", "_loops", "_sched_fns", "_pipe_steps", "_fused_fns",
+              "_pool_steps")
+_FIRST = {}
+
+
+def _jengine(jp, jc, **kw):
+    """A reference engine (``bucket_prompts=False``) sharing its jitted
+    programs with the first engine of the same config, serve mode and
+    max_len."""
+    eng = JEngine(jp, jc, bucket_prompts=False, **kw)
+    first = _FIRST.setdefault((jc.name, eng.serve_mode, eng.max_len), eng)
+    for attr in _JIT_ATTRS:
+        setattr(eng, attr, getattr(first, attr))
+    return eng
 
 
 def _engines(setup, **stores):
@@ -76,7 +108,7 @@ def _engines(setup, **stores):
             jkw[name], tkw[name] = JPrefixCache(seg, **kj), PrefixCache(seg, **kt)
         else:
             jkw[name], tkw[name] = JSessionStore(**kj), SessionStore(**kt)
-    return (JEngine(jp, jc, serve_mode="armt", max_len=MAX_LEN, bucket_prompts=False, **jkw),
+    return (_jengine(jp, jc, serve_mode="armt", max_len=MAX_LEN, **jkw),
             ServeEngine(tp, tc, device="cpu", max_len=MAX_LEN, **tkw))
 
 
@@ -427,8 +459,7 @@ def test_cache_mode_sessions_match_reference(setup):
     generate and one through serve give the reference's tokens, and the
     length check counts the session's tokens."""
     jc, tc, jp, tp = setup
-    jeng = JEngine(jp, jc, serve_mode="cache", max_len=96, bucket_prompts=False,
-                   session_store=JSessionStore())
+    jeng = _jengine(jp, jc, serve_mode="cache", max_len=96, session_store=JSessionStore())
     teng = ServeEngine(tp, tc, serve_mode="cache", max_len=96, device="cpu",
                        session_store=SessionStore())
     for i, n in enumerate((21, 6, 13)):
@@ -449,8 +480,7 @@ def test_cache_mode_session_past_max_len_is_rejected_in_serve(setup, k):
     generate raises, and the stored session is left as it was (the next
     turn that fits still resumes it, equal to the reference's)."""
     jc, tc, jp, tp = setup
-    jeng = JEngine(jp, jc, serve_mode="cache", max_len=64, bucket_prompts=False,
-                   session_store=JSessionStore())
+    jeng = _jengine(jp, jc, serve_mode="cache", max_len=64, session_store=JSessionStore())
     teng = ServeEngine(tp, tc, serve_mode="cache", max_len=64, device="cpu",
                        session_store=SessionStore())
     t1 = _toks(30, seed=76)
@@ -629,13 +659,11 @@ def test_falcon_prefix_cache_needs_the_models_segment(tmp_path):
     64 tokens (it is the state after the whole 128-token prefill): the port
     refuses such a cache. At max_len 1024 both packages' hits give the cold
     run's tokens."""
-    jc, tc = j_smoke("falcon-mamba-7b"), t_smoke("falcon-mamba-7b")
-    jp = jmodel.init_params(jc, jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    jc, tc, jp, tp = _model("falcon-mamba-7b")
     with pytest.raises(ValueError, match="segment"):
         ServeEngine(tp, tc, device="cpu", max_len=64, prefix_cache=PrefixCache(64))
     # the reference's caveat, on its own state
-    jeng = JEngine(jp, jc, max_len=64, bucket_prompts=False, prefix_cache=JPrefixCache(64))
+    jeng = _jengine(jp, jc, max_len=64, prefix_cache=JPrefixCache(64))
     prompt = _toks(128 + 5, seed=90)
     jeng.generate(jnp.asarray(prompt[None]), 2)
     n, snap = jeng.prefix_cache.match(prompt[:64])
@@ -645,7 +673,7 @@ def test_falcon_prefix_cache_needs_the_models_segment(tmp_path):
                    for a, b in zip(_leaves(recurrent_state(fin64)), _leaves(snap.state)))
     # at the model's segment the hits are the cold run's, in both packages
     seg = 1024
-    jeng = JEngine(jp, jc, max_len=seg, bucket_prompts=False, prefix_cache=JPrefixCache(seg))
+    jeng = _jengine(jp, jc, max_len=seg, prefix_cache=JPrefixCache(seg))
     teng = ServeEngine(tp, tc, device="cpu", max_len=seg, prefix_cache=PrefixCache(seg))
     cold = ServeEngine(tp, tc, device="cpu", max_len=seg)
     shared = _toks(2 * seg, seed=91)
@@ -665,10 +693,8 @@ def test_falcon_sessions_match_reference_and_resume_past_max_len():
     reference's tokens; a third turn resumed from a position past max_len
     (a pure-SSM engine never flushes, so its position only grows) is fed as
     one piece and gives the tokens of one generate over the history."""
-    jc, tc = j_smoke("falcon-mamba-7b"), t_smoke("falcon-mamba-7b")
-    jp = jmodel.init_params(jc, jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
-    jeng = JEngine(jp, jc, max_len=64, bucket_prompts=False, session_store=JSessionStore())
+    jc, tc, jp, tp = _model("falcon-mamba-7b")
+    jeng = _jengine(jp, jc, max_len=64, session_store=JSessionStore())
     teng = ServeEngine(tp, tc, device="cpu", max_len=64, session_store=SessionStore())
     base = ServeEngine(tp, tc, device="cpu", max_len=64)
     history = np.empty(0, np.int32)

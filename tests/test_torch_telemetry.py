@@ -42,7 +42,7 @@ MAX_LEN = 256
 @pytest.fixture(scope="module")
 def setup():
     jc, tc = j_smoke(ARCH), t_smoke(ARCH)
-    jp = jmodel.init_params(jc, jax.random.PRNGKey(0))
+    jp = jax.jit(lambda key: jmodel.init_params(jc, key))(jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
     return jc, tc, jp, tp
 

@@ -100,8 +100,7 @@ def main() -> int:
             toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, args.segments * seg))).to(dev)
 
             def logits(h):
-                return M._head_matmul(params, cfg,
-                                      M.rmsnorm(h[:, :, -1], params["final_norm"])).float()
+                return M.boundary_logits(params, cfg, h)
 
             def run(schedule):
                 """[S, 1, V] last-token logits and the final z; with
