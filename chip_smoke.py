@@ -276,6 +276,33 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       B, its logits not A's; the blocking prefill's peak at or below
       prefill_activation_bytes at 4 and 16 segments; no SIMT, every
       kernel but mamba_scan launched. Prints a ``{"whisper": ...}`` line;
+  (v) after (u): training llama-1b-armt at full width and depth on the
+      kernels' autograd Functions. (v1) each backward at the band's shapes
+      (the GEMM with silu, with gelu + bias, the down projection with a
+      residual; flash causal and with a 512-key window; armt_read;
+      armt_update) against autograd through the plain version in fp32 on
+      the same values: every input's gradient within 1e-4 (fp32) or 2e-2
+      (bf16) of its norm, a control (one gradient x0.98 in fp32, x0.95 in
+      bf16) failing; forward, backward and the plain version's backward
+      timed in bf16. (v2) fp32, B = 1, 2 segments: lm_loss within 1e-4 and
+      every parameter's gradient within 1e-3 of the plain path (diagonal,
+      fused against unfused), layer 4's wo x0.98 a control that must
+      fail; the B = 1 cell's unfused route (the training form) against the
+      fused op in the forward at the bf16 band, to the bit. (v3) bf16,
+      remat, 16 segments: the training stream's first batch, loss and
+      gradients diagonal against sequential (the losses to the bit, the
+      gradients finite; their difference printed); fp32 at 4 segments
+      within 1e-3; uniform random tokens, forward only, reported (the
+      untrained recurrence overflows on them). (v4) train_loop on
+      lm_stream, bf16, 16 segments, B = 1, diagonal, 12 steps (lr 1e-3,
+      warmup 2): step time, tokens/s and peak memory; a checkpoint at step
+      6 resumed in a fresh loop to step 12, its losses within 1e-3 of the
+      uninterrupted run's (bitwise reported); a step with a NaN in its
+      loss mask skipped, params and moments unchanged to the bit; the
+      steps the loop skipped as non-finite reported; the loss must fall
+      (the mean of the last 3 steps below the first 3) on one batch of 2
+      segments repeated for 12 steps, where the untrained recurrence is
+      well conditioned. Prints a ``{"train": ...}`` line;
   (p4) after (h): a falcon-mamba-7b session (2 x 8192 + 1000 tokens, then
       500), spilled and restored against kept in memory to the bit (h and
       the bf16 conv tail), resume TTFT against re-prefilling the history
@@ -288,8 +315,8 @@ place), and so does the sequential schedule's segment; the eager engines
 to be held against them here and in the card tests.
 
 The kernels' launch counters are set to 0 just before each main-path run
-of (d), (e), (i), (k), (l), (o), (p1)-(p4), (r), (s), (t), (u), (g), (h) and falcon's
-fused run of (o), and read just after it (a phase's count is the sum over its runs; a
+of (d), (e), (i), (k), (l), (o), (p1)-(p4), (r), (s), (t), (u), (v), (g), (h) and
+falcon's fused run of (o), and read just after it (a phase's count is the sum over its runs; a
 graph replay counts what its capture launched, so the counts read the
 same under graphs as eager): every llama kernel must have been launched
 in (d), every one but armt_update (which runs only at B > 1) in (e), in
@@ -298,7 +325,11 @@ prefix-cache (p1-p2) and session (p3) runs (``prefix_cache``,
 ``sessions``) and in (r) (``dense_configs``), every one in (s)
 (``moe_configs``: armt_update through the MoE cell at B = 1, the fused
 update through kimi's dense prelude layer) and in (t) (``jamba``, with
-mamba_scan) and in (u) (``whisper``), the GEMM and
+mamba_scan) and in (u) (``whisper``), the GEMM, flash, armt_read and
+armt_update and not the fused update or decode attention in (v)'s
+uninterrupted 12 steps (``train``: forward and backward launches, the
+backward's recomputed pre-activations and rematerialized cells
+included), the GEMM and
 flash in (i) and flash and decode attention in (k) and (l), with none of
 the ARMT memory kernels there, and mamba_scan in (g), (h) and falcon's
 interleaved run and session run (p4). ``serve`` runs at its default of 4 band steps per
@@ -306,12 +337,13 @@ chunk (interleaved admission) in (e), (l) and (h). The GEMM's and flash attentio
 launches are also counted by route (the TMA + wgmma kernel or the fp32 SIMT
 kernel; for the GEMM whoever called it: projections, the fused op, the
 ARMT kernels' projections): the bf16 runs of (d),
-(e), (i), (k), (l), (o), (p1)-(p3), (r), (s), (t) and (u) must launch no SIMT GEMM and
+(e), (i), (k), (l), (o), (p1)-(p3), (r), (s), (t), (u) and (v) must launch no SIMT GEMM and
 no SIMT flash. One decode_attention
 call (its partials and their combine) counts as one launch.
 The script prints JSON lines of the schedules' timing, of the graph
 phase (every graph-against-eager check with its rates) and of the kernel
-summaries, the card's name and power limit, and last ``{"ok": true,
+summaries (each with ``launches_train`` and ``backward``: (v1)'s rows, null
+for the kernels off the training path), the card's name and power limit, and last ``{"ok": true,
 "device": {...}}``. Any failure exits
 non-zero before that line; without a CUDA device it exits 2.
 """
@@ -320,6 +352,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -544,7 +577,8 @@ def main() -> int:
 
     def bits(t):
         return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32,
-                       torch.int64: torch.int64, torch.bool: torch.bool}[t.dtype])
+                       torch.int32: torch.int32, torch.int64: torch.int64,
+                       torch.bool: torch.bool}[t.dtype])
 
     def same_bits(a, b):
         """Equal to the bit (NaN and inf included)."""
@@ -4064,6 +4098,394 @@ def main() -> int:
     launches_whisper, routes_whisper, whisper_row = whisper_phase()
     print(json.dumps({"whisper": whisper_row, "card": smi}))
 
+    # ------------------------------------------------------------ (v) training
+    def train_phase():
+        """(v) training llama-1b-armt at full width and depth on the kernels:
+        (v1) each backward at the band's shapes against autograd through
+        the plain version, timed; (v2) fp32, 2 segments: the loss and every
+        gradient of the kernel path against the plain path (a control that
+        must fail), and the B = 1 cell's unfused route (the training form)
+        against the fused op in the forward; (v3) bf16, remat, 16
+        segments: diagonal against sequential (the losses to the bit), and
+        in fp32 at 4 segments their gradients; (v4) train_loop on lm_stream
+        for 12 steps, resumed from step 6 in a fresh loop, and a non-finite
+        step skipped. Returns (the launches of (v4)'s uninterrupted run,
+        its routes, the backward rows of (v1), the results)."""
+        from repro_torch.data import lm_stream, to_device
+        from repro_torch.kernels import ref
+        from repro_torch.models.grouped_blocks import make_grouped_apply
+        from repro_torch.optim import OptimConfig
+        from repro_torch.train import make_train_step, train_loop
+        from repro_torch.utils import tree_flatten_with_path, tree_leaves, tree_unflatten
+
+        t_phase = time.perf_counter()
+        M.SegmentProgram._cache.clear()
+        torch.cuda.empty_cache()
+        row = {}
+        tol32, tol16, step_tol, leaf_tol = 1e-4, 2e-2, 1e-4, 1e-3
+
+        gdev = torch.Generator(device=dev).manual_seed(SEED + 9)
+
+        def rnd_d(*shape, scale=1.0, dtype=torch.bfloat16):
+            """Normals drawn on the card (the band's weights are too many for
+            the host's generator to draw quickly)."""
+            return (torch.randn(shape, generator=gdev, device=dev) * scale).to(dtype)
+
+        def grads(fn, ins, gys):
+            outs = fn(*ins)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            return outs, torch.autograd.grad(outs, [t for t in ins if t is not None], gys,
+                                             retain_graph=True)
+
+        # (v1) each backward against autograd through its plain version
+        log("== (v) training llama-1b-armt; (v1) each kernel's backward at the band's shapes "
+            "against autograd through its plain version (fp32 on the same input values)")
+        bwd = {}
+
+        def bwd_case(name, kernel, plain, shapes, time_it):
+            """shapes: [(shape, scale) or None] of the inputs; each run in
+            fp32 and in bf16, every input's gradient held (norm-relative)
+            against autograd through the plain version in fp32 on the same
+            values; a control must fail: the first gradient x0.98 in fp32,
+            x0.95 in bf16 (x0.98 sits at bf16's tolerance of 2e-2)."""
+            out = {}
+            for dtype, tol, scale in ((torch.float32, tol32, 0.98),
+                                      (torch.bfloat16, tol16, 0.95)):
+                ins = [None if s is None else rnd_d(*s[0], scale=s[1], dtype=dtype)
+                       .requires_grad_() for s in shapes]
+                with torch.no_grad():
+                    ys = kernel(*ins)
+                ys = ys if isinstance(ys, tuple) else (ys,)
+                gys = [rnd_d(*y.shape, dtype=y.dtype) for y in ys]
+                ref_ins = [None if t is None else t.detach().float().requires_grad_()
+                           for t in ins]
+                _, want = grads(plain, ref_ins, [g.float() for g in gys])
+                outs, got = grads(kernel, ins, gys)
+                errs = [rel_err(g.float(), w) for g, w in zip(got, want)]
+                control = rel_err(got[0].float() * scale, want[0])
+                ok = max(errs) <= tol and control > tol and all(
+                    torch.isfinite(g).all().item() for g in got)
+                label = "fp32" if dtype == torch.float32 else "bf16"
+                log(f"  {name} {label}: worst input grad rel err {max(errs):.3e} (tol {tol:g}; "
+                    f"each {['%.2e' % e for e in errs]}), control x{scale} {control:.3e} -> "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"(v1) {name} {label} backward")
+                out[f"err_{label}"] = max(errs)
+                out[f"control_{label}"] = control
+                if dtype == torch.bfloat16 and time_it:
+                    plain_outs = plain(*ins)
+                    plain_outs = plain_outs if isinstance(plain_outs, tuple) else (plain_outs,)
+                    live = [t for t in ins if t is not None]
+                    with torch.no_grad():
+                        out["fwd_ms"] = time_ms(lambda: kernel(*ins), iters=5)
+                    out["bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                        outs, live, gys, retain_graph=True), iters=5, warmup=1,
+                        spin=20_000_000)
+                    out["plain_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                        plain_outs, live, gys, retain_graph=True), iters=3, warmup=1,
+                        spin=20_000_000)
+                    log(f"    bf16 times: forward {out['fwd_ms']:.3f} ms, backward "
+                        f"{out['bwd_ms']:.3f} ms, the plain version's backward "
+                        f"{out['plain_bwd_ms']:.3f} ms")
+                    del plain_outs
+                del ins, ref_ins, outs, got, want, ys, gys
+                torch.cuda.empty_cache()
+            return out
+
+        Gb, Tb, Db, Fb, Hq, Hkv, hd, dmb, Mb = 16, 1152, 2048, 8192, 32, 8, 64, 64, 128
+        Pb = 6 * dmb
+        bwd["grouped_matmul"] = {
+            "up_silu": bwd_case(
+                "grouped_matmul silu [16,1152,2048]x[16,2048,8192]",
+                lambda x, w: grouped_matmul.grouped_matmul(x, w, activation="silu"),
+                lambda x, w: ref.grouped_matmul_ref(x, w, activation="silu"),
+                [((Gb, Tb, Db), 1.0), ((Gb, Db, Fb), Db ** -0.5)], True),
+            "up_gelu_bias": bwd_case(
+                "grouped_matmul gelu + bias [16,1152,2048]x[16,2048,8192]",
+                lambda x, w, b: grouped_matmul.grouped_matmul(x, w, b, activation="gelu"),
+                lambda x, w, b: ref.grouped_matmul_ref(x, w, b, activation="gelu"),
+                [((Gb, Tb, Db), 1.0), ((Gb, Db, Fb), Db ** -0.5), ((Gb, Fb), 0.1)], True),
+            "down_res": bwd_case(
+                "grouped_matmul + res [16,1152,8192]x[16,8192,2048]",
+                lambda x, w, r: grouped_matmul.grouped_matmul(x, w, res=r),
+                lambda x, w, r: ref.grouped_matmul_ref(x, w, res=r),
+                [((Gb, Tb, Fb), 1.0), ((Gb, Fb, Db), Fb ** -0.5), ((Gb, Tb, Db), 1.0)], True)}
+        bwd["flash_attention"] = {
+            f"{label}": bwd_case(
+                f"flash_attention {label} q [16,32,1152,64] k/v [16,8,1152,64]",
+                lambda q, k, v, w=w: flash_attention.flash_attention(q, k, v, causal=True,
+                                                                     window=w),
+                lambda q, k, v, w=w: ref.flash_attention_ref(q, k, v, causal=True, window=w),
+                [((Gb, Hq, Tb, hd), 1.0), ((Gb, Hkv, Tb, hd), 1.0), ((Gb, Hkv, Tb, hd), 1.0)],
+                True)
+            for label, w in (("causal", 0), ("window_512", 512))}
+        bwd["armt_read"] = {"band": bwd_case(
+            "armt_read x [16,1152,2048] wq [16,2048,64] A [16,384,2048]",
+            lambda x, wq, A, z: armt_memory.armt_read(x, wq, A.float(), z.float().abs() + 1,
+                                                      nu=3),
+            lambda x, wq, A, z: ref.armt_read_ref(x, wq, A.float(), z.float().abs() + 1, nu=3),
+            [((Gb, Tb, Db), 1.0), ((Gb, Db, dmb), Db ** -0.5), ((Gb, Pb, Db), 0.05),
+             ((Gb, Pb), 1.0)], True)}
+        bwd["armt_update"] = {"band": bwd_case(
+            "armt_update m [16,128,2048] wk/wv/wb [16,2048,64/2048/1] A [16,384,2048]",
+            lambda m, wk, wv, wb, A, z: armt_memory.armt_update(m, wk, wv, wb, A.float(),
+                                                                z.float().abs() + 1, nu=3),
+            lambda m, wk, wv, wb, A, z: ref.armt_update_ref(m, wk, wv, wb, A.float(),
+                                                            z.float().abs() + 1, nu=3),
+            [((Gb, Mb, Db), 1.0), ((Gb, Db, dmb), Db ** -0.5), ((Gb, Db, Db), Db ** -0.5),
+             ((Gb, Db, 1), Db ** -0.5), ((Gb, Pb, Db), 0.05), ((Gb, Pb), 1.0)], True)}
+        row["v1"] = bwd
+
+        # (v2) fp32, 2 segments: the kernel path's loss and gradients against
+        # the plain path's
+        cfg = get_config("llama-1b-armt")
+        seg = cfg.armt.segment_len
+        cfg32 = replace(cfg, dtype="float32")
+        p32 = M.init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        trng = np.random.default_rng(SEED + 5)
+
+        def tokens(n_seg):
+            t = torch.from_numpy(trng.integers(0, cfg.vocab, (1, n_seg * seg + 1))).to(dev)
+            return t[:, :-1], t[:, 1:]
+
+        def loss_grads(p, c, tk, lb, **kw):
+            leaves = [t.detach().requires_grad_() for t in tree_leaves(p)]
+            loss = M.lm_loss(tree_unflatten(p, leaves), c, tk, lb, **kw)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+        names = [n for n, _ in tree_flatten_with_path(p32)]
+
+        def compare(a, b):
+            """(loss rel err, {leaf: grad rel err})"""
+            return (abs(a[0].item() - b[0].item()) / abs(b[0].item()),
+                    {n: rel_err(x.float(), y.float()) for n, x, y in zip(names, a[1], b[1])})
+        tk2, lb2 = tokens(2)
+        log("== (v2) fp32, full width and depth, B = 1, 2 segments: lm_loss and every "
+            "gradient, kernels (diagonal, fused) against the plain path")
+        t0 = time.perf_counter()
+        kern = loss_grads(p32, cfg32, tk2, lb2, schedule="diagonal", fused=True)
+        sync()
+        t_kern = time.perf_counter() - t0
+        plain = loss_grads(p32, cfg32, tk2, lb2, schedule="diagonal", fused=False)
+        l_err, g_errs = compare(kern, plain)
+        worst = max(g_errs, key=g_errs.get)
+        ok = l_err <= step_tol and g_errs[worst] <= leaf_tol
+        log(f"  loss {kern[0].item():.6f} vs plain {plain[0].item():.6f}: rel {l_err:.3e} (tol "
+            f"{step_tol:g}); worst leaf {worst} {g_errs[worst]:.3e} (tol {leaf_tol:g}) -> "
+            f"{'ok' if ok else 'FAIL'}; kernel run {t_kern:.2f} s")
+        if not ok:
+            failures.append("(v2) fp32 kernel gradients against the plain path")
+        del kern
+        wo = p32["pattern"][0]["attn"]["wo"]
+        wo_c = wo.clone()
+        wo_c[wo_c.shape[0] // 4] *= 0.98
+        pc = dict(p32, pattern=({**p32["pattern"][0],
+                                 "attn": {**p32["pattern"][0]["attn"], "wo": wo_c}},))
+        l_c, g_c = compare(loss_grads(pc, cfg32, tk2, lb2, schedule="diagonal", fused=True),
+                           plain)
+        worst_c = max(g_c.values())
+        control_ok = l_c > step_tol or worst_c > leaf_tol
+        log(f"  control (layer {wo_c.shape[0] // 4}'s wo x0.98 in the kernel run): loss rel "
+            f"{l_c:.3e}, worst leaf "
+            f"{worst_c:.3e} -> {'fails as it must' if control_ok else 'PASSES: FAIL'}")
+        if not control_ok:
+            failures.append("(v2) control passed")
+        del plain, pc, wo_c
+        row["v2"] = dict(loss_rel_err=l_err, worst_leaf=worst, worst_leaf_rel_err=g_errs[worst],
+                         grad_rel_err=g_errs, control_loss_rel_err=l_c,
+                         control_worst_leaf_rel_err=worst_c, kernel_run_s=t_kern)
+        # diagonal against sequential gradients, fp32, 4 segments
+        tk4, lb4 = tokens(4)
+        d4 = loss_grads(p32, cfg32, tk4, lb4, schedule="diagonal")
+        s4 = loss_grads(p32, cfg32, tk4, lb4, schedule="sequential")
+        l_ds, g_ds = compare(d4, s4)
+        ok = max(g_ds.values()) <= leaf_tol and l_ds <= step_tol
+        log(f"  fp32, 4 segments, diagonal vs sequential on the kernels: loss rel {l_ds:.3e}, "
+            f"worst leaf {max(g_ds.values()):.3e} (tol {leaf_tol:g}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("(v3) fp32 diagonal vs sequential gradients at 4 segments")
+        row["v3_fp32_4seg"] = dict(loss_rel_err=l_ds, worst_leaf_rel_err=max(g_ds.values()))
+        del d4, s4, p32
+        torch.cuda.empty_cache()
+
+        # the B = 1 cell under gradients (grouped_matmul(res=) then
+        # armt_update) against the fused op, in the forward, bf16
+        p16 = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        cell = make_grouped_apply(cfg)
+        xb = rnd_d(Gb, 1, Tb, Db)
+        stb = {"A": rnd_d(Gb, 1, Pb, Db, scale=0.05, dtype=torch.float32),
+               "z": rnd_d(Gb, 1, Pb, dtype=torch.float32).abs() + 1}
+        reset_counts()
+        with torch.no_grad():
+            y0, s0 = cell("attn", p16["pattern"][0], xb, stb)
+        fused_launches = read_counts()["grouped_matmul_armt_update"]
+        y1, s1 = cell("attn", p16["pattern"][0], xb.clone().requires_grad_(), stb)
+        unfused_ok = read_counts()["grouped_matmul_armt_update"] == fused_launches == 1
+        bitwise = same_bits(y0, y1.detach()) and all(same_bits(s0[k], s1[k].detach())
+                                                     for k in ("A", "z"))
+        rels = [rel_err(y1.detach().float(), y0.float())] + [
+            rel_err(s1[k].detach(), s0[k]) for k in ("A", "z")]
+        log(f"  the B = 1 cell's unfused route (grouped_matmul(res=), armt_update) against the "
+            f"fused op, forward, bf16 band [16,1,1152,2048]: to the bit {bitwise} (rel err y, "
+            f"A, z {['%.2e' % r for r in rels]}); the fused op launched only without "
+            f"gradients {unfused_ok}")
+        if not unfused_ok or max(rels) > 1e-2:
+            failures.append("(v2) unfused B = 1 route against the fused op")
+        row["unfused_vs_fused_bitwise"] = bitwise
+        row["unfused_vs_fused_rel_err"] = rels
+        del y0, s0, y1, s1, xb, stb
+
+        # (v3) bf16, remat, 16 segments: diagonal against sequential, on the
+        # training stream's first batch (uniform random tokens overflow the
+        # untrained model's forward by segments 11-14: reported, not trained)
+        log("== (v3) bf16, remat 'full', B = 1, 16 segments of 1,024: lm_loss and gradients, "
+            "diagonal against sequential, both on the kernels")
+        first = to_device(next(lm_stream(cfg.vocab, 1, 16 * seg, seed=SEED)), dev)
+        tk16, lb16 = first["tokens"], first["labels"]
+        rt, rl = tokens(16)
+        with torch.no_grad():
+            rand_loss = {sch: M.lm_loss(p16, cfg, rt, rl, schedule=sch)
+                         for sch in ("diagonal", "sequential")}
+        log(f"  uniform random tokens (forward only): loss diagonal "
+            f"{rand_loss['diagonal'].item():.6f}, sequential {rand_loss['sequential'].item():.6f}, "
+            f"to the bit {same_bits(rand_loss['diagonal'], rand_loss['sequential'])} "
+            "(informational: the untrained recurrence overflows on them)")
+        row["v3_random_tokens_loss"] = {k: v.item() for k, v in rand_loss.items()}
+        runs = {}
+        for schedule in ("diagonal", "sequential"):
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            runs[schedule] = loss_grads(p16, cfg, tk16, lb16, schedule=schedule)
+            sync()
+            runs[schedule] += (time.perf_counter() - t0,
+                               torch.cuda.max_memory_allocated(dev) / 1e9)
+        (ld, gd, td, md), (ls, gs, ts, ms) = runs["diagonal"], runs["sequential"]
+        loss_bits = same_bits(ld, ls)
+        g_rel = {n: rel_err(a.float(), b.float()) for n, a, b in zip(names, gd, gs)}
+        finite = all(torch.isfinite(g).all().item() for g in gd + gs)
+        log(f"  the training stream's first batch: loss diagonal {ld.item():.6f} sequential "
+            f"{ls.item():.6f}: to the bit {loss_bits}; "
+            f"gradients finite {finite}, largest rel difference {max(g_rel.values()):.3e} "
+            f"({max(g_rel, key=g_rel.get)}; informational); loss + gradients diagonal {td:.2f} s "
+            f"(peak {md:.2f} GB), sequential {ts:.2f} s (peak {ms:.2f} GB)")
+        if not (loss_bits and finite):
+            failures.append("(v3) bf16 diagonal vs sequential loss bits / finite gradients")
+        row["v3"] = dict(loss=ld.item(), loss_bitwise=loss_bits, grads_finite=finite,
+                         grad_rel_diff=g_rel, diagonal_s=td, sequential_s=ts,
+                         diagonal_peak_gb=md, sequential_peak_gb=ms)
+        del runs, gd, gs, p16, cell
+        torch.cuda.empty_cache()
+
+        # (v4) train_loop, bf16, diagonal, 12 steps: 16 segments (the main
+        # path: times, launches, the non-finite guard), then 4 segments (the
+        # loss falls; checkpoint and resume)
+        ocfg = OptimConfig(lr=1e-3, warmup_steps=2, total_steps=12)
+        ckpt = ROOT / "build" / "chip_smoke_train_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+        def loop(n_seg, steps, **kw):
+            return train_loop(cfg, ocfg, lm_stream(cfg.vocab, 1, n_seg * seg, seed=SEED),
+                              steps=steps, schedule="diagonal", device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(SEED), **kw)
+
+        def trend(ls):
+            """(mean of the first 3 finite losses, of the last 3)."""
+            fin = [l for l in ls if math.isfinite(l)]
+            return float(np.mean(fin[:3])), float(np.mean(fin[-3:]))
+        log("== (v4) train_loop on lm_stream: bf16, full width and depth, B = 1, diagonal, 12 "
+            "steps, lr 1e-3 (warmup 2); 16 segments (16,384 tokens)")
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        full = loop(16, 12)
+        sync()
+        launches, routes = read_counts(), read_routes()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        hist = full["history"]
+        losses = [h["loss"] for h in hist]
+        times = [h["step_time_s"] for h in hist]
+        skipped = [h["step"] for h in hist if h["skipped"]]
+        step_s = float(np.median(times[1:]))
+        log(f"  losses {['%.4f' % l for l in losses]}; grad norms "
+            f"{['%.3g' % h['grad_norm'] for h in hist]}; steps skipped as non-finite {skipped} "
+            "(informational: the untrained recurrence overflows at 16 segments once updated)")
+        log(f"  step time median {step_s:.3f} s over steps 1-11 (first {times[0]:.3f} s): "
+            f"{16 * seg / step_s:.0f} tokens/s; peak {peak:.2f} GB")
+        log(f"  launches over the 12 steps: {launches}; GEMM and flash by route {routes}")
+        for name in ("grouped_matmul", "flash_attention", "armt_read", "armt_update"):
+            if launches[name] == 0:
+                failures.append(f"(v4) {name} never launched")
+        for name in ("grouped_matmul_armt_update", "decode_attention", "mamba_scan"):
+            if launches[name]:
+                failures.append(f"(v4) {name} launched in training")
+        for k in routed:
+            if routes[k]["simt"] or not routes[k]["wgmma"]:
+                failures.append(f"(v4)'s {k} left the TMA + wgmma route: {routes[k]}")
+        del full
+        torch.cuda.empty_cache()
+        # 4 segments: the loss must fall; a checkpoint at step 6 resumed in
+        # a fresh loop to step 12; a step with a NaN in its loss mask skipped
+        log("  4 segments (4,096 tokens), the same settings:")
+        four = loop(4, 12)
+        f_losses = [h["loss"] for h in four["history"]]
+        f_skipped = [h["step"] for h in four["history"] if h["skipped"]]
+        first3, last3 = trend(f_losses)
+        learned = last3 < first3 and not f_skipped
+        log(f"  losses {['%.4f' % l for l in f_losses]}; skipped {f_skipped}; mean of the first "
+            f"3 {first3:.4f}, of the last 3 {last3:.4f}: margin {first3 - last3:.4f} -> "
+            f"{'ok' if learned else 'FAIL'}")
+        if not learned:
+            failures.append("(v4) the loss did not fall at 4 segments")
+        t0 = time.perf_counter()
+        loop(4, 6, ckpt_dir=str(ckpt), ckpt_every=6, keep=1)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = loop(4, 12, ckpt_dir=str(ckpt), ckpt_every=6, keep=1)
+        t_resume = time.perf_counter() - t0
+        r_losses = [h["loss"] for h in resumed["history"]]
+        r_steps = [h["step"] for h in resumed["history"]]
+        r_err = max(abs(a - b) / abs(b) for a, b in zip(r_losses, f_losses[6:]))
+        r_bits = r_losses == f_losses[6:]
+        ok = r_steps == list(range(6, 12)) and r_err <= 1e-3
+        log(f"  resumed at step {r_steps[0]}: losses {['%.4f' % l for l in r_losses]}; largest "
+            f"rel difference to the uninterrupted run {r_err:.3e} (tol 1e-3), to the bit "
+            f"{r_bits} -> {'ok' if ok else 'FAIL'}; the 6-step run with its save {t_save:.1f} s, "
+            f"the resumed run with its restore and save {t_resume:.1f} s")
+        if not ok:
+            failures.append("(v4) resumed losses")
+        del resumed
+        shutil.rmtree(ckpt, ignore_errors=True)
+        state = four["state"]
+        batch = to_device(next(lm_stream(cfg.vocab, 1, 4 * seg, seed=SEED + 1)), dev)
+        mask = torch.ones(1, 4 * seg, device=dev)
+        mask[0, seg + 3] = float("nan")
+        batch["loss_mask"] = mask
+        new, metrics = make_train_step(cfg, ocfg, schedule="diagonal")(state, batch)
+        nan_skipped = metrics["skipped"].item() == 1.0
+        kept = all(same_bits(a, b) for a, b in zip(tree_leaves(new), tree_leaves(state)))
+        log(f"  a step with a NaN in the loss mask: skipped {nan_skipped}, params and moments "
+            f"unchanged to the bit {kept} -> {'ok' if nan_skipped and kept else 'FAIL'}")
+        if not (nan_skipped and kept):
+            failures.append("(v4) non-finite step not skipped")
+        del new, state, four
+        torch.cuda.empty_cache()
+        row["v4"] = dict(losses_16=losses, grad_norms_16=[h["grad_norm"] for h in hist],
+                         skipped_16=skipped, step_s=step_s, step_times_s=times,
+                         tokens_per_s=16 * seg / step_s, peak_gb=peak, losses_4=f_losses,
+                         first3_4=first3, last3_4=last3, margin_4=first3 - last3,
+                         resumed_losses_4=r_losses, resumed_rel_err=r_err, resumed_bitwise=r_bits,
+                         save_run_s=t_save, resume_run_s=t_resume,
+                         nonfinite_skipped=nan_skipped, nonfinite_state_kept=kept)
+        row["phase_s"] = time.perf_counter() - t_phase
+        log(f"  (v) {row['phase_s']:.1f} s")
+        return launches, routes, bwd, row
+
+    launches_train, routes_train, backward_rows, train_row = train_phase()
+    print(json.dumps({"train": dict(step_s=train_row["v4"]["step_s"],
+                                    tokens_per_s=train_row["v4"]["tokens_per_s"],
+                                    peak_gb=train_row["v4"]["peak_gb"], **train_row),
+                      "card": smi}))
+
     # ------------------------------------------------------------ (f) falcon-mamba model
     log("== model phase: falcon-mamba-7b, full width and depth, bf16, seed 0 on the card")
     fcfg = get_config("falcon-mamba-7b")
@@ -4418,20 +4840,21 @@ def main() -> int:
                    "cache_serve": launches_cserve, "serve_interleaved": launches_inter,
                    "prefix_cache": launches_prefix, "sessions": launches_sess,
                    "dense_configs": launches_dense, "moe_configs": launches_moe,
-                   "jamba": launches_jamba, "whisper": launches_whisper}
+                   "jamba": launches_jamba, "whisper": launches_whisper,
+                   "train": launches_train}
     llama_routes = {"generate": routes_gen, "serve": routes_serve, "full_forward": routes_full,
                     "cache_generate": routes_cgen, "cache_serve": routes_cserve,
                     "serve_interleaved": routes_inter, "prefix_cache": routes_prefix,
                     "sessions": routes_sess, "dense_configs": routes_dense,
                     "moe_configs": routes_moe, "jamba": routes_jamba,
-                    "whisper": routes_whisper}
+                    "whisper": routes_whisper, "train": routes_train}
     # falcon-mamba has no prefix-cache run (its engine refuses a cache at
     # max_len 8192: its seg_len is max_len, not the model's segment), so
     # mamba_scan has no launches_prefix_cache; jamba's (t) runs every
     # kernel, so each has a launches_jamba
     falcon_paths = {"generate": flaunch_gen, "serve": flaunch_serve,
                     "serve_interleaved": flaunch_inter, "sessions": launches_fsess,
-                    "jamba": launches_jamba}
+                    "jamba": launches_jamba, "train": launches_train}
     kernels = []
     for name, (src, replaces) in sources.items():
         s = summary[name]
@@ -4445,6 +4868,9 @@ def main() -> int:
                         "shape": s["shape"]})
         kernels[-1].update({k: s[k] for k in ("unfused", "ms_by_rows", "device_launches_per_call",
                                               "layer_index") if k in s})
+        # (v1): the backward's errors and times at the band's shapes (the
+        # kernels off the training path have none yet)
+        kernels[-1]["backward"] = backward_rows.get(name)
         if name in routed:   # every GEMM / flash launch of the llama runs, by route
             kernels[-1]["launches_by_route"] = {
                 r: sum(v[name][r] for v in llama_routes.values()) for r in routes}

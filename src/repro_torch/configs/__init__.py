@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 
 
 DISPATCHES = ("global", "per_row")
+REMATS = ("none", "dots", "full")
 
 
 @dataclass(frozen=True)
@@ -95,6 +96,12 @@ class ArchConfig:
     # this many tokens, so one chunk's F-wide intermediates are live at a
     # time; 0 (the default) runs it whole. A MoE FFN is never blocked.
     cell_block: int = 0
+    # activation rematerialisation under gradients: "none" keeps every
+    # cell's intermediates for the backward; "full" (and "dots", which the
+    # port runs as "full") recomputes each cell in the backward from its
+    # inputs (torch.utils.checkpoint), the reference's jax.checkpoint.
+    # Forward values are the same either way.
+    remat: str = "full"
     source: str = ""
 
     @property
@@ -135,6 +142,8 @@ class ArchConfig:
             raise ValueError(f"{self.name}: non-positive dims")
         if self.cell_block < 0:
             raise ValueError(f"{self.name}: cell_block {self.cell_block} < 0")
+        if self.remat not in REMATS:
+            raise ValueError(f"{self.name}: remat {self.remat!r}; expected one of {REMATS}")
         types = set(self.layer_types)
         audio = (self.norm, self.act, self.use_rope) == ("layernorm", "gelu", False)
         if self.encoder is not None or "dec" in types:
@@ -222,7 +231,7 @@ def get_smoke_config(arch_id: str, *, seq_len: int = 64) -> ArchConfig:
     memory tokens of d_mem 8, SSM to d_state 4, MoE to 4 experts (top-k at
     most 2) of 32 wide and a shared expert of 32, dense FFNs (the
     prelude's too) to 64, an encoder to 2 layers over 16 frames, the
-    position table to max(2048, seq_len) rows. The attention flags (QKV
+    position table to max(2048, seq_len) rows, remat off. The attention flags (QKV
     bias, q/k norm, rotary fraction, sliding window), the norm and
     activation, and the MoE's capacity factor and dispatch are kept."""
     cfg = get_config(arch_id)
@@ -254,4 +263,5 @@ def get_smoke_config(arch_id: str, *, seq_len: int = 64) -> ArchConfig:
         encoder=enc,
         max_position=max(2048, seq_len),
         dtype="float32",
+        remat="none",
     )

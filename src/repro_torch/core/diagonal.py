@@ -42,6 +42,17 @@ So they are equal by construction:
     weights through a layer index (the ``attn`` and ``attn_moe`` cells;
     the mamba cells and prelude slots go member by member).
 
+Under gradients (``core.sequential.training(params, segments)``)
+``run_diagonal`` takes an out-of-place form, ``run_diagonal_grad``: the
+slots are a list of tensors, each band's input stacked from them (the
+entering segment and the last step's outputs) and its outputs kept as
+views, the state carried per layer as the new tensors the cells return,
+the finished segments collected and stacked, the final state stacked
+into the usual tree. It applies the same cells to the same values in the
+same order, so its forward gives the in-place form's bits. ``remat``
+runs each cell call under ``torch.utils.checkpoint``. The capture,
+``stream_ys`` and the resumable and pooled pipeline are forward-only.
+
 A carry's buffers are its own (``pipeline_init`` copies the state), so a
 caller's state updated in place, a decode pool say, never aliases one.
 Only the recurrent leaves (``RECURRENT_KEYS``) are copied, written back
@@ -57,7 +68,8 @@ import torch
 from repro_torch.core.memory import RECURRENT_KEYS
 from repro_torch.core.schedule import band, n_diagonal_groups
 from repro_torch.core.sequential import (ApplyBlock, exec_state_copy, layer_slice,
-                                         one_layer_cell, stack_layers)
+                                         one_layer_cell, rematerialized, stack_layers,
+                                         stacked_state, training, with_new_state)
 
 
 # band steps that ran as one cell call over two or more pipelines
@@ -226,10 +238,65 @@ def band_step(layout, params: Dict, xs: torch.Tensor, carry: Dict, cell, *,
     return carry
 
 
+def _forward_only(params, xs, what: str) -> None:
+    if training(params, xs):
+        raise ValueError(f"{what} is forward-only; under gradients run run_diagonal")
+
+
+def run_diagonal_grad(layout, params: Dict, state0: Dict, segments: torch.Tensor, cell,
+                      *, remat: bool = False):
+    """The out-of-place form of ``run_diagonal`` (for gradients): the same
+    band steps, each cell over a band stacked from the slot list, every
+    cell of a step reading the slots before any output moves on; the state
+    carried per layer. remat: each cell call under ``rematerialized``.
+    -> (ys [S, B, T, D], final_state)."""
+    _check_layout(layout)
+    if remat:
+        cell = rematerialized(cell)
+    S, L = segments.shape[0], layout.n_layers
+    slots: List = [None] * L
+    ys: List = [None] * S
+    prelude = list(state0["prelude"])
+    pattern = [[layer_slice(tree, j) for j in range(layout.n_super)]
+               for tree in state0["pattern"]]
+    one = one_layer_cell(cell)
+    for i in range(n_diagonal_groups(S, L)):
+        lo, hi = band(i, S, L)
+        if lo == 0:
+            slots[0] = segments[i]
+        outs, new_prelude, new_pattern = [], {}, {}
+        for j in range(lo, min(hi, len(layout.prelude) - 1) + 1):
+            y, new_prelude[j] = one(layout.prelude[j], params["prelude"][j], slots[j],
+                                    prelude[j])
+            outs.append((j, y))
+        for p in range(len(layout.pattern)):
+            jb = layout.position_band(p, lo, hi)
+            if jb is None:
+                continue
+            sl = _position_slots(layout, p, jb)
+            y, new = cell(layout.pattern[p], _band_slice(params["pattern"][p], *jb),
+                          torch.stack(slots[sl]), stack_layers(pattern[p][jb[0]:jb[1] + 1]))
+            new_pattern[p] = (jb, new)
+            outs += zip(range(sl.start, sl.stop, sl.step), y)
+        for j, new in new_prelude.items():
+            prelude[j] = with_new_state(prelude[j], new)
+        for p, ((j0, j1), new) in new_pattern.items():
+            for j in range(j0, j1 + 1):
+                pattern[p][j] = with_new_state(pattern[p][j],
+                                               {k: v[j - j0] for k, v in new.items()})
+        for slot, y in outs:
+            y = y.to(segments.dtype)
+            if slot == L - 1:
+                ys[i - (L - 1)] = y
+            else:
+                slots[slot + 1] = y
+    return torch.stack(ys), stacked_state(state0, prelude, pattern)
+
+
 def run_diagonal(layout, params: Dict, state0: Dict, segments: torch.Tensor,
                  apply_block: ApplyBlock, *, grouped_apply=None,
                  capture_states: bool = False, stream_ys: bool = False,
-                 retain_pos: int = -1):
+                 retain_pos: int = -1, remat: bool = False):
     """segments: [S, B, T, D] -> (ys [S, B, T, D], final_state); the same
     params/state structure as ``run_sequential``; state0 is not modified.
 
@@ -247,7 +314,16 @@ def run_diagonal(layout, params: Dict, state0: Dict, segments: torch.Tensor,
     stream_ys: bounded memory; return ``{"win": [W, B, T, D], "brow": [S,
     B, D]}`` in place of ys: ``win`` holds the last W = min(L, S) finished
     segments (segment s at ``win[s % W]``) and ``brow`` each segment's row
-    ``retain_pos``, the same bits as ``ys[s, :, retain_pos]``."""
+    ``retain_pos``, the same bits as ``ys[s, :, retain_pos]``.
+
+    Under gradients (``training(params, segments)``) the out-of-place form
+    runs, ``run_diagonal_grad`` (remat: each cell rematerialized);
+    capture_states and stream_ys are forward-only there."""
+    if training(params, segments):
+        if capture_states or stream_ys:
+            raise ValueError("run_diagonal: capture_states and stream_ys are forward-only")
+        return run_diagonal_grad(layout, params, state0, segments,
+                                 _cell(apply_block, grouped_apply), remat=remat)
     xs, carry = pipeline_init(layout, state0, segments, capture_states=capture_states,
                               stream_ys=stream_ys)
     cell = _cell(apply_block, grouped_apply)
@@ -306,7 +382,8 @@ def pipeline_step(layout, params: Dict, xs: torch.Tensor, carry: Dict,
     """Advance a suspended pipeline by ``n_groups`` steps, in place (the
     carry is also returned). Steps past the end of the grid are no-ops, so
     a budget that overshoots the last group is safe. retain_pos: the row
-    a streaming carry keeps of each segment."""
+    a streaming carry keeps of each segment. Forward-only."""
+    _forward_only(params, xs, "pipeline_step")
     cell = _cell(apply_block, grouped_apply)
     for _ in range(n_groups):
         band_step(layout, params, xs, carry, cell, retain_pos=retain_pos)
@@ -333,7 +410,9 @@ def pipeline_step_pool(layout, params: Dict, xs_pool: Sequence[torch.Tensor],
     member's prelude slots run as its own one-group cells, and the other
     positions' cells (the mamba cells) member by member, in the same step;
     every output is written back after the step's last cell. A pattern
-    with no indexed cell (falcon) advances the members one after another."""
+    with no indexed cell (falcon) advances the members one after another.
+    Forward-only."""
+    _forward_only(params, xs_pool, "pipeline_step_pool")
     cell = _cell(apply_block, grouped_apply)
     indexed = getattr(grouped_apply, "indexed", ()) if grouped_apply is not None else ()
     if not any(t in indexed for t in layout.pattern):

@@ -14,12 +14,22 @@ diagonal executor's capture is per step, ``core/diagonal.py``).
 
 Only the recurrent leaves (``RECURRENT_KEYS``) change: a whisper ``dec``
 layer's cross K/V (``ck``/``cv``) is read, never written back, copied or
-captured."""
+captured.
+
+Under gradients (``training(params, segments)``: grad mode on and a
+parameter or the input that requires one) ``run_sequential`` takes an
+out-of-place form: each layer's state is carried as the new tensors its
+block returns, never written into a buffer a block has read, and stacked
+into the usual tree at the end. It gives the same bits as the in-place
+form. With ``remat`` each layer's block runs under
+``torch.utils.checkpoint`` (recomputed in the backward from its inputs;
+the reference's ``jax.checkpoint``). A capture is forward-only."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.memory import RECURRENT_KEYS
 
@@ -137,11 +147,82 @@ def run_sequential_(layout, params: Dict, state: Dict, segments, apply_block: Ap
     return torch.stack(ys)
 
 
+def training(*trees) -> bool:
+    """Gradients on and a tensor leaf of the trees (dicts, tuples, tensors)
+    that requires one: the executors then take their out-of-place forms
+    (they ask about their params and their input segments)."""
+    def any_requires(tree):
+        if isinstance(tree, dict):
+            return any(any_requires(v) for v in tree.values())
+        if isinstance(tree, (tuple, list)):
+            return any(any_requires(v) for v in tree)
+        return isinstance(tree, torch.Tensor) and tree.requires_grad
+    return torch.is_grad_enabled() and any(any_requires(t) for t in trees)
+
+
+def rematerialized(block: ApplyBlock) -> ApplyBlock:
+    """``block`` under ``torch.utils.checkpoint`` (non-reentrant): only its
+    inputs are kept for the backward, which runs it again. The same
+    values: the kernels are deterministic and draw no random numbers."""
+    def apply(t, p, x, state, **kw):
+        return checkpoint(block, t, p, x, state, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return apply
+
+
+def with_new_state(state: Dict, new: Dict) -> Dict:
+    """A layer's state after its block: the new recurrent leaves, the
+    others (a dec layer's ck/cv) as they were."""
+    return {k: new[k] if k in RECURRENT_KEYS and k in new else v for k, v in state.items()}
+
+
+def stacked_state(state0: Dict, prelude, pattern) -> Dict:
+    """The executor state tree from per-layer states (``prelude``: one dict
+    per prelude layer; ``pattern``: per position, a list of one dict per
+    layer): the recurrent leaves stacked over the layers, the constant ones
+    state0's tensors."""
+    return {"prelude": tuple(prelude),
+            "pattern": tuple({k: torch.stack([st[k] for st in layers]) if k in RECURRENT_KEYS
+                              else v for k, v in tree.items()}
+                             for tree, layers in zip(state0["pattern"], pattern))}
+
+
+def run_sequential_grad(layout, params: Dict, state0: Dict, segments,
+                        apply_block: ApplyBlock, *, remat: bool = False):
+    """The out-of-place form of ``run_sequential`` (for gradients):
+    segments [S, B, T, D] -> (ys, final_state), each layer's state carried
+    as its block's new tensors; remat: each block call under
+    ``rematerialized``."""
+    block = rematerialized(apply_block) if remat else apply_block
+    prelude = list(state0["prelude"])
+    pattern = [[layer_slice(tree, j) for j in range(layout.n_super)]
+               for tree in state0["pattern"]]
+    ys = []
+    for x in segments:
+        for j, t in enumerate(layout.prelude):
+            x, new = block(t, params["prelude"][j], x, prelude[j])
+            prelude[j] = with_new_state(prelude[j], new)
+        for j in range(layout.n_super):
+            for p, t in enumerate(layout.pattern):
+                x, new = block(t, layer_slice(params["pattern"][p], j), x, pattern[p][j])
+                pattern[p][j] = with_new_state(pattern[p][j], new)
+        ys.append(x)
+    return torch.stack(ys), stacked_state(state0, prelude, pattern)
+
+
 def run_sequential(layout, params: Dict, state0: Dict, segments,
-                   apply_block: ApplyBlock, *, capture_states: bool = False):
+                   apply_block: ApplyBlock, *, capture_states: bool = False,
+                   remat: bool = False):
     """segments: [S, B, T, D] -> (ys [S, B, T, D], final_state); state0 is
     not modified. capture_states: also return, third, the recurrent state
-    after every segment, leaves with a leading [S] axis."""
+    after every segment, leaves with a leading [S] axis (forward-only).
+    Under gradients (``training(params, segments)``) the out-of-place form
+    runs, ``run_sequential_grad`` (remat: each block rematerialized)."""
+    if training(params, segments):
+        if capture_states:
+            raise ValueError("run_sequential: capture_states is forward-only")
+        return run_sequential_grad(layout, params, state0, segments, apply_block,
+                                   remat=remat)
     state = exec_state_copy(state0)
     cap = capture_init(state, segments.shape[0]) if capture_states else None
     ys = run_sequential_(layout, params, state, segments, apply_block, capture=cap)

@@ -16,6 +16,10 @@ call counts as one launch.
 
 ``armt_update`` writes new A'/z' buffers and never updates A/z in place:
 its blocks read A while others write A'.
+
+Under gradients both run through autograd Functions (``ArmtReadFn``,
+``ArmtUpdateFn``): the kernels forward, and backwards in PyTorch ops
+(``kernels/grad.py``), in fp32 from the operands.
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ import sys
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, grad
+from repro_torch.kernels.grad import needs_grad
 from repro_torch.kernels.grouped_matmul import project_f32
 from repro_torch.kernels.ref import armt_read_ref as armt_read_plain
 from repro_torch.kernels.ref import armt_update_ref as armt_update_plain
@@ -68,7 +73,30 @@ def _check_state(A, z, N: int, P: int, name: str):
 def armt_read(x, wq, A, z, *, nu: int = 3):
     """x: [N,T,D]; wq: [D,dm] or [G,D,dm]; A: [N,P,Dv]; z: [N,P] ->
     [N,T,Dv] in x.dtype. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises."""
+    tensor launches the kernel or raises. With gradients on and an operand
+    that requires one, the call goes through ``ArmtReadFn``."""
+    if needs_grad(x, wq, A, z):
+        return ArmtReadFn.apply(x, wq, A, z, nu)
+    return _armt_read(x, wq, A, z, nu=nu)
+
+
+class ArmtReadFn(torch.autograd.Function):
+    """``armt_read`` under autograd: the kernels (on the CPU the plain
+    version) forward; backward ``grad.armt_read_bwd`` from the operands
+    (q, phi(q), num and den recomputed in fp32)."""
+
+    @staticmethod
+    def forward(ctx, x, wq, A, z, nu):
+        ctx.nu = nu
+        ctx.save_for_backward(x, wq, A, z)
+        return _armt_read(x, wq, A, z, nu=nu)
+
+    @staticmethod
+    def backward(ctx, g):
+        return grad.armt_read_bwd(*ctx.saved_tensors, g, nu=ctx.nu) + (None,)
+
+
+def _armt_read(x, wq, A, z, *, nu: int):
     if x.device.type == "cpu":
         return armt_read_plain(x, wq, A, z, nu=nu)
     if x.device.type != "cuda":
@@ -168,7 +196,30 @@ def armt_update(m, wk, wv, wb, A, z, *, nu: int = 3):
     """m: [N,M,D] (rows may be strided; the last dim contiguous); wk/wv/wb:
     [D,*] or [G,D,*]; A: [N,P,Dv]; z: [N,P] -> (A', z') in new buffers.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernels
-    or raises."""
+    or raises. With gradients on and an operand that requires one, the call
+    goes through ``ArmtUpdateFn``."""
+    if needs_grad(m, wk, wv, wb, A, z):
+        return ArmtUpdateFn.apply(m, wk, wv, wb, A, z, nu)
+    return _armt_update(m, wk, wv, wb, A, z, nu=nu)
+
+
+class ArmtUpdateFn(torch.autograd.Function):
+    """``armt_update`` under autograd: the kernels (on the CPU the plain
+    version) forward; backward ``grad.armt_update_bwd`` from the operands
+    (k, v, beta, phi(k), vbar and gamma recomputed in fp32)."""
+
+    @staticmethod
+    def forward(ctx, m, wk, wv, wb, A, z, nu):
+        ctx.nu = nu
+        ctx.save_for_backward(m, wk, wv, wb, A, z)
+        return _armt_update(m, wk, wv, wb, A, z, nu=nu)
+
+    @staticmethod
+    def backward(ctx, gA, gz):
+        return grad.armt_update_bwd(*ctx.saved_tensors, gA, gz, nu=ctx.nu) + (None,)
+
+
+def _armt_update(m, wk, wv, wb, A, z, *, nu: int):
     global update_launches
     if m.device.type == "cpu":
         return armt_update_plain(m, wk, wv, wb, A, z, nu=nu)

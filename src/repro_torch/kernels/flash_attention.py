@@ -13,6 +13,10 @@ counts: the TMA + wgmma kernel for bf16 operands with head dim 64, 80, 112
 or 128 whose bases and strides the TMA can describe (hd 80 and 112 on hd
 128's tile layout, the columns past the head dim zero-filled on chip: no
 padded copy), the fp32 SIMT kernel for the rest.
+
+Under gradients the call runs through ``FlashAttentionFn``: the kernel
+forward, and a backward in PyTorch ops (``kernels/grad.py``) that
+recomputes the scores in fp32 a few rows at a time.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import sys
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, grad
+from repro_torch.kernels.grad import needs_grad
 from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 
 launches = 0        # kernel launches since the last reset
@@ -63,7 +68,35 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     last dim -> [N,Hq,T,hd] in q.dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    or raises. With gradients on and an operand that requires one, the call
+    goes through ``FlashAttentionFn`` (its backward in ``kernels/grad.py``)."""
+    if needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window)
+    return _flash_attention(q, k, v, causal=causal, window=window)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` under autograd: the kernel (on the CPU its plain
+    version) forward; backward ``grad.flash_attention_bwd``, which
+    recomputes the scores from q, k and v (the kernel keeps no softmax
+    statistics) and reads the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _flash_attention(q, k, v, causal=causal, window=window)
+        ctx.causal, ctx.window = causal, window
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = grad.flash_attention_bwd(q, k, v, out, do, causal=ctx.causal,
+                                              window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def _flash_attention(q, k, v, *, causal: bool, window: int):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

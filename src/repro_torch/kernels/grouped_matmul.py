@@ -31,6 +31,11 @@ on where the memory rows sit, and so no fallback.
 
 ``project_f32`` runs the GEMM kernel with an fp32 epilogue for the ARMT
 memory kernels' projections (their launches count as theirs, not here).
+
+Under gradients ``grouped_matmul`` runs through ``GroupedMatmulFn``: the
+kernel forward, and a backward in PyTorch ops (``kernels/grad.py``) that
+recomputes the pre-activation with the kernel (an fp32 epilogue, counted
+as a launch). The fused update is forward-only.
 """
 from __future__ import annotations
 
@@ -38,7 +43,8 @@ import sys
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, grad
+from repro_torch.kernels.grad import needs_grad
 from repro_torch.kernels.ref import grouped_matmul_armt_update_ref as \
     grouped_matmul_armt_update_plain
 from repro_torch.kernels.ref import grouped_matmul_ref as grouped_matmul_plain
@@ -155,7 +161,17 @@ def grouped_matmul(x, w, bias=None, *, activation: str | None = None, widx=None,
     new one in x.dtype when None.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    or raises. With gradients on and an operand that requires one, the call
+    goes through ``GroupedMatmulFn`` (its backward in ``kernels/grad.py``);
+    widx and out are forward-only."""
+    if needs_grad(x, w, bias, res):
+        if widx is not None or out is not None:
+            raise ValueError("grouped_matmul: widx and out= are forward-only")
+        return GroupedMatmulFn.apply(x, w, bias, res, activation)
+    return _grouped_matmul(x, w, bias, activation=activation, widx=widx, res=res, out=out)
+
+
+def _grouped_matmul(x, w, bias=None, *, activation=None, widx=None, res=None, out=None):
     global launches
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, bias, activation=activation, widx=widx, res=res,
@@ -172,6 +188,30 @@ def grouped_matmul(x, w, bias=None, *, activation: str | None = None, widx=None,
     return out
 
 
+class GroupedMatmulFn(torch.autograd.Function):
+    """``grouped_matmul`` under autograd: the kernel (or, on the CPU, its
+    plain version) forward; backward, the pre-activation recomputed with
+    the kernel (no activation, fp32 out), then ``grad.grouped_matmul_bwd``;
+    res's gradient is dy."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, res, activation):
+        ctx.activation = activation
+        ctx.save_for_backward(x, w, bias)
+        return _grouped_matmul(x, w, bias, activation=activation, res=res)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, bias = ctx.saved_tensors
+        pre = None
+        if ctx.activation is not None:
+            pre = _grouped_matmul(x, w, bias, out=torch.empty(
+                x.shape[0], x.shape[1], w.shape[-1], dtype=torch.float32, device=x.device))
+        dx, dw, db = grad.grouped_matmul_bwd(x, w, bias, dy, pre, ctx.activation,
+                                             ctx.needs_input_grad[:3])
+        return dx, dw, db, dy if ctx.needs_input_grad[3] else None, None
+
+
 def grouped_matmul_armt_update(x, w, res, wk, wv, wb, A, z, bias=None, *,
                                M: int, nu: int = 3, widx=None):
     """x: [G,R,K] (rows may be strided; the last dim contiguous); w: [G,K,N]
@@ -181,8 +221,12 @@ def grouped_matmul_armt_update(x, w, res, wk, wv, wb, A, z, bias=None, *,
     index into w [Lw,K,N] (see ``grouped_matmul``); wk/wv/wb stay per group.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernels
-    or raises."""
+    or raises. Forward-only: under gradients the cell runs ``grouped_matmul``
+    with ``res`` and then ``armt_update``, the same function."""
     global fused_launches
+    if needs_grad(x, w, res, wk, wv, wb, A, z, bias):
+        raise ValueError("grouped_matmul_armt_update is forward-only: under gradients "
+                         "take grouped_matmul(res=) and armt_update")
     if x.device.type == "cpu":
         return grouped_matmul_armt_update_plain(x, w, res, wk, wv, wb, A, z, bias,
                                                 M=M, nu=nu, widx=widx)

@@ -2,7 +2,9 @@
 
 Each takes the caller's layouts and hands views (no copies) to a kernel
 wrapper. A CPU tensor goes to the kernel's plain version; a CUDA tensor
-goes to the CUDA kernel, or the call raises. There is no other dispatch.
+goes to the CUDA kernel, or the call raises. Under gradients the GEMM,
+flash and the two ARMT memory wrappers run the same forward inside their
+autograd Functions (``kernels/grad.py`` holds the backwards).
 """
 from __future__ import annotations
 

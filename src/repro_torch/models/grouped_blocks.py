@@ -30,7 +30,11 @@ The ``attn`` cell runs through the kernel entry points of
 
 At B == 1 (every admission, every B = 1 prefill) the memory tokens are the
 last M rows of each group's ``[G, T, D]`` output, so the down projection
-and the update fuse, as in the reference (grouped_blocks.py:186). B > 1
+and the update fuse, as in the reference (grouped_blocks.py:186). The
+fused op is forward-only: under gradients the B == 1 cell runs the down
+projection with the residual on its epilogue (the same y) and then
+``assoc_update``, two launches, as the reference's ``ops.py`` falls back
+to separate launches. B > 1
 interleaves batch rows, so there the down projection and ``assoc_update``
 stay two launches, and y is rounded before the residual is added.
 
@@ -89,6 +93,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.grad import needs_grad
 from repro_torch.models.attention import rope_qk
 from repro_torch.models.blocks import check_mode
 from repro_torch.models.layers import layernorm, rmsnorm
@@ -223,9 +228,14 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
         M, pm = cfg.armt.num_mem_tokens, p["mem"]
         if M > 0 and B == 1 and not 0 < cb < T:
             mid, wd, bd = ffn_mid(p, h, widx)
+            wk, wv, wb = small(pm["wk"]), small(pm["wv"]), small(pm["wb"])
+            if needs_grad(mid, wd, h, wk, wv, wb, A_f, z_f, bd):
+                # the fused op is forward-only: the same y (its residual on
+                # the epilogue, one cast) and the update from its last M rows
+                y = helpers(widx)[2](mid, wd, bd, res=h)
+                return y, update(p, y, state, A_f, z_f, widx)
             y, A2, z2 = kops.grouped_gemm_armt_update(
-                mid, wd, h, small(pm["wk"]), small(pm["wv"]), small(pm["wb"]),
-                A_f, z_f, bd, M=M, nu=cfg.armt.nu, widx=widx)
+                mid, wd, h, wk, wv, wb, A_f, z_f, bd, M=M, nu=cfg.armt.nu, widx=widx)
             return y, dict(state, A=A2.reshape(state["A"].shape),
                            z=z2.reshape(state["z"].shape))
         y = ffn(p, h, widx)

@@ -1,7 +1,8 @@
 """The model: parameters, the forward under the diagonal or the sequential
 schedule (``mode="segmented"``: the ARMT segments with memory;
 ``mode="full"``: the paper's full-attention baseline, one segment of the
-whole prompt and no memory), and the serving path (``decode_step``;
+whole prompt and no memory), the training loss (``lm_loss``: the forward
+under gradients, then a chunked cross-entropy), and the serving path (``decode_step``;
 ``serve_mode="armt"``: for ARMT models against the current-segment KV cache,
 with ``flush_segment`` at segment boundaries; ``serve_mode="cache"``: plain
 full-KV decoding against a cache of ``max_len`` rows). Four block types:
@@ -26,6 +27,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ArchConfig
 from repro_torch.core.capture import Program
@@ -33,7 +35,8 @@ from repro_torch.core.diagonal import boundary_states_from_capture, run_diagonal
 from repro_torch.core.memory import RECURRENT_KEYS, mem_read, mem_update
 from repro_torch.core.schedule import StackLayout
 from repro_torch.core.sequential import (capture_init, capture_write_, clone_state,
-                                         layer_slice, run_sequential, run_sequential_)
+                                         layer_slice, run_sequential, run_sequential_,
+                                         training)
 from repro_torch.core.sequential import one_layer_cell as _one_layer_cell
 from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import cross_kv, decode_attention, decode_cross_attention
@@ -352,7 +355,13 @@ def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     captured once per shape and weights; a capture copies its static state
     out after each replay); ``eager=True`` runs ``run_sequential`` instead,
     for comparisons, as the CPU always does. Every other path runs
-    eagerly."""
+    eagerly.
+
+    Under gradients (grad mode on and a layer weight that requires one:
+    ``lm_loss``, training) both executors take their out-of-place forms,
+    never the captured program, with each cell rematerialized unless
+    ``cfg.remat == "none"``; the forward gives the same bits. A capture is
+    forward-only."""
     check_mode(mode)
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r}; expected one of {SCHEDULES}")
@@ -378,18 +387,21 @@ def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     apply = make_apply_block(cfg, mode)
     grouped = make_grouped_apply(cfg, mode) if fused else None
     exec_params = {"prelude": params["prelude"], "pattern": params["pattern"]}
+    grad_on = training(params, x)
+    remat = grad_on and cfg.remat != "none"
     if schedule == "diagonal":
         out = run_diagonal(layout, exec_params, state0, x, apply, grouped_apply=grouped,
-                           capture_states=capture_states)
+                           capture_states=capture_states, remat=remat)
         if capture_states:      # per step -> per boundary; the step capture goes
             out = out[:2] + (boundary_states_from_capture(layout, out[2], x.shape[0]),)
-    elif fused and mode == "segmented" and x.device.type == "cuda" and not eager:
+    elif (fused and mode == "segmented" and x.device.type == "cuda" and not eager
+          and not grad_on):
         out = SegmentProgram.get(params, cfg, x.shape[1:]).run(x, state0,
                                                                capture_states=capture_states)
     else:
         out = run_sequential(layout, exec_params, state0, x,
                              _one_layer_cell(grouped) if fused else apply,
-                             capture_states=capture_states)
+                             capture_states=capture_states, remat=remat)
     return (out[0][:, :, :seg_len],) + tuple(out[1:])
 
 
@@ -473,6 +485,50 @@ def _head_matmul(params: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor
     if cfg.tie_embeddings:
         return torch.matmul(h, params["embed"].t())
     return torch.matmul(h, params["head"])
+
+
+CE_CHUNK = 256   # tokens of a segment whose fp32 logits lm_loss makes at once
+
+
+def _chunk_nll(params: Dict, cfg: ArchConfig, h: torch.Tensor, y: torch.Tensor,
+               m: torch.Tensor) -> torch.Tensor:
+    """Masked NLL sum of one chunk: h [B, Tc, D], labels y and mask m [B,
+    Tc]; fp32 logits of the final norm and the head."""
+    logits = _head_matmul(params, cfg, norm(cfg.norm, h, params["final_norm"])).float()
+    gold = torch.gather(logits, -1, y[..., None])[..., 0]
+    return ((torch.logsumexp(logits, dim=-1) - gold) * m).sum()
+
+
+def lm_loss(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, labels: torch.Tensor, *,
+            schedule: str = "diagonal", mode: str = "segmented",
+            seg_len: Optional[int] = None, loss_mask: Optional[torch.Tensor] = None,
+            fused: bool = True, enc_frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token NLL (a 0-d fp32 tensor) of tokens/labels [B, S*seg_len]
+    through ``forward_hidden`` (with gradients on, its out-of-place
+    executors; never the captured ``SegmentProgram``), loss_mask [B, ...]
+    weighting each position (None: all 1). The logits are never made for
+    the whole sequence: per segment, chunks of ``CE_CHUNK`` tokens where
+    they divide it (else the segment whole), in the reference's order
+    (segment major), each chunk's fp32 logits [B, chunk, V] recomputed in
+    the backward (``torch.utils.checkpoint``) rather than kept."""
+    hidden, _ = forward_hidden(params, cfg, tokens, schedule=schedule, fused=fused,
+                               mode=mode, seg_len=seg_len, enc_frames=enc_frames)
+    S, B, T, _ = hidden.shape
+    labels = labels.long().reshape(B, S, T)
+    mask = (torch.ones(B, S, T, dtype=torch.float32, device=hidden.device)
+            if loss_mask is None else loss_mask.reshape(B, S, T).float())
+    n_chunks = T // CE_CHUNK if (T % CE_CHUNK == 0 and T > CE_CHUNK) else 1
+    Tc = T // n_chunks
+    keep = torch.is_grad_enabled() and hidden.requires_grad
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for s in range(S):
+        for c in range(0, T, Tc):
+            args = (params, cfg, hidden[s, :, c:c + Tc], labels[:, s, c:c + Tc],
+                    mask[:, s, c:c + Tc])
+            total = total + (checkpoint(_chunk_nll, *args, use_reentrant=False,
+                                        preserve_rng_state=False) if keep
+                             else _chunk_nll(*args))
+    return total / mask.sum().clamp_min(1.0)
 
 
 def last_logits(params: Dict, cfg: ArchConfig, hidden: torch.Tensor) -> torch.Tensor:

@@ -223,3 +223,16 @@ def moe_ffn_grouped(x: torch.Tensor, p: Dict, mcfg: MoEConfig, widx=None) -> tor
         y = y + kops.grouped_gemm(gate * kops.grouped_gemm(x, ps["wu"], widx=widx), ps["wd"],
                                   widx=widx)
     return y
+
+
+def aux_load_balance_loss(x: torch.Tensor, p: Dict, mcfg: MoEConfig) -> torch.Tensor:
+    """Switch-style load-balance auxiliary loss of x [B, T, D] under the
+    router ``p["router"]`` [D, E]: E * sum_e (share of the top-k picks on e)
+    * (mean router probability of e), fp32; 1 when uniform. The
+    reference's ``lm_loss`` does not add it either."""
+    logits = torch.matmul(x.float().reshape(-1, x.shape[-1]), p["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    eidx = torch.topk(probs, mcfg.top_k, dim=-1).indices
+    onehot = torch.nn.functional.one_hot(eidx, mcfg.n_experts).sum(1).float()   # [N, E]
+    frac_tokens = onehot.mean(0) / mcfg.top_k
+    return mcfg.n_experts * (frac_tokens * probs.mean(0)).sum()

@@ -227,14 +227,15 @@ _REF = {}
 def test_armt_engine_prefill_schedule(model, schedule):
     """ServeEngine(schedule=...): the ARMT prefill under either executor on
     the fused cell gives the reference's greedy tokens (the reference's,
-    computed once)."""
+    computed once, on its vmap cells with the prompt prefilled whole, as
+    the port prefills it)."""
     jc, tc, jp, tp = model
     seg = jc.armt.segment_len
     prompts = np.random.default_rng(16).integers(0, jc.vocab, (1, 3 * seg + 5))
     if "prefill_schedule" not in _REF:
         _REF["prefill_schedule"] = JEngine(
             jp, jc, serve_mode="armt", schedule="diagonal", max_len=256,
-            grouped_impl="fused").generate(jnp.asarray(prompts), 14)
+            bucket_prompts=False).generate(jnp.asarray(prompts), 14)
     want = _REF["prefill_schedule"]
     got = ServeEngine(tp, tc, schedule=schedule, device="cpu").generate(prompts, 14)
     np.testing.assert_array_equal(np.asarray(want.tokens), got.tokens)

@@ -24,7 +24,10 @@ shapes (flash without a mask at T != S over 1,500 keys read from a cross
 K/V buffer, decode's cross-attention at rep 1 x hd 64), its fused dec cell
 against the plain block, and its forward and generate at full width (the
 encoder, diagonal = sequential, graphs = eager, graphs that follow each
-request's frames). Needs a CUDA device and nvcc; skips without a card. This file
+request's frames); the training kernels' autograd Functions against
+autograd through their plain versions, and the training path at a
+reduced width (kernel gradients against the plain path, diagonal =
+sequential, no SIMT, the unfused B = 1 route against the fused op). Needs a CUDA device and nvcc; skips without a card. This file
 imports no JAX; with ``--noconftest`` (tests/conftest.py imports JAX) it
 runs on a machine that has only PyTorch:
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``."""
@@ -1479,3 +1482,138 @@ def test_whisper_forward_and_generate_on_card(cuda):
         runs = [eng.generate(prompt, 8, keep=True, enc_frames=fr[f][:1]) for f in (0, 1, 0)]
         assert _same(runs[0].logits, runs[2].logits) and not _same(runs[0].logits,
                                                                    runs[1].logits)
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels' autograd Functions and the training path
+# ---------------------------------------------------------------------------
+
+def _backward_case(case, r):
+    """(inputs, kernel call, plain call) at small odd shapes."""
+    from repro_torch.kernels import ref
+    if case.startswith("gemm"):
+        act = {"gemm_silu": "silu", "gemm_gelu_bias": "gelu", "gemm_res": None}[case]
+        ins = [r(3, 130, 64), r(3, 64, 136, sc=0.125),
+               r(3, 136) if case == "gemm_gelu_bias" else None,
+               r(3, 130, 136) if case == "gemm_res" else None]
+        return (ins, lambda x, w, b, res: grouped_matmul.grouped_matmul(x, w, b, activation=act,
+                                                                         res=res),
+                lambda x, w, b, res: ref.grouped_matmul_ref(x, w, b, activation=act, res=res))
+    if case.startswith("flash"):
+        window = 48 if case == "flash_window" else 0
+        return ([r(3, 8, 200, 64), r(3, 2, 200, 64), r(3, 2, 200, 64)],
+                lambda q, k, v: flash_attention.flash_attention(q, k, v, window=window),
+                lambda q, k, v: ref.flash_attention_ref(q, k, v, window=window))
+    if case == "read":
+        return ([r(4, 130, 256), r(2, 256, 16, sc=0.0625), r(4, 96, 256, sc=0.05),
+                 r(4, 96).abs() + 1],
+                lambda x, wq, A, z: armt_memory.armt_read(x, wq, A.float(), z.float(), nu=3),
+                lambda x, wq, A, z: ref.armt_read_ref(x, wq, A.float(), z.float(), nu=3))
+    return ([r(4, 16, 256), r(2, 256, 16, sc=0.0625), r(2, 256, 256, sc=0.0625),
+             r(2, 256, 1, sc=0.0625), r(4, 96, 256, sc=0.05), r(4, 96).abs() + 1],
+            lambda m, wk, wv, wb, A, z: armt_memory.armt_update(m, wk, wv, wb, A.float(),
+                                                                z.float(), nu=3),
+            lambda m, wk, wv, wb, A, z: ref.armt_update_ref(m, wk, wv, wb, A.float(),
+                                                            z.float(), nu=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["gemm_silu", "gemm_gelu_bias", "gemm_res", "flash_causal",
+                                  "flash_window", "read", "update"])
+def test_backward_on_card(cuda, dtype, case):
+    """Each training kernel's autograd Function on the card (the kernel
+    forward, then its backward formula) against autograd through the plain
+    version in fp32 on the same values: every input's gradient within 1e-4
+    (fp32) or 2e-2 (bf16) of its norm; a gradient x0.98 (a control) fails."""
+    r = _rand(torch.Generator().manual_seed(11), cuda, dtype)
+    ins, kernel, plain = _backward_case(case, r)
+    ins = [None if t is None else t.requires_grad_() for t in ins]
+    outs = kernel(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert all(o.grad_fn is not None for o in outs)
+    gys = [r(*o.shape).to(o.dtype) for o in outs]
+    live = [t for t in ins if t is not None]
+    got = torch.autograd.grad(outs, live, gys)
+    ref_ins = [None if t is None else t.detach().float().requires_grad_() for t in ins]
+    pouts = plain(*ref_ins)
+    pouts = pouts if isinstance(pouts, tuple) else (pouts,)
+    want = torch.autograd.grad(pouts, [t for t in ref_ins if t is not None],
+                               [g.float() for g in gys])
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+    errs = [rel(g.float(), w) for g, w in zip(got, want)]
+    assert max(errs) <= tol, errs
+    assert rel(got[0].float() * 0.98, want[0]) > tol
+
+
+def _small_llama(dtype):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("llama-1b-armt")
+    return dataclasses.replace(cfg, n_layers=3, d_model=256, n_heads=4, n_kv_heads=2,
+                               d_head=64, d_ff=512, vocab=512, dtype=dtype,
+                               armt=dataclasses.replace(cfg.armt, segment_len=64,
+                                                        num_mem_tokens=16, d_mem=16))
+
+
+@pytest.mark.cuda
+def test_training_path_on_card(cuda):
+    """A reduced llama (3 layers, d 256, 4/2 heads of 64, segments of 64 +
+    16 memory tokens). fp32, 3 segments: lm_loss and every gradient on the
+    kernels (diagonal, fused) within 1e-3 of the plain path, each of the
+    four kernels launched and the fused update not. bf16, B = 1, 4
+    segments: the loss diagonal = sequential to the bit, a train step on
+    the TMA + wgmma routes only, and the B = 1 cell's unfused route (under
+    gradients) equal to the fused op's forward to the bit."""
+    from repro_torch.models import model as M
+    from repro_torch.models.grouped_blocks import make_grouped_apply
+    from repro_torch.optim import OptimConfig, adamw_init
+    from repro_torch.train import make_train_step
+    from repro_torch.utils import tree_leaves, tree_unflatten
+
+    def loss_grads(p, cfg, toks, labels, **kw):
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(p)]
+        loss = M.lm_loss(tree_unflatten(p, leaves), cfg, toks, labels, **kw)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+    rng = np.random.default_rng(0)
+    cfg = _small_llama("float32")
+    p = M.init_params(cfg, 0, device=cuda)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 3 * 64 + 1))).to(cuda)
+    counts = (armt_memory.read_launches, armt_memory.update_launches,
+              grouped_matmul.launches, grouped_matmul.fused_launches, flash_attention.launches)
+    lk, gk = loss_grads(p, cfg, toks[:, :-1], toks[:, 1:], schedule="diagonal")
+    after = (armt_memory.read_launches, armt_memory.update_launches,
+             grouped_matmul.launches, grouped_matmul.fused_launches, flash_attention.launches)
+    assert [a > b for a, b in zip(after, counts)] == [True, True, True, False, True]
+    lp, gp = loss_grads(p, cfg, toks[:, :-1], toks[:, 1:], schedule="diagonal", fused=False)
+    assert abs(lk.item() - lp.item()) <= 1e-4 * abs(lp.item())
+    for a, b in zip(gk, gp):
+        assert ((a - b).norm() / b.norm().clamp_min(1e-30)).item() <= 1e-3
+
+    cfg = _small_llama("bfloat16")
+    p = M.init_params(cfg, 0, device=cuda)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 4 * 64 + 1))).to(cuda)
+    ld, _ = loss_grads(p, cfg, toks[:, :-1], toks[:, 1:], schedule="diagonal")
+    ls, _ = loss_grads(p, cfg, toks[:, :-1], toks[:, 1:], schedule="sequential")
+    assert _same(ld, ls)
+    ocfg = OptimConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    tc, simt = grouped_matmul.tc_launches, grouped_matmul.simt_launches
+    ftc, fsimt = flash_attention.tc_launches, flash_attention.simt_launches
+    state, metrics = make_train_step(cfg, ocfg, schedule="diagonal")(
+        {"params": p, "opt": adamw_init(p, ocfg)},
+        {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    torch.cuda.synchronize()
+    assert metrics["skipped"].item() == 0 and np.isfinite(metrics["loss"].item())
+    assert grouped_matmul.tc_launches > tc and grouped_matmul.simt_launches == simt
+    assert flash_attention.tc_launches > ftc and flash_attention.simt_launches == fsimt
+    cell = make_grouped_apply(cfg)
+    r = _rand(torch.Generator().manual_seed(3), cuda, torch.bfloat16)
+    x = r(3, 1, 80, 256)
+    st = {"A": r(3, 1, 96, 256, sc=0.05).float(), "z": r(3, 1, 96).float().abs() + 1}
+    with torch.no_grad():
+        y0, s0 = cell("attn", p["pattern"][0], x, st)
+    y1, s1 = cell("attn", p["pattern"][0], x.clone().requires_grad_(), st)
+    assert _same(y0, y1.detach()) and all(_same(s0[k], s1[k].detach()) for k in ("A", "z"))

@@ -24,6 +24,8 @@ def test_port_imports_without_jax_or_reference():
             "import repro_torch.checkpoint, repro_torch.serve.state_store\n"
             "import repro_torch.serve.telemetry\n"
             "import repro_torch.models.model, repro_torch.configs.whisper_medium\n"
+            "import repro_torch.train, repro_torch.optim, repro_torch.data\n"
+            "import repro_torch.launch.train, repro_torch.core.rmt\n"
             "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
             " if sys.modules[m] is not None)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -73,3 +75,13 @@ def test_entry_points_default_to_the_card():
     assert mengine.device.type == "cpu" and mengine.seg_len == 16
     events = list(mengine.serve([Request(0, np.arange(20), 3)], n_slots=1, chunk=2))
     assert [e.index for e in events] == [0, 1, 2] and events[-1].done
+    # training: the state and the loop take the card unless asked for the CPU
+    from repro_torch.data import lm_stream
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import init_train_state, train_loop
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(cfg, OptimConfig(), 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_loop(cfg, OptimConfig(), lm_stream(cfg.vocab, 1, 16), steps=1)
+    assert init_train_state(cfg, OptimConfig(), 0, device="cpu")["params"]["embed"].device.type \
+        == "cpu"

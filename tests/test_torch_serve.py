@@ -79,15 +79,17 @@ def test_decode_step_and_flush_match_reference(model, per_slot):
 
 @pytest.mark.parametrize("B,n_seg,tail,max_new", [(1, 2, 5, 20), (2, 3, 9, 12)])
 def test_generate_tokens_equal_reference(model, B, n_seg, tail, max_new):
-    """Greedy tokens equal the reference's fused-prefill engine; max_new
-    exceeds seg_len - tail, so decode crosses a flush."""
+    """Greedy tokens equal the reference engine's (its vmap cells, the
+    prompt prefilled whole with ``bucket_prompts=False`` as the port
+    prefills it: a third of the compile time of its fused, bucketed
+    stages); max_new exceeds seg_len - tail, so decode crosses a flush."""
     jc, tc, jp, tp = model
     seg = jc.armt.segment_len
     assert max_new > seg - tail
     prompts = np.random.default_rng(B * 100 + tail).integers(
         0, jc.vocab, (B, n_seg * seg + tail))
     want = JEngine(jp, jc, serve_mode="armt", schedule="diagonal", max_len=256,
-                   grouped_impl="fused").generate(jnp.asarray(prompts), max_new)
+                   bucket_prompts=False).generate(jnp.asarray(prompts), max_new)
     got = ServeEngine(tp, tc, device="cpu").generate(prompts, max_new)
     assert got.tokens.shape == (B, max_new) and got.finite
     np.testing.assert_array_equal(np.asarray(want.tokens), got.tokens)
@@ -99,7 +101,7 @@ def test_prefill_logits_match_reference(model):
     prompts = np.random.default_rng(7).integers(0, jc.vocab,
                                                 (2, 2 * jc.armt.segment_len + 3))
     jl, _ = JEngine(jp, jc, serve_mode="armt", max_len=256,
-                    grouped_impl="fused").prefill(jnp.asarray(prompts))
+                    bucket_prompts=False).prefill(jnp.asarray(prompts))
     tl, _, pos, _ = ServeEngine(tp, tc, device="cpu").prefill(torch.from_numpy(prompts))
     assert pos == 3
     np.testing.assert_allclose(np.asarray(jl), tl.numpy(), atol=ATOL, rtol=RTOL)

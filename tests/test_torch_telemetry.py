@@ -55,12 +55,27 @@ def _reqs(lens, max_new, seed=0):
     return [(f"r{i}", _toks(n, seed + i), max_new) for i, n in enumerate(lens)]
 
 
+_JIT_ATTRS = ("_step", "_flush", "_loops", "_sched_fns", "_pipe_steps", "_fused_fns",
+              "_pool_steps")
+_FIRST = {}
+
+
+def _jengine(jp, jc, **kw):
+    """A reference engine (armt mode, MAX_LEN, ``bucket_prompts=False``)
+    sharing its jitted programs with the module's first one, so each
+    program compiles once (as ``tests/test_torch_state_store.py``'s)."""
+    eng = JEngine(jp, jc, serve_mode="armt", max_len=MAX_LEN, bucket_prompts=False, **kw)
+    first = _FIRST.setdefault(jc.name, eng)
+    for attr in _JIT_ATTRS:
+        setattr(eng, attr, getattr(first, attr))
+    return eng
+
+
 def _engines(setup, **kw):
     """(reference, port) engines, each with a trace recorder and a registry
     of its own."""
     jc, tc, jp, tp = setup
-    return (JEngine(jp, jc, serve_mode="armt", max_len=MAX_LEN, bucket_prompts=False,
-                    telemetry=JTelemetry(trace=True, registry=JRegistry()), **kw),
+    return (_jengine(jp, jc, telemetry=JTelemetry(trace=True, registry=JRegistry()), **kw),
             ServeEngine(tp, tc, device="cpu", max_len=MAX_LEN,
                         telemetry=Telemetry(trace=True, registry=MetricsRegistry()), **kw))
 
@@ -317,9 +332,8 @@ def test_store_spans_equal_reference(setup):
     from repro_torch.serve import SessionStore
     jc, tc, jp, tp = setup
     seg = tc.armt.segment_len
-    jeng = JEngine(jp, jc, serve_mode="armt", max_len=MAX_LEN, bucket_prompts=False,
-                   telemetry=JTelemetry(trace=True, registry=JRegistry()),
-                   prefix_cache=JPrefixCache(seg), session_store=JSessionStore())
+    jeng = _jengine(jp, jc, telemetry=JTelemetry(trace=True, registry=JRegistry()),
+                    prefix_cache=JPrefixCache(seg), session_store=JSessionStore())
     teng = ServeEngine(tp, tc, device="cpu", max_len=MAX_LEN,
                        telemetry=Telemetry(trace=True, registry=MetricsRegistry()),
                        prefix_cache=PrefixCache(seg), session_store=SessionStore())
