@@ -303,6 +303,47 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       (the mean of the last 3 steps below the first 3) on one batch of 2
       segments repeated for 12 steps, where the untrained recurrence is
       well conditioned. Prints a ``{"train": ...}`` line;
+  (w) after (v): training the mamba, MoE and encoder configs. (w1)
+      mamba_scan's backward kernel (the reverse scan from the states the
+      forward keeps every 128 tokens) at falcon-mamba's width in the fused
+      form, x [2,1024,8192], d_state 16, per-group A_log, the operands the
+      mixer's views: every operand's gradient (y's and the final state's
+      given) within 1e-4 (fp32) or 2e-2 (bf16) of its norm against the
+      plain backward (grad.mamba_scan_bwd_plain, fp32 on the same values),
+      a control (x's gradient x0.98 in fp32, x0.95 in bf16) failing; the
+      plain backward against autograd through the plain scan in fp32; the
+      forward (keeping its states, and without) and the backward kernel
+      timed at falcon's training band [12,1024,8192] and jamba's
+      [2,1152,16384], beside the backward's bound, and the plain backward
+      at 2 rows. (w2) fp32, B = 1, 2 segments: falcon-mamba-7b at 2 layers,
+      qwen2-moe-a2.7b at 2 layers, whisper-medium whole (frames from the
+      seed), all at full width, and jamba-1.5-large's whole superblock
+      pattern at the smoke width: lm_loss within 1e-4 and every leaf's
+      gradient within max(1e-3, 3x the leaf's diagonal-vs-sequential
+      difference on the kernels), at most 1e-2, of the plain path (every
+      kernel on its plain version, the plain blocks, sequential); a
+      difference above 5e-4 fails outside a named list (whisper's memory
+      projections, small differences of nearly equal terms:
+      tools/grad_gap.py), as does a run with no leaf held; a leaf whose
+      gradient is zero in exact arithmetic (a key bias) held to that zero;
+      the share of MoE tokens whose routing flips between the two paths
+      (where any flips, only the layers before the first flipped MoE layer
+      gated);
+      the diagonal and sequential losses to the bit; a control (a row of
+      layer 0's output projection x0.98) that must fail. (w3) bf16, B =
+      1, 4 segments, 12 steps (lr 1e-3, warmup 2) on one repeated batch of
+      the LM stream: falcon-mamba-7b at 12 of 64 layers through
+      train_loop, qwen2-moe-a2.7b at 3 of 24 layers with all 60 experts
+      and whisper-medium whole (frames from the seed) through
+      make_train_step: the loss falls (the mean of the last 3 steps below
+      the first 3), step time, tokens/s, peak (at most 75 GB) and skipped
+      steps; falcon's loop checkpointed at step 6 and resumed in a fresh
+      loop to step 12, its losses within 1e-3 of the uninterrupted run's
+      (bitwise reported). Launches are counted from 0 around each run of
+      (w2) and (w3): mamba_scan's forward and backward in falcon's and
+      jamba's, the GEMM, flash, armt_read and armt_update in qwen's and
+      whisper's, no SIMT GEMM or flash in (w3). Prints a
+      ``{"train_families": ...}`` line;
   (p4) after (h): a falcon-mamba-7b session (2 x 8192 + 1000 tokens, then
       500), spilled and restored against kept in memory to the bit (h and
       the bf16 conv tail), resume TTFT against re-prefilling the history
@@ -315,8 +356,8 @@ place), and so does the sequential schedule's segment; the eager engines
 to be held against them here and in the card tests.
 
 The kernels' launch counters are set to 0 just before each main-path run
-of (d), (e), (i), (k), (l), (o), (p1)-(p4), (r), (s), (t), (u), (v), (g), (h) and
-falcon's fused run of (o), and read just after it (a phase's count is the sum over its runs; a
+of (d), (e), (i), (k), (l), (o), (p1)-(p4), (r), (s), (t), (u), (v), (w), (g), (h)
+and falcon's fused run of (o), and read just after it (a phase's count is the sum over its runs; a
 graph replay counts what its capture launched, so the counts read the
 same under graphs as eager): every llama kernel must have been launched
 in (d), every one but armt_update (which runs only at B > 1) in (e), in
@@ -342,8 +383,9 @@ no SIMT flash. One decode_attention
 call (its partials and their combine) counts as one launch.
 The script prints JSON lines of the schedules' timing, of the graph
 phase (every graph-against-eager check with its rates) and of the kernel
-summaries (each with ``launches_train`` and ``backward``: (v1)'s rows, null
-for the kernels off the training path), the card's name and power limit, and last ``{"ok": true,
+summaries (each with ``launches_train``, ``launches_train_families`` and
+``backward``: (v1)'s rows, (w1)'s for mamba_scan, null for the kernels
+off the training path), the card's name and power limit, and last ``{"ok": true,
 "device": {...}}``. Any failure exits
 non-zero before that line; without a CUDA device it exits 2.
 """
@@ -444,9 +486,11 @@ def main() -> int:
                 "armt_update": (armt_memory, "update_launches"),
                 "grouped_matmul_armt_update": (grouped_matmul, "fused_launches"),
                 "decode_attention": (decode_attention, "launches"),
-                "mamba_scan": (mamba_scan, "launches")}
-    # the kernels each model's path runs
-    llama_kernels = [k for k in counters if k != "mamba_scan"]
+                "mamba_scan": (mamba_scan, "launches"),
+                "mamba_scan_bwd": (mamba_scan, "bwd_launches")}   # training only, (w)
+    # the kernels each model's path runs (forward)
+    forward_kernels = [k for k in counters if k != "mamba_scan_bwd"]
+    llama_kernels = [k for k in forward_kernels if k != "mamba_scan"]
     falcon_kernels = ["mamba_scan"]
 
     # GEMM and flash launches by route, counted where launched (not kernels
@@ -3776,7 +3820,7 @@ def main() -> int:
         for k in routed:
             if routes[k]["simt"] or not routes[k]["wgmma"]:
                 failures.append(f"(t)'s {k} left the TMA + wgmma route: {routes[k]}")
-        for name in counters:
+        for name in forward_kernels:
             if launches[name] == 0:
                 failures.append(f"{name} never launched by (t)")
         return launches, routes, out
@@ -4486,6 +4530,493 @@ def main() -> int:
                                     peak_gb=train_row["v4"]["peak_gb"], **train_row),
                       "card": smi}))
 
+    # ------------------------------------------------------------ (w) training the other families
+    def train_families_phase():
+        """(w) training the mamba, MoE and encoder configs on the kernels'
+        autograd Functions. (w1) mamba_scan's backward kernel at falcon's
+        width against its plain backward, the plain backward against
+        autograd through the plain scan, and both kernels timed at
+        falcon's and jamba's bands; (w2) fp32, B = 1, 2 segments: the
+        fused path's loss and every gradient against the plain path's
+        (routing flips counted), diagonal = sequential losses; (w3) bf16,
+        4 segments, 12 steps on one repeated batch: the loss falls, step
+        times, peaks, and falcon's train_loop resumed from a checkpoint.
+        Returns (launches over (w2) and (w3), by route, mamba_scan's
+        backward row, the results)."""
+        from repro_torch.core.schedule import StackLayout
+        from repro_torch.data import lm_stream, to_device
+        from repro_torch.kernels import grad as kgrad
+        from repro_torch.kernels import ref
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.optim import OptimConfig
+        from repro_torch.train import init_train_state, make_train_step, train_loop
+        from repro_torch.utils import tree_flatten_with_path, tree_leaves, tree_unflatten
+
+        t_phase = time.perf_counter()
+        M.SegmentProgram._cache.clear()
+        torch.cuda.empty_cache()
+        row, launches, routes = {}, {}, {}
+        tol32, tol16, loss_tol, leaf_tol = 1e-4, 2e-2, 1e-4, 1e-3
+        gw = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+        def rnd_w(*shape, scale=1.0, dtype=torch.float32):
+            return (torch.randn(shape, generator=gw, device=dev) * scale).to(dtype)
+
+        def counted_w(fn):
+            """fn() from counts set to 0; its launches and routes added to
+            the phase's -> (result, launches)."""
+            nonlocal launches, routes
+            reset_counts()
+            out = fn()
+            sync()
+            n = read_counts()
+            launches, routes = merged(launches, n), merged(routes, read_routes())
+            return out, n
+
+        # (w1) the scan's backward kernel
+        log("== (w) training the mamba, MoE and encoder configs; (w1) mamba_scan's backward "
+            "kernel at falcon-mamba's width (fused form, per-group A_log)")
+        names = ("x", "dt", "Bt", "Ct", "A_log", "D", "h0", "dt_bias", "z")
+
+        def scan_case(N, T, dI, dS, G, dtype):
+            """The fused form's operands as the mixer hands them over: x and z
+            halves of in_proj's output, the raw dt a column slice, B and C
+            slices of x_proj's fp32 output, per-group A_log, D and dt_bias."""
+            xz = rnd_w(N, T, 2 * dI, scale=0.5, dtype=dtype)
+            raw = rnd_w(N, T, dI + 8, dtype=dtype)
+            proj = rnd_w(N, T, 8 + 2 * dS, scale=0.5)
+            A_log = torch.log(torch.arange(1, dS + 1, dtype=torch.float32, device=dev)
+                              * (torch.rand(G, dI, dS, generator=gw, device=dev) + 0.5))
+            return dict(x=xz[..., :dI], dt=raw[..., 8:], Bt=proj[..., 8:8 + dS],
+                        Ct=proj[..., 8 + dS:], A_log=A_log, D=rnd_w(G, dI),
+                        h0=rnd_w(N, dI, dS, scale=0.1), dt_bias=rnd_w(G, dI, scale=0.1) - 4.6,
+                        z=xz[..., dI:])
+
+        def scan_grads(c, fn, gy, gh):
+            """Gradients of fn's (y, hT) to every operand (views included)."""
+            ins = {k: v.detach().requires_grad_() for k, v in c.items()}
+            y, hT = fn(*(ins[k] for k in names[:7]), dt_bias=ins["dt_bias"], z=ins["z"])
+            return torch.autograd.grad((y, hT), [ins[k] for k in names], (gy, gh))
+
+        w1 = {}
+        Nw, Tw, dIw, dSw = 2, 1024, 8192, 16
+        for dtype, tol, scale in ((torch.float32, tol32, 0.98), (torch.bfloat16, tol16, 0.95)):
+            label = "fp32" if dtype == torch.float32 else "bf16"
+            c = scan_case(Nw, Tw, dIw, dSw, Nw, dtype)
+            with torch.no_grad():
+                y0, _ = mamba_scan.mamba_scan(*(c[k] for k in names[:7]), dt_bias=c["dt_bias"],
+                                              z=c["z"])
+            gy, gh = rnd_w(*y0.shape, dtype=y0.dtype), rnd_w(Nw, dIw, dSw, scale=0.1)
+            got = scan_grads(c, mamba_scan.mamba_scan, gy, gh)
+            c32 = {k: v.float() for k, v in c.items()}
+            plain = kgrad.mamba_scan_bwd_plain(*(c32[k] for k in names[:7]), gy.float(), gh,
+                                               dt_bias=c32["dt_bias"], z=c32["z"])
+            errs = {k: rel_err(a.float(), b) for k, a, b in zip(names, got, plain)}
+            control = rel_err(got[0].float() * scale, plain[0])
+            ok = max(errs.values()) <= tol and control > tol and all(
+                torch.isfinite(g).all().item() for g in got)
+            log(f"  kernel backward vs plain backward, {label}, x [{Nw},{Tw},{dIw}] dS {dSw}: "
+                f"worst {max(errs, key=errs.get)} {max(errs.values()):.3e} (tol {tol:g}; "
+                f"{', '.join(f'{k} {v:.1e}' for k, v in errs.items())}), control x{scale} "
+                f"{control:.3e} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"(w1) mamba_scan backward {label}")
+            w1[f"err_{label}"] = max(errs.values())
+            w1[f"control_{label}"] = control
+            if dtype == torch.float32:
+                # the plain backward against autograd through the plain scan
+                auto = scan_grads(c32, ref.mamba_scan_ref, gy.float(), gh)
+                errs_p = {k: rel_err(a, b) for k, a, b in zip(names, plain, auto)}
+                control_p = rel_err(plain[0] * scale, auto[0])
+                ok = max(errs_p.values()) <= tol and control_p > tol
+                log(f"  plain backward vs autograd through the plain scan, fp32: worst "
+                    f"{max(errs_p.values()):.3e} (tol {tol:g}), control x{scale} "
+                    f"{control_p:.3e} -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append("(w1) mamba_scan plain backward vs autograd")
+                w1["plain_vs_autograd_err"] = max(errs_p.values())
+                del auto
+            else:
+                w1["plain_bwd_ms"] = time_ms(lambda: kgrad.mamba_scan_bwd_plain(
+                    *(c32[k] for k in names[:7]), gy.float(), gh, dt_bias=c32["dt_bias"],
+                    z=c32["z"]), iters=1, warmup=0)
+                log(f"    the plain backward at N = {Nw}: {w1['plain_bwd_ms']:.1f} ms")
+            del c, c32, got, plain
+            torch.cuda.empty_cache()
+
+        def bwd_bound(N, T, dI, dS):
+            """The backward's least work: exp(delta A) once a channel-step and
+            state (and the softplus and silu), ~12 fp32 operations a state;
+            x, raw dt, z and dy read and dx, ddt and dz written once (bf16),
+            B, C, their gradients, the kept states and the per-channel
+            leaves."""
+            steps = N * T * dI
+            side = (4.0 * N * T * 2 * dS * 2 + 4.0 * N * -(-T // mamba_scan.CHUNK) * dI * dS
+                    + 4.0 * N * dI * (3 * dS + 3))
+            return bound(flops_fp32=steps * (12 * dS + 20), exps=steps * (dS + 3),
+                         nbytes=steps * 14 + side)
+        times = {}
+        for label, (N, T, dI, G) in (("falcon band", (12, 1024, 8192, 12)),
+                                      ("jamba band", (2, 1152, 16384, 2))):
+            c = scan_case(N, T, dI, dSw, G, torch.bfloat16)
+            args = [c[k] for k in names[:7]]
+            kw = dict(dt_bias=c["dt_bias"], z=c["z"])
+            y, hT, hs = mamba_scan._mamba_scan(*args, keep=True, **kw)
+            gy, gh = rnd_w(*y.shape, dtype=y.dtype), rnd_w(N, dI, dSw, scale=0.1)
+            fwd = time_ms(lambda: mamba_scan._mamba_scan(*args, keep=True, **kw))
+            fwd_plain = time_ms(lambda: mamba_scan._mamba_scan(*args, **kw))
+            bwd_ms = time_ms(lambda: mamba_scan.mamba_scan_bwd(*args, hs, gy, gh, **kw), iters=5)
+            b_ms, b_by = bwd_bound(N, T, dI, dSw)
+            times[label] = dict(shape=[N, T, dI, dSw], fwd_ms=fwd, fwd_no_states_ms=fwd_plain,
+                                bwd_ms=bwd_ms, bwd_bound_ms=b_ms, bwd_bound_by=b_by)
+            log(f"  {label} x [{N},{T},{dI}] bf16 fused: forward keeping its states {fwd:.3f} ms "
+                f"(without {fwd_plain:.3f}), backward kernel {bwd_ms:.3f} ms, its bound "
+                f"{b_ms:.3f} ms ({b_by}), backward/bound {bwd_ms / b_ms:.1f}; card {smi}")
+            del c, args, kw, y, hT, hs, gy, gh
+            torch.cuda.empty_cache()
+        w1["times"] = times
+        f_band = times["falcon band"]
+        bwd_row = dict(err_fp32=w1["err_fp32"], err_bf16=w1["err_bf16"],
+                       control_fp32=w1["control_fp32"], control_bf16=w1["control_bf16"],
+                       fwd_ms=f_band["fwd_ms"], bwd_ms=f_band["bwd_ms"],
+                       bwd_bound_ms=f_band["bwd_bound_ms"], plain_bwd_ms=w1["plain_bwd_ms"],
+                       plain_bwd_rows=Nw, shape=f_band["shape"], jamba=times["jamba band"],
+                       route="cuda", source="src/repro_torch/kernels/csrc/mamba_scan_bwd.cu")
+        row["w1"] = w1
+
+        # (w2) fp32, B = 1, 2 segments: the kernels against the plain path
+        trng = np.random.default_rng(SEED + 12)
+
+        def leaf_grads(p, c, batch, **kw):
+            leaves = [t.detach().requires_grad_() for t in tree_leaves(p)]
+            loss = M.lm_loss(tree_unflatten(p, leaves), c, batch["tokens"], batch["labels"],
+                             enc_frames=batch.get("enc_frames"), **kw)
+            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+            return loss.detach(), [torch.zeros_like(t) if g is None else g
+                                   for t, g in zip(leaves, gs)]
+
+        real_route = moe_mod.route
+        records = []
+
+        def recording_route(*a, **k):
+            r = real_route(*a, **k)
+            records.append((r.eidx.clone(), r.keep.clone()))
+            return r
+
+        def routes_of(fn):
+            records.clear()
+            moe_mod.route = recording_route
+            try:
+                with torch.no_grad():
+                    fn()
+                sync()
+            finally:
+                moe_mod.route = real_route
+            return list(records)
+
+        def routing_code(rec, E):
+            eidx, keep = rec
+            return torch.zeros(eidx.shape[:2] + (E,), dtype=torch.int8, device=dev).scatter_(
+                2, eidx, (1 + keep).to(torch.int8))
+
+        def batch_of(cfg, n_tok, frames=False, dtype=torch.float32):
+            b = next(lm_stream(cfg.vocab, 1, n_tok, seed=SEED + 12))
+            b = to_device(b, dev)
+            if frames:
+                b["enc_frames"] = rnd_w(1, cfg.encoder.n_frames, cfg.d_model, dtype=dtype)
+            return b
+
+        def layer_of(name, layout):
+            """(layer index, stacked) of a leaf path: prelude/j -> j; pattern/p
+            -> its layers n_prelude + p + P j (stacked over j); None for the
+            leaves of no layer."""
+            parts = name.split("/")
+            if parts[0] == "prelude":
+                return int(parts[1]), False
+            if parts[0] == "pattern":
+                return int(parts[1]), True
+            return None, False
+
+        # the leaves whose two schedules on the kernels may differ by more
+        # than half the tolerance: whisper's memory projections, whose
+        # gradients are small differences of nearly equal terms
+        # (tools/grad_gap.py whisper-medium). Every leaf is held within
+        # max(tol, 3x that difference), at most 10x tol; any other leaf's
+        # difference above half the tolerance fails.
+        loose = {"whisper-medium": ("pattern/0/mem/wk", "pattern/0/mem/wq")}
+        w2 = {}
+        plan2 = [("falcon-mamba-7b", dict(n_layers=2), "pattern/0/mixer/out_proj"),
+                 ("qwen2-moe-a2.7b", dict(n_layers=2), "pattern/0/attn/wo"),
+                 ("whisper-medium", {}, "pattern/0/attn/wo"),
+                 ("jamba-1.5-large-398b", None, "pattern/0/attn/wo")]
+        for arch, cut, control_leaf in plan2:
+            t0 = time.perf_counter()
+            cfg = (replace(get_smoke_config(arch), dtype="float32") if cut is None
+                   else replace(get_config(arch), dtype="float32", **cut))
+            layout = StackLayout.from_config(cfg)
+            p = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+            pnames = [n for n, _ in tree_flatten_with_path(p)]
+            seg = M.segment_len(cfg)
+            batch = batch_of(cfg, 2 * seg, frames=cfg.encoder is not None)
+            (kern, n_k) = counted_w(lambda: leaf_grads(p, cfg, batch, schedule="diagonal"))
+            # the sequential schedule on the kernels: the same math rounded
+            # otherwise (the batched backward products, a band against one
+            # layer), so each leaf's difference is its rounding floor
+            kseq = leaf_grads(p, cfg, batch, schedule="sequential")
+            loss_bits = same_bits(kern[0], kseq[0])
+            with swap.plain_versions():
+                plain = leaf_grads(p, cfg, batch, schedule="sequential", fused=False)
+            # routing flips between the kernels and the plain path, at each
+            # (segment, MoE layer) in the sequential order both run
+            flips, first_flip = None, None
+            if cfg.moe is not None:
+                moe_layers = [j for j, t in enumerate(cfg.layer_types)
+                              if t in ("attn_moe", "mamba_moe")]
+                rk = routes_of(lambda: M.forward_hidden(p, cfg, batch["tokens"],
+                                                        schedule="sequential", eager=True,
+                                                        enc_frames=batch.get("enc_frames")))
+                with swap.plain_versions():
+                    rp = routes_of(lambda: M.forward_hidden(
+                        p, cfg, batch["tokens"], schedule="sequential", fused=False,
+                        enc_frames=batch.get("enc_frames")))
+                E = cfg.moe.n_experts
+                per = [(routing_code(a, E) != routing_code(b, E)).any(-1) for a, b in zip(rk, rp)]
+                n_tok = sum(int(f.numel()) for f in per)
+                n_flip = sum(int(f.sum()) for f in per)
+                flips = n_flip / max(1, n_tok)
+                flipped = [moe_layers[i % len(moe_layers)] for i, f in enumerate(per) if f.any()]
+                first_flip = min(flipped) if flipped else None
+                if len(rk) != len(rp) or len(rk) != 2 * len(moe_layers):
+                    failures.append(f"(w2) {arch}: routing records {len(rk)} / {len(rp)}")
+            scale_g = max(g.double().norm().item() for g in plain[1])
+
+            floor = {n: rel_err(a.float(), b.float()) for n, a, b, c in
+                     zip(pnames, kern[1], kseq[1], plain[1])
+                     if c.double().norm().item() > 1e-6 * scale_g}
+            limit = {n: min(max(leaf_tol, 3 * f), 10 * leaf_tol) for n, f in floor.items()}
+            off_floor = sorted(n for n, f in floor.items()
+                               if f > leaf_tol / 2 and n not in loose.get(arch, ()))
+
+            def gated(name):
+                """The leaves (or stacked layer slices) the gate holds: every
+                one, and with routing flips only the layers before the first
+                flipped MoE layer."""
+                if first_flip is None:
+                    return [slice(None)]
+                pos, stacked = layer_of(name, layout)
+                if pos is None:
+                    return []
+                if not stacked:
+                    return [slice(None)] if pos < first_flip else []
+                P = len(layout.pattern)
+                return [j for j in range(layout.n_super)
+                        if len(layout.prelude) + pos + P * j < first_flip]
+
+            def leaf_errs(grads):
+                """{held leaf: (rel err, its limit)}; a leaf whose plain
+                gradient is zero in exact arithmetic (a key bias: softmax
+                ignores a shift of a query's scores) is held to that zero, its
+                norm over 1e-6 of the largest gradient's counted as its error
+                over 1e-3."""
+                errs = {}
+                for n, a, b in zip(pnames, grads, plain[1]):
+                    for sl in gated(n):
+                        key = n if sl == slice(None) else f"{n}[{sl}]"
+                        if n not in limit:
+                            errs[key] = (a[sl].double().norm().item() / (1e-6 * scale_g)
+                                         * leaf_tol, leaf_tol)
+                        else:
+                            errs[key] = (rel_err(a[sl].float(), b[sl].float()), limit[n])
+                return errs
+
+            def over(errs):
+                return {k: e / lim for k, (e, lim) in errs.items()}
+            l_err = abs(kern[0].item() - plain[0].item()) / abs(plain[0].item())
+            errs = leaf_errs(kern[1])
+            worst = max(errs, key=over(errs).get) if errs else None
+            ok = (l_err <= loss_tol and bool(errs) and max(over(errs).values()) <= 1
+                  and not off_floor and loss_bits and math.isfinite(kern[0].item()))
+            largest = ", ".join(
+                f"{n} {errs[n][0]:.1e} (limit {errs[n][1]:.1e}; schedules "
+                f"{floor.get(n.split('[')[0], 0):.1e})"
+                for n in sorted(errs, key=over(errs).get, reverse=True)[:3])
+            loose_rows = {n: dict(schedules=floor[n], limit=limit[n],
+                                  held=errs.get(n, (None,))[0],
+                                  norm_over_largest=plain[1][pnames.index(n)].double().norm()
+                                  .item() / scale_g)
+                          for n in loose.get(arch, ()) if n in floor}
+            # the control: layer 0's output projection x0.98
+            i_c = pnames.index(control_leaf)
+            leaves = list(tree_leaves(p))
+            wc = leaves[i_c].clone()
+            wc[0] *= 0.98
+            leaves[i_c] = wc
+            ctl = leaf_grads(tree_unflatten(p, leaves), cfg, batch, schedule="diagonal")
+            l_c = abs(ctl[0].item() - plain[0].item()) / abs(plain[0].item())
+            errs_c = over(leaf_errs(ctl[1]))
+            worst_c = max(errs_c.values()) if errs_c else 0.0
+            control_ok = l_c > loss_tol or worst_c > 1
+            need = (["mamba_scan", "mamba_scan_bwd"] if cfg.ssm is not None else []) + (
+                ["grouped_matmul", "flash_attention", "armt_read", "armt_update"]
+                if cfg.armt is not None else [])
+            missing = [k for k in need if n_k[k] == 0]
+            log(f"  (w2) {arch} fp32 ({cfg.n_layers} layers, d {cfg.d_model}), B = 1, 2 segments "
+                f"of {seg}: loss {kern[0].item():.6f} vs plain {plain[0].item():.6f} rel "
+                f"{l_err:.2e} (tol {loss_tol:g}); worst leaf {worst} "
+                f"{errs[worst][0] if errs else 0.0:.2e} (limit max({leaf_tol:g}, 3x the "
+                f"schedules' difference), at most {10 * leaf_tol:g}; {len(errs)} held; largest "
+                f"over their limits "
+                f"{largest}; diagonal vs sequential on the kernels, worst "
+                f"{max(floor.values()):.1e}, above {leaf_tol / 2:g} outside "
+                f"{list(loose.get(arch, ()))}: {off_floor}; named leaves {loose_rows}"
+                + (f", routing flips {flips:.4%} of tokens, first flipped MoE layer "
+                   f"{first_flip}: only the layers before it gated" if first_flip is not None
+                   else (f", routing flips {flips:.4%}" if flips is not None else ""))
+                + f"); diagonal = sequential loss bits {loss_bits}; control (layer 0's "
+                f"{control_leaf} x0.98) loss rel {l_c:.2e}, worst leaf {worst_c:.2f}x its limit "
+                f"-> "
+                f"{'fails as it must' if control_ok else 'PASSES'}; launches {n_k} -> "
+                f"{'ok' if ok and control_ok and not missing else 'FAIL'} "
+                f"({time.perf_counter() - t0:.1f} s)")
+            if not ok:
+                failures.append(f"(w2) {arch} fp32 kernels vs plain"
+                                + (f"; schedules differ on {off_floor}" if off_floor else "")
+                                + ("" if errs else "; no leaf held"))
+            if not control_ok:
+                failures.append(f"(w2) {arch} control passed")
+            if missing:
+                failures.append(f"(w2) {arch}: {missing} never launched")
+            w2[arch] = dict(layers=cfg.n_layers, loss_rel_err=l_err, worst_leaf=worst,
+                            worst_leaf_rel_err=errs[worst][0] if errs else None,
+                            worst_leaf_limit=errs[worst][1] if errs else None,
+                            leaves_held=len(errs),
+                            schedules_worst_leaf_rel_diff=max(floor.values()),
+                            schedules_above_half_tol_unnamed=off_floor, named_leaves=loose_rows,
+                            route_flip_share=flips, first_flipped_moe_layer=first_flip,
+                            loss_bitwise_diag_seq=loss_bits, control_loss_rel_err=l_c,
+                            control_worst_leaf_over_limit=worst_c, launches=n_k,
+                            seconds=time.perf_counter() - t0)
+            del p, kern, kseq, plain, ctl, leaves, wc, batch
+            torch.cuda.empty_cache()
+        row["w2"] = w2
+
+        # (w3) bf16, 4 segments, B = 1, 12 steps on one repeated batch
+        ocfg = OptimConfig(lr=1e-3, warmup_steps=2, total_steps=12)
+        ckpt = ROOT / "build" / "chip_smoke_train_families_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+        def repeated(batch):
+            while True:
+                yield dict(batch)
+
+        def trend(ls):
+            return float(np.mean(ls[:3])), float(np.mean(ls[-3:]))
+        w3 = {}
+        plan3 = [("falcon-mamba-7b", dict(n_layers=12)), ("qwen2-moe-a2.7b", dict(n_layers=3)),
+                 ("whisper-medium", {})]
+        for arch, cut in plan3:
+            t0 = time.perf_counter()
+            cfg = replace(get_config(arch), **cut)
+            seg = M.segment_len(cfg)
+            host = next(lm_stream(cfg.vocab, 1, 4 * seg, seed=SEED + 13))
+            torch.cuda.reset_peak_memory_stats(dev)
+            if arch == "falcon-mamba-7b":
+                def loop(steps, **kw):
+                    return train_loop(cfg, ocfg, repeated(host), steps=steps, schedule="diagonal",
+                                      device=dev,
+                                      generator=torch.Generator(device=dev).manual_seed(SEED),
+                                      **kw)
+                out, n_k = counted_w(lambda: loop(12))
+                hist = out["history"]
+                losses = [h["loss"] for h in hist]
+                step_times = [h["step_time_s"] for h in hist]
+                skipped = [h["step"] for h in hist if h["skipped"]]
+                n_par = sum(t.numel() for t in tree_leaves(out["state"]["params"]))
+                del out
+            else:
+                state = init_train_state(cfg, ocfg, torch.Generator(device=dev).manual_seed(SEED),
+                                         device=dev)
+                n_par = sum(t.numel() for t in tree_leaves(state["params"]))
+                batch = to_device(host, dev)
+                if cfg.encoder is not None:
+                    batch["enc_frames"] = rnd_w(1, cfg.encoder.n_frames, cfg.d_model,
+                                                dtype=torch.bfloat16)
+                step = make_train_step(cfg, ocfg, schedule="diagonal")
+
+                def steps12():
+                    nonlocal state
+                    out = []
+                    for _ in range(12):
+                        t1 = time.perf_counter()
+                        state, m = step(state, batch)
+                        m = {k: float(v) for k, v in m.items()}
+                        out.append((m, time.perf_counter() - t1))
+                    return out
+                hist, n_k = counted_w(steps12)
+                losses = [m["loss"] for m, _ in hist]
+                step_times = [t for _, t in hist]
+                skipped = [i for i, (m, _) in enumerate(hist) if m["skipped"]]
+                del state, batch
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            step_s = float(np.median(step_times[1:]))
+            first3, last3 = trend(losses)
+            learned = last3 < first3 and not skipped
+            need = (["mamba_scan", "mamba_scan_bwd"] if cfg.ssm is not None else
+                    ["grouped_matmul", "flash_attention", "armt_read", "armt_update"])
+            missing = [k for k in need if n_k[k] == 0]
+            simt = {k: v["simt"] for k, v in read_routes().items()}
+            log(f"  (w3) {arch} bf16, {cfg.n_layers} layers ({n_par / 1e9:.3f} B parameters), "
+                f"B = 1, 4 segments of {seg}: losses {['%.4f' % l for l in losses]}; skipped "
+                f"{skipped}; first 3 {first3:.4f}, last 3 {last3:.4f} -> "
+                f"{'ok' if learned else 'FAIL'}; step {step_s:.3f} s median of steps 1-11 "
+                f"(first {step_times[0]:.2f} s), {4 * seg / step_s:.0f} tokens/s, peak "
+                f"{peak:.2f} GB; launches {n_k}, SIMT {simt}; card {smi}")
+            if not learned:
+                failures.append(f"(w3) {arch}: the loss did not fall")
+            if missing:
+                failures.append(f"(w3) {arch}: {missing} never launched")
+            if any(simt.values()):
+                failures.append(f"(w3) {arch}: a SIMT GEMM or flash launched in bf16")
+            if peak > 75:
+                failures.append(f"(w3) {arch}: peak {peak:.1f} GB above 75")
+            w3[arch] = dict(layers=cfg.n_layers, params_b=n_par / 1e9, losses=losses,
+                            skipped=skipped, first3=first3, last3=last3, step_s=step_s,
+                            step_times_s=step_times, tokens_per_s=4 * seg / step_s,
+                            peak_gb=peak, launches=n_k)
+            if arch == "falcon-mamba-7b":
+                t1 = time.perf_counter()
+                loop(6, ckpt_dir=str(ckpt), ckpt_every=6, keep=1)
+                resumed = loop(12, ckpt_dir=str(ckpt), ckpt_every=6, keep=1)
+                t_ckpt = time.perf_counter() - t1
+                r_losses = [h["loss"] for h in resumed["history"]]
+                r_steps = [h["step"] for h in resumed["history"]]
+                r_err = max(abs(a - b) / abs(b) for a, b in zip(r_losses, losses[6:]))
+                r_bits = r_losses == losses[6:]
+                ok = r_steps == list(range(6, 12)) and r_err <= 1e-3
+                log(f"  falcon train_loop resumed at step {r_steps[0] if r_steps else None} from "
+                    f"the step-6 checkpoint: losses {['%.4f' % l for l in r_losses]}; largest "
+                    f"rel difference {r_err:.3e} (tol 1e-3), to the bit {r_bits} -> "
+                    f"{'ok' if ok else 'FAIL'} (both runs with save and restore "
+                    f"{t_ckpt:.1f} s)")
+                if not ok:
+                    failures.append("(w3) falcon resumed losses")
+                w3[arch].update(resumed_losses=r_losses, resumed_rel_err=r_err,
+                                resumed_bitwise=r_bits, ckpt_runs_s=t_ckpt)
+                del resumed
+                shutil.rmtree(ckpt, ignore_errors=True)
+            w3[arch]["seconds"] = time.perf_counter() - t0
+            M.SegmentProgram._cache.clear()
+            torch.cuda.empty_cache()
+        row["w3"] = w3
+        bwd_row["launches"] = launches.get("mamba_scan_bwd", 0)
+        row["phase_s"] = time.perf_counter() - t_phase
+        log(f"  (w) {row['phase_s']:.1f} s; launches over (w2) and (w3) {launches}")
+        return launches, routes, bwd_row, row
+
+    launches_families, routes_families, scan_bwd_row, families_row = train_families_phase()
+    backward_rows["mamba_scan"] = scan_bwd_row
+    print(json.dumps({"train_families": families_row, "card": smi}))
+
     # ------------------------------------------------------------ (f) falcon-mamba model
     log("== model phase: falcon-mamba-7b, full width and depth, bf16, seed 0 on the card")
     fcfg = get_config("falcon-mamba-7b")
@@ -4841,20 +5372,22 @@ def main() -> int:
                    "prefix_cache": launches_prefix, "sessions": launches_sess,
                    "dense_configs": launches_dense, "moe_configs": launches_moe,
                    "jamba": launches_jamba, "whisper": launches_whisper,
-                   "train": launches_train}
+                   "train": launches_train, "train_families": launches_families}
     llama_routes = {"generate": routes_gen, "serve": routes_serve, "full_forward": routes_full,
                     "cache_generate": routes_cgen, "cache_serve": routes_cserve,
                     "serve_interleaved": routes_inter, "prefix_cache": routes_prefix,
                     "sessions": routes_sess, "dense_configs": routes_dense,
                     "moe_configs": routes_moe, "jamba": routes_jamba,
-                    "whisper": routes_whisper, "train": routes_train}
+                    "whisper": routes_whisper, "train": routes_train,
+                    "train_families": routes_families}
     # falcon-mamba has no prefix-cache run (its engine refuses a cache at
     # max_len 8192: its seg_len is max_len, not the model's segment), so
     # mamba_scan has no launches_prefix_cache; jamba's (t) runs every
     # kernel, so each has a launches_jamba
     falcon_paths = {"generate": flaunch_gen, "serve": flaunch_serve,
                     "serve_interleaved": flaunch_inter, "sessions": launches_fsess,
-                    "jamba": launches_jamba, "train": launches_train}
+                    "jamba": launches_jamba, "train": launches_train,
+                    "train_families": launches_families}
     kernels = []
     for name, (src, replaces) in sources.items():
         s = summary[name]

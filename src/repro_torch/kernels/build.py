@@ -66,11 +66,19 @@ SIGNATURES = {
     # m strides (n, row), weight batch, dtype, stream
     "armt_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P],
-    # x, dt, B, C, A_log, D, h0, dt_bias (or null), z (or null), y, hT, N, T,
-    # dI, dS, G, x strides (n, t), dt strides (n, t), B strides (n, t),
-    # C strides (n, t), z strides (n, t), dtype, dt_bias dtype, stream
-    "mamba_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _P],
+    # x, dt, B, C, A_log, D, h0, dt_bias (or null), z (or null), y, hT, the
+    # kept states (or null), their chunk, N, T, dI, dS, G, x strides (n, t),
+    # dt strides (n, t), B strides (n, t), C strides (n, t), z strides
+    # (n, t), dtype, dt_bias dtype, stream
+    "mamba_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _P],
+    # the scan's backward: x, dt, B, C, A_log, D, dt_bias (or null), z (or
+    # null), dy, the kept states, dhT (or null), dx, ddt, dz (or null), the
+    # blocks' dB/dC partials, per-row dA_log, dD, d dt_bias (or null), dh0,
+    # scratch, N, T, dI, dS, G, chunk, the block and sub-chunk the buffers
+    # were sized by, dtype, dt_bias dtype, stream
+    "mamba_scan_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 # module name -> (module, counter names), for every kernel wrapper module

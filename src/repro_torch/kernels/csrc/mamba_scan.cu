@@ -24,6 +24,10 @@
 // Without them the function is the TPU kernel's: dt fp32 (post-softplus),
 // y fp32. A call with one of the two is refused.
 //
+// Under gradients the forward also keeps the state before every chunk-th
+// token, hs [N, ceil(T / chunk), dI, dS] fp32, and `mamba_scan_bwd_kernel`
+// (mamba_scan_bwd.cu) runs the reverse scan from those states.
+//
 // Bound on the H100: each channel-step does dS exponentials and ~4 dS fp32
 // operations. At a full band step of the falcon-mamba prefill (N = 16
 // rows, T = 1024, dI = 8192, dS = 16: 134 M channel-steps) the 2.15 G
@@ -67,31 +71,16 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mamba_scan.cuh"
 
 using namespace rk;
-typedef __nv_bfloat16 bf16;
-typedef long long ll;
+using namespace rk::scan;
 
 namespace {
 
 constexpr int THREADS = 256;          // channels of one row per block, one per thread
 constexpr int SMALL = 64;             // the same where 256-channel blocks leave half the SMs idle
 constexpr int RESIDENT = 768;         // threads an SM (85 registers each)
-constexpr int TT = 16;                // tokens per tile
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// F.softplus(u) with beta 1 and threshold 20, as PyTorch's CUDA kernel
-// computes it
-__device__ __forceinline__ float softplus(float u) {
-  return u > 20.f ? u : log1pf(expf(u));
-}
-
 struct ScanArgs {
   const void* x;
   const void* dt;
@@ -104,7 +93,8 @@ struct ScanArgs {
   const void* z;
   void* y;
   float* hT;
-  int T, dI, rows_per_group, bias_bf16, vec, vec_bc;
+  float* hs;             // the states kept for the backward, or null
+  int T, dI, rows_per_group, bias_bf16, vec, vec_bc, chunk, nchunks;
   ll sxn, sxt, sdn, sdt, sbn, sbt, scn, sct, szn, szt;
 };
 
@@ -221,6 +211,13 @@ __global__ void __launch_bounds__(TH, RESIDENT / TH) mamba_scan_kernel(const Sca
     // this tile has landed, and every thread is done with the other buffer
     __syncthreads();
     if (t0 + TT < T) load(buf ^ 1, t0 + TT, min(TT, T - t0 - TT));
+    if (a.hs != nullptr && t0 % a.chunk == 0 && valid) {   // h before token t0
+      float4* hk = reinterpret_cast<float4*>(
+          a.hs + (((ll)n * a.nchunks + t0 / a.chunk) * dI + c0 + c) * DS);
+#pragma unroll
+      for (int k = 0; k < NG; ++k)
+        hk[k] = make_float4(h[4 * k], h[4 * k + 1], h[4 * k + 2], h[4 * k + 3]);
+    }
     const TX* xb = xs + buf * TT * TH + c;
     const TD* db = ds + buf * TT * TH + c;
     const TX* zb = zs + buf * TT * TH + c;
@@ -313,17 +310,21 @@ bool rows16(const void* p, ll sn, ll st, int dI, int es) {
 // fp32 contiguous; dt_bias [G,dI] contiguous (bias_dtype 0 fp32, 1 bf16) and
 // z [N,T,dI] in x's dtype through (n, t), both or neither (null). Outputs:
 // y [N,T,dI] contiguous, in x's dtype when fused, else fp32; hT [N,dI,dS]
-// fp32 contiguous. Needs N % G == 0 and dS in {4, 8, 16}.
+// fp32 contiguous; hs (or null) [N, ceil(T / chunk), dI, dS] fp32 takes the
+// state before every chunk-th token (chunk a multiple of 16). Needs N % G
+// == 0 and dS in {4, 8, 16}.
 extern "C" int mamba_scan_launch(const void* x, const void* dt, const void* B, const void* C,
                                  const void* A_log, const void* D, const void* h0,
-                                 const void* dt_bias, const void* z, void* y, void* hT, int N,
+                                 const void* dt_bias, const void* z, void* y, void* hT,
+                                 void* hs, int chunk, int N,
                                  int T, int dI, int dS, int G, long long sxn, long long sxt,
                                  long long sdn, long long sdt, long long sbn, long long sbt,
                                  long long scn, long long sct, long long szn, long long szt,
                                  int dtype, int bias_dtype, void* stream) {
   if (N <= 0 || dI <= 0 || T < 0 || G <= 0 || N % G != 0 || (dtype != 0 && dtype != 1) ||
       (bias_dtype != 0 && bias_dtype != 1) || (dt_bias == nullptr) != (z == nullptr) ||
-      !aligned16(A_log) || !aligned16(h0) || !aligned16(hT))
+      !aligned16(A_log) || !aligned16(h0) || !aligned16(hT) ||
+      (hs != nullptr && (chunk <= 0 || chunk % TT != 0 || !aligned16(hs))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int es = dtype == 1 ? 2 : 4;
   ScanArgs a;
@@ -338,6 +339,9 @@ extern "C" int mamba_scan_launch(const void* x, const void* dt, const void* B, c
   a.z = z;
   a.y = y;
   a.hT = static_cast<float*>(hT);
+  a.hs = static_cast<float*>(hs);
+  a.chunk = chunk > 0 ? chunk : TT;
+  a.nchunks = (T + a.chunk - 1) / a.chunk;
   a.T = T;
   a.dI = dI;
   a.rows_per_group = N / G;
@@ -360,3 +364,4 @@ extern "C" int mamba_scan_launch(const void* x, const void* dt, const void* B, c
   return static_cast<int>(dtype == 1 ? by_state<bf16>(dS, a, N, s)
                                      : by_state<float>(dS, a, N, s));
 }
+

@@ -24,6 +24,7 @@ import sys
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.grad import needs_grad
 from repro_torch.kernels.ref import decode_attention_ref as decode_attention_plain
 
 launches = 0   # kernel launches since the last reset
@@ -60,8 +61,12 @@ def decode_attention(q, k, v, lengths, *, window: int = 0):
     [B,Hq,hd] in q.dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    or raises. Forward-only (serving): it has no autograd Function, so an
+    operand that requires a gradient, with gradients on, raises rather
+    than have the kernel drop it."""
     global launches
+    if needs_grad(q, k, v):
+        raise ValueError("decode_attention is forward-only (serving): it has no backward")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths, window=window)
     if q.device.type != "cuda":

@@ -1,12 +1,16 @@
-"""Backward formulas of the four kernels on the training path, in PyTorch
-ops: the grouped matmul, flash attention, armt_read and armt_update.
+"""Backward formulas of the kernels on the training path, in PyTorch ops:
+the grouped matmul, flash attention, armt_read and armt_update, and the
+plain version of ``mamba_scan``'s backward kernel.
 
 The reference has no backward kernel: none of its Pallas kernels has a
 ``custom_vjp``, and its gradient is XLA's gradient of the plain functions
 of ``kernels/ref.py``. Each kernel's ``torch.autograd.Function`` (in its
 own module) runs the kernel forward, and one of these functions backward,
 the same code on the CPU and on the card. The products are batched
-matmuls; the elementwise work is in fp32.
+matmuls; the elementwise work is in fp32. ``mamba_scan``'s Function is the
+exception: on the card its backward is a kernel of its own
+(``csrc/mamba_scan_bwd.cu``), and ``mamba_scan_bwd_plain`` is that kernel's
+plain version, the CPU's backward and its oracle.
 
 ``needs_grad`` decides which form a wrapper takes: the autograd Function
 when gradients are on and an operand requires one, else the forward
@@ -233,5 +237,105 @@ def armt_update_bwd(m, wk, wv, wb, A, z, gA, gz, *, nu: int):
             dwb.to(wb.dtype), dA.to(A.dtype), dz.to(z.dtype))
 
 
+# ---------------------------------------------------------------------------
+# mamba_scan: the selective scan, with the fused dt prologue and gate
+# ---------------------------------------------------------------------------
+
+def _rows(v, N: int, shared_dims: int):
+    """v shared (``shared_dims`` dims) or per group (one more) -> per row,
+    fp32."""
+    v = v.float()
+    if v.dim() == shared_dims:
+        return v[None].expand((N,) + tuple(v.shape))
+    return v.repeat_interleave(N // v.shape[0], 0)
+
+
+def group_sum(g, like):
+    """A per-row gradient [N, ...] summed over the rows of each group ->
+    shaped like ``like`` (shared: over every row)."""
+    if like.dim() == g.dim() - 1:
+        return g.sum(0)
+    return g.reshape((like.shape[0], -1) + tuple(g.shape[1:])).sum(1)
+
+
+def mamba_scan_bwd_plain(x, dt, Bt, Ct, A_log, D, h0, dy, dhT, *, dt_bias=None, z=None):
+    """Gradients of ``mamba_scan`` (the TPU form, or the fused one with
+    ``dt_bias`` and ``z``) given dy [N,T,dI] and dhT [N,dI,dS] (None: zero)
+    -> (dx, ddt, dB, dC, dA_log, dD, dh0, ddt_bias, dz), each shaped and
+    typed like its operand (None for dt_bias and z in the TPU form).
+
+    An explicit reverse scan in fp32, the backward kernel's maths: the
+    states h_{t-1} before every token recomputed forward from h0 (kept
+    whole here), then, from t = T - 1 down, with delta the step size (the
+    fused form's softplus(dt + dt_bias)), e = exp(delta A) and g the
+    gradient of the ungated output (dy silu(z) in the fused form):
+    dC_t = sum_i g h_t, dD += g x, dh += g C_t, dx = g D + delta sum_s dh
+    B_t, dB_t = sum_i dh delta x, d delta = sum_s dh (A e h_{t-1} + x B_t),
+    dA += dh delta e h_{t-1}, then dh <- dh e; dA_log = dA A. The fused
+    form's d(dt) is d delta times softplus's derivative (sigmoid, 1 past
+    softplus's threshold of 20), d(dt_bias) its sum; dz = dy rnd(y)
+    silu'(z), rnd the rounding to z's dtype that the forward's gate
+    reads."""
+    N, T, dI = x.shape
+    dS = A_log.shape[-1]
+    fused = z is not None
+    A = _rows(-torch.exp(A_log.float()), N, 2)                  # [N, dI, dS]
+    Dr = _rows(D, N, 1)                                         # [N, dI]
+    x32, B32, C32 = x.float(), Bt.float(), Ct.float()
+    if fused:
+        u = dt.float() + _rows(dt_bias, N, 1)[:, None]
+        delta = torch.nn.functional.softplus(u)
+    else:
+        delta = dt.float()
+    hs = []
+    h = h0.float()
+    for t in range(T):
+        hs.append(h)
+        h = torch.exp(delta[:, t, :, None] * A) * h + (delta[:, t] * x32[:, t])[..., None] \
+            * B32[:, t, None, :]
+    dy32 = dy.float()
+    if fused:
+        zf = z.float()
+        sz = torch.sigmoid(zf)
+        g = dy32 * (zf * sz)
+        yraw = torch.empty(N, T, dI, dtype=torch.float32, device=x.device)
+    else:
+        g = dy32
+    dh = (torch.zeros(N, dI, dS, dtype=torch.float32, device=x.device) if dhT is None
+          else dhT.float().clone())
+    dx = torch.empty(N, T, dI, dtype=torch.float32, device=x.device)
+    dd = torch.empty(N, T, dI, dtype=torch.float32, device=x.device)
+    dB = torch.empty(N, T, dS, dtype=torch.float32, device=x.device)
+    dC = torch.empty(N, T, dS, dtype=torch.float32, device=x.device)
+    dA = torch.zeros(N, dI, dS, dtype=torch.float32, device=x.device)
+    dDr = torch.zeros(N, dI, dtype=torch.float32, device=x.device)
+    for t in reversed(range(T)):
+        hp, d_t, x_t, g_t = hs[t], delta[:, t], x32[:, t], g[:, t]
+        e = torch.exp(d_t[..., None] * A)
+        ht = e * hp + (d_t * x_t)[..., None] * B32[:, t, None, :]
+        if fused:
+            yraw[:, t] = torch.einsum("nis,ns->ni", ht, C32[:, t]) + Dr * x_t
+        dC[:, t] = torch.einsum("nis,ni->ns", ht, g_t)
+        dDr += g_t * x_t
+        dh = dh + g_t[..., None] * C32[:, t, None, :]
+        dx[:, t] = g_t * Dr + d_t * torch.einsum("nis,ns->ni", dh, B32[:, t])
+        dB[:, t] = torch.einsum("nis,ni->ns", dh, d_t * x_t)
+        dd[:, t] = (dh * (A * e * hp + x_t[..., None] * B32[:, t, None, :])).sum(-1)
+        dA += dh * d_t[..., None] * e * hp
+        dh = dh * e
+    dA_log = group_sum(dA * A, A_log).to(A_log.dtype)
+    dD = group_sum(dDr, D).to(D.dtype)
+    ddt_bias = dz = None
+    if fused:
+        du = dd * torch.where(u > 20, torch.ones_like(u), torch.sigmoid(u))
+        dd = du
+        ddt_bias = group_sum(du.sum(1), dt_bias).to(dt_bias.dtype)
+        yr = yraw.to(z.dtype).float()
+        dz = (dy32 * yr * sz * (1 + zf * (1 - sz))).to(z.dtype)
+    return (dx.to(x.dtype), dd.to(dt.dtype), dB.to(Bt.dtype), dC.to(Ct.dtype), dA_log, dD,
+            dh.to(h0.dtype), ddt_bias, dz)
+
+
 __all__ = ["needs_grad", "act_grad", "grouped_matmul_bwd", "flash_attention_bwd",
-           "armt_read_bwd", "armt_update_bwd", "dpfp_fwd", "dpfp_bwd", "proj", "proj_bwd"]
+           "armt_read_bwd", "armt_update_bwd", "dpfp_fwd", "dpfp_bwd", "proj", "proj_bwd",
+           "group_sum", "mamba_scan_bwd_plain"]

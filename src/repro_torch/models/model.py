@@ -286,29 +286,44 @@ def encode(params: Dict, cfg: ArchConfig, frames: torch.Tensor, *,
     return norm(cfg.norm, x, enc["final_norm"])
 
 
-def fill_cross_kv_(params: Dict, cfg: ArchConfig, state: Dict, enc_out: torch.Tensor, *,
-                   fused: bool = True) -> None:
-    """Every dec layer's cross K/V from the encoder's output [B, F, D],
-    written in place into ``state``'s ``ck``/``cv`` [n_super, B, F, Hkv,
-    hd] (an executor or a decode state). fused: two grouped-GEMM launches
-    (K and V) over all the layers, the bias on the epilogue, writing
-    straight into ck/cv; False: the plain ``cross_kv`` a layer at a time."""
+def cross_kv_state(params: Dict, cfg: ArchConfig, enc_out: torch.Tensor, *,
+                   fused: bool = True) -> Dict:
+    """Every dec layer's cross K/V from the encoder's output [B, F, D] as new
+    tensors: {"pattern": per position {"ck", "cv"} [n_super, B, F, Hkv,
+    hd] (empty for the other positions)}, what ``init_state(cross_from=)``
+    takes. Out of place, so under gradients every segment's
+    cross-attention reaches the encoder. fused: two grouped-GEMM launches
+    (K and V) over all the layers, the bias on the epilogue; False: the
+    plain ``cross_kv`` a layer at a time, stacked."""
     layout = StackLayout.from_config(cfg)
     B, F, D = enc_out.shape
+    L = layout.n_super
+    pattern = []
     for p, t in enumerate(layout.pattern):
         if t != "dec":
+            pattern.append({})
             continue
-        st, px = state["pattern"][p], params["pattern"][p]["xattn"]
-        L = layout.n_super
+        px = params["pattern"][p]["xattn"]
         if fused:
             x = enc_out.reshape(1, B * F, D).expand(L, B * F, D).contiguous()
-            for w, b, out in (("wk", "bk", st["ck"]), ("wv", "bv", st["cv"])):
-                kops.grouped_gemm(x, px[w], px.get(b), out=out.view(L, B * F, -1))
-            continue
-        for j in range(L):
-            ck, cv = cross_kv(enc_out, {k: v[j] for k, v in px.items()}, cfg)
-            st["ck"][j].copy_(ck)
-            st["cv"][j].copy_(cv)
+            ck, cv = (kops.grouped_gemm(x, px[w], px.get(b)).reshape(
+                L, B, F, cfg.n_kv_heads, cfg.head_dim) for w, b in (("wk", "bk"), ("wv", "bv")))
+        else:
+            ck, cv = (torch.stack(kv) for kv in zip(*(
+                cross_kv(enc_out, {k: v[j] for k, v in px.items()}, cfg) for j in range(L))))
+        pattern.append({"ck": ck, "cv": cv})
+    return {"pattern": tuple(pattern)}
+
+
+def fill_cross_kv_(params: Dict, cfg: ArchConfig, state: Dict, enc_out: torch.Tensor, *,
+                   fused: bool = True) -> None:
+    """``cross_kv_state``'s cross K/V copied into ``state``'s ``ck``/``cv``
+    [n_super, B, F, Hkv, hd] in place (a decode state, whose buffers the
+    serve engine keeps)."""
+    cross = cross_kv_state(params, cfg, enc_out, fused=fused)
+    for st, kv in zip(state["pattern"], cross["pattern"]):
+        for k, v in kv.items():
+            st[k].copy_(v)
 
 
 def segment_len(cfg: ArchConfig) -> int:
@@ -345,10 +360,11 @@ def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
 
     An encoder-decoder (whisper) needs the encoder's cross K/V: either
     ``enc_frames`` [B, F, D] (frame embeddings; encoded, on the kernels
-    when fused, and written into a zero state's ck/cv), or a state0 that
-    holds them (e.g. a decode state's, shared through ``init_state(...,
-    cross_from=)``), not both. The executors read ck/cv and never copy
-    them.
+    when fused, and their cross K/V built out of place by
+    ``cross_kv_state``, so under gradients every segment's cross-attention
+    reaches the encoder), or a state0 that holds them (e.g. a decode
+    state's, shared through ``init_state(..., cross_from=)``), not both.
+    The executors read ck/cv and never copy them.
 
     On a CUDA device the sequential schedule on the fused cell in segmented
     mode replays one captured CUDA graph per segment (``SegmentProgram``,
@@ -379,11 +395,10 @@ def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
         raise ValueError(f"{cfg.name}: pass enc_frames (the stub frontend's frame "
                          "embeddings) or a state0 holding the cross K/V, one of the two")
     if state0 is None:
+        cross = (None if enc_frames is None else cross_kv_state(
+            params, cfg, encode(params, cfg, enc_frames, fused=fused), fused=fused))
         state0 = init_state(cfg, tokens.shape[0], tokens.device, params["embed"].dtype,
-                            mode)
-        if enc_frames is not None:
-            fill_cross_kv_(params, cfg, state0, encode(params, cfg, enc_frames, fused=fused),
-                           fused=fused)
+                            mode, cross_from=cross)
     apply = make_apply_block(cfg, mode)
     grouped = make_grouped_apply(cfg, mode) if fused else None
     exec_params = {"prelude": params["prelude"], "pattern": params["pattern"]}

@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.configs import DISPATCHES, MoEConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.grad import needs_grad
 from repro_torch.models.layers import swiglu
 
 
@@ -205,6 +206,10 @@ def moe_ffn_grouped(x: torch.Tensor, p: Dict, mcfg: MoEConfig, widx=None) -> tor
     if lw is not None:
         eidx = (lw[:, None] * E + torch.arange(E, dtype=torch.int32, device=x.device)
                 ).repeat_interleave(R, dim=0).reshape(-1)
+    if lw is not None and needs_grad(x, *(p[k] for k in ("router", "wg", "wu", "wd"))):
+        # training dispatches 'global' and does not pool
+        raise ValueError("moe_ffn_grouped: the experts' layer index (a pooled step, or per_row "
+                         "dispatch at B > 1) is forward-only")
     router = p["router"] if widx is None else p["router"].index_select(0, widx)
     if R > 1:
         router = router.repeat_interleave(R, dim=0)

@@ -54,7 +54,15 @@ def train_loop(cfg: ArchConfig, ocfg: OptimConfig, data: Iterator[Dict], *, step
     generator on the card draws there, much faster at full size), or, with
     ``ckpt_dir`` and ``resume``, from its latest checkpoint, the data
     stream then skipping the steps already taken. keep: the checkpoints
-    kept. device None means the card (it raises without one)."""
+    kept. device None means the card (it raises without one).
+
+    An encoder-decoder (whisper) is refused: the loop's streams
+    (``data/synthetic.py``) carry no frames, and the reference's loop stops
+    at its forward's missing frames. ``make_train_step`` trains it on
+    batches that carry ``enc_frames``."""
+    if cfg.encoder is not None:
+        raise ValueError(f"{cfg.name}: train_loop's data stream has no frames (enc_frames) for "
+                         "the encoder; train it with make_train_step on batches that carry them")
     device = resolve_device(device)
     step_fn = make_train_step(cfg, ocfg, schedule=schedule, mode=mode,
                               microbatches=microbatches)

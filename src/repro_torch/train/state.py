@@ -9,24 +9,19 @@ from typing import Dict
 import torch
 
 from repro_torch.configs import ArchConfig
-from repro_torch.models.blocks import MAMBA_TYPES
 from repro_torch.models.model import init_params, lm_loss
+from repro_torch.models.moe import check_dispatch
 from repro_torch.optim import OptimConfig, adamw_init, adamw_update
 from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
 
 def check_trainable(cfg: ArchConfig) -> None:
-    """The port trains the dense ARMT family (the attn block with a dense
-    FFN, with or without QKV bias, q/k norm, partial rotary); it has no
-    backward yet for mamba_scan, the MoE dispatch or the encoder."""
-    types = set(cfg.layer_types)
-    if types & set(MAMBA_TYPES):
-        raise ValueError(f"{cfg.name}: training has no mamba layers yet (no mamba_scan "
-                         "backward)")
-    if cfg.moe is not None or "attn_moe" in types:
-        raise ValueError(f"{cfg.name}: training has no MoE FFN yet")
-    if cfg.encoder is not None:
-        raise ValueError(f"{cfg.name}: training has no encoder yet")
+    """The port trains every config the reference trains: the dense ARMT
+    family, the MoE configs, the Mamba layers (pure, and in jamba's hybrid
+    pattern) and the encoder-decoder. It refuses only what it has not
+    ported: the MoE's ``einsum`` dispatch."""
+    if cfg.moe is not None:
+        check_dispatch(cfg.moe)
 
 
 def init_train_state(cfg: ArchConfig, ocfg: OptimConfig, generator, device=None) -> Dict:
@@ -40,22 +35,24 @@ def make_train_step(cfg: ArchConfig, ocfg: OptimConfig, *, schedule: str = "auto
                     mode: str = "segmented", microbatches: int = 1,
                     skip_nonfinite: bool = True, fused: bool = True):
     """train_step(state, batch) -> (new state, metrics). batch: tensors
-    "tokens" and "labels" [B, S*seg_len], optionally "loss_mask"; B is split
-    into ``microbatches`` equal parts whose fp32 gradients are summed and
-    divided by their count (one part: the gradients in the param dtype, as
-    the reference). metrics: "loss", "lr", "grad_norm" (before clipping)
-    and, with skip_nonfinite, "skipped" (1.0 where the loss or the norm was
-    not finite: the state then comes back unchanged, chosen on the device
-    by ``torch.where`` on every leaf, with no host read), all 0-d tensors.
-    The state passed in is not modified. fused: the kernels (False: the
-    plain path)."""
+    "tokens" and "labels" [B, S*seg_len], optionally "loss_mask", and for an
+    encoder-decoder (whisper) "enc_frames" [B, F, D], as the reference's
+    batch carries them; B is split into ``microbatches`` equal parts whose
+    fp32 gradients are summed and divided by their count (one part: the
+    gradients in the param dtype, as the reference). metrics: "loss", "lr",
+    "grad_norm" (before clipping) and, with skip_nonfinite, "skipped" (1.0
+    where the loss or the norm was not finite: the state then comes back
+    unchanged, chosen on the device by ``torch.where`` on every leaf, into
+    the new leaf, with no host read), all 0-d tensors. The state passed in is not modified.
+    fused: the kernels (False: the plain path)."""
     check_trainable(cfg)
     if microbatches < 1:
         raise ValueError(f"microbatches {microbatches} < 1")
 
     def batch_loss(params, batch):
         return lm_loss(params, cfg, batch["tokens"], batch["labels"], schedule=schedule,
-                       mode=mode, loss_mask=batch.get("loss_mask"), fused=fused)
+                       mode=mode, loss_mask=batch.get("loss_mask"), fused=fused,
+                       enc_frames=batch.get("enc_frames"))
 
     def loss_and_grads(params, batch):
         leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
@@ -89,7 +86,9 @@ def make_train_step(cfg: ArchConfig, ocfg: OptimConfig, *, schedule: str = "auto
             ok = torch.isfinite(loss) & torch.isfinite(metrics["grad_norm"])
 
             def keep(new, old):
-                return torch.where(ok, new, old)
+                # into the new state's own tensors, so that no third copy of
+                # the state is live (adamw_update returns new tensors)
+                return torch.where(ok, new, old, out=new)
             new_params = tree_map(keep, new_params, state["params"])
             new_opt = tree_map(keep, new_opt, state["opt"])
             metrics["skipped"] = (~ok).float()

@@ -4,6 +4,11 @@ leaves, the layout of the port's parameters, states and optimizer state.
 Leaves come in the trees' own order (dict insertion order), which the
 port keeps stable from the tree's construction; a path is the keys and
 indices from the root, joined by "/" (the checkpoint manifest's names).
+
+The recursions are module-level functions, not closures: a recursive
+closure is a reference cycle, and one that holds the leaves (a train
+step's gradients, say) keeps their device memory until Python's cycle
+collector happens to run.
 """
 from __future__ import annotations
 
@@ -23,18 +28,19 @@ def _children(tree, is_leaf: IsLeaf):
     return None
 
 
+def _walk(node, path, is_leaf: IsLeaf, out: list) -> None:
+    kids = _children(node, is_leaf)
+    if kids is None:
+        out.append(("/".join(path), node))
+        return
+    for k, v in kids:
+        _walk(v, path + (str(k),), is_leaf, out)
+
+
 def tree_flatten_with_path(tree, is_leaf: IsLeaf = None) -> List[Tuple[str, Any]]:
     """[(path, leaf)] in the tree's order."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(node, path):
-        kids = _children(node, is_leaf)
-        if kids is None:
-            out.append(("/".join(path), node))
-            return
-        for k, v in kids:
-            walk(v, path + (str(k),))
-    walk(tree, ())
+    _walk(tree, (), is_leaf, out)
     return out
 
 
@@ -42,18 +48,19 @@ def tree_leaves(tree, is_leaf: IsLeaf = None) -> list:
     return [leaf for _, leaf in tree_flatten_with_path(tree, is_leaf)]
 
 
+def _build(node, it, is_leaf: IsLeaf):
+    kids = _children(node, is_leaf)
+    if kids is None:
+        return next(it)
+    if isinstance(node, dict):
+        return {k: _build(v, it, is_leaf) for k, v in kids}
+    return type(node)(_build(v, it, is_leaf) for _, v in kids)
+
+
 def tree_unflatten(like, leaves, is_leaf: IsLeaf = None):
     """A tree of ``like``'s structure holding ``leaves`` in order."""
     it = iter(leaves)
-
-    def build(node):
-        kids = _children(node, is_leaf)
-        if kids is None:
-            return next(it)
-        if isinstance(node, dict):
-            return {k: build(v) for k, v in kids}
-        return type(node)(build(v) for _, v in kids)
-    out = build(like)
+    out = _build(like, it, is_leaf)
     if next(it, _END) is not _END:
         raise ValueError("more leaves than the tree has")
     return out

@@ -1488,6 +1488,61 @@ def test_whisper_forward_and_generate_on_card(cuda):
 # training: the kernels' autograd Functions and the training path
 # ---------------------------------------------------------------------------
 
+_SCAN_NAMES = ("x", "dt", "Bt", "Ct", "A_log", "D", "h0", "dt_bias", "z")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("N,T,dI,dS,G", [
+    (2, 300, 200, 4, 1),      # shared A_log; 3 chunks, the last partial; a ragged block
+    (6, 37, 130, 8, 3),       # one partial chunk and sub-chunk; 3 groups of 2 rows
+    (4, 256, 1024, 16, 4),    # whole chunks, one row per group (a band step)
+    (3, 1, 64, 16, 1),        # one token
+])
+def test_mamba_scan_backward_on_card(cuda, dtype, fused, N, T, dI, dS, G):
+    """MambaScanFn on the card (the forward kernel keeping its states, then
+    the reverse scan kernel) against autograd through the plain version in
+    fp32 on the same values: every operand's gradient (the raw dt's,
+    dt_bias's and z's in the fused form) within 1e-4 (fp32) or 2e-2 (bf16)
+    of its norm, with the final state's gradient given too; the forward's
+    outputs equal to the no-grad launch's bits; one backward launch; a
+    second backward equal to the bit (no atomics); x's gradient x0.98
+    (x0.95 in bf16, where x0.98 sits at the tolerance) fails."""
+    g = torch.Generator().manual_seed(N * T + dI + fused)
+    c = _scan_case(g, cuda, dtype, N, T, dI, dS, G)
+    if not fused:
+        bias = c["dt_bias"].repeat_interleave(N // G, 0)[:, None] if G > 1 else c["dt_bias"]
+        c["dt"] = torch.nn.functional.softplus(c["dt"].float() + bias)
+        del c["dt_bias"], c["z"]
+    names = [k for k in _SCAN_NAMES if k in c]
+    ins = {k: c[k].detach().clone().requires_grad_() for k in names}
+    with torch.no_grad():
+        y0, h0T = mamba_scan.mamba_scan(*(c[k] for k in names[:7]),
+                                        **{k: c[k] for k in names[7:]})
+    y, hT = mamba_scan.mamba_scan(*(ins[k] for k in names[:7]), **{k: ins[k] for k in names[7:]})
+    assert _same(y.detach(), y0) and _same(hT.detach(), h0T)
+    r = _rand(torch.Generator().manual_seed(7), cuda, torch.float32)
+    dy, dh = r(*y.shape).to(y.dtype), r(*hT.shape, sc=0.1)
+    before = mamba_scan.bwd_launches
+    got = torch.autograd.grad((y, hT), [ins[k] for k in names], (dy, dh), retain_graph=True)
+    assert mamba_scan.bwd_launches == before + 1
+    again = torch.autograd.grad((y, hT), [ins[k] for k in names], (dy, dh))
+    assert all(_same(a, b) for a, b in zip(got, again))
+    ref = {k: ins[k].detach().float().requires_grad_() for k in names}
+    yr, hr = mamba_scan.mamba_scan_plain(*(ref[k] for k in names[:7]),
+                                         **{k: ref[k] for k in names[7:]})
+    want = torch.autograd.grad((yr, hr), [ref[k] for k in names], (dy.float(), dh))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+    errs = {k: rel(a.float(), b) for k, a, b in zip(names, got, want)}
+    assert all(a.dtype == ins[k].dtype for k, a in zip(names, got))
+    assert max(errs.values()) <= tol, errs
+    assert rel(got[0].float() * (0.98 if dtype == torch.float32 else 0.95), want[0]) > tol
+
+
 def _backward_case(case, r):
     """(inputs, kernel call, plain call) at small odd shapes."""
     from repro_torch.kernels import ref

@@ -8,8 +8,10 @@ the in-place ones to the bit, remat leaving the forward and the gradients
 unchanged; one ``make_train_step`` step against the reference's (and two
 microbatches, and the non-finite skip); the fault-tolerant loop (the loss
 falls, a resume continues to the bit, metrics are journaled, the CLI);
-and what training refuses. The reference's gradients are computed once
-per module (jitted, the sequential schedule: the same function)."""
+and the families once refused (mamba, MoE, the encoder-decoder) taking a
+step; whisper refused by the frameless loop. The reference's gradients are
+computed once per module (jitted, the sequential schedule: the same
+function)."""
 import dataclasses
 import json
 
@@ -220,8 +222,42 @@ def test_forward_only_paths_refused_under_grad(ref):
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-1.5-large-398b",
                                   "qwen2-moe-a2.7b", "whisper-medium"])
 def test_make_train_step_refuses_what_has_no_backward(arch):
-    with pytest.raises(ValueError, match="training has no"):
-        make_train_step(t_smoke(arch), OptimConfig())
+    """The families the port once refused (mamba, the hybrid, MoE, the
+    encoder-decoder) now build a step: one step at smoke size on 2
+    segments (whisper's batch with its frames) is finite, not skipped, and
+    moves every parameter the loss reaches. What training still refuses
+    (the MoE's einsum dispatch, whisper through the frameless loop) is
+    below and in tests/test_torch_train_families.py."""
+    cfg = t_smoke(arch, seq_len=32)
+    seg = tmodel.segment_len(cfg) if cfg.armt is not None else 32
+    ocfg = OptimConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    params = tmodel.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 2 * seg + 1)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.encoder is not None:
+        batch["enc_frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32))
+    state, metrics = make_train_step(cfg, ocfg, schedule="diagonal")(
+        {"params": params, "opt": adamw_init(params, ocfg)}, batch)
+    assert metrics["skipped"].item() == 0.0 and np.isfinite(metrics["loss"].item())
+    assert np.isfinite(metrics["grad_norm"].item()) and metrics["grad_norm"].item() > 0
+    moved = [not torch.equal(a, b) for a, b in zip(tree_leaves(state["params"]),
+                                                    tree_leaves(params))]
+    assert sum(moved) >= len(moved) - 1    # at most one leaf the loss never reaches
+
+
+def test_train_loop_refuses_whisper():
+    """The loop's streams carry no frames, so whisper (the reference's loop
+    stops at its forward's missing frames) is refused with a ValueError
+    that says so, through the library and the CLI."""
+    cfg = t_smoke("whisper-medium", seq_len=32)
+    with pytest.raises(ValueError, match="no frames"):
+        train_loop(cfg, OptimConfig(), lm_stream(cfg.vocab, 2, 32, seed=0), steps=1,
+                   device="cpu")
+    with pytest.raises(ValueError, match="no frames"):
+        launch_train.main(["--arch", "whisper-medium", "--smoke", "--device", "cpu",
+                           "--steps", "1", "--batch", "2", "--seq-len", "32"])
 
 
 # ---------------------------------------------------------------------------
