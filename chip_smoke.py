@@ -344,6 +344,22 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       jamba's, the GEMM, flash, armt_read and armt_update in qwen's and
       whisper's, no SIMT GEMM or flash in (w3). Prints a
       ``{"train_families": ...}`` line;
+  (x) after (w): the serve CLI, ``python -m repro_torch.launch.serve``, in
+      process through its ``main``, each run against the engine driven
+      directly on params drawn from the same seed on the card: (x1)
+      llama-1b-armt whole, 16,384 tokens + 64 new, B = 1, diagonal and
+      ``--schedule sequential``, the tokens equal to each other and to
+      ``generate``'s, to the bit; (x2) ``--continuous``, 6 requests of
+      4,096-4,608 tokens + 32 on 3 slots with the prefix cache, the trace
+      and the metrics written: every request's stream equal to ``serve``'s,
+      the trace valid, the cache's hits and misses printed (not gated);
+      (x3) ``--session-store``: turn 2 resumed and both turns equal to a
+      direct two-turn run; (x4) falcon-mamba-7b, 2 x 8,192 tokens + 16, equal
+      to its direct run. ``param_counts(cfg)[0]`` equals the elements of the
+      params each run built (llama, falcon); (c)'s 16-segment x 16-layer
+      diagonal prefill ran Lemma 3.1's schedule (its recorded cells pass
+      ``validate_schedule`` and ``is_minimal``). Each run's wall time, TTFT
+      and tok/s; a ``{"cli": ...}`` line;
   (p4) after (h): a falcon-mamba-7b session (2 x 8192 + 1000 tokens, then
       500), spilled and restored against kept in memory to the bit (h and
       the bf16 conv tail), resume TTFT against re-prefilling the history
@@ -356,8 +372,8 @@ place), and so does the sequential schedule's segment; the eager engines
 to be held against them here and in the card tests.
 
 The kernels' launch counters are set to 0 just before each main-path run
-of (d), (e), (i), (k), (l), (o), (p1)-(p4), (r), (s), (t), (u), (v), (w), (g), (h)
-and falcon's fused run of (o), and read just after it (a phase's count is the sum over its runs; a
+of (d), (e), (i), (k), (l), (o), (p1)-(p4), (r), (s), (t), (u), (v), (w), (x), (g),
+(h) and falcon's fused run of (o), and read just after it (a phase's count is the sum over its runs; a
 graph replay counts what its capture launched, so the counts read the
 same under graphs as eager): every llama kernel must have been launched
 in (d), every one but armt_update (which runs only at B > 1) in (e), in
@@ -370,7 +386,8 @@ mamba_scan) and in (u) (``whisper``), the GEMM, flash, armt_read and
 armt_update and not the fused update or decode attention in (v)'s
 uninterrupted 12 steps (``train``: forward and backward launches, the
 backward's recomputed pre-activations and rematerialized cells
-included), the GEMM and
+included), every llama kernel but armt_update in (x)'s llama runs
+(``cli``) and mamba_scan in its falcon run, the GEMM and
 flash in (i) and flash and decode attention in (k) and (l), with none of
 the ARMT memory kernels there, and mamba_scan in (g), (h) and falcon's
 interleaved run and session run (p4). ``serve`` runs at its default of 4 band steps per
@@ -378,8 +395,8 @@ chunk (interleaved admission) in (e), (l) and (h). The GEMM's and flash attentio
 launches are also counted by route (the TMA + wgmma kernel or the fp32 SIMT
 kernel; for the GEMM whoever called it: projections, the fused op, the
 ARMT kernels' projections): the bf16 runs of (d),
-(e), (i), (k), (l), (o), (p1)-(p3), (r), (s), (t), (u) and (v) must launch no SIMT GEMM and
-no SIMT flash. One decode_attention
+(e), (i), (k), (l), (o), (p1)-(p3), (r), (s), (t), (u), (v) and (x) must launch no SIMT
+GEMM and no SIMT flash. One decode_attention
 call (its partials and their combine) counts as one launch.
 The script prints JSON lines of the schedules' timing, of the graph
 phase (every graph-against-eager check with its rates) and of the kernel
@@ -469,6 +486,7 @@ def main() -> int:
     import numpy as np
     import torch
 
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
@@ -476,6 +494,7 @@ def main() -> int:
     from repro_torch.kernels import (armt_memory, build, decode_attention, flash_attention,
                                      grouped_matmul, mamba_scan, ops, swap)
     from repro_torch.core import diagonal as diag
+    from repro_torch.core.schedule import is_minimal, recording_cells, validate_schedule
     from repro_torch.models import model as M
     from repro_torch.serve import (ContinuousScheduler, MetricsRegistry, Request, RequestError,
                                    ServeEngine, Telemetry)
@@ -1494,7 +1513,9 @@ def main() -> int:
         prefill("diagonal", params, cfg, toks[:, :2 * seg])      # warm-up
         sync()
         t0 = time.perf_counter()
-        hd, fd = M.forward_hidden(params, cfg, toks, schedule="diagonal")
+        # the cells each band step ran, recorded for Lemma 3.1 (below)
+        with recording_cells() as lemma_runs:
+            hd, fd = M.forward_hidden(params, cfg, toks, schedule="diagonal")
         ld = seg_logits(params, cfg, hd)
         sync()
         t_diag = time.perf_counter() - t0
@@ -1519,6 +1540,26 @@ def main() -> int:
     if not ok:
         failures.append("model bf16 prefill, first segments")
     del hd, fd, hs, fs, ld, ls
+    # Lemma 3.1 on the schedule the executor ran: every cell of the 16 x 16
+    # grid once, after its dependencies, in the S + L - 1 groups s + l
+    lemma_c = {"runs": len(lemma_runs), "groups": len(lemma_runs[0]) if lemma_runs else 0,
+               "cells": sum(len(g) for run in lemma_runs for g in run),
+               "valid": False, "minimal": False}
+    if len(lemma_runs) == 1:
+        try:
+            validate_schedule(lemma_runs[0], 16, cfg.n_layers)
+            lemma_c["valid"] = True
+        except ValueError as e:
+            lemma_c["error"] = str(e)
+        lemma_c["minimal"] = is_minimal(lemma_runs[0], 16, cfg.n_layers)
+    log(f"  the 16-segment diagonal prefill's executed schedule: {lemma_c['runs']} run, "
+        f"{lemma_c['groups']} groups (S + L - 1 = {16 + cfg.n_layers - 1}), "
+        f"{lemma_c['cells']} cells; validate_schedule "
+        f"{'ok' if lemma_c['valid'] else lemma_c.get('error', 'FAIL')}, is_minimal "
+        f"{lemma_c['minimal']} -> {'ok' if lemma_c['valid'] and lemma_c['minimal'] else 'FAIL'}")
+    if not (lemma_c["valid"] and lemma_c["minimal"]):
+        failures.append("(c) the executed diagonal schedule is not Lemma 3.1's")
+    del lemma_runs
 
     # Teacher forcing: each segment from the state the sequential plain path
     # reached before it, so errors do not carry over. Even so, at a few
@@ -5017,6 +5058,161 @@ def main() -> int:
     backward_rows["mamba_scan"] = scan_bwd_row
     print(json.dumps({"train_families": families_row, "card": smi}))
 
+    def cli_phase():
+        """(x) the serve CLI, ``python -m repro_torch.launch.serve``, in
+        process through ``main``: each run held to the bit against the
+        engine driven directly on params drawn from the same seed (a
+        generator on the card, as the CLI draws them) and the prompts the
+        CLI drew; the parameter counts against the params built. Returns
+        (launches of the llama runs, of falcon's, routes of both, the
+        results)."""
+        import gc
+        import tempfile
+
+        from repro_torch.launch import serve as launch_serve
+        from repro_torch.roofline.model_math import param_counts
+        from repro_torch.serve import PrefixCache, SessionStore, validate_chrome_trace
+        from repro_torch.utils import tree_params
+
+        t_phase = time.perf_counter()
+        row, routes = {}, {}
+        launches = {"llama": {}, "falcon": {}}
+
+        def release():
+            """Free the CLI's or a direct run's engine and weights (the
+            engine's programs refer back to it; the segment graphs' cache
+            holds the weights they read)."""
+            M.SegmentProgram._cache.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        def cli(model, argv):
+            """launch.serve.main(argv) from counts set to 0; its launches
+            added to ``model``'s."""
+            nonlocal routes
+            t0 = time.perf_counter()
+            res, n, r = counted(lambda: launch_serve.main(argv))
+            res["cli_s"] = time.perf_counter() - t0
+            launches[model] = merged(launches[model], n)
+            routes = merged(routes, r)
+            release()
+            return res
+
+        def direct_params(cfg):
+            return M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+
+        def held(name, ok, detail=""):
+            row[name] = bool(ok)
+            log(f"  {name}: {detail}-> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"(x) {name}")
+
+        def count_gate(cfg, res, params):
+            total = param_counts(cfg)[0]
+            built = tree_params(params)
+            held(f"{cfg.name} param_counts", total == built == res["n_params"],
+                 f"param_counts {total:,}, the CLI's params {res['n_params']:,}, the direct "
+                 f"run's {built:,} ")
+
+        log("== (x) the serve CLI (python -m repro_torch.launch.serve), in process")
+        cfg = get_config("llama-1b-armt")
+        seg = cfg.armt.segment_len
+        # (x1) single mode: diagonal, sequential, against generate called directly
+        base = ["--arch", "llama-1b-armt", "--seed", str(SEED)]
+        single = base + ["--prompt-len", "16384", "--batch", "1", "--max-new", "64"]
+        r_diag = cli("llama", single)
+        r_seq = cli("llama", single + ["--schedule", "sequential"])
+        params = direct_params(cfg)
+        eng = ServeEngine(params, cfg, max_len=16384 + seg // 2 + 64)
+        want = eng.generate(r_diag["prompts"], 64)
+        for label, r in (("x1 diagonal", r_diag), ("x1 sequential", r_seq)):
+            row[label] = dict(wall_s=r["wall_s"], cli_s=r["cli_s"], ttft_s=r["ttft_s"],
+                              tok_s=r["tok_s"])
+            log(f"  {label}: 16,384 + 64 tokens, wall {r['wall_s']:.3f} s (whole CLI "
+                f"{r['cli_s']:.1f} s), TTFT {r['ttft_s']:.4f} s, decode {r['tok_s']:.1f} tok/s")
+        held("x1 CLI = direct generate", np.array_equal(r_diag["tokens"], want.tokens)
+             and r_diag["finite"], f"direct TTFT {want.ttft_s:.4f} s ")
+        held("x1 diagonal = sequential", np.array_equal(r_diag["tokens"], r_seq["tokens"]))
+        count_gate(cfg, r_diag, params)
+        del eng, want
+
+        # (x2) continuous: prefix cache, trace and metrics
+        with tempfile.TemporaryDirectory() as tmp:
+            trace, metrics = f"{tmp}/trace.json", f"{tmp}/metrics.json"
+            r = cli("llama", base + ["--continuous", "--requests", "6", "--slots", "3",
+                                     "--prompt-len", "4096", "--max-new", "32",
+                                     "--prefix-cache", "--trace-out", trace,
+                                     "--metrics-out", metrics])
+            errs = validate_chrome_trace(trace)
+            with open(metrics) as f:
+                snap = json.load(f)
+        eng = ServeEngine(params, cfg, max_len=4096 + seg // 2 + 32,
+                          prefix_cache=PrefixCache(seg, max_bytes=64 << 20))
+        want = {}
+        for ev in eng.serve(r["requests"], n_slots=3, chunk=8):
+            want.setdefault(ev.req_id, []).append(getattr(ev, "token", ev))
+        st = r["prefix_cache"]
+        ttft = [r["done"][k][0] for k in sorted(r["done"])]
+        row["x2 continuous"] = dict(wall_s=r["wall_s"], cli_s=r["cli_s"],
+                                    tok_s=r["n_tokens"] / r["wall_s"], ttft_s=ttft,
+                                    hits=st["hits"], misses=st["misses"])
+        log(f"  x2 continuous: 6 requests of 4,096-4,608 tokens + 32 on 3 slots, "
+            f"{r['n_tokens']} tokens in {r['wall_s']:.3f} s ({r['n_tokens'] / r['wall_s']:.1f} "
+            f"tok/s; whole CLI {r['cli_s']:.1f} s), TTFT {' '.join(f'{t:.3f}' for t in ttft)} "
+            f"s; prefix cache {st['hits']} hits / {st['misses']} misses (not gated)")
+        held("x2 CLI = direct serve", r["streams"] == want and not r["errors"]
+             and all(len(v) == 32 for v in want.values()))
+        held("x2 trace valid", not errs and "program_counts" in snap, f"{errs[:3]} ")
+        del eng, want
+
+        # (x3) a two-turn session
+        r = cli("llama", base + ["--session-store", "--prompt-len", "4096", "--batch", "1",
+                                 "--max-new", "32"])
+        eng = ServeEngine(params, cfg, max_len=4096 + seg // 2 + 32,
+                          session_store=SessionStore(max_bytes=128 << 20))
+        w1 = eng.generate(r["prompts"][0], 32, session_id="demo")
+        w2 = eng.generate(r["prompts"][1], 32, session_id="demo")
+        row["x3 session"] = dict(wall_s=r["wall_s"], cli_s=r["cli_s"], ttft_s=r["ttft_s"])
+        log(f"  x3 session: turn 1 4,096 tokens, turn 2 {r['prompts'][1].shape[1]}; wall "
+            f"{r['wall_s']:.3f} s, TTFT {r['ttft_s'][0]:.4f} / {r['ttft_s'][1]:.4f} s")
+        held("x3 turn 2 resumed, CLI = direct", r["resumed"] and w2.resumed
+             and np.array_equal(r["tokens"][0], w1.tokens)
+             and np.array_equal(r["tokens"][1], w2.tokens))
+        del eng, w1, w2, params
+        release()
+
+        # (x4) falcon-mamba-7b single mode
+        fcfg_x = get_config("falcon-mamba-7b")
+        r = cli("falcon", ["--arch", "falcon-mamba-7b", "--seed", str(SEED), "--prompt-len",
+                           "8192", "--max-new", "16"])
+        fp = direct_params(fcfg_x)
+        eng = ServeEngine(fp, fcfg_x, max_len=8192 + 64 // 2 + 16)
+        want = eng.generate(r["prompts"], 16)
+        row["x4 falcon"] = dict(wall_s=r["wall_s"], cli_s=r["cli_s"], ttft_s=r["ttft_s"],
+                                tok_s=r["tok_s"])
+        log(f"  x4 falcon-mamba-7b: 2 x 8,192 + 16 tokens, wall {r['wall_s']:.3f} s (whole CLI "
+            f"{r['cli_s']:.1f} s), TTFT {r['ttft_s']:.4f} s, decode {r['tok_s']:.1f} tok/s")
+        held("x4 CLI = direct generate", np.array_equal(r["tokens"], want.tokens) and r["finite"])
+        count_gate(fcfg_x, r, fp)
+        del eng, want, fp
+        release()
+        row["phase_s"] = time.perf_counter() - t_phase
+        log(f"  (x) phase {row['phase_s']:.1f} s; card {smi}")
+        return launches["llama"], launches["falcon"], routes, row
+
+    launches_cli, launches_fcli, routes_cli, cli_row = cli_phase()
+    cli_row["lemma_3_1_c"] = lemma_c
+    for name in llama_kernels:
+        if name != "armt_update" and launches_cli[name] == 0:
+            failures.append(f"{name} never launched by the CLI's llama runs (x)")
+    for name in falcon_kernels:
+        if launches_fcli[name] == 0:
+            failures.append(f"{name} never launched by the CLI's falcon run (x4)")
+    for k in routed:
+        if routes_cli[k]["simt"]:
+            failures.append(f"(x): {routes_cli[k]['simt']} SIMT {k} launches in bf16")
+    print(json.dumps({"cli": cli_row, "card": smi}))
+
     # ------------------------------------------------------------ (f) falcon-mamba model
     log("== model phase: falcon-mamba-7b, full width and depth, bf16, seed 0 on the card")
     fcfg = get_config("falcon-mamba-7b")
@@ -5372,14 +5568,15 @@ def main() -> int:
                    "prefix_cache": launches_prefix, "sessions": launches_sess,
                    "dense_configs": launches_dense, "moe_configs": launches_moe,
                    "jamba": launches_jamba, "whisper": launches_whisper,
-                   "train": launches_train, "train_families": launches_families}
+                   "train": launches_train, "train_families": launches_families,
+                   "cli": launches_cli}
     llama_routes = {"generate": routes_gen, "serve": routes_serve, "full_forward": routes_full,
                     "cache_generate": routes_cgen, "cache_serve": routes_cserve,
                     "serve_interleaved": routes_inter, "prefix_cache": routes_prefix,
                     "sessions": routes_sess, "dense_configs": routes_dense,
                     "moe_configs": routes_moe, "jamba": routes_jamba,
                     "whisper": routes_whisper, "train": routes_train,
-                    "train_families": routes_families}
+                    "train_families": routes_families, "cli": routes_cli}
     # falcon-mamba has no prefix-cache run (its engine refuses a cache at
     # max_len 8192: its seg_len is max_len, not the model's segment), so
     # mamba_scan has no launches_prefix_cache; jamba's (t) runs every
@@ -5387,7 +5584,7 @@ def main() -> int:
     falcon_paths = {"generate": flaunch_gen, "serve": flaunch_serve,
                     "serve_interleaved": flaunch_inter, "sessions": launches_fsess,
                     "jamba": launches_jamba, "train": launches_train,
-                    "train_families": launches_families}
+                    "train_families": launches_families, "cli": launches_fcli}
     kernels = []
     for name, (src, replaces) in sources.items():
         s = summary[name]
@@ -5409,6 +5606,8 @@ def main() -> int:
                 r: sum(v[name][r] for v in llama_routes.values()) for r in routes}
         if name in long_rows:
             kernels[-1]["long_shapes"] = long_rows[name]
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s from the start of main (the "
+        f"kernels' build included); card {smi}")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

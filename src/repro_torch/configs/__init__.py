@@ -7,8 +7,9 @@ kimi-k2-1t-a32b with its dense prelude layer), the hybrid
 dense or MoE FFN), ``falcon-mamba-7b`` and the encoder–decoder
 ``whisper-medium`` (a bidirectional encoder over stub frame embeddings,
 ARMT ``dec`` blocks with cross-attention, layernorm, the GELU MLP and
-learned positions); and the smoke reduction used by the CPU tests (a
-copy; the port never imports the JAX package)."""
+learned positions); the registry in the reference's order, with its four
+input shapes (``SHAPES``); and the smoke reduction used by the CPU tests
+(a copy; the port never imports the JAX package)."""
 from __future__ import annotations
 
 import importlib
@@ -197,22 +198,58 @@ class ArchConfig:
         _ = self.n_superblocks
 
 
+# ---------------------------------------------------------------------------
+# Input shapes (the reference's four, the same for every LM arch)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Registry, in the reference's order
+# ---------------------------------------------------------------------------
+
 _ARCH_MODULES = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "qwen2.5-32b": "qwen2_5_32b",
     "minitron-8b": "minitron_8b",
     "chatglm3-6b": "chatglm3_6b",
-    "chameleon-34b": "chameleon_34b",
-    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "whisper-medium": "whisper_medium",
+    "chameleon-34b": "chameleon_34b",
+    # the paper's own model family (Llama-3 + ARMT)
     "llama-160m-armt": "llama_armt",
     "llama-1b-armt": "llama_armt",
     "llama-3b-armt": "llama_armt",
     "llama-8b-armt": "llama_armt",
-    "falcon-mamba-7b": "falcon_mamba_7b",
-    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
-    "whisper-medium": "whisper_medium",
 }
+
+ASSIGNED_ARCHS = [
+    "h2o-danube-1.8b", "qwen2.5-32b", "minitron-8b", "chatglm3-6b",
+    "kimi-k2-1t-a32b", "qwen2-moe-a2.7b", "jamba-1.5-large-398b",
+    "falcon-mamba-7b", "whisper-medium", "chameleon-34b",
+]
+
+
+def list_archs():
+    """Every arch id, in the reference's order."""
+    return list(_ARCH_MODULES)
 
 
 def get_config(arch_id: str) -> ArchConfig:

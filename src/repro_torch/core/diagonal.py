@@ -66,7 +66,7 @@ from typing import Dict, List, Sequence
 import torch
 
 from repro_torch.core.memory import RECURRENT_KEYS
-from repro_torch.core.schedule import band, n_diagonal_groups
+from repro_torch.core.schedule import band, n_diagonal_groups, record_step
 from repro_torch.core.sequential import (ApplyBlock, exec_state_copy, layer_slice,
                                          one_layer_cell, rematerialized, stack_layers,
                                          stacked_state, training, with_new_state)
@@ -195,6 +195,8 @@ def _band_out(carry: Dict, parts, new_prelude: Dict, new_pattern: Dict, *,
         for k, v in new.items():
             if k in RECURRENT_KEYS:
                 state["pattern"][p][k][j0:j1 + 1] = v
+    record_step(carry, i, ((i - l, l) for s0, st, y in parts
+                           for l in range(s0, s0 + st * y.shape[0], st)))
     for s0, st, y in parts:
         y = y.to(buf.dtype)
         if s0 + st * (y.shape[0] - 1) == L - 1:     # segment i - (L-1) finished
@@ -260,6 +262,7 @@ def run_diagonal_grad(layout, params: Dict, state0: Dict, segments: torch.Tensor
     pattern = [[layer_slice(tree, j) for j in range(layout.n_super)]
                for tree in state0["pattern"]]
     one = one_layer_cell(cell)
+    log_key = object()
     for i in range(n_diagonal_groups(S, L)):
         lo, hi = band(i, S, L)
         if lo == 0:
@@ -284,6 +287,7 @@ def run_diagonal_grad(layout, params: Dict, state0: Dict, segments: torch.Tensor
             for j in range(j0, j1 + 1):
                 pattern[p][j] = with_new_state(pattern[p][j],
                                                {k: v[j - j0] for k, v in new.items()})
+        record_step(log_key, i, ((i - l, l) for l, _ in outs))
         for slot, y in outs:
             y = y.to(segments.dtype)
             if slot == L - 1:

@@ -2,12 +2,15 @@
 
 The (segment s, layer l) grid has edges (s,l-1)->(s,l) and (s-1,l)->(s,l).
 Diagonal batching executes group i = {(s,l) : s+l = i}, i = 0..S+L-2, which
-is minimal (paper Lemma 3.1).
+is minimal (paper Lemma 3.1). ``validate_schedule`` and ``is_minimal`` hold
+a schedule to it: the one ``diagonal_groups`` describes, or the one an
+executor ran (``recording_cells``).
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 
 def diagonal_groups(n_segments: int, n_layers: int) -> List[List[Tuple[int, int]]]:
@@ -17,6 +20,97 @@ def diagonal_groups(n_segments: int, n_layers: int) -> List[List[Tuple[int, int]
         for l in range(n_layers):
             groups[s + l].append((s, l))
     return groups
+
+
+def cell_dependencies(s: int, l: int) -> List[Tuple[int, int]]:
+    """The cells (s, l) waits for: the layer below, the segment before."""
+    deps = []
+    if l > 0:
+        deps.append((s, l - 1))
+    if s > 0:
+        deps.append((s - 1, l))
+    return deps
+
+
+def validate_schedule(groups: List[List[Tuple[int, int]]],
+                      n_segments: int, n_layers: int) -> None:
+    """Raise ValueError unless ``groups`` runs every cell of the (S, L) grid
+    once, each after the groups of its dependencies (the reference's
+    checks, in its order and with its messages)."""
+    seen = {}
+    for gi, group in enumerate(groups):
+        for cell in group:
+            if cell in seen:
+                raise ValueError(f"cell {cell} scheduled twice")
+            seen[cell] = gi
+    if len(seen) != n_segments * n_layers:
+        raise ValueError("schedule does not cover the grid")
+    for (s, l), gi in seen.items():
+        for dep in cell_dependencies(s, l):
+            if not seen[dep] < gi:
+                raise ValueError(f"dependency {dep} of {(s, l)} not satisfied")
+
+
+def is_minimal(groups, n_segments: int, n_layers: int) -> bool:
+    """Lemma 3.1: S + L - 1 non-empty groups, each cell in group s + l."""
+    if len([g for g in groups if g]) != n_segments + n_layers - 1:
+        return False
+    return all(s + l == gi for gi, group in enumerate(groups) for (s, l) in group)
+
+
+# ---------------------------------------------------------------------------
+# The schedule as run: a debug log of the cells each executor step ran
+# ---------------------------------------------------------------------------
+
+class _CellLog:
+    """Per run, the cells of each of its steps; a run is keyed by an object
+    it owns (a diagonal carry, a sequential state), held by identity while
+    the log is open, so that no two runs share a key."""
+
+    def __init__(self):
+        self.keys: list = []
+        self.grids: List[List[list]] = []
+
+    def add(self, key, i: int, cells) -> None:
+        for k, groups in zip(self.keys, self.grids):
+            if k is key:
+                break
+        else:
+            groups = []
+            self.keys.append(key)
+            self.grids.append(groups)
+        while len(groups) <= i:
+            groups.append([])
+        groups[i] = sorted(groups[i] + list(cells))
+
+
+_cell_log: Optional[_CellLog] = None
+
+
+@contextlib.contextmanager
+def recording_cells():
+    """A debug helper: record the (segment, layer) cells that every executor
+    step runs while the block is open. Yields a list with one entry per run
+    (``run_diagonal``'s carry, each resumable pipeline's, a sequential
+    run's state), in the order of its first recorded step: that run's
+    groups, group i the cells its step i ran, ordered as
+    ``diagonal_groups`` orders them. A diagonal band step's cells are read
+    from the outputs it wrote (slot l at step i is segment i - l); the
+    sequential executor's step s * L + l is its one cell (s, l).
+    ``validate_schedule`` and ``is_minimal`` take the groups as they are."""
+    global _cell_log
+    outer, _cell_log = _cell_log, _CellLog()
+    try:
+        yield _cell_log.grids
+    finally:
+        _cell_log = outer
+
+
+def record_step(key, i: int, cells) -> None:
+    """Step i of the run keyed by ``key`` ran ``cells`` (an iterable, read
+    only while ``recording_cells`` is open; a no-op otherwise)."""
+    if _cell_log is not None:
+        _cell_log.add(key, i, cells)
 
 
 def n_diagonal_groups(n_segments: int, n_layers: int) -> int:
@@ -48,6 +142,12 @@ def segments_entered(step: int, n_segments: int, n_layers: int) -> int:
     enters at group s), clipped to the grid."""
     del n_layers
     return max(0, min(step, n_segments))
+
+
+def groups_remaining(step: int, n_segments: int, n_layers: int) -> int:
+    """Groups left before a suspended pipeline's grid is done; 0 once the
+    cursor has overshot it."""
+    return max(0, n_diagonal_groups(n_segments, n_layers) - step)
 
 
 def group_size(i: int, n_segments: int, n_layers: int) -> int:

@@ -32,6 +32,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.memory import RECURRENT_KEYS
+from repro_torch.core.schedule import record_step
 
 # apply_block(btype, layer_params, x, layer_state) -> (y, new_layer_state)
 ApplyBlock = Callable[[str, Any, torch.Tensor, Any], tuple]
@@ -133,14 +134,18 @@ def run_sequential_(layout, params: Dict, state: Dict, segments, apply_block: Ap
     params/state: {'prelude': tuple of per-layer trees, 'pattern': tuple of
     trees stacked over n_super on dim 0}."""
     ys = []
+    L, n_pre, P = layout.n_layers, len(layout.prelude), len(layout.pattern)
     for s, x in enumerate(segments):
         for j, t in enumerate(layout.prelude):
             x = apply_layer_(apply_block, t, params["prelude"][j], x, state["prelude"][j],
                              row_mask)
+            record_step(state, s * L + j, ((s, j),))
         for j in range(layout.n_super):
             for p, t in enumerate(layout.pattern):
                 x = apply_layer_(apply_block, t, layer_slice(params["pattern"][p], j), x,
                                  layer_slice(state["pattern"][p], j), row_mask)
+                l = n_pre + j * P + p
+                record_step(state, s * L + l, ((s, l),))
         ys.append(x)
         if capture is not None:
             capture_write_(capture, state, s)

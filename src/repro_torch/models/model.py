@@ -23,6 +23,7 @@ layers first, as the reference does.
 from __future__ import annotations
 
 from collections import OrderedDict
+from dataclasses import replace
 from typing import Dict, Optional
 
 import torch
@@ -77,7 +78,10 @@ def _normal(shape, scale, gen, device, dtype):
     expert at a time), so the generator's device holds one such fp32 draw,
     not the stack's; on the CPU the values equal one draw of the whole
     stack wherever each draw's size is a multiple of 16 (the CPU
-    generator's block)."""
+    generator's block). On the meta device nothing is drawn: the leaf has
+    its shape and dtype and no storage (``param_specs``)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     if len(shape) < 3:
         return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(
             device=device, dtype=dtype)
@@ -188,6 +192,18 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *, device=None) -> 
         params["enc"] = {"blocks": block("enc", e.n_layers), "final_norm": norm_w(),
                          "pos": nrm((e.n_frames, D), 0.02)}
     return params
+
+
+def param_specs(cfg: ArchConfig, dtype=None) -> Dict:
+    """The parameter tree's shapes and dtypes without allocation:
+    ``init_params`` on the meta device (a 1 T-parameter config costs no
+    memory). dtype: the weights' dtype in place of ``cfg.dtype`` (a torch
+    dtype or its name), the reference's keyword; the fp32 leaves stay
+    fp32."""
+    if dtype is not None:
+        name = dtype if isinstance(dtype, str) else {v: k for k, v in DTYPES.items()}[dtype]
+        cfg = replace(cfg, dtype=name)
+    return init_params(cfg, 0, device="meta")
 
 
 def init_state(cfg: ArchConfig, batch: int, device, dtype=None,
@@ -601,6 +617,15 @@ def decode_state_init(cfg: ArchConfig, batch: int, *, dtype, device,
     state["pos"] = (torch.zeros(batch, dtype=torch.long, device=device)
                     if per_slot_pos else 0)
     return state
+
+
+def decode_state_shapes(cfg: ArchConfig, batch: int, *, serve_mode: str, max_len: int,
+                        dtype, per_slot_pos: bool = False) -> Dict:
+    """A decode state's shapes and dtypes without allocation:
+    ``decode_state_init`` on the meta device (``pos`` a host int, or an
+    int64 [batch] meta tensor with per_slot_pos)."""
+    return decode_state_init(cfg, batch, dtype=dtype, device="meta", serve_mode=serve_mode,
+                             max_len=max_len, per_slot_pos=per_slot_pos)
 
 
 def make_decode_apply(cfg: ArchConfig, serve_mode: str, pos, mask=None):

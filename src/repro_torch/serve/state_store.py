@@ -45,6 +45,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.utils import tree_bytes
+
 __all__ = ["SegmentSnapshot", "SessionEntry", "SessionEvicted", "StoreStats",
            "PrefixCache", "SessionStore", "prefix_hash_chain", "tree_nbytes"]
 
@@ -75,11 +77,8 @@ def _unflatten(spec, leaves):
     return leaves[spec]
 
 
-def tree_nbytes(tree: Any) -> int:
-    """Bytes of the tensor leaves of a tree, from shapes and dtypes only
-    (other leaves, such as a host int position, count nothing)."""
-    return sum(t.numel() * t.element_size() for t in _leaves(tree)
-               if isinstance(t, torch.Tensor))
+# the port's one byte counter, under the name the stores have used
+tree_nbytes = tree_bytes
 
 
 def prefix_hash_chain(tokens, seg_len: int) -> List[bytes]:

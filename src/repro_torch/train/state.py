@@ -31,6 +31,12 @@ def init_train_state(cfg: ArchConfig, ocfg: OptimConfig, generator, device=None)
     return {"params": params, "opt": adamw_init(params, ocfg)}
 
 
+def train_state_specs(cfg: ArchConfig, ocfg: OptimConfig) -> Dict:
+    """The train state's shapes and dtypes without allocation:
+    ``init_train_state`` on the meta device."""
+    return init_train_state(cfg, ocfg, 0, device="meta")
+
+
 def make_train_step(cfg: ArchConfig, ocfg: OptimConfig, *, schedule: str = "auto",
                     mode: str = "segmented", microbatches: int = 1,
                     skip_nonfinite: bool = True, fused: bool = True):

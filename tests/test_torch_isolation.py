@@ -26,6 +26,8 @@ def test_port_imports_without_jax_or_reference():
             "import repro_torch.models.model, repro_torch.configs.whisper_medium\n"
             "import repro_torch.train, repro_torch.optim, repro_torch.data\n"
             "import repro_torch.launch.train, repro_torch.core.rmt\n"
+            "import repro_torch.launch.serve, repro_torch.roofline.model_math\n"
+            "import repro_torch.utils\n"
             "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
             " if sys.modules[m] is not None)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -37,7 +39,9 @@ def test_port_imports_without_jax_or_reference():
 
 def test_no_source_names_jax_or_the_reference():
     files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-             + sorted((ROOT / "tools").glob("*.py")))
+             + sorted((ROOT / "tools").glob("*.py"))
+             + sorted((ROOT / "examples").glob("torch_*.py")))
+    assert len(list((ROOT / "examples").glob("torch_*.py"))) == 4
     assert len(files) > 10
     offenders = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
                  for f in files
@@ -85,3 +89,15 @@ def test_entry_points_default_to_the_card():
         train_loop(cfg, OptimConfig(), lm_stream(cfg.vocab, 1, 16), steps=1)
     assert init_train_state(cfg, OptimConfig(), 0, device="cpu")["params"]["embed"].device.type \
         == "cpu"
+    # the serve CLI: the card unless --device cpu is given
+    from repro_torch.launch import serve as launch_serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_serve.main(["--arch", "llama-1b-armt", "--smoke"])
+    # and the port's examples
+    import importlib.util
+    for path in sorted((ROOT / "examples").glob("torch_*.py")):
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main([])

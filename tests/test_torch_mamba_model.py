@@ -31,6 +31,17 @@ ARCH = "falcon-mamba-7b"
 RTOL, ATOL = 1e-4, 5e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's small CPU ops: the suite runs in
+    parallel workers, and the default pool of every worker oversubscribes
+    the machine's cores. The count before is restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

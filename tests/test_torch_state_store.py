@@ -25,7 +25,6 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import get_smoke_config as j_smoke  # noqa: E402
-from repro.core.memory import recurrent_state  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.serve import PrefixCache as JPrefixCache  # noqa: E402
 from repro.serve import ServeEngine as JEngine  # noqa: E402
@@ -36,6 +35,7 @@ from repro.serve.scheduler import RequestError as JRequestError  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_smoke_config as t_smoke  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.core.memory import recurrent_state as t_recurrent_state  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.serve import (PrefixCache, Request, RequestError, ServeEngine,  # noqa: E402
                                SessionEvicted, SessionStore, prefix_hash_chain)
@@ -44,6 +44,17 @@ ARCH = "llama-1b-armt"
 # fp32 both sides (as tests/test_torch_serve.py)
 ATOL, RTOL = 1e-4, 1e-3
 MAX_LEN = 256
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's small CPU ops: the suite runs in
+    parallel workers, and the default pool of every worker oversubscribes
+    the machine's cores. The count before is restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 _MODELS = {}
@@ -667,10 +678,15 @@ def test_falcon_prefix_cache_needs_the_models_segment(tmp_path):
     prompt = _toks(128 + 5, seed=90)
     jeng.generate(jnp.asarray(prompt[None]), 2)
     n, snap = jeng.prefix_cache.match(prompt[:64])
-    _, fin64 = jmodel.forward_hidden(jp, jc, jnp.asarray(prompt[None, :64]))
+    # the state after 64 tokens, from the port's plain sequential forward on
+    # the same weights (tests/test_torch_mamba_model.py holds it to the
+    # reference's within 1e-4)
+    with torch.no_grad():
+        _, fin64 = tmodel.forward_hidden(tp, tc, torch.from_numpy(prompt[None, :64]).long(),
+                                         schedule="sequential", fused=False)
     assert n == 1
-    assert not all(np.allclose(np.asarray(a), np.asarray(b), atol=1e-4)
-                   for a, b in zip(_leaves(recurrent_state(fin64)), _leaves(snap.state)))
+    assert not all(np.allclose(a.numpy(), np.asarray(b), atol=1e-4)
+                   for a, b in zip(_leaves(t_recurrent_state(fin64)), _leaves(snap.state)))
     # at the model's segment the hits are the cold run's, in both packages
     seg = 1024
     jeng = _jengine(jp, jc, max_len=seg, prefix_cache=JPrefixCache(seg))
