@@ -360,6 +360,29 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       diagonal prefill ran Lemma 3.1's schedule (its recorded cells pass
       ``validate_schedule`` and ``is_minimal``). Each run's wall time, TTFT
       and tok/s; a ``{"cli": ...}`` line;
+  (y) after (x): the kernel dispatch and the autotuner
+      (``kernels/dispatch.py``, ``kernels/autotune.py``) at llama-1b-armt's
+      band (G = 16, B = 1, T = 1,152) and decode (4 slots) shapes and
+      falcon-mamba-7b's scan shapes, the cases of
+      ``tools/tune_kernels.py``'s ``path_cases``: (y1) with an empty
+      cache ``resolve`` gives each op the heuristic (each kernel's own
+      rule: ``choose_bn``'s BN, the scan's block, ``head_groups``), and
+      the resolved call equals the rule's config passed explicitly, to
+      the bit; (y2) ``Autotuner.get_or_tune`` in a cache file of the run:
+      every stored winner within tolerance of the plain version (fp32
+      copies) and equal to the heuristic to the bit, a second call sweeps
+      nothing and counts one cache hit, a reload serves the cache; (y3)
+      a 16-segment diagonal prefill and a 64-token generate at B = 4
+      under the tuned cache, and under a forced cache that holds, for
+      every key with a choice, the fastest validated candidate other than
+      the rule's pick (so that these runs launch tiles the heuristic's do
+      not; each key resolves to it), equal the heuristic's to the bit,
+      with ``kernel_dispatch_total`` showing the cache as the source; each
+      candidate's device time, each winner, the counters, the prefill's
+      and a decode step's host time beside (x1)'s; a ``{"dispatch": ...}``
+      line. The script points the dispatch cache at a fresh file of its
+      run before any phase, so a cache left on the machine changes
+      nothing; every phase but (y) reads it empty;
   (p4) after (h): a falcon-mamba-7b session (2 x 8192 + 1000 tokens, then
       500), spilled and restored against kept in memory to the bit (h and
       the bf16 conv tail), resume TTFT against re-prefilling the history
@@ -379,7 +402,7 @@ same under graphs as eager): every llama kernel must have been launched
 in (d), every one but armt_update (which runs only at B > 1) in (e), in
 (o)'s interleaved serve runs (``serve_interleaved``) and in the
 prefix-cache (p1-p2) and session (p3) runs (``prefix_cache``,
-``sessions``) and in (r) (``dense_configs``), every one in (s)
+``sessions``), in (y3)'s runs (``dispatch``) and in (r) (``dense_configs``), every one in (s)
 (``moe_configs``: armt_update through the MoE cell at B = 1, the fused
 update through kimi's dense prelude layer) and in (t) (``jamba``, with
 mamba_scan) and in (u) (``whisper``), the GEMM, flash, armt_read and
@@ -408,12 +431,14 @@ non-zero before that line; without a CUDA device it exits 2.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import math
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -498,6 +523,16 @@ def main() -> int:
     from repro_torch.models import model as M
     from repro_torch.serve import (ContinuousScheduler, MetricsRegistry, Request, RequestError,
                                    ServeEngine, Telemetry)
+    from repro_torch.kernels import dispatch
+
+    # the dispatch cache: a fresh directory of this run, so that a cache left
+    # on the machine cannot change what any phase runs; every phase but (y)
+    # reads an empty one (the heuristic: each kernel's own rule)
+    (ROOT / "build").mkdir(exist_ok=True)
+    cache_dir = Path(tempfile.mkdtemp(prefix="dispatch_cache_", dir=ROOT / "build"))
+    atexit.register(shutil.rmtree, cache_dir, True)
+    no_cache = str(cache_dir / "empty.json")
+    dispatch.set_cache_path(no_cache)
 
     counters = {"grouped_matmul": (grouped_matmul, "launches"),
                 "flash_attention": (flash_attention, "launches"),
@@ -4702,10 +4737,11 @@ def main() -> int:
             c = scan_case(N, T, dI, dSw, G, torch.bfloat16)
             args = [c[k] for k in names[:7]]
             kw = dict(dt_bias=c["dt_bias"], z=c["z"])
-            y, hT, hs = mamba_scan._mamba_scan(*args, keep=True, **kw)
+            y, hT, hs = mamba_scan._mamba_scan(*args, cfg=dispatch.CUDA, keep=True, **kw)
             gy, gh = rnd_w(*y.shape, dtype=y.dtype), rnd_w(N, dI, dSw, scale=0.1)
-            fwd = time_ms(lambda: mamba_scan._mamba_scan(*args, keep=True, **kw))
-            fwd_plain = time_ms(lambda: mamba_scan._mamba_scan(*args, **kw))
+            fwd = time_ms(lambda: mamba_scan._mamba_scan(*args, cfg=dispatch.CUDA, keep=True,
+                                                         **kw))
+            fwd_plain = time_ms(lambda: mamba_scan._mamba_scan(*args, cfg=dispatch.CUDA, **kw))
             bwd_ms = time_ms(lambda: mamba_scan.mamba_scan_bwd(*args, hs, gy, gh, **kw), iters=5)
             b_ms, b_by = bwd_bound(N, T, dI, dSw)
             times[label] = dict(shape=[N, T, dI, dSw], fwd_ms=fwd, fwd_no_states_ms=fwd_plain,
@@ -5213,6 +5249,232 @@ def main() -> int:
             failures.append(f"(x): {routes_cli[k]['simt']} SIMT {k} launches in bf16")
     print(json.dumps({"cli": cli_row, "card": smi}))
 
+    def dispatch_phase():
+        """(y) the kernel dispatch and the autotuner (``kernels/dispatch.py``,
+        ``kernels/autotune.py``) at llama-1b-armt's band and decode shapes
+        and falcon-mamba-7b's scan shapes (``tools/tune_kernels.py``'s
+        ``path_cases``). Returns (launches of (y3)'s runs, their routes, the
+        results)."""
+        import gc
+        import importlib.util
+
+        from repro_torch.kernels import autotune
+        from repro_torch.serve.telemetry import default_registry
+
+        spec = importlib.util.spec_from_file_location("tune_kernels",
+                                                      ROOT / "tools" / "tune_kernels.py")
+        tune_kernels = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tune_kernels)
+        path_cases = tune_kernels.path_cases
+
+        t_phase = time.perf_counter()
+        log("== (y) kernel dispatch and autotune: llama-1b-armt's band (G=16, B=1, T=1152) "
+            "and decode (4 slots) shapes, falcon-mamba-7b's scan (band and decode), bf16")
+        row = {"cases": []}
+        launches, routes = {}, {}
+        yrng = np.random.default_rng(SEED)
+        reg = MetricsRegistry()
+        dreg = default_registry()
+        tuned_path = str(cache_dir / "tuned.json")
+        dispatch.set_cache_path(tuned_path)
+        tuner = autotune.Autotuner(registry=reg)
+        tuned = []          # (op, key shapes, dtype) of every stored winner
+        forced = []         # (arch, op, key, key shapes, dtype, config, rule): (y3)'s non-rule
+
+        def held(name, ok, detail=""):
+            row[name] = bool(ok)
+            log(f"  {name}: {detail}-> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"(y) {name}")
+
+        def total(name):
+            return sum(v for k, v in reg.counters.items() if k.startswith(name + "{"))
+
+        def blocks(c):
+            return c.blocks(*dispatch.BLOCK_FIELDS) or "one config"
+
+        y1_ok = y2_ok = True
+        lcfg, fcfg_y = get_config("llama-1b-armt"), get_config("falcon-mamba-7b")
+        for c in (lcfg, fcfg_y):
+            for op, label, args, kw in path_cases(c, dev, seed=SEED):
+                shapes = autotune.key_shapes(op, args)
+                # (y1) an empty cache: the heuristic, each kernel's own rule
+                dispatch.set_cache_path(no_cache)
+                resolved = dispatch.resolve(op, shapes, args[0].dtype, device=dev)
+                rule = dispatch.rule_config(op, shapes)
+                base = autotune.run_op(op, args, None, **kw)
+                same = autotune.same_bits(base, autotune.run_op(op, args, rule, **kw))
+                ok1 = resolved == dispatch.CUDA and same and (
+                    rule.block_n in (128, 256) if op in ("grouped_matmul", "armt_read",
+                                                         "grouped_matmul_armt_update")
+                    else rule.block_i in (64, 256) if op == "mamba_scan" else True)
+                y1_ok &= ok1
+                # (y2) tuned into the run's cache file, then warm
+                dispatch.set_cache_path(tuned_path)
+                key = tuner.key_for(op, args)
+                cached = dispatch.cached_config(key) is not None   # an earlier case's key
+                winner = tuner.get_or_tune(op, args, op_kwargs=kw)
+                rec = None if cached else tuner.results.get(key)
+                sweeps, hits = total("autotune_sweep_total"), total("autotune_cache_hit_total")
+                again = tuner.get_or_tune(op, args, op_kwargs=kw)
+                warm = (again == winner and total("autotune_sweep_total") == sweeps
+                        and total("autotune_cache_hit_total") == hits + 1)
+                stored = dispatch.cached_config(key)
+                valid = stored is None or tuner.validate(op, args, stored, op_kwargs=kw)
+                ok2 = warm and valid and winner.impl == "cuda"
+                y2_ok &= ok2
+                if stored is not None and rec is not None:
+                    tuned.append((op, shapes, args[0].dtype))
+                # what the cache holds: the winner, each block equal to the
+                # rule's pick at this shape stored as 0 (the rule)
+                held_s = winner.blocks(*dispatch.BLOCK_FIELDS) or "the rule"
+                case = dict(arch=c.name, op=op, label=label, key=key, rule=blocks(rule),
+                            winner=blocks(rec["winner"]) if rec and rec["winner"] else None,
+                            stored=held_s, heuristic_bits=same, swept=rec is not None)
+                if rec is not None and rec["winner"] is not None:
+                    # (y3)'s forced entry: the fastest validated candidate
+                    # other than the rule's pick, so that the end-to-end
+                    # runs launch tiles that the heuristic's runs do not
+                    alt = next((cd for cd, _ in rec["ranked"] if cd != rule), None)
+                    if alt is not None:
+                        alt_ok = alt == rec["winner"] or tuner.validate(op, args, alt,
+                                                                        op_kwargs=kw)
+                        case["forced"] = blocks(alt) if alt_ok else f"{blocks(alt)} rejected"
+                        log(f"  {c.name} {op} [{label}]: non-rule {blocks(alt)} for (y3) "
+                            f"{'validated' if alt_ok else 'REJECTED by validate'}")
+                        if alt_ok:
+                            forced.append((c.name, op, key, shapes, args[0].dtype, alt, rule))
+                if rec is not None:
+                    case.update(ms={str(blocks(cd)): t * 1e3 for cd, t in rec["ranked"]},
+                                rejected=[str(blocks(cd)) for cd in rec["rejected"]],
+                                dropped=[str(blocks(cd)) for cd in rec["dropped"]])
+                    times = "  ".join(f"{blocks(cd)} {t * 1e3:.4f} ms" for cd, t in rec["ranked"])
+                    differs = (rec["winner"] is not None and blocks(rec["winner"]) != blocks(rule)
+                               and len(rec["ranked"]) > 1)
+                    log(f"  {c.name} {op} [{label}] {key}: {times}; rule {blocks(rule)}, winner "
+                        f"{case['winner']}{' (differs from the rule)' if differs else ''}, "
+                        f"stored {held_s}; "
+                        f"rejected {case['rejected']}, dropped {case['dropped']}; resolved = "
+                        f"rule to the bit {same}; warm again {warm}, stored winner "
+                        f"re-validated {valid} -> {'ok' if ok1 and ok2 else 'FAIL'} ({smi})")
+                else:
+                    log(f"  {c.name} {op} [{label}] {key}: cache hit {held_s}; resolved = "
+                        f"rule {blocks(rule)} to the bit {same}; warm again {warm} -> "
+                        f"{'ok' if ok1 and ok2 else 'FAIL'}")
+                row["cases"].append(case)
+                del args, kw, base
+                torch.cuda.empty_cache()
+        held("y1 the heuristic is each kernel's own rule, resolved = explicit to the bit", y1_ok)
+        held("y2 every winner validated, a warm cache sweeps nothing", y2_ok and bool(tuned),
+             f"{len(tuned)} winners stored ")
+        # a reload of the file: resolve reads the cache
+        dispatch.set_cache_path(tuned_path)
+        dreg.remove_series("kernel_dispatch_total")
+        for op, shapes, dtype in tuned:
+            dispatch.resolve(op, shapes, dtype, device=dev)
+        from_cache = {k for k in dreg.counters if k.startswith("kernel_dispatch_total{")
+                      and "source=cache" in k}
+        held("y2 after a reload resolve reads the cache",
+             {op for op, _, _ in tuned} == {k.split("op=")[1].split(",")[0] for k in from_cache})
+        counters = {k: v for k, v in reg.counters.items() if k.startswith("autotune_")}
+        log("  counters: " + ", ".join(f"{k} {v:g}" for k, v in sorted(counters.items())))
+        row["counters"] = counters
+        # (y3)'s forced cache: every key with a validated non-rule candidate
+        # holds it, and resolves to it, not to the rule's pick
+        forced_path = str(cache_dir / "forced.json")
+        dispatch.set_cache_path(forced_path)
+        for _, op, key, _, _, alt, _ in forced:
+            dispatch.store_config(key, alt)
+        force_ok = all(dispatch.resolve(op, shapes, dt, device=dev) == alt != rule
+                       for _, op, _, shapes, dt, alt, rule in forced)
+        forced_llama = {op for name, op, *_ in forced if name == lcfg.name}
+        choice_ops = {"grouped_matmul", "grouped_matmul_armt_update", "armt_read",
+                      "decode_attention"}
+        held("y3 the forced cache resolves every op with a choice to a validated non-rule "
+             "config", force_ok and forced_llama == choice_ops,
+             f"{len(forced)} keys forced, llama's ops {sorted(forced_llama)} ")
+
+        # (y3) end to end under the tuned cache against the heuristic
+        seg = lcfg.armt.segment_len
+        params = M.init_params(lcfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        toks = torch.from_numpy(yrng.integers(0, lcfg.vocab, (1, 16 * seg))).to(dev)
+        prompts = yrng.integers(0, lcfg.vocab, (4, 2 * seg + 100))
+
+        def run(path):
+            nonlocal launches, routes
+            dispatch.set_cache_path(path)
+            M.SegmentProgram._cache.clear()
+            dreg.remove_series("kernel_dispatch_total")
+            reset_counts()
+            for _ in range(2):      # the second timed: the first warms the allocator
+                t0 = time.perf_counter()
+                h, fin = M.forward_hidden(params, lcfg, toks, schedule="diagonal")
+                sync()
+                prefill_s = time.perf_counter() - t0
+            eng = ServeEngine(params, lcfg, max_len=2 * seg + 100 + 64)
+            res = eng.generate(prompts, 64, keep=True)
+            sync()
+            launches = merged(launches, read_counts())
+            routes = merged(routes, read_routes())
+            step = step_times(eng.program(4), False)
+            sources = {k: v for k, v in dreg.counters.items()
+                       if k.startswith("kernel_dispatch_total{")}
+            out = dict(h=h, last=M.last_logits(params, lcfg, h), fin=fin, res=res,
+                       prefill_s=prefill_s, step=step, sources=sources)
+            del eng
+            return out
+
+        def same_as(a, b):
+            return {"hidden": same_bits(a["h"], b["h"]),
+                    "last logits": same_bits(a["last"], b["last"]),
+                    "final A, z": all(same_bits(x[k], y[k]) for x, y in zip(
+                        a["fin"]["pattern"], b["fin"]["pattern"]) for k in ("A", "z")),
+                    "tokens": bool(np.array_equal(a["res"].tokens, b["res"].tokens)),
+                    "every step's logits": same_bits(a["res"].logits, b["res"].logits),
+                    "final decode state": same_state(a["res"].state, b["res"].state)}
+
+        def cached_ops(r):
+            return {k.split("op=")[1].split(",")[0] for k in r["sources"] if "source=cache" in k}
+
+        heur, tun, frc = run(no_cache), run(tuned_path), run(forced_path)
+        for label, r, want_ops in (
+                ("tuned", tun, {op for op, _, _ in tuned} & (choice_ops | {"flash_attention"})),
+                ("forced non-rule", frc, forced_llama)):
+            same = same_as(heur, r)
+            held(f"y3 {label} = heuristic to the bit (16-segment diagonal prefill, 64-token "
+                 "generate at B = 4)", all(same.values()), f"{same} ")
+            held(f"y3 {label}: kernel_dispatch_total shows the cache as the source",
+                 want_ops <= cached_ops(r), f"ops read from the cache {sorted(cached_ops(r))} ")
+        held("y3 the heuristic's runs read no cache",
+             not any("source=cache" in k for k in heur["sources"]))
+        for name in llama_kernels:
+            if launches.get(name, 0) == 0:
+                failures.append(f"{name} never launched by (y3)'s runs")
+        x1 = cli_row["x1 diagonal"]
+        for label, r in (("heuristic", heur), ("tuned", tun), ("forced", frc)):
+            row[f"y3 {label}"] = dict(prefill_s=r["prefill_s"], step_span_ms=r["step"]["span_ms"],
+                                      step_device_ms=r["step"]["device_ms"])
+            log(f"  y3 {label}: 16-segment diagonal prefill (B = 1, 16,384 tokens; its second "
+                f"run) host {r['prefill_s']:.4f} s; decode step at B = 4 host span "
+                f"{r['step']['span_ms']:.3f} ms, device {r['step']['device_ms']:.3f} ms; "
+                f"dispatch {r['sources']}")
+        log(f"  beside (x1) (the CLI, 16,384 + 64 tokens at B = 1): TTFT {x1['ttft_s']:.4f} s, "
+            f"decode {x1['tok_s']:.1f} tok/s ({1e3 / x1['tok_s']:.3f} ms a token); card {smi}")
+        del params, heur, tun, frc
+        dispatch.set_cache_path(no_cache)      # the later phases: the heuristic
+        M.SegmentProgram._cache.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["phase_s"] = time.perf_counter() - t_phase
+        log(f"  (y) phase {row['phase_s']:.1f} s; card {smi}")
+        return launches, routes, row
+
+    launches_dispatch, routes_dispatch, dispatch_row = dispatch_phase()
+    for k in routed:
+        if routes_dispatch[k]["simt"]:
+            failures.append(f"(y): {routes_dispatch[k]['simt']} SIMT {k} launches in bf16")
+    print(json.dumps({"dispatch": dispatch_row, "card": smi}))
+
     # ------------------------------------------------------------ (f) falcon-mamba model
     log("== model phase: falcon-mamba-7b, full width and depth, bf16, seed 0 on the card")
     fcfg = get_config("falcon-mamba-7b")
@@ -5569,14 +5831,15 @@ def main() -> int:
                    "dense_configs": launches_dense, "moe_configs": launches_moe,
                    "jamba": launches_jamba, "whisper": launches_whisper,
                    "train": launches_train, "train_families": launches_families,
-                   "cli": launches_cli}
+                   "cli": launches_cli, "dispatch": launches_dispatch}
     llama_routes = {"generate": routes_gen, "serve": routes_serve, "full_forward": routes_full,
                     "cache_generate": routes_cgen, "cache_serve": routes_cserve,
                     "serve_interleaved": routes_inter, "prefix_cache": routes_prefix,
                     "sessions": routes_sess, "dense_configs": routes_dense,
                     "moe_configs": routes_moe, "jamba": routes_jamba,
                     "whisper": routes_whisper, "train": routes_train,
-                    "train_families": routes_families, "cli": routes_cli}
+                    "train_families": routes_families, "cli": routes_cli,
+                    "dispatch": routes_dispatch}
     # falcon-mamba has no prefix-cache run (its engine refuses a cache at
     # max_len 8192: its seg_len is max_len, not the model's segment), so
     # mamba_scan has no launches_prefix_cache; jamba's (t) runs every

@@ -12,5 +12,7 @@ their plain PyTorch versions.
 
 ``ops`` holds the entry points the model calls, ``ref`` the plain
 versions, ``build`` compiles ``csrc/*.cu`` at first use; ``swap`` replaces
-ops entry points inside a block, for checks on the card.
+ops entry points inside a block, for checks on the card. ``dispatch``
+picks each wrapper call's implementation and tuning config (override,
+autotune cache, each kernel's own rule); ``autotune`` fills that cache.
 """

@@ -17,6 +17,10 @@ call counts as one launch.
 ``armt_update`` writes new A'/z' buffers and never updates A/z in place:
 its blocks read A while others write A'.
 
+Both take their config from ``kernels/dispatch.py``: armt_read's
+``block_n`` is its bf16 product's column tile on the GEMM mainloop (128,
+256; 0 ``choose_bn``'s pick); armt_update has one config.
+
 Under gradients both run through autograd Functions (``ArmtReadFn``,
 ``ArmtUpdateFn``): the kernels forward, and backwards in PyTorch ops
 (``kernels/grad.py``), in fp32 from the operands.
@@ -27,7 +31,7 @@ import sys
 
 import torch
 
-from repro_torch.kernels import build, grad
+from repro_torch.kernels import build, dispatch, grad
 from repro_torch.kernels.grad import needs_grad
 from repro_torch.kernels.grouped_matmul import project_f32
 from repro_torch.kernels.ref import armt_read_ref as armt_read_plain
@@ -70,14 +74,16 @@ def _check_state(A, z, N: int, P: int, name: str):
         raise ValueError(f"{name}: A/z must be contiguous")
 
 
-def armt_read(x, wq, A, z, *, nu: int = 3):
+def armt_read(x, wq, A, z, *, nu: int = 3, config=None, use_kernel=None):
     """x: [N,T,D]; wq: [D,dm] or [G,D,dm]; A: [N,P,Dv]; z: [N,P] ->
     [N,T,Dv] in x.dtype. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises. With gradients on and an operand
-    that requires one, the call goes through ``ArmtReadFn``."""
+    tensor launches the kernel or raises (``use_kernel=False`` takes the
+    plain version there). With gradients on and an operand that requires
+    one, the call goes through ``ArmtReadFn``."""
+    cfg = dispatch.config_for("armt_read", (x.shape, A.shape), x, config, use_kernel)
     if needs_grad(x, wq, A, z):
-        return ArmtReadFn.apply(x, wq, A, z, nu)
-    return _armt_read(x, wq, A, z, nu=nu)
+        return ArmtReadFn.apply(x, wq, A, z, nu, cfg)
+    return _armt_read(x, wq, A, z, nu=nu, cfg=cfg)
 
 
 class ArmtReadFn(torch.autograd.Function):
@@ -86,21 +92,21 @@ class ArmtReadFn(torch.autograd.Function):
     (q, phi(q), num and den recomputed in fp32)."""
 
     @staticmethod
-    def forward(ctx, x, wq, A, z, nu):
+    def forward(ctx, x, wq, A, z, nu, cfg):
         ctx.nu = nu
         ctx.save_for_backward(x, wq, A, z)
-        return _armt_read(x, wq, A, z, nu=nu)
+        return _armt_read(x, wq, A, z, nu=nu, cfg=cfg)
 
     @staticmethod
     def backward(ctx, g):
-        return grad.armt_read_bwd(*ctx.saved_tensors, g, nu=ctx.nu) + (None,)
+        return grad.armt_read_bwd(*ctx.saved_tensors, g, nu=ctx.nu) + (None, None)
 
 
-def _armt_read(x, wq, A, z, *, nu: int):
-    if x.device.type == "cpu":
+def _armt_read(x, wq, A, z, *, nu: int, cfg):
+    if cfg.impl == "plain":
         return armt_read_plain(x, wq, A, z, nu=nu)
     if x.device.type != "cuda":
-        raise ValueError(f"armt_read: unsupported device {x.device}")
+        raise ValueError(f"armt_read: the CUDA kernels need a CUDA tensor, got {x.device}")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"armt_read: x {tuple(x.shape)} must be contiguous 3-D")
     N, T, D = x.shape
@@ -137,7 +143,7 @@ def _armt_read(x, wq, A, z, *, nu: int):
         N, T, dm, P, Dv, sp, sw, stream), "armt_read")
     build.check(lib.armt_read_gemm_launch(
         phi.data_ptr(), W.data_ptr(), den.data_ptr(), out.data_ptr(), N, T, P, Dv, sp, sw,
-        stream), "armt_read")
+        cfg.block_n, stream), "armt_read")
     return out
 
 
@@ -192,15 +198,17 @@ def launch_update(m, wk, wv, wb, A, z, dims):
     return A_out, z_out, True
 
 
-def armt_update(m, wk, wv, wb, A, z, *, nu: int = 3):
+def armt_update(m, wk, wv, wb, A, z, *, nu: int = 3, config=None, use_kernel=None):
     """m: [N,M,D] (rows may be strided; the last dim contiguous); wk/wv/wb:
     [D,*] or [G,D,*]; A: [N,P,Dv]; z: [N,P] -> (A', z') in new buffers.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernels
-    or raises. With gradients on and an operand that requires one, the call
-    goes through ``ArmtUpdateFn``."""
+    or raises (``use_kernel=False`` takes the plain version there). With
+    gradients on and an operand that requires one, the call goes through
+    ``ArmtUpdateFn``."""
+    cfg = dispatch.config_for("armt_update", (m.shape, A.shape), m, config, use_kernel)
     if needs_grad(m, wk, wv, wb, A, z):
-        return ArmtUpdateFn.apply(m, wk, wv, wb, A, z, nu)
-    return _armt_update(m, wk, wv, wb, A, z, nu=nu)
+        return ArmtUpdateFn.apply(m, wk, wv, wb, A, z, nu, cfg)
+    return _armt_update(m, wk, wv, wb, A, z, nu=nu, cfg=cfg)
 
 
 class ArmtUpdateFn(torch.autograd.Function):
@@ -209,22 +217,22 @@ class ArmtUpdateFn(torch.autograd.Function):
     (k, v, beta, phi(k), vbar and gamma recomputed in fp32)."""
 
     @staticmethod
-    def forward(ctx, m, wk, wv, wb, A, z, nu):
+    def forward(ctx, m, wk, wv, wb, A, z, nu, cfg):
         ctx.nu = nu
         ctx.save_for_backward(m, wk, wv, wb, A, z)
-        return _armt_update(m, wk, wv, wb, A, z, nu=nu)
+        return _armt_update(m, wk, wv, wb, A, z, nu=nu, cfg=cfg)
 
     @staticmethod
     def backward(ctx, gA, gz):
-        return grad.armt_update_bwd(*ctx.saved_tensors, gA, gz, nu=ctx.nu) + (None,)
+        return grad.armt_update_bwd(*ctx.saved_tensors, gA, gz, nu=ctx.nu) + (None, None)
 
 
-def _armt_update(m, wk, wv, wb, A, z, *, nu: int):
+def _armt_update(m, wk, wv, wb, A, z, *, nu: int, cfg):
     global update_launches
-    if m.device.type == "cpu":
+    if cfg.impl == "plain":
         return armt_update_plain(m, wk, wv, wb, A, z, nu=nu)
     if m.device.type != "cuda":
-        raise ValueError(f"armt_update: unsupported device {m.device}")
+        raise ValueError(f"armt_update: the CUDA kernels need a CUDA tensor, got {m.device}")
     A_out, z_out, launched = launch_update(
         m, wk, wv, wb, A, z, check_update(m, wk, wv, wb, A, z, nu=nu))
     if launched:

@@ -34,14 +34,18 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
-# C signatures of the entry points (all return cudaError_t as int)
+# C signatures of the entry points (the launches return cudaError_t as int,
+# the two queries the choice they were asked for)
 SIGNATURES = {
     # x, w, bias, res, out, G, R, K, N, x group and row strides, res group
     # and row strides, weight batch, layer index (int32 [G] or null),
     # weight groups (w's leading dim), dtype (0 f32, 1 bf16), out_f32, act
-    # (0 none, 1 silu, 2 gelu), route (1 TMA + wgmma, 0 SIMT), stream
+    # (0 none, 1 silu, 2 gelu), route (1 TMA + wgmma, 0 SIMT), BN (128, 256,
+    # 0: choose_bn's), stream
     "gmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
-                   _I, _P, _I, _I, _I, _I, _I, _P],
+                   _I, _P, _I, _I, _I, _I, _I, _I, _P],
+    # a query, not a launch: choose_bn's BN for G, R, N, out_f32, read
+    "gmm_choose_bn": [_I, _I, _I, _I, _I],
     # q, k, v, out, N, Hq, Hkv, T, S, hd, q strides (n, h, t),
     # k strides (n, h, s), v strides (n, h, s), causal, window, scale, dtype,
     # route (1 TMA + wgmma, 0 SIMT), stream
@@ -54,8 +58,8 @@ SIGNATURES = {
     # Phi and W row strides, stream
     "armt_read_split_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _P],
     # read, bf16, the three-term product: Phi, W, den, out, N, T, P, Dv,
-    # Phi and W row strides, stream
-    "armt_read_gemm_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _P],
+    # Phi and W row strides, BN (128, 256, 0: choose_bn's), stream
+    "armt_read_gemm_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P],
     # q, k, v, lengths (int32), out, partial o and (m, l) workspaces (fp32),
     # B, Hq, Hkv, S, hd, q strides (b, h), k strides (b, s, h), v strides
     # (b, s, h), window, scale, chunk, splits, q heads a block, dtype, stream
@@ -69,9 +73,12 @@ SIGNATURES = {
     # x, dt, B, C, A_log, D, h0, dt_bias (or null), z (or null), y, hT, the
     # kept states (or null), their chunk, N, T, dI, dS, G, x strides (n, t),
     # dt strides (n, t), B strides (n, t), C strides (n, t), z strides
-    # (n, t), dtype, dt_bias dtype, stream
+    # (n, t), dtype, dt_bias dtype, a block's channels (64, 256, 0: the
+    # kernel's rule), stream
     "mamba_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _P],
+                          _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _P],
+    # a query, not a launch: the block's channels at 0 for N rows of dI
+    "mamba_scan_choose_block": [_I, _I],
     # the scan's backward: x, dt, B, C, A_log, D, dt_bias (or null), z (or
     # null), dy, the kept states, dhT (or null), dx, ddt, dz (or null), the
     # blocks' dB/dC partials, per-row dA_log, dD, d dt_bias (or null), dh0,

@@ -522,11 +522,13 @@ cudaError_t launch_tc_bn(const CUtensorMap& mx, const CUtensorMap& mw, const voi
 }
 
 // The TMA + wgmma route, or cudaErrorInvalidValue where its operands do not
-// allow it (the caller's route() should have sent those to gmm_simt).
+// allow it (the caller's route() should have sent those to gmm_simt). bn:
+// the column tile, 128 or 256, or 0 for choose_bn's.
 template <typename OutT>
 cudaError_t launch_tc(const void* x, const void* w, const void* bias, const void* res,
                       void* out, int G, int R, int K, int N, ll sxg, ll sxr, ll srg, ll srr,
-                      int wbatch, const int* widx, int wgroups, int act, cudaStream_t s) {
+                      int wbatch, const int* widx, int wgroups, int act, int bn,
+                      cudaStream_t s) {
   if (K <= 0 || K % 8 || N % 8 || sxg <= 0 || sxr <= 0 || sxg % 8 || sxr % 8 ||
       !aligned16(x) || !aligned16(w) || !aligned16(out))
     return cudaErrorInvalidValue;
@@ -534,11 +536,14 @@ cudaError_t launch_tc(const void* x, const void* w, const void* bias, const void
   if (!encode_3d(&mx, x, K, R, G, sxr * 2, sxg * 2, TBK, TBM / 2) ||
       !encode_3d(&mw, w, N, K, wgroups, (ll)N * 2, (ll)K * N * 2, 64, TBK))
     return cudaErrorInvalidValue;
-  if (choose_bn(G, R, N, resident_clusters<256, OutT>()) == 256)
+  const int b = bn ? bn : choose_bn(G, R, N, resident_clusters<256, OutT>());
+  if (b == 256)
     return launch_tc_bn<256, OutT>(mx, mw, bias, res, out, G, R, K, N, srg, srr, wbatch, widx,
                                    act, s);
-  return launch_tc_bn<128, OutT>(mx, mw, bias, res, out, G, R, K, N, srg, srr, wbatch, widx,
-                                 act, s);
+  if (b == 128)
+    return launch_tc_bn<128, OutT>(mx, mw, bias, res, out, G, R, K, N, srg, srr, wbatch, widx,
+                                   act, s);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, typename OutT>
@@ -561,11 +566,13 @@ void launch_simt(const void* x, const void* w, const void* bias, const void* res
 // bfloat16 (x, w, bias, res); out_f32: 1 writes fp32, 0 the input dtype.
 // act: 0 none, 1 silu, 2 tanh-gelu (applied before res is added). tc: 1 the
 // TMA + wgmma route (bf16 only; refused with cudaErrorInvalidValue where
-// the operands do not allow it), 0 gmm_simt.
+// the operands do not allow it), 0 gmm_simt. bn: the TMA + wgmma route's
+// column tile, 128 or 256, or 0 for choose_bn's pick (gmm_simt has none).
 extern "C" int gmm_launch(const void* x, const void* w, const void* bias, const void* res,
                           void* out, int G, int R, int K, int N, long long sxg, long long sxr,
                           long long srg, long long srr, int wbatch, const void* layer_index,
-                          int wgroups, int dtype, int out_f32, int act, int tc, void* stream) {
+                          int wgroups, int dtype, int out_f32, int act, int tc, int bn,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* widx = static_cast<const int*>(layer_index);
   if (wbatch < 1 || wgroups < 1 || (widx == nullptr && wgroups * wbatch != G) ||
@@ -575,9 +582,9 @@ extern "C" int gmm_launch(const void* x, const void* w, const void* bias, const 
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(
         out_f32 ? launch_tc<float>(x, w, bias, res, out, G, R, K, N, sxg, sxr, srg, srr, wbatch,
-                                   widx, wgroups, act, s)
+                                   widx, wgroups, act, bn, s)
                 : launch_tc<bf16>(x, w, bias, res, out, G, R, K, N, sxg, sxr, srg, srr, wbatch,
-                                  widx, wgroups, act, s));
+                                  widx, wgroups, act, bn, s));
   }
   if (dtype == 1) {
     if (out_f32)
@@ -600,10 +607,10 @@ extern "C" int gmm_launch(const void* x, const void* w, const void* bias, const 
 // least P and Dv. K runs over the three terms in that order, each term's
 // tiles loaded from its halves (TMA's zero fill past P), which is the
 // order of one K = 3P product of [phi_hi | phi_hi | phi_lo] and [A_hi;
-// A_lo; A_hi].
+// A_lo; A_hi]. bn: the column tile, 128 or 256, or 0 for choose_bn's.
 extern "C" int armt_read_gemm_launch(const void* phi, const void* W, const void* den, void* out,
                                      int N, int T, int P, int Dv, long long sp, long long sw,
-                                     void* stream) {
+                                     int bn, void* stream) {
   if (N <= 0 || T <= 0 || P <= 0 || Dv <= 0 || sp % 8 || sw % 8 || sp < P || sw < Dv ||
       !aligned16(phi) || !aligned16(W) || !aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -613,9 +620,24 @@ extern "C" int armt_read_gemm_launch(const void* phi, const void* W, const void*
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* d = static_cast<const float*>(den);
-  if (choose_bn(N, T, Dv, resident_clusters<256, bf16, true>()) == 256)
+  const int b = bn ? bn : choose_bn(N, T, Dv, resident_clusters<256, bf16, true>());
+  if (b == 256)
     return static_cast<int>(launch_tc_bn<256, bf16, true>(mx, mw, nullptr, nullptr, out, N, T, P,
                                                           Dv, 0, 0, 1, nullptr, 0, s, d));
-  return static_cast<int>(launch_tc_bn<128, bf16, true>(mx, mw, nullptr, nullptr, out, N, T, P,
-                                                        Dv, 0, 0, 1, nullptr, 0, s, d));
+  if (b == 128)
+    return static_cast<int>(launch_tc_bn<128, bf16, true>(mx, mw, nullptr, nullptr, out, N, T, P,
+                                                          Dv, 0, 0, 1, nullptr, 0, s, d));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The column tile choose_bn picks for a TMA + wgmma launch of G groups of R
+// rows and N columns on this card (its resident 2-CTA cluster count read
+// for the kernel the launch would run: out_f32 1 for an fp32 output, read 1
+// for armt_read's product), what gmm_launch and armt_read_gemm_launch run
+// at bn = 0. A query: it launches nothing.
+extern "C" int gmm_choose_bn(int G, int R, int N, int out_f32, int read) {
+  const int clusters = read      ? resident_clusters<256, bf16, true>()
+                       : out_f32 ? resident_clusters<256, float>()
+                                 : resident_clusters<256, bf16>();
+  return choose_bn(G, R, N, clusters);
 }

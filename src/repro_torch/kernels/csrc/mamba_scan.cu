@@ -277,20 +277,28 @@ cudaError_t launch(const ScanArgs& a, int N, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// The block's channels at block = 0: SMALL where 256-channel blocks would
+// leave half the SMs idle, else THREADS.
+int choose_block(int N, int dI) {
+  return 2LL * N * ((dI + THREADS - 1) / THREADS) <= sm_count() ? SMALL : THREADS;
+}
+
 template <typename TX, int DS>
-cudaError_t by_form(const ScanArgs& a, int N, cudaStream_t s) {
-  const bool small = 2LL * N * ((a.dI + THREADS - 1) / THREADS) <= sm_count();
+cudaError_t by_form(const ScanArgs& a, int N, int block, cudaStream_t s) {
+  if (block == 0) block = choose_block(N, a.dI);
+  if (block != SMALL && block != THREADS) return cudaErrorInvalidValue;
+  const bool small = block == SMALL;
   if (a.z != nullptr)
     return small ? launch<SMALL, TX, DS, true>(a, N, s) : launch<THREADS, TX, DS, true>(a, N, s);
   return small ? launch<SMALL, TX, DS, false>(a, N, s) : launch<THREADS, TX, DS, false>(a, N, s);
 }
 
 template <typename TX>
-cudaError_t by_state(int dS, const ScanArgs& a, int N, cudaStream_t s) {
+cudaError_t by_state(int dS, const ScanArgs& a, int N, int block, cudaStream_t s) {
   switch (dS) {
-    case 4: return by_form<TX, 4>(a, N, s);
-    case 8: return by_form<TX, 8>(a, N, s);
-    case 16: return by_form<TX, 16>(a, N, s);
+    case 4: return by_form<TX, 4>(a, N, block, s);
+    case 8: return by_form<TX, 8>(a, N, block, s);
+    case 16: return by_form<TX, 16>(a, N, block, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -312,7 +320,8 @@ bool rows16(const void* p, ll sn, ll st, int dI, int es) {
 // y [N,T,dI] contiguous, in x's dtype when fused, else fp32; hT [N,dI,dS]
 // fp32 contiguous; hs (or null) [N, ceil(T / chunk), dI, dS] fp32 takes the
 // state before every chunk-th token (chunk a multiple of 16). Needs N % G
-// == 0 and dS in {4, 8, 16}.
+// == 0 and dS in {4, 8, 16}. block: a block's channels, 64 or 256, or 0 for
+// choose_block's pick (the same bits: a channel's scan is one thread's).
 extern "C" int mamba_scan_launch(const void* x, const void* dt, const void* B, const void* C,
                                  const void* A_log, const void* D, const void* h0,
                                  const void* dt_bias, const void* z, void* y, void* hT,
@@ -320,7 +329,7 @@ extern "C" int mamba_scan_launch(const void* x, const void* dt, const void* B, c
                                  int T, int dI, int dS, int G, long long sxn, long long sxt,
                                  long long sdn, long long sdt, long long sbn, long long sbt,
                                  long long scn, long long sct, long long szn, long long szt,
-                                 int dtype, int bias_dtype, void* stream) {
+                                 int dtype, int bias_dtype, int block, void* stream) {
   if (N <= 0 || dI <= 0 || T < 0 || G <= 0 || N % G != 0 || (dtype != 0 && dtype != 1) ||
       (bias_dtype != 0 && bias_dtype != 1) || (dt_bias == nullptr) != (z == nullptr) ||
       !aligned16(A_log) || !aligned16(h0) || !aligned16(hT) ||
@@ -361,7 +370,11 @@ extern "C" int mamba_scan_launch(const void* x, const void* dt, const void* B, c
   a.szn = szn;
   a.szt = szt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dtype == 1 ? by_state<bf16>(dS, a, N, s)
-                                     : by_state<float>(dS, a, N, s));
+  return static_cast<int>(dtype == 1 ? by_state<bf16>(dS, a, N, block, s)
+                                     : by_state<float>(dS, a, N, block, s));
 }
+
+// The channels a block that mamba_scan_launch runs at block = 0 for N rows
+// of dI channels on this card. A query: it launches nothing.
+extern "C" int mamba_scan_choose_block(int N, int dI) { return choose_block(N, dI); }
 

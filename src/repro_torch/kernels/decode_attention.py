@@ -16,6 +16,11 @@ do not depend on its group). One call is two kernel launches: the partials
 (m, l, o) of every (chunk, kv head and head group, row), read through q's
 and the cache's strides and skipping keys outside each row's window and
 length, then their combine. It counts as one ``decode_attention`` launch.
+
+The heads a block come from ``kernels/dispatch.py``: the config's
+``block_h``, or ``head_groups``'s where it is 0 (the heuristic). A head's
+sums do not depend on its group, so every value the kernel takes gives the
+same bits; the autotuner holds each to the heuristic's, bit for bit.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import sys
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.grad import needs_grad
 from repro_torch.kernels.ref import decode_attention_ref as decode_attention_plain
 
@@ -55,22 +60,25 @@ def split_plan(S: int) -> tuple[int, int]:
     return chunk, -(-S // chunk)
 
 
-def decode_attention(q, k, v, lengths, *, window: int = 0):
+def decode_attention(q, k, v, lengths, *, window: int = 0, config=None, use_kernel=None):
     """q: [B,Hq,hd]; k/v: [B,S,Hkv,hd], any strides with a contiguous last
     dim; lengths: [B] int32 in [1, S] (the current token included) ->
     [B,Hq,hd] in q.dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises. Forward-only (serving): it has no autograd Function, so an
-    operand that requires a gradient, with gradients on, raises rather
-    than have the kernel drop it."""
+    or raises (``use_kernel=False`` takes the plain version there). config:
+    a ``dispatch.KernelConfig`` in place of the resolved one. Forward-only
+    (serving): it has no autograd Function, so an operand that requires a
+    gradient, with gradients on, raises rather than have the kernel drop
+    it."""
     global launches
     if needs_grad(q, k, v):
         raise ValueError("decode_attention is forward-only (serving): it has no backward")
-    if q.device.type == "cpu":
+    cfg = dispatch.config_for("decode_attention", (q.shape, k.shape), q, config, use_kernel)
+    if cfg.impl == "plain":
         return decode_attention_plain(q, k, v, lengths, window=window)
     if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: unsupported device {q.device}")
+        raise ValueError(f"decode_attention: the CUDA kernel needs a CUDA tensor, got {q.device}")
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -103,7 +111,8 @@ def decode_attention(q, k, v, lengths, *, window: int = 0):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         part_o.data_ptr(), part_ml.data_ptr(), B, Hq, Hkv, S, hd, q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
-        int(window), float(hd ** -0.5), chunk, n_splits, head_groups(Hq // Hkv, hd)[0],
+        int(window), float(hd ** -0.5), chunk, n_splits,
+        cfg.block_h or head_groups(Hq // Hkv, hd)[0],
         _DTYPE[q.dtype], build.stream_ptr(q))
     build.check(code, "decode_attention")
     launches += 1

@@ -17,6 +17,11 @@ padded copy), the fp32 SIMT kernel for the rest.
 Under gradients the call runs through ``FlashAttentionFn``: the kernel
 forward, and a backward in PyTorch ops (``kernels/grad.py``) that
 recomputes the scores in fp32 a few rows at a time.
+
+The kernel has one config (``kernels/dispatch.py``): the dispatch decides
+only between it and, on a CPU tensor or with ``use_kernel=False``, the
+plain version. ``route()`` is the operands' layout constraint, not a
+tunable.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import sys
 
 import torch
 
-from repro_torch.kernels import build, grad
+from repro_torch.kernels import build, dispatch, grad
 from repro_torch.kernels.grad import needs_grad
 from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 
@@ -63,16 +68,19 @@ def route(q, k, v) -> str:
     return "simt"
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, config=None,
+                    use_kernel=None):
     """q: [N,Hq,T,hd]; k/v: [N,Hkv,S,hd], any strides with a contiguous
     last dim -> [N,Hq,T,hd] in q.dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises. With gradients on and an operand that requires one, the call
-    goes through ``FlashAttentionFn`` (its backward in ``kernels/grad.py``)."""
+    or raises (``use_kernel=False`` takes the plain version there). With
+    gradients on and an operand that requires one, the call goes through
+    ``FlashAttentionFn`` (its backward in ``kernels/grad.py``)."""
+    cfg = dispatch.config_for("flash_attention", (q.shape, k.shape), q, config, use_kernel)
     if needs_grad(q, k, v):
-        return FlashAttentionFn.apply(q, k, v, causal, window)
-    return _flash_attention(q, k, v, causal=causal, window=window)
+        return FlashAttentionFn.apply(q, k, v, causal, window, cfg)
+    return _flash_attention(q, k, v, causal=causal, window=window, cfg=cfg)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -82,8 +90,8 @@ class FlashAttentionFn(torch.autograd.Function):
     statistics) and reads the output."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out = _flash_attention(q, k, v, causal=causal, window=window)
+    def forward(ctx, q, k, v, causal, window, cfg):
+        out = _flash_attention(q, k, v, causal=causal, window=window, cfg=cfg)
         ctx.causal, ctx.window = causal, window
         ctx.save_for_backward(q, k, v, out)
         return out
@@ -93,14 +101,14 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out = ctx.saved_tensors
         dq, dk, dv = grad.flash_attention_bwd(q, k, v, out, do, causal=ctx.causal,
                                               window=ctx.window)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
-def _flash_attention(q, k, v, *, causal: bool, window: int):
-    if q.device.type == "cpu":
+def _flash_attention(q, k, v, *, causal: bool, window: int, cfg):
+    if cfg.impl == "plain":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+        raise ValueError(f"flash_attention: the CUDA kernel needs a CUDA tensor, got {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")

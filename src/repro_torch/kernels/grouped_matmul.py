@@ -32,6 +32,10 @@ on where the memory rows sit, and so no fallback.
 ``project_f32`` runs the GEMM kernel with an fp32 epilogue for the ARMT
 memory kernels' projections (their launches count as theirs, not here).
 
+Both ops take their config from ``kernels/dispatch.py`` (``config=`` or
+``use_kernel=`` per call): its ``block_n`` is the TMA + wgmma route's
+column tile, 128 or 256, 0 for ``choose_bn``'s pick in the CUDA source.
+
 Under gradients ``grouped_matmul`` runs through ``GroupedMatmulFn``: the
 kernel forward, and a backward in PyTorch ops (``kernels/grad.py``) that
 recomputes the pre-activation with the kernel (an fp32 epilogue, counted
@@ -43,7 +47,7 @@ import sys
 
 import torch
 
-from repro_torch.kernels import build, grad
+from repro_torch.kernels import build, dispatch, grad
 from repro_torch.kernels.grad import needs_grad
 from repro_torch.kernels.ref import grouped_matmul_armt_update_ref as \
     grouped_matmul_armt_update_plain
@@ -93,14 +97,17 @@ def _check_widx(widx, G: int, x) -> None:
                          f"{widx.device}")
 
 
-def launch(x, w, bias, out, *, wbatch: int = 1, activation=None, res=None, widx=None):
+def launch(x, w, bias, out, *, wbatch: int = 1, activation=None, res=None, widx=None,
+           block_n: int = 0):
     """out[i] = act(x[i] @ w[j] + bias[j]) (+ res[i]) on the card, j = i //
     wbatch, or widx[i] with a layer index; res added to the fp32
     accumulator before the cast. x: [G,R,K] and res: [G,R,N], each with a
     contiguous last dim; w: [G/wbatch,K,N] contiguous, or [Lw,K,N] with
     widx (int32 [G] on the device, values in [0, Lw), not checked on the
-    host); out: [G,R,N] contiguous, in x.dtype or float32. Returns whether a
-    kernel was launched (nothing is launched for an empty output)."""
+    host); out: [G,R,N] contiguous, in x.dtype or float32. block_n: the
+    TMA + wgmma route's column tile (128, 256; 0 ``choose_bn``'s). Returns
+    whether a kernel was launched (nothing is launched for an empty
+    output)."""
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"grouped_matmul: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} must be 3-D")
@@ -140,7 +147,8 @@ def launch(x, w, bias, out, *, wbatch: int = 1, activation=None, res=None, widx=
         *_x_strides(x), res.stride(0) if res is not None else 0,
         res.stride(1) if res is not None else 0, wbatch,
         widx.data_ptr() if widx is not None else None, Lw, _DTYPE[x.dtype],
-        int(out.dtype == torch.float32), _ACT[activation], int(tc), build.stream_ptr(x))
+        int(out.dtype == torch.float32), _ACT[activation], int(tc), int(block_n),
+        build.stream_ptr(x))
     build.check(code, "grouped_matmul")
     if tc:
         tc_launches += 1
@@ -150,7 +158,7 @@ def launch(x, w, bias, out, *, wbatch: int = 1, activation=None, res=None, widx=
 
 
 def grouped_matmul(x, w, bias=None, *, activation: str | None = None, widx=None,
-                   res=None, out=None):
+                   res=None, out=None, config=None, use_kernel=None):
     """x: [G,R,K] (rows may be strided; the last dim contiguous), w:
     [G,K,N] contiguous, bias: [G,N] or None -> [G,R,N] in x.dtype. widx:
     int32 [G] layer index into w [Lw,K,N] (and bias [Lw,N]): group i reads
@@ -161,44 +169,49 @@ def grouped_matmul(x, w, bias=None, *, activation: str | None = None, widx=None,
     new one in x.dtype when None.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises. With gradients on and an operand that requires one, the call
-    goes through ``GroupedMatmulFn`` (its backward in ``kernels/grad.py``);
-    widx and out are forward-only."""
+    or raises (``use_kernel=False`` takes the plain version there). config:
+    a ``dispatch.KernelConfig`` in place of the resolved one. With
+    gradients on and an operand that requires one, the call goes through
+    ``GroupedMatmulFn`` (its backward in ``kernels/grad.py``); widx and out
+    are forward-only."""
+    cfg = dispatch.config_for("grouped_matmul", (x.shape, w.shape), x, config, use_kernel)
     if needs_grad(x, w, bias, res):
         if widx is not None or out is not None:
             raise ValueError("grouped_matmul: widx and out= are forward-only")
-        return GroupedMatmulFn.apply(x, w, bias, res, activation)
-    return _grouped_matmul(x, w, bias, activation=activation, widx=widx, res=res, out=out)
+        return GroupedMatmulFn.apply(x, w, bias, res, activation, cfg)
+    return _grouped_matmul(x, w, bias, activation=activation, widx=widx, res=res, out=out,
+                           cfg=cfg)
 
 
-def _grouped_matmul(x, w, bias=None, *, activation=None, widx=None, res=None, out=None):
+def _grouped_matmul(x, w, bias=None, *, cfg, activation=None, widx=None, res=None, out=None):
     global launches
-    if x.device.type == "cpu":
+    if cfg.impl == "plain":
         return grouped_matmul_plain(x, w, bias, activation=activation, widx=widx, res=res,
                                     out=out)
     if x.device.type != "cuda":
-        raise ValueError(f"grouped_matmul: unsupported device {x.device}")
+        raise ValueError(f"grouped_matmul: the CUDA kernel needs a CUDA tensor, got {x.device}")
     if activation not in _ACT:
         raise ValueError(f"grouped_matmul: unknown activation {activation!r}")
     if out is None:
         out = torch.empty(x.shape[0], x.shape[1], w.shape[-1], dtype=x.dtype,
                           device=x.device)
-    if launch(x, w, bias, out, activation=activation, widx=widx, res=res):
+    if launch(x, w, bias, out, activation=activation, widx=widx, res=res,
+              block_n=cfg.block_n):
         launches += 1
     return out
 
 
 class GroupedMatmulFn(torch.autograd.Function):
     """``grouped_matmul`` under autograd: the kernel (or, on the CPU, its
-    plain version) forward; backward, the pre-activation recomputed with
-    the kernel (no activation, fp32 out), then ``grad.grouped_matmul_bwd``;
-    res's gradient is dy."""
+    plain version) forward, with the call's config; backward, the
+    pre-activation recomputed with the same config (no activation, fp32
+    out), then ``grad.grouped_matmul_bwd``; res's gradient is dy."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, res, activation):
-        ctx.activation = activation
+    def forward(ctx, x, w, bias, res, activation, cfg):
+        ctx.activation, ctx.cfg = activation, cfg
         ctx.save_for_backward(x, w, bias)
-        return _grouped_matmul(x, w, bias, activation=activation, res=res)
+        return _grouped_matmul(x, w, bias, activation=activation, res=res, cfg=cfg)
 
     @staticmethod
     def backward(ctx, dy):
@@ -206,14 +219,15 @@ class GroupedMatmulFn(torch.autograd.Function):
         pre = None
         if ctx.activation is not None:
             pre = _grouped_matmul(x, w, bias, out=torch.empty(
-                x.shape[0], x.shape[1], w.shape[-1], dtype=torch.float32, device=x.device))
+                x.shape[0], x.shape[1], w.shape[-1], dtype=torch.float32, device=x.device),
+                cfg=ctx.cfg)
         dx, dw, db = grad.grouped_matmul_bwd(x, w, bias, dy, pre, ctx.activation,
                                              ctx.needs_input_grad[:3])
-        return dx, dw, db, dy if ctx.needs_input_grad[3] else None, None
+        return dx, dw, db, dy if ctx.needs_input_grad[3] else None, None, None
 
 
 def grouped_matmul_armt_update(x, w, res, wk, wv, wb, A, z, bias=None, *,
-                               M: int, nu: int = 3, widx=None):
+                               M: int, nu: int = 3, widx=None, config=None, use_kernel=None):
     """x: [G,R,K] (rows may be strided; the last dim contiguous); w: [G,K,N]
     contiguous; res: [G,R,N] in x.dtype (last dim contiguous); bias: [G,N]
     or None; wk/wv/wb: [N,*] or [G,N,*]; A: [G,P,Dv]; z: [G,P] ->
@@ -221,17 +235,22 @@ def grouped_matmul_armt_update(x, w, res, wk, wv, wb, A, z, bias=None, *,
     index into w [Lw,K,N] (see ``grouped_matmul``); wk/wv/wb stay per group.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernels
-    or raises. Forward-only: under gradients the cell runs ``grouped_matmul``
-    with ``res`` and then ``armt_update``, the same function."""
+    or raises (``use_kernel=False`` takes the plain version there); the
+    config's ``block_n`` is the GEMM's. Forward-only: under gradients the
+    cell runs ``grouped_matmul`` with ``res`` and then ``armt_update``, the
+    same function."""
     global fused_launches
     if needs_grad(x, w, res, wk, wv, wb, A, z, bias):
         raise ValueError("grouped_matmul_armt_update is forward-only: under gradients "
                          "take grouped_matmul(res=) and armt_update")
-    if x.device.type == "cpu":
+    cfg = dispatch.config_for("grouped_matmul_armt_update", (x.shape, w.shape, A.shape), x,
+                              config, use_kernel)
+    if cfg.impl == "plain":
         return grouped_matmul_armt_update_plain(x, w, res, wk, wv, wb, A, z, bias,
                                                 M=M, nu=nu, widx=widx)
     if x.device.type != "cuda":
-        raise ValueError(f"grouped_matmul_armt_update: unsupported device {x.device}")
+        raise ValueError("grouped_matmul_armt_update: the CUDA kernels need a CUDA tensor, got "
+                         f"{x.device}")
     from repro_torch.kernels import armt_memory   # it imports this module
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"grouped_matmul_armt_update: x {tuple(x.shape)} and w "
@@ -242,7 +261,7 @@ def grouped_matmul_armt_update(x, w, res, wk, wv, wb, A, z, bias=None, *,
     y = torch.empty(G, R, w.shape[-1], dtype=x.dtype, device=x.device)
     mem = y[:, R - M:, :]                   # the memory rows, a strided view
     dims = armt_memory.check_update(mem, wk, wv, wb, A, z, nu=nu)
-    launched = launch(x, w, bias, y, res=res, widx=widx)
+    launched = launch(x, w, bias, y, res=res, widx=widx, block_n=cfg.block_n)
     A2, z2, _ = armt_memory.launch_update(mem, wk, wv, wb, A, z, dims)
     if launched:
         fused_launches += 1

@@ -22,6 +22,11 @@ state before every ``CHUNK``-th token; backward, the reverse scan kernel
 states, or on the CPU its plain version ``grad.mamba_scan_bwd_plain``. It
 gives the gradients of x, dt (the raw dt in the fused form), B, C, A_log,
 D, h0, dt_bias and z.
+
+The forward's config comes from ``kernels/dispatch.py``: its ``block_i`` is
+a block's channels, 64 or 256, 0 for the kernel's own rule (64 where
+256-channel blocks leave half the SMs idle). A channel's scan is one
+thread's, so both give the same bits. The backward's block is its build's.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import sys
 
 import torch
 
-from repro_torch.kernels import build, grad
+from repro_torch.kernels import build, dispatch, grad
 from repro_torch.kernels.grad import needs_grad
 from repro_torch.kernels.ref import mamba_scan_ref as mamba_scan_plain
 
@@ -53,7 +58,8 @@ def _strides(t):
     return tuple(t.stride(i) if t.shape[i] > 1 else 0 for i in (0, 1))
 
 
-def mamba_scan(x, dt, Bt, Ct, A_log, D, h0, *, dt_bias=None, z=None):
+def mamba_scan(x, dt, Bt, Ct, A_log, D, h0, *, dt_bias=None, z=None, config=None,
+               use_kernel=None):
     """x: [N,T,dI]; dt: [N,T,dI]; Bt/Ct: [N,T,dS]; A_log: [dI,dS] or
     [G,dI,dS]; D: [dI] or [G,dI]; h0: [N,dI,dS] -> (y [N,T,dI], hT
     [N,dI,dS] fp32).
@@ -65,13 +71,15 @@ def mamba_scan(x, dt, Bt, Ct, A_log, D, h0, *, dt_bias=None, z=None):
     dtype.
     x, dt, z, Bt and Ct are read through their row and token strides (last
     dim contiguous). A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises. With gradients on and an operand that
-    requires one, the call goes through ``MambaScanFn``."""
+    launches the kernel or raises (``use_kernel=False`` takes the plain
+    version there). With gradients on and an operand that requires one, the
+    call goes through ``MambaScanFn``."""
     if (dt_bias is None) != (z is None):
         raise ValueError("mamba_scan: dt_bias and z go together (the fused form) or not at all")
+    cfg = dispatch.config_for("mamba_scan", (x.shape, Bt.shape), x, config, use_kernel)
     if needs_grad(x, dt, Bt, Ct, A_log, D, h0, dt_bias, z):
-        return MambaScanFn.apply(x, dt, Bt, Ct, A_log, D, h0, dt_bias, z)
-    return _mamba_scan(x, dt, Bt, Ct, A_log, D, h0, dt_bias=dt_bias, z=z)[:2]
+        return MambaScanFn.apply(x, dt, Bt, Ct, A_log, D, h0, dt_bias, z, cfg)
+    return _mamba_scan(x, dt, Bt, Ct, A_log, D, h0, dt_bias=dt_bias, z=z, cfg=cfg)[:2]
 
 
 class MambaScanFn(torch.autograd.Function):
@@ -83,28 +91,31 @@ class MambaScanFn(torch.autograd.Function):
     kept states only."""
 
     @staticmethod
-    def forward(ctx, x, dt, Bt, Ct, A_log, D, h0, dt_bias, z):
-        y, hT, hs = _mamba_scan(x, dt, Bt, Ct, A_log, D, h0, dt_bias=dt_bias, z=z, keep=True)
+    def forward(ctx, x, dt, Bt, Ct, A_log, D, h0, dt_bias, z, cfg):
+        y, hT, hs = _mamba_scan(x, dt, Bt, Ct, A_log, D, h0, dt_bias=dt_bias, z=z, keep=True,
+                                cfg=cfg)
         ctx.save_for_backward(x, dt, Bt, Ct, A_log, D, h0, dt_bias, z, hs)
         return y, hT
 
     @staticmethod
     def backward(ctx, dy, dhT):
         x, dt, Bt, Ct, A_log, D, h0, dt_bias, z, hs = ctx.saved_tensors
-        if x.device.type == "cpu":
+        if hs is None:   # the plain forward kept nothing
             return grad.mamba_scan_bwd_plain(x, dt, Bt, Ct, A_log, D, h0, dy, dhT,
-                                             dt_bias=dt_bias, z=z)
-        return mamba_scan_bwd(x, dt, Bt, Ct, A_log, D, h0, hs, dy, dhT, dt_bias=dt_bias, z=z)
+                                             dt_bias=dt_bias, z=z) + (None,)
+        return mamba_scan_bwd(x, dt, Bt, Ct, A_log, D, h0, hs, dy, dhT, dt_bias=dt_bias,
+                              z=z) + (None,)
 
 
-def _mamba_scan(x, dt, Bt, Ct, A_log, D, h0, *, dt_bias=None, z=None, keep=False):
+def _mamba_scan(x, dt, Bt, Ct, A_log, D, h0, *, cfg, dt_bias=None, z=None, keep=False):
     """The forward -> (y, hT, the kept states [N, ceil(T / CHUNK), dI, dS]
-    fp32 when ``keep`` on the card, else None)."""
+    fp32 when ``keep`` on the card, else None). cfg: the call's config,
+    which the wrapper resolved."""
     global launches
-    if x.device.type == "cpu":
+    if cfg.impl == "plain":
         return mamba_scan_plain(x, dt, Bt, Ct, A_log, D, h0, dt_bias=dt_bias, z=z) + (None,)
     if x.device.type != "cuda":
-        raise ValueError(f"mamba_scan: unsupported device {x.device}")
+        raise ValueError(f"mamba_scan: the CUDA kernel needs a CUDA tensor, got {x.device}")
     if x.dim() != 3 or dt.shape != x.shape or (z is not None and z.shape != x.shape):
         raise ValueError(f"mamba_scan: x {tuple(x.shape)} dt {tuple(dt.shape)}"
                          + (f" z {tuple(z.shape)}" if z is not None else ""))
@@ -152,7 +163,8 @@ def _mamba_scan(x, dt, Bt, Ct, A_log, D, h0, *, dt_bias=None, z=None, keep=False
         hs.data_ptr() if hs is not None else None, CHUNK,
         N, T, dI, dS, G, *_strides(x), *_strides(dt), *_strides(Bt), *_strides(Ct),
         *(_strides(z) if z is not None else (0, 0)), _DTYPE[x.dtype],
-        int(dt_bias is not None and dt_bias.dtype == torch.bfloat16), build.stream_ptr(x))
+        int(dt_bias is not None and dt_bias.dtype == torch.bfloat16), cfg.block_i,
+        build.stream_ptr(x))
     build.check(code, "mamba_scan")
     return y, hT, hs
 

@@ -121,6 +121,12 @@ class MetricsRegistry:
         if fn not in self._reset_hooks:
             self._reset_hooks.append(fn)
 
+    def remove_series(self, name: str) -> None:
+        """Drops every series of ``name`` (any labels) from all kinds."""
+        for store in (self.counters, self.gauges, self.histograms):
+            for k in [k for k in store if k == name or k.startswith(name + "{")]:
+                del store[k]
+
     def reset(self) -> None:
         self.counters.clear()
         self.gauges.clear()

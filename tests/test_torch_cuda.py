@@ -27,7 +27,10 @@ encoder, diagonal = sequential, graphs = eager, graphs that follow each
 request's frames); the training kernels' autograd Functions against
 autograd through their plain versions, and the training path at a
 reduced width (kernel gradients against the plain path, diagonal =
-sequential, no SIMT, the unfused B = 1 route against the fused op). Needs a CUDA device and nvcc; skips without a card. This file
+sequential, no SIMT, the unfused B = 1 route against the fused op); the
+kernel dispatch (every candidate of the autotuner's card spaces equal to
+the heuristic to the bit at smoke width, the overrides and refusals).
+Needs a CUDA device and nvcc; skips without a card. This file
 imports no JAX; with ``--noconftest`` (tests/conftest.py imports JAX) it
 runs on a machine that has only PyTorch:
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``."""
@@ -1672,3 +1675,100 @@ def test_training_path_on_card(cuda):
         y0, s0 = cell("attn", p["pattern"][0], x, st)
     y1, s1 = cell("attn", p["pattern"][0], x.clone().requires_grad_(), st)
     assert _same(y0, y1.detach()) and all(_same(s0[k], s1[k].detach()) for k in ("A", "z"))
+
+
+def _tune_kernels():
+    """tools/tune_kernels.py as a module (its ``path_cases``)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "tune_kernels.py"
+    spec = importlib.util.spec_from_file_location("tune_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-1b-armt", "chatglm3-6b", "falcon-mamba-7b"])
+def test_dispatch_candidates_equal_the_heuristic_on_card(cuda, arch, tmp_path):
+    """At smoke width in bf16 (the GEMM's TMA + wgmma route), on every op of
+    the arch's path (tools/tune_kernels.py's cases): each candidate of the
+    card's space gives the heuristic config's output to the bit, or
+    validation drops it; the resolved call (an empty cache) equals the
+    kernel's own rule passed explicitly, to the bit; then a tuned winner is
+    stored and a second get_or_tune sweeps nothing."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.autotune import (Autotuner, config_space, key_shapes, run_op,
+                                              same_bits)
+    from repro_torch.serve import MetricsRegistry
+    dispatch.set_cache_path(str(tmp_path / "kernel_cache.json"))
+    try:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16")
+        reg = MetricsRegistry()
+        tuner = Autotuner(registry=reg)
+        for op, label, args, kw in _tune_kernels().path_cases(cfg, cuda, G=4):
+            base = run_op(op, args, dispatch.CUDA, **kw)
+            rule = dispatch.rule_config(op, key_shapes(op, args))
+            assert same_bits(run_op(op, args, None, **kw), base), (op, label)
+            assert same_bits(run_op(op, args, rule, **kw), base), (op, label, rule)
+            for cand in config_space(op, "cuda", key_shapes(op, args)):
+                if not same_bits(run_op(op, args, cand, **kw), base):
+                    assert not tuner.validate(op, args, cand, op_kwargs=kw), (op, label, cand)
+            winner = tuner.get_or_tune(op, args, repeats=1, op_kwargs=kw)
+            assert winner.impl == "cuda"
+            sweeps = sum(v for k, v in reg.counters.items() if k.startswith("autotune_sweep"))
+            assert tuner.get_or_tune(op, args, repeats=1, op_kwargs=kw) == winner
+            assert sweeps == sum(v for k, v in reg.counters.items()
+                                 if k.startswith("autotune_sweep"))
+    finally:
+        dispatch.set_cache_path(None)
+
+
+@pytest.mark.cuda
+def test_dispatch_overrides_on_card(cuda, tmp_path):
+    """On a CUDA tensor use_kernel=False is the one way to the plain version:
+    a 'plain' config raises, and so does a cached 'plain' entry; a column
+    tile the kernel does not compile raises at the launch; a cached decode
+    heads a block above the call's q heads a kv head raises before it."""
+    import json
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.kernels import grouped_matmul as gm
+    path = str(tmp_path / "kernel_cache.json")
+    dispatch.set_cache_path(path)
+    try:
+        g = torch.Generator().manual_seed(0)
+        r = _rand(g, cuda, torch.bfloat16)
+        x, w = r(2, 40, 64), r(2, 64, 96, sc=0.1)
+        want = gm.grouped_matmul_plain(x, w)
+        before = gm.launches
+        torch.testing.assert_close(ops.grouped_gemm(x, w, use_kernel=False), want, rtol=0,
+                                   atol=0)
+        assert gm.launches == before
+        with pytest.raises(ValueError, match="plain"):
+            ops.grouped_gemm(x, w, config=dispatch.PLAIN)
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            ops.grouped_gemm(x, w, config=dispatch.KernelConfig(impl="cuda", block_n=64))
+        # a cached heads a block that a shape of its bucket cannot run is
+        # refused there, and nothing is launched
+        q4, q3, kv = r(2, 32, 128), r(2, 24, 128), r(2, 64, 8, 128)
+        lens = torch.full((2,), 64, dtype=torch.int32, device=cuda)
+        dkey = dispatch.cache_key("cuda", "decode_attention", (q4.shape, kv.shape), q4.dtype)
+        dispatch.store_config(dkey, dispatch.KernelConfig(impl="cuda", block_h=4))
+        ops.decode_attention(q4, kv, kv, lens)
+        before = da.launches
+        with pytest.raises(ValueError, match="does not fit"):
+            ops.decode_attention(q3, kv, kv, lens)
+        assert da.launches == before
+        key = dispatch.cache_key("cuda", "grouped_matmul", (x.shape, w.shape), x.dtype)
+        with open(path, "w") as f:
+            json.dump({"configs": {key: {"impl": "plain"}}}, f)
+        dispatch.set_cache_path(path)
+        with pytest.raises(ValueError, match="runs only 'cuda'"):
+            ops.grouped_gemm(x, w)
+    finally:
+        dispatch.set_cache_path(None)

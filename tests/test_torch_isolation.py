@@ -28,6 +28,11 @@ def test_port_imports_without_jax_or_reference():
             "import repro_torch.launch.train, repro_torch.core.rmt\n"
             "import repro_torch.launch.serve, repro_torch.roofline.model_math\n"
             "import repro_torch.utils\n"
+            "import repro_torch.kernels.dispatch, repro_torch.kernels.autotune\n"
+            "import importlib.util\n"
+            f"spec = importlib.util.spec_from_file_location('tune_kernels', "
+            f"{str(ROOT / 'tools' / 'tune_kernels.py')!r})\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
             " if sys.modules[m] is not None)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -209,9 +209,10 @@ def scan_cases(libs, ctx):
                         A_log.data_ptr(), Dp.data_ptr(), h0.data_ptr(),
                         None if b_in is None else b_in.data_ptr(),
                         None if z_in is None else z_in.data_ptr(), y.data_ptr(), hT.data_ptr(),
-                        N, T, dI, dS, N, *ms._strides(x), *ms._strides(d_in), *ms._strides(Bt),
-                        *ms._strides(Ct), *(ms._strides(z_in) if z_in is not None else (0, 0)),
-                        1, 0, build.stream_ptr(x)), f"scan variant {name}")
+                        None, ms.CHUNK, N, T, dI, dS, N, *ms._strides(x), *ms._strides(d_in),
+                        *ms._strides(Bt), *ms._strides(Ct),
+                        *(ms._strides(z_in) if z_in is not None else (0, 0)),
+                        1, 0, 0, build.stream_ptr(x)), f"scan variant {name}")
                 first = ctx["report"](f"scan G={N} {'fused' if fused else 'unfused'} {name}",
                                       call, lambda y=y: y, want, first)
             del want, first
