@@ -383,6 +383,30 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       line. The script points the dispatch cache at a fresh file of its
       run before any phase, so a cache left on the machine changes
       nothing; every phase but (y) reads it empty;
+  (z) after (y): mesh-native serving over torch.distributed
+      (``launch/mesh.py``, ``parallel/``, ``ServeEngine(mesh=...)``).
+      (z1) in this process, a world-size-1 NCCL group,
+      ``parse_mesh("data,model=1")``, llama-1b-armt whole (bf16): a
+      16-segment diagonal prefill (B = 1) and a 64-token generate (B = 2,
+      2 segments + 100 tokens, decode captured) equal the mesh-less
+      engine's to the bit (hidden, final state; tokens, every step's
+      logits, the final decode state); the CLI with ``--mesh
+      data,model=1`` equals the engine driven directly; all six llama
+      kernels launch (the fused update among them); one decode step's
+      host span, mesh against mesh-less. (z2) two ranks spawned onto the
+      one card (``chip_smoke.py --mesh-rank``), gloo, ``model=2``,
+      llama-1b-armt whole in fp32 with TF32 off: segments 1-2
+      free-running and 4 segments teacher-forced from the mesh-less
+      run's boundary states, each segment's hidden states within
+      ``TOL_Z2`` (relative) of the mesh-less run; a 32-token greedy
+      generate from 2 segments token for token; GEMM, flash, armt_read,
+      armt_update and decode attention launched at the local shapes
+      (printed), the fused update not (split at model > 1); the prefill
+      and decode wall times. (z3) the same ranks: a session captured on
+      the model=2 mesh resumed on one device, and ``data=2`` with a B = 2
+      generate (one row a rank), each token for token against the
+      mesh-less engine. Prints a ``{"mesh": ...}`` line. ``python3
+      chip_smoke.py --phase z`` runs the kernels' build and (z) alone;
   (p4) after (h): a falcon-mamba-7b session (2 x 8192 + 1000 tokens, then
       500), spilled and restored against kept in memory to the bit (h and
       the bf16 conv tail), resume TTFT against re-prefilling the history
@@ -396,7 +420,8 @@ to be held against them here and in the card tests.
 
 The kernels' launch counters are set to 0 just before each main-path run
 of (d), (e), (i), (k), (l), (o), (p1)-(p4), (r), (s), (t), (u), (v), (w), (x), (g),
-(h) and falcon's fused run of (o), and read just after it (a phase's count is the sum over its runs; a
+(h) and falcon's fused run of (o), and read just after it (in (z) read
+before and after each mesh engine's run, in each process: ``launches_mesh``) (a phase's count is the sum over its runs; a
 graph replay counts what its capture launched, so the counts read the
 same under graphs as eager): every llama kernel must have been launched
 in (d), every one but armt_update (which runs only at B > 1) in (e), in
@@ -505,6 +530,355 @@ def device_reads(torch):
                 delattr(torch.Tensor, n)
             else:
                 setattr(torch.Tensor, n, fn)
+
+
+MESH_COUNTERS = {"grouped_matmul": "grouped_matmul.launches",
+                 "flash_attention": "flash_attention.launches",
+                 "armt_read": "armt_memory.read_launches",
+                 "armt_update": "armt_memory.update_launches",
+                 "grouped_matmul_armt_update": "grouped_matmul.fused_launches",
+                 "decode_attention": "decode_attention.launches"}
+# the kernel entry points the cells call, whose operand shapes (z) prints
+MESH_OPS = ("grouped_gemm", "grouped_gemm_armt_update", "segment_attention",
+            "flash_attention", "decode_attention", "assoc_read", "assoc_update")
+
+
+def mesh_rank(argv) -> int:
+    """One rank of phase (z2)/(z3), spawned twice by (z) onto the one card:
+    ``chip_smoke.py --mesh-rank RANK WORLD STORE DISPATCH_CACHE OUT``.
+
+    Joins a gloo group of WORLD ranks on the FileStore STORE; draws
+    llama-1b-armt whole in fp32 from the seed on the card (every rank the
+    same weights); (z2) cuts it over ``parse_mesh("model=2")`` and runs the
+    forward, teacher-forced segments and a greedy generate on the local
+    shapes, rank 0 also running the mesh-less engine on the whole weights
+    for the comparisons (the boundary states it teacher-forces from are
+    broadcast to rank 1); a session captured on that mesh is resumed on
+    rank 0's mesh-less engine; (z3) ``parse_mesh("data=2")``: a B = 2
+    generate, one row a rank. Rank 0 writes the measurements (errors, token
+    equalities, kernel launches and operand shapes of the mesh runs, wall
+    times) as JSON to OUT; (z) gates them."""
+    import numpy as np
+    import torch
+
+    rank, world = int(argv[0]), int(argv[1])
+    store, cache, out_path = argv[2], argv[3], argv[4]
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, dispatch, ops
+    from repro_torch.launch.mesh import init_distributed, parse_mesh
+    from repro_torch.models import model as M
+    from repro_torch.parallel import comm
+    from repro_torch.serve import ServeEngine, SessionStore
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dispatch.set_cache_path(cache)
+    build.lib()
+    init_distributed("gloo", store_path=store, rank=rank, world_size=world)
+    dev = torch.device("cuda")
+    res = {"rank": rank}
+
+    def counts():
+        return {f"{m.__name__.rsplit('.', 1)[-1]}.{n}": v
+                for (m, n), v in build.launch_counts().items()}
+
+    shapes, recording = {}, [False]
+
+    def record(name, fn):
+        def wrapped(*a, **k):
+            if recording[0]:
+                shapes.setdefault(name, set()).add(
+                    "x".join(str(list(t.shape)) for t in a[:2] if isinstance(t, torch.Tensor)))
+            return fn(*a, **k)
+        return wrapped
+    for name in MESH_OPS:
+        setattr(ops, name, record(name, getattr(ops, name)))
+    launches = {k: 0 for k in MESH_COUNTERS}
+
+    def mesh_run(fn):
+        """fn() on the mesh engine: its launches counted, its shapes kept."""
+        before = counts()
+        recording[0] = True
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            recording[0] = False
+        after = counts()
+        for k, c in MESH_COUNTERS.items():
+            launches[k] += after.get(c, 0) - before.get(c, 0)
+        return out
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return ((a - b).norm() / b.norm()).item()
+
+    cfg = replace(get_config("llama-1b-armt"), dtype="float32")
+    seg = cfg.armt.segment_len
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    rng = np.random.default_rng(SEED + 29)
+    toks = rng.integers(0, cfg.vocab, (2, 6 * seg))
+    t0 = time.perf_counter()
+    mesh = parse_mesh("model=2")
+    eng = ServeEngine(params, cfg, mesh=mesh, eager=True, max_len=8 * seg)
+    res["cut_s"] = time.perf_counter() - t0
+    ref = ServeEngine(params, cfg, max_len=8 * seg) if rank == 0 else None
+
+    # (z2a) segments 1-2 free-running
+    t0 = time.perf_counter()
+    h_m, f_m = mesh_run(lambda: eng.forward_hidden(toks[:1, :2 * seg]))
+    res["prefill_2seg_s"] = time.perf_counter() - t0
+    if rank == 0:
+        h_r, f_r = ref.forward_hidden(toks[:1, :2 * seg])
+        res["free_running_rel"] = [rel(h_m[s], h_r[s]) for s in range(2)]
+        res["free_running_A_rel"] = rel(f_m["pattern"][0]["A"], f_r["pattern"][0]["A"])
+    del h_m, f_m
+
+    # (z2b) 4 segments teacher-forced from the mesh-less run's boundary states
+    S = 4
+    P, dv, L = 2 * cfg.armt.nu * cfg.armt.d_mem, cfg.d_model, cfg.n_layers
+    if rank == 0:
+        with torch.no_grad():
+            h_r, _, cap = M.forward_hidden(params, cfg, torch.from_numpy(toks[:1, :S * seg]).to(dev),
+                                           capture_states=True)
+        capA, capz = cap["pattern"][0]["A"].contiguous(), cap["pattern"][0]["z"].contiguous()
+    else:
+        capA = torch.zeros(S, L, 1, P, dv, device=dev)
+        capz = torch.zeros(S, L, 1, P, device=dev)
+    capA = comm.broadcast(capA, mesh, "model", 0)
+    capz = comm.broadcast(capz, mesh, "model", 0)
+    forced = []
+    for s in range(S):
+        st0 = None if s == 0 else {"prelude": (), "pattern": ({"A": capA[s - 1],
+                                                                "z": capz[s - 1]},)}
+        h_s, _ = mesh_run(lambda: eng.forward_hidden(toks[:1, s * seg:(s + 1) * seg],
+                                                     state0=st0))
+        if rank == 0:
+            forced.append(rel(h_s[0], h_r[s]))
+    res["forced_rel"] = forced
+    del capA, capz
+
+    # (z2c) a 32-token greedy generate from a 2-segment prompt
+    g_m = mesh_run(lambda: eng.generate(toks[:1, :2 * seg], 32))
+    res["decode_tok_s"], res["ttft_s"] = g_m.tok_s, g_m.ttft_s
+    if rank == 0:
+        g_r = ref.generate(toks[:1, :2 * seg], 32)
+        res["generate_equal"] = bool(np.array_equal(g_m.tokens, g_r.tokens))
+        res["generate_tokens"] = g_m.tokens[0, :8].tolist()
+    res["z2_launches"] = dict(launches)
+    res["z2_shapes"] = {k: sorted(v) for k, v in shapes.items()}
+
+    # (z3a) a session captured on the model=2 mesh resumes on one device
+    t1, t2 = toks[0, :seg + 100], toks[1, :300]
+    eng.session_store = SessionStore(max_bytes=1 << 30)
+    a1 = mesh_run(lambda: eng.generate(t1[None], 16, session_id="s"))
+    if rank == 0:
+        a2 = ServeEngine(params, cfg, max_len=8 * seg,
+                         session_store=eng.session_store).generate(t2[None], 16, session_id="s")
+        ref_s = ServeEngine(params, cfg, max_len=8 * seg, session_store=SessionStore())
+        b1 = ref_s.generate(t1[None], 16, session_id="s")
+        b2 = ref_s.generate(t2[None], 16, session_id="s")
+        res["session_equal"] = bool(a2.resumed and np.array_equal(a1.tokens, b1.tokens)
+                                    and np.array_equal(a2.tokens, b2.tokens))
+    del eng
+
+    # (z3b) data=2: a B = 2 generate, one row a rank
+    mesh_d = parse_mesh("data=2")
+    eng_d = ServeEngine(params, cfg, mesh=mesh_d, eager=True, max_len=8 * seg)
+    prompts = toks[:, :2 * seg + 50]
+    d_m = mesh_run(lambda: eng_d.generate(prompts, 32))
+    if rank == 0:
+        d_r = ref.generate(prompts, 32)
+        res["data_generate_equal"] = bool(np.array_equal(d_m.tokens, d_r.tokens))
+    res["launches"] = launches
+    res["shapes"] = {k: sorted(v) for k, v in shapes.items()}
+    torch.distributed.barrier()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+# (z2)'s gate on the two-rank fp32 run against the mesh-less one: the
+# relative error of a segment's hidden states (see mesh_phase). The gap
+# measured on the H100 (PERF.md section 6) grows with the state carried
+# into a segment: 3.9e-6 at segment 0, at most 2.9e-5 at the fourth
+# teacher-forced one; the tolerance holds about 3x that
+TOL_Z2 = 1e-4
+
+
+def mesh_phase(no_cache: str, smi: str):
+    """(z) mesh-native serving over torch.distributed (``launch/mesh.py``,
+    ``parallel/``, ``ServeEngine(mesh=...)``) on the one card: (z1) in this
+    process, a one-rank NCCL group; (z2) and (z3) two gloo ranks spawned
+    onto the card (``mesh_rank``). Returns (failures, the launches of the
+    mesh runs by kernel, the row)."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.mesh import init_distributed, parse_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    failures, row = [], {}
+    launches = {k: 0 for k in MESH_COUNTERS}
+
+    def held(name, ok, detail=""):
+        row[name] = bool(ok)
+        log(f"  {name}: {detail}-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"(z) {name}")
+
+    def counts():
+        return {f"{m.__name__.rsplit('.', 1)[-1]}.{n}": v
+                for (m, n), v in build.launch_counts().items()}
+
+    def on_mesh(fn):
+        """fn(), its launches added to the mesh runs'."""
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = counts()
+        for k, c in MESH_COUNTERS.items():
+            launches[k] += after[c] - before[c]
+        return out
+
+    def bits(t):
+        return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}.get(
+            t.dtype, t.dtype))
+
+    def same(a, b):
+        return a.shape == b.shape and torch.equal(bits(a), bits(b))
+
+    def same_tree(a, b):
+        return all(same(x[k], y[k]) for part in ("prelude", "pattern")
+                   for x, y in zip(a[part], b[part]) for k in x)
+
+    def step_span_ms(prog):
+        """Host span of one decode step over the program's rows (32 steps
+        ending in a sync)."""
+        prog.active.fill_(True)
+        prog.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(32):
+            prog.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 32 * 1e3
+
+    log(f"== (z) mesh-native serving over torch.distributed; card {smi}")
+    tmp = Path(tempfile.mkdtemp(prefix="mesh_", dir=ROOT / "build"))
+    atexit.register(shutil.rmtree, tmp, True)
+    # (z1) one rank: a world-size-1 NCCL group
+    init_distributed("nccl", store_path=str(tmp / "z1"), rank=0, world_size=1)
+    mesh = parse_mesh("data,model=1")
+    cfg = get_config("llama-1b-armt")
+    seg = cfg.armt.segment_len
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    toks = np.random.default_rng(SEED + 29).integers(0, cfg.vocab, (2, 16 * seg))
+    ref = ServeEngine(params, cfg, max_len=4 * seg)
+    eng = ServeEngine(params, cfg, max_len=4 * seg, mesh=mesh)
+    hm, fm = on_mesh(lambda: eng.forward_hidden(toks[:1]))
+    hr, fr = ref.forward_hidden(toks[:1])
+    held("z1 16-segment diagonal prefill B=1, mesh = mesh-less to the bit",
+         same(hm, hr) and same_tree(fm, fr))
+    del hm, fm, hr, fr
+    prompt = toks[:, :2 * seg + 100]
+    gm = on_mesh(lambda: eng.generate(prompt, 64, keep=True))
+    gr = ref.generate(prompt, 64, keep=True)
+    captured = eng.program_counts()["captured"]
+    held("z1 generate B=2 (2 segments + 100, 64 new), mesh = mesh-less to the bit, "
+         "decode captured", np.array_equal(gm.tokens, gr.tokens) and same(gm.logits, gr.logits)
+         and same_tree(gm.state, gr.state) and same(gm.state["pos"], gr.state["pos"])
+         and captured >= 2, f"{captured} captured programs ")
+    span_m, span_r = step_span_ms(eng.program(2)), step_span_ms(ref.program(2))
+    row["z1_decode_step_span_ms"] = {"mesh": span_m, "meshless": span_r}
+    log(f"  z1 decode step host span, B = 2: mesh {span_m:.4f} ms, mesh-less {span_r:.4f} ms "
+        f"({smi})")
+    del gm, gr, eng, ref
+    argv = ["--arch", "llama-1b-armt", "--seed", str(SEED), "--prompt-len", "4096",
+            "--batch", "1", "--max-new", "32"]
+    r = on_mesh(lambda: launch_serve.main(argv + ["--mesh", "data,model=1"]))
+    want = ServeEngine(params, cfg, max_len=4096 + seg // 2 + 32).generate(r["prompts"], 32)
+    held("z1 CLI --mesh data,model=1 = the engine driven directly",
+         np.array_equal(r["tokens"], want.tokens) and r["finite"])
+    missing = [k for k, n in launches.items() if n == 0]
+    held("z1 all six llama kernels launched (the fused update among them)", not missing,
+         f"launches {launches} ")
+    del params, want, r
+    M.SegmentProgram._cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    # (z2), (z3): two gloo ranks on the one card
+    log(f"  this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB of the card's "
+        "memory while the two ranks run")
+    out = tmp / "z23.json"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+                               str(rk), "2", str(tmp / "z23"), no_cache, str(out)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rk in range(2)]
+    outs, timed_out = [], False
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=300)[0])
+        except subprocess.TimeoutExpired:
+            timed_out = True
+            for q in procs:
+                q.kill()
+            outs.append(p.communicate()[0])
+    row["z23_s"] = time.perf_counter() - t0
+    ran = not timed_out and all(p.returncode == 0 for p in procs) and out.exists()
+    for rk, o in enumerate(outs):
+        for line in o.strip().splitlines()[-(40 if not ran else 2):]:
+            log(f"    rank {rk}: {line}")
+    held("z2/z3 two gloo ranks on the card ran to their end", ran,
+         f"{row['z23_s']:.1f} s, timed out {timed_out}, exit codes "
+         f"{[p.returncode for p in procs]} ")
+    if ran:
+        with open(out) as f:
+            z = json.load(f)
+        fr, forced = z["free_running_rel"], z["forced_rel"]
+        held(f"z2 model=2, fp32: segments 1-2 free-running within {TOL_Z2:g}",
+             max(fr) <= TOL_Z2, f"rel err {[f'{e:.3e}' for e in fr]}, final A "
+             f"{z['free_running_A_rel']:.3e} ")
+        held(f"z2 model=2, fp32: 4 segments teacher-forced within {TOL_Z2:g}",
+             max(forced) <= TOL_Z2, f"rel err {[f'{e:.3e}' for e in forced]} ")
+        held("z2 32-token greedy generate from 2 segments = mesh-less", z["generate_equal"],
+             f"first tokens {z['generate_tokens']} ")
+        held("z3 a session captured on model=2 resumed on one device = mesh-less",
+             z["session_equal"])
+        held("z3 data=2: B = 2 generate = mesh-less", z["data_generate_equal"])
+        z2l = z["z2_launches"]
+        held("z2 five kernels launched at the local shapes, the fused update split",
+             all(z2l[k] > 0 for k in MESH_COUNTERS if k != "grouped_matmul_armt_update")
+             and z2l["grouped_matmul_armt_update"] == 0, f"launches {z2l} ")
+        log("  z2 operand shapes (local, model=2):")
+        for k, v in z["z2_shapes"].items():
+            log(f"    {k}: {'; '.join(v)}")
+        for k in launches:
+            launches[k] += z["launches"][k]
+        row.update(z2={k: z[k] for k in ("free_running_rel", "free_running_A_rel",
+                                         "forced_rel", "prefill_2seg_s", "ttft_s",
+                                         "decode_tok_s", "cut_s", "z2_launches",
+                                         "z2_shapes")})
+        log(f"  z2 model=2 fp32 (two ranks on one card, gloo): 2-segment prefill "
+            f"{z['prefill_2seg_s']:.3f} s, generate TTFT {z['ttft_s']:.3f} s, decode "
+            f"{z['decode_tok_s']:.1f} tok/s; params cut in {z['cut_s']:.2f} s ({smi})")
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"  (z) phase {row['phase_s']:.1f} s; card {smi}")
+    return failures, launches, row
 
 
 def main() -> int:
@@ -5475,6 +5849,10 @@ def main() -> int:
             failures.append(f"(y): {routes_dispatch[k]['simt']} SIMT {k} launches in bf16")
     print(json.dumps({"dispatch": dispatch_row, "card": smi}))
 
+    mesh_failures, launches_mesh, mesh_row = mesh_phase(no_cache, smi)
+    failures += mesh_failures
+    print(json.dumps({"mesh": mesh_row, "card": smi}))
+
     # ------------------------------------------------------------ (f) falcon-mamba model
     log("== model phase: falcon-mamba-7b, full width and depth, bf16, seed 0 on the card")
     fcfg = get_config("falcon-mamba-7b")
@@ -5831,7 +6209,8 @@ def main() -> int:
                    "dense_configs": launches_dense, "moe_configs": launches_moe,
                    "jamba": launches_jamba, "whisper": launches_whisper,
                    "train": launches_train, "train_families": launches_families,
-                   "cli": launches_cli, "dispatch": launches_dispatch}
+                   "cli": launches_cli, "dispatch": launches_dispatch,
+                   "mesh": launches_mesh}
     llama_routes = {"generate": routes_gen, "serve": routes_serve, "full_forward": routes_full,
                     "cache_generate": routes_cgen, "cache_serve": routes_cserve,
                     "serve_interleaved": routes_inter, "prefix_cache": routes_prefix,
@@ -5879,5 +6258,36 @@ def main() -> int:
     return 0
 
 
+def mesh_only() -> int:
+    """``chip_smoke.py --phase z``: the kernels' build, then phase (z) alone
+    (its children, the status lines)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build, dispatch
+    (ROOT / "build").mkdir(exist_ok=True)
+    cache_dir = Path(tempfile.mkdtemp(prefix="dispatch_cache_", dir=ROOT / "build"))
+    atexit.register(shutil.rmtree, cache_dir, True)
+    no_cache = str(cache_dir / "empty.json")
+    dispatch.set_cache_path(no_cache)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.lib()
+    smi = nvidia_smi()
+    failures, launches, row = mesh_phase(no_cache, smi)
+    print(json.dumps({"mesh": row, "launches": launches, "card": smi}))
+    if failures:
+        log(f"FAILED: {failures}")
+        return 1
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(sys.argv[2:]))
+    sys.exit(mesh_only() if sys.argv[1:] == ["--phase", "z"] else main())

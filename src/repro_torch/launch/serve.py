@@ -33,6 +33,21 @@ reference has jit-compile counts), and ``--profile-dir`` a
 ``torch.profiler`` trace (the CPU, and the card's kernels on the card)
 whose ``record_function`` spans line up with the engine's timeline.
 
+Both modes take ``--mesh AXES`` (``launch/mesh.py`` ``parse_mesh``: e.g.
+``data=2,model=2``, ``data,model=1``) for mesh-native serving over
+``torch.distributed``: the params are cut to each rank's blocks, the cells
+run tensor-parallel over 'model' and the batch (or the slots) splits over
+'data' (``ServeEngine(mesh=...)``). Under ``torchrun`` each rank joins the
+group from its environment (NCCL, one rank a GPU; ``--dist-backend gloo``
+for several ranks on one card, CUDA tensors staged through host memory);
+without it the process is a group of one. Every rank draws the same
+weights and requests; only rank 0 prints (and writes the trace and
+metrics). With an axis of more than one rank decode runs eager (no CUDA
+graphs).
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.serve --arch llama-1b-armt \
+        --mesh data=2,model=4 --prompt-len 16384 --batch 2
+
 Runs on the card unless ``--device cpu`` is given; ``--smoke`` takes the
 reduced config of the same family. Where the engine refuses a run (an
 encoder config, which needs frame embeddings the CLI has none of; a
@@ -109,6 +124,14 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' to run on the CPU)")
+    ap.add_argument("--mesh", default=None, metavar="AXES",
+                    help="mesh-native serving over torch.distributed: a comma list of "
+                         "axis[=size] over {pod,data,model,stage} (at most one size may be "
+                         "omitted), e.g. data=2,model=2; params shard over 'model', the "
+                         "batch and slots over 'data'")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="the process group's backend with --mesh (default: nccl with a "
+                         "CUDA device, else gloo); gloo runs several ranks on one card")
     return ap
 
 
@@ -173,7 +196,20 @@ def main(argv=None):
     if args.continuous and (args.temperature > 0 or args.top_k > 0):
         ap.error("--continuous streams greedy tokens; --temperature/--top-k "
                  "apply to single-batch mode only")
+    mesh, say = None, print
+    if args.mesh is not None:
+        from repro_torch.launch.mesh import init_distributed, parse_mesh
+        backend = init_distributed(args.dist_backend)
+        try:
+            mesh = parse_mesh(args.mesh)
+        except ValueError as e:
+            raise SystemExit(f"serve: --mesh: {e}") from None
+        if mesh.rank != 0:
+            def say(*a, **k):
+                pass
     device = resolve_device(args.device)
+    if mesh is not None:
+        say(f"mesh: {mesh.shape} over {mesh.size} {device.type} device(s) ({backend})")
 
     def refused(err: Exception):
         return SystemExit(f"serve: {cfg.name}: refused: {err}")
@@ -194,13 +230,14 @@ def main(argv=None):
         eng = ServeEngine(params, cfg, serve_mode=args.serve_mode, schedule=args.schedule,
                           device=device, max_len=args.prompt_len + seg // 2 + args.max_new,
                           prefix_cache=prefix_cache, session_store=session_store,
-                          telemetry=tel)
+                          telemetry=tel, mesh=mesh,
+                          eager=mesh is not None and max(mesh.shape.values()) > 1)
     except ValueError as e:
         raise refused(e) from None
     out = {"arch": cfg.name, "n_params": n_params}
 
     prof = None
-    if args.profile_dir:
+    if args.profile_dir and say is print:     # rank 0 profiles
         acts = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -209,26 +246,28 @@ def main(argv=None):
 
     def epilogue():
         """The profile, then --trace-out / --metrics[-out], in both modes."""
+        if say is not print:     # ranks other than 0 write nothing
+            return out
         if prof is not None:
             prof.stop()
             os.makedirs(args.profile_dir, exist_ok=True)
             path = os.path.join(args.profile_dir, "trace.json")
             prof.export_chrome_trace(path)
-            print(f"torch profile -> {path}")
+            say(f"torch profile -> {path}")
         if args.trace_out:
             tel.trace.export(args.trace_out)
             errs = validate_chrome_trace(args.trace_out)
             if errs:
                 raise SystemExit(f"trace schema check failed: {errs}")
-            print(f"trace: {len(tel.trace.spans)} spans -> {args.trace_out}")
+            say(f"trace: {len(tel.trace.spans)} spans -> {args.trace_out}")
         if args.metrics or args.metrics_out:
             snap = eng.metrics_snapshot()
             if args.metrics:
-                print("metrics:", json.dumps(snap, indent=2, default=str))
+                say("metrics:", json.dumps(snap, indent=2, default=str))
             if args.metrics_out:
                 with open(args.metrics_out, "w") as f:
                     json.dump(snap, f, indent=2, default=str)
-                print(f"metrics -> {args.metrics_out}")
+                say(f"metrics -> {args.metrics_out}")
         return out
 
     if args.continuous:
@@ -251,13 +290,13 @@ def main(argv=None):
         for ev in events:
             if isinstance(ev, RequestError):
                 errors.append(ev)
-                print(f"{ev.req_id}: REJECTED [{ev.code}] {ev.message}")
+                say(f"{ev.req_id}: REJECTED [{ev.code}] {ev.message}")
                 continue
             n_tok += 1
             outs[ev.req_id].append(ev.token)
             if ev.done:
                 done[ev.req_id] = (ev.ttft_s, ev.tok_s)
-                print(f"{ev.req_id}: done ({ev.index + 1} tokens, ttft={ev.ttft_s:.2f}s, "
+                say(f"{ev.req_id}: done ({ev.index + 1} tokens, ttft={ev.ttft_s:.2f}s, "
                       f"{ev.tok_s:.1f} tok/s) first 8: {outs[ev.req_id][:8]}")
         dt = time.perf_counter() - t0
         k, n_conc = args.prefill_groups_per_chunk, args.max_concurrent_admissions
@@ -265,13 +304,13 @@ def main(argv=None):
                "blocking(whole stage per advance)" if k < 0
                else f"interleaved(k={k}, N={'slots' if n_conc is None else n_conc}, "
                     f"{args.admission_fairness}{', fused' if args.fused_admission else ''})")
-        print(f"arch={cfg.name} mode={args.serve_mode} slots={args.slots} "
+        say(f"arch={cfg.name} mode={args.serve_mode} slots={args.slots} "
               f"requests={args.requests} admission={adm}")
-        print(f"{n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s)")
+        say(f"{n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s)")
         stats = None
         if prefix_cache is not None:
             stats = prefix_cache.stats.as_dict()
-            print(f"prefix-cache: {stats['hits']} hits / {stats['misses']} misses, "
+            say(f"prefix-cache: {stats['hits']} hits / {stats['misses']} misses, "
                   f"{len(prefix_cache)} entries, {stats['bytes_in_ram'] / 2**10:.1f} KiB, "
                   f"{stats['evictions']} evictions ({stats['spills']} spilled)")
         out.update(mode="continuous", requests=reqs, streams=outs, errors=errors, done=done,
@@ -291,11 +330,11 @@ def main(argv=None):
         except ValueError as e:
             raise refused(e) from None
         dt = time.perf_counter() - t0
-        print(f"arch={cfg.name} session demo: turn1 ttft={r1.ttft_s:.2f}s "
+        say(f"arch={cfg.name} session demo: turn1 ttft={r1.ttft_s:.2f}s "
               f"({prompts.shape[1]} prompt tokens), turn2 resumed={r2.resumed} "
               f"ttft={r2.ttft_s:.2f}s ({turn2.shape[1]} new tokens, history never "
               "recomputed)")
-        print("turn2 first 8:", r2.tokens[0, :8].tolist())
+        say("turn2 first 8:", r2.tokens[0, :8].tolist())
         out.update(mode="session", prompts=[prompts[:1], turn2],
                    tokens=[r1.tokens, r2.tokens], resumed=r2.resumed,
                    ttft_s=[r1.ttft_s, r2.ttft_s], wall_s=dt)
@@ -308,11 +347,11 @@ def main(argv=None):
     except ValueError as e:
         raise refused(e) from None
     dt = time.perf_counter() - t0
-    print(f"arch={cfg.name} mode={args.serve_mode} schedule={args.schedule} "
+    say(f"arch={cfg.name} mode={args.serve_mode} schedule={args.schedule} "
           f"prefill_segments={res.prefill_segments}")
-    print(f"generated {res.tokens.shape} tokens in {dt:.2f}s "
+    say(f"generated {res.tokens.shape} tokens in {dt:.2f}s "
           f"(ttft={res.ttft_s:.2f}s, decode {res.tok_s:.1f} tok/s)")
-    print("first row:", res.tokens[0].tolist())
+    say("first row:", res.tokens[0].tolist())
     out.update(mode="single", prompts=prompts, tokens=res.tokens, ttft_s=res.ttft_s,
                tok_s=res.tok_s, finite=res.finite, prefill_segments=res.prefill_segments,
                wall_s=dt)

@@ -38,6 +38,7 @@ from repro_torch.models.attention import attention, cross_attention
 from repro_torch.models.layers import ffn, norm
 from repro_torch.models.mamba import mamba_block, mamba_state_init
 from repro_torch.models.moe import moe_ffn
+from repro_torch.parallel.comm import tp_gather, tp_reduce
 
 
 MODES = ("segmented", "full")
@@ -67,9 +68,10 @@ def apply_ffn(cfg, t: str, h, p, block: int = 0):
         return h
     T = h.shape[-2]
     if 0 < block < T:
-        return h + torch.cat([ffn(cfg.act, norm(cfg.norm, h[..., i:i + block, :], p["ln2"]),
-                                  p["ffn"]) for i in range(0, T, block)], dim=-2)
-    return h + ffn(cfg.act, norm(cfg.norm, h, p["ln2"]), p["ffn"])
+        return h + tp_reduce(torch.cat([
+            ffn(cfg.act, norm(cfg.norm, h[..., i:i + block, :], p["ln2"]), p["ffn"])
+            for i in range(0, T, block)], dim=-2))
+    return h + tp_reduce(ffn(cfg.act, norm(cfg.norm, h, p["ln2"]), p["ffn"]))
 
 
 def check_mode(mode: str) -> None:
@@ -115,8 +117,8 @@ def make_apply_block(cfg, mode: str = "segmented"):
             raise ValueError(f"unknown block type {t!r}")
         new_state = dict(state)
         if armt_on:
-            x = x + mem_read(p["mem"], state, x, cfg.armt)
-        h = x + attention(norm(cfg.norm, x, p["ln1"]), p["attn"], cfg)
+            x = x + tp_gather(mem_read(p["mem"], state, x, cfg.armt))
+        h = x + tp_reduce(attention(norm(cfg.norm, x, p["ln1"]), p["attn"], cfg))
         if t == "dec":
             h = h + cross_attention(norm(cfg.norm, h, p["ln_x"]), p["xattn"], state["ck"],
                                     state["cv"], cfg)

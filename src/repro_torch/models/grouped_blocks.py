@@ -99,6 +99,7 @@ from repro_torch.models.blocks import check_mode
 from repro_torch.models.layers import layernorm, rmsnorm
 from repro_torch.models.mamba import mamba_block
 from repro_torch.models.moe import moe_ffn_grouped
+from repro_torch.parallel.comm import tp_active, tp_gather, tp_reduce
 
 
 def make_grouped_apply(cfg, mode: str = "segmented"):
@@ -141,7 +142,7 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
             # B = 1 reshapes to a strided view; the read takes contiguous rows
             read = kops.assoc_read(x.reshape(N, T, D).contiguous(), small(p["mem"]["wq"]),
                                    A_f, z_f, nu=cfg.armt.nu)
-            x = x + read.reshape(G, B, T, -1)
+            x = x + tp_gather(read.reshape(G, B, T, -1))
 
         pa = p["attn"]
         hln = snorm(x, p["ln1"])
@@ -155,7 +156,7 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
             k = rmsnorm(k, {"w": small(pa["kn"]["w"])[:, None, None, None, :]})
         q, k = rope_qk(q, k, cfg)
         o = kops.segment_attention(q, k, v, causal=True, window=cfg.sliding_window)
-        return x + gemm(o.reshape(G, B, T, nq * hd), pa["wo"]), A_f, z_f
+        return x + tp_reduce(gemm(o.reshape(G, B, T, nq * hd), pa["wo"])), A_f, z_f
 
     def update(p, y, state, A_f, z_f, widx):
         """The ARMT update from the last M rows of each group's y (two
@@ -191,17 +192,25 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
         too (one rounding, as the fused update's); SwiGLU's is added after
         the cast (the bits the llama gates pin)."""
         gemm = helpers(widx)[2]
+
+        def down(mid, wd, bd, res):
+            # a row-parallel product is a partial sum: the residual (and
+            # the bias) is added once, after the all-reduce
+            if tp_active():
+                y = tp_reduce(gemm(mid, wd))
+                return res + (y if bd is None else y + bd)
+            return gemm(mid, wd, bd, res=res)
         T = h.shape[2]
         if not 0 < cb < T:
             mid, wd, bd = ffn_mid(p, h, widx)
             if cfg.act == "gelu":
-                return gemm(mid, wd, bd, res=h)
-            return h + gemm(mid, wd, bd)
+                return down(mid, wd, bd, h)
+            return h + tp_reduce(gemm(mid, wd, bd))
         y = torch.empty_like(h)
         for i in range(0, T, cb):
             hc = h[:, :, i:i + cb]
             mid, wd, bd = ffn_mid(p, hc, widx)
-            y[:, :, i:i + cb] = gemm(mid, wd, bd, res=hc)
+            y[:, :, i:i + cb] = down(mid, wd, bd, hc)
         return y
 
     def cross(p, h, state, widx):
@@ -226,7 +235,7 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
         if not armt_on:
             return ffn(p, h, widx), dict(state)
         M, pm = cfg.armt.num_mem_tokens, p["mem"]
-        if M > 0 and B == 1 and not 0 < cb < T:
+        if M > 0 and B == 1 and not 0 < cb < T and not tp_active():
             mid, wd, bd = ffn_mid(p, h, widx)
             wk, wv, wb = small(pm["wk"]), small(pm["wv"]), small(pm["wb"])
             if needs_grad(mid, wd, h, wk, wv, wb, A_f, z_f, bd):

@@ -19,6 +19,12 @@ dict per pattern position whose leaves are stacked over the ``n_super``
 layers on dim 0. Every executor and the decode path run the prelude
 layers first, as the reference does.
 ``Model`` holds such a tree as an ``nn.Module``.
+
+On a mesh (``launch/mesh.py``) ``shard_model`` gives a rank's local view
+of the model: its blocks of the params, the local config (heads, d_ff and
+the memory's value dim divided by the 'model' axis) and the
+tensor-parallel context under which the embedding, the head, the blocks
+and decode place their collectives (``parallel/comm.py``).
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from repro_torch.models.grouped_blocks import make_grouped_apply
 from repro_torch.models.layers import norm
 from repro_torch.models.mamba import mamba_block, mamba_param_init
 from repro_torch.models.moe import moe_param_init
+from repro_torch.parallel import comm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # segment length of a model without ARMT (the reference's fallback): no
@@ -265,6 +272,13 @@ class Model(nn.Module):
 # Forward
 # ---------------------------------------------------------------------------
 
+def embed_rows(params: Dict, ids: torch.Tensor) -> torch.Tensor:
+    """The embedding's rows ``ids`` -> [..., D]; inside a tensor-parallel
+    context (``parallel/comm.py``) from this rank's block of the table."""
+    tp = comm.current()
+    return params["embed"][ids] if tp is None else tp.embed(params["embed"], ids)
+
+
 def embed_segments(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                    seg_len: int, with_mem: bool = True) -> torch.Tensor:
     """tokens: [B, S*seg_len] -> [S, B, seg_len (+ M), D]: with_mem appends
@@ -276,7 +290,7 @@ def embed_segments(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     if total % seg_len:
         raise ValueError(f"{total} tokens do not split into segments of {seg_len}")
     S = total // seg_len
-    x = params["embed"][tokens.reshape(B, S, seg_len).transpose(0, 1)]
+    x = embed_rows(params, tokens.reshape(B, S, seg_len).transpose(0, 1))
     if with_mem and "mem_tokens" in params:
         M, D = params["mem_tokens"].shape
         x = torch.cat([x, params["mem_tokens"].expand(S, B, M, D)], dim=2)
@@ -513,9 +527,15 @@ def copy_state_(dst: Dict, src: Dict) -> None:
 
 
 def _head_matmul(params: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return torch.matmul(h, params["embed"].t())
-    return torch.matmul(h, params["head"])
+    """h [..., D] -> logits [..., V]: the tied embedding's transpose or the
+    head; inside a tensor-parallel context from this rank's block, the
+    local logits all-gathered (a vocab split) or the partial products
+    all-reduced (a d split)."""
+    tp = comm.current()
+    w = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    if tp is None:
+        return torch.matmul(h, w)
+    return tp.logits(h, w, tp.embed_split if cfg.tie_embeddings else tp.head_split)
 
 
 CE_CHUNK = 256   # tokens of a segment whose fp32 logits lm_loss makes at once
@@ -628,6 +648,80 @@ def decode_state_shapes(cfg: ArchConfig, batch: int, *, serve_mode: str, max_len
                              max_len=max_len, per_slot_pos=per_slot_pos)
 
 
+def decode_state_sharding(cfg: ArchConfig, mesh, batch: int, *, serve_mode: str,
+                          max_len: int, dtype, per_slot_pos: bool = False,
+                          stacked_axis: Optional[str] = None) -> Dict:
+    """``Sharding`` tree of a decode state on ``mesh``: slots (the batch)
+    over the DP axes, heads and the memory's value dim over 'model',
+    pattern-stacked leaves optionally over ``stacked_axis``: the placement
+    the mesh engine derives its pools, transplants and restores from."""
+    from repro_torch.parallel import sharding as shd
+    shapes = decode_state_shapes(cfg, batch, serve_mode=serve_mode, max_len=max_len,
+                                 dtype=dtype, per_slot_pos=per_slot_pos)
+    return shd.decode_state_specs(shapes, mesh, batch, stacked_axis=stacked_axis)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the local view of a model on a mesh's 'model' axis
+# ---------------------------------------------------------------------------
+
+MESH_TYPES = ("attn",)      # the block types the tensor-parallel cells run
+
+
+def local_config(cfg: ArchConfig, tp: int) -> ArchConfig:
+    """The config of what one of ``tp`` ranks of the 'model' axis computes:
+    the q and kv heads and d_ff divided by tp, and the ARMT value dim too
+    where tp divides it (the rules split ``wv`` and A there, else keep them
+    whole). cfg itself at tp = 1. A dim tp does not divide is refused with
+    the dim named: the cells split whole heads (the reference's GSPMD may
+    cut a head, or a cache's sequence, which explicit cells cannot)."""
+    if tp == 1:
+        return cfg
+    for name, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                    ("d_ff", cfg.d_ff)):
+        if n % tp:
+            raise ValueError(f"{cfg.name}: {name} {n} does not divide over the mesh's "
+                             f"model axis of {tp}")
+    armt = cfg.armt
+    if armt is not None:
+        dv = armt.d_val or cfg.d_model
+        if dv % tp == 0:
+            armt = replace(armt, d_val=dv // tp)
+    return replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
+                   d_head=cfg.head_dim, d_ff=cfg.d_ff // tp, armt=armt)
+
+
+def shard_model(params: Dict, cfg: ArchConfig, mesh):
+    """The local view of a model on ``mesh``: (this rank's params, the local
+    config, the ``comm.TensorParallel`` the cells run under, None without a
+    'model' axis of more than one rank). The params are every leaf's block
+    under ``sharding.param_specs`` (a view of the leaf where the block is
+    contiguous in it: a replicated leaf, a block of rows; else a copy),
+    with the QKV biases, which the rules replicate, cut to the rank's own
+    columns."""
+    from repro_torch.parallel import sharding as shd
+    tp = shd.tp_size(mesh)
+    lcfg = local_config(cfg, tp)
+    specs = shd.param_specs(params, mesh)
+    local = comm.shard_tree(params, specs, mesh, copy=False)
+    if tp == 1:
+        return local, cfg, None
+    for part in (local["prelude"], local["pattern"]):
+        for blk in part:
+            for name in ("attn", "xattn"):
+                for b in ("bq", "bk", "bv"):
+                    if name in blk and b in blk[name]:
+                        t = blk[name][b]
+                        lo, hi = comm.block_range(t.shape[-1], mesh, "model")
+                        blk[name][b] = t[..., lo:hi].contiguous()
+
+    embed = specs["embed"].spec                                      # [V, D]
+    head = specs["head"].spec if "head" in specs else (None, None)   # [D, V]
+    embed_split = "vocab" if embed[0] else "d" if embed[1] else None
+    head_split = "vocab" if head[1] else "d" if head[0] else None
+    return local, lcfg, comm.TensorParallel(mesh, embed_split, head_split)
+
+
 def make_decode_apply(cfg: ArchConfig, serve_mode: str, pos, mask=None):
     """Block apply for decode: x [B, Tq, D] against the layer's cache
     (attn, attn_moe and dec; with the memory read in 'armt' mode), which it
@@ -648,9 +742,9 @@ def make_decode_apply(cfg: ArchConfig, serve_mode: str, pos, mask=None):
         if t not in ATTN_TYPES:
             raise ValueError(t)
         if armt_on:
-            x = x + mem_read(p["mem"], st, x, cfg.armt)
-        h = x + decode_attention(norm(cfg.norm, x, p["ln1"]), p["attn"], cfg,
-                                 {"k": st["k"], "v": st["v"]}, pos, mask)
+            x = x + comm.tp_gather(mem_read(p["mem"], st, x, cfg.armt))
+        h = x + comm.tp_reduce(decode_attention(norm(cfg.norm, x, p["ln1"]), p["attn"], cfg,
+                                                {"k": st["k"], "v": st["v"]}, pos, mask))
         if t == "dec":
             h = h + decode_cross_attention(norm(cfg.norm, h, p["ln_x"]), p["xattn"],
                                            st["ck"], st["cv"], cfg)
@@ -700,7 +794,7 @@ def decode_step_(params: Dict, cfg: ArchConfig, state: Dict, tokens: torch.Tenso
     layout = StackLayout.from_config(cfg)
     pos = state["pos"]
     toks = tokens if tokens.dim() == 2 else tokens[:, None]
-    x = _with_positions(params, params["embed"][toks], pos)
+    x = _with_positions(params, embed_rows(params, toks), pos)
     exec_params, exec_state = _exec(params, state)
     ys = run_sequential_(layout, exec_params, exec_state, x[None],
                          make_decode_apply(cfg, serve_mode, pos, mask), row_mask=mask)

@@ -69,6 +69,7 @@ by default, spans when a trace recorder is asked for; host-side only.
 """
 from __future__ import annotations
 
+import functools
 import time
 import weakref
 from dataclasses import dataclass
@@ -86,13 +87,16 @@ from repro_torch.core.sequential import clone_state
 from repro_torch.models.blocks import MAMBA_TYPES, block_d_ff, make_apply_block
 from repro_torch.models.grouped_blocks import make_grouped_apply
 from repro_torch.models.moe import capacity
-from repro_torch.models.model import (SCHEDULES, boundary_logits, check_serve_mode,
-                                      copy_state_, decode_state_init, decode_step_,
-                                      embed_segments, encode, fill_cross_kv_,
-                                      flush_segment_, forward_hidden, init_state,
-                                      last_logits, resolve_device, segment_len)
+from repro_torch.models.model import (MESH_TYPES, SCHEDULES, boundary_logits,
+                                      check_serve_mode, copy_state_, decode_state_init,
+                                      decode_state_sharding, decode_step_, embed_segments,
+                                      encode, fill_cross_kv_, flush_segment_,
+                                      forward_hidden, init_state, last_logits,
+                                      resolve_device, segment_len, shard_model)
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding as shd
 from repro_torch.serve.scheduler import ContinuousScheduler
-from repro_torch.serve.state_store import prefix_hash_chain, tree_nbytes
+from repro_torch.serve.state_store import gather_to_host, prefix_hash_chain, tree_nbytes
 from repro_torch.serve.telemetry import Telemetry
 
 
@@ -105,6 +109,17 @@ def _transplant(fin: Dict, dstate: Dict) -> None:
             for k in RECURRENT_KEYS:
                 if k in src:
                     dst[k].copy_(src[k])
+
+
+def _on_mesh(fn):
+    """Run an engine (or pipeline) method inside the engine's
+    tensor-parallel context (``parallel/comm.py``): the cells it runs split
+    over the mesh's 'model' axis; a mesh-less engine's context is none."""
+    @functools.wraps(fn)
+    def wrapped(self, *args, **kwargs):
+        with comm.tensor_parallel(getattr(self, "engine", self)._tp):
+            return fn(self, *args, **kwargs)
+    return wrapped
 
 
 def _greedy(temperature: float, top_k: int) -> bool:
@@ -140,6 +155,22 @@ def sample(logits: torch.Tensor, *, temperature: float, top_k: int,
     u = noise if noise is not None else torch.rand(scaled.shape, generator=generator,
                                                    device=scaled.device)
     return (scaled - torch.log(-torch.log(u))).argmax(-1)
+
+
+def _check_mesh(mesh, cfg: ArchConfig, device, eager: bool) -> None:
+    """What the mesh-native engine refuses (each waits in ROADMAP Queue 1)."""
+    if mesh.shape.get("stage", 1) > 1:
+        raise ValueError(f"mesh {mesh.shape}: the 'stage' axis (slot-sharded diagonal "
+                         "across ranks) is not ported yet (ROADMAP Queue 1)")
+    if not (set(cfg.layer_types) <= set(MESH_TYPES) and not cfg.prelude
+            and cfg.moe is None and cfg.ssm is None and cfg.encoder is None):
+        raise ValueError(f"{cfg.name} on a mesh: the mesh-native engine runs the dense "
+                         "ARMT family only; MoE, Mamba, hybrid and encoder configs wait in "
+                         "ROADMAP Queue 1")
+    if device.type == "cuda" and not eager and max(mesh.shape.values()) > 1:
+        raise ValueError(f"mesh {mesh.shape}: CUDA graphs with an axis of more than one "
+                         "rank (a gloo collective cannot be captured; NCCL capture is not "
+                         "checked yet, ROADMAP Queue 1): pass eager=True")
 
 
 @dataclass
@@ -263,14 +294,37 @@ class ServeEngine:
     seg_len is ``max_len``, so it takes one only with max_len equal to it.
     telemetry: a ``Telemetry`` (default: metrics into the process registry,
     no trace).
+    mesh: a ``launch.mesh.Mesh`` over the process group: the engine becomes
+    mesh-native, each rank one block of the model (see ``Mesh placement``
+    below; every rank runs the same calls). None: one device.
 
     Decode programs are kept per batch size, one set for ``generate`` and
-    one for ``serve``: one call of each at a time per engine."""
+    one for ``serve``: one call of each at a time per engine.
+
+    Mesh placement. The params are cut once, here, to this rank's blocks
+    under ``parallel/sharding.py``'s rules (``models.model.shard_model``),
+    and the engine's ``cfg`` becomes the local config (heads, d_ff and the
+    memory's value dim divided by the 'model' axis; ``full_cfg`` is the
+    model's). The cells run on the local blocks with the collectives placed
+    by hand (``parallel/comm.py``): the embedding and head vocab-parallel,
+    Q/K/V and the FFN's in projections column-parallel, ``wo``/``wd``
+    row-parallel and all-reduced, the ARMT read all-gathered. Under the
+    'data' axes a batch the axes divide is split by rows (``generate``'s
+    prompts, ``serve``'s slots); one they do not divide (a B = 1 admission)
+    is replicated, every data rank computing it. Blobs cross the state
+    stores whole, on the host (``gather_to_host``), and are cut again when
+    restored (``_place_state``), so a snapshot or session moves between
+    meshes of any shape. On a mesh of one rank nothing is cut and every
+    path is the mesh-less engine's, CUDA graphs included. Refused: a
+    'stage' axis of more than one rank, a config outside the dense ARMT
+    family (``MESH_TYPES`` layers only, no MoE, SSM, encoder or prelude),
+    and on the card CUDA graphs with an axis of more than one rank (pass
+    ``eager=True``): ROADMAP Queue 1 holds each."""
 
     def __init__(self, params: Dict, cfg: ArchConfig, *, serve_mode: str = "armt",
                  schedule: str = "diagonal", device=None, max_len: int = 8192,
                  eager: bool = False, prefix_cache=None, session_store=None,
-                 telemetry: Optional[Telemetry] = None):
+                 telemetry: Optional[Telemetry] = None, mesh=None):
         check_serve_mode(serve_mode)
         if serve_mode == "armt" and cfg.armt is None and not cfg.is_recurrent:
             raise ValueError(f"serve_mode='armt' needs recurrent layer state, but "
@@ -283,6 +337,15 @@ class ServeEngine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine on {self.device}")
+        self.mesh = mesh
+        self.full_cfg = cfg
+        self._tp = None
+        # a mesh of more than one rank: params, states and blobs are cut
+        self._sharded = mesh is not None and mesh.size > 1
+        if mesh is not None:
+            _check_mesh(mesh, cfg, self.device, eager)
+        if self._sharded:
+            params, cfg, self._tp = shard_model(params, cfg, mesh)
         self.params = params
         self.cfg = cfg
         self.serve_mode = serve_mode
@@ -336,6 +399,55 @@ class ServeEngine:
                                    lambda: me() and me().session_store.stats.as_dict())
 
     # ------------------------------------------------------------------
+    # Mesh placement (no-ops on a mesh-less engine)
+    # ------------------------------------------------------------------
+
+    def state_sharding(self, batch: int, *, per_slot_pos: bool = False):
+        """The ``Sharding`` tree of a whole decode state of ``batch`` rows
+        under this engine's rules; None without a mesh."""
+        if self.mesh is None:
+            return None
+        return decode_state_sharding(
+            self.full_cfg, self.mesh, batch, serve_mode=self.serve_mode,
+            max_len=self.max_len, dtype=self.params["embed"].dtype,
+            per_slot_pos=per_slot_pos)
+
+    def _state_specs(self, tree: Dict, batch: int) -> Dict:
+        """The specs of a decode state's (sub-)tree of ``batch`` rows, leaf
+        by leaf from the whole state's (a boundary snapshot has no pos or
+        caches)."""
+        full = self.state_sharding(batch, per_slot_pos=isinstance(tree.get("pos"),
+                                                                   torch.Tensor))
+
+        def pick(t, sp):
+            if isinstance(t, dict):
+                return {k: pick(v, sp[k]) for k, v in t.items()}
+            if isinstance(t, (tuple, list)):
+                return tuple(pick(v, x) for v, x in zip(t, sp))
+            return sp
+        return pick(tree, full)
+
+    def _place_state(self, tree: Dict, batch: int) -> Dict:
+        """Scatter on restore: this rank's block of every leaf of a whole
+        state (sub-)tree (a host blob of a store), as fresh tensors on the
+        engine's device."""
+        return comm.shard_tree(tree, self._state_specs(tree, batch), self.mesh,
+                               device=self.device)
+
+    def _to_host(self, tree: Dict, batch: int) -> Dict:
+        """Gather on capture: a state (sub-)tree of this rank's blocks made
+        whole on the host for a store; on one device the tree itself."""
+        return gather_to_host(tree, self.mesh,
+                              self._state_specs(tree, batch) if self._sharded else None)
+
+    def _rows(self, batch: int):
+        """(the dp axes that split a batch of ``batch`` rows, or None, this
+        rank's rows [lo, hi))."""
+        bax = shd.batch_axes(self.mesh, batch) if self._sharded else None
+        lo, hi = comm.block_range(batch, self.mesh, bax) if bax else (0, batch)
+        return bax, lo, hi
+
+    # ------------------------------------------------------------------
     # Telemetry
     # ------------------------------------------------------------------
 
@@ -374,6 +486,27 @@ class ServeEngine:
             self._programs[key] = DecodeProgram(self, batch)
         return self._programs[key]
 
+    @torch.no_grad()
+    @_on_mesh
+    def forward_hidden(self, tokens, state0: Optional[Dict] = None, **kwargs):
+        """``models.model.forward_hidden`` of ``tokens`` [B, T] on this
+        engine's params and schedule (the fused cell) -> (hidden [S, B, T,
+        D], final executor state). On a mesh of more than one rank: on this
+        rank's blocks and rows, from the rank's block of a whole ``state0``,
+        and the hidden states and final state gathered whole."""
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long)
+        bax, lo, hi = self._rows(tokens.shape[0])
+        if self._sharded and state0 is not None:
+            state0 = self._place_state(state0, tokens.shape[0])
+        kwargs.setdefault("schedule", self.schedule)
+        h, fin = forward_hidden(self.params, self.cfg, tokens[lo:hi].to(self.device),
+                                state0=state0, **kwargs)[:2]
+        if not self._sharded:
+            return h, fin
+        if bax is not None:
+            h = comm.all_gather(h, self.mesh, bax, 1)
+        return h, comm.gather_tree(fin, self._state_specs(fin, tokens.shape[0]), self.mesh)
+
     def _check_frames(self, enc_frames) -> None:
         if self.cfg.encoder is None and enc_frames is not None:
             raise ValueError(f"{self.cfg.name} has no encoder: enc_frames is for whisper")
@@ -388,6 +521,7 @@ class ServeEngine:
                              "use generate(..., enc_frames=)")
 
     @torch.no_grad()
+    @_on_mesh
     def prefill(self, prompts: torch.Tensor, enc_frames=None):
         """prompts: [B, P] -> (next-token logits [B, V] fp32, decode state,
         position: in-segment, or in cache mode the tokens in the cache, a
@@ -430,6 +564,8 @@ class ServeEngine:
                                           else (0, None, None, None))
         if cached:
             state0, logits = snap.state, snap.logits.clone()
+            if self._sharded:       # a whole host blob: this rank's blocks
+                state0, logits = self._place_state(state0, B), logits.to(self.device)
             if cached == n_full:
                 _transplant(state0, dstate)
         prompts = prompts.to(self.device)
@@ -473,17 +609,22 @@ class ServeEngine:
         for c in range(hidden.shape[0]):
             snap = {part: tuple({k: v[c].clone() for k, v in tree.items()}
                                 for tree in states[part]) for part in ("prelude", "pattern")}
+            lg = blogits[c].clone()
+            if self._sharded:
+                snap, lg = self._to_host(snap, 1), lg.cpu()
             self.prefix_cache.insert(prompt_np[:(off + c + 1) * self.seg_len], snap,
-                                     blogits[c].clone(), key=chain[off + c])
+                                     lg, key=chain[off + c])
 
     def restored(self, entry) -> Dict:
         """A fresh B = 1 decode state holding a stored session's leaves (a
         copy: what it runs updates in place) at the entry's position."""
         dstate = self.decode_state(1)
-        copy_state_(dstate, entry.state)
+        copy_state_(dstate, self._place_state(entry.state, 1) if self._sharded
+                    else entry.state)
         dstate["pos"] = entry.pos
         return dstate
 
+    @_on_mesh
     def resume(self, entry, prompt):
         """Resume a stored session with this turn's tokens [P]: its state
         restored, then the pending token and the prompt through ``_chunk``
@@ -560,6 +701,7 @@ class ServeEngine:
         return {"prelude": self.params["prelude"], "pattern": self.params["pattern"]}
 
     @torch.no_grad()
+    @_on_mesh
     def prefill_step(self, xs: torch.Tensor, carry: Dict, n_groups: int) -> Dict:
         """Advance one suspended diagonal stage (``diag.pipeline_init``'s
         carry over the embedded segments ``xs``) by ``n_groups`` band
@@ -571,6 +713,7 @@ class ServeEngine:
                                       retain_pos=self._retain_pos)
 
     @torch.no_grad()
+    @_on_mesh
     def pool_prefill_step_run(self, n_groups: int, group) -> list:
         """Advance every member of ``group``, ``[(pipe, xs, carry), ...]``,
         by ``n_groups`` band steps through one pooled step
@@ -746,6 +889,7 @@ class ServeEngine:
                                max_stage_segments=max_stage_segments)
 
     @torch.no_grad()
+    @_on_mesh
     def generate(self, prompts, max_new: int, *, temperature: float = 0.0,
                  top_k: int = 0, seed: int = 0, keep: bool = False,
                  session_id: Optional[str] = None, enc_frames=None) -> GenerationResult:
@@ -766,9 +910,17 @@ class ServeEngine:
         enc_frames: an encoder config's frame embeddings [B, F, D] (see
         ``prefill``); the decode program's static cross K/V take them by a
         copy into the buffers its graphs were captured on. Sessions of an
-        encoder config are not ported (a ValueError)."""
+        encoder config are not ported (a ValueError).
+
+        On a mesh every rank calls it with the whole batch: a batch the data
+        axes divide runs this rank's rows, the tokens (and kept logits and
+        state) gathered whole; sampled rows draw from the same seed on every
+        rank of a 'model' group."""
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long)
-        B, P = prompts.shape
+        B_all, P = prompts.shape
+        bax, lo, hi = self._rows(B_all)
+        prompts = prompts[lo:hi]
+        B = hi - lo
         self._check_frames(enc_frames)
         entry = None
         if session_id is not None:
@@ -819,25 +971,40 @@ class ServeEngine:
                     prog.flush()
                     pos = 0
                 toks[:, i] = prog.tok
-            host = torch.cat([toks.reshape(-1), prog.finite.all().long()[None]]).cpu().numpy()
+            finite = prog.finite
+            if bax is not None:
+                toks = comm.all_gather(toks, self.mesh, bax, 0)
+                finite = comm.all_gather(finite, self.mesh, bax, 0)
+            host = torch.cat([toks.reshape(-1), finite.all().long()[None]]).cpu().numpy()
         t_end = time.perf_counter()
-        tokens = host[:-1].reshape(B, max_new)
-        tok_s = B * max(max_new - 1, 0) / max(t_end - t_first, 1e-9)
+        tokens = host[:-1].reshape(B_all, max_new)
+        tok_s = B_all * max(max_new - 1, 0) / max(t_end - t_first, 1e-9)
         tel.observe("generate_ttft_s", t_first - t0)
         tel.observe("generate_decode_tok_s", tok_s)
         if session_id is not None:
             history = np.concatenate([entry.tokens if entry is not None
                                       else np.empty(0, np.int32), prompts[0].numpy(),
                                       tokens[0]]).astype(np.int32)
-            # a copy: the program's state is the next call's
-            self.session_store.put(session_id, state=clone_state(
-                {"prelude": prog.state["prelude"], "pattern": prog.state["pattern"]}),
-                pos=pos, pending=tokens[0, -1:], tokens=history)
+            # a copy: the program's state is the next call's (on a mesh of
+            # more than one rank gathered whole to the host)
+            rec = {"prelude": prog.state["prelude"], "pattern": prog.state["pattern"]}
+            self.session_store.put(session_id, state=self._to_host(rec, 1) if self._sharded
+                                   else clone_state(rec),
+                                   pos=pos, pending=tokens[0, -1:], tokens=history)
+        kept_state = None
+        if keep:
+            kept_state = clone_state(prog.state)
+            if self._sharded:
+                kept_state = comm.gather_tree(kept_state, self._state_specs(
+                    kept_state, B_all), self.mesh)
+            kept = torch.stack(kept, dim=1)
+            if bax is not None:
+                kept = comm.all_gather(kept, self.mesh, bax, 0)
         return GenerationResult(
             tokens, P // self.seg_len, finite=bool(host[-1]),
             ttft_s=t_first - t0, tok_s=tok_s, capture_s=capture_s,
-            logits=torch.stack(kept, dim=1) if keep else None,
-            state=clone_state(prog.state) if keep else None,
+            logits=kept if keep else None,
+            state=kept_state,
             cached_segments=cached, session_id=session_id, resumed=entry is not None,
             metrics=self.metrics_snapshot() if tel.registry is not None else None)
 
@@ -868,13 +1035,27 @@ class ServeEngine:
         the states and the band's transients) goes through the streaming
         carry in stages that fit; None: no budget."""
         self._refuse_encoder("serve()")
-        sched = ContinuousScheduler(self, n_slots=n_slots, chunk=chunk, max_queue=max_queue,
-                                    prefill_groups_per_chunk=prefill_groups_per_chunk,
-                                    fused_admission=fused_admission,
-                                    max_concurrent_admissions=max_concurrent_admissions,
-                                    admission_fairness=admission_fairness,
-                                    admission_byte_budget=admission_byte_budget)
-        return sched.run(requests)
+        with comm.tensor_parallel(self._tp):
+            sched = ContinuousScheduler(self, n_slots=n_slots, chunk=chunk,
+                                        max_queue=max_queue,
+                                        prefill_groups_per_chunk=prefill_groups_per_chunk,
+                                        fused_admission=fused_admission,
+                                        max_concurrent_admissions=max_concurrent_admissions,
+                                        admission_fairness=admission_fairness,
+                                        admission_byte_budget=admission_byte_budget)
+        events = sched.run(requests)
+        return events if self._tp is None else self._stream(events)
+
+    def _stream(self, events: Iterator) -> Iterator:
+        """The scheduler's events, each step of it run inside the engine's
+        tensor-parallel context (and the caller's code between events
+        outside it)."""
+        while True:
+            with comm.tensor_parallel(self._tp):
+                ev = next(events, None)
+            if ev is None:
+                return
+            yield ev
 
 
 def _tail_pieces(engine: ServeEngine, total: int, pos: int):
@@ -982,8 +1163,11 @@ class PrefillPipeline:
         self.cached, snap, self._prompt_np, self._chain = engine._probe(prompts, n_full)
         if self.cached:
             self._exec_state, self._logits = snap.state, snap.logits.clone()
+            if engine._sharded:             # a whole host blob: this rank's blocks
+                self._exec_state = engine._place_state(snap.state, self.B)
+                self._logits = self._logits.to(engine.device)
             if self.cached == n_full:       # nothing left for the executor
-                _transplant(snap.state, self._dstate)
+                _transplant(self._exec_state, self._dstate)
         rem = n_full - self.cached
         if max_stage_segments is not None and rem > max_stage_segments:
             cap = 1 << (max_stage_segments.bit_length() - 1)
@@ -1062,6 +1246,7 @@ class PrefillPipeline:
         if not any(st[0] == "diag" for st in self._stages[self._stage:]):
             _transplant(fin, self._dstate)
 
+    @_on_mesh
     def active_diag(self):
         """(segments, xs, carry) of the diagonal stage the next unit
         advances (begun if it was not yet), or None when the next unit is a
@@ -1076,6 +1261,7 @@ class PrefillPipeline:
     def groups_per_advance(self) -> int:
         return self.groups_per_call or self._n_steps
 
+    @_on_mesh
     def apply_diag_result(self, carry) -> bool:
         """Account for ``groups_per_advance()`` band steps a pooled step ran
         on this pipeline's carry (in place) -> done, as ``advance()``."""
@@ -1090,6 +1276,7 @@ class PrefillPipeline:
     # -- advancing -----------------------------------------------------------
 
     @torch.no_grad()
+    @_on_mesh
     def advance(self) -> bool:
         """Run one bounded unit (band steps of the diagonal stage, or one
         tail piece) -> whether the admission is complete."""

@@ -79,6 +79,17 @@ the history. A slot's step consumes the token it emits, so nothing is
 pending. With a prefix cache on the engine, an admission prefills only the
 segments after its longest cached prefix.
 
+On a mesh-native engine (``ServeEngine(mesh=...)``) every rank runs this
+driver alike, on the same requests, so its admission and eviction choices
+agree. The pool's rows (and each slot's pending token, active and
+remaining flags) split over the mesh's data axes when they divide the slot
+count (``sharding.batch_axes``): a rank's decode program holds its own
+slots, and an admission, prefilled at B = 1 on every rank, is installed
+only by the rank that holds its slot. Each chunk's tokens are all-gathered
+over the data axes before the host reads them, and a finished session's
+row is broadcast from the rank that holds it, then gathered whole to the
+host for the store.
+
 Telemetry (the engine's ``Telemetry``): spans per decode chunk (around its
 one device-to-host transfer), admission round, admission window,
 transplant, session restore and persist, and idle-drain round, an instant
@@ -96,6 +107,8 @@ from typing import Iterable, Iterator, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding as shd
 from repro_torch.serve.state_store import SessionEvicted
 
 
@@ -222,7 +235,13 @@ class ContinuousScheduler:
         self.idle_drain_rounds = 0
         # (t_start, t_end) of every completed admission, host clock
         self.admission_windows: list = []
-        self.prog = engine.program(n_slots, "serve")
+        # the data axes the slots split over (None: every rank holds every
+        # slot) and this rank's slots [lo, hi)
+        mesh = engine.mesh if engine._sharded else None
+        self._bax = shd.batch_axes(mesh, n_slots, leaf="slot_vec") if mesh else None
+        self._lo, self._hi = (comm.block_range(n_slots, mesh, self._bax)
+                              if self._bax else (0, n_slots))
+        self.prog = engine.program(self._hi - self._lo, "serve")
         self.prog.prepare()                 # capture before any slot holds data
         self.pool = self.prog.state
         self.tok = self.prog.tok            # each slot's next input
@@ -416,13 +435,15 @@ class ContinuousScheduler:
         with its first token and position: the one completion path of
         blocking and interleaved admission."""
         with self.tel.span("transplant", "transplant", lane=str(req.req_id), slot=slot):
-            for axis, part in ((0, "prelude"), (1, "pattern")):
-                for dst, src in zip(self.pool[part], one_state[part]):
-                    for k, leaf in dst.items():
-                        leaf.select(axis, slot).copy_(src[k].select(axis, 0))
-            self.pool["pos"][slot] = pos
-            self.tok[slot] = logits[0].argmax(-1)
-            self.finite[slot] = torch.isfinite(logits).all()
+            if self._lo <= slot < self._hi:      # this rank holds the slot's row
+                row = slot - self._lo
+                for axis, part in ((0, "prelude"), (1, "pattern")):
+                    for dst, src in zip(self.pool[part], one_state[part]):
+                        for k, leaf in dst.items():
+                            leaf.select(axis, row).copy_(src[k].select(axis, 0))
+                self.pool["pos"][row] = pos
+                self.tok[row] = logits[0].argmax(-1)
+                self.finite[row] = torch.isfinite(logits).all()
         s = self.slots[slot]
         s.req_id, s.remaining, s.index, s.active = req.req_id, req.max_new, 0, True
         s.t_submit, s.t_admit, s.t_first = t_submit, t_admit, None
@@ -447,9 +468,20 @@ class ContinuousScheduler:
         s = self.slots[b]
         with self.tel.span("session_persist", "session", lane=str(s.req_id),
                            session=s.session_id):
-            row = {part: tuple({k: leaf.narrow(axis, b, 1).clone() for k, leaf in tree.items()}
+            # on a data-split pool the rank holding the slot broadcasts its
+            # row (the others send a row of their own, overwritten)
+            local = b - self._lo if self._lo <= b < self._hi else 0
+            row = {part: tuple({k: leaf.narrow(axis, local, 1).clone()
+                                for k, leaf in tree.items()}
                                for tree in self.pool[part])
                    for axis, part in ((0, "prelude"), (1, "pattern"))}
+            if self._bax is not None:
+                owner = b // (self._hi - self._lo)
+                row = {part: tuple({k: comm.broadcast(v, self.engine.mesh, self._bax, owner)
+                                    for k, v in tree.items()} for tree in row[part])
+                       for part in row}
+            if self.engine._sharded:
+                row = self.engine._to_host(row, 1)
             history = np.concatenate([s.history, s.prompt,
                                       np.asarray(s.tokens, np.int32)]).astype(np.int32)
             self.engine.session_store.put(s.session_id, state=row, pos=s.pos,
@@ -485,7 +517,9 @@ class ContinuousScheduler:
         skipped."""
         prog = self.prog
         active, boundary = self._plan_chunk()
-        masks = torch.from_numpy(np.stack([active, boundary]))
+        # this rank's slots' columns (all of them without a data split)
+        mine = np.stack([active, boundary])[:, :, self._lo:self._hi]
+        masks = torch.from_numpy(np.ascontiguousarray(mine))
         if self.engine.device.type == "cuda":
             # from pinned memory, asynchronously: the host goes on to the
             # replays without waiting for the work queued before them (an
@@ -493,16 +527,16 @@ class ContinuousScheduler:
             masks = masks.pin_memory().to(self.engine.device, non_blocking=True)
         else:
             masks = masks.to(self.engine.device)
-        toks = torch.empty(self.chunk, self.n_slots, dtype=torch.long,
+        toks = torch.empty(self.chunk, self._hi - self._lo, dtype=torch.long,
                            device=self.engine.device)
         with torch.profiler.record_function("serve.decode_chunk"):
             for t in range(self.chunk):
                 toks[t] = self.tok
-                if not active[t].any():
+                if not mine[0, t].any():
                     continue
                 prog.active.copy_(masks[0, t])
                 prog.step()
-                if boundary[t].any():
+                if mine[1, t].any():
                     prog.boundary.copy_(masks[1, t])
                     prog.flush()
         return toks, active
@@ -516,7 +550,10 @@ class ContinuousScheduler:
         tel = self.tel
         n_active = sum(s.active for s in self.slots)
         with tel.span("decode_chunk", "decode", steps=self.chunk, active_slots=n_active):
-            host = _host(torch.cat([toks, self.finite[None].long()]))
+            chunk = torch.cat([toks, self.finite[None].long()])
+            if self._bax is not None:       # every rank's slots, in slot order
+                chunk = comm.all_gather(chunk, self.engine.mesh, self._bax, 1)
+            host = _host(chunk)
         toks_np, finite = host[:-1], host[-1].astype(bool)
         now = time.perf_counter()
         if tel.trace is not None:

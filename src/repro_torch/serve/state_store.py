@@ -33,7 +33,10 @@ rather than serving a turn that has forgotten the conversation.
 Payloads are trees (dicts and tuples) of tensors on the engine's device;
 the store keeps what it is given, so the caller hands it tensors of its
 own (copies). Byte counts come from shapes and dtypes, with no device
-read. A payload crosses to the host only when it spills.
+read. A payload crosses to the host only when it spills, or, from an
+engine on a mesh of more than one rank, when it is stored: the engine
+hands it over gathered whole on the host (``gather_to_host``), so a blob
+carries no mesh shape.
 """
 from __future__ import annotations
 
@@ -48,7 +51,8 @@ import torch
 from repro_torch.utils import tree_bytes
 
 __all__ = ["SegmentSnapshot", "SessionEntry", "SessionEvicted", "StoreStats",
-           "PrefixCache", "SessionStore", "prefix_hash_chain", "tree_nbytes"]
+           "PrefixCache", "SessionStore", "prefix_hash_chain", "tree_nbytes",
+           "gather_to_host"]
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -79,6 +83,21 @@ def _unflatten(spec, leaves):
 
 # the port's one byte counter, under the name the stores have used
 tree_nbytes = tree_bytes
+
+
+def gather_to_host(tree: Any, mesh=None, specs: Any = None) -> Any:
+    """The gather-on-capture boundary of mesh-native serving: on a mesh of
+    more than one rank every tensor leaf of ``tree`` (this rank's blocks) is
+    all-gathered whole under its spec in ``specs`` and copied to the host,
+    so a stored blob carries no mesh shape (a 2x2-mesh snapshot resumes on
+    one device and the reverse). On one device (no mesh, or a mesh of one
+    rank) the tree itself: the lazy capture stays as it is."""
+    if mesh is None or mesh.size == 1:
+        return tree
+    from repro_torch.parallel import comm
+    from repro_torch.utils import tree_map
+    return tree_map(lambda t: t.to("cpu", copy=True) if isinstance(t, torch.Tensor) else t,
+                    comm.gather_tree(tree, specs, mesh))
 
 
 def prefix_hash_chain(tokens, seg_len: int) -> List[bytes]:

@@ -29,7 +29,8 @@ autograd through their plain versions, and the training path at a
 reduced width (kernel gradients against the plain path, diagonal =
 sequential, no SIMT, the unfused B = 1 route against the fused op); the
 kernel dispatch (every candidate of the autotuner's card spaces equal to
-the heuristic to the bit at smoke width, the overrides and refusals).
+the heuristic to the bit at smoke width, the overrides and refusals); the
+mesh engine on a one-rank NCCL group against the mesh-less one, to the bit.
 Needs a CUDA device and nvcc; skips without a card. This file
 imports no JAX; with ``--noconftest`` (tests/conftest.py imports JAX) it
 runs on a machine that has only PyTorch:
@@ -780,6 +781,41 @@ def test_serve_graph_equals_eager_on_card(cuda):
     (g, ng), (e, ne) = _graph_and_eager(params, cfg, run)
     assert g == e and len(g) == sum(m for _, m in spec)
     assert ng == ne
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_mesh_equals_meshless_on_card(cuda, tmp_path):
+    """A world-size-1 NCCL group, mesh data=1,model=1, smoke width: the mesh
+    engine's generate (graphs on) and serve equal the mesh-less engine's to
+    the bit (tokens, every step's logits, the final state), its decode
+    programs captured."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import init_distributed, parse_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serve import Request, ServeEngine
+    init_distributed("nccl", store_path=str(tmp_path / "store"), rank=0, world_size=1)
+    try:
+        mesh = parse_mesh("data=1,model=1")
+        cfg = get_smoke_config("llama-1b-armt")
+        params = M.init_params(cfg, 0, device=cuda)
+        seg = cfg.armt.segment_len
+        ref = ServeEngine(params, cfg, max_len=256)
+        eng = ServeEngine(params, cfg, max_len=256, mesh=mesh)
+        prompts = np.random.default_rng(2).integers(8, cfg.vocab, (2, 2 * seg + 5))
+        a, b = ref.generate(prompts, 12, keep=True), eng.generate(prompts, 12, keep=True)
+        assert np.array_equal(a.tokens, b.tokens) and _same(a.logits, b.logits)
+        _same_state(a.state, b.state)
+        assert eng.program_counts()["captured"] >= 2
+        rng = np.random.default_rng(3)
+        reqs = [Request(i, rng.integers(8, cfg.vocab, n), 6)
+                for i, n in enumerate([2 * seg, seg + 3, 7])]
+
+        def run(e):
+            return [(v.req_id, v.token, v.index) for v in e.serve(reqs, n_slots=2, chunk=3)]
+        assert run(eng) == run(ref)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.cuda
