@@ -405,8 +405,21 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       and decode wall times. (z3) the same ranks: a session captured on
       the model=2 mesh resumed on one device, and ``data=2`` with a B = 2
       generate (one row a rank), each token for token against the
-      mesh-less engine. Prints a ``{"mesh": ...}`` line. ``python3
-      chip_smoke.py --phase z`` runs the kernels' build and (z) alone;
+      mesh-less engine. (z4) two more gloo ranks (``chip_smoke.py
+      --stage-rank``), ``stage=2``, llama-1b-armt whole in bf16, each rank
+      one block of 8 layers, every hand-off staged through the host, rank
+      0 also running the mesh-less engine: the 16-segment diagonal and
+      sequential prefills (hidden states, final state), a 32-token greedy
+      generate from 2 segments + 100 tokens (tokens, every step's logits,
+      the final decode state), an interleaved serve of 3 requests on 2
+      slots and a session captured on the stage mesh resumed on one
+      device, each equal to the mesh-less engine to the bit; the GEMM,
+      flash, armt_read, the fused update and decode attention launched,
+      no band wider and no weight stack deeper than the rank's 8 layers
+      (operand shapes printed); prefill, TTFT, decode and serve wall
+      times beside the mesh-less engine's. Prints a ``{"mesh": ...}``
+      line. ``python3 chip_smoke.py --phase z`` runs the kernels' build
+      and (z) alone;
   (p4) after (h): a falcon-mamba-7b session (2 x 8192 + 1000 tokens, then
       500), spilled and restored against kept in memory to the bit (h and
       the bf16 conv tail), resume TTFT against re-prefilling the history
@@ -700,6 +713,228 @@ def mesh_rank(argv) -> int:
     return 0
 
 
+def stage_rank(argv) -> int:
+    """One rank of phase (z4), spawned twice by (z) onto the one card:
+    ``chip_smoke.py --stage-rank RANK WORLD STORE DISPATCH_CACHE OUT
+    [smoke]``.
+
+    Joins a gloo group of WORLD ranks on the FileStore STORE; draws
+    llama-1b-armt whole in bf16 from the seed on the card (``smoke``: the
+    smoke config widened to 4 layers, the card test's size) and cuts it
+    over ``parse_mesh("stage=2")``: each rank one block of half the layers,
+    their state and slot buffer, every hand-off staged through the host.
+    Rank 0 also runs the mesh-less engine on the whole weights. Runs, each
+    on both and compared on rank 0: the diagonal and the sequential
+    prefill of 16 segments (4 at smoke size), each timed on its second run,
+    the diagonal one's peak device memory above the weights on each rank;
+    a 32-token greedy generate from 2 segments and 100 tokens, after a
+    2-token warm-up (tokens, every step's logits, the final state); an
+    interleaved serve of 3 requests on 2 slots; a session captured on the
+    stage mesh resumed on one device. Rank 0 writes the equalities, the
+    kernel launches and operand shapes of the stage runs (its own
+    block's), the widest band and the deepest weight stack the GEMM saw
+    and the wall times as JSON to OUT; (z4) gates them."""
+    import numpy as np
+    import torch
+
+    rank, world = int(argv[0]), int(argv[1])
+    store, cache, out_path = argv[2], argv[3], argv[4]
+    smoke = argv[5:6] == ["smoke"]
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import build, dispatch, ops
+    from repro_torch.launch.mesh import init_distributed, parse_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serve import Request, ServeEngine, SessionStore
+
+    dispatch.set_cache_path(cache)
+    build.lib()
+    init_distributed("gloo", store_path=store, rank=rank, world_size=world)
+    dev = torch.device("cuda")
+    res = {"rank": rank}
+
+    def counts():
+        return {f"{m.__name__.rsplit('.', 1)[-1]}.{n}": v
+                for (m, n), v in build.launch_counts().items()}
+
+    # the widest band a GEMM ran (a pooled step's index excepted: it
+    # concatenates the members' bands) and the deepest weight stack it read
+    shapes, widest, recording = {}, {"band": 0, "stack": 0}, [False]
+
+    def record(name, fn):
+        def wrapped(*a, **k):
+            if recording[0]:
+                shapes.setdefault(name, set()).add(
+                    "x".join(str(list(t.shape)) for t in a[:2] if isinstance(t, torch.Tensor)))
+                if name.startswith("grouped_gemm"):
+                    widest["stack"] = max(widest["stack"], a[1].shape[0])
+                    if k.get("widx") is None:
+                        widest["band"] = max(widest["band"], a[0].shape[0])
+            return fn(*a, **k)
+        return wrapped
+    for name in MESH_OPS:
+        setattr(ops, name, record(name, getattr(ops, name)))
+    launches = {k: 0 for k in MESH_COUNTERS}
+
+    def stage_run(fn):
+        """fn() on the stage engine: its launches counted, its shapes kept,
+        its wall time (to a sync) -> (output, seconds)."""
+        before = counts()
+        recording[0] = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            recording[0] = False
+        dt = time.perf_counter() - t0
+        after = counts()
+        for k, c in MESH_COUNTERS.items():
+            launches[k] += after.get(c, 0) - before.get(c, 0)
+        return out, dt
+
+    def meshless(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def bits(t):
+        return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}.get(
+            t.dtype, t.dtype))
+
+    def same(a, b):
+        return a.shape == b.shape and torch.equal(bits(a), bits(b))
+
+    def same_tree(a, b):
+        return all(same(x[k], y[k]) for part in ("prelude", "pattern")
+                   for x, y in zip(a[part], b[part]) for k in x)
+
+    if smoke:
+        cfg = replace(get_smoke_config("llama-1b-armt"), n_layers=4, dtype="bfloat16")
+    else:
+        cfg = get_config("llama-1b-armt")
+    seg = cfg.armt.segment_len
+    n_seg = 4 if smoke else 16
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    rng = np.random.default_rng(SEED + 30)
+    toks = rng.integers(0, cfg.vocab, (1, n_seg * seg))
+    mesh = parse_mesh("stage=2")
+    eng = ServeEngine(params, cfg, mesh=mesh, eager=True, max_len=4 * seg)
+    ref = ServeEngine(params, cfg, eager=True, max_len=4 * seg) if rank == 0 else None
+    res["block"] = [eng._sp.lo, eng._sp.hi]
+    res["n_segments"] = n_seg
+
+    def peak_gb(fn):
+        """fn()'s device memory above what was allocated before it, at its
+        peak, in GB -> (output, GB)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    # (z4a) the diagonal and the sequential prefill, each timed on its second
+    # run; the diagonal one's peak above the weights, on each rank
+    for sched in ("diagonal", "sequential"):
+        for _ in range(2):
+            ((h_m, f_m), dt), gb = peak_gb(
+                lambda: stage_run(lambda: eng.forward_hidden(toks, schedule=sched)))
+        res[f"prefill_{sched}_s"] = dt
+        if sched == "diagonal":
+            peaks = [None] * world
+            torch.distributed.all_gather_object(peaks, gb)
+            res["prefill_peak_gb"] = peaks
+        if rank == 0:
+            for _ in range(2):
+                ((h_r, f_r), dt_r), gb_r = peak_gb(
+                    lambda: meshless(lambda: ref.forward_hidden(toks, schedule=sched)))
+            res[f"prefill_{sched}_meshless_s"] = dt_r
+            if sched == "diagonal":
+                res["prefill_meshless_peak_gb"] = gb_r
+            res[f"prefill_{sched}_equal"] = bool(same(h_m, h_r) and same_tree(f_m, f_r))
+            del h_r, f_r
+        del h_m, f_m
+
+    # (z4b) a 32-token greedy generate from 2 segments and 100 tokens, after
+    # a 2-token one on each engine (the first call's library set-up, the
+    # head's GEMM among it, stays out of the times)
+    prompt = toks[:, :2 * seg + 100]
+    stage_run(lambda: eng.generate(prompt, 2))
+    if rank == 0:
+        ref.generate(prompt, 2)
+    g_m, _ = stage_run(lambda: eng.generate(prompt, 32, keep=True))
+    res["ttft_s"], res["decode_tok_s"] = g_m.ttft_s, g_m.tok_s
+    if rank == 0:
+        g_r = ref.generate(prompt, 32, keep=True)
+        res["meshless_ttft_s"], res["meshless_decode_tok_s"] = g_r.ttft_s, g_r.tok_s
+        res["generate_equal"] = bool(np.array_equal(g_m.tokens, g_r.tokens)
+                                     and same(g_m.logits, g_r.logits)
+                                     and same_tree(g_m.state, g_r.state))
+        res["generate_tokens"] = g_m.tokens[0, :8].tolist()
+        del g_r
+    del g_m
+
+    # (z4c) an interleaved serve of 3 requests on 2 slots
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n).astype(np.int32), 16)
+            for i, n in enumerate([2 * seg + 100, seg + 7, 3 * seg])]
+
+    def streams(e):
+        return [(ev.req_id, ev.token, ev.index) for ev in e.serve(reqs, n_slots=2, chunk=8)]
+    got, res["serve_s"] = stage_run(lambda: streams(eng))
+    if rank == 0:
+        want, res["meshless_serve_s"] = meshless(lambda: streams(ref))
+        res["serve_equal"] = got == want
+        res["serve_events"] = len(got)
+
+    # (z4d) a session captured on the stage mesh resumes on one device
+    t1, t2 = toks[0, :seg + 100], toks[0, seg + 100:seg + 400]
+    eng.session_store = SessionStore(max_bytes=1 << 30)
+    a1, _ = stage_run(lambda: eng.generate(t1[None], 16, session_id="s"))
+    if rank == 0:
+        a2 = ServeEngine(params, cfg, eager=True, max_len=4 * seg,
+                         session_store=eng.session_store).generate(t2[None], 16,
+                                                                   session_id="s")
+        ref_s = ServeEngine(params, cfg, eager=True, max_len=4 * seg,
+                            session_store=SessionStore())
+        b1 = ref_s.generate(t1[None], 16, session_id="s")
+        b2 = ref_s.generate(t2[None], 16, session_id="s")
+        res["session_equal"] = bool(a2.resumed and np.array_equal(a1.tokens, b1.tokens)
+                                    and np.array_equal(a2.tokens, b2.tokens))
+    res["launches"] = launches
+    res["shapes"] = {k: sorted(v) for k, v in shapes.items()}
+    res["widest"] = widest
+    torch.distributed.barrier()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_ranks(flag: str, n: int, store, cache: str, out, *extra, timeout: int = 300):
+    """Spawn ``chip_smoke.py FLAG RANK n STORE CACHE OUT *extra`` for every
+    rank, with a hard timeout -> (ran to the end with OUT written, the
+    ranks' outputs, seconds)."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag,
+                               str(rk), str(n), str(store), cache, str(out), *extra],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rk in range(n)]
+    outs, timed_out = [], False
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=timeout)[0])
+        except subprocess.TimeoutExpired:
+            timed_out = True
+            for q in procs:
+                q.kill()
+            outs.append(p.communicate()[0])
+    ran = not timed_out and all(p.returncode == 0 for p in procs) and Path(out).exists()
+    return ran, outs, time.perf_counter() - t0
+
+
 # (z2)'s gate on the two-rank fp32 run against the mesh-less one: the
 # relative error of a segment's hidden states (see mesh_phase). The gap
 # measured on the H100 (PERF.md section 6) grows with the state carried
@@ -824,28 +1059,11 @@ def mesh_phase(no_cache: str, smi: str):
     log(f"  this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB of the card's "
         "memory while the two ranks run")
     out = tmp / "z23.json"
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
-                               str(rk), "2", str(tmp / "z23"), no_cache, str(out)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for rk in range(2)]
-    outs, timed_out = [], False
-    for p in procs:
-        try:
-            outs.append(p.communicate(timeout=300)[0])
-        except subprocess.TimeoutExpired:
-            timed_out = True
-            for q in procs:
-                q.kill()
-            outs.append(p.communicate()[0])
-    row["z23_s"] = time.perf_counter() - t0
-    ran = not timed_out and all(p.returncode == 0 for p in procs) and out.exists()
+    ran, outs, row["z23_s"] = run_ranks("--mesh-rank", 2, tmp / "z23", no_cache, out)
     for rk, o in enumerate(outs):
         for line in o.strip().splitlines()[-(40 if not ran else 2):]:
             log(f"    rank {rk}: {line}")
-    held("z2/z3 two gloo ranks on the card ran to their end", ran,
-         f"{row['z23_s']:.1f} s, timed out {timed_out}, exit codes "
-         f"{[p.returncode for p in procs]} ")
+    held("z2/z3 two gloo ranks on the card ran to their end", ran, f"{row['z23_s']:.1f} s ")
     if ran:
         with open(out) as f:
             z = json.load(f)
@@ -876,6 +1094,57 @@ def mesh_phase(no_cache: str, smi: str):
         log(f"  z2 model=2 fp32 (two ranks on one card, gloo): 2-segment prefill "
             f"{z['prefill_2seg_s']:.3f} s, generate TTFT {z['ttft_s']:.3f} s, decode "
             f"{z['decode_tok_s']:.1f} tok/s; params cut in {z['cut_s']:.2f} s ({smi})")
+
+    # (z4): the stage axis, two gloo ranks on the one card
+    out4 = tmp / "z4.json"
+    ran4, outs4, row["z4_s"] = run_ranks("--stage-rank", 2, tmp / "z4", no_cache, out4)
+    for rk, o in enumerate(outs4):
+        for line in o.strip().splitlines()[-(40 if not ran4 else 2):]:
+            log(f"    rank {rk}: {line}")
+    held("z4 two gloo ranks on stage=2 ran to their end", ran4, f"{row['z4_s']:.1f} s ")
+    if ran4:
+        with open(out4) as f:
+            z = json.load(f)
+        n = z["n_segments"]
+        for sched in ("diagonal", "sequential"):
+            held(f"z4 stage=2, bf16: {n}-segment {sched} prefill = mesh-less to the bit",
+                 z[f"prefill_{sched}_equal"],
+                 f"{z[f'prefill_{sched}_s']:.3f} s (mesh-less "
+                 f"{z[f'prefill_{sched}_meshless_s']:.3f} s) ")
+        held("z4 32-token greedy generate = mesh-less to the bit (tokens, logits, state)",
+             z["generate_equal"], f"first tokens {z['generate_tokens']} ")
+        held("z4 interleaved serve of 3 requests = mesh-less", z["serve_equal"],
+             f"{z['serve_events']} events ")
+        held("z4 a session captured on stage=2 resumed on one device = mesh-less",
+             z["session_equal"])
+        z4l = z["launches"]
+        need = [k for k in MESH_COUNTERS if k != "armt_update"]
+        w, depth = z["widest"], z["block"][1] - z["block"][0]
+        held("z4 the GEMM, flash, armt_read, the fused update and decode attention launched "
+             "at the local band", all(z4l[k] > 0 for k in need)
+             and 0 < w["band"] <= depth and w["stack"] == depth,
+             f"launches {z4l}, widest band {w['band']}, weight stack {w['stack']} deep, rank "
+             f"0's block {z['block']} ")
+        log("  z4 operand shapes (rank 0's block, stage=2):")
+        for k, v in z["shapes"].items():
+            log(f"    {k}: {'; '.join(v)}")
+        for k in launches:
+            launches[k] += z4l[k]
+        row["z4"] = {k: z[k] for k in (
+            "block", "n_segments", "prefill_diagonal_s", "prefill_diagonal_meshless_s",
+            "prefill_peak_gb", "prefill_meshless_peak_gb",
+            "prefill_sequential_s", "prefill_sequential_meshless_s", "ttft_s",
+            "meshless_ttft_s", "decode_tok_s", "meshless_decode_tok_s", "serve_s",
+            "meshless_serve_s", "launches", "widest", "shapes")}
+        log(f"  z4 stage=2 bf16 (two ranks on one card, gloo, hand-offs through the host): "
+            f"{n}-segment diagonal prefill {z['prefill_diagonal_s']:.3f} s (mesh-less "
+            f"{z['prefill_diagonal_meshless_s']:.3f} s; peak above the weights "
+            f"{'/'.join(f'{g:.3f}' for g in z['prefill_peak_gb'])} GB a rank, mesh-less "
+            f"{z['prefill_meshless_peak_gb']:.3f}), sequential "
+            f"{z['prefill_sequential_s']:.3f} s ({z['prefill_sequential_meshless_s']:.3f} s), "
+            f"generate TTFT {z['ttft_s']:.3f} s ({z['meshless_ttft_s']:.3f} s), decode "
+            f"{z['decode_tok_s']:.1f} tok/s ({z['meshless_decode_tok_s']:.1f} tok/s, eager), "
+            f"serve {z['serve_s']:.3f} s ({z['meshless_serve_s']:.3f} s) ({smi})")
     row["phase_s"] = time.perf_counter() - t_phase
     log(f"  (z) phase {row['phase_s']:.1f} s; card {smi}")
     return failures, launches, row
@@ -6290,4 +6559,6 @@ def mesh_only() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--stage-rank"]:
+        sys.exit(stage_rank(sys.argv[2:]))
     sys.exit(mesh_only() if sys.argv[1:] == ["--phase", "z"] else main())

@@ -53,6 +53,23 @@ same order, so its forward gives the in-place form's bits. ``remat``
 runs each cell call under ``torch.utils.checkpoint``. The capture,
 ``stream_ys`` and the resumable and pooled pipeline are forward-only.
 
+On a mesh's 'stage' axis (``parallel/comm.py`` ``StageParallel``, the
+context an engine on such a mesh runs in) diagonal batching becomes
+pipeline parallelism: a rank holds one block [a, b) of the L layers, its
+layers' state and a slot buffer of b - a slots, and steps the global grid
+of S + L - 1 groups. Its band at step i is ``band(i, S, L)`` cut to [a,
+b); the first stage writes the entering segment into its slot 0, every
+other stage the slot the stage before handed on at the end of the step
+before (``comm.stage_shift``), and the top slot's output goes to the next
+stage, or, on the last, leaves the pipeline. Every rank enters the
+hand-off of every step within the grid, its band empty or not (fill and
+drain): whether it sends or receives is a function of (i, S, L). A
+rank's ``ys`` (or ``win``/``brow``) holds its block's outputs; what
+``run_diagonal`` and ``pipeline_finalize`` return is the last stage's,
+broadcast to every rank (``comm.stage_last``). The capture holds the
+local layers, and the recorded cells are the global (segment, layer)
+ones. The out-of-place form is training and is refused there.
+
 A carry's buffers are its own (``pipeline_init`` copies the state), so a
 caller's state updated in place, a decode pool say, never aliases one.
 Only the recurrent leaves (``RECURRENT_KEYS``) are copied, written back
@@ -70,6 +87,7 @@ from repro_torch.core.schedule import band, n_diagonal_groups, record_step
 from repro_torch.core.sequential import (ApplyBlock, exec_state_copy, layer_slice,
                                          one_layer_cell, rematerialized, stack_layers,
                                          stacked_state, training, with_new_state)
+from repro_torch.parallel import comm
 
 
 # band steps that ran as one cell call over two or more pipelines
@@ -82,6 +100,19 @@ def _check_layout(layout) -> None:
     if layout.prelude and len(layout.pattern) != 1:
         raise ValueError("the diagonal executor supports one pattern position after "
                          f"prelude layers, got {layout.prelude} + {layout.pattern}")
+
+
+def grid(layout):
+    """(L, a): the layers of the whole stack and the global index of the
+    layout's first layer; (layout.n_layers, 0) outside a stage context, in
+    one a stage's block of the stack (``comm.StageParallel``)."""
+    sp = comm.current_stage()
+    if sp is None:
+        return layout.n_layers, 0
+    if layout.n_layers != sp.hi - sp.lo:
+        raise ValueError(f"a layout of {layout.n_layers} layers on stage block "
+                         f"[{sp.lo}, {sp.hi})")
+    return sp.n_layers, sp.lo
 
 
 def _band_slice(tree, lo: int, hi: int):
@@ -117,11 +148,13 @@ def boundary_states_from_capture(layout, captured: Dict, n_segments: int) -> Dic
     each leaf gathers those steps (prelude layer j: slot j; pattern
     position p's layer j: its slot ``layout.position_slots(p)[j]``). One
     gather per leaf, on the device -> leaves with a leading [S] boundary
-    axis."""
+    axis. In a stage context the capture is of the stage's layers, whose
+    first is the stack's layer a: the steps move by a."""
     _check_layout(layout)
     P = len(layout.prelude)
     device = next(iter(captured["pattern"][0].values())).device
-    steps = torch.arange(n_segments, device=device)[:, None]
+    # a stage's local layer l is the stack's a + l, written at step c - 1 + a + l
+    steps = torch.arange(n_segments, device=device)[:, None] + grid(layout)[1]
     layers = torch.arange(layout.n_super, device=device)[None, :]
     pattern = []
     for p, tree in enumerate(captured["pattern"]):
@@ -140,14 +173,16 @@ def _segments(carry: Dict) -> int:
     return carry["brow"].shape[0] if "win" in carry else carry["ys"].shape[0]
 
 
-def _band_in(xs: torch.Tensor, carry: Dict, n_layers: int):
-    """The band (lo, hi) of the carry's next step, with the entering
-    segment written into slot 0."""
+def _band_in(xs: torch.Tensor, carry: Dict, layout):
+    """The local band (lo, hi) of the carry's next step, with the entering
+    segment written into slot 0 (on the first stage): the global band cut
+    to this stage's slots, empty (lo > hi) where it misses them."""
+    L, a = grid(layout)
     i = carry["step"]
-    lo, hi = band(i, xs.shape[0], n_layers)
-    if lo == 0:
+    lo, hi = band(i, xs.shape[0], L)
+    if lo == 0 and a == 0:
         carry["buf"][0] = xs[i]
-    return lo, hi
+    return max(lo, a) - a, min(hi, a + carry["buf"].shape[0] - 1) - a
 
 
 def _apply_prelude(layout, params: Dict, carry: Dict, lo: int, hi: int, cell):
@@ -183,9 +218,13 @@ def _band_out(carry: Dict, parts, new_prelude: Dict, new_pattern: Dict, *,
     segment (if the band reached the top slot) into ``ys`` or
     ``win``/``brow``, each output shifted one slot up in the slot buffer,
     the capture of this step; then the cursor moves on. parts: [(first
-    slot, slot stride, y)]."""
+    slot, slot stride, y)]. In a stage context the top slot's output is
+    this block's: it goes to ``ys`` (or ``win``/``brow``) and to the next
+    stage, and slot 0 takes what the stage before handed on."""
     i, buf = carry["step"], carry["buf"]
     L = buf.shape[0]
+    sp = comm.current_stage()
+    a = 0 if sp is None else sp.lo
     state = carry["state"]
     for j, new in new_prelude.items():
         for k, v in new.items():
@@ -195,20 +234,28 @@ def _band_out(carry: Dict, parts, new_prelude: Dict, new_pattern: Dict, *,
         for k, v in new.items():
             if k in RECURRENT_KEYS:
                 state["pattern"][p][k][j0:j1 + 1] = v
-    record_step(carry, i, ((i - l, l) for s0, st, y in parts
+    record_step(carry, i, ((i - a - l, a + l) for s0, st, y in parts
                            for l in range(s0, s0 + st * y.shape[0], st)))
+    top = None
     for s0, st, y in parts:
         y = y.to(buf.dtype)
-        if s0 + st * (y.shape[0] - 1) == L - 1:     # segment i - (L-1) finished
-            s = i - (L - 1)
+        if s0 + st * (y.shape[0] - 1) == L - 1:     # segment i - (a+L-1) finished
+            s, top = i - (a + L - 1), y[-1]
             if "win" in carry:
-                carry["win"][s % carry["win"].shape[0]].copy_(y[-1])
-                carry["brow"][s].copy_(y[-1][:, retain_pos])
+                carry["win"][s % carry["win"].shape[0]].copy_(top)
+                carry["brow"][s].copy_(top[:, retain_pos])
             else:
-                carry["ys"][s].copy_(y[-1])
+                carry["ys"][s].copy_(top)
             y = y[:-1]
         if y.shape[0]:
             buf[s0 + 1:s0 + 2 + st * (y.shape[0] - 1):st] = y
+    if sp is not None:
+        # the stage before hands on its top slot (layer a - 1) while that
+        # slot is in the band: segment i - (a - 1) exists
+        got = comm.stage_shift(buf[0] if top is None else top, sp.mesh, send=top is not None,
+                               recv=0 <= i - (a - 1) < _segments(carry))
+        if got is not None:
+            buf[0].copy_(got)
     if "cap" in carry:
         for part in ("prelude", "pattern"):
             for cap, st in zip(carry["cap"][part], state[part]):
@@ -224,12 +271,13 @@ def band_step(layout, params: Dict, xs: torch.Tensor, carry: Dict, cell, *,
     cell; per pattern position, one cell over its layers in the band, at
     the strided slots ``position_slots``), every cell reading the slot
     buffer before any output is written back; then the cursor moves on. A
-    cursor past the grid is a no-op (it only moves on)."""
-    L = layout.n_layers
-    if carry["step"] >= n_diagonal_groups(xs.shape[0], L):
+    cursor past the grid is a no-op (it only moves on). In a stage context
+    the band is this stage's part of the global one (maybe none) and the
+    step ends in the hand-off, on every rank."""
+    if carry["step"] >= n_diagonal_groups(xs.shape[0], grid(layout)[0]):
         carry["step"] += 1
         return carry
-    lo, hi = _band_in(xs, carry, L)
+    lo, hi = _band_in(xs, carry, layout)
     parts, new_pre = _apply_prelude(layout, params, carry, lo, hi, cell)
     new_pat: Dict = {}
     for p in range(len(layout.pattern)):
@@ -253,6 +301,9 @@ def run_diagonal_grad(layout, params: Dict, state0: Dict, segments: torch.Tensor
     carried per layer. remat: each cell call under ``rematerialized``.
     -> (ys [S, B, T, D], final_state)."""
     _check_layout(layout)
+    if comm.current_stage() is not None:
+        raise ValueError("run_diagonal under gradients on a 'stage' mesh: training on a "
+                         "mesh is not ported (ROADMAP Queue 1 item 9)")
     if remat:
         cell = rematerialized(cell)
     S, L = segments.shape[0], layout.n_layers
@@ -322,7 +373,11 @@ def run_diagonal(layout, params: Dict, state0: Dict, segments: torch.Tensor,
 
     Under gradients (``training(params, segments)``) the out-of-place form
     runs, ``run_diagonal_grad`` (remat: each cell rematerialized);
-    capture_states and stream_ys are forward-only there."""
+    capture_states and stream_ys are forward-only there.
+
+    In a stage context: segments are read on the first stage only (the
+    others may pass a placeholder of their shape), the state is the
+    stage's block, and the outputs are the last stage's on every rank."""
     if training(params, segments):
         if capture_states or stream_ys:
             raise ValueError("run_diagonal: capture_states and stream_ys are forward-only")
@@ -331,9 +386,9 @@ def run_diagonal(layout, params: Dict, state0: Dict, segments: torch.Tensor,
     xs, carry = pipeline_init(layout, state0, segments, capture_states=capture_states,
                               stream_ys=stream_ys)
     cell = _cell(apply_block, grouped_apply)
-    for _ in range(n_diagonal_groups(segments.shape[0], layout.n_layers)):
+    for _ in range(n_diagonal_groups(segments.shape[0], grid(layout)[0])):
         band_step(layout, params, xs, carry, cell, retain_pos=retain_pos)
-    out = ({"win": carry["win"], "brow": carry["brow"]} if stream_ys else carry["ys"])
+    out = _stack_out(carry)
     final = carry["state"]
     if capture_states:
         return out, final, carry["cap"]
@@ -343,6 +398,14 @@ def run_diagonal(layout, params: Dict, state0: Dict, segments: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Resumable pipeline (interleaved admission)
 # ---------------------------------------------------------------------------
+
+def _stack_out(carry: Dict):
+    """What leaves the stack: ``ys``, or ``{"win", "brow"}`` for a
+    streaming carry; in a stage context the last stage's, on every rank."""
+    if "win" in carry:
+        return {"win": comm.stage_last(carry["win"]), "brow": comm.stage_last(carry["brow"])}
+    return comm.stage_last(carry["ys"])
+
 
 def pipeline_init(layout, state0: Dict, segments: torch.Tensor, *,
                   capture_states: bool = False, stream_ys: bool = False):
@@ -360,12 +423,16 @@ def pipeline_init(layout, state0: Dict, segments: torch.Tensor, *,
         with stream_ys, ``win`` [min(L, S), B, T, D] and ``brow`` [S, B, D]
         (see ``run_diagonal``);
       * ``cap``   with capture_states, the per-step recurrent state, leading
-        axis [S + L - 1]."""
+        axis [S + L - 1].
+
+    In a stage context the slot buffer, the state and the capture are the
+    stage's (its b - a layers), and the grid the stack's (L layers)."""
     _check_layout(layout)
-    S, L = segments.shape[0], layout.n_layers
+    S, L = segments.shape[0], grid(layout)[0]
     shape, kw = tuple(segments.shape[1:]), dict(dtype=segments.dtype, device=segments.device)
     state = exec_state_copy(state0)
-    carry = {"buf": torch.zeros((L,) + shape, **kw), "state": state, "step": 0}
+    carry = {"buf": torch.zeros((layout.n_layers,) + shape, **kw), "state": state,
+             "step": 0}
     if stream_ys:
         carry["win"] = torch.zeros((min(L, S),) + shape, **kw)
         carry["brow"] = torch.zeros((S, shape[0], shape[2]), **kw)
@@ -415,6 +482,9 @@ def pipeline_step_pool(layout, params: Dict, xs_pool: Sequence[torch.Tensor],
     positions' cells (the mamba cells) member by member, in the same step;
     every output is written back after the step's last cell. A pattern
     with no indexed cell (falcon) advances the members one after another.
+    In a stage context the layer index is local (the stage's stacked
+    weights, global layer - a), and each live member's hand-off follows
+    the step's cells, member by member in pool order on every rank.
     Forward-only."""
     _forward_only(params, xs_pool, "pipeline_step_pool")
     cell = _cell(apply_block, grouped_apply)
@@ -424,7 +494,7 @@ def pipeline_step_pool(layout, params: Dict, xs_pool: Sequence[torch.Tensor],
             pipeline_step(layout, params, xs, carry, apply_block, n_groups=n_groups,
                           grouped_apply=grouped_apply, retain_pos=retain_pos)
         return list(carry_pool)
-    L = layout.n_layers
+    L = grid(layout)[0]
     layers = None
     for _ in range(n_groups):
         live = []
@@ -439,7 +509,7 @@ def pipeline_step_pool(layout, params: Dict, xs_pool: Sequence[torch.Tensor],
             continue
         if layers is None:
             layers = torch.arange(layout.n_super, dtype=torch.int32, device=live[0][0].device)
-        bands = [_band_in(xs, carry, L) for xs, carry in live]
+        bands = [_band_in(xs, carry, layout) for xs, carry in live]
         outs = [_apply_prelude(layout, params, carry, lo, hi, cell) + ({},)
                 for (_, carry), (lo, hi) in zip(live, bands)]
         for p, t in enumerate(layout.pattern):
@@ -475,15 +545,14 @@ def pipeline_step_pool(layout, params: Dict, xs_pool: Sequence[torch.Tensor],
 
 def pipeline_finalize(layout, carry: Dict):
     """A completed carry (cursor at or past S + L - 1) -> (ys [S, B, T, D],
-    or ``{"win", "brow"}`` for a streaming carry; the final state; the
-    boundary states gathered from the capture, or None)."""
-    S = _segments(carry)
-    if carry["step"] < n_diagonal_groups(S, layout.n_layers):
+    or ``{"win", "brow"}`` for a streaming carry, the last stage's on every
+    rank in a stage context; the final state; the boundary states gathered
+    from the capture, or None)."""
+    S, L = _segments(carry), grid(layout)[0]
+    if carry["step"] < n_diagonal_groups(S, L):
         raise ValueError(f"pipeline at step {carry['step']} of "
-                         f"{n_diagonal_groups(S, layout.n_layers)} is not finished")
+                         f"{n_diagonal_groups(S, L)} is not finished")
     captured = None
     if "cap" in carry:
         captured = boundary_states_from_capture(layout, carry["cap"], S)
-    out = ({"win": carry["win"], "brow": carry["brow"]} if "win" in carry
-           else carry["ys"])
-    return out, carry["state"], captured
+    return _stack_out(carry), carry["state"], captured

@@ -97,7 +97,10 @@ def recording_cells():
     ``diagonal_groups`` orders them. A diagonal band step's cells are read
     from the outputs it wrote (slot l at step i is segment i - l); the
     sequential executor's step s * L + l is its one cell (s, l).
-    ``validate_schedule`` and ``is_minimal`` take the groups as they are."""
+    ``validate_schedule`` and ``is_minimal`` take the groups as they are.
+    On a 'stage' mesh each rank records the cells of its block, by their
+    global (segment, layer) and global step: the union over the stage
+    ranks of one run's groups is the one-device run's."""
     global _cell_log
     outer, _cell_log = _cell_log, _CellLog()
     try:

@@ -23,7 +23,19 @@ block returns, never written into a buffer a block has read, and stacked
 into the usual tree at the end. It gives the same bits as the in-place
 form. With ``remat`` each layer's block runs under
 ``torch.utils.checkpoint`` (recomputed in the backward from its inputs;
-the reference's ``jax.checkpoint``). A capture is forward-only."""
+the reference's ``jax.checkpoint``). A capture is forward-only.
+
+On a mesh's 'stage' axis (the ``comm.StageParallel`` context) a rank runs
+its block [a, b) of the layers: per segment, the first stage takes the
+segment, every other the block output the stage before handed on
+(``comm.stage_shift``), and every stage but the last hands its own on. The
+stages run as a pipeline over the segments (stage r at segment s in step
+s + r), and each layer still sees its segments in order, so the bits are
+the one-device run's. ``run_sequential_`` returns the block's outputs
+(the decode step and the flush take what they need of the last stage's);
+``run_sequential`` returns the last stage's on every rank
+(``comm.stage_last``). The capture and the state are the block's; the
+recorded cells are the global (segment, layer) ones."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
@@ -33,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.memory import RECURRENT_KEYS
 from repro_torch.core.schedule import record_step
+from repro_torch.parallel import comm
 
 # apply_block(btype, layer_params, x, layer_state) -> (y, new_layer_state)
 ApplyBlock = Callable[[str, Any, torch.Tensor, Any], tuple]
@@ -132,23 +145,39 @@ def run_sequential_(layout, params: Dict, state: Dict, segments, apply_block: Ap
     is copied as entry s.
 
     params/state: {'prelude': tuple of per-layer trees, 'pattern': tuple of
-    trees stacked over n_super on dim 0}."""
-    ys = []
-    L, n_pre, P = layout.n_layers, len(layout.prelude), len(layout.pattern)
-    for s, x in enumerate(segments):
-        for j, t in enumerate(layout.prelude):
-            x = apply_layer_(apply_block, t, params["prelude"][j], x, state["prelude"][j],
-                             row_mask)
-            record_step(state, s * L + j, ((s, j),))
-        for j in range(layout.n_super):
-            for p, t in enumerate(layout.pattern):
-                x = apply_layer_(apply_block, t, layer_slice(params["pattern"][p], j), x,
-                                 layer_slice(state["pattern"][p], j), row_mask)
-                l = n_pre + j * P + p
-                record_step(state, s * L + l, ((s, l),))
-        ys.append(x)
-        if capture is not None:
-            capture_write_(capture, state, s)
+    trees stacked over n_super on dim 0}.
+
+    In a stage context: the layout, params and state are the stage's
+    block, segments are read on the first stage only (the others may pass
+    a placeholder of their shape), and ys are the block's outputs."""
+    sp = comm.current_stage()
+    L, a, r, n = ((layout.n_layers, 0, 0, 1) if sp is None
+                  else (sp.n_layers, sp.lo, sp.index, sp.size))
+    S, n_pre, P = segments.shape[0], len(layout.prelude), len(layout.pattern)
+    ys, got = [], None
+    for i in range(S + n - 1):
+        s = i - r                       # the segment this stage runs at step i
+        x = None
+        if 0 <= s < S:
+            x = segments[s] if r == 0 else got
+            for j, t in enumerate(layout.prelude):
+                x = apply_layer_(apply_block, t, params["prelude"][j], x,
+                                 state["prelude"][j], row_mask)
+                record_step(state, s * L + a + j, ((s, a + j),))
+            for j in range(layout.n_super):
+                for p, t in enumerate(layout.pattern):
+                    x = apply_layer_(apply_block, t, layer_slice(params["pattern"][p], j), x,
+                                     layer_slice(state["pattern"][p], j), row_mask)
+                    l = a + n_pre + j * P + p
+                    record_step(state, s * L + l, ((s, l),))
+            ys.append(x)
+            if capture is not None:
+                capture_write_(capture, state, s)
+        if sp is not None:
+            # this block's output to the next stage; the stage before's
+            # output of the segment this stage runs next
+            got = comm.stage_shift(segments[0] if x is None else x, sp.mesh,
+                                   send=x is not None, recv=0 <= s + 1 < S)
     return torch.stack(ys)
 
 
@@ -222,13 +251,19 @@ def run_sequential(layout, params: Dict, state0: Dict, segments,
     not modified. capture_states: also return, third, the recurrent state
     after every segment, leaves with a leading [S] axis (forward-only).
     Under gradients (``training(params, segments)``) the out-of-place form
-    runs, ``run_sequential_grad`` (remat: each block rematerialized)."""
+    runs, ``run_sequential_grad`` (remat: each block rematerialized). In a
+    stage context ys are the last stage's on every rank; training there is
+    refused."""
     if training(params, segments):
+        if comm.current_stage() is not None:
+            raise ValueError("run_sequential under gradients on a 'stage' mesh: training "
+                             "on a mesh is not ported (ROADMAP Queue 1 item 9)")
         if capture_states:
             raise ValueError("run_sequential: capture_states is forward-only")
         return run_sequential_grad(layout, params, state0, segments, apply_block,
                                    remat=remat)
     state = exec_state_copy(state0)
     cap = capture_init(state, segments.shape[0]) if capture_states else None
-    ys = run_sequential_(layout, params, state, segments, apply_block, capture=cap)
+    ys = comm.stage_last(run_sequential_(layout, params, state, segments, apply_block,
+                                         capture=cap))
     return (ys, state, cap) if capture_states else (ys, state)

@@ -6,6 +6,13 @@ Each is the same function as its CUDA kernel, written as framework ops: the
 CPU path of every wrapper, and the oracle each kernel is held against on
 the card. They port the reference oracles one to one (fp32 accumulation,
 epilogues on the fp32 accumulator, A/z state in fp32).
+
+A group's result does not depend on how many groups the call holds, as a
+kernel's does not: a band of one layer, a stage's block of the band or a
+pooled step gives each group the bits it has in the whole band. The ARMT
+read and update with per-group weights therefore run group by group (a
+batched product folds into another route, a matrix-vector one, at one
+group, and a reduction's order follows the shape).
 """
 from __future__ import annotations
 
@@ -95,8 +102,23 @@ def _proj(x, w):
     return out.reshape((N,) + out.shape[2:])
 
 
+def _by_group(fn, G: int, rows, weights):
+    """fn(*rows, *weights) over each of G groups alone: rows the tensors
+    whose dim 0 is N = G * batch, weights the per-group [G, ...] ones (each
+    group's a [1, ...] slice); the outputs concatenated on dim 0."""
+    Bn = rows[0].shape[0] // G
+    outs = [fn(*(t[g * Bn:(g + 1) * Bn] for t in rows), *(w[g:g + 1] for w in weights))
+            for g in range(G)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
+
+
 def armt_read_ref(x, wq, A, z, *, nu: int = 3):
     """x: [N,T,D]; wq: [D,dm] or [G,D,dm]; A: [N,P,Dv]; z: [N,P] -> [N,T,Dv]."""
+    if wq.dim() == 3 and wq.shape[0] > 1:
+        return _by_group(lambda x, A, z, wq: armt_read_ref(x, wq, A, z, nu=nu),
+                         wq.shape[0], (x, A, z), (wq,))
     pq = dpfp(_proj(x.float(), wq.float()), nu)
     num = torch.matmul(pq, A.float())
     den = torch.einsum("ntp,np->nt", pq, z.float()) + EPS
@@ -106,6 +128,9 @@ def armt_read_ref(x, wq, A, z, *, nu: int = 3):
 def armt_update_ref(m, wk, wv, wb, A, z, *, nu: int = 3):
     """m: [N,M,D]; wk/wv/wb: [D,*] or [G,D,*]; A: [N,P,Dv]; z: [N,P] ->
     (A', z'), new tensors."""
+    if wk.dim() == 3 and wk.shape[0] > 1:
+        return _by_group(lambda m, A, z, wk, wv, wb: armt_update_ref(m, wk, wv, wb, A, z, nu=nu),
+                         wk.shape[0], (m, A, z), (wk, wv, wb))
     m32 = m.float()
     k = _proj(m32, wk.float())
     v = _proj(m32, wv.float())

@@ -40,7 +40,9 @@ NVLINK_BW = 450e9             # B/s a direction, NVLink 4 (H100 SXM, 700 W)
 
 class AbstractMesh:
     """A mesh's axis names and sizes without ranks: what the sharding rules
-    read (``axis_names``, ``shape``, ``size``)."""
+    read (``axis_names``, ``shape``, ``size``), and the coordinates of the
+    first rank (0 on every axis), so that a dry run cuts the blocks rank 0
+    would hold. It has no groups: a collective on it raises."""
 
     def __init__(self, sizes: Sequence[int], axis_names: Sequence[str]):
         if len(sizes) != len(axis_names):
@@ -48,6 +50,20 @@ class AbstractMesh:
         self.axis_names: Tuple[str, ...] = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, (int(s) for s in sizes)))
         self.size = math.prod(self.shape.values())
+        self.coords: Dict[str, int] = {a: 0 for a in self.axis_names}
+
+    def coord(self, axes) -> int:
+        """This rank's index along ``axes`` (one name, or a tuple of names
+        read row-major in mesh order): its block of a dim sharded over them."""
+        axes = _norm_axes(axes)
+        idx = 0
+        for a in axes:
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    def count(self, axes) -> int:
+        """Ranks along ``axes``: the blocks of a dim sharded over them."""
+        return math.prod(self.shape[a] for a in _norm_axes(axes))
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.shape})"
@@ -91,19 +107,6 @@ class Mesh(AbstractMesh):
                 lists = _subgroup_ranks(self.grid, self.axis_names, axes)
                 mine, _ = dist.new_subgroups_by_enumeration(lists)
                 self._groups[axes] = mine
-
-    def coord(self, axes) -> int:
-        """This rank's index along ``axes`` (one name, or a tuple of names
-        read row-major in mesh order): its block of a dim sharded over them."""
-        axes = _norm_axes(axes)
-        idx = 0
-        for a in axes:
-            idx = idx * self.shape[a] + self.coords[a]
-        return idx
-
-    def count(self, axes) -> int:
-        """Ranks along ``axes``: the blocks of a dim sharded over them."""
-        return math.prod(self.shape[a] for a in _norm_axes(axes))
 
     def rank_at(self, axes, index: int) -> int:
         """The rank at ``index`` along ``axes`` (``coord`` order) that shares

@@ -36,8 +36,13 @@ whose ``record_function`` spans line up with the engine's timeline.
 Both modes take ``--mesh AXES`` (``launch/mesh.py`` ``parse_mesh``: e.g.
 ``data=2,model=2``, ``data,model=1``) for mesh-native serving over
 ``torch.distributed``: the params are cut to each rank's blocks, the cells
-run tensor-parallel over 'model' and the batch (or the slots) splits over
-'data' (``ServeEngine(mesh=...)``). Under ``torchrun`` each rank joins the
+run tensor-parallel over 'model', the batch (or the slots) splits over
+'data', and over 'stage' each rank holds one block of L / stage
+consecutive layers, the diagonal prefill running as a pipeline across the
+stages and decode as a chain of hand-offs, the last stage's output
+broadcast to every rank (``ServeEngine(mesh=...)``; where 'stage' does not
+divide the layers every stage rank runs them all, with the sharding
+rules' fallback warning). Under ``torchrun`` each rank joins the
 group from its environment (NCCL, one rank a GPU; ``--dist-backend gloo``
 for several ranks on one card, CUDA tensors staged through host memory);
 without it the process is a group of one. Every rank draws the same
@@ -45,8 +50,10 @@ weights and requests; only rank 0 prints (and writes the trace and
 metrics). With an axis of more than one rank decode runs eager (no CUDA
 graphs).
 
-    torchrun --nproc-per-node 8 -m repro_torch.launch.serve --arch llama-1b-armt \
+    torchrun --nproc-per-node 8 -m repro_torch.launch.serve --arch llama-1b-armt \\
         --mesh data=2,model=4 --prompt-len 16384 --batch 2
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch llama-1b-armt \\
+        --mesh stage=2 --dist-backend gloo --prompt-len 16384 --max-new 32
 
 Runs on the card unless ``--device cpu`` is given; ``--smoke`` takes the
 reduced config of the same family. Where the engine refuses a run (an
@@ -127,8 +134,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default=None, metavar="AXES",
                     help="mesh-native serving over torch.distributed: a comma list of "
                          "axis[=size] over {pod,data,model,stage} (at most one size may be "
-                         "omitted), e.g. data=2,model=2; params shard over 'model', the "
-                         "batch and slots over 'data'")
+                         "omitted), e.g. data=2,model=2 or stage=2; params shard over "
+                         "'model', the batch and slots over 'data', the layers over 'stage' "
+                         "(one block of consecutive layers a rank, run as a pipeline)")
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                     help="the process group's backend with --mesh (default: nccl with a "
                          "CUDA device, else gloo); gloo runs several ranks on one card")

@@ -87,6 +87,13 @@ The mamba cells have no such form: their projections are matmuls over the
 stacked weights, whose gathered copy would be ~230 MB a layer at
 falcon-mamba's width. ``grouped_apply.indexed`` names the cells that take
 an index.
+
+On a mesh's 'stage' axis the cells run on a rank's block of the layers:
+the stacked params are the block's, so a band is at most L / stage groups
+and a pooled step's index is local (the stack's layer minus the block's
+first). The cells need no collective of their own there, so the B == 1
+cell keeps its fused update on a stage-only mesh; only a 'model' axis
+(``tp_active``) splits it.
 """
 from __future__ import annotations
 

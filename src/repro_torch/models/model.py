@@ -22,9 +22,17 @@ layers first, as the reference does.
 
 On a mesh (``launch/mesh.py``) ``shard_model`` gives a rank's local view
 of the model: its blocks of the params, the local config (heads, d_ff and
-the memory's value dim divided by the 'model' axis) and the
-tensor-parallel context under which the embedding, the head, the blocks
-and decode place their collectives (``parallel/comm.py``).
+the memory's value dim divided by the 'model' axis, the layers by the
+'stage' axis), the tensor-parallel context under which the embedding, the
+head, the blocks and decode place their collectives, and the stage
+context under which the executors run the rank's block of consecutive
+layers (``parallel/comm.py``). On a stage mesh the first stage embeds
+(the others hold a placeholder of the input's shape, which they never
+read), and what leaves the stack (the hidden states, the rows the final
+norm and the head read) is the last stage's, broadcast to every rank bit
+for bit (``comm.stage_last``); every rank then applies the final norm and
+the head, which it holds whole, so that every rank has the same logits
+and draws the same tokens.
 """
 from __future__ import annotations
 
@@ -38,7 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ArchConfig
 from repro_torch.core.capture import Program
-from repro_torch.core.diagonal import boundary_states_from_capture, run_diagonal
+from repro_torch.core.diagonal import boundary_states_from_capture, grid, run_diagonal
 from repro_torch.core.memory import RECURRENT_KEYS, mem_read, mem_update
 from repro_torch.core.schedule import StackLayout
 from repro_torch.core.sequential import (capture_init, capture_write_, clone_state,
@@ -279,17 +287,33 @@ def embed_rows(params: Dict, ids: torch.Tensor) -> torch.Tensor:
     return params["embed"][ids] if tp is None else tp.embed(params["embed"], ids)
 
 
+def _first_stage() -> bool:
+    sp = comm.current_stage()
+    return sp is None or sp.index == 0
+
+
+def _placeholder(params: Dict, shape) -> torch.Tensor:
+    """The stack's input as a later stage sees it: the shape, dtype and
+    device of the first stage's (the executors' hand-off template), one
+    element of storage; never read."""
+    return params["embed"].new_zeros(()).expand(shape)
+
+
 def embed_segments(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                    seg_len: int, with_mem: bool = True) -> torch.Tensor:
     """tokens: [B, S*seg_len] -> [S, B, seg_len (+ M), D]: with_mem appends
     the memory tokens to every segment, so with segment-local positions they
     sit at seg_len..seg_len+M-1. A model with learned positions (whisper)
     adds rows 0..seg_len+M-1 of its table to every segment, the memory
-    rows included."""
+    rows included. On a later stage of a stage mesh, a placeholder of that
+    shape (``_placeholder``)."""
     B, total = tokens.shape
     if total % seg_len:
         raise ValueError(f"{total} tokens do not split into segments of {seg_len}")
     S = total // seg_len
+    M = params["mem_tokens"].shape[0] if with_mem and "mem_tokens" in params else 0
+    if not _first_stage():
+        return _placeholder(params, (S, B, seg_len + M, params["embed"].shape[1]))
     x = embed_rows(params, tokens.reshape(B, S, seg_len).transpose(0, 1))
     if with_mem and "mem_tokens" in params:
         M, D = params["mem_tokens"].shape
@@ -418,7 +442,7 @@ def forward_hidden(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     x = embed_segments(params, cfg, tokens, seg_len, with_mem)
     layout = StackLayout.from_config(cfg)
     if schedule == "auto":
-        schedule = "diagonal" if x.shape[0] >= layout.n_layers else "sequential"
+        schedule = "diagonal" if x.shape[0] >= grid(layout)[0] else "sequential"
     if cfg.encoder is None and enc_frames is not None:
         raise ValueError(f"{cfg.name} has no encoder: enc_frames is for whisper")
     if cfg.encoder is not None and (state0 is None) == (enc_frames is None):
@@ -668,13 +692,22 @@ def decode_state_sharding(cfg: ArchConfig, mesh, batch: int, *, serve_mode: str,
 MESH_TYPES = ("attn",)      # the block types the tensor-parallel cells run
 
 
-def local_config(cfg: ArchConfig, tp: int) -> ArchConfig:
-    """The config of what one of ``tp`` ranks of the 'model' axis computes:
-    the q and kv heads and d_ff divided by tp, and the ARMT value dim too
-    where tp divides it (the rules split ``wv`` and A there, else keep them
-    whole). cfg itself at tp = 1. A dim tp does not divide is refused with
-    the dim named: the cells split whole heads (the reference's GSPMD may
-    cut a head, or a cache's sequence, which explicit cells cannot)."""
+def local_config(cfg: ArchConfig, tp: int, stages: int = 1) -> ArchConfig:
+    """The config of what one rank computes, of ``tp`` ranks of the 'model'
+    axis and ``stages`` of the 'stage' axis: the q and kv heads and d_ff
+    divided by tp, and the ARMT value dim too where tp divides it (the
+    rules split ``wv`` and A there, else keep them whole); the layers
+    divided by stages (a block of consecutive layers; ``shard_model``
+    passes stages > 1 only where they divide the layers, else every stage
+    runs the whole stack). cfg itself at tp = stages = 1. A dim tp does
+    not divide is refused with the dim named: the cells split whole heads
+    (the reference's GSPMD may cut a head, or a cache's sequence, which
+    explicit cells cannot)."""
+    if stages > 1:
+        if cfg.n_layers % stages:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split into "
+                             f"{stages} stage blocks")
+        cfg = replace(cfg, n_layers=cfg.n_layers // stages)
     if tp == 1:
         return cfg
     for name, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
@@ -694,18 +727,31 @@ def local_config(cfg: ArchConfig, tp: int) -> ArchConfig:
 def shard_model(params: Dict, cfg: ArchConfig, mesh):
     """The local view of a model on ``mesh``: (this rank's params, the local
     config, the ``comm.TensorParallel`` the cells run under, None without a
-    'model' axis of more than one rank). The params are every leaf's block
-    under ``sharding.param_specs`` (a view of the leaf where the block is
-    contiguous in it: a replicated leaf, a block of rows; else a copy),
-    with the QKV biases, which the rules replicate, cut to the rank's own
-    columns."""
+    'model' axis of more than one rank, and the ``comm.StageParallel`` the
+    executors run under, None without a 'stage' axis of more than one rank
+    that divides the layers). The params are every leaf's block under
+    ``sharding.param_specs(stacked_axis="stage")`` (a view of the leaf
+    where the block is contiguous in it: a replicated leaf, a block of
+    rows; else a copy): the pattern leaves' [n_super, ...] dim cut to the
+    rank's block of layers; embed, final_norm and head whole (over
+    'model' as the rules say). The QKV biases, which the rules replicate,
+    are cut to the rank's own columns. Where 'stage' does not divide the
+    layers the slot buffer's rule falls back to replication (its warning
+    and ``sharding_fallback_total{kind="slot_buf"}``) and every stage rank
+    runs the whole stack, as the reference replicates."""
     from repro_torch.parallel import sharding as shd
     tp = shd.tp_size(mesh)
-    lcfg = local_config(cfg, tp)
-    specs = shd.param_specs(params, mesh)
+    stacked = "stage" if "stage" in mesh.axis_names else None
+    sp = None
+    if stacked:
+        spec = shd.slot_buf_spec(mesh, cfg.n_layers, 1)
+        if spec is not None and spec[0] == "stage" and shd.stage_size(mesh) > 1:
+            sp = comm.StageParallel(mesh, cfg.n_layers)
+    lcfg = local_config(cfg, tp, 1 if sp is None else sp.size)
+    specs = shd.param_specs(params, mesh, stacked_axis=stacked)
     local = comm.shard_tree(params, specs, mesh, copy=False)
     if tp == 1:
-        return local, cfg, None
+        return local, lcfg, None, sp
     for part in (local["prelude"], local["pattern"]):
         for blk in part:
             for name in ("attn", "xattn"):
@@ -719,7 +765,7 @@ def shard_model(params: Dict, cfg: ArchConfig, mesh):
     head = specs["head"].spec if "head" in specs else (None, None)   # [D, V]
     embed_split = "vocab" if embed[0] else "d" if embed[1] else None
     head_split = "vocab" if head[1] else "d" if head[0] else None
-    return local, lcfg, comm.TensorParallel(mesh, embed_split, head_split)
+    return local, lcfg, comm.TensorParallel(mesh, embed_split, head_split), sp
 
 
 def make_decode_apply(cfg: ArchConfig, serve_mode: str, pos, mask=None):
@@ -789,16 +835,19 @@ def decode_step_(params: Dict, cfg: ArchConfig, state: Dict, tokens: torch.Tenso
     per-slot tensor on the device; a Python int is replaced). mask: bool
     [B] (per-slot pos only): rows where it is False keep every leaf and pos
     bit for bit, their logits to be discarded. serve_mode must be the one
-    the state was made for."""
+    the state was made for. On a stage mesh, the rank's block of the layers
+    (``run_sequential_``), the last stage's output broadcast to every rank
+    before the final norm and the head."""
     _check_mask(state, mask, "decode_step_(mask=...)")
     layout = StackLayout.from_config(cfg)
     pos = state["pos"]
     toks = tokens if tokens.dim() == 2 else tokens[:, None]
-    x = _with_positions(params, embed_rows(params, toks), pos)
+    x = (_with_positions(params, embed_rows(params, toks), pos) if _first_stage() else
+         _placeholder(params, tuple(toks.shape) + (params["embed"].shape[1],)))
     exec_params, exec_state = _exec(params, state)
     ys = run_sequential_(layout, exec_params, exec_state, x[None],
                          make_decode_apply(cfg, serve_mode, pos, mask), row_mask=mask)
-    h = norm(cfg.norm, ys[0, :, -1], params["final_norm"])
+    h = norm(cfg.norm, comm.stage_last(ys[0])[:, -1], params["final_norm"])
     Tq = toks.shape[1]
     if not isinstance(pos, torch.Tensor):
         state["pos"] = pos + Tq
@@ -851,7 +900,9 @@ def flush_segment_(params: Dict, cfg: ArchConfig, state: Dict,
     the reference's flush does.
 
     mask: optional bool [B] (per-slot pos only): flush only those rows; the
-    others keep every leaf and pos bit for bit."""
+    others keep every leaf and pos bit for bit. On a stage mesh each rank
+    flushes its block of the layers, the memory tokens' activations handed
+    from stage to stage (``run_sequential_``)."""
     if cfg.armt is None:
         raise ValueError(f"{cfg.name}: flush_segment needs cfg.armt; a model "
                          "without ARMT has no segment boundary to flush")
@@ -859,7 +910,8 @@ def flush_segment_(params: Dict, cfg: ArchConfig, state: Dict,
     layout = StackLayout.from_config(cfg)
     mem = params["mem_tokens"]
     batch = next(iter(state["pattern"][0].values())).shape[1]
-    x = _with_positions(params, mem[None].expand(batch, -1, -1), state["pos"])
+    x = (_with_positions(params, mem[None].expand(batch, -1, -1), state["pos"])
+         if _first_stage() else _placeholder(params, (batch,) + tuple(mem.shape)))
     base = make_decode_apply(cfg, "armt", state["pos"], mask)
     drop = None if mask is None else mask.reshape(-1, 1, 1, 1)
 

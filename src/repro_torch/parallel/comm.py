@@ -26,11 +26,39 @@ kernels still run on the card; only the collective's bytes cross the bus.
 tree against a tree of specs (``parallel/sharding.py``).
 
 ``TensorParallel`` is what the cells read while an engine on a mesh with a
-'model' axis of more than one rank runs them (``tensor_parallel(tp)``, the
+'model' axis of more than one rank runs them (``parallel(tp, sp)``, the
 counterpart of the reference's ambient mesh): ``tp_reduce`` after a
 row-parallel product, ``tp_gather`` where a column-split result must be
 whole (the ARMT read), and the vocab-parallel embedding and head. Outside
 such a context every one of them is the identity.
+
+The 'stage' axis (the reference's ``stacked_axis="stage"``: with the slot
+dim sharded over it, "diagonal batching becomes pipeline parallelism")
+cuts the layer stack into ``size`` blocks of consecutive layers, one a
+rank (``stage_range``). Where GSPMD lowers the reference's roll of the
+slot buffer to a collective-permute, the port hands the slot on by hand:
+
+  * ``stage_shift(x, mesh, send=, recv=)``: each rank sends x to the next
+    stage and returns what the stage before sent (point to point: isend,
+    irecv, then wait on both, so a chain of them never deadlocks); the
+    first stage gets nothing back (None), the last sends nothing;
+  * ``stage_broadcast(x, mesh)``: the last stage's x on every rank of the
+    stage group (what leaves the stack: hidden states, the rows the head
+    reads).
+
+Whether a rank sends or receives at a step is host arithmetic on the
+schedule (step, segments, layers) that every rank does alike, so the
+calls stay matched without a message. Both are the identity, with no
+collective, on a one-rank axis. Under gloo a CUDA tensor is staged
+through host memory, as for the collectives above. Whatever only moves
+bits (the gathers, broadcasts and hand-offs) moves a 2-byte float as its
+bytes.
+
+``StageParallel`` is what the executors read while an engine on a mesh
+with a 'stage' axis of more than one rank runs them (the same
+``parallel(tp, sp)``): this rank's block [lo, hi) of the ``n_layers``.
+Outside such a context ``stage_last`` is the identity and the executors
+run the whole stack.
 """
 from __future__ import annotations
 
@@ -40,7 +68,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.parallel.sharding import spec_of
+from repro_torch.parallel.sharding import spec_of, stage_size
 
 
 def _count(mesh, axes) -> int:
@@ -50,6 +78,15 @@ def _count(mesh, axes) -> int:
 def _staged(mesh, x: torch.Tensor) -> bool:
     """gloo has no CUDA form of every collective: stage through the host."""
     return mesh.backend == "gloo" and x.is_cuda
+
+
+def _raw(x: torch.Tensor) -> torch.Tensor:
+    """x (contiguous) as what a gather, broadcast or point-to-point moves: a
+    2-byte float as its bytes (a view), which every backend carries (gloo
+    has no int16, and bf16 only in recent builds)."""
+    if x.element_size() == 2 and x.is_floating_point():
+        return x.view(-1).view(torch.uint8)
+    return x
 
 
 def all_reduce(x: torch.Tensor, mesh, axis) -> torch.Tensor:
@@ -77,7 +114,7 @@ def all_gather(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
     if _staged(mesh, src):
         src = src.cpu()
     bufs = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(bufs, src, group=mesh.group(axis))
+    dist.all_gather([_raw(b) for b in bufs], _raw(src), group=mesh.group(axis))
     return torch.cat(bufs, dim=dim).to(dev)
 
 
@@ -88,7 +125,7 @@ def broadcast(x: torch.Tensor, mesh, axis, index: int) -> torch.Tensor:
         return x
     y = x.detach().to("cpu", copy=True) if _staged(mesh, x) else \
         x.detach().clone(memory_format=torch.contiguous_format)
-    dist.broadcast(y, src=mesh.rank_at(axis, index), group=mesh.group(axis))
+    dist.broadcast(_raw(y), src=mesh.rank_at(axis, index), group=mesh.group(axis))
     return y.to(x.device)
 
 
@@ -203,18 +240,6 @@ class TensorParallel:
 _TP: Optional[TensorParallel] = None
 
 
-@contextlib.contextmanager
-def tensor_parallel(tp: Optional[TensorParallel]):
-    """Run the cells inside this context split over ``tp``'s axis (None:
-    whole, as outside any context)."""
-    global _TP
-    prev, _TP = _TP, tp
-    try:
-        yield tp
-    finally:
-        _TP = prev
-
-
 def current() -> Optional[TensorParallel]:
     return _TP
 
@@ -233,3 +258,88 @@ def tp_gather(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """A column-split result made whole on ``dim`` (identity outside a
     context)."""
     return x if _TP is None else _TP.gather(x, dim)
+
+
+# ---------------------------------------------------------------------------
+# The stage axis: one block of consecutive layers a rank
+# ---------------------------------------------------------------------------
+
+def stage_range(n_layers: int, mesh) -> tuple:
+    """[a, b) of this rank's layer block on the mesh's 'stage' axis (the
+    whole stack without one)."""
+    if mesh is None or "stage" not in mesh.axis_names:
+        return 0, n_layers
+    return block_range(n_layers, mesh, "stage")
+
+
+def stage_shift(x: torch.Tensor, mesh, *, send: bool = True, recv: bool = True):
+    """The roll of the slot dim over 'stage' as a hand-off: x to the next
+    stage (when ``send`` and this is not the last), and what the stage
+    before sent (when ``recv`` and this is not the first; a new tensor of
+    x's shape and dtype) -> the received tensor or None. x is also the
+    receive's template, so a rank with nothing to send passes any tensor of
+    the slot's shape. x itself on a one-rank axis."""
+    n = 1 if mesh is None else stage_size(mesh)
+    if n == 1:
+        return x
+    r = mesh.coord("stage")
+    send, recv = send and r < n - 1, recv and r > 0
+    staged = _staged(mesh, x)
+    works, out = [], None
+    if send:
+        src = x.detach().to("cpu", copy=True) if staged else x.detach().contiguous()
+        works.append(dist.isend(_raw(src), mesh.rank_at("stage", r + 1)))
+    if recv:
+        out = torch.empty(x.shape, dtype=x.dtype, device="cpu" if staged else x.device)
+        works.append(dist.irecv(_raw(out), mesh.rank_at("stage", r - 1)))
+    for w in works:
+        w.wait()
+    return None if out is None else out.to(x.device)
+
+
+def stage_broadcast(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The last stage's x on every rank of the stage group (a new tensor;
+    x itself on a one-rank axis)."""
+    n = 1 if mesh is None else stage_size(mesh)
+    return x if n == 1 else broadcast(x, mesh, "stage", n - 1)
+
+
+class StageParallel:
+    """The 'stage' axis the executors pipeline over: its size, this rank's
+    index and its block [lo, hi) of the ``n_layers`` of the stack."""
+
+    def __init__(self, mesh, n_layers: int):
+        self.mesh = mesh
+        self.size = mesh.count("stage")
+        self.index = mesh.coord("stage")
+        self.n_layers = n_layers
+        self.lo, self.hi = stage_range(n_layers, mesh)
+
+    def __repr__(self) -> str:
+        return f"StageParallel({self.index} of {self.size}, layers [{self.lo}, {self.hi}))"
+
+
+_SP: Optional[StageParallel] = None
+
+
+@contextlib.contextmanager
+def parallel(tp: Optional[TensorParallel], sp: Optional[StageParallel] = None):
+    """Run inside a rank's mesh contexts: the cells split over ``tp``'s
+    axis, the executors on ``sp``'s block of the layers (None: whole, as
+    outside any context)."""
+    global _TP, _SP
+    prev, (_TP, _SP) = (_TP, _SP), (tp, sp)
+    try:
+        yield
+    finally:
+        _TP, _SP = prev
+
+
+def current_stage() -> Optional[StageParallel]:
+    return _SP
+
+
+def stage_last(x: torch.Tensor) -> torch.Tensor:
+    """What leaves the stack: the last stage's x on every rank (x itself
+    outside a stage context)."""
+    return x if _SP is None else stage_broadcast(x, _SP.mesh)

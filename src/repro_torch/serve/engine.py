@@ -112,12 +112,14 @@ def _transplant(fin: Dict, dstate: Dict) -> None:
 
 
 def _on_mesh(fn):
-    """Run an engine (or pipeline) method inside the engine's
-    tensor-parallel context (``parallel/comm.py``): the cells it runs split
-    over the mesh's 'model' axis; a mesh-less engine's context is none."""
+    """Run an engine (or pipeline) method inside the engine's mesh contexts
+    (``parallel/comm.py``): the cells it runs split over the mesh's 'model'
+    axis, the executors on the rank's block of the 'stage' axis; a
+    mesh-less engine's contexts are none."""
     @functools.wraps(fn)
     def wrapped(self, *args, **kwargs):
-        with comm.tensor_parallel(getattr(self, "engine", self)._tp):
+        eng = getattr(self, "engine", self)
+        with comm.parallel(eng._tp, eng._sp):
             return fn(self, *args, **kwargs)
     return wrapped
 
@@ -159,9 +161,6 @@ def sample(logits: torch.Tensor, *, temperature: float, top_k: int,
 
 def _check_mesh(mesh, cfg: ArchConfig, device, eager: bool) -> None:
     """What the mesh-native engine refuses (each waits in ROADMAP Queue 1)."""
-    if mesh.shape.get("stage", 1) > 1:
-        raise ValueError(f"mesh {mesh.shape}: the 'stage' axis (slot-sharded diagonal "
-                         "across ranks) is not ported yet (ROADMAP Queue 1)")
     if not (set(cfg.layer_types) <= set(MESH_TYPES) and not cfg.prelude
             and cfg.moe is None and cfg.ssm is None and cfg.encoder is None):
         raise ValueError(f"{cfg.name} on a mesh: the mesh-native engine runs the dense "
@@ -308,7 +307,17 @@ class ServeEngine:
     model's). The cells run on the local blocks with the collectives placed
     by hand (``parallel/comm.py``): the embedding and head vocab-parallel,
     Q/K/V and the FFN's in projections column-parallel, ``wo``/``wd``
-    row-parallel and all-reduced, the ARMT read all-gathered. Under the
+    row-parallel and all-reduced, the ARMT read all-gathered. Under a
+    'stage' axis that divides the layers each rank holds one block of L /
+    stage consecutive layers, their decode state and a slot buffer of as
+    many slots (``stacked_axis = "stage"``): the diagonal prefill runs as a
+    pipeline across the stages (``core/diagonal.py``), the sequential one,
+    decode and the flush as a chain of hand-offs (``core/sequential.py``),
+    and what leaves the stack is the last stage's, broadcast, so every rank
+    holds the same logits and tokens; where 'stage' does not divide the
+    layers every stage rank runs the whole stack (the rules' fallback).
+    On a mesh whose only axis of more than one rank is 'stage' every
+    output, logit and state equals the mesh-less engine's to the bit. Under the
     'data' axes a batch the axes divide is split by rows (``generate``'s
     prompts, ``serve``'s slots); one they do not divide (a B = 1 admission)
     is replicated, every data rank computing it. Blobs cross the state
@@ -316,10 +325,10 @@ class ServeEngine:
     restored (``_place_state``), so a snapshot or session moves between
     meshes of any shape. On a mesh of one rank nothing is cut and every
     path is the mesh-less engine's, CUDA graphs included. Refused: a
-    'stage' axis of more than one rank, a config outside the dense ARMT
-    family (``MESH_TYPES`` layers only, no MoE, SSM, encoder or prelude),
-    and on the card CUDA graphs with an axis of more than one rank (pass
-    ``eager=True``): ROADMAP Queue 1 holds each."""
+    config outside the dense ARMT family (``MESH_TYPES`` layers only, no
+    MoE, SSM, encoder or prelude), and on the card CUDA graphs with an
+    axis of more than one rank (pass ``eager=True``): ROADMAP Queue 1 holds
+    each."""
 
     def __init__(self, params: Dict, cfg: ArchConfig, *, serve_mode: str = "armt",
                  schedule: str = "diagonal", device=None, max_len: int = 8192,
@@ -339,13 +348,16 @@ class ServeEngine:
                              f"engine on {self.device}")
         self.mesh = mesh
         self.full_cfg = cfg
-        self._tp = None
+        self._tp = self._sp = None
+        # the mesh axis the stacked [n_super, ...] leaves shard over
+        self.stacked_axis = ("stage" if mesh is not None and "stage" in mesh.axis_names
+                             else None)
         # a mesh of more than one rank: params, states and blobs are cut
         self._sharded = mesh is not None and mesh.size > 1
         if mesh is not None:
             _check_mesh(mesh, cfg, self.device, eager)
         if self._sharded:
-            params, cfg, self._tp = shard_model(params, cfg, mesh)
+            params, cfg, self._tp, self._sp = shard_model(params, cfg, mesh)
         self.params = params
         self.cfg = cfg
         self.serve_mode = serve_mode
@@ -356,7 +368,9 @@ class ServeEngine:
         self.capture = self.device.type == "cuda" and not eager
         self._programs: Dict = {}
         self._layout = StackLayout.from_config(cfg)
+        # this rank's layers, and the stack's (the grid's) on a stage mesh
         self._n_layers = self._layout.n_layers
+        self._grid_layers = StackLayout.from_config(self.full_cfg).n_layers
         # the blocking prefill's executor pair (forward_hidden's, fused):
         # the pipeline's band steps run the same cells
         self._apply = make_apply_block(cfg, "segmented")
@@ -410,7 +424,7 @@ class ServeEngine:
         return decode_state_sharding(
             self.full_cfg, self.mesh, batch, serve_mode=self.serve_mode,
             max_len=self.max_len, dtype=self.params["embed"].dtype,
-            per_slot_pos=per_slot_pos)
+            per_slot_pos=per_slot_pos, stacked_axis=self.stacked_axis)
 
     def _state_specs(self, tree: Dict, batch: int) -> Dict:
         """The specs of a decode state's (sub-)tree of ``batch`` rows, leaf
@@ -493,12 +507,15 @@ class ServeEngine:
         engine's params and schedule (the fused cell) -> (hidden [S, B, T,
         D], final executor state). On a mesh of more than one rank: on this
         rank's blocks and rows, from the rank's block of a whole ``state0``,
-        and the hidden states and final state gathered whole."""
+        and the hidden states and final state gathered whole. An engine
+        that does not capture (eager, or on a mesh) runs the sequential
+        schedule eagerly too."""
         tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long)
         bax, lo, hi = self._rows(tokens.shape[0])
         if self._sharded and state0 is not None:
             state0 = self._place_state(state0, tokens.shape[0])
         kwargs.setdefault("schedule", self.schedule)
+        kwargs.setdefault("eager", not self.capture)
         h, fin = forward_hidden(self.params, self.cfg, tokens[lo:hi].to(self.device),
                                 state0=state0, **kwargs)[:2]
         if not self._sharded:
@@ -738,14 +755,16 @@ class ServeEngine:
         segments (S), the slot buffer (L), and the outputs, ``win`` (min(L,
         S)) and ``brow`` (S rows) when streaming, else ``ys`` (S). The
         reference's estimate counts S + L - 1 input segments, its drain
-        padding; the port reads the S segments themselves."""
+        padding; the port reads the S segments themselves. On a stage mesh
+        the slot buffer is the rank's L / stage slots (``win`` keeps the
+        stack's min(L, S))."""
         cfg = self.cfg
         item = self.params["embed"].element_size()
         seg = batch * self._segment_rows() * cfg.d_model * item
         L, S = self._n_layers, n_segments
         total = (S + L) * seg
         if stream:
-            total += min(L, S) * seg + S * batch * cfg.d_model * item
+            total += min(self._grid_layers, S) * seg + S * batch * cfg.d_model * item
         else:
             total += S * seg
         return total
@@ -804,8 +823,10 @@ class ServeEngine:
         K/V fill's input (the encoder's output repeated over the decoder's
         layers); the larger of that and the band's is counted.
 
-        A pooled round holds the sum of its members'. Host arithmetic only:
-        the states are counted on the meta device."""
+        A pooled round holds the sum of its members'. On a stage mesh every
+        count is the rank's: its block's states and slots, its band of at
+        most L / stage layers (the capture keeps S + L - 1 steps of them).
+        Host arithmetic only: the states are counted on the meta device."""
         cfg = self.cfg
         meta = torch.device("meta")
         dtype = self.params["embed"].dtype
@@ -864,7 +885,8 @@ class ServeEngine:
         total = (self.prefill_carry_bytes(S, batch, stream=stream) + 2 * state + dstate
                  + band + min(L, S) * (3 * state // L))
         if self.prefix_cache is not None:
-            total += (2 * S + L - 1) * state + S * batch * cfg.vocab * (8 + item)
+            total += ((2 * S + self._grid_layers - 1) * state
+                      + S * batch * cfg.vocab * (8 + item))
         return total
 
     def start_prefill(self, prompts, *, groups_per_call: Optional[int] = 4,
@@ -1035,7 +1057,7 @@ class ServeEngine:
         the states and the band's transients) goes through the streaming
         carry in stages that fit; None: no budget."""
         self._refuse_encoder("serve()")
-        with comm.tensor_parallel(self._tp):
+        with comm.parallel(self._tp, self._sp):
             sched = ContinuousScheduler(self, n_slots=n_slots, chunk=chunk,
                                         max_queue=max_queue,
                                         prefill_groups_per_chunk=prefill_groups_per_chunk,
@@ -1044,14 +1066,14 @@ class ServeEngine:
                                         admission_fairness=admission_fairness,
                                         admission_byte_budget=admission_byte_budget)
         events = sched.run(requests)
-        return events if self._tp is None else self._stream(events)
+        return events if self._tp is None and self._sp is None else self._stream(events)
 
     def _stream(self, events: Iterator) -> Iterator:
         """The scheduler's events, each step of it run inside the engine's
-        tensor-parallel context (and the caller's code between events
-        outside it)."""
+        mesh contexts (and the caller's code between events outside
+        them)."""
         while True:
-            with comm.tensor_parallel(self._tp):
+            with comm.parallel(self._tp, self._sp):
                 ev = next(events, None)
             if ev is None:
                 return
@@ -1226,7 +1248,7 @@ class PrefillPipeline:
                                                    capture_states=self._chain is not None,
                                                    stream_ys=self._stream)
         self._groups_done = 0
-        self._n_steps = n_diagonal_groups(x.shape[0], eng._n_layers)
+        self._n_steps = n_diagonal_groups(x.shape[0], eng._grid_layers)
 
     def _finish_diag(self, seg: int) -> None:
         eng = self.engine
@@ -1321,7 +1343,7 @@ class AdmissionPool:
         for pipe in self.members:
             stages = pipe.diag_segments()
             total += pool_cells_remaining([d for _, d in stages], [s for s, _ in stages],
-                                          self.engine._n_layers)
+                                          self.engine._grid_layers)
         return total
 
     def diag_buckets(self) -> Dict:

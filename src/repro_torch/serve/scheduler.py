@@ -88,7 +88,12 @@ slots, and an admission, prefilled at B = 1 on every rank, is installed
 only by the rank that holds its slot. Each chunk's tokens are all-gathered
 over the data axes before the host reads them, and a finished session's
 row is broadcast from the rank that holds it, then gathered whole to the
-host for the store.
+host for the store. On a 'stage' axis the ranks of a stage group hold the
+same slots, each its block of their layers' state; every decode step
+and band step hands on from stage to stage, and the tokens the host
+reads are the last stage's, broadcast, so every rank's admission choices
+agree with no message of their own. The byte budget counts a rank's own
+part: its slot buffer of L / stage slots and its block's states.
 
 Telemetry (the engine's ``Telemetry``): spans per decode chunk (around its
 one device-to-host transfer), admission round, admission window,

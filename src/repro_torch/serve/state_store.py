@@ -90,8 +90,10 @@ def gather_to_host(tree: Any, mesh=None, specs: Any = None) -> Any:
     more than one rank every tensor leaf of ``tree`` (this rank's blocks) is
     all-gathered whole under its spec in ``specs`` and copied to the host,
     so a stored blob carries no mesh shape (a 2x2-mesh snapshot resumes on
-    one device and the reverse). On one device (no mesh, or a mesh of one
-    rank) the tree itself: the lazy capture stays as it is."""
+    one device and the reverse; on a 'stage' axis the stacked leaves'
+    [n_super, ...] blocks are gathered into the whole stack). On one
+    device (no mesh, or a mesh of one rank) the tree itself: the lazy
+    capture stays as it is."""
     if mesh is None or mesh.size == 1:
         return tree
     from repro_torch.parallel import comm

@@ -30,7 +30,9 @@ reduced width (kernel gradients against the plain path, diagonal =
 sequential, no SIMT, the unfused B = 1 route against the fused op); the
 kernel dispatch (every candidate of the autotuner's card spaces equal to
 the heuristic to the bit at smoke width, the overrides and refusals); the
-mesh engine on a one-rank NCCL group against the mesh-less one, to the bit.
+mesh engine on a one-rank NCCL group against the mesh-less one, to the bit,
+and on a stage=2 mesh of two gloo ranks (chip_smoke's (z4) ranks at smoke
+width, bf16) against the mesh-less one, to the bit.
 Needs a CUDA device and nvcc; skips without a card. This file
 imports no JAX; with ``--noconftest`` (tests/conftest.py imports JAX) it
 runs on a machine that has only PyTorch:
@@ -816,6 +818,42 @@ def test_one_rank_nccl_mesh_equals_meshless_on_card(cuda, tmp_path):
         assert run(eng) == run(ref)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_stage_two_gloo_ranks_equal_meshless_on_card(cuda, tmp_path):
+    """chip_smoke's (z4) ranks at smoke width (4 layers, bf16): two gloo
+    ranks on the card, stage=2, each one block of 2 layers. The diagonal
+    and sequential prefill, a greedy generate (tokens, logits, state), an
+    interleaved serve and a session resumed on one device equal the
+    mesh-less engine to the bit; the kernels launch at the block's band."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    out = tmp_path / "z4.json"
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    procs = [subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--stage-rank",
+                               str(r), "2", str(tmp_path / "store"),
+                               str(tmp_path / "cache.json"), str(out), "smoke"],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env) for r in range(2)]
+    outs = []
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(o[-3000:] for o in outs)
+    z = json.loads(out.read_text())
+    assert z["block"] == [0, 2]
+    for k in ("prefill_diagonal_equal", "prefill_sequential_equal", "generate_equal",
+              "serve_equal", "session_equal"):
+        assert z[k], k
+    assert all(z["launches"][k] > 0 for k in z["launches"] if k != "armt_update"), z["launches"]
+    assert 0 < z["widest"]["band"] <= 2 and z["widest"]["stack"] == 2, z["widest"]
 
 
 @pytest.mark.cuda

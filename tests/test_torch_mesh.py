@@ -106,12 +106,16 @@ def test_one_rank_mesh_equals_meshless_to_the_bit(one_rank, serve_mode):
 
 
 def test_mesh_refusals():
-    """A stage axis, a config outside the dense ARMT family and heads the
-    model axis does not divide are refused, each with a one-line reason."""
+    """A config outside the dense ARMT family and heads the model axis does
+    not divide are refused, each with a one-line reason; a stage axis is
+    served, each rank one block of the layers (here the first rank's)."""
     cfg = t_smoke("llama-1b-armt")
     params = tmodel.init_params(cfg, 0, device="cpu")
-    with pytest.raises(ValueError, match="stage.*ROADMAP Queue 1"):
-        ServeEngine(params, cfg, device="cpu", mesh=tmesh.AbstractMesh((1, 2), ("data", "stage")))
+    eng = ServeEngine(params, cfg, device="cpu",
+                      mesh=tmesh.AbstractMesh((1, 2), ("data", "stage")))
+    assert eng.stacked_axis == "stage"
+    assert (eng._sp.lo, eng._sp.hi, eng._sp.n_layers) == (0, 1, cfg.n_layers)
+    assert eng.cfg.n_layers == 1 and eng.params["pattern"][0]["attn"]["wq"].shape[0] == 1
     fcfg = t_smoke("falcon-mamba-7b")
     fparams = tmodel.init_params(fcfg, 0, device="cpu")
     with pytest.raises(ValueError, match="dense ARMT family.*ROADMAP Queue 1"):
