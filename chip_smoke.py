@@ -332,8 +332,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, then:
       the diagonal and sequential losses to the bit; a control (a row of
       layer 0's output projection x0.98) that must fail. (w3) bf16, B =
       1, 4 segments, 12 steps (lr 1e-3, warmup 2) on one repeated batch of
-      the LM stream: falcon-mamba-7b at 12 of 64 layers through
-      train_loop, qwen2-moe-a2.7b at 3 of 24 layers with all 60 experts
+      the LM stream: falcon-mamba-7b at 4 of 64 layers through
+      train_loop (cut from 12 to keep the script inside its limit with
+      (z5)), qwen2-moe-a2.7b at 3 of 24 layers with all 60 experts
       and whisper-medium whole (frames from the seed) through
       make_train_step: the loss falls (the mean of the last 3 steps below
       the first 3), step time, tokens/s, peak (at most 75 GB) and skipped
@@ -913,6 +914,183 @@ def stage_rank(argv) -> int:
     return 0
 
 
+# (z5)'s training comparisons, fp32 on the card: two ranks against the
+# mesh-less step (loss, grad_norm, every gathered param, relative)
+TOL_Z5 = 1e-4
+# the launches a training run on a mesh must show (forward and backward;
+# under gradients the B = 1 cell runs the GEMM, then armt_update)
+TRAIN_KERNELS = ("grouped_matmul", "flash_attention", "armt_read", "armt_update")
+
+
+def train_rank(argv) -> int:
+    """One rank of phase (z5b)/(z5c), spawned twice by (z) onto the one card:
+    ``chip_smoke.py --train-rank RANK WORLD STORE DISPATCH_CACHE OUT
+    [smoke]``.
+
+    Joins a gloo group of WORLD ranks on the FileStore STORE. (z5b) fp32,
+    TF32 off, llama-1b-armt's widths at 4 of its 16 layers (``smoke``: the
+    smoke config at 4 layers), 2 segments, B = 2, weights drawn from the
+    seed on the card: each rank first takes the mesh-less step (rank 0
+    keeps it; on rank 1 it warms the process up); then one step at
+    ``data=2`` with ZeRO-1, one with the
+    replicated optimizer, and one at ``model=2``, each from the same state,
+    gathered whole; rank 0 holds each against the mesh-less step (loss,
+    grad_norm, every param and every first moment, relative to the leaf's
+    norm) and ZeRO-1 against the replicated optimizer to the bit (params,
+    moments, metrics). (z5c) bf16, llama-1b-armt whole (the smoke config
+    at smoke size), ``data=2``, ZeRO-1, 4 segments, B = 2 (one row a
+    rank), with no mesh-less run beside it: 3 steps, each timed to a
+    sync: the median step time, tokens/s, the losses,
+    each rank's peak device memory, the host-staged collectives of a step
+    (count, bytes). Rank 0 writes the errors, equalities, kernel launches
+    and measurements as JSON to OUT; (z5) gates them."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rank, world = int(argv[0]), int(argv[1])
+    store, cache, out_path = argv[2], argv[3], argv[4]
+    smoke = argv[5:6] == ["smoke"]
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import shard_batch, to_device
+    from repro_torch.kernels import build, dispatch
+    from repro_torch.launch.mesh import init_distributed, parse_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptimConfig, adamw_init
+    from repro_torch.parallel import comm
+    from repro_torch.train import make_train_step
+    from repro_torch.train.state import train_specs
+    from repro_torch.utils import tree_flatten_with_path, tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dispatch.set_cache_path(cache)
+    build.lib()
+    init_distributed("gloo", store_path=store, rank=rank, world_size=world)
+    dev = torch.device("cuda")
+    res = {"rank": rank}
+
+    def counts():
+        return {f"{m.__name__.rsplit('.', 1)[-1]}.{n}": v
+                for (m, n), v in build.launch_counts().items()}
+    launches = {k: {k2: 0 for k2 in MESH_COUNTERS} for k in ("z5b", "z5c")}
+
+    def mesh_run(part, fn):
+        """fn() on the mesh, to a sync: its launches counted -> (out, s)."""
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = counts()
+        for k, c in MESH_COUNTERS.items():
+            launches[part][k] += after.get(c, 0) - before.get(c, 0)
+        return out, dt
+
+    def bits(t):
+        return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}.get(
+            t.dtype, t.dtype))
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    ocfg = OptimConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    # (z5b) fp32, 4 layers, 2 segments, B = 2
+    base = get_smoke_config("llama-1b-armt") if smoke else get_config("llama-1b-armt")
+    cfg = replace(base, n_layers=4, dtype="float32")
+    seg = cfg.armt.segment_len
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    t = np.random.default_rng(SEED + 31).integers(0, cfg.vocab, (2, 2 * seg + 1))
+    host = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    state0 = {"params": params, "opt": adamw_init(params, ocfg)}
+    res["z5b_params"] = sum(x.numel() for x in tree_leaves(params))
+    ref, ref_m = make_train_step(cfg, ocfg, schedule="diagonal")(state0, to_device(host, dev))
+    ref = {p: x for p, x in tree_flatten_with_path(ref)
+           if rank == 0 and p.startswith(("params/", "opt/m/"))}
+    ref_m = {k: float(v) for k, v in ref_m.items()}
+    res["z5b_meshless"] = ref_m
+    torch.cuda.empty_cache()
+    dist.barrier()
+    z5b = {}
+    for spec, zeros in (("data=2", (True, False)), ("model=2", (True,))):
+        m = parse_mesh(spec)
+        kept = None
+        for z in zeros:
+            specs = train_specs(cfg, ocfg, m, zero1=z)
+            st = comm.shard_tree(state0, specs, m)
+            step = make_train_step(cfg, ocfg, schedule="diagonal", mesh=m, zero1=z)
+            (new, met), dt = mesh_run("z5b", lambda: step(st, shard_batch(host, m, dev)))
+            whole = comm.gather_tree(new, specs, m)
+            met = {k: float(v) for k, v in met.items()}
+            del st, new
+            key = f"{spec} zero1={z}"
+            if rank != 0:
+                del whole
+                continue
+            errs = {k: abs(met[k] - ref_m[k]) / abs(ref_m[k]) for k in ("loss", "grad_norm")}
+            flat = dict(tree_flatten_with_path(whole))
+            leaf = {p: rel(flat[p], x) for p, x in ref.items()}
+            worst_p = max((e, p) for p, e in leaf.items() if p.startswith("params/"))
+            worst_m = max((e, p) for p, e in leaf.items() if p.startswith("opt/m/"))
+            z5b[key] = dict(loss=met["loss"], grad_norm=met["grad_norm"],
+                            skipped=met["skipped"], step_s=dt, loss_rel=errs["loss"],
+                            grad_norm_rel=errs["grad_norm"], worst_param=worst_p,
+                            worst_m=worst_m)
+            del flat
+            whole = [x.cpu() for x in tree_leaves(whole)]
+            if kept is None:
+                kept = (whole, met)
+            else:       # ZeRO-1 against the replicated optimizer, to the bit
+                same = all(a.shape == b.shape and torch.equal(bits(a), bits(b))
+                           for a, b in zip(kept[0], whole))
+                res["z5b_zero1_bits"] = same and kept[1] == met
+            del whole
+        kept = None
+        torch.cuda.empty_cache()
+    res["z5b"] = z5b
+    del state0, params, ref
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (z5c) bf16, the whole model, data=2, ZeRO-1, 4 segments, B = 2
+    cfg = get_smoke_config("llama-1b-armt") if smoke else get_config("llama-1b-armt")
+    seg = cfg.armt.segment_len
+    m = parse_mesh("data=2")
+    specs = train_specs(cfg, ocfg, m)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    state = comm.shard_tree({"params": params, "opt": adamw_init(params, ocfg)}, specs, m)
+    del params
+    torch.cuda.empty_cache()
+    res["z5c_moment_elems_rank"] = sum(x.numel() for x in tree_leaves(state["opt"]["m"]))
+    t = np.random.default_rng(SEED + 32).integers(0, cfg.vocab, (2, 4 * seg + 1))
+    batch = shard_batch({"tokens": t[:, :-1], "labels": t[:, 1:]}, m, dev)
+    step = make_train_step(cfg, ocfg, schedule="diagonal", mesh=m)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses, staged, skipped = [], [], [], []
+    for _ in range(3):
+        comm.reset_staged()
+        (state, met), dt = mesh_run("z5c", lambda: step(state, batch))
+        staged.append(comm.staged_counts())
+        times.append(dt)
+        losses.append(float(met["loss"]))
+        skipped.append(float(met["skipped"]))
+    peaks = [None] * world
+    dist.all_gather_object(peaks, torch.cuda.max_memory_allocated(dev) / 1e9)
+    step_s = float(np.median(times))
+    res["z5c"] = dict(step_times_s=times, step_s=step_s, tokens_per_s=2 * 4 * seg / step_s,
+                      losses=losses, skipped=skipped, peak_gb=peaks, staged=staged[-1],
+                      n_segments=4, batch=2)
+    res["launches"] = launches
+    dist.barrier()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
 def run_ranks(flag: str, n: int, store, cache: str, out, *extra, timeout: int = 300):
     """Spawn ``chip_smoke.py FLAG RANK n STORE CACHE OUT *extra`` for every
     rank, with a hard timeout -> (ran to the end with OUT written, the
@@ -966,6 +1144,7 @@ def mesh_phase(no_cache: str, smi: str):
     dev = torch.device("cuda")
     failures, row = [], {}
     launches = {k: 0 for k in MESH_COUNTERS}
+    launches_train = {k: 0 for k in MESH_COUNTERS}     # (z5)'s training runs
 
     def held(name, ok, detail=""):
         row[name] = bool(ok)
@@ -1049,7 +1228,9 @@ def mesh_phase(no_cache: str, smi: str):
     missing = [k for k, n in launches.items() if n == 0]
     held("z1 all six llama kernels launched (the fused update among them)", not missing,
          f"launches {launches} ")
-    del params, want, r
+    del want, r
+    row["z5a"] = train_one_rank(mesh, params, cfg, dev, held, launches_train, smi)
+    del params
     M.SegmentProgram._cache.clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1145,9 +1326,117 @@ def mesh_phase(no_cache: str, smi: str):
             f"generate TTFT {z['ttft_s']:.3f} s ({z['meshless_ttft_s']:.3f} s), decode "
             f"{z['decode_tok_s']:.1f} tok/s ({z['meshless_decode_tok_s']:.1f} tok/s, eager), "
             f"serve {z['serve_s']:.3f} s ({z['meshless_serve_s']:.3f} s) ({smi})")
+    # (z5b), (z5c): training on two gloo ranks sharing the card
+    out5 = tmp / "z5.json"
+    ran5, outs5, row["z5_s"] = run_ranks("--train-rank", 2, tmp / "z5", no_cache, out5,
+                                         timeout=420)
+    for rk, o in enumerate(outs5):
+        for line in o.strip().splitlines()[-(40 if not ran5 else 2):]:
+            log(f"    rank {rk}: {line}")
+    held("z5b/z5c two gloo ranks training on the card ran to their end", ran5,
+         f"{row['z5_s']:.1f} s ")
+    if ran5:
+        with open(out5) as f:
+            z = json.load(f)
+        for key, r in z["z5b"].items():
+            held(f"z5b {key}, fp32, 4 of 16 layers, 2 segments, B = 2: loss, grad_norm and "
+                 f"every param within {TOL_Z5:g} of the mesh-less step",
+                 max(r["loss_rel"], r["grad_norm_rel"], r["worst_param"][0]) <= TOL_Z5
+                 and r["skipped"] == 0.0,
+                 f"loss {r['loss']:.6f} (rel {r['loss_rel']:.2e}), grad_norm rel "
+                 f"{r['grad_norm_rel']:.2e}, worst param {r['worst_param'][1]} "
+                 f"{r['worst_param'][0]:.2e}, worst m {r['worst_m'][1]} "
+                 f"{r['worst_m'][0]:.2e}, step {r['step_s']:.3f} s ")
+        held("z5b data=2: ZeRO-1 = the replicated optimizer to the bit (params, moments, "
+             "metrics)", z["z5b_zero1_bits"])
+        c = z["z5c"]
+        held("z5c data=2, bf16, llama-1b-armt whole, 4 segments, B = 2: 3 steps finite, none "
+             "skipped", all(math.isfinite(x) for x in c["losses"]) and not any(c["skipped"]),
+             f"losses {['%.4f' % x for x in c['losses']]} ")
+        for part in ("z5b", "z5c"):
+            n5 = z["launches"][part]
+            held(f"{part} the GEMM, flash, armt_read and armt_update launched, the fused "
+                 "update not (forward-only)", all(n5[k] > 0 for k in TRAIN_KERNELS)
+                 and n5["grouped_matmul_armt_update"] == 0, f"launches {n5} ")
+            for k in launches_train:
+                launches_train[k] += n5[k]
+        log(f"  z5c data=2 bf16 (two gloo ranks on one card, ZeRO-1, gradients and params "
+            f"staged through the host): step {c['step_s']:.3f} s median of 3 "
+            f"({['%.3f' % x for x in c['step_times_s']]}), {c['tokens_per_s']:.0f} tokens/s, "
+            f"peak {'/'.join(f'{g:.2f}' for g in c['peak_gb'])} GB a rank, staged a step: "
+            f"{c['staged']['calls']} collectives, {c['staged']['bytes'] / 1e9:.3f} GB "
+            f"({smi})")
+        row["z5"] = {k: z[k] for k in ("z5b", "z5b_meshless", "z5b_params", "z5b_zero1_bits",
+                                       "z5c", "z5c_moment_elems_rank", "launches")}
+    row["launches_train"] = launches_train
     row["phase_s"] = time.perf_counter() - t_phase
     log(f"  (z) phase {row['phase_s']:.1f} s; card {smi}")
-    return failures, launches, row
+    return failures, launches, launches_train, row
+
+
+def train_one_rank(mesh, params, cfg, dev, held, launches_train, smi) -> dict:
+    """(z5a) training on a world-size-1 NCCL mesh (``data,model=1``):
+    llama-1b-armt whole in bf16, B = 1, 4 segments, two steps of
+    ``make_train_step(mesh=)`` (ZeRO-1, the batch through ``shard_batch``)
+    against two mesh-less steps from the same state and batches: params,
+    moments and metrics to the bit. Its launches are added to
+    ``launches_train``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import shard_batch, to_device
+    from repro_torch.kernels import build
+    from repro_torch.optim import OptimConfig, adamw_init
+    from repro_torch.parallel import comm
+    from repro_torch.train import make_train_step
+    from repro_torch.train.state import train_specs
+    from repro_torch.utils import tree_leaves
+
+    def counts():
+        return {f"{m.__name__.rsplit('.', 1)[-1]}.{n}": v
+                for (m, n), v in build.launch_counts().items()}
+
+    def bits(t):
+        return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}.get(
+            t.dtype, t.dtype))
+
+    ocfg = OptimConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    seg = cfg.armt.segment_len
+    rng = np.random.default_rng(SEED + 33)
+    state0 = {"params": params, "opt": adamw_init(params, ocfg)}
+    plain = make_train_step(cfg, ocfg, schedule="diagonal")
+    on_mesh = make_train_step(cfg, ocfg, schedule="diagonal", mesh=mesh)
+    a, b = state0, comm.shard_tree(state0, train_specs(cfg, ocfg, mesh), mesh, copy=False)
+    del state0      # the steps return new states; a and b hold the zero moments until then
+    equal, times, n5 = [], [], {k: 0 for k in MESH_COUNTERS}
+    for _ in range(2):
+        t = rng.integers(0, cfg.vocab, (1, 4 * seg + 1))
+        host = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+        a, ma = plain(a, to_device(host, dev))
+        torch.cuda.synchronize()
+        before = counts()
+        t0 = time.perf_counter()
+        b, mb = on_mesh(b, shard_batch(host, mesh, dev))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        after = counts()
+        for k, c in MESH_COUNTERS.items():
+            n5[k] += after[c] - before[c]
+        equal.append(all(torch.equal(bits(ma[k]), bits(mb[k])) for k in ma)
+                     and all(x.shape == y.shape and torch.equal(bits(x), bits(y))
+                             for x, y in zip(tree_leaves(a), tree_leaves(b))))
+        loss = float(mb["loss"])
+    del a, b
+    torch.cuda.empty_cache()
+    held("z5a one NCCL rank, bf16, llama-1b-armt whole, B = 1, 4 segments: two mesh train "
+         "steps = mesh-less to the bit (params, moments, metrics)", all(equal),
+         f"second loss {loss:.4f}, mesh steps {['%.3f' % x for x in times]} s ")
+    held("z5a the GEMM, flash, armt_read and armt_update launched, the fused update not",
+         all(n5[k] > 0 for k in TRAIN_KERNELS) and n5["grouped_matmul_armt_update"] == 0,
+         f"launches {n5} ")
+    for k in launches_train:
+        launches_train[k] += n5[k]
+    return dict(equal=equal, step_s=times, launches=n5)
 
 
 def main() -> int:
@@ -5168,7 +5457,7 @@ def main() -> int:
         losses = [h["loss"] for h in hist]
         times = [h["step_time_s"] for h in hist]
         skipped = [h["step"] for h in hist if h["skipped"]]
-        step_s = float(np.median(times[1:]))
+        step_s = float(np.median(times))
         log(f"  losses {['%.4f' % l for l in losses]}; grad norms "
             f"{['%.3g' % h['grad_norm'] for h in hist]}; steps skipped as non-finite {skipped} "
             "(informational: the untrained recurrence overflows at 16 segments once updated)")
@@ -5632,7 +5921,7 @@ def main() -> int:
         def trend(ls):
             return float(np.mean(ls[:3])), float(np.mean(ls[-3:]))
         w3 = {}
-        plan3 = [("falcon-mamba-7b", dict(n_layers=12)), ("qwen2-moe-a2.7b", dict(n_layers=3)),
+        plan3 = [("falcon-mamba-7b", dict(n_layers=4)), ("qwen2-moe-a2.7b", dict(n_layers=3)),
                  ("whisper-medium", {})]
         for arch, cut in plan3:
             t0 = time.perf_counter()
@@ -6118,7 +6407,7 @@ def main() -> int:
             failures.append(f"(y): {routes_dispatch[k]['simt']} SIMT {k} launches in bf16")
     print(json.dumps({"dispatch": dispatch_row, "card": smi}))
 
-    mesh_failures, launches_mesh, mesh_row = mesh_phase(no_cache, smi)
+    mesh_failures, launches_mesh, launches_mesh_train, mesh_row = mesh_phase(no_cache, smi)
     failures += mesh_failures
     print(json.dumps({"mesh": mesh_row, "card": smi}))
 
@@ -6479,7 +6768,7 @@ def main() -> int:
                    "jamba": launches_jamba, "whisper": launches_whisper,
                    "train": launches_train, "train_families": launches_families,
                    "cli": launches_cli, "dispatch": launches_dispatch,
-                   "mesh": launches_mesh}
+                   "mesh": launches_mesh, "mesh_train": launches_mesh_train}
     llama_routes = {"generate": routes_gen, "serve": routes_serve, "full_forward": routes_full,
                     "cache_generate": routes_cgen, "cache_serve": routes_cserve,
                     "serve_interleaved": routes_inter, "prefix_cache": routes_prefix,
@@ -6544,8 +6833,9 @@ def mesh_only() -> int:
     torch.backends.cudnn.allow_tf32 = False
     build.lib()
     smi = nvidia_smi()
-    failures, launches, row = mesh_phase(no_cache, smi)
-    print(json.dumps({"mesh": row, "launches": launches, "card": smi}))
+    failures, launches, launches_train, row = mesh_phase(no_cache, smi)
+    print(json.dumps({"mesh": row, "launches": launches, "launches_train": launches_train,
+                      "card": smi}))
     if failures:
         log(f"FAILED: {failures}")
         return 1
@@ -6561,4 +6851,6 @@ if __name__ == "__main__":
         sys.exit(mesh_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["--stage-rank"]:
         sys.exit(stage_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--train-rank"]:
+        sys.exit(train_rank(sys.argv[2:]))
     sys.exit(mesh_only() if sys.argv[1:] == ["--phase", "z"] else main())

@@ -302,8 +302,8 @@ def run_diagonal_grad(layout, params: Dict, state0: Dict, segments: torch.Tensor
     -> (ys [S, B, T, D], final_state)."""
     _check_layout(layout)
     if comm.current_stage() is not None:
-        raise ValueError("run_diagonal under gradients on a 'stage' mesh: training on a "
-                         "mesh is not ported (ROADMAP Queue 1 item 9)")
+        raise ValueError("run_diagonal under gradients on a 'stage' mesh: the reference "
+                         "trains on no stage axis, and neither does the port")
     if remat:
         cell = rematerialized(cell)
     S, L = segments.shape[0], layout.n_layers

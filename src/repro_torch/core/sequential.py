@@ -256,8 +256,8 @@ def run_sequential(layout, params: Dict, state0: Dict, segments,
     refused."""
     if training(params, segments):
         if comm.current_stage() is not None:
-            raise ValueError("run_sequential under gradients on a 'stage' mesh: training "
-                             "on a mesh is not ported (ROADMAP Queue 1 item 9)")
+            raise ValueError("run_sequential under gradients on a 'stage' mesh: the "
+                             "reference trains on no stage axis, and neither does the port")
         if capture_states:
             raise ValueError("run_sequential: capture_states is forward-only")
         return run_sequential_grad(layout, params, state0, segments, apply_block,

@@ -38,7 +38,7 @@ from repro_torch.models.attention import attention, cross_attention
 from repro_torch.models.layers import ffn, norm
 from repro_torch.models.mamba import mamba_block, mamba_state_init
 from repro_torch.models.moe import moe_ffn
-from repro_torch.parallel.comm import tp_gather, tp_reduce
+from repro_torch.parallel.comm import tp_enter, tp_enter_keys, tp_gather, tp_reduce
 
 
 MODES = ("segmented", "full")
@@ -69,9 +69,9 @@ def apply_ffn(cfg, t: str, h, p, block: int = 0):
     T = h.shape[-2]
     if 0 < block < T:
         return h + tp_reduce(torch.cat([
-            ffn(cfg.act, norm(cfg.norm, h[..., i:i + block, :], p["ln2"]), p["ffn"])
+            ffn(cfg.act, tp_enter(norm(cfg.norm, h[..., i:i + block, :], p["ln2"])), p["ffn"])
             for i in range(0, T, block)], dim=-2))
-    return h + tp_reduce(ffn(cfg.act, norm(cfg.norm, h, p["ln2"]), p["ffn"]))
+    return h + tp_reduce(ffn(cfg.act, tp_enter(norm(cfg.norm, h, p["ln2"])), p["ffn"]))
 
 
 def check_mode(mode: str) -> None:
@@ -117,15 +117,19 @@ def make_apply_block(cfg, mode: str = "segmented"):
             raise ValueError(f"unknown block type {t!r}")
         new_state = dict(state)
         if armt_on:
-            x = x + tp_gather(mem_read(p["mem"], state, x, cfg.armt))
-        h = x + tp_reduce(attention(norm(cfg.norm, x, p["ln1"]), p["attn"], cfg))
+            # on a 'model' axis the memory's value dim is split: the input,
+            # wq, wk and wb are replicated values entering it (tp_enter)
+            pm = tp_enter_keys(p["mem"], "wq", "wk", "wb")
+            x = x + tp_gather(mem_read(pm, state, tp_enter(x), cfg.armt))
+        h = x + tp_reduce(attention(tp_enter(norm(cfg.norm, x, p["ln1"])),
+                                    tp_enter_keys(p["attn"], "qn", "kn"), cfg))
         if t == "dec":
             h = h + cross_attention(norm(cfg.norm, h, p["ln_x"]), p["xattn"], state["ck"],
                                     state["cv"], cfg)
         y = apply_ffn(cfg, t, h, p, cb)
         if M > 0:
-            new_state.update(mem_update(p["mem"], {"A": state["A"], "z": state["z"]},
-                                        y[:, -M:, :], cfg.armt))
+            new_state.update(mem_update(pm, {"A": state["A"], "z": state["z"]},
+                                        tp_enter(y[:, -M:, :]), cfg.armt))
         return y, new_state
 
     return apply_block

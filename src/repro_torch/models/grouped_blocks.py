@@ -106,7 +106,7 @@ from repro_torch.models.blocks import check_mode
 from repro_torch.models.layers import layernorm, rmsnorm
 from repro_torch.models.mamba import mamba_block
 from repro_torch.models.moe import moe_ffn_grouped
-from repro_torch.parallel.comm import tp_active, tp_gather, tp_reduce
+from repro_torch.parallel.comm import tp_active, tp_enter, tp_gather, tp_reduce
 
 
 def make_grouped_apply(cfg, mode: str = "segmented"):
@@ -147,20 +147,22 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
             z_f = state["z"].reshape((N,) + state["z"].shape[2:])
             # a strided band (a position of a several-position pattern) at
             # B = 1 reshapes to a strided view; the read takes contiguous rows
-            read = kops.assoc_read(x.reshape(N, T, D).contiguous(), small(p["mem"]["wq"]),
-                                   A_f, z_f, nu=cfg.armt.nu)
+            # on a 'model' axis (A's value dim split) the input and wq are
+            # replicated values entering the split read (tp_enter)
+            read = kops.assoc_read(tp_enter(x.reshape(N, T, D).contiguous()),
+                                   small(tp_enter(p["mem"]["wq"])), A_f, z_f, nu=cfg.armt.nu)
             x = x + tp_gather(read.reshape(G, B, T, -1))
 
         pa = p["attn"]
-        hln = snorm(x, p["ln1"])
+        hln = tp_enter(snorm(x, p["ln1"]))
         # the QKV bias rides the GEMM's epilogue (with widx the whole stack
         # [Lw, N], read through the index)
         q = gemm(hln, pa["wq"], pa.get("bq")).reshape(G, B, T, nq, hd)
         k = gemm(hln, pa["wk"], pa.get("bk")).reshape(G, B, T, nkv, hd)
         v = gemm(hln, pa["wv"], pa.get("bv")).reshape(G, B, T, nkv, hd)
         if cfg.qk_norm:   # per-layer head-dim weights [G, hd] against [G, B, T, H, hd]
-            q = rmsnorm(q, {"w": small(pa["qn"]["w"])[:, None, None, None, :]})
-            k = rmsnorm(k, {"w": small(pa["kn"]["w"])[:, None, None, None, :]})
+            q = rmsnorm(q, {"w": small(tp_enter(pa["qn"]["w"]))[:, None, None, None, :]})
+            k = rmsnorm(k, {"w": small(tp_enter(pa["kn"]["w"]))[:, None, None, None, :]})
         q, k = rope_qk(q, k, cfg)
         o = kops.segment_attention(q, k, v, causal=True, window=cfg.sliding_window)
         return x + tp_reduce(gemm(o.reshape(G, B, T, nq * hd), pa["wo"])), A_f, z_f
@@ -171,9 +173,9 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
         small = helpers(widx)[0]
         G, B, _, D = y.shape
         M, pm = cfg.armt.num_mem_tokens, p["mem"]
-        A2, z2 = kops.assoc_update(y[:, :, -M:, :].reshape(G * B, M, D), small(pm["wk"]),
-                                   small(pm["wv"]), small(pm["wb"]), A_f, z_f,
-                                   nu=cfg.armt.nu)
+        A2, z2 = kops.assoc_update(tp_enter(y[:, :, -M:, :].reshape(G * B, M, D)),
+                                   small(tp_enter(pm["wk"])), small(pm["wv"]),
+                                   small(tp_enter(pm["wb"])), A_f, z_f, nu=cfg.armt.nu)
         return dict(state, A=A2.reshape(state["A"].shape), z=z2.reshape(state["z"].shape))
 
     def ffn_mid(p, h, widx):
@@ -183,7 +185,7 @@ def make_grouped_apply(cfg, mode: str = "segmented"):
         norm -> (it, the down projection's weight and bias)."""
         snorm, gemm = helpers(widx)[1:]
         pf = p["ffn"]
-        h2 = snorm(h, p["ln2"])
+        h2 = tp_enter(snorm(h, p["ln2"]))
         if cfg.act == "silu":
             return (gemm(h2, pf["wg"], activation="silu") * gemm(h2, pf["wu"]),
                     pf["wd"], None)

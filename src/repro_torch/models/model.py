@@ -577,7 +577,8 @@ def _chunk_nll(params: Dict, cfg: ArchConfig, h: torch.Tensor, y: torch.Tensor,
 def lm_loss(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, labels: torch.Tensor, *,
             schedule: str = "diagonal", mode: str = "segmented",
             seg_len: Optional[int] = None, loss_mask: Optional[torch.Tensor] = None,
-            fused: bool = True, enc_frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+            fused: bool = True, enc_frames: Optional[torch.Tensor] = None,
+            mesh=None) -> torch.Tensor:
     """Mean next-token NLL (a 0-d fp32 tensor) of tokens/labels [B, S*seg_len]
     through ``forward_hidden`` (with gradients on, its out-of-place
     executors; never the captured ``SegmentProgram``), loss_mask [B, ...]
@@ -585,7 +586,14 @@ def lm_loss(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, labels: torch.T
     the whole sequence: per segment, chunks of ``CE_CHUNK`` tokens where
     they divide it (else the segment whole), in the reference's order
     (segment major), each chunk's fp32 logits [B, chunk, V] recomputed in
-    the backward (``torch.utils.checkpoint``) rather than kept."""
+    the backward (``torch.utils.checkpoint``) rather than kept.
+
+    mesh: the rows are this rank's share of a batch over the mesh's DP
+    axes (its block of rows, or all of them where the batch does not
+    split, ``data/loader.py`` ``shard_batch``): the NLL sum is divided by
+    the mask count summed over those axes, so that the sum of the ranks'
+    losses (and gradients) over them is the whole batch's mean, rows a
+    rank holds in replica counted once."""
     hidden, _ = forward_hidden(params, cfg, tokens, schedule=schedule, fused=fused,
                                mode=mode, seg_len=seg_len, enc_frames=enc_frames)
     S, B, T, _ = hidden.shape
@@ -603,7 +611,11 @@ def lm_loss(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, labels: torch.T
             total = total + (checkpoint(_chunk_nll, *args, use_reentrant=False,
                                         preserve_rng_state=False) if keep
                              else _chunk_nll(*args))
-    return total / mask.sum().clamp_min(1.0)
+    count = mask.sum()
+    if mesh is not None:
+        from repro_torch.parallel.sharding import dp_axes
+        count = comm.all_reduce(count, mesh, dp_axes(mesh))
+    return total / count.clamp_min(1.0)
 
 
 def last_logits(params: Dict, cfg: ArchConfig, hidden: torch.Tensor) -> torch.Tensor:
@@ -692,6 +704,14 @@ def decode_state_sharding(cfg: ArchConfig, mesh, batch: int, *, serve_mode: str,
 MESH_TYPES = ("attn",)      # the block types the tensor-parallel cells run
 
 
+def mesh_family(cfg: ArchConfig) -> bool:
+    """Whether cfg is of the dense ARMT family, the configs that serve and
+    train on a mesh: ``MESH_TYPES`` layers only, no prelude, MoE, SSM or
+    encoder (the others wait in ROADMAP Queue 1 item 8)."""
+    return (set(cfg.layer_types) <= set(MESH_TYPES) and not cfg.prelude
+            and cfg.moe is None and cfg.ssm is None and cfg.encoder is None)
+
+
 def local_config(cfg: ArchConfig, tp: int, stages: int = 1) -> ArchConfig:
     """The config of what one rank computes, of ``tp`` ranks of the 'model'
     axis and ``stages`` of the 'stage' axis: the q and kv heads and d_ff
@@ -748,24 +768,41 @@ def shard_model(params: Dict, cfg: ArchConfig, mesh):
         if spec is not None and spec[0] == "stage" and shd.stage_size(mesh) > 1:
             sp = comm.StageParallel(mesh, cfg.n_layers)
     lcfg = local_config(cfg, tp, 1 if sp is None else sp.size)
-    specs = shd.param_specs(params, mesh, stacked_axis=stacked)
+    specs = local_param_specs(params, mesh, stacked_axis=stacked)
     local = comm.shard_tree(params, specs, mesh, copy=False)
-    if tp == 1:
-        return local, lcfg, None, sp
-    for part in (local["prelude"], local["pattern"]):
-        for blk in part:
-            for name in ("attn", "xattn"):
-                for b in ("bq", "bk", "bv"):
-                    if name in blk and b in blk[name]:
-                        t = blk[name][b]
-                        lo, hi = comm.block_range(t.shape[-1], mesh, "model")
-                        blk[name][b] = t[..., lo:hi].contiguous()
+    return local, lcfg, tensor_parallel(specs, mesh), sp
 
+
+def local_param_specs(params: Dict, mesh, *, stacked_axis: Optional[str] = None) -> Dict:
+    """The ``Sharding`` tree of a rank's local view of the params (a tree of
+    tensors or of their shapes): ``sharding.param_specs``, with the QKV
+    biases, which the rules replicate, cut to the rank's columns over
+    'model' as the tensor-parallel cells read them. ``shard_model`` cuts
+    by it, the mesh train step's state and checkpoints by it."""
+    from repro_torch.parallel import sharding as shd
+    specs = shd.param_specs(params, mesh, stacked_axis=stacked_axis)
+    if shd.tp_size(mesh) == 1:
+        return specs
+    for blk in specs["prelude"] + specs["pattern"]:
+        for name in ("attn", "xattn"):
+            for b in ("bq", "bk", "bv"):
+                if name in blk and b in blk[name]:
+                    blk[name][b] = shd.Sharding(mesh, shd.P(*blk[name][b].spec[:-1], "model"))
+    return specs
+
+
+def tensor_parallel(specs: Dict, mesh) -> Optional[comm.TensorParallel]:
+    """The tensor-parallel context of the cells on ``mesh`` from the params'
+    ``Sharding`` tree (how the embedding and the head are split); None
+    without a 'model' axis of more than one rank."""
+    from repro_torch.parallel import sharding as shd
+    if shd.tp_size(mesh) == 1:
+        return None
     embed = specs["embed"].spec                                      # [V, D]
     head = specs["head"].spec if "head" in specs else (None, None)   # [D, V]
     embed_split = "vocab" if embed[0] else "d" if embed[1] else None
     head_split = "vocab" if head[1] else "d" if head[0] else None
-    return local, lcfg, comm.TensorParallel(mesh, embed_split, head_split), sp
+    return comm.TensorParallel(mesh, embed_split, head_split)
 
 
 def make_decode_apply(cfg: ArchConfig, serve_mode: str, pos, mask=None):

@@ -59,6 +59,33 @@ with a 'stage' axis of more than one rank runs them (the same
 ``parallel(tp, sp)``): this rank's block [lo, hi) of the ``n_layers``.
 Outside such a context ``stage_last`` is the identity and the executors
 run the whole stack.
+
+Under gradients (grad mode on and an input that requires one) the
+collectives are autograd Functions, Megatron's pair of conjugate
+operators over a replicated value whose gradient every rank holds whole:
+
+  * ``all_reduce``: the forward sums the partial products, the backward
+    is the identity (each rank's partial had the whole sum's gradient);
+  * ``enter(x, mesh, axis)`` (``tp_enter`` in a context): the identity
+    forward, an all-reduce backward. It marks where a replicated value
+    (the QKV and up projections' normed input, the ARMT read's and
+    update's inputs, the head's input, a replicated weight read inside
+    a split cell) enters computation split over the axis: each rank's
+    gradient of it is then a partial sum, and the all-reduce makes it
+    whole before it flows on to the norms, the embedding and the layers
+    before;
+  * ``all_gather``: the backward takes this rank's slice;
+  * ``broadcast``: the backward hands the gradient to the source rank
+    (zero elsewhere).
+
+Outside autograd each is the detached form above, bit for bit. The
+backwards stage CUDA tensors through the host under gloo as the forwards
+do. ``stage_shift`` has no backward (the reference trains on no stage
+axis) and refuses a tensor that requires a gradient.
+
+``staged_counts()`` is the number and bytes of the collectives staged
+through the host since the last ``reset_staged()`` (a gloo run on the
+card: what a train step or a decode token moves over the bus).
 """
 from __future__ import annotations
 
@@ -80,6 +107,30 @@ def _staged(mesh, x: torch.Tensor) -> bool:
     return mesh.backend == "gloo" and x.is_cuda
 
 
+_STAGED = {"calls": 0, "bytes": 0}
+
+
+def staged_counts() -> dict:
+    """{"calls", "bytes"}: collectives staged through host memory (and the
+    bytes of the tensors they moved) since the last ``reset_staged``."""
+    return dict(_STAGED)
+
+
+def reset_staged() -> None:
+    _STAGED.update(calls=0, bytes=0)
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    """A host copy of a CUDA tensor for a staged collective (counted)."""
+    _STAGED["calls"] += 1
+    _STAGED["bytes"] += x.numel() * x.element_size()
+    return x.detach().to("cpu", copy=True)
+
+
+def _grad_on(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def _raw(x: torch.Tensor) -> torch.Tensor:
     """x (contiguous) as what a gather, broadcast or point-to-point moves: a
     2-byte float as its bytes (a view), which every backend carries (gloo
@@ -89,13 +140,16 @@ def _raw(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def all_reduce(x: torch.Tensor, mesh, axis) -> torch.Tensor:
-    """The sum of x over the ranks along ``axis`` (a new tensor; x itself
-    when the axis has one rank)."""
-    if _count(mesh, axis) == 1:
-        return x
+def _reduce(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """The detached sum over ``axis`` (a new tensor). Staged through the
+    host, a 2-byte float is summed in fp32 there and rounded once (gloo
+    sums bf16 only in recent builds)."""
     if _staged(mesh, x):
-        h = x.detach().to("cpu", copy=True)
+        h = _to_host(x)
+        if h.element_size() == 2 and h.is_floating_point():
+            w = h.float()
+            dist.all_reduce(w, group=mesh.group(axis))
+            return w.to(x.dtype).to(x.device)
         dist.all_reduce(h, group=mesh.group(axis))
         return h.to(x.device)
     y = x.detach().clone(memory_format=torch.contiguous_format)
@@ -103,30 +157,141 @@ def all_reduce(x: torch.Tensor, mesh, axis) -> torch.Tensor:
     return y
 
 
-def all_gather(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
-    """The blocks of the ranks along ``axis`` concatenated on ``dim``, in
-    coordinate order (x itself when the axis has one rank)."""
-    n = _count(mesh, axis)
-    if n == 1:
-        return x
+def _gather(x: torch.Tensor, mesh, axis, dim: int, n: int) -> torch.Tensor:
     src = x.detach().contiguous()
     dev = src.device
     if _staged(mesh, src):
-        src = src.cpu()
+        src = _to_host(src)
     bufs = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather([_raw(b) for b in bufs], _raw(src), group=mesh.group(axis))
     return torch.cat(bufs, dim=dim).to(dev)
 
 
-def broadcast(x: torch.Tensor, mesh, axis, index: int) -> torch.Tensor:
-    """The tensor of the rank at ``index`` along ``axis``, on every rank of
-    the group (a new tensor; x itself when the axis has one rank)."""
-    if _count(mesh, axis) == 1:
-        return x
-    y = x.detach().to("cpu", copy=True) if _staged(mesh, x) else \
+def _bcast(x: torch.Tensor, mesh, axis, index: int) -> torch.Tensor:
+    y = _to_host(x) if _staged(mesh, x) else \
         x.detach().clone(memory_format=torch.contiguous_format)
     dist.broadcast(_raw(y), src=mesh.rank_at(axis, index), group=mesh.group(axis))
     return y.to(x.device)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.mesh, ctx.axis), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, n):
+        ctx.dim, ctx.size, ctx.index = dim, x.shape[dim], mesh.coord(axis)
+        return _gather(x, mesh, axis, dim, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None, None, None
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, index):
+        ctx.source = mesh.coord(axis) == index
+        return _bcast(x, mesh, axis, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.source else torch.zeros_like(g)), None, None, None
+
+
+def all_reduce(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """The sum of x over the ranks along ``axis`` (a new tensor; x itself
+    when the axis has one rank). Under gradients its backward is the
+    identity."""
+    if _count(mesh, axis) == 1:
+        return x
+    return _AllReduce.apply(x, mesh, axis) if _grad_on(x) else _reduce(x, mesh, axis)
+
+
+def enter(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """x itself, marked as a replicated value entering computation split
+    over ``axis``: under gradients its backward all-reduces the gradient
+    over the axis (the identity on a one-rank axis or without gradients)."""
+    if _count(mesh, axis) == 1 or not _grad_on(x):
+        return x
+    return _Enter.apply(x, mesh, axis)
+
+
+def all_gather(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+    """The blocks of the ranks along ``axis`` concatenated on ``dim``, in
+    coordinate order (x itself when the axis has one rank). Under
+    gradients its backward takes this rank's slice."""
+    n = _count(mesh, axis)
+    if n == 1:
+        return x
+    if _grad_on(x):
+        return _AllGather.apply(x, mesh, axis, dim, n)
+    return _gather(x, mesh, axis, dim, n)
+
+
+def broadcast(x: torch.Tensor, mesh, axis, index: int) -> torch.Tensor:
+    """The tensor of the rank at ``index`` along ``axis``, on every rank of
+    the group (a new tensor; x itself when the axis has one rank). Under
+    gradients the source rank's input takes the gradient, the others'
+    none."""
+    if _count(mesh, axis) == 1:
+        return x
+    if _grad_on(x):
+        return _Broadcast.apply(x, mesh, axis, index)
+    return _bcast(x, mesh, axis, index)
+
+
+BUCKET_BYTES = 256 << 20    # the largest flat bucket of all_reduce_buckets
+
+
+def all_reduce_buckets(tensors, mesh, axes) -> list:
+    """Each tensor summed over ``axes`` (detached), in a few collectives: the
+    tensors of one dtype flattened, in order, into buckets of about
+    ``BUCKET_BYTES`` (a tensor is never split), one all-reduce a bucket;
+    the results are views of the reduced buckets. The tensors themselves
+    on a one-rank axis."""
+    out = list(tensors)
+    if _count(mesh, axes) == 1:
+        return out
+    groups: dict = {}
+    for i, t in enumerate(out):
+        groups.setdefault(t.dtype, []).append(i)
+    for idx in groups.values():
+        bucket, size = [], 0
+        for n, i in enumerate(idx):
+            bucket.append(i)
+            size += out[i].numel() * out[i].element_size()
+            if size >= BUCKET_BYTES or n == len(idx) - 1:
+                flat = torch.cat([out[j].detach().reshape(-1) for j in bucket])
+                if _staged(mesh, flat):
+                    flat = _reduce(flat, mesh, axes)
+                else:       # a fresh tensor: reduced in place
+                    dist.all_reduce(flat, group=mesh.group(axes))
+                off = 0
+                for j in bucket:
+                    k = out[j].numel()
+                    out[j] = flat[off:off + k].view(out[j].shape)
+                    off += k
+                bucket, size = [], 0
+    return out
 
 
 def block_range(n: int, mesh, axes) -> tuple:
@@ -207,6 +372,9 @@ class TensorParallel:
     def reduce(self, x):
         return all_reduce(x, self.mesh, "model")
 
+    def enter(self, x):
+        return enter(x, self.mesh, "model")
+
     def gather(self, x, dim: int = -1):
         return all_gather(x, self.mesh, "model", dim % x.dim())
 
@@ -228,12 +396,13 @@ class TensorParallel:
     def logits(self, h: torch.Tensor, w: torch.Tensor, split: Optional[str]) -> torch.Tensor:
         """h [..., D] @ the head w [D, V] from this rank's block of w: a vocab
         split's local logits all-gathered; a d split's partial products over
-        the local rows of w summed."""
+        the local rows of w summed. Under gradients h enters the split
+        product (``enter``): each rank's gradient of it is partial."""
         if split == "vocab":
-            return self.gather(torch.matmul(h, w), -1)
+            return self.gather(torch.matmul(self.enter(h), w), -1)
         if split == "d":
             lo = self.index * w.shape[0]
-            return self.reduce(torch.matmul(h[..., lo:lo + w.shape[0]], w))
+            return self.reduce(torch.matmul(self.enter(h)[..., lo:lo + w.shape[0]], w))
         return torch.matmul(h, w)
 
 
@@ -260,6 +429,25 @@ def tp_gather(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return x if _TP is None else _TP.gather(x, dim)
 
 
+def tp_enter(x: torch.Tensor) -> torch.Tensor:
+    """A replicated value entering a split computation: x itself, its
+    gradient all-reduced over 'model' (identity outside a context)."""
+    return x if _TP is None else _TP.enter(x)
+
+
+def tp_enter_keys(p: dict, *keys) -> dict:
+    """p with the replicated leaves (or subtrees) at ``keys`` that a split
+    cell reads whole through ``tp_enter`` (p itself outside a context)."""
+    if _TP is None:
+        return p
+    out = dict(p)
+    for k in keys:
+        if k in out:
+            out[k] = (_TP.enter(out[k]) if isinstance(out[k], torch.Tensor)
+                      else {n: _TP.enter(t) for n, t in out[k].items()})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The stage axis: one block of consecutive layers a rank
 # ---------------------------------------------------------------------------
@@ -282,12 +470,15 @@ def stage_shift(x: torch.Tensor, mesh, *, send: bool = True, recv: bool = True):
     n = 1 if mesh is None else stage_size(mesh)
     if n == 1:
         return x
+    if _grad_on(x):
+        raise ValueError("stage_shift under gradients: the reference trains on no 'stage' "
+                         "axis, and neither does the port")
     r = mesh.coord("stage")
     send, recv = send and r < n - 1, recv and r > 0
     staged = _staged(mesh, x)
     works, out = [], None
     if send:
-        src = x.detach().to("cpu", copy=True) if staged else x.detach().contiguous()
+        src = _to_host(x) if staged else x.detach().contiguous()
         works.append(dist.isend(_raw(src), mesh.rank_at("stage", r + 1)))
     if recv:
         out = torch.empty(x.shape, dtype=x.dtype, device="cpu" if staged else x.device)

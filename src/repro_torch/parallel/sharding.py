@@ -268,8 +268,6 @@ def param_specs(params_shape: Any, mesh, *, fsdp: bool = False,
     stacked_axis: shard the stacked per-layer dim of pattern params over
     this mesh axis (the diagonal-as-pipeline slot sharding)."""
     tp = tp_size(mesh)
-    dp = dp_axes(mesh)
-    dsz = dp_size(mesh)
 
     def one(names, leaf):
         full = _shape(leaf)
@@ -283,28 +281,44 @@ def param_specs(params_shape: Any, mesh, *, fsdp: bool = False,
                 _warn_replicated("param", ".".join(names), 0, full[0],
                                  stacked_axis, int(mesh.shape[stacked_axis]))
             spec = [ax] + spec
-        if fsdp and dp:
-            for d in range(len(full)):
-                if spec[d] is None and _div(full[d], dsz):
-                    spec[d] = dp if len(dp) > 1 else dp[0]
-                    break
+        if fsdp:
+            spec = _dp_cut(spec, full, mesh)
         return Sharding(mesh, P(*spec))
 
     return _map_with_path(one, params_shape)
 
 
-def zero1_specs(params_shape: Any, mesh) -> Any:
-    """Optimizer-moment shardings: the param spec with the first
-    replicated, divisible dim also sharded over the DP axes (ZeRO-1)."""
-    return param_specs(params_shape, mesh, fsdp=True)
+def _dp_cut(spec, full, mesh) -> list:
+    """spec with its first replicated dim that the DP size divides sharded
+    over the DP axes (unchanged where none does)."""
+    dp, dsz, spec = dp_axes(mesh), dp_size(mesh), list(spec)
+    for d in range(len(full)):
+        if dp and spec[d] is None and _div(full[d], dsz):
+            spec[d] = dp if len(dp) > 1 else dp[0]
+            break
+    return spec
+
+
+def zero1_specs(params_shape: Any, mesh, pspecs: Any = None) -> Any:
+    """Optimizer-moment shardings: the param spec (``pspecs``, default the
+    rules') with the first replicated, divisible dim also sharded over the
+    DP axes (ZeRO-1)."""
+    if pspecs is None:
+        return param_specs(params_shape, mesh, fsdp=True)
+    shapes = {tuple(n): _shape(leaf) for n, leaf in _flatten_with_path(params_shape)}
+    return _map_with_path(lambda names, s: Sharding(
+        mesh, P(*_dp_cut(spec_of(s), shapes[tuple(names)], mesh))), pspecs)
 
 
 def opt_state_specs(opt_shape: Any, params_shape: Any, mesh, *,
-                    zero1: bool = True) -> Any:
+                    zero1: bool = True, pspecs: Any = None) -> Any:
     """Shardings for the optimizer state tree ({"m", "v", "step"}); a
-    factored second moment's leaves (vr/vc) are small and replicated."""
-    base = (zero1_specs(params_shape, mesh) if zero1
-            else param_specs(params_shape, mesh))
+    factored second moment's leaves (vr/vc) are small and replicated.
+    pspecs: the params' shardings the moments follow (default the rules';
+    the mesh train step passes its local view's, ``models/model.py``
+    ``local_param_specs``)."""
+    base = (zero1_specs(params_shape, mesh, pspecs) if zero1
+            else pspecs if pspecs is not None else param_specs(params_shape, mesh))
     rep = Sharding(mesh, P())
     flat_base = {tuple(names): s for names, s in _flatten_with_path(base)}
 

@@ -87,11 +87,11 @@ from repro_torch.core.sequential import clone_state
 from repro_torch.models.blocks import MAMBA_TYPES, block_d_ff, make_apply_block
 from repro_torch.models.grouped_blocks import make_grouped_apply
 from repro_torch.models.moe import capacity
-from repro_torch.models.model import (MESH_TYPES, SCHEDULES, boundary_logits,
-                                      check_serve_mode, copy_state_, decode_state_init,
+from repro_torch.models.model import (SCHEDULES, boundary_logits, check_serve_mode,
+                                      copy_state_, decode_state_init,
                                       decode_state_sharding, decode_step_, embed_segments,
                                       encode, fill_cross_kv_, flush_segment_,
-                                      forward_hidden, init_state, last_logits,
+                                      forward_hidden, init_state, last_logits, mesh_family,
                                       resolve_device, segment_len, shard_model)
 from repro_torch.parallel import comm
 from repro_torch.parallel import sharding as shd
@@ -161,8 +161,7 @@ def sample(logits: torch.Tensor, *, temperature: float, top_k: int,
 
 def _check_mesh(mesh, cfg: ArchConfig, device, eager: bool) -> None:
     """What the mesh-native engine refuses (each waits in ROADMAP Queue 1)."""
-    if not (set(cfg.layer_types) <= set(MESH_TYPES) and not cfg.prelude
-            and cfg.moe is None and cfg.ssm is None and cfg.encoder is None):
+    if not mesh_family(cfg):
         raise ValueError(f"{cfg.name} on a mesh: the mesh-native engine runs the dense "
                          "ARMT family only; MoE, Mamba, hybrid and encoder configs wait in "
                          "ROADMAP Queue 1")

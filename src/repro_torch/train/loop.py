@@ -6,6 +6,15 @@ SIGINT, non-finite step skipping (inside the train step), a step-time
 watchdog for stragglers, and the deterministic data stream fast-forwarded
 from the step counter on resume. Each step's metrics are journaled to
 ``<ckpt_dir>/metrics.jsonl``.
+
+On a mesh (``mesh=``) every rank runs the loop alike: the state starts
+whole from the same generator on every rank (or from the checkpoint,
+which is whole) and is then cut to the rank's local view
+(``train/state.py`` ``train_specs``); each host batch goes through
+``shard_batch``; a checkpoint is the whole state (``comm.gather_tree``),
+written by the rank at coordinate 0 of every axis, so that a mesh
+checkpoint restores mesh-less and the reverse; only that rank writes
+``metrics.jsonl``.
 """
 from __future__ import annotations
 
@@ -20,10 +29,11 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ArchConfig
-from repro_torch.data import to_device
+from repro_torch.data import shard_batch
 from repro_torch.models.model import resolve_device
 from repro_torch.optim import OptimConfig
-from repro_torch.train.state import init_train_state, make_train_step
+from repro_torch.parallel import comm
+from repro_torch.train.state import init_train_state, make_train_step, train_specs
 
 
 class Watchdog:
@@ -46,7 +56,7 @@ def train_loop(cfg: ArchConfig, ocfg: OptimConfig, data: Iterator[Dict], *, step
                mode: str = "segmented", microbatches: int = 1, ckpt_every: int = 100,
                log_every: int = 10, seed: int = 0,
                log_fn: Optional[Callable[[Dict], None]] = None, resume: bool = True,
-               device=None, keep: int = 3, generator=None) -> Dict:
+               device=None, keep: int = 3, generator=None, mesh=None) -> Dict:
     """Trains to step ``steps`` -> {"state", "history" (each step's metrics
     as floats, with "step" and "step_time_s"), "last_step"}. The state
     starts from ``init_train_state`` with ``generator`` (default: a CPU
@@ -54,7 +64,9 @@ def train_loop(cfg: ArchConfig, ocfg: OptimConfig, data: Iterator[Dict], *, step
     generator on the card draws there, much faster at full size), or, with
     ``ckpt_dir`` and ``resume``, from its latest checkpoint, the data
     stream then skipping the steps already taken. keep: the checkpoints
-    kept. device None means the card (it raises without one).
+    kept. device None means the card (it raises without one). mesh: train
+    on a ``launch.mesh.Mesh`` (the module's docstring; ZeRO-1); the
+    returned state is then the rank's local view.
 
     An encoder-decoder (whisper) is refused: the loop's streams
     (``data/synthetic.py``) carry no frames, and the reference's loop stops
@@ -65,7 +77,7 @@ def train_loop(cfg: ArchConfig, ocfg: OptimConfig, data: Iterator[Dict], *, step
                          "the encoder; train it with make_train_step on batches that carry them")
     device = resolve_device(device)
     step_fn = make_train_step(cfg, ocfg, schedule=schedule, mode=mode,
-                              microbatches=microbatches)
+                              microbatches=microbatches, mesh=mesh)
     if generator is None:
         generator = torch.Generator().manual_seed(seed)
     state = init_train_state(cfg, ocfg, generator, device=device)
@@ -76,6 +88,16 @@ def train_loop(cfg: ArchConfig, ocfg: OptimConfig, data: Iterator[Dict], *, step
         start_step = mgr.latest_step()
         state = mgr.restore(state, start_step)
         print(f"[train] resumed from step {start_step}", flush=True)
+    specs, writer = None, True
+    if mesh is not None:
+        specs = train_specs(cfg, ocfg, mesh)
+        state = comm.shard_tree(state, specs, mesh)
+        writer = not any(mesh.coords.values())
+
+    def save(step, block=False):
+        whole = state if mesh is None else comm.gather_tree(state, specs, mesh)
+        if writer:
+            mgr.save(step, whole, block=block)
 
     stop = {"flag": False}
 
@@ -91,7 +113,7 @@ def train_loop(cfg: ArchConfig, ocfg: OptimConfig, data: Iterator[Dict], *, step
 
     wd = Watchdog()
     history = []
-    log_path = Path(ckpt_dir) / "metrics.jsonl" if ckpt_dir else None
+    log_path = Path(ckpt_dir) / "metrics.jsonl" if ckpt_dir and writer else None
     it = iter(data)
     for _ in range(start_step):     # the deterministic stream, fast-forwarded
         next(it)
@@ -102,7 +124,8 @@ def train_loop(cfg: ArchConfig, ocfg: OptimConfig, data: Iterator[Dict], *, step
             batch = next(it)
             batch.pop("answer", None)
             t0 = time.perf_counter()
-            state, metrics = step_fn(state, to_device(batch, device))
+            state, metrics = step_fn(state, shard_batch(batch, mesh, device,
+                                                        microbatches=microbatches))
             metrics = {k: float(v) for k, v in metrics.items()}   # waits for the step
             dt = time.perf_counter() - t0
             metrics.update(step=step, step_time_s=dt)
@@ -117,7 +140,7 @@ def train_loop(cfg: ArchConfig, ocfg: OptimConfig, data: Iterator[Dict], *, step
             if log_fn and step % log_every == 0:
                 log_fn(metrics)
             if mgr and (step + 1) % ckpt_every == 0:
-                mgr.save(step + 1, state)
+                save(step + 1)
                 saved = step + 1
             if stop["flag"]:
                 print(f"[train] preemption signal at step {step}; checkpointing and "
@@ -126,8 +149,10 @@ def train_loop(cfg: ArchConfig, ocfg: OptimConfig, data: Iterator[Dict], *, step
     finally:
         if mgr:
             if saved != step + 1:
-                mgr.save(step + 1, state, block=True)
+                save(step + 1, block=True)
             mgr.wait()
+            if mesh is not None:    # the checkpoint is on disk before any rank goes on
+                torch.distributed.barrier()
         for sig, h in old_handlers.items():
             signal.signal(sig, h)
     return {"state": state, "history": history, "last_step": step + 1}

@@ -857,6 +857,89 @@ def test_stage_two_gloo_ranks_equal_meshless_on_card(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+def test_one_rank_nccl_mesh_train_step_equals_meshless_on_card(cuda, tmp_path):
+    """A world-size-1 NCCL group, mesh data=1,model=1, the smoke config in
+    bf16 on the kernels: two ``make_train_step(mesh=)`` steps (ZeRO-1, the
+    batch through ``shard_batch``) equal two mesh-less steps to the bit
+    (params, moments, metrics)."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import shard_batch, to_device
+    from repro_torch.launch.mesh import init_distributed, parse_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptimConfig, adamw_init
+    from repro_torch.parallel import comm
+    from repro_torch.train import make_train_step
+    from repro_torch.train.state import train_specs
+    from repro_torch.utils import tree_leaves
+    init_distributed("nccl", store_path=str(tmp_path / "store"), rank=0, world_size=1)
+    try:
+        mesh = parse_mesh("data=1,model=1")
+        cfg = dataclasses.replace(get_smoke_config("llama-1b-armt"), dtype="bfloat16")
+        ocfg = OptimConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+        params = M.init_params(cfg, 0, device=cuda)
+        a = {"params": params, "opt": adamw_init(params, ocfg)}
+        b = comm.shard_tree(a, train_specs(cfg, ocfg, mesh), mesh)
+        plain = make_train_step(cfg, ocfg, schedule="diagonal")
+        on_mesh = make_train_step(cfg, ocfg, schedule="diagonal", mesh=mesh)
+        rng = np.random.default_rng(4)
+        for _ in range(2):
+            t = rng.integers(0, cfg.vocab, (2, 4 * cfg.armt.segment_len + 1))
+            host = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+            a, ma = plain(a, to_device(host, cuda))
+            b, mb = on_mesh(b, shard_batch(host, mesh, cuda))
+            assert all(_same(ma[k], mb[k]) for k in ma)
+            assert all(_same(x, y) if x.is_floating_point() else torch.equal(x, y)
+                       for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_mesh_train_two_gloo_ranks_on_card(cuda, tmp_path):
+    """chip_smoke's (z5b)/(z5c) ranks at smoke width: two gloo ranks on the
+    card. fp32 at data=2 (ZeRO-1 and the replicated optimizer) and model=2:
+    the loss, grad_norm and every gathered param within 1e-4 of the
+    mesh-less step, ZeRO-1 equal to the replicated optimizer to the bit;
+    bf16 at data=2: 3 finite steps; the GEMM, flash, armt_read and
+    armt_update launched in both, the forward-only fused update not."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    out = tmp_path / "z5.json"
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    procs = [subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--train-rank",
+                               str(r), "2", str(tmp_path / "store"),
+                               str(tmp_path / "cache.json"), str(out), "smoke"],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env) for r in range(2)]
+    outs = []
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(o[-3000:] for o in outs)
+    z = json.loads(out.read_text())
+    assert set(z["z5b"]) == {"data=2 zero1=True", "data=2 zero1=False", "model=2 zero1=True"}
+    for key, r in z["z5b"].items():
+        assert max(r["loss_rel"], r["grad_norm_rel"], r["worst_param"][0]) <= 1e-4, (key, r)
+        assert r["skipped"] == 0.0, key
+    assert z["z5b_zero1_bits"]
+    assert all(np.isfinite(z["z5c"]["losses"])) and not any(z["z5c"]["skipped"])
+    for part in ("z5b", "z5c"):
+        n = z["launches"][part]
+        assert all(n[k] > 0 for k in ("grouped_matmul", "flash_attention", "armt_read",
+                                      "armt_update")), (part, n)
+        assert n["grouped_matmul_armt_update"] == 0, (part, n)
+
+
+@pytest.mark.cuda
 def test_cache_generate_graph_equals_eager_on_card(cuda):
     """Full-KV decode from a captured step over a 2,048-row cache: graph
     and eager equal to the bit; the cache keeps its address (no clone)."""

@@ -31,6 +31,8 @@ def test_port_imports_without_jax_or_reference():
             "import repro_torch.kernels.dispatch, repro_torch.kernels.autotune\n"
             "import repro_torch.launch.mesh, repro_torch.parallel.sharding\n"
             "import repro_torch.parallel.comm\n"
+            "import repro_torch.optim.compression, repro_torch.data.loader\n"
+            "import repro_torch.train.loop, repro_torch.train.state\n"
             "import importlib.util\n"
             f"spec = importlib.util.spec_from_file_location('tune_kernels', "
             f"{str(ROOT / 'tools' / 'tune_kernels.py')!r})\n"
